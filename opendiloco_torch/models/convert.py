@@ -13,13 +13,18 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
+def params_from_numpy(
+    tree, device=None, dtype: Optional[torch.dtype] = None, requires_grad: bool = False
+):
     """Nested dict of numpy arrays -> the same dict of tensors on ``device``,
-    cast to ``dtype`` when given (default: keep each array's dtype)."""
+    cast to ``dtype`` when given (default: keep each array's dtype).
+    ``requires_grad`` marks every leaf as a trainable leaf (the f32
+    masters of a training state)."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+        return {k: params_from_numpy(v, device, dtype, requires_grad) for k, v in tree.items()}
     t = torch.from_numpy(np.array(tree, copy=True))  # writable, never aliased
-    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+    t = t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+    return t.requires_grad_(True) if requires_grad else t
 
 
 def params_to_numpy(tree):

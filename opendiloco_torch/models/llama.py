@@ -1,7 +1,7 @@
-"""Functional Llama for serving: prefill and paged incremental decode.
+"""Functional Llama: the training forward and loss, prefill and paged
+incremental decode.
 
-The PyTorch counterpart of ``opendiloco_tpu/models/llama.py``, for the
-serving plane. Parameters are a plain dict of tensors in the JAX layout:
+The PyTorch counterpart of ``opendiloco_tpu/models/llama.py``. Parameters are a plain dict of tensors in the JAX layout:
 per-layer weights stacked on a leading layer axis, linear weights
 [in, out] (``x @ W``), so weights cross between the packages unchanged
 (:mod:`opendiloco_torch.models.convert`). The JAX ``lax.scan`` over layers
@@ -10,7 +10,13 @@ is a Python loop here.
 Dtype points follow the JAX package: RMS-norm variance in f32, rope in
 x's dtype, attention scores in f32, logits in f32.
 
-``kernels=True`` routes decode attention through the hand-written
+The training :func:`forward` routes attention through the hand-written
+flash-attention kernels (``attn_impl="pallas"``, the JAX name kept so a
+config carries over) or the plain ``xla_attention`` (``"xla"``), and
+checkpoints each layer under ``remat=True`` (``torch.utils.checkpoint``,
+non-reentrant: the backward reruns the layer's forward, kernels included).
+
+For serving, ``kernels=True`` routes decode attention through the hand-written
 paged-decode-attention kernel and every packed (``w4``) weight matmul
 through the fused dequant-matmul kernel; on the CPU those wrappers take
 their plain versions. ``kernels=False`` is the plain path, the JAX
@@ -20,14 +26,16 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from opendiloco_torch.device import resolve_device
 from opendiloco_torch.ops.attention import decode_attention, xla_attention
 from opendiloco_torch.ops.decode_kernels import paged_decode_attention, w4_matmul
+from opendiloco_torch.ops.flash_attention import flash_attention
 from opendiloco_torch.quant import dequant_w4
 
 
@@ -152,6 +160,181 @@ def _rope_apply(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.
     s = sin.to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
     return torch.cat((x1 * c - x2 * s, x2 * c + x1 * s), dim=-1)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding over [B, T, H, D] with HF half-rotation layout."""
+    cos, sin = _rope_tables(positions, x.shape[-1], theta)
+    return _rope_apply(x, cos, sin)
+
+
+# ---------------------------------------------------------------------------
+# training: forward, loss, flattening
+# ---------------------------------------------------------------------------
+
+# rematerialization policy accepted everywhere a ``remat`` argument
+# appears: False/"none" saves all activations; True/"full" checkpoints
+# per layer. "dots" and "dots_all" (save the matmul outputs) are not
+# ported yet and raise.
+RematPolicy = Union[bool, str]
+
+
+def _maybe_remat(block, remat: RematPolicy):
+    """Apply the rematerialization policy to a per-layer block function."""
+    if remat in (False, None, "none"):
+        return block
+    if remat in (True, "full"):
+        return lambda *args: checkpoint(block, *args, use_reentrant=False)
+    if remat in ("dots", "dots_all"):
+        raise NotImplementedError(
+            f"remat={remat!r} (save matmul outputs, recompute the rest) is not "
+            "ported yet (ROADMAP.md A8: selective remat); use True or False"
+        )
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+
+
+def _decoder_block(
+    cfg: LlamaConfig, attn_fn, h: torch.Tensor, layer: dict, rope: tuple, probe: bool
+) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (hidden, attn-output L2 norm or None): the dense branch of
+    the JAX block. The norm is the activation probe the reference attaches
+    to ``self_attn``; it is computed only when ``probe`` is set."""
+    B, T, _ = h.shape
+    Nh, Nkv, Dh = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+    cos, sin = rope
+    x = _rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
+    q = (x @ layer["q_proj"]).reshape(B, T, Nh, Dh)
+    k = (x @ layer["k_proj"]).reshape(B, T, Nkv, Dh)
+    v = (x @ layer["v_proj"]).reshape(B, T, Nkv, Dh)
+    q = _rope_apply(q, cos, sin)
+    k = _rope_apply(k, cos, sin)
+    attn = attn_fn(q, k, v)
+    attn_out = attn.reshape(B, T, Nh * Dh) @ layer["o_proj"]
+    attn_norm = torch.sqrt(torch.sum(attn_out.float() ** 2)) if probe else None
+    h = h + attn_out
+    x = _rms_norm(h, layer["post_attn_norm"], cfg.rms_norm_eps)
+    ffn = (F.silu(x @ layer["gate_proj"]) * (x @ layer["up_proj"])) @ layer["down_proj"]
+    return h + ffn, attn_norm
+
+
+def _attn_fn(attn_impl: str):
+    if attn_impl == "xla":
+        return lambda q, k, v: xla_attention(q, k, v, causal=True)
+    if attn_impl == "pallas":
+        return lambda q, k, v: flash_attention(q, k, v, causal=True)
+    if attn_impl == "ring":
+        raise _not_ported("ring attention (attn_impl='ring')", "A14")
+    raise ValueError(f"unknown attn_impl {attn_impl!r}")
+
+
+def forward(
+    params: dict,
+    input_ids: torch.Tensor,
+    cfg: LlamaConfig,
+    *,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    attn_impl: str = "xla",
+    remat: RematPolicy = True,
+    positions: Optional[torch.Tensor] = None,
+    return_aux: bool = False,
+    return_hidden: bool = False,
+    ring_mesh=None,
+    pp_mesh=None,
+    scan_unroll: Optional[int] = None,
+):
+    """input_ids [B, T] int -> logits [B, T, V] float32.
+
+    ``attn_impl`` "pallas" runs the flash-attention kernels (their plain
+    versions on the CPU), "xla" the plain attention. return_hidden=True
+    returns (final_hidden [B, T, D], head [D, V]) instead of logits.
+    return_aux=True also returns the activation probes
+    {"attn_out_norm": [L], "lm_head_norm": scalar}.
+
+    The f32 params are cast to ``compute_dtype`` here, inside the autograd
+    graph, so gradients arrive in f32 at the f32 leaves. ``scan_unroll``
+    is accepted for the JAX signature and has no effect: the layers are a
+    Python loop. Multi-device meshes (``ring_mesh``), the pipeline
+    (``pp_mesh``) and routed experts raise."""
+    if pp_mesh is not None:
+        raise _not_ported("the pipeline-parallel forward (pp_mesh)", "A14")
+    if ring_mesh is not None:
+        raise _not_ported("sharded attention over a device mesh (ring_mesh)", "A10")
+    if cfg.num_experts:
+        raise _not_ported("the routed-expert (MoE) forward", "A14")
+    del scan_unroll
+    B, T = input_ids.shape
+    if positions is None:
+        positions = torch.arange(T, device=input_ids.device).expand(B, T)
+    attn_fn = _attn_fn(attn_impl)
+    cparams = {k: (v.to(compute_dtype) if not isinstance(v, dict)
+                   else {n: w.to(compute_dtype) for n, w in v.items()})
+               for k, v in params.items()}
+    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    names = sorted(cparams["layers"])
+
+    def block(h, *weights):
+        return _decoder_block(cfg, attn_fn, h, dict(zip(names, weights)), rope, return_aux)
+
+    block = _maybe_remat(block, remat)
+    h = cparams["embed_tokens"][input_ids]
+    attn_norms = []
+    for i in range(cfg.num_hidden_layers):
+        h, norm = block(h, *(cparams["layers"][n][i] for n in names))
+        attn_norms.append(norm)
+    h = _rms_norm(h, cparams["final_norm"], cfg.rms_norm_eps)
+    head = _head(cparams, cfg)
+    if return_hidden:
+        return h, head
+    logits = (h @ head).float()
+    if return_aux:
+        return logits, {
+            "attn_out_norm": torch.stack(attn_norms),
+            "lm_head_norm": torch.sqrt(torch.sum(logits**2)),
+        }
+    return logits
+
+
+def causal_lm_loss(
+    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100
+) -> torch.Tensor:
+    """Shifted next-token cross-entropy, mean over non-ignored targets
+    (HF CausalLM loss semantics)."""
+    shift_logits = logits[:, :-1]
+    shift_labels = labels[:, 1:]
+    mask = shift_labels != ignore_index
+    safe_labels = torch.where(mask, shift_labels, torch.zeros_like(shift_labels))
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe_labels[..., None].long())[..., 0]
+    total = torch.sum(nll * mask)
+    count = torch.clamp(torch.sum(mask), min=1)
+    return total / count
+
+
+def flatten_params(tree: dict) -> list:
+    """Leaves in ``jax.tree.flatten`` order (keys sorted at every level),
+    the order of the DiLoCo master list and of the outer all-reduce."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(flatten_params(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def unflatten_params(template: dict, leaves: list) -> dict:
+    """The inverse of :func:`flatten_params` against a template tree."""
+    it = iter(leaves)
+
+    def build(node):
+        return {k: build(node[k]) if isinstance(node[k], dict) else next(it) for k in sorted(node)}
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -13,67 +13,28 @@ kernel's arithmetic in one pass:
 - a tensor on the card goes to the kernel, or the wrapper raises. Nothing
   falls back, and a launch error is never swallowed.
 
-``LAUNCHES`` counts kernel launches by name, so a run can show that its
-main path went through the kernels. Only a launch on the card counts.
+``LAUNCHES`` (the port's one launch counter, ``ops/launch.py``) counts
+kernel launches by name, so a run can show that its main path went
+through the kernels. Only a launch on the card counts.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from opendiloco_torch.ops import build
+# LAUNCHES is re-exported: callers read the one shared counter from here
+from opendiloco_torch.ops.launch import LAUNCHES, SUFFIX as _SUFFIX, F as _F, I as _I, P as _P
+from opendiloco_torch.ops.launch import launch, on_card as _on_card, register
 from opendiloco_torch.quant import W4_BLOCK, dequant_w4
 
-LAUNCHES = {"paged_decode_attention": 0, "w4_matmul": 0}
-
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_P = ctypes.c_void_p
-_I = ctypes.c_int
+register("paged_decode_attention", "w4_matmul")
 _ARGTYPES = {
-    "paged_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "paged_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "w4_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
-_fns: dict = {}
-
-
-def _kernel(name: str, dtype: torch.dtype):
-    """(C entry point ``<name>_<dtype>`` with its argtypes set, its library)."""
-    key = (name, dtype)
-    fn = _fns.get(key)
-    if fn is None:
-        lib = build.load(name)
-        fn = getattr(lib, f"{name}_{_SUFFIX[dtype]}")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        fn = _fns[key] = (fn, lib)
-    return fn
 
 
 def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
-    """Launch on the current stream; pointers are passed as ints (``data_ptr``).
-    The caller keeps every tensor alive; PyTorch reuses freed memory only in
-    stream order, after the kernel."""
-    fn, lib = _kernel(name, dtype)
-    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"{name}: CUDA launch failed: {lib.cuda_error_string(err).decode()} ({err})"
-        )
-    LAUNCHES[name] += 1
-
-
-def _on_card(*tensors: torch.Tensor) -> bool:
-    """True when all tensors lie on one CUDA device, False when all lie on
-    the CPU; anything else raises."""
-    dev = tensors[0].device
-    if all(t.device == dev for t in tensors) and dev.type in ("cpu", "cuda"):
-        return dev.type == "cuda"
-    raise ValueError(
-        f"tensors must all be on the CPU or all on one CUDA device, got {[str(t.device) for t in tensors]}"
-    )
+    launch(name, name, f"{name}_{_SUFFIX[dtype]}", _ARGTYPES[name], device, *args)
 
 
 # ---------------------------------------------------------------------------
