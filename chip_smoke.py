@@ -11,7 +11,7 @@ non-zero and prints no result. Every phase runs unguarded: any failure
 exits non-zero.
 
 1. Card line: ``nvidia-smi`` name and power limit, torch and CUDA
-   versions, and the seconds the nvcc build of the three kernel sources
+   versions, and the seconds the nvcc build of the four kernel sources
    took (one nvcc per source, started together). TF32 is off for matmuls
    and cuDNN, so every f32 product is full f32.
 2. B6, paged decode attention, against its plain version at the
@@ -45,10 +45,25 @@ exits non-zero.
    remat, fake "ramp" data, 8 steps, local_steps 4: 2 outer rounds). The
    launch counters are zeroed just before and read just after: B1 must
    have run 2 x 12 x accum times per inner step and worker, B2a and B2b
-   12 x accum. Every loss finite, the last below the first, both masters
-   bit-identical after each round. Then one inner step, kernel path
-   against plain path, and one worker's inner-step time alone.
-9. The kernels line, the card line, and last the result line.
+   12 x accum, the fused cross-entropy kernels never (150m resolves
+   ``fused_loss=False``). Every loss finite, the last below the first,
+   both masters bit-identical after each round. Then one inner step,
+   kernel path against plain path, and one worker's inner-step time alone.
+9. B3, the dlog kernel, B4a and B4b (fused lm-head + cross-entropy)
+   against their plain versions at the 1b training shape (N 8184, D 2048,
+   V 32000), the 150m width (D 1024) and an odd N and V (1000), about a
+   seventh of the labels -100, in f32 and bf16; device times of kernel,
+   plain version and the library pair (cuBLAS ``h @ w`` then
+   ``F.cross_entropy``, and its backward through autograd), and the
+   bounds.
+10. Training at config_1b, full width and depth, as phase 8 (4 steps,
+   local_steps 2: 2 outer rounds), with ``fused_loss`` left at its
+   default, which resolves on. Per inner step and worker B1 must have run
+   2 x 22 x accum times, B2a and B2b 22 x accum, B3 accum, and the dlog,
+   B4a and B4b kernels accum x 4 (a backward walks 8184 rows in chunks of
+   2048). Then one inner step with the fused loss against one with
+   ``fused_loss=False`` on the same params and batch.
+11. The kernels line, the card line, and last the result line.
 
 Device times come from CUDA-graph replays of many launches that cycle
 through enough copies of the inputs to exceed the 50 MB L2 cache, as the
@@ -636,22 +651,216 @@ def phase_flash(torch, tfa, dev) -> list:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: training, two loopback workers at config_150m
+# phase 9: B3, B4a, B4b and the dlog kernel (fused lm-head + cross-entropy)
 # ---------------------------------------------------------------------------
 
-# lr 1e-3 rather than the config default 4e-4, so that 8 steps from a
-# random init move the loss well clear of step-to-step noise
-TRAIN = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=2,
-             total_steps=8, local_steps=4, lr=1e-3)
+XENT_REPLACES = {
+    "fused_xent_fwd": "opendiloco_tpu/ops/fused_xent.py:139 (_fwd, _fwd_kernel :85)",
+    "fused_xent_dlog": "opendiloco_tpu/ops/fused_xent.py:174 (_recompute_dlog, inside _dh_kernel :195 and "
+                       "_dw_kernel :219)",
+    "fused_xent_dh": "opendiloco_tpu/ops/fused_xent.py:254 (_bwd_impl, _dh_kernel :195)",
+    "fused_xent_dw": "opendiloco_tpu/ops/fused_xent.py:276 (_bwd_impl, _dw_kernel :219)",
+}
+# (label, N, D, V) of the checks, and the timed shape: the 1b training shape
+XENT_GEOMS = [("1b", 8184, 2048, 32000), ("150m width", 8184, 1024, 32000), ("odd N and V", 1000, 1024, 1000)]
+XENT_TIMED = (8184, 2048, 32000)
+XENT_TOL = ("element by element, |got - ref| <= rtol |ref| + atol: nll and lse atol 1e-4 of the largest lse "
+            "(logits exact in f32 on both sides, sums in another order); dlog rtol 2**-7 in bf16 (one ulp where "
+            "the f32 value sits at a rounding boundary) and 1e-5 in f32, atol rtol/2 * max(g) / V (half of rtol "
+            "of an average softmax entry, so a wrong non-target entry fails); dh in bf16 rtol 2**-7 and atol 1e-5 "
+            "of the largest |dh| (f32 sum-order noise where an element nearly cancels); dh in f32 atol 1e-4 of "
+            "the largest |dh| (V-long sums in another order, about 2**-24 * sqrt(V)); dw atol 1e-5 of the "
+            "largest |dw| (f32 sums)")
 
 
-def phase_train(torch, tfa, dev, card: str) -> dict:
-    """Two DiLoCo workers, one thread each, run ``train()`` at config_150m
-    full width and depth through the kernels. The launch counters are
+def xent_inputs(torch, dev, N, D, V, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(N, D, generator=g, device=dev).to(dtype)
+    w = (0.02 * torch.randn(D, V, generator=g, device=dev)).to(dtype)
+    labels = torch.randint(0, V, (N,), generator=g, device=dev)
+    labels[::7] = -100  # about a seventh of the labels ignored
+    mask = labels != -100
+    return h, w, labels, mask.float() / max(1, int(mask.sum()))
+
+
+def xent_work(N, D, V, elt) -> dict:
+    """(bytes, flops) of one launch of each kernel at N rows: every input
+    read once, every output written once (dw read and written when it
+    accumulates); one product is 2 N D V operations."""
+    mm = 2.0 * N * D * V
+    h, w, dl = N * D * elt, D * V * elt, N * V * elt
+    return {
+        "fused_xent_fwd": (h + w + N * 8 + 2 * N * 4, mm),
+        "fused_xent_dlog": (h + w + N * 8 + 2 * N * 4 + dl, mm),
+        "fused_xent_dh": (dl + w + h, mm),
+        "fused_xent_dw": (h + dl + 2 * D * V * 4, mm),
+    }
+
+
+def phase_xent(torch, tfx, dev) -> list:
+    """Each kernel against its plain version on the same inputs (dh and dw
+    take the plain dlog), then device times in bf16 at the 1b training
+    shape: B3 over all N rows, the backward kernels per launch at one
+    chunk of CHUNK_ROWS rows (a backward at N 8184 makes 4 of each)."""
+    import torch.nn.functional as F
+
+    checks = {name: [] for name in tfx.NAMES}
+    for gi, (label, N, D, V) in enumerate(XENT_GEOMS):
+        for dtype in (torch.float32, torch.bfloat16):
+            h, w, labels, gup = xent_inputs(torch, dev, N, D, V, dtype, 20 + gi)
+            nll, lse = tfx.fused_xent_fwd(h, w, labels)
+            ref_nll, ref_lse = tfx.fused_xent_fwd_plain(h, w, labels)
+            rows = slice(0, min(N, tfx.CHUNK_ROWS))
+            args = (h[rows], w, labels[rows], ref_lse[rows], gup[rows])
+            dlog = tfx.fused_xent_dlog(*args)
+            ref_dlog = tfx.fused_xent_dlog_plain(*args)
+            dh = tfx.fused_xent_dh(ref_dlog, w)
+            dw = tfx.fused_xent_dw(h[rows], ref_dlog)
+            torch.cuda.synchronize()
+            scale = max(1.0, float(ref_lse.abs().max()))
+            bf16 = dtype == torch.bfloat16
+            ref_dh, ref_dw = tfx.fused_xent_dh_plain(ref_dlog, w), tfx.fused_xent_dw_plain(h[rows], ref_dlog)
+            top = {"dh": float(ref_dh.float().abs().max()), "dw": float(ref_dw.abs().max())}
+            r_dlog = 2.0**-7 if bf16 else 1e-5
+            # (kernel, output, got, ref, rtol, atol): see XENT_TOL
+            pairs = [("fused_xent_fwd", "lse", lse, ref_lse, 0.0, 1e-4 * scale),
+                     ("fused_xent_fwd", "nll", nll, ref_nll, 0.0, 1e-4 * scale),
+                     ("fused_xent_dlog", "dlog", dlog, ref_dlog, r_dlog, r_dlog / 2 * float(gup.max()) / V),
+                     ("fused_xent_dh", "dh", dh, ref_dh, 2.0**-7 if bf16 else 0.0,
+                      (1e-5 if bf16 else 1e-4) * top["dh"]),
+                     ("fused_xent_dw", "dw", dw, ref_dw, 0.0, 1e-5 * top["dw"])]
+            for kernel, out, got, ref, rtol, atol in pairs:
+                diff = (got.float() - ref.float()).abs()
+                ratio = float((diff / (rtol * ref.float().abs() + atol)).max())
+                checks[kernel].append({"shape": label, "N": N, "D": D, "V": V,
+                                       "dtype": str(dtype).removeprefix("torch."), "output": out,
+                                       "max_abs_err": float(diff.max()), "rtol": rtol, "atol": atol,
+                                       "worst_share_of_limit": ratio})
+                if not ratio <= 1.0:
+                    raise AssertionError(f"{kernel} {out} {label} {dtype}: an element is {ratio:.3g} times its "
+                                         f"limit (rtol {rtol}, atol {atol:.3g})")
+            if bool(nll[labels == -100].any()):
+                raise AssertionError(f"fused_xent_fwd {label} {dtype}: an ignored row has a loss")
+            del h, w, labels, gup, nll, lse, ref_nll, ref_lse, dlog, ref_dlog, dh, dw, ref_dh, ref_dw, diff
+            torch.cuda.empty_cache()
+        worst = {f"{c['output']} {c['dtype']}": round(c["worst_share_of_limit"], 4)
+                 for k in checks.values() for c in k if c["shape"] == label}
+        log(f"B3/B4 {label} (N{N} D{D} V{V}): f32 and bf16 within tolerance; worst element's share of its "
+            f"limit: {worst}")
+    log(f"B3/B4 tolerances: {XENT_TOL}")
+
+    # times in bf16 at the 1b training shape
+    (N, D, V), dtype = XENT_TIMED, torch.bfloat16
+    C = min(N, tfx.CHUNK_ROWS)
+    h, w, labels, gup = xent_inputs(torch, dev, N, D, V, dtype, 30)
+    _, lse = tfx.fused_xent_fwd(h, w, labels)
+    dlog = tfx.fused_xent_dlog(h[:C], w, labels[:C], lse[:C], gup[:C])
+    acc = torch.zeros(D, V, device=dev)
+    fwd_set, chunk_set = [(h, w, labels, lse, gup)], [(h[:C], w, labels[:C], lse[:C], gup[:C], dlog, acc)]
+    runs = {
+        "fused_xent_fwd": (lambda h, w, lb, ls, g: tfx.fused_xent_fwd(h, w, lb),
+                           lambda h, w, lb, ls, g: tfx.fused_xent_fwd_plain(h, w, lb), fwd_set),
+        "fused_xent_dlog": (lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dlog(h, w, lb, ls, g),
+                            lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dlog_plain(h, w, lb, ls, g), chunk_set),
+        "fused_xent_dh": (lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dh(dl, w),
+                          lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dh_plain(dl, w), chunk_set),
+        "fused_xent_dw": (lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dw(h, dl, a),
+                          lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dw_plain(h, dl, a), chunk_set),
+    }
+    times = {}
+    for name, (kern, plain, sets) in runs.items():
+        times[name] = (device_ms(torch, kern, sets, launches=8, replays=3),
+                       device_ms(torch, plain, sets, launches=2, replays=3))
+        torch.cuda.empty_cache()
+    bwd_ms = device_ms(torch, lambda h, w, lb, ls, g: tfx.fused_xent_bwd(h, w, lb, ls, g), fwd_set,
+                       launches=2, replays=3)
+
+    # library yardstick, timed here only: cuBLAS h @ w then F.cross_entropy,
+    # and its backward through autograd as (forward + backward) - forward
+    def lib_fwd(h, w, lb):
+        return F.cross_entropy((h @ w).float(), lb, ignore_index=-100)
+
+    def lib_fwd_bwd(h, w, lb):
+        return torch.autograd.grad(lib_fwd(h, w, lb), (h, w))
+
+    lib_fwd_ms = device_ms(torch, lambda h, w, lb, ls, g: lib_fwd(h, w, lb), fwd_set, launches=4, replays=3)
+    leaves = [(h.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True), labels)]
+    lib_bwd_ms = device_ms(torch, lib_fwd_bwd, leaves, launches=2, replays=3) - lib_fwd_ms
+    # and cuBLAS at each backward kernel's own function, on the same chunk inputs
+    lib_chunk_ms = {
+        "fused_xent_dh": device_ms(torch, lambda h, w, lb, ls, g, dl, a: dl @ w.T, chunk_set, launches=8, replays=3),
+        "fused_xent_dw": device_ms(torch, lambda h, w, lb, ls, g, dl, a: a.add_(h.T @ dl), chunk_set,
+                                   launches=8, replays=3),
+    }
+    del leaves, fwd_set, chunk_set, h, w, labels, gup, lse, dlog, acc
+    torch.cuda.empty_cache()
+
+    n_chunks = -(-N // C)
+    rows = []
+    for name in tfx.NAMES:
+        n = N if name == "fused_xent_fwd" else C
+        nbytes, flops = xent_work(n, D, V, 2)[name]
+        b_ms, b_by = bound_ms(nbytes, flops)
+        kernel_ms, plain_ms = times[name]
+        lib = lib_fwd_ms if name == "fused_xent_fwd" else lib_chunk_ms.get(name)
+        worst = max(checks[name], key=lambda c: c["worst_share_of_limit"])
+        log(f"{name} bf16 N{n} D{D} V{V}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.5f} ms ({b_by})")
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "opendiloco_torch/csrc/fused_xent.cu",
+            "replaces": XENT_REPLACES[name],
+            "shape": {"N": n, "D": D, "V": V, "dtype": "bfloat16",
+                      "per": "one launch over all rows" if n == N else f"one launch at one chunk of {C} rows "
+                                                                      f"({n_chunks} per backward at N {N})"},
+            "max_abs_err": worst["max_abs_err"],
+            "tol": XENT_TOL,
+            "worst_check": worst,
+            "checks": checks[name],
+            "ms": kernel_ms,
+            "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "library_ms": lib,
+            "library": ("cuBLAS h @ w, then F.cross_entropy over the f32 logits" if name == "fused_xent_fwd" else
+                        "none: the logits' gradient has no call of its own" if name == "fused_xent_dlog" else
+                        "cuBLAS dlog @ w.T on the same chunk" if name == "fused_xent_dh" else
+                        "cuBLAS h.T @ dlog on the same chunk, added into the f32 dw"),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+        })
+    log(f"fused cross-entropy backward (all {n_chunks} chunks, bf16 N{N} D{D} V{V}): {bwd_ms:.4f} ms; "
+        f"library backward (autograd of the cuBLAS + F.cross_entropy pair, dh and dw over all rows) "
+        f"{lib_bwd_ms:.4f} ms, library forward {lib_fwd_ms:.4f} ms")
+    rows[0]["backward_ms_all_chunks"] = bwd_ms
+    rows[0]["library_backward_ms_all_rows"] = lib_bwd_ms
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 10: training, two loopback workers
+# ---------------------------------------------------------------------------
+
+# phase 8, config_150m: lr 1e-3 rather than the config default 4e-4, so that
+# 8 steps from a random init move the loss well clear of step-to-step noise
+TRAIN_150M = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=2,
+                  total_steps=8, local_steps=4, lr=1e-3)
+# phase 10, config_1b: 4 steps, 2 outer rounds (the host outer step moves
+# 4.4 GB of f32 per worker); warmup 1 so that 3 of the 4 steps update
+TRAIN_1B = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=1,
+                total_steps=4, local_steps=2, lr=1e-3)
+
+
+def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict) -> dict:
+    """Two DiLoCo workers, one thread each, run ``train()`` at ``model``'s
+    full width and depth through the kernels (TrainerConfig defaults, so
+    fused_loss resolves as a user gets it). The launch counters are
     zeroed just before and read just after. Masters are compared across
     workers after each outer round (at the next round's all-reduce, and at
-    the end). Then one inner step, kernel path against plain path, and
-    the inner-step time of one worker alone."""
+    the end). Then one inner step under each of the two TrainerConfig
+    variants in ``compare`` (the first is the path's own), on the same
+    params and batch, each with one worker's steady inner-step time and
+    peak device memory alone."""
     import hashlib
     import os
     import pickle
@@ -661,11 +870,12 @@ def phase_train(torch, tfa, dev, card: str) -> dict:
     from opendiloco_torch.config import Config
     from opendiloco_torch.diloco import LoopbackBackend, LoopbackWorld
     from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.ops import fused_xent as tfx
     from opendiloco_torch.train import train
     from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
 
-    cfg = load_config("150m")
-    L, accum = cfg.num_hidden_layers, TRAIN["total_batch_size"] // TRAIN["per_device_train_batch_size"]
+    cfg = load_config(model)
+    L, accum = cfg.num_hidden_layers, run["total_batch_size"] // run["per_device_train_batch_size"]
 
     def master_hash(master) -> str:
         h = hashlib.sha256()
@@ -699,16 +909,16 @@ def phase_train(torch, tfa, dev, card: str) -> dict:
 
     def config(rank):
         return Config(
-            path_model="150m", fake_data=True, fake_data_mode="ramp", precision="bf16-mixed", remat=True,
-            seq_length=TRAIN["seq_length"], per_device_train_batch_size=TRAIN["per_device_train_batch_size"],
-            total_batch_size=TRAIN["total_batch_size"], warmup_steps=TRAIN["warmup_steps"],
-            total_steps=TRAIN["total_steps"], lr=TRAIN["lr"], metric_logger_type="dummy",
+            path_model=model, fake_data=True, fake_data_mode="ramp", precision="bf16-mixed", remat=True,
+            seq_length=run["seq_length"], per_device_train_batch_size=run["per_device_train_batch_size"],
+            total_batch_size=run["total_batch_size"], warmup_steps=run["warmup_steps"],
+            total_steps=run["total_steps"], lr=run["lr"], metric_logger_type="dummy",
             project=os.path.join(tmp, f"metrics-{rank}.pkl"),
-            diloco=dict(local_steps=TRAIN["local_steps"], backend="loopback", world_rank=rank,
+            diloco=dict(local_steps=run["local_steps"], backend="loopback", world_rank=rank,
                         timeout_waiting_for_peers=600.0),
         )
 
-    def run(rank):
+    def work(rank):
         try:
             summaries[rank] = train(config(rank), backends[rank], device=dev)
         except BaseException as e:
@@ -717,7 +927,7 @@ def phase_train(torch, tfa, dev, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     tfa.LAUNCHES.reset()
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+    threads = [threading.Thread(target=work, args=(r,)) for r in range(2)]
     for t in threads:
         t.start()
     for t in threads:
@@ -727,10 +937,19 @@ def phase_train(torch, tfa, dev, card: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     if errors:
         raise errors[0]
-    steps = TRAIN["total_steps"]
+    steps = run["total_steps"]
+    inner_steps = 2 * steps  # two workers
     want = {name: 0 for name in launches}
-    want.update({"flash_attention_fwd": 2 * steps * 2 * L * accum,
-                 "flash_attention_dq": 2 * steps * L * accum, "flash_attention_dkv": 2 * steps * L * accum})
+    want.update({"flash_attention_fwd": inner_steps * 2 * L * accum,
+                 "flash_attention_dq": inner_steps * L * accum, "flash_attention_dkv": inner_steps * L * accum})
+    fused = InnerTrainer(cfg, TrainerConfig(), device=dev).tc.fused_loss
+    if fused:
+        # per micro-batch one forward launch, and per backward chunk one
+        # launch of each backward kernel
+        chunks = -(-run["per_device_train_batch_size"] * (run["seq_length"] - 1) // tfx.CHUNK_ROWS)
+        want["fused_xent_fwd"] = inner_steps * accum
+        for name in ("fused_xent_dlog", "fused_xent_dh", "fused_xent_dw"):
+            want[name] = inner_steps * accum * chunks
     if launches != want:
         raise AssertionError(f"training launch counts {launches} != {want}")
 
@@ -743,7 +962,7 @@ def phase_train(torch, tfa, dev, card: str) -> dict:
             raise AssertionError(f"worker {rank}: losses {losses}")
         if not losses[-1] < losses[0]:
             raise AssertionError(f"worker {rank}: last loss {losses[-1]} not below first {losses[0]}")
-    rounds = steps // TRAIN["local_steps"]
+    rounds = steps // run["local_steps"]
     for b in backends:
         b.hashes[rounds - 1] = master_hash(b.provider()["master"])
     for r in range(rounds):
@@ -754,63 +973,73 @@ def phase_train(torch, tfa, dev, card: str) -> dict:
     outer_s = outer["outer_step_s"]
     if len(outer_s) != 2 * rounds:
         raise AssertionError(f"expected {2 * rounds} outer steps, got {outer_s}")
+    hashes = [b.hashes for b in backends]
+    del backends, world, summaries
+    torch.cuda.empty_cache()
 
-    # one inner step, kernel path against plain path, same params and batch
+    # one inner step under each variant, same params and batch
     from opendiloco_torch.data.dataloader import FakeTokenizedDataset
 
-    ds = iter(FakeTokenizedDataset(TRAIN["seq_length"], cfg.vocab_size, seed=7, mode="ramp"))
-    ids = np.stack([next(ds)["input_ids"] for _ in range(TRAIN["total_batch_size"])])
-    results = {}
-    for impl in ("pallas", "xla"):
-        tr = InnerTrainer(cfg, TrainerConfig(precision="bf16-mixed", remat=True, attn_impl=impl,
-                                             warmup_steps=2, total_steps=100), device=dev)
+    ds = iter(FakeTokenizedDataset(run["seq_length"], cfg.vocab_size, seed=7, mode="ramp"))
+    ids = np.stack([next(ds)["input_ids"] for _ in range(run["total_batch_size"])])
+    results, step_ms, peak_gib = {}, {}, {}
+    for label, kw in compare.items():
+        torch.cuda.reset_peak_memory_stats()
+        tr = InnerTrainer(cfg, TrainerConfig(precision="bf16-mixed", remat=True, warmup_steps=2,
+                                             total_steps=100, **kw), device=dev)
         state = tr.init_state(3)
         batch = tr.shard_batch(ids, ids.copy(), accum=accum)
         state, m = tr.train_step(state, batch)
-        results[impl] = (float(m["loss"]), float(m["grad_norm"]))
-        if impl == "pallas":
-            # steady inner-step time of one worker alone (the first step
-            # above carried the warm-up)
-            torch.cuda.synchronize()
-            n = 3
-            t1 = time.perf_counter()
-            for _ in range(n):
-                state, m = tr.train_step(state, batch)
-            float(m["loss"])
-            torch.cuda.synchronize()
-            step_s = (time.perf_counter() - t1) / n
-        del tr, state, batch
+        results[label] = (float(m["loss"]), float(m["grad_norm"]), tr.tc.fused_loss)
+        # steady inner-step time of one worker alone (the first step above
+        # carried the warm-up), and its peak device memory
+        torch.cuda.synchronize()
+        n = 3
+        t1 = time.perf_counter()
+        for _ in range(n):
+            state, m = tr.train_step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        step_ms[label] = (time.perf_counter() - t1) / n * 1e3
+        peak_gib[label] = torch.cuda.max_memory_allocated() / 2**30
+        del tr, state, batch, m
         torch.cuda.empty_cache()
-    (kl, kg), (pl_, pg) = results["pallas"], results["xla"]
-    # bf16: the two paths round attention probabilities and outputs at
-    # different points in all 12 layers; the loss (~10.6 at init) agrees to
-    # 1e-3 and the gradient norm to 0.5% of itself
+    step_s = next(iter(step_ms.values())) / 1e3
+    (a, (kl, kg, kf)), (b, (pl_, pg, pf)) = results.items()
+    # bf16: the two paths round attention probabilities and outputs, or the
+    # logits' gradient, at different points; the loss (~10.6 at init)
+    # agrees to 1e-3 and the gradient norm to 0.5% of itself
     if not (abs(kl - pl_) <= 1e-3 and abs(kg - pg) <= 5e-3 * pg):
-        raise AssertionError(f"kernel vs plain step: loss {kl} vs {pl_}, grad norm {kg} vs {pg}")
-    tokens = TRAIN["total_batch_size"] * TRAIN["seq_length"]
+        raise AssertionError(f"{a} vs {b} step: loss {kl} vs {pl_}, grad norm {kg} vs {pg}")
+    tokens = run["total_batch_size"] * run["seq_length"]
     res = {
-        "config": "150m", "layers": L, "hidden": cfg.hidden_size, "heads": cfg.num_attention_heads,
-        **TRAIN, "accum": accum, "workers": 2, "outer_rounds": rounds,
+        "config": model, "layers": L, "hidden": cfg.hidden_size, "heads": cfg.num_attention_heads,
+        **run, "accum": accum, "workers": 2, "outer_rounds": rounds, "fused_loss": fused,
         "losses": [[r["Loss"] for r in rr] for rr in rows],
         "grad_norms": [[r["grad_norm"] for r in rr] for rr in rows],
         "launches": launches,
-        "launches_per_inner_step": {k: v / (2 * steps) for k, v in launches.items()},
-        "master_hashes": [b.hashes for b in backends],
+        "launches_per_inner_step": {k: v / inner_steps for k, v in launches.items()},
+        "master_hashes": hashes,
         **outer,
         "train_wall_s": wall,
         "peak_memory_gib_two_workers": peak_gb,
-        "kernel_vs_plain_step": {"loss": [kl, pl_], "grad_norm": [kg, pg],
-                                 "tol": "loss 1e-3 abs, grad norm 0.5% rel (bf16)"},
+        f"{a}_vs_{b}_step": {"loss": [kl, pl_], "grad_norm": [kg, pg], "fused_loss": [kf, pf],
+                             "tol": "loss 1e-3 abs, grad norm 0.5% rel (bf16)"},
         "inner_step_ms_one_worker": step_s * 1e3,
         "tokens_per_s_one_worker": tokens / step_s,
+        "inner_step_ms_one_worker_by_variant": step_ms,
+        "peak_memory_gib_one_worker_by_variant": peak_gib,
     }
-    log(f"train 150m: inner step {step_s * 1e3:.1f} ms (one worker alone, mb 8 x accum 2 x seq 1024) | {card}")
-    log(f"train 150m: {tokens / step_s:.0f} training tokens/s (one worker alone) | {card}")
-    log(f"train 150m: outer step {np.mean(outer_s):.3f} s mean over {len(outer_s)} (two workers; of it "
+    log(f"train {model}: inner step {step_s * 1e3:.1f} ms (one worker alone, mb "
+        f"{run['per_device_train_batch_size']} x accum {accum} x seq {run['seq_length']}) | {card}")
+    log(f"train {model}: {tokens / step_s:.0f} training tokens/s (one worker alone) | {card}")
+    log(f"train {model}: outer step {np.mean(outer_s):.3f} s mean over {len(outer_s)} (two workers; of it "
         f"waiting for the peer {np.mean(outer['outer_wait_s']):.3f} s, all-reduce "
         f"{np.mean(outer['outer_allreduce_s']):.3f} s) | {card}")
-    log(f"train 150m: peak device memory {peak_gb:.2f} GiB (two workers on one card) | {card}")
-    log(f"train 150m: losses {res['losses']}; kernel vs plain step loss {kl:.5f}/{pl_:.5f}, "
+    log(f"train {model}: peak device memory {peak_gb:.2f} GiB (two workers on one card) | {card}")
+    log(f"train {model}: one worker alone, {a} / {b}: inner step {step_ms[a]:.1f} / {step_ms[b]:.1f} ms, "
+        f"peak device memory {peak_gib[a]:.2f} / {peak_gib[b]:.2f} GiB | {card}")
+    log(f"train {model}: losses {res['losses']}; {a} vs {b} step loss {kl:.5f}/{pl_:.5f}, "
         f"grad norm {kg:.5f}/{pg:.5f}; launches {launches}")
     return res
 
@@ -832,13 +1061,14 @@ def main() -> int:
     from opendiloco_torch.ops import build
     from opendiloco_torch.ops import decode_kernels as tdk
     from opendiloco_torch.ops import flash_attention as tfa
+    from opendiloco_torch.ops import fused_xent as tfx
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
-    build_s = build.build(["paged_decode_attention", "w4_matmul", "flash_attention"])
+    build_s = build.build(["paged_decode_attention", "w4_matmul", "flash_attention", "fused_xent"])
     log(f"card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"kernel build {build_s:.2f} s | TF32 off for matmuls and cuDNN")
 
@@ -855,17 +1085,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     flash = phase_flash(torch, tfa, dev)
-    training = phase_train(torch, tfa, dev, card)
+    train_150m = phase_train(torch, tfa, dev, card, "150m", TRAIN_150M,
+                             {"kernels": dict(attn_impl="pallas"), "plain": dict(attn_impl="xla")})
+    xent = phase_xent(torch, tfx, dev)
+    train_1b = phase_train(torch, tfa, dev, card, "1b", TRAIN_1B, {"fused": {}, "unfused": dict(fused_loss=False)})
 
     for k in (b6, b8):
         k["launches"] = sum(s["launches"][k["name"]] for s in serve)
         k["launches_by_phase"] = {s["weight_format"]: s["launches"][k["name"]] for s in serve}
-    for k in flash:
-        k["launches"] = training["launches"][k["name"]]
-        k["launches_per_inner_step"] = training["launches_per_inner_step"][k["name"]]
-    log(json.dumps({"serve": serve, "reference": reference, "train": training,
+    # launches: this slice's path, the 1b training run; the 150m run's beside
+    for k in (*flash, *xent):
+        k["launches"] = train_1b["launches"][k["name"]]
+        k["launches_per_inner_step"] = train_1b["launches_per_inner_step"][k["name"]]
+        k["launches_by_phase"] = {"train 150m": train_150m["launches"][k["name"]],
+                                  "train 1b": train_1b["launches"][k["name"]]}
+    log(json.dumps({"serve": serve, "reference": reference, "train": [train_150m, train_1b],
                     "seconds": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [b6, b8, *flash]}))
+    log(json.dumps({"kernels": [b6, b8, *flash, *xent]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

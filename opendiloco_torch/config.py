@@ -143,8 +143,9 @@ class Config:
     "auto" resolves to the hand-written kernels on the card and the plain
     attention on the CPU, "pallas" means the hand-written kernels (their
     plain versions on the CPU), "xla" the plain attention. ``scan_unroll``
-    is kept for the same reason and has no effect in eager PyTorch, where
-    the layers are a Python loop."""
+    is kept for the same reason; in eager PyTorch, where the layers are a
+    Python loop, it only decides ``fused_loss``'s default (see
+    ``trainer._resolve_perf_defaults``)."""
 
     # model
     attn_implementation: str = "auto"

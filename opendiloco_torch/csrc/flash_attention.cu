@@ -51,12 +51,9 @@
 // bound; B2a and B2b each recompute s and dO.v^T (7 tile products where
 // one fused backward does 5). wgmma, TMA, warp specialisation and a
 // fused backward are left for later changes.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-#include <atomic>
+#include "common.cuh"
 
 namespace {
 
@@ -64,27 +61,6 @@ constexpr int kRows = 64;  // rows a block owns
 constexpr int kCols = 64;  // rows of each tile of the other side
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxDevices = 64;
-constexpr size_t kSmemMax = 232448;  // opt-in shared memory of one block
-constexpr float kNegInf = -1e30f;    // the TPU kernel's finite -inf
-constexpr unsigned kFull = 0xffffffffu;
-
-// two neighbouring elements from f32
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src, bool valid) {
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-    const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // row stride in shared memory: the padded width plus 16 bytes, so that
 // rows start on different banks
@@ -134,14 +110,6 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
     return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 template <int NB, bool kNK>
@@ -197,16 +165,6 @@ __device__ __forceinline__ void warp_mma(float (&c)[NB][4], int nb_n, const floa
             }
         }
     }
-}
-
-// max and sum over the 4 lanes that share a row
-__device__ __forceinline__ float quad_max(float x) {
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-    return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-    x += __shfl_xor_sync(kFull, x, 1);
-    return x + __shfl_xor_sync(kFull, x, 2);
 }
 
 template <int NB>
@@ -584,21 +542,6 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const T* __restrict__ q, 
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-// Raise a kernel's dynamic shared memory limit once per device.
-template <auto Kernel>
-cudaError_t allow_smem(size_t smem) {
-    static std::atomic<bool> done[kMaxDevices];
-    if (smem > kSmemMax) return cudaErrorInvalidValue;
-    if (smem <= 48 * 1024) return cudaSuccess;
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
-    if (err == cudaSuccess && dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
-    return err;
-}
 
 bool bad_dims(int B, int T, int H, int Hkv, int D) {
     return B < 1 || T < 1 || Hkv < 1 || H % Hkv != 0 || D < 8 || D > 128 || D % 8 != 0 || H > 65535 ||

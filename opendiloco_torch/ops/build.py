@@ -7,8 +7,9 @@ plain C interface (no PyTorch headers: such a build takes seconds, where
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o csrc/build/lib<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source rebuilds and a stale library is never loaded. Only sources in
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and a stale library is never loaded. Only sources in
 the repository are built. Builds happen at first use (or all at once,
 in parallel, through :func:`build`), never at import.
 
@@ -52,9 +53,12 @@ def _source(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    with open(_source(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in (_source(name), *(os.path.join(CSRC, f) for f in headers)):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str) -> tuple[subprocess.Popen, str, str]:

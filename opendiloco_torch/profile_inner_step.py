@@ -1,9 +1,11 @@
 """Where one inner step's time goes on the card: a ``torch.profiler`` trace.
 
 Builds an :class:`~opendiloco_torch.trainer.InnerTrainer` at the training
-shape of ``chip_smoke.py`` (config_150m at full width and depth, micro-batch
-8 x accum 2 x seq 1024, bf16-mixed, remat per layer, the hand-written
-flash-attention kernels, fake "ramp" data), times ``--steps`` inner steps
+shape of ``chip_smoke.py`` (``--config`` 150m or 1b at full width and
+depth, micro-batch 8 x accum 2 x seq 1024, bf16-mixed, remat per layer,
+the TrainerConfig defaults for the card: the hand-written flash-attention
+kernels, and at 1b the fused cross-entropy kernels; fake "ramp" data),
+times ``--steps`` inner steps
 untraced, then traces as many with CPU and CUDA activities. Every device
 event of the trace (kernels, copies, fills) goes into one group by its
 name. Prints one JSON object as its last line: per inner step, the untraced
@@ -11,7 +13,7 @@ and traced wall ms, the device's busy ms (the union of its event
 intervals) and idle share, each group's ms, share and event count, and the
 longest kernels; ``--out`` also keeps the Chrome trace::
 
-    python -m opendiloco_torch.profile_inner_step [--steps 3] [--out DIR]
+    python -m opendiloco_torch.profile_inner_step [--config 1b] [--steps 3] [--out DIR]
 
 Needs a CUDA card: a trace without device events raises.
 """
@@ -30,6 +32,7 @@ import numpy as np
 
 # (group, pattern over the lower-cased kernel name); the first match wins
 GROUPS = (
+    ("fused cross-entropy (B3, B4a, B4b, dlog)", r"xent_"),
     ("flash attention (B1, B2a, B2b)", r"(^|[\s:])(fwd|dq|dkv)_kernel<"),
     ("matmul (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
     ("softmax and cross-entropy", r"softmax|nll_loss|cross_entropy"),
@@ -114,14 +117,14 @@ def main(argv=None) -> int:
     from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default="150m", choices=("150m", "1b"), help="model configuration")
     ap.add_argument("--steps", type=int, default=3, help="inner steps timed, and as many traced")
     ap.add_argument("--out", default=None, help="directory for the gzipped Chrome trace and the summary")
     args = ap.parse_args(argv)
 
-    cfg = load_config("150m")
+    cfg = load_config(args.config)
     mb, accum, seq = 8, 2, 1024
-    tr = InnerTrainer(cfg, TrainerConfig(precision="bf16-mixed", remat=True, attn_impl="auto",
-                                         warmup_steps=2, total_steps=100))
+    tr = InnerTrainer(cfg, TrainerConfig(precision="bf16-mixed", remat=True, warmup_steps=2, total_steps=100))
     ds = iter(FakeTokenizedDataset(seq, cfg.vocab_size, seed=7, mode="ramp"))
     ids = np.stack([next(ds)["input_ids"] for _ in range(mb * accum)])
     state = tr.init_state(3)
@@ -151,7 +154,8 @@ def main(argv=None) -> int:
         events = json.load(f)["traceEvents"]
     res = {
         "card": card_line(), "torch": torch.__version__, "cuda": torch.version.cuda,
-        "config": "150m", "micro_batch": mb, "accum": accum, "seq": seq, "steps": args.steps,
+        "config": args.config, "fused_loss": tr.tc.fused_loss,
+        "micro_batch": mb, "accum": accum, "seq": seq, "steps": args.steps,
         "step_ms_untraced": step_ms, "step_ms_traced": traced_ms,
         **summarize(events, args.steps, step_ms),
     }

@@ -40,6 +40,7 @@ from opendiloco_torch.models.llama import (
     forward,
     init_params,
 )
+from opendiloco_torch.ops.fused_xent import fused_linear_cross_entropy_sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,10 +60,11 @@ class TrainerConfig:
     # plain attention
     attn_impl: str = "auto"
     remat: RematPolicy = True
-    # the fused lm-head + cross-entropy kernels (B3/B4) are not ported:
-    # None resolves to False, True raises
+    # the fused lm-head + cross-entropy (B3/B4): None resolves to on for
+    # looped stacks on the card (see _resolve_perf_defaults)
     fused_loss: Optional[bool] = None
-    # kept for the JAX signature; no effect in eager PyTorch
+    # kept for the JAX signature (it decides fused_loss's default); no
+    # effect in eager PyTorch
     scan_unroll: Optional[int] = None
     # fp16 dynamic loss scaling (GradScaler semantics)
     init_loss_scale: float = 2.0**15
@@ -122,45 +124,57 @@ class InnerOptimizer:
     @torch.no_grad()
     def update(self, grads: list, state: dict, params: list, grad_norm: torch.Tensor) -> None:
         """Apply one step to ``params`` in place; ``grad_norm`` is the
-        global norm of ``grads`` (the clip's trigger)."""
-        tc = self.tc
+        global norm of ``grads`` (the clip's trigger). The leaves go
+        through one at a time, so the update's f32 temporaries stay within
+        a few copies of the largest leaf (1.01 GB at config_1b) rather than
+        of all the params (4.40 GB)."""
         f32 = np.float32
-        b1, b2 = tc.adam_betas
-        # clip: select(norm < max_norm, g, (g / norm) * max_norm)
-        clip = grad_norm >= tc.max_grad_norm
-        scaled = torch._foreach_div(grads, grad_norm)
-        torch._foreach_mul_(scaled, tc.max_grad_norm)
-        g = [torch.where(clip, s, x) for s, x in zip(scaled, grads)]
-        del scaled
-        # moments: (1 - b) * g**order + b * t
-        mu, nu = state["mu"], state["nu"]
-        new_mu = torch._foreach_mul(g, 1 - b1)
-        torch._foreach_add_(new_mu, torch._foreach_mul(mu, b1))
-        g2 = torch._foreach_mul(g, g)
-        torch._foreach_mul_(g2, 1 - b2)
-        torch._foreach_add_(g2, torch._foreach_mul(nu, b2))
-        for dst, src in zip(mu, new_mu):
-            dst.copy_(src)
-        for dst, src in zip(nu, g2):
-            dst.copy_(src)
-        del new_mu, g2
+        b1, b2 = self.tc.adam_betas
         count = state["count"] + 1
         bc1 = float(f32(1) - f32(b1) ** f32(count))
         bc2 = float(f32(1) - f32(b2) ** f32(count))
-        # m_hat / (sqrt(v_hat) + eps) + wd * p, times -lr
-        denom = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, tc.adam_eps)
-        upd = torch._foreach_div(mu, bc1)
-        torch._foreach_div_(upd, denom)
-        del denom
-        if tc.weight_decay:
-            torch._foreach_add_(upd, torch._foreach_mul(params, tc.weight_decay))
         lr = self.schedule(state["schedule_count"])
-        torch._foreach_mul_(upd, -lr)
-        torch._foreach_add_(params, upd)
+        for i in range(len(params)):
+            _adamw_leaves(self.tc, [grads[i]], [state["mu"][i]], [state["nu"][i]], [params[i]],
+                          grad_norm, bc1, bc2, lr)
         state["count"] = count
         state["schedule_count"] += 1
+
+
+def _adamw_leaves(tc: TrainerConfig, g: list, mu: list, nu: list, p: list, grad_norm: torch.Tensor,
+                  bc1: float, bc2: float, lr: float) -> None:
+    """One clipped AdamW step over lists of leaves, in place on ``mu``,
+    ``nu`` and ``p``; ``bc1``/``bc2`` are the bias corrections."""
+    b1, b2 = tc.adam_betas
+    # clip: select(norm < max_norm, g, (g / norm) * max_norm)
+    clip = grad_norm >= tc.max_grad_norm
+    scaled = torch._foreach_div(g, grad_norm)
+    torch._foreach_mul_(scaled, tc.max_grad_norm)
+    g = [torch.where(clip, a, b) for a, b in zip(scaled, g)]
+    del scaled
+    # moments: (1 - b) * g**order + b * t
+    new_mu = torch._foreach_mul(g, 1 - b1)
+    torch._foreach_add_(new_mu, torch._foreach_mul(mu, b1))
+    g2 = torch._foreach_mul(g, g)
+    torch._foreach_mul_(g2, 1 - b2)
+    torch._foreach_add_(g2, torch._foreach_mul(nu, b2))
+    del g
+    for dst, src in zip(mu, new_mu):
+        dst.copy_(src)
+    for dst, src in zip(nu, g2):
+        dst.copy_(src)
+    del new_mu, g2
+    # m_hat / (sqrt(v_hat) + eps) + wd * p, times -lr
+    denom = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, tc.adam_eps)
+    upd = torch._foreach_div(mu, bc1)
+    torch._foreach_div_(upd, denom)
+    del denom
+    if tc.weight_decay:
+        torch._foreach_add_(upd, torch._foreach_mul(p, tc.weight_decay))
+    torch._foreach_mul_(upd, -lr)
+    torch._foreach_add_(p, upd)
 
 
 def make_inner_optimizer(tc: TrainerConfig) -> InnerOptimizer:
@@ -183,25 +197,27 @@ def _resolve_perf_defaults(
 
     On the card "auto" takes the hand-written flash-attention kernels (the
     JAX package's "pallas" on a TPU); elsewhere the plain attention.
-    fused_loss resolves to False everywhere: the JAX package turns it on
-    only for looped stacks, and its kernels (B3/B4) are not ported, so an
-    explicit True raises."""
-    if tc.fused_loss:
-        raise NotImplementedError(
-            "fused_loss=True (the fused lm-head + cross-entropy kernels) is not "
-            "ported yet (ROADMAP.md B3/B4)"
-        )
+    scan_unroll resolves as the JAX package's does (full unroll for dense
+    stacks of at most 16 layers on the card, else 1), and fused_loss=None
+    follows it: on where the card runs the kernel attention and the layer
+    loop stays rolled (unroll < layers), as at config_1b's 22 layers; off
+    at config_150m and on the CPU. An explicit True or False passes
+    through, on the CPU too, where the kernels' plain versions run."""
     if tc.attn_impl == "ring":
         raise NotImplementedError("ring attention is not ported yet (ROADMAP.md A14)")
     if tc.attn_impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown attn_impl {tc.attn_impl!r}")
     on_card = device.type == "cuda"
-    changes: dict = {"fused_loss": False}
+    changes: dict = {}
     if tc.attn_impl == "auto":
         changes["attn_impl"] = "pallas" if on_card else "xla"
     if tc.scan_unroll is None:
         dense_shallow = not model_cfg.num_experts and model_cfg.num_hidden_layers <= 16
         changes["scan_unroll"] = model_cfg.num_hidden_layers if on_card and dense_shallow else 1
+    if tc.fused_loss is None:
+        attn = changes.get("attn_impl", tc.attn_impl)
+        unroll = changes.get("scan_unroll", tc.scan_unroll) or 1
+        changes["fused_loss"] = on_card and attn == "pallas" and unroll < model_cfg.num_hidden_layers
     return dataclasses.replace(tc, **changes)
 
 
@@ -217,11 +233,12 @@ class InnerTrainer:
         self.device = resolve_device(device)
         tc = _resolve_perf_defaults(tc, model_cfg, self.device)
         _maybe_remat(None, tc.remat)  # an unported policy raises here, not mid-step
-        if tc.attn_impl == "pallas" and self.device.type == "cuda" and tc.compute_dtype == torch.float16:
+        on_card = self.device.type == "cuda"
+        if on_card and tc.compute_dtype == torch.float16 and (tc.attn_impl == "pallas" or tc.fused_loss):
             raise NotImplementedError(
-                "precision='fp16-mixed' through the flash-attention kernels is not "
-                "ported (they take f32 and bf16; ROADMAP.md A7): use bf16-mixed, or "
-                "attn_impl='xla'"
+                "precision='fp16-mixed' through the flash-attention and fused "
+                "cross-entropy kernels is not ported (they take f32 and bf16; "
+                "ROADMAP.md A7): use bf16-mixed, or attn_impl='xla' and fused_loss=False"
             )
         if model_cfg.num_experts:
             raise NotImplementedError("routed-expert (MoE) training is not ported yet (ROADMAP.md A14)")
@@ -272,15 +289,26 @@ class InnerTrainer:
 
     # -- steps ------------------------------------------------------------
 
+    def _fused_lm_loss(self, hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """The shifted fused lm-head + cross-entropy over the final hidden
+        states: the single shift and reshape site, as in the JAX package
+        (one device, so the unsharded entry)."""
+        d = hidden.shape[-1]
+        return fused_linear_cross_entropy_sharded(
+            hidden[:, :-1].reshape(-1, d), head, labels[:, 1:].reshape(-1), mesh=None
+        )
+
     def _loss_fn(self, params: dict, input_ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        logits = forward(
-            params, input_ids, self.model_cfg,
+        kw = dict(
             compute_dtype=self.tc.compute_dtype,
             attn_impl=self.tc.attn_impl,
             remat=self.tc.remat,
             scan_unroll=self.tc.scan_unroll,
         )
-        return causal_lm_loss(logits, labels)
+        if self.tc.fused_loss:
+            hidden, head = forward(params, input_ids, self.model_cfg, return_hidden=True, **kw)
+            return self._fused_lm_loss(hidden, head, labels)
+        return causal_lm_loss(forward(params, input_ids, self.model_cfg, **kw), labels)
 
     def _train_step_impl(self, state: dict, batch: dict):
         """batch tensors are [accum, mb, seq]."""

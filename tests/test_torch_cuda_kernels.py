@@ -323,3 +323,170 @@ def test_flash_attention_rejects(cuda, bad):
     with pytest.raises(ValueError):
         tfa.flash_attention_dkv(q, k, k, q, lse, lse)
     assert tdk.LAUNCHES == n0
+
+
+# ---------------------------------------------------------------------------
+# fused lm-head + cross-entropy: B3, B4a, B4b and the dlog kernel
+# ---------------------------------------------------------------------------
+
+XENT_GEOMS = [
+    # N, D, V
+    (512, 128, 512),  # the CPU parity width
+    (1000, 1024, 1000),  # the 150m width; odd N and V
+    (8184, 2048, 32000),  # the 1b training shape
+    (37, 8, 8),  # the smallest sizes the kernels take
+]
+
+
+def _xent_inputs(dev, N, D, V, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + N + D + V)
+    h = torch.randn(N, D, generator=g, device=dev).to(dtype)
+    w = (0.02 * torch.randn(D, V, generator=g, device=dev)).to(dtype)
+    labels = torch.randint(0, V, (N,), generator=g, device=dev)
+    labels[::7] = -100
+    mask = labels != -100
+    gup = mask.float() / max(1, int(mask.sum()))
+    return h, w, labels, gup
+
+
+def _rel_err(got, ref):
+    return float((got.float() - ref.float()).abs().max()) / max(float(ref.float().abs().max()), 1e-30)
+
+
+def _share_of_limit(got, ref, rtol, atol):
+    """The worst element's |got - ref| over its limit rtol |ref| + atol."""
+    ref = ref.float()
+    return float(((got.float() - ref).abs() / (rtol * ref.abs() + atol)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", XENT_GEOMS, ids=lambda g: "x".join(map(str, g)))
+def test_fused_xent_kernels_match_plain(cuda, geom, dtype):
+    """Each kernel against its plain version on the same inputs. The logits
+    are exact products summed in f32 on both sides (bf16 x bf16 is exact in
+    f32), so nll and lse agree to 1e-4 of the largest lse whatever the
+    dtype. dlog is held element by element: rtol 2**-7 in bf16 (it rounds
+    once, and an f32 value at a rounding boundary may land one ulp apart)
+    and 1e-5 in f32 (D-long sums in another order), plus an atol of rtol/2
+    of an average softmax entry, max(g) / V, so that a wrong non-target
+    entry fails. dh in bf16 likewise: rtol 2**-7, plus 1e-5 of its largest
+    value for elements that nearly cancel. In f32, dh sums V terms (32000
+    at 1b) in another order, about 2**-24 * sqrt(V) = 1e-5 of the result
+    (measured 1.01e-5 at 1b), so 1e-4 of its largest value. dw is f32 from
+    rows-long f32 sums in another order: 1e-5 of its largest value."""
+    from opendiloco_torch.ops import fused_xent as tfx
+
+    N, D, V = geom
+    h, w, labels, gup = _xent_inputs(cuda, N, D, V, dtype)
+    n0 = dict(tdk.LAUNCHES)
+    nll, lse = tfx.fused_xent_fwd(h, w, labels)
+    ref_nll, ref_lse = tfx.fused_xent_fwd_plain(h, w, labels)
+    rows = slice(0, min(N, tfx.CHUNK_ROWS))
+    args = (h[rows], w, labels[rows], ref_lse[rows], gup[rows])
+    dlog = tfx.fused_xent_dlog(*args)
+    ref_dlog = tfx.fused_xent_dlog_plain(*args)
+    dh = tfx.fused_xent_dh(ref_dlog, w)
+    dw = tfx.fused_xent_dw(h[rows], ref_dlog)
+    torch.cuda.synchronize()
+    for name in tfx.NAMES:
+        assert tdk.LAUNCHES[name] == n0[name] + 1
+    assert nll.dtype == lse.dtype == torch.float32 and nll.shape == lse.shape == (N,)
+    assert dlog.dtype == dh.dtype == dtype and dw.dtype == torch.float32
+    assert not bool(nll[labels == -100].any())
+    scale = max(1.0, float(ref_lse.abs().max()))
+    assert float((lse - ref_lse).abs().max()) <= 1e-4 * scale
+    assert float((nll - ref_nll).abs().max()) <= 1e-4 * scale
+    bf16 = dtype == torch.bfloat16
+    r = 2.0**-7 if bf16 else 1e-5
+    assert _share_of_limit(dlog, ref_dlog, r, r / 2 * float(gup.max()) / V) <= 1.0
+    ref_dh = tfx.fused_xent_dh_plain(ref_dlog, w)
+    if bf16:
+        assert _share_of_limit(dh, ref_dh, 2.0**-7, 1e-5 * float(ref_dh.float().abs().max())) <= 1.0
+    else:
+        assert _rel_err(dh, ref_dh) <= 1e-4
+    assert _rel_err(dw, tfx.fused_xent_dw_plain(h[rows], ref_dlog)) <= 1e-5
+    # dw accumulates in place: a second chunk adds its share to the first
+    assert tfx.fused_xent_dw(h[rows], ref_dlog, dw) is dw
+    assert _rel_err(dw, 2 * tfx.fused_xent_dw_plain(h[rows], ref_dlog)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_fused_xent_kernels_repeat_bitwise(cuda):
+    from opendiloco_torch.ops import fused_xent as tfx
+
+    h, w, labels, gup = _xent_inputs(cuda, 4100, 256, 4000, torch.bfloat16)  # three backward chunks
+    runs = []
+    for _ in range(2):
+        nll, lse = tfx.fused_xent_fwd(h, w, labels)
+        runs.append((nll, lse, *tfx.fused_xent_bwd(h, w, labels, lse, gup)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_xent_autograd_matches_the_materialized_loss(cuda, dtype):
+    """The autograd function over three backward chunks against autograd
+    through the plain materialized loss (f32 logits, log-softmax, gather),
+    element by element: f32 within rtol 1e-5 plus 1e-6 of each gradient's
+    largest value; bf16 inputs within rtol 2**-6 plus 2**-9 of the largest
+    value, since the kernels round dlog to bf16 before both products (its
+    rounding errors, summed over the rows, reach 6e-4 of the largest dw
+    where an element nearly cancels: the plain versions on the CPU) and
+    write dh and dw in bf16."""
+    from opendiloco_torch.ops import fused_xent as tfx
+
+    h, w, labels, _ = _xent_inputs(cuda, 4500, 256, 1000, dtype)
+    grads = []
+    for fused in (True, False):
+        hh, ww = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        if fused:
+            loss = tfx.fused_linear_cross_entropy(hh, ww, labels)
+        else:
+            loss = torch.nn.functional.cross_entropy(hh.float() @ ww.float(), labels, ignore_index=-100)
+        grads.append([loss.detach(), *torch.autograd.grad(loss, (hh, ww))])
+    (fl, fdh, fdw), (pl, pdh, pdw) = grads
+    assert fdh.dtype == fdw.dtype == dtype
+    assert abs(float(fl) - float(pl)) <= 1e-5 * float(pl)
+    rtol, atol = (1e-5, 1e-6) if dtype == torch.float32 else (2.0**-6, 2.0**-9)
+    for got, ref in ((fdh, pdh), (fdw, pdw)):
+        assert _share_of_limit(got, ref, rtol, atol * float(ref.float().abs().max())) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "bad",
+    [
+        dict(dtype=torch.float16),  # fp16-mixed is not ported to the kernels
+        dict(D=12),  # not a multiple of 8
+        dict(V=100),  # not a multiple of 8
+        dict(strided=True),  # a transposed (tied) head: not contiguous
+        dict(cpu_labels=True),  # tensors on two devices
+        dict(int32_labels=True),
+    ],
+)
+def test_fused_xent_rejects(cuda, bad):
+    from opendiloco_torch.ops import fused_xent as tfx
+
+    N, D, V = 64, bad.get("D", 64), bad.get("V", 128)
+    dtype = bad.get("dtype", torch.bfloat16)
+    h = torch.zeros(N, D, device=cuda, dtype=dtype)
+    w = torch.zeros(V, D, device=cuda, dtype=dtype).T if bad.get("strided") else torch.zeros(
+        D, V, device=cuda, dtype=dtype)
+    labels = torch.zeros(N, dtype=torch.int32 if bad.get("int32_labels") else torch.int64,
+                         device="cpu" if bad.get("cpu_labels") else cuda)
+    stats = torch.zeros(N, device=cuda)
+    dlog = torch.zeros(V, N, device=cuda, dtype=dtype).T if bad.get("strided") else torch.zeros(
+        N, V, device=cuda, dtype=dtype)
+    n0 = dict(tdk.LAUNCHES)
+    with pytest.raises(ValueError):
+        tfx.fused_xent_fwd(h, w, labels)
+    with pytest.raises(ValueError):
+        tfx.fused_xent_dlog(h, w, labels, stats, stats)
+    if not (bad.get("cpu_labels") or bad.get("int32_labels")):
+        with pytest.raises(ValueError):
+            tfx.fused_xent_dh(dlog, w)
+        with pytest.raises(ValueError):
+            tfx.fused_xent_dw(h, dlog)
+    assert tdk.LAUNCHES == n0

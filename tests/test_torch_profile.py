@@ -14,6 +14,10 @@ from opendiloco_torch.profile_inner_step import MEMCPY, OTHER, busy_us, group_of
          "flash attention (B1, B2a, B2b)"),
         ("void (anonymous namespace)::dkv_kernel<float, false>(float const*)", "kernel",
          "flash attention (B1, B2a, B2b)"),
+        ("void (anonymous namespace)::xent_fwd_kernel<__nv_bfloat16>(__nv_bfloat16 const*)", "kernel",
+         "fused cross-entropy (B3, B4a, B4b, dlog)"),
+        ("void (anonymous namespace)::xent_gemm_kernel<__nv_bfloat16, float, false, false>(int)", "kernel",
+         "fused cross-entropy (B3, B4a, B4b, dlog)"),
         ("void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits>(Flash_fwd_params)", "kernel", OTHER),
         ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNN", "kernel", "matmul (cuBLAS)"),
         ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "kernel", "matmul (cuBLAS)"),

@@ -189,6 +189,31 @@ def test_inner_trainer_trajectory_matches_jax(tiny_cfg):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-7, rtol=1e-4)
 
 
+def test_update_in_leaf_groups_is_bitwise_the_same(tiny_cfg):
+    """The AdamW update walks the leaves one at a time (to bound its
+    temporaries at 1b); that gives the same bits as one update over the
+    whole list of leaves."""
+    import opendiloco_torch.trainer as ttrainer
+
+    tc = TrainerConfig(lr=1e-3, warmup_steps=1, total_steps=20, max_grad_norm=0.5)
+    rng = np.random.default_rng(6)
+    params = tllama.flatten_params(params_from_numpy(_np_params(tiny_cfg, 6)))
+    grads = [torch.from_numpy(rng.normal(size=tuple(p.shape)).astype(np.float32)) for p in params]
+    norm = ttrainer.global_norm(grads)
+    assert float(norm) > tc.max_grad_norm  # the clip is taken
+    opt = ttrainer.InnerOptimizer(tc)
+    state, p_leaf = opt.init(params), [p.clone() for p in params]
+    for _ in range(2):
+        opt.update(grads, state, p_leaf, norm)
+    p_all = [p.clone() for p in params]
+    mu, nu = [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params]
+    for count in (1, 2):
+        bc1, bc2 = (float(np.float32(1) - np.float32(b) ** np.float32(count)) for b in tc.adam_betas)
+        ttrainer._adamw_leaves(tc, grads, mu, nu, p_all, norm, bc1, bc2, opt.schedule(count - 1))
+    for a, b in zip(p_leaf + state["mu"] + state["nu"], p_all + mu + nu):
+        assert torch.equal(a, b)
+
+
 def test_inner_trainer_pallas_attention_matches_jax(interpret_pallas, tiny_cfg):
     """The same trajectory through the flash-attention path on both sides
     (Pallas interpret there, the plain versions of B1/B2 here), remat on."""
@@ -455,7 +480,7 @@ def test_train_without_diloco_with_eval_and_probes(tmp_path):
     "overrides",
     [
         dict(attn_implementation="ring"),
-        dict(fused_loss=True),
+        dict(fleet=dict(replicas=2)),
         dict(remat="dots"),
         dict(remat="dots_all"),
         dict(ckpt=dict(interval=5)),
