@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: serving and training.
+"""Smoke run of the PyTorch port on one CUDA card: serving, speculative
+decode, prefix reuse and training.
 
     python3 chip_smoke.py
 
@@ -11,7 +12,7 @@ non-zero and prints no result. Every phase runs unguarded: any failure
 exits non-zero.
 
 1. Card line: ``nvidia-smi`` name and power limit, torch and CUDA
-   versions, and the seconds the nvcc build of the four kernel sources
+   versions, and the seconds the nvcc build of the five kernel sources
    took (one nvcc per source, started together). TF32 is off for matmuls
    and cuDNN, so every f32 product is full f32.
 2. B6, paged decode attention, against its plain version at the
@@ -63,7 +64,34 @@ exits non-zero.
    B4a and B4b kernels accum x 4 (a backward walks 8184 rows in chunks of
    2048). Then one inner step with the fused loss against one with
    ``fused_loss=False`` on the same params and batch.
-11. The kernels line, the card line, and last the result line.
+11. B7, the speculative tail attention, against its plain version in f32
+   and bf16 at the shapes of its three passes at config_1b: verify (S 8,
+   Kq = Kt = 5), draft (Kq 1, Kt 4, q_start 0..3) and the continued
+   prefill of prefix reuse (S 1, Kq = Kt = 256 and 1000 behind a 192-row
+   prefix), with lens that include 0, 5, T - 2, T and 2T + 1; device
+   times of kernel, plain version and one SDPA call over concat(ring,
+   tail) with the same boolean mask, and the bounds. (Phases 11-13 run
+   after phase 5, on its weights; phase 14 after phase 6.)
+12. Speculative serving, fp32 and w4 weights: ``build_serving`` with
+   ``spec_decode_k`` 4 (draft 11 of 22 layers) drives phase 4's 16
+   requests. Per round B7 must have run 4 x 11 + 22 = 66 times and B6
+   never; under w4 B8 7 x 66 times a round and 7 x 22 a prefill. Tokens/s,
+   TTFT, ms per round, acceptance, tokens per round and the draft, verify
+   and insert seconds beside phases 4/5's, the token agreement with them
+   (reported, not asserted: the bf16 verify pass multiplies at another M),
+   and ``ServeEngine.kernel_probe``. Under fp32 weights, verify_forward's
+   logits for a 5-token tail against the plain path and against
+   decode_forward stepped one token at a time, f32 (1e-3) and bf16 (0.25).
+13. Prefix serving: ``spec_decode_k`` 4 with ``prefix_cache`` on, then
+   off, on 16 prompts of one 192-token system prompt and 8-200 distinct
+   tokens, all submitted at once: at least 7 prefix hits, B7 22 times per
+   hit and 66 per round; TTFT p50 on against off. A prefix-reused admit's
+   logits against a cold admit's at config_1b in f32 (1e-3).
+14. config_2m in f32 through ``ServeEngine`` with ``spec_k`` 3, past its
+   32-row ring: the token stream on the card equals the plain decode
+   loop's on the card and the spec engine's on the CPU.
+15. The kernels line (launches of B6, B7 and B8 by serving phase), the
+   card line, and last the result line.
 
 Device times come from CUDA-graph replays of many launches that cycle
 through enough copies of the inputs to exceed the 50 MB L2 cache, as the
@@ -87,6 +115,7 @@ BF16_FLOP_PER_S = 989e12
 L2_BYTES = 50 * 2**20
 NEW_TOKENS = 48
 N_REQUESTS = 16
+SPEC_K = 4  # the JAX package's scripts/serve_bench.py --spec-k default
 
 
 def log(*parts) -> None:
@@ -347,6 +376,63 @@ def prompts_over_buckets(serve_cfg, vocab: int, seed: int = 0) -> list:
     return [rng.integers(1, vocab, n).tolist() for n in lengths]
 
 
+def drive(tdk, plane, prompts, warm, vocab: int) -> dict:
+    """Warm-up requests of 2 tokens each (first cuBLAS and allocator use),
+    then the main path: the launch counters zeroed just before the
+    requests are submitted, all at once, and read just after the last one
+    finished. Every request must complete with NEW_TOKENS tokens in the
+    vocabulary. Returns the run's requests, launches, and its deltas of
+    the batcher's and engine's counters."""
+    engine, batcher = plane.engine, plane.batcher
+    for r in [batcher.submit(p, max_new_tokens=2) for p in warm]:
+        if not r.wait(600) or r.error is not None:
+            raise AssertionError(f"warm-up request failed: {r.error}")
+    base, stages0 = batcher.stats(), dict(engine.stage_seconds)
+    tdk.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    reqs = [batcher.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    for r in reqs:
+        if not r.wait(1200):
+            raise AssertionError("request timed out")
+    wall = time.perf_counter() - t0
+    launches = tdk.LAUNCHES.snapshot()
+    st = batcher.stats()
+    failed = [r.error for r in reqs if r.error is not None]
+    if failed:
+        raise AssertionError(f"{len(failed)} requests failed: {failed[:3]}")
+    for r in reqs:
+        if len(r.tokens) != NEW_TOKENS or not all(0 <= t < vocab for t in r.tokens):
+            raise AssertionError(f"request {r.id}: bad tokens {r.tokens[:8]}...")
+    ttft = sorted(r.ttft_s for r in reqs)
+    return {
+        "reqs": reqs,
+        "launches": launches,
+        "steps": st["decode_steps"] - base["decode_steps"],
+        "prefills": st["completed"] - base["completed"],
+        "new_tokens": st["total_new_tokens"] - base["total_new_tokens"],
+        "spec_proposed": st["spec"]["proposed"] - base["spec"]["proposed"],
+        "spec_accepted": st["spec"]["accepted"] - base["spec"]["accepted"],
+        "prefix_hits": st["prefix"]["hits"] - base["prefix"]["hits"],
+        "stages": {k: engine.stage_seconds[k] - stages0[k] for k in engine.stage_seconds},
+        "summary": {
+            "requests": len(reqs),
+            "prompt_lengths": [len(p) for p in prompts],
+            "new_tokens": sum(len(r.tokens) for r in reqs),
+            "wall_s": wall,
+            "tokens_per_s": sum(len(r.tokens) for r in reqs) / wall,
+            "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+            "ttft_max_ms": ttft[-1] * 1e3,
+        },
+    }
+
+
+def check_launches(launches: dict, want: dict, what: str) -> None:
+    full = {name: 0 for name in launches}
+    full.update(want)
+    if launches != full:
+        raise AssertionError(f"{what}: launch counts {launches} != {full}")
+
+
 def phase_serve(torch, tdk, cfg, serve_cfg, params, dev) -> dict:
     from opendiloco_torch.models.llama import decode_forward
     from opendiloco_torch.serve import build_serving
@@ -356,59 +442,24 @@ def phase_serve(torch, tdk, cfg, serve_cfg, params, dev) -> dict:
     prompts = prompts_over_buckets(serve_cfg, cfg.vocab_size)
     plane = build_serving(serve_cfg, cfg, params, device=dev)
     try:
-        engine, batcher = plane.engine, plane.batcher
-        # warm-up: one prompt per bucket (first cuBLAS and allocator use)
-        warm = [batcher.submit(p[:b], max_new_tokens=2) for p, b in
-                zip(prompts, serve_cfg.prefill_buckets)]
-        for r in warm:
-            if not r.wait(600) or r.error is not None:
-                raise AssertionError(f"warm-up request failed: {r.error}")
-        base = batcher.stats()
-        stages0 = dict(engine.stage_seconds)
-
-        # the main path: counters zeroed just before, read just after
-        tdk.LAUNCHES.reset()
-        t0 = time.perf_counter()
-        reqs = [batcher.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
-        for r in reqs:
-            if not r.wait(1200):
-                raise AssertionError("request timed out")
-        wall = time.perf_counter() - t0
-        launches = tdk.LAUNCHES.snapshot()
-        st = batcher.stats()
-
-        failed = [r.error for r in reqs if r.error is not None]
-        if failed:
-            raise AssertionError(f"{len(failed)} requests failed: {failed[:3]}")
-        for r in reqs:
-            if len(r.tokens) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in r.tokens):
-                raise AssertionError(f"request {r.id}: bad tokens {r.tokens[:8]}...")
-        steps = st["decode_steps"] - base["decode_steps"]
-        prefills = st["completed"] - base["completed"]
-        want = {name: 0 for name in launches}
-        want.update({"paged_decode_attention": L * steps, "w4_matmul": 7 * L * (prefills + steps) if w4 else 0})
-        if launches != want:
-            raise AssertionError(f"launch counts {launches} != {want} ({steps} decode steps, {prefills} prefills)")
-        decode_s = engine.stage_seconds["decode"] - stages0["decode"]
-        prefill_s = engine.stage_seconds["prefill"] - stages0["prefill"]
-        ttft = sorted(r.ttft_s for r in reqs)
-        new_tokens = sum(len(r.tokens) for r in reqs)
+        engine = plane.engine
+        run = drive(tdk, plane, prompts, [p[:b] for p, b in zip(prompts, serve_cfg.prefill_buckets)],
+                    cfg.vocab_size)
+        steps, prefills, launches = run["steps"], run["prefills"], run["launches"]
+        check_launches(launches, {"paged_decode_attention": L * steps,
+                                  "w4_matmul": 7 * L * (prefills + steps) if w4 else 0},
+                       f"serve {serve_cfg.weight_format} ({steps} decode steps, {prefills} prefills)")
         res = {
             "weight_format": serve_cfg.weight_format,
-            "requests": len(reqs),
-            "prompt_lengths": [len(p) for p in prompts],
-            "new_tokens": new_tokens,
+            **run["summary"],
             "decode_steps": steps,
             "prefills": prefills,
             "launches": launches,
-            "wall_s": wall,
-            "tokens_per_s": new_tokens / wall,
-            "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
-            "ttft_max_ms": ttft[-1] * 1e3,
-            "decode_step_ms": decode_s / steps * 1e3,
-            "prefill_ms_mean": prefill_s / prefills * 1e3,
+            "decode_step_ms": run["stages"]["decode"] / steps * 1e3,
+            "prefill_ms_mean": run["stages"]["prefill"] / prefills * 1e3,
         }
         log(f"serve {serve_cfg.weight_format}: {json.dumps(res)}")
+        res["tokens"] = [r.tokens for r in run["reqs"]]
 
         # one decode step, kernel path against plain path, on the live
         # cache and weights (comparison launches, not counted above)
@@ -442,6 +493,339 @@ def phase_serve(torch, tdk, cfg, serve_cfg, params, dev) -> dict:
         return res
     finally:
         plane.stop()
+
+
+# ---------------------------------------------------------------------------
+# phase 11: B7 speculative tail attention
+# ---------------------------------------------------------------------------
+
+
+def b7_work(S, T, Kh, rep, D, Kq, Kt, q_start, lens_list, elt) -> tuple[float, float]:
+    """(bytes, operations) B7 must move and do on these inputs: every ring
+    row live before the tail and every tail row read once per slot and kv
+    head, q and out once, lens; 4 D operations (q.k and p.v) per query
+    head and (query, key) pair the mask leaves live."""
+    import torch
+
+    from opendiloco_torch.ops.attention import spec_tail_valid
+
+    lens = torch.tensor(lens_list, dtype=torch.int32)
+    ring, tail = spec_tail_valid(lens, T, Kq, Kt, q_start, "cpu")
+    pairs = int(ring.sum()) + S * int(tail.sum())
+    live = sum(T if n >= T else n for n in lens_list)
+    nbytes = (live + S * Kt) * Kh * D * elt * 2 + 2 * S * Kq * Kh * rep * D * elt + 4 * S
+    return nbytes, 4.0 * D * Kh * rep * pairs
+
+
+def phase_b7(torch, tdk, cfg, serve_cfg, dev) -> dict:
+    """B7 against its plain version in f32 and bf16 at the shapes of its
+    three passes at config_1b: verify (S 8, Kq = Kt = 5), draft (Kq 1, Kt
+    4, q_start 0..3) and continued prefill (S 1, Kq = Kt = 256 and 1000
+    behind a 192-row prefix), over lens with an empty slot, T - 2, T and a
+    wrapped ring 2T + 1; then device times in bf16 of the kernel, its plain
+    version and one SDPA call, with the bounds."""
+    import torch.nn.functional as F
+
+    S, T = serve_cfg.max_batch, serve_cfg.max_context
+    Kh, H, D = cfg.kv_heads, cfg.num_attention_heads, cfg.head_dim
+    rep = H // Kh
+    ragged = [0, 5, 255, 700, T - 2, T, 2 * T + 1, 511][:S]
+    shapes = [("verify", S, 5, 5, 0, ragged)]
+    shapes += [(f"draft q_start {i}", S, 1, 4, i, ragged) for i in range(4)]
+    shapes += [("suffix 256", 1, 256, 256, 0, [192]), ("suffix 1000", 1, 1000, 1000, 0, [192])]
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def inputs(n, kq, kt, dtype, lens_list):
+        q = torch.randn(n, kq, H, D, generator=g, device=dev).to(dtype)
+        ring = [torch.randn(n, T, Kh, D, generator=g, device=dev).to(dtype) for _ in range(2)]
+        tail = [torch.randn(n, kt, Kh, D, generator=g, device=dev).to(dtype) for _ in range(2)]
+        return (q, *ring, *tail, torch.tensor(lens_list, dtype=torch.int32, device=dev))
+
+    checks = []
+    for label, n, kq, kt, q_start, lens_list in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = inputs(n, kq, kt, dtype, lens_list)
+            out = tdk.spec_tail_attention_fused(*args, q_start=q_start)
+            torch.cuda.synchronize()
+            ref = tdk.spec_tail_attention_plain(*args, q_start=q_start).float()
+            err = (out.float() - ref).abs().amax(dim=(2, 3))  # per (slot, query token)
+            top = ref.abs().amax(dim=(2, 3))
+            # f32: only the order of f32 sums differs; bf16: as B6, p rounds
+            # to bf16 at each tile's running max in the kernel and at the
+            # global max in the plain version, and both outputs round to bf16
+            tol = 1e-5 * top.clamp(min=1.0) if dtype == torch.float32 else 2.0**-6 * top
+            share = float((err / tol).max())
+            checks.append({"shape": label, "S": n, "Kq": kq, "Kt": kt, "q_start": q_start, "lens": lens_list,
+                           "dtype": str(dtype).removeprefix("torch."), "max_abs_err": float(err.max()),
+                           "worst_err_over_tol": share})
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"B7 {label} {dtype} disagrees with its plain version: err/tol {share}")
+            del args, out, ref
+        log(f"B7 {label} (S{n} Kq{kq} Kt{kt} q_start {q_start} lens {lens_list}): f32 and bf16 within tolerance")
+    torch.cuda.empty_cache()
+
+    def sdpa_call(q, ck, cv, tk, tv, lens, q_start):
+        """One SDPA call over concat(ring, tail) with B7's boolean mask;
+        the concatenation and the mask are built outside the timing."""
+        from opendiloco_torch.ops.attention import spec_tail_valid
+
+        ring, tail = spec_tail_valid(lens, T, q.shape[1], tk.shape[1], q_start, dev)
+        mask = torch.cat([ring, tail.expand(q.shape[0], -1, -1)], dim=-1)[:, None]
+        keys = torch.cat([ck, tk], dim=1).transpose(1, 2).contiguous()
+        values = torch.cat([cv, tv], dim=1).transpose(1, 2).contiguous()
+        return (q.transpose(1, 2).contiguous(), keys, values, mask)
+
+    def sdpa(q, k, v, mask):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+    timed = {}
+    dtype, elt = torch.bfloat16, 2
+    full = [T + 3 * i for i in range(S)]  # every ring row live
+    for label, n, kq, kt, q_start, lens_list in [("verify", S, 5, 5, 0, [0, 1, 255, 256, 700, 1023, 1500, 511][:S]),
+                                                  ("verify full ring", S, 5, 5, 0, full),
+                                                  ("draft", S, 1, 4, 3, [0, 1, 255, 256, 700, 1023, 1500, 511][:S]),
+                                                  ("suffix 256", 1, 256, 256, 0, [192])]:
+        page_bytes = n * T * Kh * D * elt * 2
+        sets = [inputs(n, kq, kt, dtype, lens_list) for _ in range(copies_for(page_bytes))]
+        kern = lambda *a, qs=q_start: tdk.spec_tail_attention_fused(*a, q_start=qs)
+        plain = lambda *a, qs=q_start: tdk.spec_tail_attention_plain(*a, q_start=qs)
+        kernel_ms = device_ms(torch, kern, sets)
+        plain_ms = device_ms(torch, plain, sets, launches=16)
+        lib_sets = [sdpa_call(*a, q_start) for a in sets]
+        library_ms = device_ms(torch, sdpa, lib_sets, launches=16)
+        b_ms, b_by = bound_ms(*b7_work(n, T, Kh, rep, D, kq, kt, q_start, lens_list, elt))
+        timed[label] = {"S": n, "Kq": kq, "Kt": kt, "q_start": q_start, "lens": lens_list, "kernel_ms": kernel_ms,
+                        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+        log(f"B7 bf16 {label} S{n} T{T} Kh{Kh} rep{rep} D{D} Kq{kq} Kt{kt}: kernel {kernel_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        del sets, lib_sets
+        torch.cuda.empty_cache()
+    v = timed["verify"]
+    return {
+        "name": "spec_tail_attention",
+        "route": "cuda",
+        "source": "opendiloco_torch/csrc/spec_tail_attention.cu",
+        "replaces": "opendiloco_tpu/ops/decode_kernels.py:438 (spec_tail_attention_fused, _spec_tail_kernel :265)",
+        "shape": {"pass": "verify", "S": S, "T": T, "Kh": Kh, "rep": rep, "D": D, "Kq": 5, "Kt": 5,
+                  "lens": v["lens"], "dtype": "bfloat16"},
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "tol": "per (slot, query token): f32 1e-5 of the largest output (at least 1e-5); bf16 2**-6 of the largest",
+        "checks": checks,
+        "ms": v["kernel_ms"],
+        "kernel_ms": v["kernel_ms"],
+        "plain_ms": v["plain_ms"],
+        "library_ms": v["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True) over concat(ring, tail) "
+                   "with B7's boolean mask (concatenation and mask built outside the timing)",
+        "bound_ms": v["bound_ms"],
+        "bound_by": v["bound_by"],
+        "timed": timed,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phases 12 and 13: speculative decode and prefix reuse through build_serving
+# ---------------------------------------------------------------------------
+
+
+def agreement(a: list, b: list) -> dict:
+    """How far two runs' token lists agree: requests equal throughout, and
+    the mean share of each request's tokens before the first difference."""
+    lead = []
+    for x, y in zip(a, b):
+        n = next((i for i, (s, t) in enumerate(zip(x, y)) if s != t), min(len(x), len(y)))
+        lead.append(n / max(1, len(x)))
+    return {"equal_requests": sum(x == y for x, y in zip(a, b)), "of": len(a),
+            "mean_share_before_first_difference": float(np.mean(lead))}
+
+
+def phase_spec(torch, tdk, cfg, serve_cfg, params, dev, plain: dict) -> dict:
+    """``build_serving`` with ``spec_decode_k`` 4 (11 of 22 draft layers)
+    drives phase 4's 16 requests. Per round B7 runs k * Ld + L = 66 times
+    and B6 never; under w4 B8 runs 7 * 66 times a round and 7 * 22 a
+    prefill. Under fp32 weights, verify_forward's logits for a 5-token
+    tail are held against the plain path and against decode_forward
+    stepped one token at a time, in f32 and bf16."""
+    from opendiloco_torch.models.llama import decode_forward, verify_forward
+    from opendiloco_torch.serve import build_serving
+
+    L = cfg.num_hidden_layers
+    w4 = serve_cfg.weight_format == "w4"
+    prompts = prompts_over_buckets(serve_cfg, cfg.vocab_size)
+    plane = build_serving(serve_cfg, cfg, params, device=dev)
+    try:
+        engine = plane.engine
+        k, Ld = engine.spec_k, engine.draft_layers
+        per_round = k * Ld + L
+        run = drive(tdk, plane, prompts, [p[:b] for p, b in zip(prompts, serve_cfg.prefill_buckets)],
+                    cfg.vocab_size)
+        rounds, prefills, launches = run["steps"], run["prefills"], run["launches"]
+        check_launches(launches, {"spec_tail_attention": per_round * rounds,
+                                  "w4_matmul": 7 * (L * prefills + per_round * rounds) if w4 else 0},
+                       f"spec serve {serve_cfg.weight_format} ({rounds} rounds, {prefills} prefills)")
+        stages = run["stages"]
+        spec_s = stages["draft"] + stages["verify"] + stages["insert"]
+        slot_rounds = run["spec_proposed"] / k
+        res = {
+            "weight_format": serve_cfg.weight_format,
+            "spec_k": k,
+            "draft_layers": Ld,
+            **run["summary"],
+            "rounds": rounds,
+            "prefills": prefills,
+            "launches": launches,
+            "launches_per_round": {n: c / rounds for n, c in launches.items()},
+            "ms_per_round": spec_s / rounds * 1e3,
+            "acceptance_rate": run["spec_accepted"] / run["spec_proposed"],
+            "tokens_per_round_per_slot": run["new_tokens"] / slot_rounds,
+            "tokens_per_round": run["new_tokens"] / rounds,
+            "stage_s": {s: stages[s] for s in ("prefill", "draft", "verify", "insert")},
+            "prefill_ms_mean": stages["prefill"] / prefills * 1e3,
+            "plain_same_call": {key: plain[key] for key in ("tokens_per_s", "ttft_p50_ms", "ttft_max_ms",
+                                                             "decode_step_ms", "prefill_ms_mean")},
+            # bf16: verify's K/V come from M = S (k + 1) matmuls where the
+            # plain loop's come from M = S, which may round otherwise
+            "agreement_with_plain": agreement([r.tokens for r in run["reqs"]], plain["tokens"]),
+            "kernel_probe_us": engine.kernel_probe(),
+        }
+        log(f"spec serve {serve_cfg.weight_format}: {json.dumps(res)}")
+        if w4:
+            return res
+
+        # teacher-forced: a 5-token tail through verify_forward, kernels
+        # against plain, and each of its rows against decode_forward stepped
+        # one token at a time (comparison launches, not counted above)
+        S, T = serve_cfg.max_batch, serve_cfg.max_context
+        g = torch.Generator(device=dev).manual_seed(6)
+        tail = torch.randint(0, cfg.vocab_size, (S, k + 1), generator=g, device=dev)
+        lens = torch.tensor([0, 5, 63, 300, 700, T - 5, 1100, 2000][:S], dtype=torch.int32, device=dev)
+        res["verify_compare"] = []
+        # tolerances of phase 4: f32 sums in another order over 22 layers;
+        # bf16 roundings at other points (and matmuls at another M)
+        for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 0.25)):
+            ck, cv = engine.cache_k.to(dtype, copy=True), engine.cache_v.to(dtype, copy=True)
+            got, _, _ = verify_forward(engine.params, tail, lens, ck, cv, cfg, compute_dtype=dtype)
+            ref, _, _ = verify_forward(engine.params, tail, lens, ck, cv, cfg, compute_dtype=dtype, kernels=False)
+            steps = []
+            for i in range(k + 1):
+                step, _, _ = decode_forward(engine.params, tail[:, i], lens + i, ck, cv, cfg, compute_dtype=dtype)
+                steps.append(step)
+            stepped = torch.stack(steps, dim=1)
+            del ck, cv
+            if not all(bool(torch.isfinite(o).all()) for o in (got, ref, stepped)):
+                raise AssertionError("non-finite verify logits")
+            e_plain = float((got - ref).abs().max())
+            e_step = float((got - stepped).abs().max())
+            agree = int((got.argmax(-1) == stepped.argmax(-1)).sum())
+            res["verify_compare"].append({"dtype": str(dtype).removeprefix("torch."), "tol": tol,
+                                          "kernels_vs_plain": e_plain, "verify_vs_stepped_decode": e_step,
+                                          "argmax_agree_with_stepped": f"{agree}/{S * (k + 1)}"})
+            log(f"verify_forward {dtype}: kernels vs plain max |d logits| = {e_plain:.3e}, vs stepped "
+                f"decode_forward {e_step:.3e} (tol {tol}), argmax agree {agree}/{S * (k + 1)}")
+            if not (e_plain <= tol and e_step <= tol):
+                raise AssertionError(f"verify logits {dtype}: {e_plain}, {e_step} > {tol}")
+        return res
+    finally:
+        plane.stop()
+
+
+def prefix_prompts(vocab: int, seed: int = 5) -> list:
+    """16 prompts: one 192-token system prompt, then 8-200 tokens each."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, vocab, 192).tolist()
+    return [system + rng.integers(1, vocab, int(n)).tolist() for n in rng.integers(8, 201, N_REQUESTS)]
+
+
+def phase_prefix(torch, tdk, cfg, params, dev) -> dict:
+    """``build_serving`` with ``spec_decode_k`` 4 and ``prefix_cache`` on,
+    then off, on the same 16 prompts sharing a 192-token system prompt,
+    all submitted at once. With it on, at least 7 admits reuse a live
+    slot's prefix, and B7 runs 22 times per hit (the suffix pass) and 66
+    per round. Then a prefix-reused admit's logits against a cold admit's
+    at config_1b in f32."""
+    from opendiloco_torch.config import ServeConfig
+    from opendiloco_torch.serve import ServeEngine, build_serving
+
+    L = cfg.num_hidden_layers
+    prompts = prefix_prompts(cfg.vocab_size)
+    runs = {}
+    for on in (True, False):
+        plane = build_serving(ServeConfig(spec_decode_k=4, prefix_cache=on), cfg, params, device=dev)
+        try:
+            per_round = plane.engine.spec_k * plane.engine.draft_layers + L
+            # warm-up: two prompts that share the system prompt (a suffix pass when on)
+            run = drive(tdk, plane, prompts, [prompts[0][:200], prompts[1][:196]], cfg.vocab_size)
+            hits, rounds = run["prefix_hits"], run["steps"]
+            check_launches(run["launches"], {"spec_tail_attention": L * hits + per_round * rounds},
+                           f"prefix_cache={on} ({hits} hits, {rounds} rounds)")
+            if on and hits < 7:
+                raise AssertionError(f"prefix_cache on: {hits} prefix hits, want at least 7")
+            if not on and hits:
+                raise AssertionError(f"prefix_cache off: {hits} prefix hits")
+            runs[on] = {"prefix_cache": on, **run["summary"], "prefix_hits": hits, "rounds": rounds,
+                        "launches": run["launches"], "prefill_ms_mean": run["stages"]["prefill"] / 16 * 1e3,
+                        "tokens": [r.tokens for r in run["reqs"]]}
+        finally:
+            plane.stop()
+        del plane
+        torch.cuda.empty_cache()
+    res = {
+        "on": runs[True],
+        "off": runs[False],
+        "ttft_p50_on_over_off": runs[True]["ttft_p50_ms"] / runs[False]["ttft_p50_ms"],
+        "agreement_on_vs_off": agreement(runs[True].pop("tokens"), runs[False].pop("tokens")),
+    }
+
+    # a prefix-reused admit against a cold admit of the same prompt, f32
+    eng = ServeEngine(cfg, params, num_slots=2, max_context=1024, prefill_buckets=(64, 256, 1024),
+                      compute_dtype=torch.float32, device=dev)
+    _, cold = eng.admit(1, prompts[1])
+    eng.admit(0, prompts[0])
+    _, warm = eng.admit(1, prompts[1], prefix_src=0, prefix_len=192)
+    err = float(np.abs(warm - cold).max())
+    res["prefix_admit_vs_cold_f32"] = {"max_abs_err": err, "tol": 1e-3, "argmax_equal": int(warm.argmax()) ==
+                                       int(cold.argmax())}
+    del eng
+    torch.cuda.empty_cache()
+    log(f"prefix serve: {json.dumps(res)}")
+    # f32 sums in another order over 22 layers, as phase 4
+    if not err <= 1e-3:
+        raise AssertionError(f"prefix-reused admit logits differ from a cold admit's by {err}")
+    return res
+
+
+def phase_spec_reference(torch, cfg, dev) -> list:
+    """config_2m in f32 through ServeEngine with spec_k 3: the token
+    streams on the card (kernels) equal the plain decode loop's on the
+    card and the spec engine's on the CPU (plain versions)."""
+    from opendiloco_torch.models.llama import shapes
+    from opendiloco_torch.serve import ServeEngine
+
+    rng = np.random.default_rng(7)
+    params = np_params(shapes(cfg), rng)
+    prompt = rng.integers(1, cfg.vocab_size, 11).tolist()
+    n = 40  # past the 32-row ring: the draft and verify masks slide
+
+    def stream(d, spec_k):
+        eng = ServeEngine(cfg, params, num_slots=2, max_context=32, prefill_buckets=(16,),
+                          compute_dtype=torch.float32, device=d, spec_k=spec_k)
+        tok, _ = eng.admit(0, prompt)
+        toks = [tok]
+        while len(toks) < n:
+            lens, cur = np.asarray([len(prompt) + len(toks) - 1, 0], np.int32), np.asarray([toks[-1], 0], np.int32)
+            if spec_k:
+                g, m = eng.spec_step(cur, lens)
+                toks.extend(int(t) for t in g[0, : int(m[0]) + 1])
+            else:
+                toks.append(int(eng.decode_step(cur, lens)[0][0]))
+        return toks[:n]
+
+    streams = {"card spec": stream(dev, 3), "card plain": stream(dev, 0), "cpu spec": stream(torch.device("cpu"), 3)}
+    log(f"reference config_2m spec_k 3, f32: {n} tokens; card spec == card plain == CPU spec: "
+        f"{streams['card spec'] == streams['card plain'] == streams['cpu spec']}")
+    if not streams["card spec"] == streams["card plain"] == streams["cpu spec"]:
+        raise AssertionError(f"config_2m spec streams differ: {streams}")
+    return [{"config": "2m", "spec_k": 3, "tokens": n, "streams_equal": True}]
 
 
 # ---------------------------------------------------------------------------
@@ -1068,7 +1452,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
-    build_s = build.build(["paged_decode_attention", "w4_matmul", "flash_attention", "fused_xent"])
+    build_s = build.build(["paged_decode_attention", "spec_tail_attention", "w4_matmul", "flash_attention",
+                           "fused_xent"])
     log(f"card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"kernel build {build_s:.2f} s | TF32 off for matmuls and cuDNN")
 
@@ -1080,8 +1465,15 @@ def main() -> int:
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     serve = [phase_serve(torch, tdk, cfg, serve_cfg, params, dev)]
     serve.append(phase_serve(torch, tdk, cfg, ServeConfig(weight_format="w4"), params, dev))
+    b7 = phase_b7(torch, tdk, cfg, serve_cfg, dev)
+    spec = [phase_spec(torch, tdk, cfg, ServeConfig(spec_decode_k=SPEC_K, weight_format=s["weight_format"]),
+                       params, dev, s) for s in serve]
+    prefix = phase_prefix(torch, tdk, cfg, params, dev)
     del params
+    for s in serve:
+        s.pop("tokens")
     reference = phase_reference(torch, load_config("2m"), dev)
+    reference += phase_spec_reference(torch, load_config("2m"), dev)
     torch.cuda.empty_cache()
 
     flash = phase_flash(torch, tfa, dev)
@@ -1090,18 +1482,23 @@ def main() -> int:
     xent = phase_xent(torch, tfx, dev)
     train_1b = phase_train(torch, tfa, dev, card, "1b", TRAIN_1B, {"fused": {}, "unfused": dict(fused_loss=False)})
 
-    for k in (b6, b8):
-        k["launches"] = sum(s["launches"][k["name"]] for s in serve)
-        k["launches_by_phase"] = {s["weight_format"]: s["launches"][k["name"]] for s in serve}
-    # launches: this slice's path, the 1b training run; the 150m run's beside
+    # launches: each serving phase's main path, by phase
+    serving = {f"serve {s['weight_format']}": s["launches"] for s in serve}
+    serving.update({f"spec serve {s['weight_format']}": s["launches"] for s in spec})
+    serving.update({f"prefix serve, prefix_cache={on}": prefix[key]["launches"]
+                    for key, on in (("on", True), ("off", False))})
+    for k in (b6, b7, b8):
+        k["launches_by_phase"] = {phase: counts[k["name"]] for phase, counts in serving.items()}
+        k["launches"] = sum(k["launches_by_phase"].values())
+    # launches: the training path, the 1b training run; the 150m run's beside
     for k in (*flash, *xent):
         k["launches"] = train_1b["launches"][k["name"]]
         k["launches_per_inner_step"] = train_1b["launches_per_inner_step"][k["name"]]
         k["launches_by_phase"] = {"train 150m": train_150m["launches"][k["name"]],
                                   "train 1b": train_1b["launches"][k["name"]]}
-    log(json.dumps({"serve": serve, "reference": reference, "train": [train_150m, train_1b],
-                    "seconds": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [b6, b8, *flash, *xent]}))
+    log(json.dumps({"serve": serve, "spec": spec, "prefix": prefix, "reference": reference,
+                    "train": [train_150m, train_1b], "seconds": time.perf_counter() - t_start}))
+    log(json.dumps({"kernels": [b6, b7, b8, *flash, *xent]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,10 +1,10 @@
 """Configuration: the fields of ``opendiloco_tpu.config`` this port reads.
 
-Copies of ``CkptConfig``, ``DilocoConfig``, ``Config`` and the geometry
-part of ``ServeConfig`` (same names, defaults and validation), as
-dataclasses so the port needs no pydantic. Nested sections may be given
-as dicts. Fields for hot swap, speculative decode, prefix reuse, the KV
-tier and the HTTP front end arrive with the slices that use them; options
+Copies of ``CkptConfig``, ``DilocoConfig``, ``Config`` and the geometry,
+speculative-decode and prefix-reuse parts of ``ServeConfig`` (same names,
+defaults and validation), as dataclasses so the port needs no pydantic.
+Nested sections may be given as dicts. Fields for hot swap, the KV tier
+and the HTTP front end arrive with the slices that use them; options
 that ``train()`` reads but the port does not run yet raise there.
 """
 from __future__ import annotations
@@ -35,6 +35,16 @@ class ServeConfig:
     # replica weight residency: "fp32", or "w4" (stacked matmul weights
     # blockwise-4-bit packed at rest; norms/embeddings/lm head stay fp32)
     weight_format: str = "fp32"
+    # self-speculative decode: draft k tokens per slot per round from the
+    # first draft_layers of the same weights, verify at full depth, keep the
+    # longest agreeing greedy prefix (token-exact against the one-token
+    # loop); 0 disables
+    spec_decode_k: int = 0
+    # draft depth; 0 = half the stack (at least 1); must stay < num layers
+    draft_layers: int = 0
+    # shared-prefix KV reuse: copy a live slot's prompt-prefix K/V into a
+    # joining slot and prefill only the suffix
+    prefix_cache: bool = False
 
     def __post_init__(self):
         if isinstance(self.prefill_buckets, str):
@@ -57,6 +67,15 @@ class ServeConfig:
             raise ValueError(
                 "largest prefill bucket exceeds serve.max_context "
                 "(a prompt must fit its slot's KV page)"
+            )
+        if self.spec_decode_k < 0:
+            raise ValueError("serve.spec_decode_k must be >= 0")
+        if self.draft_layers < 0:
+            raise ValueError("serve.draft_layers must be >= 0")
+        if self.spec_decode_k + 1 > self.max_context:
+            raise ValueError(
+                "serve.spec_decode_k + 1 exceeds serve.max_context "
+                "(a speculative tail must fit the ring)"
             )
 
 

@@ -17,7 +17,9 @@ checkpoints each layer under ``remat=True`` (``torch.utils.checkpoint``,
 non-reentrant: the backward reruns the layer's forward, kernels included).
 
 For serving, ``kernels=True`` routes decode attention through the hand-written
-paged-decode-attention kernel and every packed (``w4``) weight matmul
+paged-decode-attention kernel, the tail attention of the speculative
+draft and verify passes and of the continued prefill through the
+spec-tail-attention kernel, and every packed (``w4``) weight matmul
 through the fused dequant-matmul kernel; on the CPU those wrappers take
 their plain versions. ``kernels=False`` is the plain path, the JAX
 package's ``decode_kernel="xla"``.
@@ -33,8 +35,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from opendiloco_torch.device import resolve_device
-from opendiloco_torch.ops.attention import decode_attention, xla_attention
-from opendiloco_torch.ops.decode_kernels import paged_decode_attention, w4_matmul
+from opendiloco_torch.ops.attention import decode_attention, spec_tail_attention, xla_attention
+from opendiloco_torch.ops.decode_kernels import (
+    paged_decode_attention,
+    spec_tail_attention_fused,
+    w4_matmul,
+)
 from opendiloco_torch.ops.flash_attention import flash_attention
 from opendiloco_torch.quant import dequant_w4
 
@@ -420,6 +426,25 @@ def _ffn(x: torch.Tensor, layer: dict, cd: torch.dtype, kernels: bool) -> torch.
     return _wmul(gate * _wmul(x, layer["up_proj"], cd, kernels), layer["down_proj"], cd, kernels)
 
 
+def _serve_layer(h, layer, cfg: LlamaConfig, cos, sin, cd: torch.dtype, kernels: bool, attend):
+    """One decoder layer of the serving forwards over h [B, T, D]: the q,
+    k, v projections and rope, ``attend(q, k, v)`` -> [B, T, H, Dh] (which
+    may write the ring first), the o projection and the FFN, each with its
+    residual. Returns (h, k, v)."""
+    B, T = h.shape[:2]
+    Nh, Nkv, Dh = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+    x = _rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
+    q = _wmul(x, layer["q_proj"], cd, kernels).reshape(B, T, Nh, Dh)
+    k = _wmul(x, layer["k_proj"], cd, kernels).reshape(B, T, Nkv, Dh)
+    v = _wmul(x, layer["v_proj"], cd, kernels).reshape(B, T, Nkv, Dh)
+    q = _rope_apply(q, cos, sin)
+    k = _rope_apply(k, cos, sin)
+    attn = attend(q, k, v)
+    h = h + _wmul(attn.reshape(B, T, Nh * Dh), layer["o_proj"], cd, kernels)
+    x = _rms_norm(h, layer["post_attn_norm"], cfg.rms_norm_eps)
+    return h + _ffn(x, layer, cd, kernels), k, v
+
+
 @torch.no_grad()
 def prefill_forward(
     params: dict,
@@ -440,25 +465,15 @@ def prefill_forward(
     ``len`` becomes visible."""
     _require_dense(cfg, "prefill_forward")
     B, P = input_ids.shape
-    Nh, Nkv, Dh = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
     cd = compute_dtype
     cparams = _cast_serving_params(params, cd)
     positions = torch.arange(P, device=input_ids.device).expand(B, P)
-    cos, sin = _rope_tables(positions, Dh, cfg.rope_theta)
+    cos, sin = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     h = cparams["embed_tokens"][input_ids]
     ks, vs = [], []
     for i in range(cfg.num_hidden_layers):
-        layer = _layer(cparams["layers"], i)
-        x = _rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
-        q = _wmul(x, layer["q_proj"], cd, kernels).reshape(B, P, Nh, Dh)
-        k = _wmul(x, layer["k_proj"], cd, kernels).reshape(B, P, Nkv, Dh)
-        v = _wmul(x, layer["v_proj"], cd, kernels).reshape(B, P, Nkv, Dh)
-        q = _rope_apply(q, cos, sin)
-        k = _rope_apply(k, cos, sin)
-        attn = xla_attention(q, k, v, causal=True)
-        h = h + _wmul(attn.reshape(B, P, Nh * Dh), layer["o_proj"], cd, kernels)
-        x = _rms_norm(h, layer["post_attn_norm"], cfg.rms_norm_eps)
-        h = h + _ffn(x, layer, cd, kernels)
+        h, k, v = _serve_layer(h, _layer(cparams["layers"], i), cfg, cos, sin, cd, kernels,
+                               lambda q, k, v: xla_attention(q, k, v, causal=True))
         ks.append(k[0])
         vs.append(v[0])
     h_last = _rms_norm(h[:, length - 1 : length], cparams["final_norm"], cfg.rms_norm_eps)
@@ -509,34 +524,196 @@ def decode_forward(
     the JAX package donates the caches, the port writes them in place."""
     _require_dense(cfg, "decode_forward")
     S = tokens.shape[0]
-    L, _, T, Nkv, Dh = cache_k.shape
-    Nh = cfg.num_attention_heads
+    L, _, T = cache_k.shape[:3]
     cd = compute_dtype
     cparams = _cast_serving_params(params, cd)
     lens = lens.to(torch.int32)
-    cos, sin = _rope_tables(lens[:, None], Dh, cfg.rope_theta)
+    cos, sin = _rope_tables(lens[:, None], cfg.head_dim, cfg.rope_theta)
     rows = torch.arange(S, device=tokens.device)
     write_idx = torch.remainder(lens, T).long()
-    h = cparams["embed_tokens"][tokens][:, None]  # [S, 1, D]
-    for i in range(L):
-        layer = _layer(cparams["layers"], i)
-        ck, cv = cache_k[i], cache_v[i]  # views [S, T, Nkv, Dh]
-        x = _rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
-        q = _wmul(x, layer["q_proj"], cd, kernels).reshape(S, 1, Nh, Dh)
-        k = _wmul(x, layer["k_proj"], cd, kernels).reshape(S, 1, Nkv, Dh)
-        v = _wmul(x, layer["v_proj"], cd, kernels).reshape(S, 1, Nkv, Dh)
-        q = _rope_apply(q, cos, sin)
-        k = _rope_apply(k, cos, sin)
+
+    def attend(q, k, v, ck, cv):  # ck/cv: one layer's ring views [S, T, Nkv, Dh]
         # in place: the JAX package's donated ck.at[rows, write_idx].set(k)
         ck[rows, write_idx] = k[:, 0].to(ck.dtype)
         cv[rows, write_idx] = v[:, 0].to(cv.dtype)
         if kernels:
-            attn = paged_decode_attention(q[:, 0].contiguous(), ck, cv, lens)
-        else:
-            attn = decode_attention(q[:, 0], ck, cv, lens)
-        h = h + _wmul(attn.reshape(S, 1, Nh * Dh), layer["o_proj"], cd, kernels)
-        x = _rms_norm(h, layer["post_attn_norm"], cfg.rms_norm_eps)
-        h = h + _ffn(x, layer, cd, kernels)
+            return paged_decode_attention(q[:, 0].contiguous(), ck, cv, lens)
+        return decode_attention(q[:, 0], ck, cv, lens)
+
+    h = cparams["embed_tokens"][tokens][:, None]  # [S, 1, D]
+    for i in range(L):
+        h, _, _ = _serve_layer(h, _layer(cparams["layers"], i), cfg, cos, sin, cd, kernels,
+                               lambda q, k, v, i=i: attend(q, k, v, cache_k[i], cache_v[i]))
     h = _rms_norm(h, cparams["final_norm"], cfg.rms_norm_eps)
     logits = (h @ _head(cparams, cfg)).float()
     return logits[:, 0], cache_k, cache_v
+
+
+def _tail_attention(q, ck, cv, tk, tv, lens, q_start: int, kernels: bool) -> torch.Tensor:
+    if kernels:
+        return spec_tail_attention_fused(
+            q.contiguous(), ck, cv, tk.contiguous(), tv.contiguous(), lens, q_start=q_start
+        )
+    return spec_tail_attention(q, ck, cv, tk, tv, lens, q_start=q_start)
+
+
+@torch.no_grad()
+def verify_forward(
+    params: dict,
+    tail: torch.Tensor,
+    lens: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    cfg: LlamaConfig,
+    *,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    kernels: bool = True,
+):
+    """Batched multi-token verify pass of self-speculative decode.
+
+    tail [S, K] int are K unverified tokens per slot (the current token,
+    then the draft's proposals) at absolute positions ``lens + i``;
+    cache_{k,v} [L, S, T, Nkv, Dh] hold the ring as of before the tail and
+    are only read. Returns (logits [S, K, V] f32, tail_ks, tail_vs [L, S,
+    K, Nkv, Dh]): one full-depth logit row per tail position, and the
+    tail's K/V, kept out of the ring so that rejected tokens need no
+    rollback (:func:`spec_cache_insert` writes the accepted rows).
+
+    Also the continued prefill of shared-prefix reuse (S = 1, tail = the
+    suffix, lens = the reused prefix length)."""
+    _require_dense(cfg, "verify_forward")
+    K = tail.shape[1]
+    cd = compute_dtype
+    cparams = _cast_serving_params(params, cd)
+    lens = lens.to(device=tail.device, dtype=torch.int32)
+    positions = lens[:, None] + torch.arange(K, dtype=torch.int32, device=tail.device)[None]
+    cos, sin = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    h = cparams["embed_tokens"][tail.long()]  # [S, K, D]
+    tail_ks, tail_vs = [], []
+    for i in range(cache_k.shape[0]):
+        h, k, v = _serve_layer(
+            h, _layer(cparams["layers"], i), cfg, cos, sin, cd, kernels,
+            lambda q, k, v, i=i: _tail_attention(q, cache_k[i], cache_v[i], k, v, lens, 0, kernels),
+        )
+        tail_ks.append(k)
+        tail_vs.append(v)
+    h = _rms_norm(h, cparams["final_norm"], cfg.rms_norm_eps)
+    logits = (h @ _head(cparams, cfg)).float()
+    return logits, torch.stack(tail_ks), torch.stack(tail_vs)
+
+
+@torch.no_grad()
+def draft_propose(
+    params: dict,
+    tokens: torch.Tensor,
+    lens: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    cfg: LlamaConfig,
+    *,
+    k_steps: int,
+    draft_layers: int,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    kernels: bool = True,
+) -> torch.Tensor:
+    """Self-speculative draft: ``k_steps`` greedy tokens per slot from the
+    first ``draft_layers`` layers of the same weights (final norm and lm
+    head shared with the full stack). Returns proposals [S, k_steps] int32.
+
+    The truncated stack's K/V for the proposed tail lives in its own
+    [Ld, S, k_steps, Nkv, Dh] buffer, never in the ring: the draft dirties
+    nothing, and exactness is the verify pass's job. Where the JAX package
+    threads that buffer through its scan, the port writes row i in place."""
+    _require_dense(cfg, "draft_propose")
+    S = tokens.shape[0]
+    L, _, _, Nkv, Dh = cache_k.shape
+    Ld = int(draft_layers)
+    if not 1 <= Ld <= L:
+        raise ValueError(f"draft_layers {Ld} outside [1, {L}]")
+    cd = compute_dtype
+    cparams = _cast_serving_params(params, cd)
+    head = _head(cparams, cfg)
+    lens = lens.to(device=tokens.device, dtype=torch.int32)
+    tkb = torch.zeros((Ld, S, k_steps, Nkv, Dh), dtype=cd, device=tokens.device)
+    tvb = torch.zeros_like(tkb)
+
+    def attend(q, k, v, li, i):
+        tkb[li, :, i] = k[:, 0]
+        tvb[li, :, i] = v[:, 0]
+        return _tail_attention(q, cache_k[li], cache_v[li], tkb[li], tvb[li], lens, i, kernels)
+
+    cur = tokens.long()
+    proposals = []
+    for i in range(k_steps):
+        cos, sin = _rope_tables((lens + i)[:, None], Dh, cfg.rope_theta)
+        h = cparams["embed_tokens"][cur][:, None]  # [S, 1, D]
+        for li in range(Ld):
+            h, _, _ = _serve_layer(h, _layer(cparams["layers"], li), cfg, cos, sin, cd, kernels,
+                                   lambda q, k, v, li=li, i=i: attend(q, k, v, li, i))
+        h = _rms_norm(h, cparams["final_norm"], cfg.rms_norm_eps)
+        logits = (h @ head).float()
+        cur = logits[:, 0].argmax(dim=-1)
+        proposals.append(cur)
+    return torch.stack(proposals, dim=1).to(torch.int32)
+
+
+@torch.no_grad()
+def spec_cache_insert(
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    tail_ks: torch.Tensor,
+    tail_vs: torch.Tensor,
+    lens: torch.Tensor,
+    accept: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Insert each slot's accepted tail prefix into the ring: tail rows
+    i <= accept[s] land at ring index ``(lens[s] + i) % T``. Rejected rows
+    are not written, which leaves the cache the JAX function leaves (it
+    writes their current value back). In place; returns the caches.
+    Requires K <= T so that a tail never collides with itself."""
+    L, S, T, Nkv, Dh = cache_k.shape
+    K = tail_ks.shape[2]
+    if K > T:
+        raise ValueError(f"tail width {K} exceeds ring context {T}")
+    dev = cache_k.device
+    lens = lens.to(device=dev, dtype=torch.int64)
+    accept = accept.to(device=dev, dtype=torch.int64)
+    i = torch.arange(K, device=dev)[None]
+    slot, row = (i <= accept[:, None]).nonzero(as_tuple=True)
+    pos = torch.remainder(lens[slot] + row, T)
+    cache_k[:, slot, pos] = tail_ks[:, slot, row].to(cache_k.dtype)
+    cache_v[:, slot, pos] = tail_vs[:, slot, row].to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+@torch.no_grad()
+def prefix_copy(
+    cache_k: torch.Tensor, cache_v: torch.Tensor, src: int, dst: int, plen: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Copy the first ``plen`` ring rows of slot ``src`` into slot ``dst``
+    (shared-prefix reuse). Rows >= plen keep dst's previous bytes, stale
+    and masked as in any slot reuse. In place; returns the caches."""
+    cache_k[:, dst, :plen] = cache_k[:, src, :plen]
+    cache_v[:, dst, :plen] = cache_v[:, src, :plen]
+    return cache_k, cache_v
+
+
+@torch.no_grad()
+def suffix_insert(
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    ks: torch.Tensor,
+    vs: torch.Tensor,
+    slot: int,
+    start: int,
+    count: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write a continued prefill's suffix K/V [L, P', Nkv, Dh] into
+    ``slot`` at rows [start, start + count), the positioned counterpart of
+    :func:`cache_insert` (a prompt fits its page, so no ring wrap; rows
+    past the page and padding rows past ``count`` are dropped). In place;
+    returns the caches."""
+    n = max(0, min(count, cache_k.shape[2] - start, ks.shape[1]))
+    cache_k[:, slot, start : start + n] = ks[:, :n].to(cache_k.dtype)
+    cache_v[:, slot, start : start + n] = vs[:, :n].to(cache_v.dtype)
+    return cache_k, cache_v

@@ -2,8 +2,8 @@
 
 ``build_serving(serve_cfg, model_cfg, params)`` returns a started
 :class:`ServingPlane`: a :class:`ServeEngine` (bucketed prefill, paged
-decode through the hand-written kernels) driven by a
-:class:`ContinuousBatcher` thread. This slice serves static weights with
+decode, speculative decode and prefix reuse through the hand-written
+kernels) driven by a :class:`ContinuousBatcher` thread. This slice serves static weights with
 no socket front end; hot swap from a DiLoCo optimizer and the HTTP
 server arrive with later slices.
 """
@@ -69,6 +69,10 @@ def build_serving(
         compute_dtype=compute_dtype,
         weight_format=serve_cfg.weight_format,
         device=device,
+        spec_k=serve_cfg.spec_decode_k,
+        draft_layers=serve_cfg.draft_layers,
     )
-    batcher = ContinuousBatcher(engine, max_queue=serve_cfg.max_queue).start()
+    batcher = ContinuousBatcher(
+        engine, max_queue=serve_cfg.max_queue, prefix_cache=serve_cfg.prefix_cache
+    ).start()
     return ServingPlane(engine=engine, batcher=batcher)

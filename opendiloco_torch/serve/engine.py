@@ -1,26 +1,33 @@
-"""Serving engine: bucketed prefill and batched incremental decode over a
-slot-paged ring KV cache, on the card.
+"""Serving engine: bucketed prefill, batched incremental decode,
+self-speculative decode and shared-prefix reuse over a slot-paged ring KV
+cache, on the card.
 
 The PyTorch counterpart of ``opendiloco_tpu/serve/engine.py``
-``ServeEngine`` for the cold path: ``admit`` prefills a prompt into a
-free slot, ``decode_step`` takes one greedy token for every slot. Both
-are called from one scheduler thread; the engine is not thread-safe,
-which lets it update the cache in place (where the JAX engine donates
-the cache buffers to its jits).
+``ServeEngine``: ``admit`` prefills a prompt into a free slot (cold, or
+continuing from a live slot's prefix), ``decode_step`` takes one greedy
+token for every slot, and ``spec_step`` (``spec_k > 0``) drafts k tokens
+per slot from the first ``draft_layers`` layers of the same weights and
+verifies them in one full-depth pass, keeping the longest agreeing
+prefix plus the corrected token (Leviathan et al., arXiv 2211.17192,
+greedy case): token for token what the one-token loop emits. All are
+called from one scheduler thread; the engine is not thread-safe, which
+lets it update the cache in place (where the JAX engine donates the
+cache buffers to its jits).
 
 ``weight_format="w4"`` keeps the stacked decoder matmul weights packed
 blockwise-4-bit at rest (:mod:`opendiloco_torch.quant`); every matmul on
 them goes through the fused dequant-matmul kernel. Decode attention goes
-through the paged-decode-attention kernel. On the CPU both take their
-plain versions.
+through the paged-decode-attention kernel, and the attention of the
+draft, verify and continued-prefill passes through the spec-tail-attention
+kernel. On the CPU each takes its plain version.
 
-Speculative decode, prefix reuse, the KV tier and weight hot swap are
-later slices of the port: their arguments raise ``NotImplementedError``.
+The KV tier and weight hot swap are later slices of the port: their
+arguments raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,11 +39,21 @@ from opendiloco_torch.models.llama import (
     PackedW4,
     cache_insert,
     decode_forward,
+    draft_propose,
     init_kv_cache,
     prefill_forward,
+    prefix_copy,
+    spec_cache_insert,
+    suffix_insert,
+    verify_forward,
+)
+from opendiloco_torch.ops.decode_kernels import (
+    paged_decode_attention,
+    spec_tail_attention_fused,
+    w4_matmul,
 )
 from opendiloco_torch.quant import pack_blockwise4_stacked
-from opendiloco_torch.serve.kvcache import pick_bucket
+from opendiloco_torch.serve.kvcache import accept_counts, pick_bucket
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -65,9 +82,9 @@ class ServeEngine:
         max_stale_rounds: int = 0,
     ):
         """``device`` defaults to the card (and raises without one);
-        ``compute_dtype`` defaults to bf16 on the card, f32 on the CPU."""
-        if spec_k or draft_layers:
-            raise not_ported("speculative decode", "speculative decode and prefix reuse")
+        ``compute_dtype`` defaults to bf16 on the card, f32 on the CPU.
+        ``spec_k > 0`` turns on speculative decode with a draft of
+        ``draft_layers`` layers (0: half the stack, at least 1)."""
         if snapshot_fn is not None or epoch_fn is not None or max_stale_rounds:
             raise not_ported("weight hot swap", "hot swap and install_wire")
         if weight_format not in WEIGHT_FORMATS:
@@ -81,11 +98,31 @@ class ServeEngine:
         self.max_context = int(max_context)
         self.prefill_buckets = sorted(min(int(b), self.max_context) for b in prefill_buckets)
         self.weight_format = weight_format
+        self.spec_k = int(spec_k)
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        self.draft_layers = 0
+        if self.spec_k:
+            L = cfg.num_hidden_layers
+            ld = int(draft_layers) or max(1, L // 2)
+            if not 1 <= ld < L:
+                raise ValueError(f"draft_layers {ld} outside [1, {L}) for spec decode")
+            if self.spec_k + 1 > self.max_context:
+                raise ValueError(
+                    f"spec_k {self.spec_k} + 1 exceeds max_context {self.max_context}"
+                )
+            self.draft_layers = ld
+        # widest unverified tail a slot may carry: the current token and k
+        # drafts. The scheduler keeps that much ring headroom for prefix reuse
+        self.tail_width = self.spec_k + 1
+        # host hook (tests swap in adversarial proposers): (tokens [S],
+        # lens [S]) -> proposals [S, spec_k] on the host
+        self.propose_fn: Callable[[np.ndarray, np.ndarray], np.ndarray] = self._propose_draft
         self.params = self._assemble(params)
         self.weights_epoch = int(epoch)
         self.swap_count = 0
         # wall seconds per stage, each ending in a device sync
-        self.stage_seconds = {"prefill": 0.0, "decode": 0.0}
+        self.stage_seconds = {k: 0.0 for k in ("prefill", "draft", "verify", "insert", "decode")}
         cache = init_kv_cache(
             cfg, self.num_slots, self.max_context, self.compute_dtype, self.device
         )
@@ -122,7 +159,49 @@ class ServeEngine:
         raise not_ported("install_wire", "hot swap and install_wire")
 
     def kernel_probe(self, iters: int = 3) -> dict:
-        raise not_ported("kernel_probe", "hot swap and install_wire")
+        """Time the decode-path kernels alone on the engine's live shapes:
+        B6 (one query per slot) and B7 (a ``tail_width`` tail per slot)
+        over layer 0's ring pages with half the ring live, and under
+        ``w4`` B8 on the first packed weight at M = num_slots. Returns the
+        best of ``iters`` host-clock microseconds per call, each ending in
+        a device sync, as ``decode_attn_us``, ``verify_attn_us`` and
+        ``w4_matmul_us``. On the CPU the wrappers take their plain
+        versions, so the numbers time those."""
+        cfg, cd, dev = self.cfg, self.compute_dtype, self.device
+        S, T = self.num_slots, self.max_context
+        Nh, Nkv, Dh = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+        g = torch.Generator(device=dev).manual_seed(0)
+        ck, cv = self.cache_k[0], self.cache_v[0]
+        lens = torch.full((S,), T // 2, dtype=torch.int32, device=dev)
+        kq = self.tail_width
+        q1 = torch.randn(S, Nh, Dh, generator=g, device=dev).to(cd)
+        qt = torch.randn(S, kq, Nh, Dh, generator=g, device=dev).to(cd)
+        tk = torch.randn(S, kq, Nkv, Dh, generator=g, device=dev).to(cd)
+
+        def best_us(fn, *args) -> float:
+            fn(*args)  # builds and loads the kernel outside the timing
+            best = float("inf")
+            for _ in range(max(1, int(iters))):
+                self._sync()
+                t0 = time.perf_counter()
+                fn(*args)
+                self._sync()
+                best = min(best, time.perf_counter() - t0)
+            return best * 1e6
+
+        out = {
+            "decode_attn_us": best_us(paged_decode_attention, q1, ck, cv, lens),
+            "verify_attn_us": best_us(spec_tail_attention_fused, qt, ck, cv, tk, tk, lens),
+        }
+        packed = next((w for w in self.params["layers"].values() if isinstance(w, PackedW4)), None)
+        if packed is not None:
+            x = torch.randn(S, packed.shape[0], generator=g, device=dev).to(cd)
+            out["w4_matmul_us"] = best_us(w4_matmul, x, packed.q[0], packed.s[0], packed.shape, cd)
+        return out
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -- admission ---------------------------------------------------------
 
@@ -138,11 +217,17 @@ class ServeEngine:
         prefix_len: int = 0,
         host_prefix: Optional[tuple] = None,
     ) -> tuple[int, np.ndarray]:
-        """Prefill ``prompt`` into ``slot`` (cold: the whole prompt, padded
-        to its bucket) and return (first greedy token, last-position
-        logits [V] f32 on the host)."""
-        if prefix_src is not None or prefix_len or host_prefix is not None:
-            raise not_ported("prefix reuse", "speculative decode and prefix reuse")
+        """Prefill ``prompt`` into ``slot`` and return (first greedy token,
+        last-position logits [V] f32 on the host). The prompt must fit a
+        prefill bucket.
+
+        With ``prefix_src``/``prefix_len`` (0 < prefix_len < len(prompt))
+        the first ``prefix_len`` tokens are not recomputed: their K/V rows
+        are copied from the live source slot (what a cold prefill writes
+        there: causal attention makes prefix K/V independent of anything
+        after it) and only the suffix runs through the model."""
+        if host_prefix is not None:
+            raise not_ported("the host prefix store", "KV tier")
         n = len(prompt)
         bucket = pick_bucket(n, self.prefill_buckets)
         if bucket is None:
@@ -150,15 +235,38 @@ class ServeEngine:
                 f"prompt length {n} exceeds max bucket {self.prefill_buckets[-1]}"
             )
         t0 = time.perf_counter()
-        ids = torch.zeros((1, bucket), dtype=torch.int64)
-        ids[0, :n] = torch.as_tensor(np.asarray(prompt, np.int64))
-        logits, ks, vs = prefill_forward(
-            self.params, ids.to(self.device), n, self.cfg,
-            compute_dtype=self.compute_dtype,
-        )
-        cache_insert(self.cache_k, self.cache_v, ks, vs, slot)
-        row = logits[0].cpu().numpy()  # waits for the device
+        if prefix_src is not None and 0 < prefix_len < n:
+            prefix_copy(self.cache_k, self.cache_v, prefix_src, slot, prefix_len)
+            tok, row = self._run_suffix(slot, prompt, prefix_len)
+        else:
+            ids = torch.zeros((1, bucket), dtype=torch.int64)
+            ids[0, :n] = torch.as_tensor(np.asarray(prompt, np.int64))
+            logits, ks, vs = prefill_forward(
+                self.params, ids.to(self.device), n, self.cfg,
+                compute_dtype=self.compute_dtype,
+            )
+            cache_insert(self.cache_k, self.cache_v, ks, vs, slot)
+            row = logits[0].cpu().numpy()  # waits for the device
+            tok = int(row.argmax())
         self.stage_seconds["prefill"] += time.perf_counter() - t0
+        return tok, row
+
+    def _run_suffix(self, slot: int, prompt: Sequence[int], plen: int) -> tuple[int, np.ndarray]:
+        """Continued prefill of ``slot``, whose ring already holds the
+        first ``plen`` rows: the verify pass over the slot's own page with
+        S = 1 and the suffix, padded to its bucket, as the tail."""
+        suffix = np.asarray(prompt[plen:], np.int64)
+        ns = int(suffix.size)
+        tail = torch.zeros((1, pick_bucket(ns, self.prefill_buckets)), dtype=torch.int64)
+        tail[0, :ns] = torch.as_tensor(suffix)
+        lens = torch.tensor([plen], dtype=torch.int32, device=self.device)
+        page = slice(slot, slot + 1)
+        logits, tks, tvs = verify_forward(
+            self.params, tail.to(self.device), lens, self.cache_k[:, page], self.cache_v[:, page],
+            self.cfg, compute_dtype=self.compute_dtype,
+        )
+        suffix_insert(self.cache_k, self.cache_v, tks[:, 0], tvs[:, 0], slot, plen, ns)
+        row = logits[0, ns - 1].cpu().numpy()  # waits for the device
         return int(row.argmax()), row
 
     # -- decode ------------------------------------------------------------
@@ -180,3 +288,44 @@ class ServeEngine:
         nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()  # waits
         self.stage_seconds["decode"] += time.perf_counter() - t0
         return nxt, logits
+
+    def _propose_draft(self, tokens: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        props = draft_propose(
+            self.params,
+            torch.as_tensor(np.asarray(tokens, np.int64)).to(self.device),
+            torch.as_tensor(np.asarray(lens, np.int32)).to(self.device),
+            self.cache_k, self.cache_v, self.cfg,
+            k_steps=self.spec_k, draft_layers=self.draft_layers,
+            compute_dtype=self.compute_dtype,
+        )
+        return props.cpu().numpy()  # waits for the device
+
+    def spec_step(self, tokens: np.ndarray, lens: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """One self-speculative round over all S slots: draft k proposals,
+        verify the [current, d_1..d_k] tail at full depth, keep the
+        longest agreeing prefix. Returns (g [S, k+1] int32, m [S] int32):
+        slot s emits ``g[s, :m[s]+1]``, its next m[s]+1 greedy tokens,
+        token-identical to m[s]+1 plain decode steps, and its ring now
+        holds tail rows 0..m[s] (rejected proposals were never inserted:
+        that is the rollback)."""
+        if not self.spec_k:
+            raise RuntimeError("spec_step requires spec_k > 0")
+        t0 = time.perf_counter()
+        props = np.asarray(self.propose_fn(tokens, lens), np.int32)  # [S, k]
+        t1 = time.perf_counter()
+        tail = np.concatenate([np.asarray(tokens, np.int64)[:, None], props], axis=1)
+        ln = torch.as_tensor(np.asarray(lens, np.int32)).to(self.device)
+        logits, tks, tvs = verify_forward(
+            self.params, torch.as_tensor(tail).to(self.device), ln, self.cache_k, self.cache_v,
+            self.cfg, compute_dtype=self.compute_dtype,
+        )
+        g = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()  # [S, k+1]; waits
+        t2 = time.perf_counter()
+        m = accept_counts(props, g)
+        spec_cache_insert(self.cache_k, self.cache_v, tks, tvs, ln, torch.as_tensor(m))
+        self._sync()
+        t3 = time.perf_counter()
+        self.stage_seconds["draft"] += t1 - t0
+        self.stage_seconds["verify"] += t2 - t1
+        self.stage_seconds["insert"] += t3 - t2
+        return g, m

@@ -2,12 +2,15 @@
 
 The device tensors live in ``models.llama.init_kv_cache`` ([L, S, T, Nkv,
 Dh]: one fixed ring page per batch slot); this module tracks which slots
-are free and which prefill bucket a prompt pads to. A copy of the same
-pieces of ``opendiloco_tpu/serve/kvcache.py``.
+are free, which prefill bucket a prompt pads to, how many speculative
+proposals a verify pass accepts and how long a prompt prefix two requests
+share. A copy of the same pieces of ``opendiloco_tpu/serve/kvcache.py``.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
+
+import numpy as np
 
 
 class SlotAllocator:
@@ -50,3 +53,36 @@ def pick_bucket(n: int, buckets: Sequence[int]) -> Optional[int]:
         if n <= b:
             return b
     return None
+
+
+def accept_counts(draft: np.ndarray, verified: np.ndarray) -> np.ndarray:
+    """Speculative accept/reject bookkeeping (host side, exact).
+
+    draft [S, k] are the proposed tokens; verified [S, k+1] are the
+    full-depth greedy tokens, where verified[:, j] is the model's true
+    next token after tail position j. Proposal j is accepted iff every
+    proposal before it was and ``draft[:, j] == verified[:, j]``: the
+    longest agreeing prefix. Returns m [S] int32 in [0, k]: the slot
+    emits ``verified[:, :m+1]`` (m accepted drafts plus the corrected or
+    bonus token), and the ring keeps exactly tail rows 0..m. Rejected
+    tokens are never inserted, which is the rollback."""
+    draft = np.asarray(draft)
+    verified = np.asarray(verified)
+    S, k = draft.shape
+    if verified.shape != (S, k + 1):
+        raise ValueError(f"verified shape {verified.shape} != {(S, k + 1)}")
+    agree = draft == verified[:, :k]
+    # index of the first disagreement == count of accepted proposals
+    return np.where(
+        agree.all(axis=1), np.int32(k), np.argmin(agree, axis=1).astype(np.int32)
+    )
+
+
+def common_prefix_len(a: Sequence[int], b: Sequence[int]) -> int:
+    """Length of the shared leading run of two prompts (prefix-cache
+    detection)."""
+    n = min(len(a), len(b))
+    for i in range(n):
+        if a[i] != b[i]:
+            return i
+    return n

@@ -1,14 +1,17 @@
 """Continuous-batching scheduler: request queue and the decode loop.
 
 The counterpart of ``opendiloco_tpu/serve/scheduler.py``
-``ContinuousBatcher`` without its tier, prefix-reuse and speculative
-branches. One daemon thread owns the engine and runs the cycle: retire
-finished sequences (their slots free at once), admit queued prompts into
-free slots (a cold prefill joins them to the batch), and take one decode
-step for every live slot. Any thread may :meth:`ContinuousBatcher.submit`;
-each request signals completion through its own event. Nothing is dropped:
-a request completes, is rejected at submit, or is failed explicitly when
-the loop dies or the batcher stops.
+``ContinuousBatcher`` without its KV tier. One daemon thread owns the
+engine and runs the cycle: retire finished sequences (their slots free at
+once), admit queued prompts into free slots (a prefill joins them to the
+batch; with ``prefix_cache`` a prompt that shares at least
+``MIN_PREFIX_TOKENS`` leading tokens with a live slot reuses that slot's
+prefix K/V), and take one decode step, or one speculative round when the
+engine has ``spec_k > 0``, for every live slot. Any thread may
+:meth:`ContinuousBatcher.submit`; each request signals completion
+through its own event. Nothing is dropped: a request completes, is
+rejected at submit, or is failed explicitly when the loop dies or the
+batcher stops.
 """
 from __future__ import annotations
 
@@ -22,7 +25,11 @@ from typing import Optional, Sequence
 import numpy as np
 
 from opendiloco_torch.serve.engine import ServeEngine, not_ported
-from opendiloco_torch.serve.kvcache import SlotAllocator
+from opendiloco_torch.serve.kvcache import SlotAllocator, common_prefix_len
+
+# a reused prefix must be worth the copy: below this many shared tokens the
+# batcher prefills cold (the suffix pass would cover about the whole prompt)
+MIN_PREFIX_TOKENS = 4
 
 
 @dataclasses.dataclass
@@ -82,12 +89,12 @@ class ContinuousBatcher:
         prefix_cache: bool = False,
         kv_tier=None,
     ):
-        if prefix_cache:
-            raise not_ported("prefix reuse", "speculative decode and prefix reuse")
         if kv_tier is not None:
             raise not_ported("the KV tier", "KV tier")
         self.engine = engine
         self.max_queue = int(max_queue)
+        self.prefix_cache = bool(prefix_cache)
+        self.spec_decode = engine.spec_k > 0
         self.slots = SlotAllocator(engine.num_slots)
         self._active: dict[int, _Slot] = {}  # slot id -> state
         self._queue: collections.deque[Request] = collections.deque()
@@ -106,6 +113,11 @@ class ContinuousBatcher:
         self._latencies: collections.deque = collections.deque(maxlen=4096)
         self._ttfts: collections.deque = collections.deque(maxlen=4096)
         self.loop_error: Optional[str] = None
+        # speculative-decode and prefix-reuse accounting (loop thread only)
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.prefix_hits = 0
+        self.prefix_tokens_saved = 0
 
     # -- client API --------------------------------------------------------
 
@@ -278,8 +290,32 @@ class ContinuousBatcher:
             admitted = True
         return admitted
 
+    def _find_prefix(self, prompt: list) -> tuple[Optional[int], int]:
+        """Longest usable shared prompt prefix among the live slots. A
+        source qualifies while its ring has not wrapped (rows < plen still
+        hold the prefix K/V); ``tail_width`` of headroom keeps the next
+        speculative tail from wrapping before the copy lands. The reused
+        length stops one short of the prompt, so that the suffix pass has
+        at least the last token to run (its logits seed decode)."""
+        best_src, best = None, 0
+        for slot, st in self._active.items():
+            if st.cache_len + self.engine.tail_width > self.engine.max_context:
+                continue
+            p = min(common_prefix_len(prompt, st.req.prompt), len(prompt) - 1)
+            if p > best:
+                best_src, best = slot, p
+        if best >= MIN_PREFIX_TOKENS:
+            return best_src, best
+        return None, 0
+
     def _admit_into(self, slot: int, req: Request) -> None:
-        tok, _ = self.engine.admit(slot, req.prompt)
+        src, plen = self._find_prefix(req.prompt) if self.prefix_cache else (None, 0)
+        if src is not None:
+            tok, _ = self.engine.admit(slot, req.prompt, prefix_src=src, prefix_len=plen)
+            self.prefix_hits += 1
+            self.prefix_tokens_saved += plen
+        else:
+            tok, _ = self.engine.admit(slot, req.prompt)
         req.t_first = time.perf_counter()
         req.tokens.append(tok)
         st = _Slot(req=req, cache_len=len(req.prompt), last_token=tok)
@@ -289,16 +325,24 @@ class ContinuousBatcher:
         else:
             self._active[slot] = st
 
-    def _decode(self) -> bool:
-        if not self._active:
-            return False
+    def _step_inputs(self) -> tuple[np.ndarray, np.ndarray]:
+        """Dense [S] current tokens and cache lengths; free slots pass 0s
+        (their ring writes land in masked rows that the next tenant
+        overwrites)."""
         S = self.engine.num_slots
         tokens = np.zeros((S,), np.int32)
         lens = np.zeros((S,), np.int32)
         for slot, st in self._active.items():
             tokens[slot] = st.last_token
             lens[slot] = st.cache_len
-        next_tokens, _ = self.engine.decode_step(tokens, lens)
+        return tokens, lens
+
+    def _decode(self) -> bool:
+        if not self._active:
+            return False
+        if self.spec_decode:
+            return self._decode_spec()
+        next_tokens, _ = self.engine.decode_step(*self._step_inputs())
         # counted before any request of this step finishes, so a client
         # that wakes on completion reads consistent stats
         self.decode_steps += 1
@@ -311,6 +355,30 @@ class ContinuousBatcher:
             self.total_new_tokens += 1
             if self._finished(st):
                 done_slots.append(slot)
+        for slot in done_slots:
+            self.slots.free(slot)
+            self._retire(self._active.pop(slot))
+        return True
+
+    def _decode_spec(self) -> bool:
+        """One speculative round: every live slot takes its accepted
+        proposals and the corrected token, 1..k+1 tokens, exactly what as
+        many plain decode steps would have given (``ServeEngine.spec_step``).
+        A round counts as one decode step."""
+        g, m = self.engine.spec_step(*self._step_inputs())
+        self.decode_steps += 1  # before any request finishes: see _decode
+        self.spec_proposed += self.engine.spec_k * len(self._active)
+        self.spec_accepted += sum(int(m[slot]) for slot in self._active)
+        done_slots = []
+        for slot, st in self._active.items():
+            for tok in g[slot, : int(m[slot]) + 1].tolist():
+                st.req.tokens.append(int(tok))
+                st.cache_len += 1
+                st.last_token = int(tok)
+                self.total_new_tokens += 1
+                if self._finished(st):
+                    done_slots.append(slot)
+                    break
         for slot in done_slots:
             self.slots.free(slot)
             self._retire(self._active.pop(slot))
@@ -355,5 +423,13 @@ class ContinuousBatcher:
             "latency_s": list(self._latencies),
             "ttft_s": list(self._ttfts),
             "stages_s": dict(self.engine.stage_seconds),
+            "spec": {
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "acceptance_rate": (
+                    self.spec_accepted / self.spec_proposed if self.spec_proposed else None
+                ),
+            },
+            "prefix": {"hits": self.prefix_hits, "tokens_saved": self.prefix_tokens_saved},
             "loop_error": self.loop_error,
         }

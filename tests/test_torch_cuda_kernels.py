@@ -490,3 +490,107 @@ def test_fused_xent_rejects(cuda, bad):
         with pytest.raises(ValueError):
             tfx.fused_xent_dw(h, dlog)
     assert tdk.LAUNCHES == n0
+
+
+# ---------------------------------------------------------------------------
+# B7: speculative tail attention
+# ---------------------------------------------------------------------------
+
+# (S, T, Kh, rep, D, Kq, Kt, q_start, lens): the config_1b verify, draft and
+# suffix shapes, and small odd ones. lens takes in an empty slot, a tile
+# edge, the last rows, exactly T and a wrapped ring (2T + 1)
+SPEC_GEOMS = [
+    (8, 1024, 4, 8, 64, 5, 5, 0, [0, 5, 64, 700, 1022, 1024, 2049, 1500]),  # verify
+    *((8, 1024, 4, 8, 64, 1, 4, i, [0, 5, 64, 700, 1022, 1024, 2049, 1500]) for i in range(4)),  # draft
+    (1, 1024, 4, 8, 64, 256, 256, 0, [192]),  # suffix behind a 192-row prefix
+    (1, 1024, 4, 8, 64, 1000, 1000, 0, [192]),  # an odd suffix bucket
+    (3, 40, 1, 1, 8, 3, 6, 2, [39, 1, 85]),  # D 8, rep 1, a ragged ring tile
+    (2, 96, 2, 3, 128, 7, 7, 0, [95, 200]),  # D 128, odd rep
+    (2, 70, 4, 2, 40, 65, 65, 0, [0, 69]),  # D 40, a tail of two tiles
+]
+
+
+def _spec_inputs(dev, S, T, Kh, rep, D, Kq, Kt, dtype, lens, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + S * T + D + Kq)
+    q = torch.randn(S, Kq, Kh * rep, D, generator=g, device=dev).to(dtype)
+    ck = torch.randn(S, T, Kh, D, generator=g, device=dev).to(dtype)
+    cv = torch.randn(S, T, Kh, D, generator=g, device=dev).to(dtype)
+    tk = torch.randn(S, Kt, Kh, D, generator=g, device=dev).to(dtype)
+    tv = torch.randn(S, Kt, Kh, D, generator=g, device=dev).to(dtype)
+    return q, ck, cv, tk, tv, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def _spec_tol(ref, dtype):
+    """Per (slot, query token): f32 1e-5 of the largest output (at least
+    1e-5), only the order of f32 sums differs; bf16 2**-6 of the largest
+    output, as B6: p rounds to bf16 at each tile's running max in the
+    kernel and at the global max in the plain version, and both outputs
+    round to bf16."""
+    top = ref.float().abs().amax(dim=(2, 3))
+    return 1e-5 * top.clamp(min=1.0) if dtype == torch.float32 else 2.0**-6 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", SPEC_GEOMS, ids=lambda g: "x".join(map(str, g[:8])))
+def test_spec_tail_attention_matches_plain(cuda, geom, dtype):
+    S, T, Kh, rep, D, Kq, Kt, q_start, lens = geom
+    args = _spec_inputs(cuda, S, T, Kh, rep, D, Kq, Kt, dtype, lens)
+    n0 = tdk.LAUNCHES["spec_tail_attention"]
+    out = tdk.spec_tail_attention_fused(*args, q_start=q_start)
+    torch.cuda.synchronize()
+    assert tdk.LAUNCHES["spec_tail_attention"] == n0 + 1
+    assert out.dtype == dtype and out.shape == args[0].shape
+    ref = tdk.spec_tail_attention_plain(*args, q_start=q_start)
+    err = (out.float() - ref.float()).abs().amax(dim=(2, 3))
+    tol = _spec_tol(ref, dtype)
+    print(f"B7 {geom[:8]} {dtype}: max err/tol {float((err / tol).max()):.3f}")
+    assert bool((err <= tol).all()), f"per (slot, token) error {err.tolist()} over {tol.tolist()}"
+
+
+@pytest.mark.cuda
+def test_spec_tail_attention_repeats_bitwise_and_reads_no_dead_rows(cuda):
+    S, T, Kh, rep, D, K = 2, 256, 2, 4, 64, 5
+    q, ck, cv, tk, tv, lens = _spec_inputs(cuda, S, T, Kh, rep, D, K, K, torch.bfloat16, [70, 130])
+    clean = tuple(t.clone() for t in (ck, cv))
+    # ring rows past the live length hold NaN: a kernel that read them
+    # would return NaN, since 0 * NaN is NaN
+    for t in (ck, cv):
+        t[0, 70:] = float("nan")
+        t[1, 130:] = float("nan")
+    a = tdk.spec_tail_attention_fused(q, ck, cv, tk, tv, lens)
+    b = tdk.spec_tail_attention_fused(q, ck, cv, tk, tv, lens)
+    torch.cuda.synchronize()
+    assert torch.isfinite(a.float()).all()
+    assert torch.equal(a, b)  # no atomics: the same bits every launch
+    ref = tdk.spec_tail_attention_plain(q, *clean, tk, tv, lens)
+    assert bool(((a.float() - ref.float()).abs().amax(dim=(2, 3)) <= _spec_tol(ref, torch.bfloat16)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "bad",
+    [
+        dict(D=12),  # not a multiple of 8
+        dict(D=136),  # above 128
+        dict(H=6),  # 6 query heads over 4 kv heads
+        dict(dtype=torch.float16),
+        dict(strided=True),  # a non-contiguous tail
+        dict(lens_dtype=torch.int64),
+        dict(cpu_lens=True),  # tensors on two devices
+        dict(q_start=-1),
+    ],
+)
+def test_spec_tail_attention_rejects(cuda, bad):
+    D, H, dtype = bad.get("D", 64), bad.get("H", 8), bad.get("dtype", torch.float32)
+    q = torch.zeros(2, 3, H, D, device=cuda, dtype=dtype)
+    ck = torch.zeros(2, 16, 4, D, device=cuda, dtype=dtype)
+    tk = torch.zeros(2, 3, 4, D, device=cuda, dtype=dtype)
+    if bad.get("strided"):
+        tk = torch.zeros(3, 2, 4, D, device=cuda, dtype=dtype).transpose(0, 1)
+    lens = torch.zeros(2, dtype=bad.get("lens_dtype", torch.int32),
+                       device="cpu" if bad.get("cpu_lens") else cuda)
+    n0 = tdk.LAUNCHES["spec_tail_attention"]
+    with pytest.raises(ValueError):
+        tdk.spec_tail_attention_fused(q, ck, ck, tk, tk, lens, q_start=bad.get("q_start", 0))
+    assert tdk.LAUNCHES["spec_tail_attention"] == n0

@@ -269,25 +269,33 @@ def test_entry_points_raise_without_a_card(cfg, monkeypatch):
         tllama.init_params(torch.Generator(), cfg, device="cuda")
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [dict(spec_k=2), dict(draft_layers=1), dict(snapshot_fn=lambda: None), dict(max_stale_rounds=1)],
-)
+@pytest.mark.parametrize("kwargs", [dict(snapshot_fn=lambda: None), dict(max_stale_rounds=1)])
 def test_later_slices_raise_not_implemented(cfg, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_engine(cfg, _np_params(cfg), **kwargs)
 
 
+@pytest.mark.parametrize(
+    "kwargs",
+    [dict(spec_k=-1), dict(spec_k=2, draft_layers=2), dict(spec_k=24)],
+    ids=["negative spec_k", "draft_layers = L", "spec_k + 1 > max_context"],
+)
+def test_engine_spec_validation_like_jax(tiny_cfg, cfg, kwargs):
+    params = _np_params(cfg)
+    with pytest.raises(ValueError):
+        _jax_engine(tiny_cfg, params, "xla", **kwargs)
+    with pytest.raises(ValueError):
+        _port_engine(cfg, params, **kwargs)
+
+
 def test_later_slice_paths_raise_not_implemented(cfg):
     engine = _port_engine(cfg, _np_params(cfg))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.admit(0, [1, 2, 3], prefix_src=1, prefix_len=2)
+        engine.admit(0, [1, 2, 3], host_prefix=(None, None, 2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.install_wire(1, [], "fp16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.kernel_probe()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(engine, prefix_cache=True)
+        ContinuousBatcher(engine, kv_tier=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_serving(ServeConfig(), cfg, {}, diloco_opt=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
