@@ -12,7 +12,7 @@ non-zero and prints no result. Every phase runs unguarded: any failure
 exits non-zero.
 
 1. Card line: ``nvidia-smi`` name and power limit, torch and CUDA
-   versions, and the seconds the nvcc build of the five kernel sources
+   versions, and the seconds the nvcc build of the six kernel sources
    took (one nvcc per source, started together). TF32 is off for matmuls
    and cuDNN, so every f32 product is full f32.
 2. B6, paged decode attention, against its plain version at the
@@ -37,19 +37,29 @@ exits non-zero.
 7. B1, B2a and B2b (flash attention forward, dq, dk/dv) against their
    plain versions at the 150m training shape (mb 8, T 1024, 16 x 64
    heads), the config_1b head geometry (32 over 4 heads), an odd T
-   (1000) and full attention, in f32 and bf16; device times of kernel,
-   plain version, SDPA forward (B1's library yardstick) and SDPA's
-   backward through autograd (B2a's and B2b's: one call computes dq, dk
-   and dv; forward + backward less forward), and the bounds.
+   (1000), full attention, D 32 and 128 at T 200, T 64 with rep 8, and
+   D 40, in f32 and bf16. The backward takes the sm90 kernels (wgmma,
+   TMA) for bf16 at D 32/64/128 and the first design's otherwise; the
+   first design is also checked in bf16 at the 150m shape. Device times
+   in bf16 at the 1b head geometry and the 150m shape of B1, both
+   backward routes, the plain versions, SDPA forward (B1's library
+   yardstick), SDPA's backward through autograd (B2a's and B2b's: one
+   call computes dq, dk and dv, its preprocess included; forward +
+   backward less forward; GQA through ``enable_gqa``) and
+   ``attention_delta``; the first design's f32 backward at 150m; the
+   bounds.
 8. Training: two DiLoCo workers, one thread each, run ``train()`` at
    config_150m full width and depth (mb 8, accum 2, seq 1024, bf16,
    remat, fake "ramp" data, 8 steps, local_steps 4: 2 outer rounds). The
    launch counters are zeroed just before and read just after: B1 must
-   have run 2 x 12 x accum times per inner step and worker, B2a and B2b
-   12 x accum, the fused cross-entropy kernels never (150m resolves
-   ``fused_loss=False``). Every loss finite, the last below the first,
+   have run 2 x 12 x accum times per inner step and worker, the sm90 B2a
+   and B2b 12 x accum, the first design's backward and the fused
+   cross-entropy kernels never (150m resolves ``fused_loss=False``). Every loss finite, the last below the first,
    both masters bit-identical after each round. Then one inner step,
    kernel path against plain path, and one worker's inner-step time alone.
+   Then one inner step in f32 (``precision="fp32"``), whose backward takes
+   the first design's B2a and B2b (12 x accum each, the sm90 kernels
+   never), against the same step through plain attention.
 9. B3, the dlog kernel, B4a and B4b (fused lm-head + cross-entropy)
    against their plain versions at the 1b training shape (N 8184, D 2048,
    V 32000), the 150m width (D 1024) and an odd N and V (1000), about a
@@ -60,7 +70,7 @@ exits non-zero.
 10. Training at config_1b, full width and depth, as phase 8 (4 steps,
    local_steps 2: 2 outer rounds), with ``fused_loss`` left at its
    default, which resolves on. Per inner step and worker B1 must have run
-   2 x 22 x accum times, B2a and B2b 22 x accum, B3 accum, and the dlog,
+   2 x 22 x accum times, the sm90 B2a and B2b 22 x accum, B3 accum, and the dlog,
    B4a and B4b kernels accum x 4 (a backward walks 8184 rows in chunks of
    2048). Then one inner step with the fused loss against one with
    ``fused_loss=False`` on the same params and batch.
@@ -90,8 +100,12 @@ exits non-zero.
 14. config_2m in f32 through ``ServeEngine`` with ``spec_k`` 3, past its
    32-row ring: the token stream on the card equals the plain decode
    loop's on the card and the spec engine's on the CPU.
-15. The kernels line (launches of B6, B7 and B8 by serving phase), the
-   card line, and last the result line.
+15. Phase 12's plain and spec loops at config_1b in f32 compute on 4 of
+   its 16 requests (after phase 13): the spec streams must equal the
+   plain loop's token for token.
+16. The kernels line (launches of B6, B7 and B8 by serving phase, of the
+   training kernels by training phase), the card line, and last the
+   result line.
 
 Device times come from CUDA-graph replays of many launches that cycle
 through enough copies of the inputs to exceed the 50 MB L2 cache, as the
@@ -409,7 +423,7 @@ def drive(tdk, plane, prompts, warm, vocab: int) -> dict:
         "launches": launches,
         "steps": st["decode_steps"] - base["decode_steps"],
         "prefills": st["completed"] - base["completed"],
-        "new_tokens": st["total_new_tokens"] - base["total_new_tokens"],
+        "new_tokens": st["new_tokens"] - base["new_tokens"],
         "spec_proposed": st["spec"]["proposed"] - base["spec"]["proposed"],
         "spec_accepted": st["spec"]["accepted"] - base["spec"]["accepted"],
         "prefix_hits": st["prefix"]["hits"] - base["prefix"]["hits"],
@@ -794,6 +808,37 @@ def phase_prefix(torch, tdk, cfg, params, dev) -> dict:
     return res
 
 
+def phase_spec_f32(torch, cfg, params, dev) -> dict:
+    """Phase 12's plain and spec loops at config_1b with f32 compute, on 4
+    of its 16 requests (one in four, over all three buckets): the spec
+    streams must equal the plain loop's token for token. In bf16 they
+    agree on few requests; in f32 the verify pass at M = S (k + 1) and the
+    decode step at M = S differ only by f32 rounding."""
+    from opendiloco_torch.config import ServeConfig
+    from opendiloco_torch.serve import build_serving
+
+    prompts = prompts_over_buckets(ServeConfig(), cfg.vocab_size)[::4]
+    streams = {}
+    for k in (0, SPEC_K):
+        plane = build_serving(ServeConfig(spec_decode_k=k), cfg, params, compute_dtype=torch.float32, device=dev)
+        try:
+            reqs = [plane.batcher.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+            for r in reqs:
+                if not r.wait(1200) or r.error is not None:
+                    raise AssertionError(f"f32 serving request failed: {r.error}")
+            streams[k] = [r.tokens for r in reqs]
+        finally:
+            plane.stop()
+        del plane
+        torch.cuda.empty_cache()
+    res = {"requests": len(prompts), "new_tokens": NEW_TOKENS, "spec_k": SPEC_K,
+           "agreement": agreement(streams[SPEC_K], streams[0])}
+    log(f"spec vs plain, f32 compute, config_1b: {json.dumps(res)}")
+    if streams[SPEC_K] != streams[0]:
+        raise AssertionError(f"f32 spec streams differ from the plain loop's: {res['agreement']}")
+    return res
+
+
 def phase_spec_reference(torch, cfg, dev) -> list:
     """config_2m in f32 through ServeEngine with spec_k 3: the token
     streams on the card (kernels) equal the plain decode loop's on the
@@ -884,12 +929,39 @@ def phase_reference(torch, cfg, dev) -> list:
 # phase 7: B1, B2a, B2b flash attention
 # ---------------------------------------------------------------------------
 
-FLASH_NAMES = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+FLASH_NAMES = ("flash_attention_fwd", "flash_attention_dq_sm90", "flash_attention_dkv_sm90",
+               "flash_attention_dq", "flash_attention_dkv")
+FLASH_SOURCES = {
+    "flash_attention_fwd": "opendiloco_torch/csrc/flash_attention.cu",
+    "flash_attention_dq_sm90": "opendiloco_torch/csrc/flash_attention_bwd_sm90.cu",
+    "flash_attention_dkv_sm90": "opendiloco_torch/csrc/flash_attention_bwd_sm90.cu",
+    "flash_attention_dq": "opendiloco_torch/csrc/flash_attention.cu",
+    "flash_attention_dkv": "opendiloco_torch/csrc/flash_attention.cu",
+}
 FLASH_REPLACES = {
     "flash_attention_fwd": "opendiloco_tpu/ops/flash_attention.py:136 (_fwd, _fwd_kernel :53)",
     "flash_attention_dq": "opendiloco_tpu/ops/flash_attention.py:320 (_bwd_impl, _dq_kernel :175)",
     "flash_attention_dkv": "opendiloco_tpu/ops/flash_attention.py:363 (_bwd_impl, _dkv_kernel :223)",
 }
+FLASH_REPLACES["flash_attention_dq_sm90"] = FLASH_REPLACES["flash_attention_dq"]
+FLASH_REPLACES["flash_attention_dkv_sm90"] = FLASH_REPLACES["flash_attention_dkv"]
+# (label, B, T, H, Hkv, D, causal) of the checks, each in f32 and bf16;
+# bf16 at D 32, 64 and 128 takes the sm90 backward, the rest the first design
+FLASH_GEOMS = [
+    ("150m", 8, 1024, 16, 16, 64, True),
+    ("1b heads", 2, 1024, 32, 4, 64, True),
+    ("odd T", 2, 1000, 16, 16, 64, True),
+    ("150m full", 2, 1024, 16, 16, 64, False),
+    ("D 32, T 200", 2, 200, 8, 8, 32, True),
+    ("D 128, T 200, full", 2, 200, 8, 2, 128, False),
+    ("T 64, rep 8", 2, 64, 8, 1, 64, True),
+    ("D 40", 2, 300, 8, 2, 40, True),
+]
+# timed in bf16: the 1b head geometry (what phase 10's main path gives the
+# kernels) and the 150m training shape
+FLASH_TIMED = {"1b heads": (8, 1024, 32, 4, 64), "150m": (8, 1024, 16, 16, 64)}
+FLASH_TOL = "f32 1e-5 of the largest output; bf16 2**-6 of each (batch, head)'s largest output"
+F32_FLOP_PER_S = 67e12  # the first design's f32 kernels use the FMA units
 
 
 def flash_inputs(torch, dev, B, T, H, Hkv, D, dtype, seed):
@@ -905,132 +977,193 @@ def flash_work(B, T, H, Hkv, D, elt, causal) -> dict:
     pairs = T * (T + 1) // 2 if causal else T * T
     qb, kvb, stat = B * T * H * D * elt, B * T * Hkv * D * elt, B * H * T * 4
     mm = 2.0 * B * H * D * pairs  # one [T x T] x [T x D] product over the pairs
-    return {
-        "flash_attention_fwd": (qb + 2 * kvb + qb + stat, 2 * mm),
-        "flash_attention_dq": (2 * qb + 2 * kvb + 2 * stat + qb, 3 * mm),
-        "flash_attention_dkv": (2 * qb + 2 * kvb + 2 * stat + 2 * kvb, 4 * mm),
-    }
+    dq = (2 * qb + 2 * kvb + 2 * stat + qb, 3 * mm)
+    dkv = (2 * qb + 2 * kvb + 2 * stat + 2 * kvb, 4 * mm)
+    return {"flash_attention_fwd": (qb + 2 * kvb + qb + stat, 2 * mm),
+            "flash_attention_dq": dq, "flash_attention_dq_sm90": dq,
+            "flash_attention_dkv": dkv, "flash_attention_dkv_sm90": dkv}
+
+
+def flash_check(torch, checks, label, geom, dtype, got, refs) -> None:
+    """Hold each output against its plain version; record under the kernel
+    that computed it."""
+    B, T, H, Hkv, D, causal = geom
+    for key, (kernel, out) in got.items():
+        ref = refs[key].float()
+        err = (out.float() - ref).abs().amax(dim=(1, 3))  # per (batch, head)
+        if dtype == torch.float32:
+            # only the order of f32 sums differs
+            tol = torch.full_like(err, 1e-5 * max(1.0, float(ref.abs().max())))
+        else:
+            # p and ds round to bf16 at points that differ by f32 rounding
+            # (p at each tile's running max in B1) and the outputs round to
+            # bf16: 2**-6 of each head's largest
+            tol = 2.0**-6 * ref.abs().amax(dim=(1, 3))
+        worst = float((err / tol).max())
+        checks[kernel].append({"shape": label, "B": B, "T": T, "H": H, "Hkv": Hkv, "D": D, "causal": causal,
+                               "dtype": str(dtype).removeprefix("torch."), "output": key,
+                               "max_abs_err": float(err.max()), "worst_err_over_tol": worst})
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"{kernel} {key} {label} {dtype}: error/tol {worst}")
 
 
 def phase_flash(torch, tfa, dev) -> list:
     """B1, B2a and B2b against their plain versions (the same lse and
-    delta feed both backward paths), then device times at the training
-    shape (mb 8, T 1024, 16 x 64 heads, causal, bf16)."""
+    delta feed both backward paths) on both backward routes, then device
+    times in bf16 at the 1b head geometry and the 150m training shape, and
+    of the first design's f32 backward at the 150m shape (its main path)."""
     import torch.nn.functional as F
 
-    geoms = [  # name, B, T, H, Hkv, D, causal
-        ("150m", 8, 1024, 16, 16, 64, True),
-        ("1b heads", 2, 1024, 32, 4, 64, True),
-        ("odd T", 2, 1000, 16, 16, 64, True),
-        ("150m full", 2, 1024, 16, 16, 64, False),
-    ]
     checks = {name: [] for name in FLASH_NAMES}
-    for gi, (label, B, T, H, Hkv, D, causal) in enumerate(geoms):
+    for gi, (label, *geom) in enumerate(FLASH_GEOMS):
+        B, T, H, Hkv, D, causal = geom
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = flash_inputs(torch, dev, B, T, H, Hkv, D, dtype, 10 + gi)
             ref_out, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
             delta = tfa.attention_delta(do, ref_out)
             out, lse = tfa.flash_attention_fwd(q, k, v, causal)
-            dq = tfa.flash_attention_dq(q, k, v, do, ref_lse, delta, causal)
-            dk, dv = tfa.flash_attention_dkv(q, k, v, do, ref_lse, delta, causal)
-            torch.cuda.synchronize()
+            routes = [tfa._bwd_route(dtype, D)]
+            if label == "150m" and routes[0] != tfa.SOURCE:
+                routes.append(tfa.SOURCE)  # the first design in bf16: the same-call yardstick
             refs = {"out": ref_out, "dq": tfa.flash_attention_dq_plain(q, k, v, do, ref_lse, delta, causal)}
             refs["dk"], refs["dv"] = tfa.flash_attention_dkv_plain(q, k, v, do, ref_lse, delta, causal)
-            got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+            got = {"out": ("flash_attention_fwd", out)}
+            for route in routes:
+                sfx = "" if route == tfa.SOURCE else "_sm90"
+                got["dq"] = ("flash_attention_dq" + sfx, tfa._dq_kernel(q, k, v, do, ref_lse, delta, causal, None,
+                                                                        route=route))
+                dk, dv = tfa._dkv_kernel(q, k, v, do, ref_lse, delta, causal, None, route=route)
+                got["dk"], got["dv"] = ("flash_attention_dkv" + sfx, dk), ("flash_attention_dkv" + sfx, dv)
+                torch.cuda.synchronize()
+                flash_check(torch, checks, label, geom, dtype, got, refs)
+                got = {}
             lse_err = float((lse - ref_lse).abs().max())
             if not lse_err <= 1e-4 * max(1.0, float(ref_lse.abs().max())):
                 raise AssertionError(f"B1 lse {label} {dtype}: {lse_err}")
-            for key, kernel in (("out", "flash_attention_fwd"), ("dq", "flash_attention_dq"),
-                                ("dk", "flash_attention_dkv"), ("dv", "flash_attention_dkv")):
-                ref = refs[key].float()
-                err = (got[key].float() - ref).abs().amax(dim=(1, 3))  # per (batch, head)
-                if dtype == torch.float32:
-                    # only the order of f32 sums differs
-                    tol = torch.full_like(err, 1e-5 * max(1.0, float(ref.abs().max())))
-                else:
-                    # p and ds round to bf16 at points that differ by f32
-                    # rounding (p at each tile's running max in B1) and the
-                    # outputs round to bf16: 2**-6 of each head's largest
-                    tol = 2.0**-6 * ref.abs().amax(dim=(1, 3))
-                worst = float((err / tol).max())
-                checks[kernel].append({"shape": label, "B": B, "T": T, "H": H, "Hkv": Hkv, "D": D,
-                                       "causal": causal, "dtype": str(dtype).removeprefix("torch."),
-                                       "output": key, "max_abs_err": float(err.max()),
-                                       "worst_err_over_tol": worst})
-                if not bool((err <= tol).all()):
-                    raise AssertionError(f"{kernel} {key} {label} {dtype}: error/tol {worst}")
-            del q, k, v, do, out, lse, dq, dk, dv, refs, got, ref_out, ref_lse, delta
+            del q, k, v, do, out, lse, dk, dv, refs, got, ref_out, ref_lse, delta
         log(f"B1/B2a/B2b {label} (B{B} T{T} H{H}/{Hkv} D{D} causal={causal}): f32 and bf16 within tolerance")
     torch.cuda.empty_cache()
 
-    # times in the training dtype at the training shape, inputs cycled past L2
-    B, T, H, Hkv, D, causal = 8, 1024, 16, 16, 64, True
-    dtype = torch.bfloat16
-    work = flash_work(B, T, H, Hkv, D, 2, causal)
-    sets = []
-    for i in range(copies_for(int(work["flash_attention_fwd"][0]))):
-        q, k, v, do = flash_inputs(torch, dev, B, T, H, Hkv, D, dtype, 100 + i)
-        out, lse = tfa.flash_attention_fwd(q, k, v, causal)
-        sets.append((q, k, v, do, lse, tfa.attention_delta(do, out)))
-    fwd = lambda q, k, v, do, lse, dl: tfa.flash_attention_fwd(q, k, v, causal)
-    dqf = lambda q, k, v, do, lse, dl: tfa.flash_attention_dq(q, k, v, do, lse, dl, causal)
-    dkvf = lambda q, k, v, do, lse, dl: tfa.flash_attention_dkv(q, k, v, do, lse, dl, causal)
-    fwd_p = lambda q, k, v, do, lse, dl: tfa.flash_attention_fwd_plain(q, k, v, causal)
-    dq_p = lambda q, k, v, do, lse, dl: tfa.flash_attention_dq_plain(q, k, v, do, lse, dl, causal)
-    dkv_p = lambda q, k, v, do, lse, dl: tfa.flash_attention_dkv_plain(q, k, v, do, lse, dl, causal)
-    times = {}
-    for name, kern, plain in (("flash_attention_fwd", fwd, fwd_p), ("flash_attention_dq", dqf, dq_p),
-                              ("flash_attention_dkv", dkvf, dkv_p)):
-        times[name] = (device_ms(torch, kern, sets, launches=32),
-                       device_ms(torch, plain, sets, launches=2, replays=3))
-        torch.cuda.empty_cache()
-
-    # library yardstick, timed here only: SDPA forward, and its backward
-    # through autograd (one call computes dq, dk and dv; it stands in both
-    # backward rows), taken as (forward + backward) - forward, both from
-    # graph replays
     def sdpa(q, k, v):
+        # GQA through enable_gqa: k and v keep their Hkv heads
         return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                              is_causal=causal)
+                                              is_causal=True, enable_gqa=q.shape[2] != k.shape[2])
 
     def sdpa_fwd_bwd(q, k, v, do):
         return torch.autograd.grad(sdpa(q, k, v), (q, k, v), do.transpose(1, 2))
 
-    sdpa_fwd_ms = device_ms(torch, lambda q, k, v, do, lse, dl: sdpa(q, k, v), sets, launches=32)
-    leaves = [[t.detach().clone().requires_grad_(True) for t in st[:3]] + [st[3]] for st in sets]
-    sdpa_bwd_ms = device_ms(torch, sdpa_fwd_bwd, leaves, launches=16) - sdpa_fwd_ms
-    del leaves, sets
+    def calls(route):
+        dq = lambda q, k, v, do, lse, dl: tfa._dq_kernel(q, k, v, do, lse, dl, True, None, route=route)
+        dkv = lambda q, k, v, do, lse, dl: tfa._dkv_kernel(q, k, v, do, lse, dl, True, None, route=route)
+        return dq, dkv
+
+    plain = {
+        "flash_attention_fwd": lambda q, k, v, do, lse, dl: tfa.flash_attention_fwd_plain(q, k, v, True),
+        "dq": lambda q, k, v, do, lse, dl: tfa.flash_attention_dq_plain(q, k, v, do, lse, dl, True),
+        "dkv": lambda q, k, v, do, lse, dl: tfa.flash_attention_dkv_plain(q, k, v, do, lse, dl, True),
+    }
+
+    def input_sets(B, T, H, Hkv, D, dtype, work):
+        sets, outs = [], []
+        for i in range(copies_for(int(work["flash_attention_fwd"][0]))):
+            q, k, v, do = flash_inputs(torch, dev, B, T, H, Hkv, D, dtype, 100 + i)
+            out, lse = tfa.flash_attention_fwd(q, k, v, True)
+            sets.append((q, k, v, do, lse, tfa.attention_delta(do, out)))
+            outs.append((do, out))
+        return sets, outs
+
+    timed = {}  # geometry -> kernel -> numbers
+    for geo, (B, T, H, Hkv, D) in FLASH_TIMED.items():
+        work = flash_work(B, T, H, Hkv, D, 2, True)
+        sets, outs = input_sets(B, T, H, Hkv, D, torch.bfloat16, work)
+        new_dq, new_dkv = calls(tfa.SM90_SOURCE)
+        old_dq, old_dkv = calls(tfa.SOURCE)
+        fns = {"flash_attention_fwd": (lambda q, k, v, do, lse, dl: tfa.flash_attention_fwd(q, k, v, True),
+                                       plain["flash_attention_fwd"]),
+               "flash_attention_dq_sm90": (new_dq, plain["dq"]), "flash_attention_dkv_sm90": (new_dkv, plain["dkv"]),
+               "flash_attention_dq": (old_dq, plain["dq"]), "flash_attention_dkv": (old_dkv, plain["dkv"])}
+        rows = {}
+        for name, (kern, pl) in fns.items():
+            b_ms, b_by = bound_ms(*work[name])
+            rows[name] = {"ms": device_ms(torch, kern, sets, launches=32), "bound_ms": b_ms, "bound_by": b_by}
+            # the plain versions repeat the kernels' arithmetic; old and new
+            # backward share one plain version, timed once
+            if not name.endswith("_sm90"):
+                rows[name]["plain_ms"] = device_ms(torch, pl, sets, launches=2, replays=3)
+            torch.cuda.empty_cache()
+        for name in ("flash_attention_dq_sm90", "flash_attention_dkv_sm90"):
+            rows[name]["plain_ms"] = rows[name.removesuffix("_sm90")]["plain_ms"]
+        # library yardstick, timed here only: SDPA forward, and its backward
+        # through autograd (dq, dk and dv in one call, its own preprocess
+        # included), taken as (forward + backward) - forward
+        sdpa_fwd_ms = device_ms(torch, lambda q, k, v, do, lse, dl: sdpa(q, k, v), sets, launches=32)
+        leaves = [[t.detach().clone().requires_grad_(True) for t in st[:3]] + [st[3]] for st in sets]
+        sdpa_bwd_ms = device_ms(torch, sdpa_fwd_bwd, leaves, launches=16) - sdpa_fwd_ms
+        delta_ms = device_ms(torch, tfa.attention_delta, outs, launches=32)
+        for name, row in rows.items():
+            row["library_ms"] = sdpa_fwd_ms if name.endswith("fwd") else sdpa_bwd_ms
+        timed[geo] = {"shape": {"B": B, "T": T, "H": H, "Hkv": Hkv, "D": D, "causal": True, "dtype": "bfloat16"},
+                      "kernels": rows, "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
+                      "attention_delta_ms": delta_ms,
+                      "b2_new_plus_delta_ms": rows["flash_attention_dq_sm90"]["ms"]
+                      + rows["flash_attention_dkv_sm90"]["ms"] + delta_ms,
+                      "b2_old_plus_delta_ms": rows["flash_attention_dq"]["ms"] + rows["flash_attention_dkv"]["ms"]
+                      + delta_ms}
+        log(f"flash {geo} bf16 B{B} T{T} H{H}/{Hkv} D{D} causal: " + ", ".join(
+            f"{n} {r['ms']:.4f} ms (bound {r['bound_ms']:.5f})" for n, r in rows.items())
+            + f"; sdpa fwd {sdpa_fwd_ms:.4f}, bwd {sdpa_bwd_ms:.4f}; attention_delta {delta_ms:.4f} ms")
+        del sets, outs, leaves
+        torch.cuda.empty_cache()
+
+    # the first design's f32 backward at the 150m shape: its main path
+    # (phase 8's f32 inner step) runs it in f32, on the FMA units
+    B, T, H, Hkv, D = FLASH_TIMED["150m"]
+    work = flash_work(B, T, H, Hkv, D, 4, True)
+    sets, outs = input_sets(B, T, H, Hkv, D, torch.float32, work)
+    old_dq, old_dkv = calls(tfa.SOURCE)
+    f32 = {}
+    for name, kern in (("flash_attention_dq", old_dq), ("flash_attention_dkv", old_dkv)):
+        nbytes, flops = work[name]
+        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+        f32[name] = {"ms": device_ms(torch, kern, sets, launches=8),
+                     "bound_ms": max(tb, tf), "bound_by": "bytes" if tb >= tf else "operations"}
+    del sets, outs
     torch.cuda.empty_cache()
 
     rows = []
+    main = timed["1b heads"]
     for name in FLASH_NAMES:
-        nbytes, flops = work[name]
-        b_ms, b_by = bound_ms(nbytes, flops)
-        kernel_ms, plain_ms = times[name]
         worst = max(checks[name], key=lambda c: c["worst_err_over_tol"])
-        log(f"{name} bf16 B{B} T{T} H{H} D{D} causal: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {'fwd' if name.endswith('fwd') else 'bwd'} "
-            f"{sdpa_fwd_ms if name.endswith('fwd') else sdpa_bwd_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        k = main["kernels"][name]
         rows.append({
             "name": name,
             "route": "cuda",
-            "source": "opendiloco_torch/csrc/flash_attention.cu",
+            "source": FLASH_SOURCES[name],
             "replaces": FLASH_REPLACES[name],
-            "shape": {"B": B, "T": T, "H": H, "Hkv": Hkv, "D": D, "causal": causal, "dtype": "bfloat16"},
+            "shape": main["shape"],
             "max_abs_err": worst["max_abs_err"],
-            "tol": "f32 1e-5 of the largest output; bf16 2**-6 of each (batch, head)'s largest output",
+            "tol": FLASH_TOL,
             "worst_check": worst,
             "checks": checks[name],
-            "ms": kernel_ms,
-            "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms,
-            "library_ms": sdpa_fwd_ms if name.endswith("fwd") else sdpa_bwd_ms,
-            "library": ("torch.nn.functional.scaled_dot_product_attention(is_causal=True) forward"
+            "ms": k["ms"],
+            "kernel_ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "library_ms": k["library_ms"],
+            "library": ("torch.nn.functional.scaled_dot_product_attention(is_causal=True, enable_gqa=True) forward"
                         if name.endswith("fwd") else
-                        "its backward through autograd (dq, dk and dv in one call)"),
-            "bound_ms": b_ms,
-            "bound_by": b_by,
+                        "its backward through autograd (dq, dk and dv in one call, with its own preprocess)"),
+            "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            "at_150m": {**timed["150m"]["kernels"][name], "shape": timed["150m"]["shape"]},
+            **({"f32_at_150m": f32[name]} if name in f32 else {}),
         })
+        if name != "flash_attention_fwd":
+            # B2a + B2b + attention_delta against SDPA's backward, which
+            # includes its own preprocess, like for like
+            rows[-1]["same_call"] = {geo: {"sm90_b2a_b2b_plus_delta_ms": t["b2_new_plus_delta_ms"],
+                                           "first_design_b2a_b2b_plus_delta_ms": t["b2_old_plus_delta_ms"],
+                                           "attention_delta_ms": t["attention_delta_ms"],
+                                           "sdpa_bwd_ms": t["sdpa_bwd_ms"]} for geo, t in timed.items()}
     return rows
 
 
@@ -1324,8 +1457,10 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
     steps = run["total_steps"]
     inner_steps = 2 * steps  # two workers
     want = {name: 0 for name in launches}
+    # bf16 at D 64: the backward takes the sm90 kernels, the first design never
     want.update({"flash_attention_fwd": inner_steps * 2 * L * accum,
-                 "flash_attention_dq": inner_steps * L * accum, "flash_attention_dkv": inner_steps * L * accum})
+                 "flash_attention_dq_sm90": inner_steps * L * accum,
+                 "flash_attention_dkv_sm90": inner_steps * L * accum})
     fused = InnerTrainer(cfg, TrainerConfig(), device=dev).tc.fused_loss
     if fused:
         # per micro-batch one forward launch, and per backward chunk one
@@ -1428,6 +1563,53 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
     return res
 
 
+def phase_train_f32(torch, tfa, dev, card: str) -> dict:
+    """One inner step at config_150m in f32 (``precision="fp32"``), the
+    path whose attention backward takes the first design's kernels: the
+    launch counters are zeroed just before and read just after (B1 2 x 12
+    x accum, B2a and B2b 12 x accum of the first design, the sm90 kernels
+    never). Then the same step through plain attention (``attn_impl="xla"``)
+    on the same params and batch: f32 throughout, sums in another order
+    over 12 layers, so the loss (~10.4) agrees to 1e-4 and the gradient
+    norm to 1e-3 of itself."""
+    from opendiloco_torch.data.dataloader import FakeTokenizedDataset
+    from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
+
+    cfg, run = load_config("150m"), TRAIN_150M
+    L, accum = cfg.num_hidden_layers, run["total_batch_size"] // run["per_device_train_batch_size"]
+    ds = iter(FakeTokenizedDataset(run["seq_length"], cfg.vocab_size, seed=7, mode="ramp"))
+    ids = np.stack([next(ds)["input_ids"] for _ in range(run["total_batch_size"])])
+    res = {"config": "150m", "precision": "fp32", "accum": accum}
+    for label, impl in (("kernels", "pallas"), ("plain", "xla")):
+        tr = InnerTrainer(cfg, TrainerConfig(precision="fp32", remat=True, warmup_steps=2, total_steps=100,
+                                             attn_impl=impl), device=dev)
+        state = tr.init_state(3)
+        batch = tr.shard_batch(ids, ids.copy(), accum=accum)
+        torch.cuda.synchronize()
+        tfa.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        state, m = tr.train_step(state, batch)
+        res[label] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                      "step_ms_first": (time.perf_counter() - t0) * 1e3}
+        if label == "kernels":
+            launches = tfa.LAUNCHES.snapshot()
+            want = {name: 0 for name in launches}
+            want.update({"flash_attention_fwd": 2 * L * accum, "flash_attention_dq": L * accum,
+                         "flash_attention_dkv": L * accum})
+            if launches != want:
+                raise AssertionError(f"f32 step launch counts {launches} != {want}")
+            res["launches"] = launches
+        del tr, state, batch, m
+        torch.cuda.empty_cache()
+    kl, kg, pl_, pg = res["kernels"]["loss"], res["kernels"]["grad_norm"], res["plain"]["loss"], res["plain"]["grad_norm"]
+    log(f"train 150m fp32 step: kernels / plain loss {kl:.6f} / {pl_:.6f}, grad norm {kg:.6f} / {pg:.6f}; "
+        f"launches {res['launches']} | {card}")
+    if not (math.isfinite(kl) and abs(kl - pl_) <= 1e-4 and abs(kg - pg) <= 1e-3 * pg):
+        raise AssertionError(f"fp32 step: kernels vs plain loss {kl} vs {pl_}, grad norm {kg} vs {pg}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1453,7 +1635,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     build_s = build.build(["paged_decode_attention", "spec_tail_attention", "w4_matmul", "flash_attention",
-                           "fused_xent"])
+                           "flash_attention_bwd_sm90", "fused_xent"])
     log(f"card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"kernel build {build_s:.2f} s | TF32 off for matmuls and cuDNN")
 
@@ -1469,6 +1651,7 @@ def main() -> int:
     spec = [phase_spec(torch, tdk, cfg, ServeConfig(spec_decode_k=SPEC_K, weight_format=s["weight_format"]),
                        params, dev, s) for s in serve]
     prefix = phase_prefix(torch, tdk, cfg, params, dev)
+    spec_f32 = phase_spec_f32(torch, cfg, params, dev)
     del params
     for s in serve:
         s.pop("tokens")
@@ -1479,6 +1662,7 @@ def main() -> int:
     flash = phase_flash(torch, tfa, dev)
     train_150m = phase_train(torch, tfa, dev, card, "150m", TRAIN_150M,
                              {"kernels": dict(attn_impl="pallas"), "plain": dict(attn_impl="xla")})
+    train_f32 = phase_train_f32(torch, tfa, dev, card)
     xent = phase_xent(torch, tfx, dev)
     train_1b = phase_train(torch, tfa, dev, card, "1b", TRAIN_1B, {"fused": {}, "unfused": dict(fused_loss=False)})
 
@@ -1490,14 +1674,16 @@ def main() -> int:
     for k in (b6, b7, b8):
         k["launches_by_phase"] = {phase: counts[k["name"]] for phase, counts in serving.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
-    # launches: the training path, the 1b training run; the 150m run's beside
+    # launches: the training paths, by phase (the first design's backward
+    # runs on the f32 step; bf16 training takes the sm90 kernels)
     for k in (*flash, *xent):
-        k["launches"] = train_1b["launches"][k["name"]]
-        k["launches_per_inner_step"] = train_1b["launches_per_inner_step"][k["name"]]
         k["launches_by_phase"] = {"train 150m": train_150m["launches"][k["name"]],
+                                  "train 150m fp32 step": train_f32["launches"][k["name"]],
                                   "train 1b": train_1b["launches"][k["name"]]}
-    log(json.dumps({"serve": serve, "spec": spec, "prefix": prefix, "reference": reference,
-                    "train": [train_150m, train_1b], "seconds": time.perf_counter() - t_start}))
+        k["launches"] = sum(k["launches_by_phase"].values())
+        k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
+    log(json.dumps({"serve": serve, "spec": spec, "spec_f32": spec_f32, "prefix": prefix, "reference": reference,
+                    "train": [train_150m, train_1b, train_f32], "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [b6, b7, b8, *flash, *xent]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

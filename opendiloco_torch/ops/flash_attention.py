@@ -1,13 +1,21 @@
 """Flash attention for training: forward and backward, causal or full, GQA.
 
 The counterpart of ``opendiloco_tpu/ops/flash_attention.py``. Its three
-Pallas kernels are written by hand in CUDA C++ for Hopper in
-``csrc/flash_attention.cu`` (the source notes what each replaces, its
-bound and its design):
+Pallas kernels are written by hand in CUDA C++ for Hopper (each source
+notes what it replaces, its bound and its design):
 
-- B1 ``flash_attention_fwd``: out and lse (``_fwd`` / ``_fwd_kernel``);
+- B1 ``flash_attention_fwd``: out and lse (``_fwd`` / ``_fwd_kernel``),
+  in ``csrc/flash_attention.cu``;
 - B2a ``flash_attention_dq``: dq by recompute (``_dq_kernel``);
 - B2b ``flash_attention_dkv``: dk and dv per kv head (``_dkv_kernel``).
+
+The backward takes one of two routes, chosen by :func:`_bwd_route` from
+the dtype and head dim alone: bf16 at D 32, 64 or 128 goes to the wgmma
+and TMA kernels of ``csrc/flash_attention_bwd_sm90.cu``, counted as
+``flash_attention_dq_sm90`` and ``flash_attention_dkv_sm90``; f32 and any
+other head dim to the first design's ``mma.sync`` kernels in
+``csrc/flash_attention.cu``, counted as ``flash_attention_dq`` and
+``flash_attention_dkv``. A launch error raises on either route.
 
 Each wrapper sits beside its plain version (``*_plain``), which repeats
 the kernel's arithmetic and roundings in a few einsums: scores, softmax
@@ -37,7 +45,10 @@ from opendiloco_torch.ops.launch import LAUNCHES, F, I, P, SUFFIX, launch, on_ca
 
 NEG_INF = -1e30  # the TPU kernel's finite stand-in for -inf
 SOURCE = "flash_attention"
-register("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+SM90_SOURCE = "flash_attention_bwd_sm90"
+SM90_HEAD_DIMS = (32, 64, 128)
+register("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+         "flash_attention_dq_sm90", "flash_attention_dkv_sm90")
 _ARGTYPES = {
     "flash_attention_fwd": [P, P, P, P, P, I, I, I, I, I, I, F, P],
     "flash_attention_dq": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
@@ -45,8 +56,15 @@ _ARGTYPES = {
 }
 
 
-def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
-    launch(name, SOURCE, f"{name}_{SUFFIX[dtype]}", _ARGTYPES[name], device, *args)
+def _launch(name: str, dtype: torch.dtype, device: torch.device, *args, source: str = SOURCE) -> None:
+    kernel = name if source == SOURCE else f"{name}_sm90"
+    launch(kernel, source, f"{kernel}_{SUFFIX[dtype]}", _ARGTYPES[name], device, *args)
+
+
+def _bwd_route(dtype: torch.dtype, D: int) -> str:
+    """The source of the backward kernels for (dtype, head dim): the wgmma
+    kernels for bf16 at D 32, 64 or 128, else the first design."""
+    return SM90_SOURCE if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS else SOURCE
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest: torch.Tensor) -> tuple:
@@ -190,19 +208,7 @@ def flash_attention_dq(
     """B2a: dq [B, T, H, D] in ``grad_dtype`` (q's dtype or f32)."""
     if not on_card(q, k, v, dout, lse, delta):
         return flash_attention_dq_plain(q, k, v, dout, lse, delta, causal, grad_dtype)
-    B, T, H, Hkv, D = _check(q, k, v, dout, lse, delta)
-    if dout.shape != q.shape or dout.dtype != q.dtype:
-        raise ValueError(f"dout {dout.dtype} {tuple(dout.shape)} does not match q")
-    _check_stats(lse, delta, B, H, T)
-    gd = _grad_dtype(q.dtype, grad_dtype)
-    dq = torch.empty(q.shape, dtype=gd, device=q.device)
-    _launch(
-        "flash_attention_dq", q.dtype, q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(),
-        B, T, H, Hkv, D, int(causal), D**-0.5, int(gd == torch.float32 and q.dtype != gd),
-    )
-    return dq
+    return _dq_kernel(q, k, v, dout, lse, delta, causal, grad_dtype)
 
 
 def flash_attention_dkv(
@@ -211,10 +217,36 @@ def flash_attention_dkv(
     """B2b: (dk, dv) [B, T, Hkv, D] in ``grad_dtype`` (k's dtype or f32)."""
     if not on_card(q, k, v, dout, lse, delta):
         return flash_attention_dkv_plain(q, k, v, dout, lse, delta, causal, grad_dtype)
+    return _dkv_kernel(q, k, v, dout, lse, delta, causal, grad_dtype)
+
+
+def _check_bwd(q, k, v, dout, lse, delta) -> tuple:
     B, T, H, Hkv, D = _check(q, k, v, dout, lse, delta)
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"dout {dout.dtype} {tuple(dout.shape)} does not match q")
     _check_stats(lse, delta, B, H, T)
+    return B, T, H, Hkv, D
+
+
+def _dq_kernel(q, k, v, dout, lse, delta, causal, grad_dtype, route: Optional[str] = None) -> torch.Tensor:
+    """B2a on the card through ``route`` (default :func:`_bwd_route`'s)."""
+    B, T, H, Hkv, D = _check_bwd(q, k, v, dout, lse, delta)
+    gd = _grad_dtype(q.dtype, grad_dtype)
+    dq = torch.empty(q.shape, dtype=gd, device=q.device)
+    _launch(
+        "flash_attention_dq", q.dtype, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(),
+        B, T, H, Hkv, D, int(causal), D**-0.5, int(gd == torch.float32 and q.dtype != gd),
+        source=route or _bwd_route(q.dtype, D),
+    )
+    return dq
+
+
+def _dkv_kernel(q, k, v, dout, lse, delta, causal, grad_dtype,
+                route: Optional[str] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """B2b on the card through ``route`` (default :func:`_bwd_route`'s)."""
+    B, T, H, Hkv, D = _check_bwd(q, k, v, dout, lse, delta)
     gd = _grad_dtype(k.dtype, grad_dtype)
     dk = torch.empty(k.shape, dtype=gd, device=k.device)
     dv = torch.empty(k.shape, dtype=gd, device=k.device)
@@ -223,6 +255,7 @@ def flash_attention_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, T, H, Hkv, D, int(causal), D**-0.5, int(gd == torch.float32 and k.dtype != gd),
+        source=route or _bwd_route(q.dtype, D),
     )
     return dk, dv
 

@@ -33,7 +33,7 @@ import numpy as np
 # (group, pattern over the lower-cased kernel name); the first match wins
 GROUPS = (
     ("fused cross-entropy (B3, B4a, B4b, dlog)", r"xent_"),
-    ("flash attention (B1, B2a, B2b)", r"(^|[\s:])(fwd|dq|dkv)_kernel<"),
+    ("flash attention (B1, B2a, B2b)", r"(^|[\s:])(fwd|dq|dkv)(_sm90)?_kernel<"),
     ("matmul (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
     ("softmax and cross-entropy", r"softmax|nll_loss|cross_entropy"),
     ("optimizer (_foreach)", r"multi_tensor_apply|foreach"),

@@ -408,8 +408,17 @@ class ContinuousBatcher:
     # -- metrics -----------------------------------------------------------
 
     def stats(self) -> dict:
-        """Point-in-time summary: request counts, tokens, and the latency
-        and time-to-first-token lists in seconds (completed requests)."""
+        """Point-in-time summary, in the reference batcher's schema: request
+        counts, tokens, latency and time-to-first-token percentiles in ms
+        (completed requests), stage seconds, spec and prefix counters. The
+        port tracks no staleness and has no host KV tier yet: those keys
+        read 0, {}, 0 host hits and None."""
+        lat = np.asarray(self._latencies, np.float64) * 1e3
+        ttft = np.asarray(self._ttfts, np.float64) * 1e3
+
+        def pct(a, q):
+            return float(np.percentile(a, q)) if a.size else None
+
         return {
             "completed": self.completed,
             "rejected": self.rejected,
@@ -419,10 +428,19 @@ class ContinuousBatcher:
             "queued": len(self._queue),
             "active": self.slots.num_active,
             "decode_steps": self.decode_steps,
-            "total_new_tokens": self.total_new_tokens,
-            "latency_s": list(self._latencies),
-            "ttft_s": list(self._ttfts),
-            "stages_s": dict(self.engine.stage_seconds),
+            "new_tokens": self.total_new_tokens,
+            "latency_ms": {
+                "p50": pct(lat, 50),
+                "p90": pct(lat, 90),
+                "p99": pct(lat, 99),
+                "mean": float(lat.mean()) if lat.size else None,
+            },
+            "ttft_ms": {"p50": pct(ttft, 50), "p99": pct(ttft, 99)},
+            "weight_swaps": self.engine.swap_count,
+            "weights_epoch": self.engine.weights_epoch,
+            "staleness": 0,
+            "staleness_hist": {},
+            "stages_s": {k: round(v, 6) for k, v in self.engine.stage_seconds.items()},
             "spec": {
                 "proposed": self.spec_proposed,
                 "accepted": self.spec_accepted,
@@ -430,6 +448,7 @@ class ContinuousBatcher:
                     self.spec_accepted / self.spec_proposed if self.spec_proposed else None
                 ),
             },
-            "prefix": {"hits": self.prefix_hits, "tokens_saved": self.prefix_tokens_saved},
+            "prefix": {"hits": self.prefix_hits, "host_hits": 0, "tokens_saved": self.prefix_tokens_saved},
+            "tier": None,
             "loop_error": self.loop_error,
         }

@@ -233,7 +233,8 @@ def test_flash_attention_kernels_match_plain(cuda, geom, dtype, causal):
     dq = tfa.flash_attention_dq(q, k, v, do, ref_lse, delta, causal)
     dk, dv = tfa.flash_attention_dkv(q, k, v, do, ref_lse, delta, causal)
     torch.cuda.synchronize()
-    for name in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"):
+    sfx = "_sm90" if tfa._bwd_route(dtype, D) == tfa.SM90_SOURCE else ""
+    for name in ("flash_attention_fwd", "flash_attention_dq" + sfx, "flash_attention_dkv" + sfx):
         assert tdk.LAUNCHES[name] == n0[name] + 1
     assert out.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (B, H, T)
     assert dq.dtype == dtype and dk.shape == k.shape and dv.shape == v.shape
@@ -247,11 +248,83 @@ def test_flash_attention_kernels_match_plain(cuda, geom, dtype, causal):
         assert bool((err <= tol).all()), f"{name}: per-head error {err.tolist()} over {tol.tolist()}"
 
 
+# bf16 geometries of the sm90 backward (wgmma, TMA): D 32, 64 and 128; rep
+# 1 and 8 (the 1b heads); T ragged against the 128- and 64-row tiles, a
+# single tile, and a long sequence
+SM90_GEOMS = [
+    # B, T, H, Hkv, D
+    (1, 200, 4, 4, 32),
+    (2, 1000, 8, 1, 32),
+    (1, 200, 4, 4, 64),
+    (2, 1000, 16, 2, 64),
+    (2, 64, 8, 1, 64),
+    (1, 1024, 32, 4, 64),
+    (1, 200, 4, 4, 128),
+    (1, 1000, 8, 1, 128),
+    (1, 64, 2, 2, 128),
+]
+
+
 @pytest.mark.cuda
-def test_flash_attention_kernels_repeat_bitwise(cuda):
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("geom", SM90_GEOMS, ids=lambda g: "x".join(map(str, g)))
+def test_flash_attention_sm90_backward_matches_plain(cuda, geom, causal):
     from opendiloco_torch.ops import flash_attention as tfa
 
-    q, k, v, do = _flash_inputs(cuda, 2, 512, 8, 2, 64, torch.bfloat16)
+    q, k, v, do = _flash_inputs(cuda, *geom, torch.bfloat16, seed=3)
+    out, lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+    delta = tfa.attention_delta(do, out)
+    n0 = dict(tdk.LAUNCHES)
+    dq = tfa.flash_attention_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = tfa.flash_attention_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert tdk.LAUNCHES["flash_attention_dq_sm90"] == n0["flash_attention_dq_sm90"] + 1
+    assert tdk.LAUNCHES["flash_attention_dkv_sm90"] == n0["flash_attention_dkv_sm90"] + 1
+    ref_dq = tfa.flash_attention_dq_plain(q, k, v, do, lse, delta, causal)
+    ref_dk, ref_dv = tfa.flash_attention_dkv_plain(q, k, v, do, lse, delta, causal)
+    for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        err, tol = _flash_err(got, ref), _flash_tol(ref, torch.bfloat16)
+        print(f"{name} {geom} causal={causal}: max err/tol {float((err / tol).max()):.3f}")
+        assert bool((err <= tol).all()), f"{name}: per-head error {err.tolist()} over {tol.tolist()}"
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_routes_count_their_own_launches(cuda):
+    # bf16 at D 64 takes the sm90 kernels and never the first design's;
+    # f32 at D 64 and bf16 at D 40 take the first design's
+    from opendiloco_torch.ops import flash_attention as tfa
+
+    names = ("flash_attention_dq", "flash_attention_dkv", "flash_attention_dq_sm90", "flash_attention_dkv_sm90")
+    for dtype, D, want in ((torch.bfloat16, 64, (0, 0, 1, 1)), (torch.float32, 64, (1, 1, 0, 0)),
+                           (torch.bfloat16, 40, (1, 1, 0, 0))):
+        q, k, v, do = _flash_inputs(cuda, 1, 128, 4, 2, D, dtype)
+        out, lse = tfa.flash_attention_fwd(q, k, v)
+        delta = tfa.attention_delta(do, out)
+        n0 = dict(tdk.LAUNCHES)
+        tfa.flash_attention_dq(q, k, v, do, lse, delta)
+        tfa.flash_attention_dkv(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        assert tuple(tdk.LAUNCHES[n] - n0[n] for n in names) == want, (dtype, D)
+
+
+def test_flash_attention_backward_route_rule():
+    # dtype and head dim alone decide; runs without a card
+    from opendiloco_torch.ops import flash_attention as tfa
+
+    for D in (32, 64, 128):
+        assert tfa._bwd_route(torch.bfloat16, D) == tfa.SM90_SOURCE == "flash_attention_bwd_sm90"
+        assert tfa._bwd_route(torch.float32, D) == tfa.SOURCE == "flash_attention"
+    for D in (8, 16, 40, 48, 96, 120):
+        assert tfa._bwd_route(torch.bfloat16, D) == tfa.SOURCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(2, 512, 8, 2, 64), (2, 1024, 32, 4, 64)], ids=["rep4", "1b-heads"])
+def test_flash_attention_kernels_repeat_bitwise(cuda, geom):
+    from opendiloco_torch.ops import flash_attention as tfa
+
+    q, k, v, do = _flash_inputs(cuda, *geom, torch.bfloat16)
     runs = []
     for _ in range(2):
         out, lse = tfa.flash_attention_fwd(q, k, v, True)

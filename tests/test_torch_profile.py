@@ -14,6 +14,10 @@ from opendiloco_torch.profile_inner_step import MEMCPY, OTHER, busy_us, group_of
          "flash attention (B1, B2a, B2b)"),
         ("void (anonymous namespace)::dkv_kernel<float, false>(float const*)", "kernel",
          "flash attention (B1, B2a, B2b)"),
+        ("void (anonymous namespace)::dq_sm90_kernel<64, __nv_bfloat16>(CUtensorMap_st, CUtensorMap_st)",
+         "kernel", "flash attention (B1, B2a, B2b)"),
+        ("void (anonymous namespace)::dkv_sm90_kernel<128, float>(CUtensorMap_st, CUtensorMap_st)", "kernel",
+         "flash attention (B1, B2a, B2b)"),
         ("void (anonymous namespace)::xent_fwd_kernel<__nv_bfloat16>(__nv_bfloat16 const*)", "kernel",
          "fused cross-entropy (B3, B4a, B4b, dlog)"),
         ("void (anonymous namespace)::xent_gemm_kernel<__nv_bfloat16, float, false, false>(int)", "kernel",

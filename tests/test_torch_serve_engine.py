@@ -131,8 +131,9 @@ def test_batcher_token_lists_match_jax(tiny_cfg, cfg):
     assert all(r.error is None for r in jreqs + treqs)
     assert [r.tokens for r in treqs] == [r.tokens for r in jreqs]
     st = port.stats()
-    assert (st["completed"], st["failed"], st["total_new_tokens"]) == (3, 0, 3 * 7)
-    assert len(st["ttft_s"]) == len(st["latency_s"]) == 3
+    assert (st["completed"], st["failed"], st["new_tokens"]) == (3, 0, 3 * 7)
+    assert all(st["ttft_ms"][q] > 0 for q in ("p50", "p99"))
+    assert 0 < st["latency_ms"]["p50"] <= st["latency_ms"]["p99"]
 
     # eos: stop at a token the stream is known to produce, and drop it
     eos = jreqs[0].tokens[3]
@@ -142,6 +143,35 @@ def test_batcher_token_lists_match_jax(tiny_cfg, cfg):
                          max_new_tokens=8, eos_id=eos)
     want = jreqs[0].tokens[: jreqs[0].tokens.index(eos)]
     assert t_eos[0].tokens == j_eos[0].tokens == want
+
+
+def _schema(tree, data_keyed=("stages_s", "staleness_hist")):
+    """The nested key set of a stats() dict. Maps keyed by data (stage
+    names, staleness values) are leaves: their keys are not schema."""
+    keys = set()
+    for k, v in tree.items():
+        keys.add(k)
+        if isinstance(v, dict) and k not in data_keyed:
+            keys |= {f"{k}.{sub}" for sub in _schema(v, ())}
+    return keys
+
+
+def test_batcher_stats_schema_matches_jax(tiny_cfg, cfg):
+    params = _np_params(cfg, seed=2)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(1, 256, n).tolist() for n in (5, 11, 3)]
+    jax_b = JBatcher(_jax_engine(tiny_cfg, params, "xla", num_slots=2))
+    port = ContinuousBatcher(_port_engine(cfg, params, num_slots=2))
+    _run_batcher(jax_b, prompts, max_new_tokens=6)
+    _run_batcher(port, prompts, max_new_tokens=6)
+    want, got = jax_b.stats(), port.stats()
+    assert _schema(got) == _schema(want)
+    assert (got["new_tokens"], got["completed"]) == (want["new_tokens"], want["completed"]) == (3 * 5, 3)
+    assert set(got["stages_s"]) <= set(want["stages_s"])
+    assert all(v == round(v, 6) for v in got["stages_s"].values())
+    for key, qs in (("latency_ms", ("p50", "p90", "p99", "mean")), ("ttft_ms", ("p50", "p99"))):
+        assert all(got[key][q] > 0 for q in qs)
+    assert (got["weight_swaps"], got["weights_epoch"], got["tier"]) == (0, 0, None)
 
 
 def test_batcher_reject_paths_match_jax(tiny_cfg, cfg):

@@ -369,7 +369,7 @@ def test_spec_batcher_matches_isolated(cfg):
     assert st["spec"]["proposed"] == batcher.spec_proposed > 0
     assert 0 <= batcher.spec_accepted <= batcher.spec_proposed
     assert st["failed"] == 0 and st["decode_steps"] > 0
-    assert st["total_new_tokens"] == sum(n - 1 for n in lengths)
+    assert st["new_tokens"] == sum(n - 1 for n in lengths)
 
 
 @pytest.mark.parametrize("src_tail,atol", [([30, 31, 32], 0.0), ([30, 31], 1e-6)])
