@@ -12,7 +12,7 @@ non-zero and prints no result. Every phase runs unguarded: any failure
 exits non-zero.
 
 1. Card line: ``nvidia-smi`` name and power limit, torch and CUDA
-   versions, and the seconds the nvcc build of the six kernel sources
+   versions, and the seconds the nvcc build of the eight kernel sources
    took (one nvcc per source, started together). TF32 is off for matmuls
    and cuDNN, so every f32 product is full f32.
 2. B6, paged decode attention, against its plain version at the
@@ -34,32 +34,35 @@ exits non-zero.
    prefill and per decode step.
 6. A small-input reference: config_2m through ``ServeEngine`` on the card
    (kernels) against the same engine on the CPU (plain versions).
-7. B1, B2a and B2b (flash attention forward, dq, dk/dv) against their
-   plain versions at the 150m training shape (mb 8, T 1024, 16 x 64
-   heads), the config_1b head geometry (32 over 4 heads), an odd T
-   (1000), full attention, D 32 and 128 at T 200, T 64 with rep 8, and
-   D 40, in f32 and bf16. The backward takes the sm90 kernels (wgmma,
-   TMA) for bf16 at D 32/64/128 and the first design's otherwise; the
-   first design is also checked in bf16 at the 150m shape. Device times
-   in bf16 at the 1b head geometry and the 150m shape of B1, both
-   backward routes, the plain versions, SDPA forward (B1's library
-   yardstick), SDPA's backward through autograd (B2a's and B2b's: one
-   call computes dq, dk and dv, its preprocess included; forward +
-   backward less forward; GQA through ``enable_gqa``) and
-   ``attention_delta``; the first design's f32 backward at 150m; the
-   bounds.
+7. B1, B2a and B2b (flash attention forward, dq, dk/dv) and the
+   backward's delta kernel against their plain versions at the shapes
+   phases 8 and 10 launch (mb 8, T 1024: 16 x 64 heads at 150m, 32 over
+   4 heads x 64 at config_1b), an odd T (1000), full attention, D 32 and
+   128 at T 200, T 64 with rep 8, and D 40, in f32 and bf16. Forward and
+   backward take the sm90 kernels (wgmma, TMA) for bf16 at D 32/64/128
+   and the first design's otherwise; the first design is also checked in
+   bf16 at the 150m shape. Device times in bf16 at the 1b head geometry
+   and the 150m shape of both routes of B1 and of the backward, the delta
+   kernel, the plain versions, SDPA forward (B1's library yardstick),
+   SDPA's backward through autograd (B2a's and B2b's: one call computes
+   dq, dk and dv, its preprocess included; forward + backward less
+   forward; GQA through ``enable_gqa``), against which B2a + B2b + delta
+   stand like for like; the first design's f32 backward at 150m; the
+   bounds; the host's microseconds per wrapper call.
 8. Training: two DiLoCo workers, one thread each, run ``train()`` at
    config_150m full width and depth (mb 8, accum 2, seq 1024, bf16,
    remat, fake "ramp" data, 8 steps, local_steps 4: 2 outer rounds). The
-   launch counters are zeroed just before and read just after: B1 must
-   have run 2 x 12 x accum times per inner step and worker, the sm90 B2a
-   and B2b 12 x accum, the first design's backward and the fused
-   cross-entropy kernels never (150m resolves ``fused_loss=False``). Every loss finite, the last below the first,
+   launch counters are zeroed just before and read just after: the sm90
+   B1 must have run 2 x 12 x accum times per inner step and worker, the
+   sm90 B2a and B2b and the delta kernel 12 x accum, the first design
+   and the fused cross-entropy kernels never (150m resolves
+   ``fused_loss=False``). Every loss finite, the last below the first,
    both masters bit-identical after each round. Then one inner step,
    kernel path against plain path, and one worker's inner-step time alone.
-   Then one inner step in f32 (``precision="fp32"``), whose backward takes
-   the first design's B2a and B2b (12 x accum each, the sm90 kernels
-   never), against the same step through plain attention.
+   Then one inner step in f32 (``precision="fp32"``), which takes the
+   first design's B1 (2 x 12 x accum), B2a and B2b (12 x accum each) and
+   the delta kernel (12 x accum), the sm90 kernels never, against the
+   same step through plain attention.
 9. B3, the dlog kernel, B4a and B4b (fused lm-head + cross-entropy)
    against their plain versions at the 1b training shape (N 8184, D 2048,
    V 32000), the 150m width (D 1024) and an odd N and V (1000), about a
@@ -69,8 +72,9 @@ exits non-zero.
    bounds.
 10. Training at config_1b, full width and depth, as phase 8 (4 steps,
    local_steps 2: 2 outer rounds), with ``fused_loss`` left at its
-   default, which resolves on. Per inner step and worker B1 must have run
-   2 x 22 x accum times, the sm90 B2a and B2b 22 x accum, B3 accum, and the dlog,
+   default, which resolves on. Per inner step and worker the sm90 B1 must
+   have run 2 x 22 x accum times, the sm90 B2a and B2b and the delta
+   kernel 22 x accum, B3 accum, and the dlog,
    B4a and B4b kernels accum x 4 (a backward walks 8184 rows in chunks of
    2048). Then one inner step with the fused loss against one with
    ``fused_loss=False`` on the same params and batch.
@@ -172,6 +176,21 @@ def device_ms(torch, fn, arg_sets, launches: int = 64, replays: int = 5) -> floa
     ms = start.elapsed_time(end) / (replays * launches)
     del graph
     return ms
+
+
+def host_us(torch, fn, arg_sets, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn``: ``calls`` calls cycling through
+    ``arg_sets``, on the host clock with no sync between them (the card's
+    queue stays far from full), after a warm-up call of each set."""
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(*arg_sets[i % len(arg_sets)])
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def copies_for(nbytes: int) -> int:
@@ -929,9 +948,11 @@ def phase_reference(torch, cfg, dev) -> list:
 # phase 7: B1, B2a, B2b flash attention
 # ---------------------------------------------------------------------------
 
-FLASH_NAMES = ("flash_attention_fwd", "flash_attention_dq_sm90", "flash_attention_dkv_sm90",
-               "flash_attention_dq", "flash_attention_dkv")
+FLASH_NAMES = ("flash_attention_fwd_sm90", "flash_attention_delta", "flash_attention_dq_sm90",
+               "flash_attention_dkv_sm90", "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
 FLASH_SOURCES = {
+    "flash_attention_fwd_sm90": "opendiloco_torch/csrc/flash_attention_fwd_sm90.cu",
+    "flash_attention_delta": "opendiloco_torch/csrc/flash_attention_delta.cu",
     "flash_attention_fwd": "opendiloco_torch/csrc/flash_attention.cu",
     "flash_attention_dq_sm90": "opendiloco_torch/csrc/flash_attention_bwd_sm90.cu",
     "flash_attention_dkv_sm90": "opendiloco_torch/csrc/flash_attention_bwd_sm90.cu",
@@ -942,14 +963,18 @@ FLASH_REPLACES = {
     "flash_attention_fwd": "opendiloco_tpu/ops/flash_attention.py:136 (_fwd, _fwd_kernel :53)",
     "flash_attention_dq": "opendiloco_tpu/ops/flash_attention.py:320 (_bwd_impl, _dq_kernel :175)",
     "flash_attention_dkv": "opendiloco_tpu/ops/flash_attention.py:363 (_bwd_impl, _dkv_kernel :223)",
+    "flash_attention_delta": "XLA `_delta`, opendiloco_tpu/ops/flash_attention.py:280, no pallas_call",
 }
+FLASH_REPLACES["flash_attention_fwd_sm90"] = FLASH_REPLACES["flash_attention_fwd"]
 FLASH_REPLACES["flash_attention_dq_sm90"] = FLASH_REPLACES["flash_attention_dq"]
 FLASH_REPLACES["flash_attention_dkv_sm90"] = FLASH_REPLACES["flash_attention_dkv"]
 # (label, B, T, H, Hkv, D, causal) of the checks, each in f32 and bf16;
-# bf16 at D 32, 64 and 128 takes the sm90 backward, the rest the first design
+# bf16 at D 32, 64 and 128 takes the sm90 kernels, the rest the first design.
+# 150m and 1b heads are the shapes phases 8 and 10 launch (at B 8 the
+# persistent sm90 B1 runs about 16 q tiles a CTA on its ring)
 FLASH_GEOMS = [
     ("150m", 8, 1024, 16, 16, 64, True),
-    ("1b heads", 2, 1024, 32, 4, 64, True),
+    ("1b heads", 8, 1024, 32, 4, 64, True),
     ("odd T", 2, 1000, 16, 16, 64, True),
     ("150m full", 2, 1024, 16, 16, 64, False),
     ("D 32, T 200", 2, 200, 8, 8, 32, True),
@@ -960,7 +985,8 @@ FLASH_GEOMS = [
 # timed in bf16: the 1b head geometry (what phase 10's main path gives the
 # kernels) and the 150m training shape
 FLASH_TIMED = {"1b heads": (8, 1024, 32, 4, 64), "150m": (8, 1024, 16, 16, 64)}
-FLASH_TOL = "f32 1e-5 of the largest output; bf16 2**-6 of each (batch, head)'s largest output"
+FLASH_TOL = ("f32 1e-5 of the largest output; bf16 2**-6 of each (batch, head)'s largest output; "
+             "lse 1e-4 of the largest |lse|; delta 1e-6 of the largest |delta|")
 F32_FLOP_PER_S = 67e12  # the first design's f32 kernels use the FMA units
 
 
@@ -977,9 +1003,11 @@ def flash_work(B, T, H, Hkv, D, elt, causal) -> dict:
     pairs = T * (T + 1) // 2 if causal else T * T
     qb, kvb, stat = B * T * H * D * elt, B * T * Hkv * D * elt, B * H * T * 4
     mm = 2.0 * B * H * D * pairs  # one [T x T] x [T x D] product over the pairs
+    fwd = (qb + 2 * kvb + qb + stat, 2 * mm)
     dq = (2 * qb + 2 * kvb + 2 * stat + qb, 3 * mm)
     dkv = (2 * qb + 2 * kvb + 2 * stat + 2 * kvb, 4 * mm)
-    return {"flash_attention_fwd": (qb + 2 * kvb + qb + stat, 2 * mm),
+    return {"flash_attention_fwd": fwd, "flash_attention_fwd_sm90": fwd,
+            "flash_attention_delta": (2 * qb + stat, 2.0 * B * T * H * D),
             "flash_attention_dq": dq, "flash_attention_dq_sm90": dq,
             "flash_attention_dkv": dkv, "flash_attention_dkv_sm90": dkv}
 
@@ -1008,10 +1036,11 @@ def flash_check(torch, checks, label, geom, dtype, got, refs) -> None:
 
 
 def phase_flash(torch, tfa, dev) -> list:
-    """B1, B2a and B2b against their plain versions (the same lse and
-    delta feed both backward paths) on both backward routes, then device
-    times in bf16 at the 1b head geometry and the 150m training shape, and
-    of the first design's f32 backward at the 150m shape (its main path)."""
+    """B1, B2a, B2b and the delta kernel against their plain versions (the
+    same lse and delta feed both backward paths) on both routes, then
+    device times in bf16 at the 1b head geometry and the 150m training
+    shape, and of the first design's f32 backward at the 150m shape (its
+    main path)."""
     import torch.nn.functional as F
 
     checks = {name: [] for name in FLASH_NAMES}
@@ -1020,28 +1049,42 @@ def phase_flash(torch, tfa, dev) -> list:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = flash_inputs(torch, dev, B, T, H, Hkv, D, dtype, 10 + gi)
             ref_out, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
-            delta = tfa.attention_delta(do, ref_out)
-            out, lse = tfa.flash_attention_fwd(q, k, v, causal)
-            routes = [tfa._bwd_route(dtype, D)]
-            if label == "150m" and routes[0] != tfa.SOURCE:
-                routes.append(tfa.SOURCE)  # the first design in bf16: the same-call yardstick
+            # the same delta feeds the kernels and the plain versions
+            delta = tfa.attention_delta_plain(do, ref_out)
+            got_delta = tfa.attention_delta(do, ref_out)
+            torch.cuda.synchronize()
+            delta_err, delta_tol = float((got_delta - delta).abs().max()), 1e-6 * float(delta.abs().max())
+            checks["flash_attention_delta"].append(
+                {"shape": label, "B": B, "T": T, "H": H, "D": D, "dtype": str(dtype).removeprefix("torch."),
+                 "output": "delta", "max_abs_err": delta_err, "worst_err_over_tol": delta_err / delta_tol})
+            if not delta_err <= delta_tol:
+                raise AssertionError(f"delta {label} {dtype}: {delta_err} over {delta_tol}")
+            routes = [(tfa._fwd_route(dtype, D), tfa._bwd_route(dtype, D))]
+            if label == "150m" and tfa._on_sm90(dtype, D):
+                routes.append((tfa.SOURCE, tfa.SOURCE))  # the first design in bf16: the same-call yardstick
             refs = {"out": ref_out, "dq": tfa.flash_attention_dq_plain(q, k, v, do, ref_lse, delta, causal)}
             refs["dk"], refs["dv"] = tfa.flash_attention_dkv_plain(q, k, v, do, ref_lse, delta, causal)
-            got = {"out": ("flash_attention_fwd", out)}
-            for route in routes:
+            lse_tol = 1e-4 * max(1.0, float(ref_lse.abs().max()))
+            for fwd_route, route in routes:
                 sfx = "" if route == tfa.SOURCE else "_sm90"
+                out, lse = tfa._fwd_kernel(q, k, v, causal, route=fwd_route)
+                got = {"out": ("flash_attention_fwd" + sfx, out)}
                 got["dq"] = ("flash_attention_dq" + sfx, tfa._dq_kernel(q, k, v, do, ref_lse, delta, causal, None,
                                                                         route=route))
                 dk, dv = tfa._dkv_kernel(q, k, v, do, ref_lse, delta, causal, None, route=route)
                 got["dk"], got["dv"] = ("flash_attention_dkv" + sfx, dk), ("flash_attention_dkv" + sfx, dv)
                 torch.cuda.synchronize()
                 flash_check(torch, checks, label, geom, dtype, got, refs)
-                got = {}
-            lse_err = float((lse - ref_lse).abs().max())
-            if not lse_err <= 1e-4 * max(1.0, float(ref_lse.abs().max())):
-                raise AssertionError(f"B1 lse {label} {dtype}: {lse_err}")
-            del q, k, v, do, out, lse, dk, dv, refs, got, ref_out, ref_lse, delta
-        log(f"B1/B2a/B2b {label} (B{B} T{T} H{H}/{Hkv} D{D} causal={causal}): f32 and bf16 within tolerance")
+                lse_err = float((lse - ref_lse).abs().max())
+                checks["flash_attention_fwd" + sfx].append(
+                    {"shape": label, "B": B, "T": T, "H": H, "Hkv": Hkv, "D": D, "causal": causal,
+                     "dtype": str(dtype).removeprefix("torch."), "output": "lse", "max_abs_err": lse_err,
+                     "worst_err_over_tol": lse_err / lse_tol})
+                if not lse_err <= lse_tol:
+                    raise AssertionError(f"B1{sfx} lse {label} {dtype}: {lse_err}")
+            del q, k, v, do, out, lse, dk, dv, refs, got, ref_out, ref_lse, delta, got_delta
+        log(f"B1/B2a/B2b/delta {label} (B{B} T{T} H{H}/{Hkv} D{D} causal={causal}): f32 and bf16 within "
+            "tolerance")
     torch.cuda.empty_cache()
 
     def sdpa(q, k, v):
@@ -1078,40 +1121,55 @@ def phase_flash(torch, tfa, dev) -> list:
         sets, outs = input_sets(B, T, H, Hkv, D, torch.bfloat16, work)
         new_dq, new_dkv = calls(tfa.SM90_SOURCE)
         old_dq, old_dkv = calls(tfa.SOURCE)
-        fns = {"flash_attention_fwd": (lambda q, k, v, do, lse, dl: tfa.flash_attention_fwd(q, k, v, True),
+        # both routes of each direction, the first design through route=
+        fns = {"flash_attention_fwd_sm90": (lambda q, k, v, do, lse, dl: tfa._fwd_kernel(
+                   q, k, v, True, route=tfa.SM90_FWD_SOURCE), None),
+               "flash_attention_fwd": (lambda q, k, v, do, lse, dl: tfa._fwd_kernel(q, k, v, True, route=tfa.SOURCE),
                                        plain["flash_attention_fwd"]),
-               "flash_attention_dq_sm90": (new_dq, plain["dq"]), "flash_attention_dkv_sm90": (new_dkv, plain["dkv"]),
+               "flash_attention_dq_sm90": (new_dq, None), "flash_attention_dkv_sm90": (new_dkv, None),
                "flash_attention_dq": (old_dq, plain["dq"]), "flash_attention_dkv": (old_dkv, plain["dkv"])}
         rows = {}
         for name, (kern, pl) in fns.items():
             b_ms, b_by = bound_ms(*work[name])
-            rows[name] = {"ms": device_ms(torch, kern, sets, launches=32), "bound_ms": b_ms, "bound_by": b_by}
-            # the plain versions repeat the kernels' arithmetic; old and new
-            # backward share one plain version, timed once
-            if not name.endswith("_sm90"):
+            rows[name] = {"ms": device_ms(torch, kern, sets, launches=32), "host_us": host_us(torch, kern, sets),
+                          "bound_ms": b_ms, "bound_by": b_by}
+            # the plain versions repeat the kernels' arithmetic; both routes
+            # share one plain version, timed once
+            if pl is not None:
                 rows[name]["plain_ms"] = device_ms(torch, pl, sets, launches=2, replays=3)
             torch.cuda.empty_cache()
-        for name in ("flash_attention_dq_sm90", "flash_attention_dkv_sm90"):
+        for name in ("flash_attention_fwd_sm90", "flash_attention_dq_sm90", "flash_attention_dkv_sm90"):
             rows[name]["plain_ms"] = rows[name.removesuffix("_sm90")]["plain_ms"]
+        b_ms, b_by = bound_ms(*work["flash_attention_delta"])
+        rows["flash_attention_delta"] = {"ms": device_ms(torch, tfa.attention_delta, outs, launches=32),
+                                         "plain_ms": device_ms(torch, tfa.attention_delta_plain, outs, launches=32),
+                                         "host_us": host_us(torch, tfa.attention_delta, outs),
+                                         "plain_host_us": host_us(torch, tfa.attention_delta_plain, outs),
+                                         "bound_ms": b_ms, "bound_by": b_by}
         # library yardstick, timed here only: SDPA forward, and its backward
         # through autograd (dq, dk and dv in one call, its own preprocess
-        # included), taken as (forward + backward) - forward
+        # included), taken as (forward + backward) - forward. No one call
+        # computes delta in f32 from bf16 operands.
         sdpa_fwd_ms = device_ms(torch, lambda q, k, v, do, lse, dl: sdpa(q, k, v), sets, launches=32)
         leaves = [[t.detach().clone().requires_grad_(True) for t in st[:3]] + [st[3]] for st in sets]
         sdpa_bwd_ms = device_ms(torch, sdpa_fwd_bwd, leaves, launches=16) - sdpa_fwd_ms
-        delta_ms = device_ms(torch, tfa.attention_delta, outs, launches=32)
         for name, row in rows.items():
-            row["library_ms"] = sdpa_fwd_ms if name.endswith("fwd") else sdpa_bwd_ms
+            row["library_ms"] = (None if name == "flash_attention_delta" else
+                                 sdpa_fwd_ms if "_fwd" in name else sdpa_bwd_ms)
+        delta = rows["flash_attention_delta"]
+        b2_new = rows["flash_attention_dq_sm90"]["ms"] + rows["flash_attention_dkv_sm90"]["ms"]
         timed[geo] = {"shape": {"B": B, "T": T, "H": H, "Hkv": Hkv, "D": D, "causal": True, "dtype": "bfloat16"},
                       "kernels": rows, "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
-                      "attention_delta_ms": delta_ms,
-                      "b2_new_plus_delta_ms": rows["flash_attention_dq_sm90"]["ms"]
-                      + rows["flash_attention_dkv_sm90"]["ms"] + delta_ms,
+                      "attention_delta_ms": delta["ms"], "attention_delta_plain_ms": delta["plain_ms"],
+                      "b2_new_plus_delta_ms": b2_new + delta["ms"],
+                      "b2_new_plus_plain_delta_ms": b2_new + delta["plain_ms"],
                       "b2_old_plus_delta_ms": rows["flash_attention_dq"]["ms"] + rows["flash_attention_dkv"]["ms"]
-                      + delta_ms}
+                      + delta["ms"]}
         log(f"flash {geo} bf16 B{B} T{T} H{H}/{Hkv} D{D} causal: " + ", ".join(
-            f"{n} {r['ms']:.4f} ms (bound {r['bound_ms']:.5f})" for n, r in rows.items())
-            + f"; sdpa fwd {sdpa_fwd_ms:.4f}, bwd {sdpa_bwd_ms:.4f}; attention_delta {delta_ms:.4f} ms")
+            f"{n} {r['ms']:.4f} ms (bound {r['bound_ms']:.5f}, host {r['host_us']:.1f} us a call)"
+            for n, r in rows.items())
+            + f"; sdpa fwd {sdpa_fwd_ms:.4f}, bwd {sdpa_bwd_ms:.4f}; attention_delta plain {delta['plain_ms']:.4f} ms;"
+            f" sm90 B2a + B2b + delta kernel {b2_new + delta['ms']:.4f} ms against sdpa bwd {sdpa_bwd_ms:.4f}")
         del sets, outs, leaves
         torch.cuda.empty_cache()
 
@@ -1147,22 +1205,28 @@ def phase_flash(torch, tfa, dev) -> list:
             "checks": checks[name],
             "ms": k["ms"],
             "kernel_ms": k["ms"],
+            "host_us": k["host_us"],
+            **({"plain_host_us": k["plain_host_us"]} if "plain_host_us" in k else {}),
             "plain_ms": k["plain_ms"],
             "library_ms": k["library_ms"],
             "library": ("torch.nn.functional.scaled_dot_product_attention(is_causal=True, enable_gqa=True) forward"
-                        if name.endswith("fwd") else
+                        if "_fwd" in name else
+                        "none: no one call computes delta in f32 from bf16 operands"
+                        if name == "flash_attention_delta" else
                         "its backward through autograd (dq, dk and dv in one call, with its own preprocess)"),
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
             "at_150m": {**timed["150m"]["kernels"][name], "shape": timed["150m"]["shape"]},
             **({"f32_at_150m": f32[name]} if name in f32 else {}),
         })
-        if name != "flash_attention_fwd":
-            # B2a + B2b + attention_delta against SDPA's backward, which
+        if "_fwd" not in name:
+            # B2a + B2b + the delta kernel against SDPA's backward, which
             # includes its own preprocess, like for like
             rows[-1]["same_call"] = {geo: {"sm90_b2a_b2b_plus_delta_ms": t["b2_new_plus_delta_ms"],
+                                           "sm90_b2a_b2b_plus_plain_delta_ms": t["b2_new_plus_plain_delta_ms"],
                                            "first_design_b2a_b2b_plus_delta_ms": t["b2_old_plus_delta_ms"],
                                            "attention_delta_ms": t["attention_delta_ms"],
+                                           "attention_delta_plain_ms": t["attention_delta_plain_ms"],
                                            "sdpa_bwd_ms": t["sdpa_bwd_ms"]} for geo, t in timed.items()}
     return rows
 
@@ -1457,8 +1521,10 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
     steps = run["total_steps"]
     inner_steps = 2 * steps  # two workers
     want = {name: 0 for name in launches}
-    # bf16 at D 64: the backward takes the sm90 kernels, the first design never
-    want.update({"flash_attention_fwd": inner_steps * 2 * L * accum,
+    # bf16 at D 64: forward and backward take the sm90 kernels, the first
+    # design never; one delta a backward
+    want.update({"flash_attention_fwd_sm90": inner_steps * 2 * L * accum,
+                 "flash_attention_delta": inner_steps * L * accum,
                  "flash_attention_dq_sm90": inner_steps * L * accum,
                  "flash_attention_dkv_sm90": inner_steps * L * accum})
     fused = InnerTrainer(cfg, TrainerConfig(), device=dev).tc.fused_loss
@@ -1565,10 +1631,10 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
 
 def phase_train_f32(torch, tfa, dev, card: str) -> dict:
     """One inner step at config_150m in f32 (``precision="fp32"``), the
-    path whose attention backward takes the first design's kernels: the
-    launch counters are zeroed just before and read just after (B1 2 x 12
-    x accum, B2a and B2b 12 x accum of the first design, the sm90 kernels
-    never). Then the same step through plain attention (``attn_impl="xla"``)
+    path whose attention takes the first design's kernels: the launch
+    counters are zeroed just before and read just after (B1 2 x 12 x
+    accum, B2a and B2b 12 x accum of the first design, the delta kernel 12
+    x accum, the sm90 kernels never). Then the same step through plain attention (``attn_impl="xla"``)
     on the same params and batch: f32 throughout, sums in another order
     over 12 layers, so the loss (~10.4) agrees to 1e-4 and the gradient
     norm to 1e-3 of itself."""
@@ -1596,7 +1662,7 @@ def phase_train_f32(torch, tfa, dev, card: str) -> dict:
             launches = tfa.LAUNCHES.snapshot()
             want = {name: 0 for name in launches}
             want.update({"flash_attention_fwd": 2 * L * accum, "flash_attention_dq": L * accum,
-                         "flash_attention_dkv": L * accum})
+                         "flash_attention_dkv": L * accum, "flash_attention_delta": L * accum})
             if launches != want:
                 raise AssertionError(f"f32 step launch counts {launches} != {want}")
             res["launches"] = launches
@@ -1635,7 +1701,8 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     build_s = build.build(["paged_decode_attention", "spec_tail_attention", "w4_matmul", "flash_attention",
-                           "flash_attention_bwd_sm90", "fused_xent"])
+                           "flash_attention_fwd_sm90", "flash_attention_bwd_sm90", "flash_attention_delta",
+                           "fused_xent"])
     log(f"card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"kernel build {build_s:.2f} s | TF32 off for matmuls and cuDNN")
 
@@ -1674,8 +1741,8 @@ def main() -> int:
     for k in (b6, b7, b8):
         k["launches_by_phase"] = {phase: counts[k["name"]] for phase, counts in serving.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
-    # launches: the training paths, by phase (the first design's backward
-    # runs on the f32 step; bf16 training takes the sm90 kernels)
+    # launches: the training paths, by phase (the first design runs on the
+    # f32 step; bf16 training takes the sm90 kernels; delta runs on both)
     for k in (*flash, *xent):
         k["launches_by_phase"] = {"train 150m": train_150m["launches"][k["name"]],
                                   "train 150m fp32 step": train_f32["launches"][k["name"]],

@@ -65,110 +65,6 @@
 
 namespace {
 
-constexpr int kTile = 64;   // rows of a streamed tile, and of a warpgroup's share
-constexpr int kOwn = 128;   // rows a CTA owns: two consumer warpgroups
-constexpr int kCtaThreads = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Shared tiles at head dim D: kBlk column blocks of kCb bf16, each block
-// rows x kRowBytes, swizzled (kSwz: 1 = 128 B, 2 = 64 B).
-template <int D>
-struct Geo {
-    static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
-    static constexpr int kCb = D >= 64 ? 64 : 32;
-    static constexpr int kBlk = D / kCb;
-    static constexpr int kRowBytes = kCb * 2;
-    static constexpr uint32_t kSwz = kCb == 64 ? 1 : 2;
-    static constexpr int kStages = D <= 64 ? 3 : 2;
-    static constexpr int kN = kCb;  // width of each output product (one column block)
-};
-
-// K-major operand (the reduction over D along each row): rows r0 .. r0+63
-// of a `rows`-row tile at `tile`, columns 16 ks .. 16 ks + 15.
-template <int D>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int r0, int ks) {
-    using G = Geo<D>;
-    const int col = ks * 16;
-    const uint32_t addr = tile + (col / G::kCb) * rows * G::kRowBytes + r0 * G::kRowBytes + (col % G::kCb) * 2;
-    return smem_desc(addr, 16, 8 * G::kRowBytes, G::kSwz);
-}
-// MN-major B operand (the reduction along the tile's rows): rows 16 kk ..
-// 16 kk + 15 of a `rows`-row tile, column block blk as the N columns.
-template <int D>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int blk, int kk) {
-    using G = Geo<D>;
-    const uint32_t addr = tile + blk * rows * G::kRowBytes + kk * 16 * G::kRowBytes;
-    return smem_desc(addr, rows * G::kRowBytes, 8 * G::kRowBytes, G::kSwz);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b) {
-    if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b);
-    else wgmma_rs_n32(d, a, desc_b);
-}
-
-// Round a 64 x 64 f32 accumulator into the four bf16 A fragments of its
-// 16-wide k steps (columns 16 kk .. 16 kk + 15: blocks 2 kk and 2 kk + 1).
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&c)[32]) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(c[8 * kk + 2 * i], c[8 * kk + 2 * i + 1]);
-    }
-}
-
-// p = 2^(x scale_log2 - l(nb, e)) over a warpgroup's 64 x 64 score tile
-// in place (e indexes the four entries of column block nb); on a tile
-// that `masked` marks, entries where dead(nb, e) holds become 0. The
-// unmasked loop, the common case, is an FFMA and an ex2 an entry.
-template <typename L, typename Dead>
-__device__ __forceinline__ void exp_tile(float (&x)[32], float scale_log2, bool masked, L l, Dead dead) {
-    if (masked) {
-#pragma unroll
-        for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const float v = fmaf(x[4 * nb + e], scale_log2, -l(nb, e));
-                x[4 * nb + e] = exp2_approx(dead(nb, e) ? -INFINITY : v);
-            }
-        }
-    } else {
-#pragma unroll
-        for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) x[4 * nb + e] = exp2_approx(fmaf(x[4 * nb + e], scale_log2, -l(nb, e)));
-        }
-    }
-}
-
-template <int N>
-__device__ __forceinline__ void zero_acc(float (&c)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) c[i] = 0.0f;
-}
-
-// Write a warpgroup's 64 x D accumulator (kBlk blocks of kN columns) to
-// rows row0 + .. of a [B, T, heads, D] tensor at `base` (row stride rs),
-// times mul, keeping rows < T.
-template <int D, typename TO>
-__device__ __forceinline__ void store_acc(TO* base, size_t rs, int row0, int T_,
-                                          const float (&c)[Geo<D>::kBlk][Geo<D>::kN / 2], float mul) {
-    using G = Geo<D>;
-    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
-#pragma unroll
-    for (int blk = 0; blk < G::kBlk; ++blk) {
-#pragma unroll
-        for (int nb = 0; nb < G::kN / 8; ++nb) {
-            const int col = blk * G::kCb + nb * 8 + 2 * t;
-            const float* e = &c[blk][4 * nb];
-            if (r0 < T_) store2(base + (size_t)r0 * rs + col, e[0] * mul, e[1] * mul);
-            if (r1 < T_) store2(base + (size_t)r1 * rs + col, e[2] * mul, e[3] * mul);
-        }
-    }
-}
-
 struct BwdArgs {
     const float* lse;
     const float* delta;
@@ -177,10 +73,6 @@ struct BwdArgs {
     int B, T, H, Hkv, causal;
     float scale;
 };
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-    return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
-}
 
 // ---------------------------------------------------------------------------
 // B2b: dk, dv. CTA (128 kv rows, kv head, batch); the producer streams the

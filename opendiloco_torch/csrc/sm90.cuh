@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks of the port's warp-specialised kernels
-// (flash_attention_bwd_sm90.cu): tensor-memory-accelerator (TMA) copies
-// completed on an mbarrier, the mbarrier ring of a producer warp and its
-// consumer warpgroups, setmaxnreg, and warpgroup matrix products (wgmma)
-// with their shared-memory descriptors; on the host, tiled tensor maps
-// encoded through cudaGetDriverEntryPoint (no -lcuda).
+// (flash_attention_fwd_sm90.cu, flash_attention_bwd_sm90.cu):
+// tensor-memory-accelerator (TMA) copies completed on an mbarrier, the
+// mbarrier ring of a producer warp and its consumer warpgroups,
+// setmaxnreg, and warpgroup matrix products (wgmma) with their
+// shared-memory descriptors; the attention kernels' tile geometry, operand
+// descriptors, in-register softmax and accumulator epilogue; on the host,
+// tiled tensor maps encoded through cudaGetDriverEntryPoint (no -lcuda).
 //
 // Shared-memory tiles are written by TMA with a 128-byte swizzle (rows of
 // 64 bf16) or a 64-byte one (rows of 32 bf16), from a base aligned to
@@ -16,10 +18,13 @@
 //     is one swizzle atom (64 columns at 128 B, 32 at 64 B).
 #pragma once
 
+#include <math.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -71,6 +76,37 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
         "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
         "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
         : "memory");
+}
+
+// TMA: copy a shared-memory box to coordinates (c0 .. c3) of a 4-D tensor
+// map, in this thread's bulk group; rows outside the tensor are not
+// written. Shared-memory writes of other threads must be made visible to
+// the copy first (fence_proxy_async, then a barrier).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1, int c2,
+                                             int c3) {
+    asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(map)),
+                 "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+                 : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// wait until this thread's bulk copies have read their shared memory
+__device__ __forceinline__ void bulk_wait_read0() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+// order this thread's shared-memory writes before later TMA (async proxy) reads
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// Named barrier `id` (1-15) over n threads
+__device__ __forceinline__ void named_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Store four 8 x 8 bf16 matrices to shared memory: register i of lane
+// (g, t) holds row g, columns 2t and 2t + 1 of matrix i (the accumulator
+// fragment layout); lanes 8i .. 8i + 7 give the addresses of matrix i's rows.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
+    asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(r0), "r"(r1),
+                 "r"(r2), "r"(r3)
+                 : "memory");
 }
 
 // Registers per thread of the calling warpgroup (a multiple of 8 in 24..256)
@@ -143,6 +179,34 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
         : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d[64 x 128] (+)= A . B^T, A and B K-major bf16 in shared memory; d0
+// holds columns 0-63 and d1 columns 64-127, each in the m64n64 layout
+__device__ __forceinline__ void wgmma_ss_n128(float (&d0)[32], float (&d1)[32], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]),
+          "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]),
+          "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]),
+          "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]),
+          "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]),
+          "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
+          "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]),
+          "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]),
+          "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]),
+          "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+          "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]),
+          "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
+          "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]),
+          "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
+          "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
+          "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d[64 x 64] += A . B, A bf16 in registers (the m64k16 fragment), B
 // MN-major bf16 in shared memory (the transpose bit set)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
@@ -176,8 +240,144 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)
 }
 
 // ---------------------------------------------------------------------------
+// device: the tiles, operands and epilogue of the attention kernels
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 64;   // rows of a streamed tile, and of a warpgroup's share
+constexpr int kOwn = 128;   // rows a CTA owns: two consumer warpgroups
+constexpr int kCtaThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared tiles at head dim D: kBlk column blocks of kCb bf16, each block
+// rows x kRowBytes, swizzled (kSwz: 1 = 128 B, 2 = 64 B).
+template <int D>
+struct Geo {
+    static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
+    static constexpr int kCb = D >= 64 ? 64 : 32;
+    static constexpr int kBlk = D / kCb;
+    static constexpr int kRowBytes = kCb * 2;
+    static constexpr uint32_t kSwz = kCb == 64 ? 1 : 2;
+    static constexpr int kStages = D <= 64 ? 3 : 2;
+    static constexpr int kN = kCb;  // width of each output product (one column block)
+};
+
+// K-major operand (the reduction over D along each row): rows r0 .. r0+63
+// of a `rows`-row tile at `tile`, columns 16 ks .. 16 ks + 15.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int r0, int ks) {
+    using G = Geo<D>;
+    const int col = ks * 16;
+    const uint32_t addr = tile + (col / G::kCb) * rows * G::kRowBytes + r0 * G::kRowBytes + (col % G::kCb) * 2;
+    return smem_desc(addr, 16, 8 * G::kRowBytes, G::kSwz);
+}
+// MN-major B operand (the reduction along the tile's rows): rows 16 kk ..
+// 16 kk + 15 of a `rows`-row tile, column block blk as the N columns.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int blk, int kk) {
+    using G = Geo<D>;
+    const uint32_t addr = tile + blk * rows * G::kRowBytes + kk * 16 * G::kRowBytes;
+    return smem_desc(addr, rows * G::kRowBytes, 8 * G::kRowBytes, G::kSwz);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b) {
+    if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b);
+    else wgmma_rs_n32(d, a, desc_b);
+}
+
+// Round a 64 x 64 f32 accumulator into the four bf16 A fragments of its
+// 16-wide k steps (columns 16 kk .. 16 kk + 15: blocks 2 kk and 2 kk + 1).
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&c)[32]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(c[8 * kk + 2 * i], c[8 * kk + 2 * i + 1]);
+    }
+}
+
+// Entries of a warpgroup's 64 x 64 score tile where dead(nb, e) holds
+// become -inf (e indexes the four entries of column block nb), so that
+// they drop out of a row max and 2^x makes them exactly 0.
+template <typename Dead>
+__device__ __forceinline__ void mask_tile(float (&x)[32], Dead dead) {
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[4 * nb + e] = dead(nb, e) ? -INFINITY : x[4 * nb + e];
+    }
+}
+
+// p = 2^(x scale_log2 - l(nb, e)) over a 64 x 64 score tile in place: an
+// FFMA and an ex2 an entry (-inf, a masked score, gives 0 for finite l)
+template <typename L>
+__device__ __forceinline__ void exp2_tile(float (&x)[32], float scale_log2, L l) {
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[4 * nb + e] = exp2_approx(fmaf(x[4 * nb + e], scale_log2, -l(nb, e)));
+    }
+}
+
+// exp2_tile, after masking a tile that `masked` marks (one that crosses
+// the diagonal or T): the common, unmasked tile tests nothing
+template <typename L, typename Dead>
+__device__ __forceinline__ void exp_tile(float (&x)[32], float scale_log2, bool masked, L l, Dead dead) {
+    if (masked) mask_tile(x, dead);
+    exp2_tile(x, scale_log2, l);
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&c)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) c[i] = 0.0f;
+}
+
+// Write a warpgroup's 64 x D accumulator (kBlk blocks of kN columns) to
+// rows row0 + .. of a [B, T, heads, D] tensor at `base` (row stride rs),
+// times mul, keeping rows < T.
+template <int D, typename TO>
+__device__ __forceinline__ void store_acc(TO* base, size_t rs, int row0, int T_,
+                                          const float (&c)[Geo<D>::kBlk][Geo<D>::kN / 2], float mul) {
+    using G = Geo<D>;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+#pragma unroll
+    for (int blk = 0; blk < G::kBlk; ++blk) {
+#pragma unroll
+        for (int nb = 0; nb < G::kN / 8; ++nb) {
+            const int col = blk * G::kCb + nb * 8 + 2 * t;
+            const float* e = &c[blk][4 * nb];
+            if (r0 < T_) store2(base + (size_t)r0 * rs + col, e[0] * mul, e[1] * mul);
+            if (r1 < T_) store2(base + (size_t)r1 * rs + col, e[2] * mul, e[3] * mul);
+        }
+    }
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+    return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
+}
+
+// ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
+
+// The card's SM count, read once per device: a driver query on every
+// launch would lengthen the host-bound stretches of a step
+inline cudaError_t sm_count(int* sms) {
+    static std::atomic<int> counts[kMaxDevices];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    int n = counts[dev].load(std::memory_order_acquire);
+    if (n == 0) {
+        if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+        counts[dev].store(n, std::memory_order_release);
+    }
+    *sms = n;
+    return cudaSuccess;
+}
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,

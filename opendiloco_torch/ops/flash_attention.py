@@ -4,18 +4,25 @@ The counterpart of ``opendiloco_tpu/ops/flash_attention.py``. Its three
 Pallas kernels are written by hand in CUDA C++ for Hopper (each source
 notes what it replaces, its bound and its design):
 
-- B1 ``flash_attention_fwd``: out and lse (``_fwd`` / ``_fwd_kernel``),
-  in ``csrc/flash_attention.cu``;
+- B1 ``flash_attention_fwd``: out and lse (``_fwd`` / ``_fwd_kernel``);
 - B2a ``flash_attention_dq``: dq by recompute (``_dq_kernel``);
 - B2b ``flash_attention_dkv``: dk and dv per kv head (``_dkv_kernel``).
 
-The backward takes one of two routes, chosen by :func:`_bwd_route` from
-the dtype and head dim alone: bf16 at D 32, 64 or 128 goes to the wgmma
-and TMA kernels of ``csrc/flash_attention_bwd_sm90.cu``, counted as
-``flash_attention_dq_sm90`` and ``flash_attention_dkv_sm90``; f32 and any
-other head dim to the first design's ``mma.sync`` kernels in
-``csrc/flash_attention.cu``, counted as ``flash_attention_dq`` and
+Each direction takes one of two routes, chosen from the dtype and head
+dim alone by :func:`_fwd_route` and :func:`_bwd_route`, which share one
+rule (:func:`_on_sm90`): bf16 at D 32, 64 or 128 goes to the wgmma and TMA
+kernels of ``csrc/flash_attention_fwd_sm90.cu`` and
+``csrc/flash_attention_bwd_sm90.cu``, counted as
+``flash_attention_fwd_sm90``, ``flash_attention_dq_sm90`` and
+``flash_attention_dkv_sm90``; f32 and any other head dim to the first
+design's ``mma.sync`` kernels in ``csrc/flash_attention.cu``, counted as
+``flash_attention_fwd``, ``flash_attention_dq`` and
 ``flash_attention_dkv``. A launch error raises on either route.
+
+Between the forward and the backward, :func:`attention_delta` computes
+delta = rowsum(dO * O) (the JAX package's ``_delta``, which XLA computes
+outside Pallas) through its own kernel, ``csrc/flash_attention_delta.cu``,
+counted as ``flash_attention_delta``, on both routes.
 
 Each wrapper sits beside its plain version (``*_plain``), which repeats
 the kernel's arithmetic and roundings in a few einsums: scores, softmax
@@ -24,11 +31,9 @@ rounded to k's (q's) dtype before the dq (dk) product, outputs in the input
 dtype or ``grad_dtype``. A CPU tensor goes to the plain version; a CUDA
 tensor goes to the kernel, or the wrapper raises (f32 and bf16 only, D a
 multiple of 8 up to 128, any rep and any T). Nothing falls back.
-
-``attention_delta`` (the JAX package's ``_delta``) stays plain PyTorch: the
-JAX package computes it in XLA, outside Pallas. :class:`FlashAttention`
-is the ``torch.autograd.Function`` that replaces ``_flash``'s
-``custom_vjp``: it saves q, k, v, out and lse as ``_flash_fwd`` does.
+:class:`FlashAttention` is the ``torch.autograd.Function`` that replaces
+``_flash``'s ``custom_vjp``: it saves q, k, v, out and lse as
+``_flash_fwd`` does.
 
 Layouts are the port's model layout, read in place by the kernels:
 q, out [B, T, H, D]; k, v [B, T, Hkv, D]; lse, delta [B, H, T] f32 (the
@@ -46,13 +51,16 @@ from opendiloco_torch.ops.launch import LAUNCHES, F, I, P, SUFFIX, launch, on_ca
 NEG_INF = -1e30  # the TPU kernel's finite stand-in for -inf
 SOURCE = "flash_attention"
 SM90_SOURCE = "flash_attention_bwd_sm90"
+SM90_FWD_SOURCE = "flash_attention_fwd_sm90"
+DELTA_SOURCE = "flash_attention_delta"
 SM90_HEAD_DIMS = (32, 64, 128)
-register("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
-         "flash_attention_dq_sm90", "flash_attention_dkv_sm90")
+register("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "flash_attention_fwd_sm90",
+         "flash_attention_dq_sm90", "flash_attention_dkv_sm90", "flash_attention_delta")
 _ARGTYPES = {
     "flash_attention_fwd": [P, P, P, P, P, I, I, I, I, I, I, F, P],
     "flash_attention_dq": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
     "flash_attention_dkv": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
+    "flash_attention_delta": [P, P, P, I, I, I, I, P],
 }
 
 
@@ -61,10 +69,20 @@ def _launch(name: str, dtype: torch.dtype, device: torch.device, *args, source: 
     launch(kernel, source, f"{kernel}_{SUFFIX[dtype]}", _ARGTYPES[name], device, *args)
 
 
+def _on_sm90(dtype: torch.dtype, D: int) -> bool:
+    """The route rule of both directions: the wgmma kernels take bf16 at
+    D 32, 64 or 128; everything else takes the first design."""
+    return dtype == torch.bfloat16 and D in SM90_HEAD_DIMS
+
+
+def _fwd_route(dtype: torch.dtype, D: int) -> str:
+    """The source of the forward kernel for (dtype, head dim)."""
+    return SM90_FWD_SOURCE if _on_sm90(dtype, D) else SOURCE
+
+
 def _bwd_route(dtype: torch.dtype, D: int) -> str:
-    """The source of the backward kernels for (dtype, head dim): the wgmma
-    kernels for bf16 at D 32, 64 or 128, else the first design."""
-    return SM90_SOURCE if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS else SOURCE
+    """The source of the backward kernels for (dtype, head dim)."""
+    return SM90_SOURCE if _on_sm90(dtype, D) else SOURCE
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest: torch.Tensor) -> tuple:
@@ -76,18 +94,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest: torch.Tenso
     Hkv = k.shape[2]
     if k.shape[0] != B or k.shape[1] != T or k.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
-    if q.dtype not in SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"dtypes q {q.dtype} k {k.dtype} v {v.dtype}: need one of f32/bf16")
-    if D % 8 or not 0 < D <= 128:
-        raise ValueError(f"head_dim {D} must be a multiple of 8 up to 128")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes q {q.dtype} k {k.dtype} v {v.dtype} differ")
     if Hkv < 1 or H % Hkv:
         raise ValueError(f"{H} query heads over {Hkv} kv heads")
-    for t in (q, k, v, *rest):
+    _check_operands(q.dtype, D, q, k, v, *rest)
+    return B, T, H, Hkv, D
+
+
+def _check_operands(dtype: torch.dtype, D: int, *tensors: torch.Tensor) -> None:
+    if dtype not in SUFFIX:
+        raise ValueError(f"dtype {dtype}: need one of f32/bf16")
+    if D % 8 or not 0 < D <= 128:
+        raise ValueError(f"head_dim {D} must be a multiple of 8 up to 128")
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError("flash attention operands must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError("flash attention operands must be 16-byte aligned")
-    return B, T, H, Hkv, D
 
 
 def _check_stats(lse: torch.Tensor, delta: torch.Tensor, B: int, H: int, T: int) -> None:
@@ -175,7 +199,7 @@ def flash_attention_dkv_plain(
     return dk.to(out), dv.to(out)
 
 
-def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+def attention_delta_plain(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO * O) in f32: [B, T, H, D] -> [B, H, T]."""
     return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
@@ -191,6 +215,11 @@ def flash_attention_fwd(
     """B1: (out [B, T, H, D], lse [B, H, T] f32)."""
     if not on_card(q, k, v):
         return flash_attention_fwd_plain(q, k, v, causal)
+    return _fwd_kernel(q, k, v, causal)
+
+
+def _fwd_kernel(q, k, v, causal, route: Optional[str] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """B1 on the card through ``route`` (default :func:`_fwd_route`'s)."""
     B, T, H, Hkv, D = _check(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -198,8 +227,24 @@ def flash_attention_fwd(
         "flash_attention_fwd", q.dtype, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B, T, H, Hkv, D, int(causal), D**-0.5,
+        source=route or _fwd_route(q.dtype, D),
     )
     return out, lse
+
+
+def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32: [B, T, H, D] -> [B, H, T], the
+    backward's preprocess (the JAX package's ``_delta``)."""
+    if not on_card(dout, out):
+        return attention_delta_plain(dout, out)
+    if out.dim() != 4 or dout.shape != out.shape or dout.dtype != out.dtype:
+        raise ValueError(f"dout {dout.dtype} {tuple(dout.shape)} does not match out {out.dtype} {tuple(out.shape)}")
+    B, T, H, D = out.shape
+    _check_operands(out.dtype, D, dout, out)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=out.device)
+    launch(DELTA_SOURCE, DELTA_SOURCE, f"{DELTA_SOURCE}_{SUFFIX[out.dtype]}", _ARGTYPES[DELTA_SOURCE],
+           out.device, dout.data_ptr(), out.data_ptr(), delta.data_ptr(), B, T, H, D)
+    return delta
 
 
 def flash_attention_dq(
@@ -262,7 +307,7 @@ def _dkv_kernel(q, k, v, dout, lse, delta, causal, grad_dtype,
 
 class FlashAttention(torch.autograd.Function):
     """out = attention(q, k, v): B1 forward, B2a and B2b backward with
-    delta computed in between. Saves (q, k, v, out, lse) for the backward,
+    delta computed in between by its own kernel. Saves (q, k, v, out, lse) for the backward,
     as ``_flash_fwd`` does. Under activation checkpointing the forward
     reruns, and with it B1."""
 

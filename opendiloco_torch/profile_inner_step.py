@@ -10,8 +10,8 @@ untraced, then traces as many with CPU and CUDA activities. Every device
 event of the trace (kernels, copies, fills) goes into one group by its
 name. Prints one JSON object as its last line: per inner step, the untraced
 and traced wall ms, the device's busy ms (the union of its event
-intervals) and idle share, each group's ms, share and event count, and the
-longest kernels; ``--out`` also keeps the Chrome trace::
+intervals) and idle share, each group's ms, share, event count and
+longest kernels by function name, and the longest kernels overall; ``--out`` also keeps the Chrome trace::
 
     python -m opendiloco_torch.profile_inner_step [--config 1b] [--steps 3] [--out DIR]
 
@@ -33,7 +33,8 @@ import numpy as np
 # (group, pattern over the lower-cased kernel name); the first match wins
 GROUPS = (
     ("fused cross-entropy (B3, B4a, B4b, dlog)", r"xent_"),
-    ("flash attention (B1, B2a, B2b)", r"(^|[\s:])(fwd|dq|dkv)(_sm90)?_kernel<"),
+    # B1 and B2 on both routes, and the backward's delta pass
+    ("flash attention (B1, B2a, B2b, delta)", r"(^|[\s:])(fwd|dq|dkv|delta)(_sm90)?_kernel<"),
     ("matmul (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
     ("softmax and cross-entropy", r"softmax|nll_loss|cross_entropy"),
     ("optimizer (_foreach)", r"multi_tensor_apply|foreach"),
@@ -52,6 +53,13 @@ def group_of(name: str, cat: str = "kernel") -> str:
         if re.search(pattern, low):
             return group
     return OTHER
+
+
+def short_name(name: str) -> str:
+    """A kernel's function name without its namespace wrapper, template
+    arguments or parameters."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", name, maxsplit=1)[0].strip()
 
 
 def busy_us(intervals) -> float:
@@ -75,9 +83,12 @@ def summarize(events: list, steps: int, step_ms: float) -> dict:
     groups: dict = {}
     kernels: dict = {}
     for e in dev:
-        g = groups.setdefault(group_of(e["name"], e["cat"]), {"us": 0.0, "events": 0})
+        g = groups.setdefault(group_of(e["name"], e["cat"]), {"us": 0.0, "events": 0, "kernels": {}})
         g["us"] += e["dur"]
         g["events"] += 1
+        gk = g["kernels"].setdefault(short_name(e["name"]), [0.0, 0])
+        gk[0] += e["dur"]
+        gk[1] += 1
         k = kernels.setdefault(e["name"], [0.0, 0])
         k[0] += e["dur"]
         k[1] += 1
@@ -92,7 +103,10 @@ def summarize(events: list, steps: int, step_ms: float) -> dict:
         "kernel_launch_calls": launches / steps,
         "groups": {
             name: {"ms": g["us"] / steps / 1e3, "share_of_busy": g["us"] / steps / 1e3 / busy,
-                   "events": g["events"] / steps}
+                   "events": g["events"] / steps,
+                   # the group's longest kernels by function name
+                   "kernels": [{"name": n, "ms": us / steps / 1e3, "calls": c / steps}
+                               for n, (us, c) in sorted(g["kernels"].items(), key=lambda kv: -kv[1][0])[:6]]}
             for name, g in sorted(groups.items(), key=lambda kv: -kv[1]["us"])
         },
         "top_kernels": [

@@ -233,8 +233,10 @@ def test_flash_attention_kernels_match_plain(cuda, geom, dtype, causal):
     dq = tfa.flash_attention_dq(q, k, v, do, ref_lse, delta, causal)
     dk, dv = tfa.flash_attention_dkv(q, k, v, do, ref_lse, delta, causal)
     torch.cuda.synchronize()
+    # both directions share one route rule; delta has one kernel for both
     sfx = "_sm90" if tfa._bwd_route(dtype, D) == tfa.SM90_SOURCE else ""
-    for name in ("flash_attention_fwd", "flash_attention_dq" + sfx, "flash_attention_dkv" + sfx):
+    for name in ("flash_attention_fwd" + sfx, "flash_attention_dq" + sfx, "flash_attention_dkv" + sfx,
+                 "flash_attention_delta"):
         assert tdk.LAUNCHES[name] == n0[name] + 1
     assert out.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (B, H, T)
     assert dq.dtype == dtype and dk.shape == k.shape and dv.shape == v.shape
@@ -248,9 +250,9 @@ def test_flash_attention_kernels_match_plain(cuda, geom, dtype, causal):
         assert bool((err <= tol).all()), f"{name}: per-head error {err.tolist()} over {tol.tolist()}"
 
 
-# bf16 geometries of the sm90 backward (wgmma, TMA): D 32, 64 and 128; rep
-# 1 and 8 (the 1b heads); T ragged against the 128- and 64-row tiles, a
-# single tile, and a long sequence
+# bf16 geometries of the sm90 forward and backward (wgmma, TMA): D 32, 64
+# and 128; rep 1 and 8 (the 1b heads); T ragged against the 128- and 64-row
+# tiles, a single tile, and a long sequence
 SM90_GEOMS = [
     # B, T, H, Hkv, D
     (1, 200, 4, 4, 32),
@@ -259,6 +261,7 @@ SM90_GEOMS = [
     (2, 1000, 16, 2, 64),
     (2, 64, 8, 1, 64),
     (1, 1024, 32, 4, 64),
+    (8, 1024, 32, 4, 64),  # what config_1b training launches: ~16 q tiles a CTA on B1's ring
     (1, 200, 4, 4, 128),
     (1, 1000, 8, 1, 128),
     (1, 64, 2, 2, 128),
@@ -269,43 +272,118 @@ SM90_GEOMS = [
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("geom", SM90_GEOMS, ids=lambda g: "x".join(map(str, g)))
 def test_flash_attention_sm90_backward_matches_plain(cuda, geom, causal):
+    # the sm90 forward (out, lse) and backward (dq, dk, dv) against the
+    # plain versions; the backward reads the plain lse and delta
     from opendiloco_torch.ops import flash_attention as tfa
 
+    B, T, H, Hkv, D = geom
     q, k, v, do = _flash_inputs(cuda, *geom, torch.bfloat16, seed=3)
     out, lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
     delta = tfa.attention_delta(do, out)
     n0 = dict(tdk.LAUNCHES)
+    got_out, got_lse = tfa.flash_attention_fwd(q, k, v, causal)
     dq = tfa.flash_attention_dq(q, k, v, do, lse, delta, causal)
     dk, dv = tfa.flash_attention_dkv(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
-    assert tdk.LAUNCHES["flash_attention_dq_sm90"] == n0["flash_attention_dq_sm90"] + 1
-    assert tdk.LAUNCHES["flash_attention_dkv_sm90"] == n0["flash_attention_dkv_sm90"] + 1
+    for name in ("flash_attention_fwd_sm90", "flash_attention_dq_sm90", "flash_attention_dkv_sm90"):
+        assert tdk.LAUNCHES[name] == n0[name] + 1
+    assert got_lse.dtype == torch.float32 and got_lse.shape == (B, H, T)
+    # lse: f32 statistics in both, ex2.approx and another order of sums
+    lse_err = float((got_lse - lse).abs().max())
+    assert lse_err <= 1e-4 * max(1.0, float(lse.abs().max())), lse_err
     ref_dq = tfa.flash_attention_dq_plain(q, k, v, do, lse, delta, causal)
     ref_dk, ref_dv = tfa.flash_attention_dkv_plain(q, k, v, do, lse, delta, causal)
-    for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+    for name, got, ref in (("out", got_out, out), ("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
         assert got.dtype == torch.bfloat16 and got.shape == ref.shape
         err, tol = _flash_err(got, ref), _flash_tol(ref, torch.bfloat16)
         print(f"{name} {geom} causal={causal}: max err/tol {float((err / tol).max()):.3f}")
         assert bool((err <= tol).all()), f"{name}: per-head error {err.tolist()} over {tol.tolist()}"
 
 
+DELTA_GEOMS = [
+    # B, T, H, D
+    (8, 1024, 32, 64),  # the 1b head geometry
+    (2, 1000, 16, 64),  # odd T
+    (1, 100, 3, 8),  # D 8: one 16-byte chunk a row in bf16
+    (2, 70, 4, 40),  # D 40: a row of 5 (bf16) or 10 (f32) chunks in a group of 8 or 16 lanes
+    (1, 130, 2, 128),  # D 128: 32 lanes a row in f32
+]
+
+
 @pytest.mark.cuda
-def test_flash_attention_backward_routes_count_their_own_launches(cuda):
-    # bf16 at D 64 takes the sm90 kernels and never the first design's;
-    # f32 at D 64 and bf16 at D 40 take the first design's
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", DELTA_GEOMS, ids=lambda g: "x".join(map(str, g)))
+def test_attention_delta_kernel_matches_plain(cuda, geom, dtype):
+    """The delta kernel against the plain body: f32 sums of D products (in
+    bf16 exact in f32) in another order, 1e-6 of the largest |delta|."""
     from opendiloco_torch.ops import flash_attention as tfa
 
-    names = ("flash_attention_dq", "flash_attention_dkv", "flash_attention_dq_sm90", "flash_attention_dkv_sm90")
-    for dtype, D, want in ((torch.bfloat16, 64, (0, 0, 1, 1)), (torch.float32, 64, (1, 1, 0, 0)),
-                           (torch.bfloat16, 40, (1, 1, 0, 0))):
+    B, T, H, D = geom
+    g = torch.Generator(device=cuda).manual_seed(B * T + D)
+    do, out = (torch.randn(B, T, H, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    n0 = tdk.LAUNCHES["flash_attention_delta"]
+    delta = tfa.attention_delta(do, out)
+    torch.cuda.synchronize()
+    assert tdk.LAUNCHES["flash_attention_delta"] == n0 + 1
+    ref = tfa.attention_delta_plain(do, out)
+    assert delta.dtype == torch.float32 and delta.shape == (B, H, T) and delta.is_contiguous()
+    err = float((delta - ref).abs().max())
+    print(f"delta {geom} {dtype}: max err {err:.2e} of {float(ref.abs().max()):.2f}")
+    assert err <= 1e-6 * float(ref.abs().max())
+    assert torch.equal(delta, tfa.attention_delta(do, out))  # a fixed order: the same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "bad",
+    [
+        dict(D=12),  # not a multiple of 8
+        dict(D=136),  # above 128
+        dict(dtype=torch.float16),
+        dict(strided=True),  # not contiguous
+        dict(mixed=True),  # dO and O in two dtypes
+    ],
+)
+def test_attention_delta_rejects(cuda, bad):
+    from opendiloco_torch.ops import flash_attention as tfa
+
+    D, dtype = bad.get("D", 64), bad.get("dtype", torch.float32)
+    out = torch.zeros(2, 32, 4, D, device=cuda, dtype=dtype)
+    if bad.get("strided"):
+        out = torch.zeros(2, 4, 32, D, device=cuda, dtype=dtype).transpose(1, 2)
+    do = out.to(torch.bfloat16) if bad.get("mixed") else out
+    n0 = dict(tdk.LAUNCHES)
+    with pytest.raises(ValueError):
+        tfa.attention_delta(do, out)
+    assert tdk.LAUNCHES == n0
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_routes_count_their_own_launches(cuda):
+    # bf16 at D 64 takes the sm90 kernels of both directions and never the
+    # first design's; f32 at D 64 and bf16 at D 40 take the first design's,
+    # which route= also reaches in bf16. delta has one kernel for all.
+    from opendiloco_torch.ops import flash_attention as tfa
+
+    names = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "flash_attention_fwd_sm90",
+             "flash_attention_dq_sm90", "flash_attention_dkv_sm90", "flash_attention_delta")
+    first, sm90 = (1, 1, 1, 0, 0, 0, 1), (0, 0, 0, 1, 1, 1, 1)
+    for dtype, D, route, want in ((torch.bfloat16, 64, None, sm90), (torch.float32, 64, None, first),
+                                  (torch.bfloat16, 40, None, first), (torch.bfloat16, 64, tfa.SOURCE, first)):
         q, k, v, do = _flash_inputs(cuda, 1, 128, 4, 2, D, dtype)
-        out, lse = tfa.flash_attention_fwd(q, k, v)
-        delta = tfa.attention_delta(do, out)
         n0 = dict(tdk.LAUNCHES)
-        tfa.flash_attention_dq(q, k, v, do, lse, delta)
-        tfa.flash_attention_dkv(q, k, v, do, lse, delta)
+        if route is None:
+            out, lse = tfa.flash_attention_fwd(q, k, v)
+            delta = tfa.attention_delta(do, out)
+            tfa.flash_attention_dq(q, k, v, do, lse, delta)
+            tfa.flash_attention_dkv(q, k, v, do, lse, delta)
+        else:
+            out, lse = tfa._fwd_kernel(q, k, v, True, route=route)
+            delta = tfa.attention_delta(do, out)
+            tfa._dq_kernel(q, k, v, do, lse, delta, True, None, route=route)
+            tfa._dkv_kernel(q, k, v, do, lse, delta, True, None, route=route)
         torch.cuda.synchronize()
-        assert tuple(tdk.LAUNCHES[n] - n0[n] for n in names) == want, (dtype, D)
+        assert tuple(tdk.LAUNCHES[n] - n0[n] for n in names) == want, (dtype, D, route)
 
 
 def test_flash_attention_backward_route_rule():
@@ -319,18 +397,41 @@ def test_flash_attention_backward_route_rule():
         assert tfa._bwd_route(torch.bfloat16, D) == tfa.SOURCE
 
 
+def test_flash_attention_forward_route_rule_agrees_with_backward():
+    # the forward takes the sm90 kernel exactly where the backward does;
+    # runs without a card
+    from opendiloco_torch.ops import flash_attention as tfa
+
+    for D in (32, 64, 128):
+        assert tfa._fwd_route(torch.bfloat16, D) == tfa.SM90_FWD_SOURCE == "flash_attention_fwd_sm90"
+        assert tfa._fwd_route(torch.float32, D) == tfa.SOURCE
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for D in (8, 16, 32, 40, 48, 64, 96, 120, 128):
+            on_sm90 = (tfa._fwd_route(dtype, D) == tfa.SM90_FWD_SOURCE,
+                       tfa._bwd_route(dtype, D) == tfa.SM90_SOURCE)
+            assert on_sm90[0] == on_sm90[1] == tfa._on_sm90(dtype, D), (dtype, D)
+            if not on_sm90[0]:
+                assert tfa._fwd_route(dtype, D) == tfa._bwd_route(dtype, D) == tfa.SOURCE
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("geom", [(2, 512, 8, 2, 64), (2, 1024, 32, 4, 64)], ids=["rep4", "1b-heads"])
+@pytest.mark.parametrize("geom", [(2, 512, 8, 2, 64), (2, 1024, 32, 4, 64), (8, 1024, 32, 4, 64)],
+                         ids=["rep4", "1b-heads", "1b-train"])
 def test_flash_attention_kernels_repeat_bitwise(cuda, geom):
     from opendiloco_torch.ops import flash_attention as tfa
 
     q, k, v, do = _flash_inputs(cuda, *geom, torch.bfloat16)
+    n0 = dict(tdk.LAUNCHES)
     runs = []
     for _ in range(2):
         out, lse = tfa.flash_attention_fwd(q, k, v, True)
         delta = tfa.attention_delta(do, out)
-        runs.append((out, lse, tfa.flash_attention_dq(q, k, v, do, lse, delta),
+        runs.append((out, lse, delta, tfa.flash_attention_dq(q, k, v, do, lse, delta),
                      *tfa.flash_attention_dkv(q, k, v, do, lse, delta)))
+    # bf16 at D 64: every kernel of the sm90 route, and the delta kernel
+    for name in ("flash_attention_fwd_sm90", "flash_attention_delta", "flash_attention_dq_sm90",
+                 "flash_attention_dkv_sm90"):
+        assert tdk.LAUNCHES[name] == n0[name] + 2
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 
@@ -366,6 +467,38 @@ def test_flash_attention_autograd_matches_plain_attention(cuda):
         grads.append([out.detach(), *(t.grad for t in leaves)])
     for got, ref in zip(*grads):
         torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(2, 300, 8, 2, 64), (1, 256, 4, 4, 128)], ids=["rep4-D64", "D128"])
+def test_flash_attention_bf16_autograd_matches_plain_chain(cuda, geom):
+    """bf16 through ``flash_attention`` (the sm90 forward, the delta
+    kernel, the sm90 backward) against the plain versions chained on the
+    same inputs (plain forward, plain delta, plain dq and dk/dv). The two
+    sides round p and the outputs at points that differ by f32 rounding,
+    and the plain side's delta reads its own out: 2**-6 of each head's
+    largest value, as the kernel checks."""
+    from opendiloco_torch.ops import flash_attention as tfa
+
+    q, k, v, do = _flash_inputs(cuda, *geom, torch.bfloat16, seed=7)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = dict(tdk.LAUNCHES)
+    out = tfa.flash_attention(*leaves, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_fwd_sm90", "flash_attention_delta", "flash_attention_dq_sm90",
+                 "flash_attention_dkv_sm90"):
+        assert tdk.LAUNCHES[name] == n0[name] + 1
+    ref_out, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, True)
+    delta = tfa.attention_delta_plain(do, ref_out)
+    ref_dq = tfa.flash_attention_dq_plain(q, k, v, do, ref_lse, delta, True)
+    ref_dk, ref_dv = tfa.flash_attention_dkv_plain(q, k, v, do, ref_lse, delta, True)
+    for name, got, ref in (("out", out.detach(), ref_out), ("dq", leaves[0].grad, ref_dq),
+                           ("dk", leaves[1].grad, ref_dk), ("dv", leaves[2].grad, ref_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        err, tol = _flash_err(got, ref), _flash_tol(ref, torch.bfloat16)
+        print(f"autograd {name} {geom}: max err/tol {float((err / tol).max()):.3f}")
+        assert bool((err <= tol).all()), f"{name}: per-head error {err.tolist()} over {tol.tolist()}"
 
 
 @pytest.mark.cuda

@@ -149,7 +149,8 @@ def test_cpu_tensors_never_launch_a_kernel():
     tfa.flash_attention_dq(q, k, v, do, lse, delta)
     tfa.flash_attention_dkv(q, k, v, do, lse, delta)
     assert LAUNCHES == before
-    for name in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"):
+    for name in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "flash_attention_fwd_sm90",
+                 "flash_attention_dq_sm90", "flash_attention_dkv_sm90", "flash_attention_delta"):
         assert name in LAUNCHES
 
 

@@ -4,20 +4,26 @@ summary of a Chrome trace. The trace itself needs the card; these checks
 use hand-made events."""
 import pytest
 
-from opendiloco_torch.profile_inner_step import MEMCPY, OTHER, busy_us, group_of, summarize
+from opendiloco_torch.profile_inner_step import MEMCPY, OTHER, busy_us, group_of, short_name, summarize
 
 
 @pytest.mark.parametrize(
     "name,cat,group",
     [
         ("void (anonymous namespace)::fwd_kernel<__nv_bfloat16, true>(__nv_bfloat16 const*)", "kernel",
-         "flash attention (B1, B2a, B2b)"),
+         "flash attention (B1, B2a, B2b, delta)"),
         ("void (anonymous namespace)::dkv_kernel<float, false>(float const*)", "kernel",
-         "flash attention (B1, B2a, B2b)"),
+         "flash attention (B1, B2a, B2b, delta)"),
         ("void (anonymous namespace)::dq_sm90_kernel<64, __nv_bfloat16>(CUtensorMap_st, CUtensorMap_st)",
-         "kernel", "flash attention (B1, B2a, B2b)"),
+         "kernel", "flash attention (B1, B2a, B2b, delta)"),
         ("void (anonymous namespace)::dkv_sm90_kernel<128, float>(CUtensorMap_st, CUtensorMap_st)", "kernel",
-         "flash attention (B1, B2a, B2b)"),
+         "flash attention (B1, B2a, B2b, delta)"),
+        ("void (anonymous namespace)::fwd_sm90_kernel<64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+         "(anonymous namespace)::FwdArgs)", "kernel", "flash attention (B1, B2a, B2b, delta)"),
+        ("void (anonymous namespace)::delta_kernel<__nv_bfloat16>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+         "float*, int, int, int, long long, int)", "kernel", "flash attention (B1, B2a, B2b, delta)"),
+        ("void (anonymous namespace)::delta_kernel<float>(float const*, float const*, float*, int, int, int, "
+         "long long, int)", "kernel", "flash attention (B1, B2a, B2b, delta)"),
         ("void (anonymous namespace)::xent_fwd_kernel<__nv_bfloat16>(__nv_bfloat16 const*)", "kernel",
          "fused cross-entropy (B3, B4a, B4b, dlog)"),
         ("void (anonymous namespace)::xent_gemm_kernel<__nv_bfloat16, float, false, false>(int)", "kernel",
@@ -37,6 +43,21 @@ from opendiloco_torch.profile_inner_step import MEMCPY, OTHER, busy_us, group_of
 )
 def test_kernel_names_fall_into_their_groups(name, cat, group):
     assert group_of(name, cat) == group
+
+
+@pytest.mark.parametrize(
+    "name,short",
+    [
+        ("void (anonymous namespace)::delta_kernel<float>(float const*, float const*, float*, int)", "delta_kernel"),
+        ("void (anonymous namespace)::fwd_sm90_kernel<64>(CUtensorMap_st, (anonymous namespace)::FwdArgs)",
+         "fwd_sm90_kernel"),
+        ("void at::native::reduce_kernel<512, 1, ReduceOp<float>>", "at::native::reduce_kernel"),
+        ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNN", "nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNN"),
+        ("Memcpy HtoD (Pageable -> Device)", "Memcpy HtoD"),
+    ],
+)
+def test_kernel_short_names_drop_namespaces_and_arguments(name, short):
+    assert short_name(name) == short
 
 
 def test_busy_time_is_the_union_of_intervals():
@@ -65,6 +86,10 @@ def test_summary_is_per_step():
     assert list(s["groups"])[0] == "matmul (cuBLAS)"  # longest group first
     assert s["top_kernels"][0] == {"name": "nvjet_tst_gemm", "ms": 1.0, "calls": 1.0,
                                    "group": "matmul (cuBLAS)"}
+    # each group lists its kernels by function name, longest first
+    assert mm["kernels"] == [{"name": "nvjet_tst_gemm", "ms": 1.0, "calls": 1.0}]
+    flash = s["groups"]["flash attention (B1, B2a, B2b, delta)"]
+    assert flash["kernels"] == [{"name": "fwd_kernel", "ms": 0.2, "calls": 0.5}]
 
 
 def test_a_trace_without_device_events_raises():
