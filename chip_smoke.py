@@ -12,7 +12,7 @@ non-zero and prints no result. Every phase runs unguarded: any failure
 exits non-zero.
 
 1. Card line: ``nvidia-smi`` name and power limit, torch and CUDA
-   versions, and the seconds the nvcc build of the eight kernel sources
+   versions, and the seconds the nvcc build of the nine kernel sources
    took (one nvcc per source, started together). TF32 is off for matmuls
    and cuDNN, so every f32 product is full f32.
 2. B6, paged decode attention, against its plain version at the
@@ -59,36 +59,52 @@ exits non-zero.
    ``fused_loss=False``). Every loss finite, the last below the first,
    both masters bit-identical after each round. Then one inner step,
    kernel path against plain path, and one worker's inner-step time alone.
-   Then one inner step in f32 (``precision="fp32"``), which takes the
-   first design's B1 (2 x 12 x accum), B2a and B2b (12 x accum each) and
-   the delta kernel (12 x accum), the sm90 kernels never, against the
-   same step through plain attention.
+   Then one inner step in f32 (``precision="fp32"``) with the fused loss
+   on, which takes the first design's B1 (2 x 12 x accum), B2a and B2b
+   (12 x accum each), the delta kernel (12 x accum), B3 (accum) and the
+   first design's dlog, B4a and B4b (accum x 4 each), the sm90 kernels
+   never, against the same step through plain attention and the
+   materialized loss.
 9. B3, the dlog kernel, B4a and B4b (fused lm-head + cross-entropy)
    against their plain versions at the 1b training shape (N 8184, D 2048,
-   V 32000), the 150m width (D 1024) and an odd N and V (1000), about a
-   seventh of the labels -100, in f32 and bf16; device times of kernel,
-   plain version and the library pair (cuBLAS ``h @ w`` then
-   ``F.cross_entropy``, and its backward through autograd), and the
+   V 32000; dlog, dh and dw at its first 2048-row chunk), its ragged last
+   chunk (N 2040), the 150m width (D 1024) and an odd N and V (1000),
+   about a seventh of the labels -100, in f32 and bf16; in bf16 the sm90
+   dlog and dh (wgmma, TMA; the route bf16 takes, each repeated for its
+   bits) and the first design's both. Device times of kernel, plain
+   version and the library pair (cuBLAS ``h @ w`` then
+   ``F.cross_entropy``, and its backward through autograd), cuBLAS
+   ``dlog @ w.T`` beside dh; dlog and dh on both routes in turns; the
    bounds.
 10. Training at config_1b, full width and depth, as phase 8 (4 steps,
    local_steps 2: 2 outer rounds), with ``fused_loss`` left at its
    default, which resolves on. Per inner step and worker the sm90 B1 must
    have run 2 x 22 x accum times, the sm90 B2a and B2b and the delta
-   kernel 22 x accum, B3 accum, and the dlog,
-   B4a and B4b kernels accum x 4 (a backward walks 8184 rows in chunks of
-   2048). Then one inner step with the fused loss against one with
-   ``fused_loss=False`` on the same params and batch.
+   kernel 22 x accum, B3 accum, and the sm90 dlog and B4a and B4b accum x
+   4 (a backward walks 8184 rows in chunks of 2048), the first design's
+   dlog and B4a never. Then one inner step with the fused loss against
+   one with ``fused_loss=False`` on the same params and batch.
 11. B7, the speculative tail attention, against its plain version in f32
    and bf16 at the shapes of its three passes at config_1b: verify (S 8,
    Kq = Kt = 5), draft (Kq 1, Kt 4, q_start 0..3) and the continued
-   prefill of prefix reuse (S 1, Kq = Kt = 256 and 1000 behind a 192-row
-   prefix), with lens that include 0, 5, T - 2, T and 2T + 1; device
-   times of kernel, plain version and one SDPA call over concat(ring,
-   tail) with the same boolean mask, and the bounds. (Phases 11-13 run
-   after phase 5, on its weights; phase 14 after phase 6.)
+   prefill of prefix reuse (S 1, Kq = Kt = 64, 256 and 1000 behind a
+   192-row prefix), with lens that include 0, 5, T - 2, T and 2T + 1, at
+   the ring splits the wrapper picks (8 at verify, draft and suffix 64, 1
+   at suffix 256 and 1000), then split edges: splits left empty (lens
+   0, 5), evicted (lens >= T at q_start 3) or cut inside the live ring
+   (T - 2; 3 and 16 splits), each output repeated bit for bit; the merge kernel against
+   its plain version on the split kernel's partials (verify, draft and
+   suffix 64). Device times of kernel at its splits and at one split in
+   turns (at verify and draft the splits must take at most half of one
+   split's time), the merge alone, plain version and one SDPA call over
+   concat(ring, tail) with the same boolean mask, and the bounds.
+   (Phases 11-13 run after phase 5, on its weights; phase 14 after
+   phase 6.)
 12. Speculative serving, fp32 and w4 weights: ``build_serving`` with
    ``spec_decode_k`` 4 (draft 11 of 22 layers) drives phase 4's 16
-   requests. Per round B7 must have run 4 x 11 + 22 = 66 times and B6
+   requests. Per round B7 must have run 4 x 11 + 22 = 66 times, its merge
+   kernel as often (SPEC_MERGES_PER_ROUND: 8 slots give 8 ring splits at
+   both shapes), and B6
    never; under w4 B8 7 x 66 times a round and 7 x 22 a prefill. Tokens/s,
    TTFT, ms per round, acceptance, tokens per round and the draft, verify
    and insert seconds beside phases 4/5's, the token agreement with them
@@ -99,17 +115,21 @@ exits non-zero.
 13. Prefix serving: ``spec_decode_k`` 4 with ``prefix_cache`` on, then
    off, on 16 prompts of one 192-token system prompt and 8-200 distinct
    tokens, all submitted at once: at least 7 prefix hits, B7 22 times per
-   hit and 66 per round; TTFT p50 on against off. A prefix-reused admit's
-   logits against a cold admit's at config_1b in f32 (1e-3).
+   hit and 66 per round, its merge 66 per round and 22 per hit whose
+   suffix pads to the 64 bucket (SUFFIX_MERGES: its 8 query tiles leave
+   the card short, 8 splits; the 256 and 1024 buckets take one split, no
+   merge), the hits' suffix lengths recorded as the batcher admits them;
+   TTFT p50 on against off. A prefix-reused admit's logits against a cold
+   admit's at config_1b in f32 (1e-3).
 14. config_2m in f32 through ``ServeEngine`` with ``spec_k`` 3, past its
    32-row ring: the token stream on the card equals the plain decode
    loop's on the card and the spec engine's on the CPU.
 15. Phase 12's plain and spec loops at config_1b in f32 compute on 4 of
    its 16 requests (after phase 13): the spec streams must equal the
    plain loop's token for token.
-16. The kernels line (launches of B6, B7 and B8 by serving phase, of the
-   training kernels by training phase), the card line, and last the
-   result line.
+16. The kernels line (launches of B6, B7, its merge and B8 by serving
+   phase, of the training kernels by training phase), the card line, and
+   last the result line.
 
 Device times come from CUDA-graph replays of many launches that cycle
 through enough copies of the inputs to exceed the 50 MB L2 cache, as the
@@ -550,22 +570,37 @@ def b7_work(S, T, Kh, rep, D, Kq, Kt, q_start, lens_list, elt) -> tuple[float, f
     return nbytes, 4.0 * D * Kh * rep * pairs
 
 
-def phase_b7(torch, tdk, cfg, serve_cfg, dev) -> dict:
+def phase_b7(torch, tdk, cfg, serve_cfg, dev) -> list:
     """B7 against its plain version in f32 and bf16 at the shapes of its
     three passes at config_1b: verify (S 8, Kq = Kt = 5), draft (Kq 1, Kt
-    4, q_start 0..3) and continued prefill (S 1, Kq = Kt = 256 and 1000
-    behind a 192-row prefix), over lens with an empty slot, T - 2, T and a
-    wrapped ring 2T + 1; then device times in bf16 of the kernel, its plain
-    version and one SDPA call, with the bounds."""
+    4, q_start 0..3) and continued prefill (S 1, Kq = Kt = 64, 256 and
+    1000 behind a 192-row prefix: the prefill buckets), over lens with an
+    empty slot, T - 2, T and a wrapped ring 2T + 1, with the ring splits
+    the wrapper picks; then the split edges: whole splits empty (lens 0,
+    short rings), evicted (lens >= T at q_start 3) or cut inside the live
+    ring (T - 2, 3 splits of 342 rows), and the merge kernel against its plain version on the split
+    kernel's own partials at the three shapes that merge on the main path
+    (verify, draft, suffix 64). Then device times in bf16 of the kernel
+    (split and merge) at its chosen splits and at one split (the grid of
+    one block walk per query tile), its plain version, one SDPA call and
+    the merge alone, with the bounds; at verify and draft the splits must
+    take at most half of one split's time."""
     import torch.nn.functional as F
 
     S, T = serve_cfg.max_batch, serve_cfg.max_context
     Kh, H, D = cfg.kv_heads, cfg.num_attention_heads, cfg.head_dim
     rep = H // Kh
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ragged = [0, 5, 255, 700, T - 2, T, 2 * T + 1, 511][:S]
-    shapes = [("verify", S, 5, 5, 0, ragged)]
-    shapes += [(f"draft q_start {i}", S, 1, 4, i, ragged) for i in range(4)]
-    shapes += [("suffix 256", 1, 256, 256, 0, [192]), ("suffix 1000", 1, 1000, 1000, 0, [192])]
+    edges = [0, 0, 5, 127, 128, T - 2, T, T + 3][:S]
+    # (label, S, Kq, Kt, q_start, lens, splits or None for the wrapper's)
+    shapes = [("verify", S, 5, 5, 0, ragged, None)]
+    shapes += [(f"draft q_start {i}", S, 1, 4, i, ragged, None) for i in range(4)]
+    shapes += [(f"suffix {n}", 1, n, n, 0, [192], None) for n in (64, 256, 1000)]
+    shapes += [("verify split edges", S, 5, 5, 0, edges, None),
+               ("draft split edges q_start 3", S, 1, 4, 3, edges, None),
+               ("verify 3 splits", S, 5, 5, 3, edges, 3), ("draft 16 splits", S, 1, 4, 3, edges, 16),
+               ("suffix 256, 2 splits", 1, 256, 256, 0, [192], 2)]
     g = torch.Generator(device=dev).manual_seed(5)
 
     def inputs(n, kq, kt, dtype, lens_list):
@@ -574,11 +609,15 @@ def phase_b7(torch, tdk, cfg, serve_cfg, dev) -> dict:
         tail = [torch.randn(n, kt, Kh, D, generator=g, device=dev).to(dtype) for _ in range(2)]
         return (q, *ring, *tail, torch.tensor(lens_list, dtype=torch.int32, device=dev))
 
+    def splits_of(n, kq, splits):
+        return tdk.spec_tail_split_chunk(T, splits or tdk.spec_tail_splits(n, T, Kh, kq * rep, sms))[0]
+
     checks = []
-    for label, n, kq, kt, q_start, lens_list in shapes:
+    for label, n, kq, kt, q_start, lens_list, splits in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             args = inputs(n, kq, kt, dtype, lens_list)
-            out = tdk.spec_tail_attention_fused(*args, q_start=q_start)
+            out = tdk.spec_tail_attention_fused(*args, q_start=q_start, splits=splits)
+            again = tdk.spec_tail_attention_fused(*args, q_start=q_start, splits=splits)
             torch.cuda.synchronize()
             ref = tdk.spec_tail_attention_plain(*args, q_start=q_start).float()
             err = (out.float() - ref).abs().amax(dim=(2, 3))  # per (slot, query token)
@@ -588,13 +627,44 @@ def phase_b7(torch, tdk, cfg, serve_cfg, dev) -> dict:
             # global max in the plain version, and both outputs round to bf16
             tol = 1e-5 * top.clamp(min=1.0) if dtype == torch.float32 else 2.0**-6 * top
             share = float((err / tol).max())
+            used = splits_of(n, kq, splits)
             checks.append({"shape": label, "S": n, "Kq": kq, "Kt": kt, "q_start": q_start, "lens": lens_list,
-                           "dtype": str(dtype).removeprefix("torch."), "max_abs_err": float(err.max()),
-                           "worst_err_over_tol": share})
+                           "splits": used, "dtype": str(dtype).removeprefix("torch."),
+                           "max_abs_err": float(err.max()), "worst_err_over_tol": share})
+            if not bool(torch.isfinite(out.float()).all()):
+                raise AssertionError(f"B7 {label} {dtype}: non-finite output")
+            if not torch.equal(out, again):
+                raise AssertionError(f"B7 {label} {dtype}: a second launch gave other bits")
             if not bool((err <= tol).all()):
                 raise AssertionError(f"B7 {label} {dtype} disagrees with its plain version: err/tol {share}")
-            del args, out, ref
-        log(f"B7 {label} (S{n} Kq{kq} Kt{kt} q_start {q_start} lens {lens_list}): f32 and bf16 within tolerance")
+            del args, out, again, ref
+        log(f"B7 {label} (S{n} Kq{kq} Kt{kt} q_start {q_start} lens {lens_list}, {used} splits): f32 and bf16 "
+            "within tolerance, bit for bit on a second launch")
+
+    # the merge kernel against its plain version on the split kernel's own
+    # partials: the same f32 sums in the same order, exp correctly rounded
+    # on both sides to an ulp or two
+    merge_checks = []
+    for label, n, kq, kt, q_start, lens_list in (("verify", S, 5, 5, 0, edges), ("draft", S, 1, 4, 3, edges),
+                                                 ("suffix 64", 1, 64, 64, 0, [192])):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = inputs(n, kq, kt, dtype, lens_list)
+            P, chunk = tdk.spec_tail_split_chunk(T, splits_of(n, kq, None))
+            if P < 2:
+                raise AssertionError(f"B7 merge {label}: the wrapper picks {P} split")
+            ml, acc = tdk._spec_tail_partials(*args, q_start=q_start, splits=P, chunk=chunk)
+            out = tdk.spec_tail_merge(ml, acc, kq, dtype)
+            torch.cuda.synchronize()
+            ref = tdk.spec_tail_merge_plain(ml, acc, kq, dtype).float()
+            err = float((out.float() - ref).abs().max())
+            tol = (1e-6 if dtype == torch.float32 else 2.0**-8) * max(1.0, float(ref.abs().max()))
+            merge_checks.append({"shape": label, "splits": P, "dtype": str(dtype).removeprefix("torch."),
+                                 "max_abs_err": err, "tol": tol,
+                                 "dead_splits": int((ml[..., 0] == float("-inf")).sum())})
+            if not err <= tol:
+                raise AssertionError(f"B7 merge {label} {dtype}: {err} > {tol}")
+            del args, ml, acc, out, ref
+    log(f"B7 merge kernel vs plain merge: {json.dumps(merge_checks)}")
     torch.cuda.empty_cache()
 
     def sdpa_call(q, ck, cv, tk, tv, lens, q_start):
@@ -613,39 +683,64 @@ def phase_b7(torch, tdk, cfg, serve_cfg, dev) -> dict:
 
     timed = {}
     dtype, elt = torch.bfloat16, 2
+    lens_timed = [0, 1, 255, 256, 700, 1023, 1500, 511][:S]
     full = [T + 3 * i for i in range(S)]  # every ring row live
-    for label, n, kq, kt, q_start, lens_list in [("verify", S, 5, 5, 0, [0, 1, 255, 256, 700, 1023, 1500, 511][:S]),
+    for label, n, kq, kt, q_start, lens_list in [("verify", S, 5, 5, 0, lens_timed),
                                                   ("verify full ring", S, 5, 5, 0, full),
-                                                  ("draft", S, 1, 4, 3, [0, 1, 255, 256, 700, 1023, 1500, 511][:S]),
+                                                  ("draft", S, 1, 4, 3, lens_timed),
+                                                  ("suffix 64", 1, 64, 64, 0, [192]),
                                                   ("suffix 256", 1, 256, 256, 0, [192])]:
         page_bytes = n * T * Kh * D * elt * 2
         sets = [inputs(n, kq, kt, dtype, lens_list) for _ in range(copies_for(page_bytes))]
+        used = splits_of(n, kq, None)
         kern = lambda *a, qs=q_start: tdk.spec_tail_attention_fused(*a, q_start=qs)
+        one = lambda *a, qs=q_start: tdk.spec_tail_attention_fused(*a, q_start=qs, splits=1)
         plain = lambda *a, qs=q_start: tdk.spec_tail_attention_plain(*a, q_start=qs)
-        kernel_ms = device_ms(torch, kern, sets)
+        # the two grids in turns (chosen, one split, one split, chosen)
+        runs = [device_ms(torch, f, sets) for f in (kern, one, one, kern)]
+        kernel_ms, one_ms = min(runs[0], runs[3]), min(runs[1], runs[2])
+        merge_ms = None
+        if used > 1:
+            P, chunk = tdk.spec_tail_split_chunk(T, used)
+            parts = [tdk._spec_tail_partials(*a, q_start=q_start, splits=P, chunk=chunk) for a in sets]
+            merge_ms = device_ms(torch, lambda ml, acc, kq=kq: tdk.spec_tail_merge(ml, acc, kq, dtype), parts)
+            del parts
         plain_ms = device_ms(torch, plain, sets, launches=16)
         lib_sets = [sdpa_call(*a, q_start) for a in sets]
         library_ms = device_ms(torch, sdpa, lib_sets, launches=16)
         b_ms, b_by = bound_ms(*b7_work(n, T, Kh, rep, D, kq, kt, q_start, lens_list, elt))
-        timed[label] = {"S": n, "Kq": kq, "Kt": kt, "q_start": q_start, "lens": lens_list, "kernel_ms": kernel_ms,
+        R = n * Kh * kq * rep
+        merge_b_ms, _ = bound_ms(R * used * (D + 2) * 4 + R * D * elt, 0.0)
+        timed[label] = {"S": n, "Kq": kq, "Kt": kt, "q_start": q_start, "lens": lens_list, "splits": used,
+                        "kernel_ms": kernel_ms, "kernel_ms_runs": runs, "one_split_ms": one_ms,
+                        "merge_ms": merge_ms, "merge_bound_ms": merge_b_ms if used > 1 else None,
                         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
-        log(f"B7 bf16 {label} S{n} T{T} Kh{Kh} rep{rep} D{D} Kq{kq} Kt{kt}: kernel {kernel_ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        log(f"B7 bf16 {label} S{n} T{T} Kh{Kh} rep{rep} D{D} Kq{kq} Kt{kt}: kernel {kernel_ms:.4f} ms at {used} "
+            f"splits (of it merge {merge_ms if merge_ms is None else f'{merge_ms:.4f}'}), one split {one_ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
         del sets, lib_sets
         torch.cuda.empty_cache()
-    v = timed["verify"]
-    return {
+    v, dr = timed["verify"], timed["draft"]
+    for label in ("verify", "draft"):
+        t = timed[label]
+        if not t["kernel_ms"] <= 0.5 * t["one_split_ms"]:
+            raise AssertionError(f"B7 {label}: {t['kernel_ms']:.4f} ms at {t['splits']} splits is more than half "
+                                 f"of one split's {t['one_split_ms']:.4f} ms")
+    source = "opendiloco_torch/csrc/spec_tail_attention.cu"
+    replaces = "opendiloco_tpu/ops/decode_kernels.py:438 (spec_tail_attention_fused, _spec_tail_kernel :265)"
+    b7 = {
         "name": "spec_tail_attention",
         "route": "cuda",
-        "source": "opendiloco_torch/csrc/spec_tail_attention.cu",
-        "replaces": "opendiloco_tpu/ops/decode_kernels.py:438 (spec_tail_attention_fused, _spec_tail_kernel :265)",
+        "source": source,
+        "replaces": replaces,
         "shape": {"pass": "verify", "S": S, "T": T, "Kh": Kh, "rep": rep, "D": D, "Kq": 5, "Kt": 5,
-                  "lens": v["lens"], "dtype": "bfloat16"},
+                  "lens": v["lens"], "splits": v["splits"], "dtype": "bfloat16"},
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "tol": "per (slot, query token): f32 1e-5 of the largest output (at least 1e-5); bf16 2**-6 of the largest",
         "checks": checks,
         "ms": v["kernel_ms"],
         "kernel_ms": v["kernel_ms"],
+        "note": "ms is the wrapper's whole call, the merge launch included where there is more than one split",
         "plain_ms": v["plain_ms"],
         "library_ms": v["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True) over concat(ring, tail) "
@@ -654,6 +749,33 @@ def phase_b7(torch, tdk, cfg, serve_cfg, dev) -> dict:
         "bound_by": v["bound_by"],
         "timed": timed,
     }
+    merge = {
+        "name": "spec_tail_attention_merge",
+        "route": "cuda",
+        "source": source,
+        "replaces": f"{replaces}: the (m, l, acc) carry across the TPU kernel's sequential ring grid axis",
+        "shape": {"pass": "draft", "S": S, "Kh": Kh, "rows": rep, "D": D, "splits": dr["splits"],
+                  "dtype": "bfloat16"},
+        "max_abs_err": max(c["max_abs_err"] for c in merge_checks),
+        "tol": "f32 1e-6, bf16 2**-8 of the largest output (at least 1)",
+        "checks": merge_checks,
+        "ms": dr["merge_ms"],
+        "kernel_ms": dr["merge_ms"],
+        "note": "also counted inside spec_tail_attention's ms; verify: "
+                f"{v['merge_ms']} ms at {v['splits']} splits",
+        "plain_ms": None,
+        "library_ms": None,
+        "library": "none: no one call merges softmax partials",
+        "bound_ms": dr["merge_bound_ms"],
+        "bound_by": "bytes",
+    }
+    # the plain merge repeats the kernel's sums on the same partials
+    P, chunk = tdk.spec_tail_split_chunk(T, dr["splits"])
+    parts = [tdk._spec_tail_partials(*inputs(S, 1, 4, dtype, lens_timed), q_start=3, splits=P, chunk=chunk)]
+    merge["plain_ms"] = device_ms(torch, lambda ml, acc: tdk.spec_tail_merge_plain(ml, acc, 1, dtype), parts,
+                                  launches=16)
+    del parts
+    return [b7, merge]
 
 
 # ---------------------------------------------------------------------------
@@ -670,6 +792,17 @@ def agreement(a: list, b: list) -> dict:
         lead.append(n / max(1, len(x)))
     return {"equal_requests": sum(x == y for x, y in zip(a, b)), "of": len(a),
             "mean_share_before_first_difference": float(np.mean(lead))}
+
+
+# B7 merge launches at config_1b, as test_spec_tail_split_rule pins the
+# split rule: a spec round's k * Ld = 44 draft passes and L = 22 verify
+# passes each cut the ring into 8 splits (8 slots x 4 kv heads leave 132
+# SMs short), so each merges once
+SPEC_MERGES_PER_ROUND = 66
+# merge launches per layer of a prefix hit's suffix pass (S 1), by the
+# prefill bucket its suffix pads to: 64 rows give 8 query tiles x 4 kv
+# heads, 8 splits; 256 and 1024 rows fill the card with one split
+SUFFIX_MERGES = {64: 1, 256: 0, 1024: 0}
 
 
 def phase_spec(torch, tdk, cfg, serve_cfg, params, dev, plain: dict) -> dict:
@@ -694,6 +827,7 @@ def phase_spec(torch, tdk, cfg, serve_cfg, params, dev, plain: dict) -> dict:
                     cfg.vocab_size)
         rounds, prefills, launches = run["steps"], run["prefills"], run["launches"]
         check_launches(launches, {"spec_tail_attention": per_round * rounds,
+                                  "spec_tail_attention_merge": SPEC_MERGES_PER_ROUND * rounds,
                                   "w4_matmul": 7 * (L * prefills + per_round * rounds) if w4 else 0},
                        f"spec serve {serve_cfg.weight_format} ({rounds} rounds, {prefills} prefills)")
         stages = run["stages"]
@@ -774,28 +908,48 @@ def phase_prefix(torch, tdk, cfg, params, dev) -> dict:
     then off, on the same 16 prompts sharing a 192-token system prompt,
     all submitted at once. With it on, at least 7 admits reuse a live
     slot's prefix, and B7 runs 22 times per hit (the suffix pass) and 66
-    per round. Then a prefix-reused admit's logits against a cold admit's
-    at config_1b in f32."""
+    per round, its merge 66 per round and 22 per hit whose suffix pads to
+    a bucket in SUFFIX_MERGES with a merge (the suffix lengths recorded as
+    the batcher admits each hit). Then a prefix-reused admit's logits
+    against a cold admit's at config_1b in f32."""
     from opendiloco_torch.config import ServeConfig
     from opendiloco_torch.serve import ServeEngine, build_serving
+    from opendiloco_torch.serve.kvcache import pick_bucket
 
     L = cfg.num_hidden_layers
     prompts = prefix_prompts(cfg.vocab_size)
     runs = {}
     for on in (True, False):
-        plane = build_serving(ServeConfig(spec_decode_k=4, prefix_cache=on), cfg, params, device=dev)
+        serve_cfg = ServeConfig(spec_decode_k=4, prefix_cache=on)
+        plane = build_serving(serve_cfg, cfg, params, device=dev)
+        suffixes = []  # the suffix length of each prefix hit, in admission order
+        admit = plane.engine.admit
+
+        def recording_admit(slot, prompt, *, prefix_src=None, prefix_len=0, **kw):
+            if prefix_src is not None and 0 < prefix_len < len(prompt):
+                suffixes.append(len(prompt) - prefix_len)
+            return admit(slot, prompt, prefix_src=prefix_src, prefix_len=prefix_len, **kw)
+
+        plane.engine.admit = recording_admit
         try:
             per_round = plane.engine.spec_k * plane.engine.draft_layers + L
             # warm-up: two prompts that share the system prompt (a suffix pass when on)
             run = drive(tdk, plane, prompts, [prompts[0][:200], prompts[1][:196]], cfg.vocab_size)
             hits, rounds = run["prefix_hits"], run["steps"]
-            check_launches(run["launches"], {"spec_tail_attention": L * hits + per_round * rounds},
-                           f"prefix_cache={on} ({hits} hits, {rounds} rounds)")
+            # the main run's hits are the last ones recorded (the warm-up's came first)
+            buckets = [pick_bucket(n, serve_cfg.prefill_buckets) for n in suffixes[len(suffixes) - hits:]]
+            if len(buckets) != hits:
+                raise AssertionError(f"prefix_cache={on}: {len(suffixes)} suffix passes recorded for {hits} hits")
+            check_launches(run["launches"], {"spec_tail_attention": L * hits + per_round * rounds,
+                                             "spec_tail_attention_merge": SPEC_MERGES_PER_ROUND * rounds +
+                                             L * sum(SUFFIX_MERGES[b] for b in buckets)},
+                           f"prefix_cache={on} ({hits} hits, suffix buckets {buckets}, {rounds} rounds)")
             if on and hits < 7:
                 raise AssertionError(f"prefix_cache on: {hits} prefix hits, want at least 7")
             if not on and hits:
                 raise AssertionError(f"prefix_cache off: {hits} prefix hits")
-            runs[on] = {"prefix_cache": on, **run["summary"], "prefix_hits": hits, "rounds": rounds,
+            runs[on] = {"prefix_cache": on, **run["summary"], "prefix_hits": hits, "hit_suffix_buckets": buckets,
+                        "rounds": rounds,
                         "launches": run["launches"], "prefill_ms_mean": run["stages"]["prefill"] / 16 * 1e3,
                         "tokens": [r.tokens for r in run["reqs"]]}
         finally:
@@ -1242,8 +1396,13 @@ XENT_REPLACES = {
     "fused_xent_dh": "opendiloco_tpu/ops/fused_xent.py:254 (_bwd_impl, _dh_kernel :195)",
     "fused_xent_dw": "opendiloco_tpu/ops/fused_xent.py:276 (_bwd_impl, _dw_kernel :219)",
 }
+XENT_REPLACES["fused_xent_dlog_sm90"] = XENT_REPLACES["fused_xent_dlog"]
+XENT_REPLACES["fused_xent_dh_sm90"] = XENT_REPLACES["fused_xent_dh"]
 # (label, N, D, V) of the checks, and the timed shape: the 1b training shape
-XENT_GEOMS = [("1b", 8184, 2048, 32000), ("150m width", 8184, 1024, 32000), ("odd N and V", 1000, 1024, 1000)]
+# (its first 2048-row chunk for dlog, dh and dw), its ragged last chunk
+# (8184 = 3 x 2048 + 2040), the 150m width, an odd N and V
+XENT_GEOMS = [("1b", 8184, 2048, 32000), ("1b last chunk", 2040, 2048, 32000), ("150m width", 8184, 1024, 32000),
+              ("odd N and V", 1000, 1024, 1000)]
 XENT_TIMED = (8184, 2048, 32000)
 XENT_TOL = ("element by element, |got - ref| <= rtol |ref| + atol: nll and lse atol 1e-4 of the largest lse "
             "(logits exact in f32 on both sides, sums in another order); dlog rtol 2**-7 in bf16 (one ulp where "
@@ -1252,6 +1411,8 @@ XENT_TOL = ("element by element, |got - ref| <= rtol |ref| + atol: nll and lse a
             "of the largest |dh| (f32 sum-order noise where an element nearly cancels); dh in f32 atol 1e-4 of "
             "the largest |dh| (V-long sums in another order, about 2**-24 * sqrt(V)); dw atol 1e-5 of the "
             "largest |dw| (f32 sums)")
+XENT_SOURCES = {"fused_xent_dlog_sm90": "opendiloco_torch/csrc/fused_xent_sm90.cu",
+                "fused_xent_dh_sm90": "opendiloco_torch/csrc/fused_xent_sm90.cu"}
 
 
 def xent_inputs(torch, dev, N, D, V, dtype, seed):
@@ -1270,22 +1431,28 @@ def xent_work(N, D, V, elt) -> dict:
     accumulates); one product is 2 N D V operations."""
     mm = 2.0 * N * D * V
     h, w, dl = N * D * elt, D * V * elt, N * V * elt
-    return {
+    work = {
         "fused_xent_fwd": (h + w + N * 8 + 2 * N * 4, mm),
         "fused_xent_dlog": (h + w + N * 8 + 2 * N * 4 + dl, mm),
         "fused_xent_dh": (dl + w + h, mm),
         "fused_xent_dw": (h + dl + 2 * D * V * 4, mm),
     }
+    work["fused_xent_dlog_sm90"], work["fused_xent_dh_sm90"] = work["fused_xent_dlog"], work["fused_xent_dh"]
+    return work
 
 
 def phase_xent(torch, tfx, dev) -> list:
     """Each kernel against its plain version on the same inputs (dh and dw
-    take the plain dlog), then device times in bf16 at the 1b training
-    shape: B3 over all N rows, the backward kernels per launch at one
-    chunk of CHUNK_ROWS rows (a backward at N 8184 makes 4 of each)."""
+    take the plain dlog); in bf16 the sm90 dlog and dh (the route bf16
+    takes) and the first design's (through route=) both, each repeated
+    for its bits. Then device times in bf16 at the 1b training shape: B3
+    over all N rows, the backward kernels per launch at one chunk of
+    CHUNK_ROWS rows (a backward at N 8184 makes 4 of each), dlog and dh on
+    both routes in turns, beside cuBLAS and the bounds."""
     import torch.nn.functional as F
 
-    checks = {name: [] for name in tfx.NAMES}
+    sm90 = {"fused_xent_dlog": "fused_xent_dlog_sm90", "fused_xent_dh": "fused_xent_dh_sm90"}
+    checks = {name: [] for name in (*tfx.NAMES, *tfx.SM90_NAMES)}
     for gi, (label, N, D, V) in enumerate(XENT_GEOMS):
         for dtype in (torch.float32, torch.bfloat16):
             h, w, labels, gup = xent_inputs(torch, dev, N, D, V, dtype, 20 + gi)
@@ -1293,25 +1460,36 @@ def phase_xent(torch, tfx, dev) -> list:
             ref_nll, ref_lse = tfx.fused_xent_fwd_plain(h, w, labels)
             rows = slice(0, min(N, tfx.CHUNK_ROWS))
             args = (h[rows], w, labels[rows], ref_lse[rows], gup[rows])
-            dlog = tfx.fused_xent_dlog(*args)
+            bf16 = dtype == torch.bfloat16
+            routes = [tfx.SM90_SOURCE, tfx.SOURCE] if bf16 else [tfx.SOURCE]
+            got = {}
             ref_dlog = tfx.fused_xent_dlog_plain(*args)
-            dh = tfx.fused_xent_dh(ref_dlog, w)
+            for route in routes:
+                sfx = "_sm90" if route == tfx.SM90_SOURCE else ""
+                got["fused_xent_dlog" + sfx] = tfx.fused_xent_dlog(*args, route=route)
+                got["fused_xent_dh" + sfx] = tfx.fused_xent_dh(ref_dlog, w, route=route)
+                if route == tfx.SM90_SOURCE:  # the route bf16 takes: its bits repeat
+                    if not (torch.equal(got["fused_xent_dlog_sm90"], tfx.fused_xent_dlog(*args, route=route))
+                            and torch.equal(got["fused_xent_dh_sm90"], tfx.fused_xent_dh(ref_dlog, w, route=route))):
+                        raise AssertionError(f"sm90 dlog or dh {label}: a second launch gave other bits")
             dw = tfx.fused_xent_dw(h[rows], ref_dlog)
             torch.cuda.synchronize()
             scale = max(1.0, float(ref_lse.abs().max()))
-            bf16 = dtype == torch.bfloat16
             ref_dh, ref_dw = tfx.fused_xent_dh_plain(ref_dlog, w), tfx.fused_xent_dw_plain(h[rows], ref_dlog)
             top = {"dh": float(ref_dh.float().abs().max()), "dw": float(ref_dw.abs().max())}
             r_dlog = 2.0**-7 if bf16 else 1e-5
             # (kernel, output, got, ref, rtol, atol): see XENT_TOL
             pairs = [("fused_xent_fwd", "lse", lse, ref_lse, 0.0, 1e-4 * scale),
                      ("fused_xent_fwd", "nll", nll, ref_nll, 0.0, 1e-4 * scale),
-                     ("fused_xent_dlog", "dlog", dlog, ref_dlog, r_dlog, r_dlog / 2 * float(gup.max()) / V),
-                     ("fused_xent_dh", "dh", dh, ref_dh, 2.0**-7 if bf16 else 0.0,
-                      (1e-5 if bf16 else 1e-4) * top["dh"]),
                      ("fused_xent_dw", "dw", dw, ref_dw, 0.0, 1e-5 * top["dw"])]
-            for kernel, out, got, ref, rtol, atol in pairs:
-                diff = (got.float() - ref.float()).abs()
+            for kernel, out in got.items():
+                if "dlog" in kernel:
+                    pairs.append((kernel, "dlog", out, ref_dlog, r_dlog, r_dlog / 2 * float(gup.max()) / V))
+                else:
+                    pairs.append((kernel, "dh", out, ref_dh, 2.0**-7 if bf16 else 0.0,
+                                  (1e-5 if bf16 else 1e-4) * top["dh"]))
+            for kernel, out, got_, ref, rtol, atol in pairs:
+                diff = (got_.float() - ref.float()).abs()
                 ratio = float((diff / (rtol * ref.float().abs() + atol)).max())
                 checks[kernel].append({"shape": label, "N": N, "D": D, "V": V,
                                        "dtype": str(dtype).removeprefix("torch."), "output": out,
@@ -1322,10 +1500,10 @@ def phase_xent(torch, tfx, dev) -> list:
                                          f"limit (rtol {rtol}, atol {atol:.3g})")
             if bool(nll[labels == -100].any()):
                 raise AssertionError(f"fused_xent_fwd {label} {dtype}: an ignored row has a loss")
-            del h, w, labels, gup, nll, lse, ref_nll, ref_lse, dlog, ref_dlog, dh, dw, ref_dh, ref_dw, diff
+            del h, w, labels, gup, nll, lse, ref_nll, ref_lse, got, ref_dlog, dw, ref_dh, ref_dw, diff
             torch.cuda.empty_cache()
-        worst = {f"{c['output']} {c['dtype']}": round(c["worst_share_of_limit"], 4)
-                 for k in checks.values() for c in k if c["shape"] == label}
+        worst = {f"{k} {c['dtype']}": round(c["worst_share_of_limit"], 4)
+                 for k, cs in checks.items() for c in cs if c["shape"] == label}
         log(f"B3/B4 {label} (N{N} D{D} V{V}): f32 and bf16 within tolerance; worst element's share of its "
             f"limit: {worst}")
     log(f"B3/B4 tolerances: {XENT_TOL}")
@@ -1338,13 +1516,20 @@ def phase_xent(torch, tfx, dev) -> list:
     dlog = tfx.fused_xent_dlog(h[:C], w, labels[:C], lse[:C], gup[:C])
     acc = torch.zeros(D, V, device=dev)
     fwd_set, chunk_set = [(h, w, labels, lse, gup)], [(h[:C], w, labels[:C], lse[:C], gup[:C], dlog, acc)]
+
+    def dlog_on(route):
+        return lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dlog(h, w, lb, ls, g, route=route)
+
+    def dh_on(route):
+        return lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dh(dl, w, route=route)
+
     runs = {
         "fused_xent_fwd": (lambda h, w, lb, ls, g: tfx.fused_xent_fwd(h, w, lb),
                            lambda h, w, lb, ls, g: tfx.fused_xent_fwd_plain(h, w, lb), fwd_set),
-        "fused_xent_dlog": (lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dlog(h, w, lb, ls, g),
+        "fused_xent_dlog": (dlog_on(tfx.SOURCE),
                             lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dlog_plain(h, w, lb, ls, g), chunk_set),
-        "fused_xent_dh": (lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dh(dl, w),
-                          lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dh_plain(dl, w), chunk_set),
+        "fused_xent_dh": (dh_on(tfx.SOURCE), lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dh_plain(dl, w),
+                          chunk_set),
         "fused_xent_dw": (lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dw(h, dl, a),
                           lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dw_plain(h, dl, a), chunk_set),
     }
@@ -1353,6 +1538,14 @@ def phase_xent(torch, tfx, dev) -> list:
         times[name] = (device_ms(torch, kern, sets, launches=8, replays=3),
                        device_ms(torch, plain, sets, launches=2, replays=3))
         torch.cuda.empty_cache()
+    # both routes of dlog and dh in turns (sm90, first, first, sm90)
+    same_call = {}
+    for name, on in (("fused_xent_dlog", dlog_on), ("fused_xent_dh", dh_on)):
+        order = [tfx.SM90_SOURCE, tfx.SOURCE, tfx.SOURCE, tfx.SM90_SOURCE]
+        ms = [device_ms(torch, on(r), chunk_set, launches=8, replays=3) for r in order]
+        same_call[name] = {"sm90_ms": [ms[0], ms[3]], "first_design_ms": [ms[1], ms[2]]}
+        times[sm90[name]] = (min(ms[0], ms[3]), times[name][1])
+        times[name] = (min(ms[1], ms[2]), times[name][1])
     bwd_ms = device_ms(torch, lambda h, w, lb, ls, g: tfx.fused_xent_bwd(h, w, lb, ls, g), fwd_set,
                        launches=2, replays=3)
 
@@ -1373,12 +1566,13 @@ def phase_xent(torch, tfx, dev) -> list:
         "fused_xent_dw": device_ms(torch, lambda h, w, lb, ls, g, dl, a: a.add_(h.T @ dl), chunk_set,
                                    launches=8, replays=3),
     }
+    lib_chunk_ms["fused_xent_dh_sm90"] = lib_chunk_ms["fused_xent_dh"]
     del leaves, fwd_set, chunk_set, h, w, labels, gup, lse, dlog, acc
     torch.cuda.empty_cache()
 
     n_chunks = -(-N // C)
     rows = []
-    for name in tfx.NAMES:
+    for name in (*tfx.NAMES, *tfx.SM90_NAMES):
         n = N if name == "fused_xent_fwd" else C
         nbytes, flops = xent_work(n, D, V, 2)[name]
         b_ms, b_by = bound_ms(nbytes, flops)
@@ -1387,10 +1581,11 @@ def phase_xent(torch, tfx, dev) -> list:
         worst = max(checks[name], key=lambda c: c["worst_share_of_limit"])
         log(f"{name} bf16 N{n} D{D} V{V}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.5f} ms ({b_by})")
+        base = name.removesuffix("_sm90")
         rows.append({
             "name": name,
             "route": "cuda",
-            "source": "opendiloco_torch/csrc/fused_xent.cu",
+            "source": XENT_SOURCES.get(name, "opendiloco_torch/csrc/fused_xent.cu"),
             "replaces": XENT_REPLACES[name],
             "shape": {"N": n, "D": D, "V": V, "dtype": "bfloat16",
                       "per": "one launch over all rows" if n == N else f"one launch at one chunk of {C} rows "
@@ -1404,17 +1599,22 @@ def phase_xent(torch, tfx, dev) -> list:
             "plain_ms": plain_ms,
             "library_ms": lib,
             "library": ("cuBLAS h @ w, then F.cross_entropy over the f32 logits" if name == "fused_xent_fwd" else
-                        "none: the logits' gradient has no call of its own" if name == "fused_xent_dlog" else
-                        "cuBLAS dlog @ w.T on the same chunk" if name == "fused_xent_dh" else
+                        "none: the logits' gradient has no call of its own" if base == "fused_xent_dlog" else
+                        "cuBLAS dlog @ w.T on the same chunk" if base == "fused_xent_dh" else
                         "cuBLAS h.T @ dlog on the same chunk, added into the f32 dw"),
             "bound_ms": b_ms,
             "bound_by": b_by,
+            **({"same_call": same_call[base]} if base in same_call else {}),
         })
+    pair = {r: times[f"fused_xent_dlog{r}"][0] + times[f"fused_xent_dh{r}"][0] for r in ("_sm90", "")}
+    log(f"fused cross-entropy dlog + dh per {C}-row chunk: sm90 {pair['_sm90']:.4f} ms, first design "
+        f"{pair['']:.4f} ms (same call; {json.dumps(same_call)})")
     log(f"fused cross-entropy backward (all {n_chunks} chunks, bf16 N{N} D{D} V{V}): {bwd_ms:.4f} ms; "
         f"library backward (autograd of the cuBLAS + F.cross_entropy pair, dh and dw over all rows) "
         f"{lib_bwd_ms:.4f} ms, library forward {lib_fwd_ms:.4f} ms")
     rows[0]["backward_ms_all_chunks"] = bwd_ms
     rows[0]["library_backward_ms_all_rows"] = lib_bwd_ms
+    rows[0]["dlog_plus_dh_per_chunk_ms"] = {"sm90": pair["_sm90"], "first_design": pair[""]}
     return rows
 
 
@@ -1533,7 +1733,8 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
         # launch of each backward kernel
         chunks = -(-run["per_device_train_batch_size"] * (run["seq_length"] - 1) // tfx.CHUNK_ROWS)
         want["fused_xent_fwd"] = inner_steps * accum
-        for name in ("fused_xent_dlog", "fused_xent_dh", "fused_xent_dw"):
+        # bf16 dlog and dh take the sm90 kernels, the first design never
+        for name in ("fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw"):
             want[name] = inner_steps * accum * chunks
     if launches != want:
         raise AssertionError(f"training launch counts {launches} != {want}")
@@ -1630,16 +1831,18 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
 
 
 def phase_train_f32(torch, tfa, dev, card: str) -> dict:
-    """One inner step at config_150m in f32 (``precision="fp32"``), the
-    path whose attention takes the first design's kernels: the launch
-    counters are zeroed just before and read just after (B1 2 x 12 x
-    accum, B2a and B2b 12 x accum of the first design, the delta kernel 12
-    x accum, the sm90 kernels never). Then the same step through plain attention (``attn_impl="xla"``)
-    on the same params and batch: f32 throughout, sums in another order
-    over 12 layers, so the loss (~10.4) agrees to 1e-4 and the gradient
-    norm to 1e-3 of itself."""
+    """One inner step at config_150m in f32 (``precision="fp32"``) with the
+    fused loss on, the path that takes the first design's kernels: the
+    launch counters are zeroed just before and read just after (B1 2 x 12
+    x accum, B2a and B2b 12 x accum of the first design, the delta kernel
+    12 x accum, B3 accum, the first design's dlog and dh and B4b accum x 4,
+    the sm90 kernels never). Then the same step through plain attention
+    (``attn_impl="xla"``) and the materialized loss on the same params and
+    batch: f32 throughout, sums in another order over 12 layers, so the
+    loss (~10.4) agrees to 1e-4 and the gradient norm to 1e-3 of itself."""
     from opendiloco_torch.data.dataloader import FakeTokenizedDataset
     from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.ops import fused_xent as tfx
     from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
 
     cfg, run = load_config("150m"), TRAIN_150M
@@ -1647,9 +1850,10 @@ def phase_train_f32(torch, tfa, dev, card: str) -> dict:
     ds = iter(FakeTokenizedDataset(run["seq_length"], cfg.vocab_size, seed=7, mode="ramp"))
     ids = np.stack([next(ds)["input_ids"] for _ in range(run["total_batch_size"])])
     res = {"config": "150m", "precision": "fp32", "accum": accum}
-    for label, impl in (("kernels", "pallas"), ("plain", "xla")):
+    chunks = -(-run["per_device_train_batch_size"] * (run["seq_length"] - 1) // tfx.CHUNK_ROWS)
+    for label, impl, fused in (("kernels", "pallas", True), ("plain", "xla", False)):
         tr = InnerTrainer(cfg, TrainerConfig(precision="fp32", remat=True, warmup_steps=2, total_steps=100,
-                                             attn_impl=impl), device=dev)
+                                             attn_impl=impl, fused_loss=fused), device=dev)
         state = tr.init_state(3)
         batch = tr.shard_batch(ids, ids.copy(), accum=accum)
         torch.cuda.synchronize()
@@ -1662,14 +1866,17 @@ def phase_train_f32(torch, tfa, dev, card: str) -> dict:
             launches = tfa.LAUNCHES.snapshot()
             want = {name: 0 for name in launches}
             want.update({"flash_attention_fwd": 2 * L * accum, "flash_attention_dq": L * accum,
-                         "flash_attention_dkv": L * accum, "flash_attention_delta": L * accum})
+                         "flash_attention_dkv": L * accum, "flash_attention_delta": L * accum,
+                         "fused_xent_fwd": accum, "fused_xent_dlog": accum * chunks,
+                         "fused_xent_dh": accum * chunks, "fused_xent_dw": accum * chunks})
             if launches != want:
                 raise AssertionError(f"f32 step launch counts {launches} != {want}")
             res["launches"] = launches
         del tr, state, batch, m
         torch.cuda.empty_cache()
     kl, kg, pl_, pg = res["kernels"]["loss"], res["kernels"]["grad_norm"], res["plain"]["loss"], res["plain"]["grad_norm"]
-    log(f"train 150m fp32 step: kernels / plain loss {kl:.6f} / {pl_:.6f}, grad norm {kg:.6f} / {pg:.6f}; "
+    log(f"train 150m fp32 step (fused loss / materialized): kernels / plain loss {kl:.6f} / {pl_:.6f}, "
+        f"grad norm {kg:.6f} / {pg:.6f}; "
         f"launches {res['launches']} | {card}")
     if not (math.isfinite(kl) and abs(kl - pl_) <= 1e-4 and abs(kg - pg) <= 1e-3 * pg):
         raise AssertionError(f"fp32 step: kernels vs plain loss {kl} vs {pl_}, grad norm {kg} vs {pg}")
@@ -1702,7 +1909,7 @@ def main() -> int:
     card = card_line()
     build_s = build.build(["paged_decode_attention", "spec_tail_attention", "w4_matmul", "flash_attention",
                            "flash_attention_fwd_sm90", "flash_attention_bwd_sm90", "flash_attention_delta",
-                           "fused_xent"])
+                           "fused_xent", "fused_xent_sm90"])
     log(f"card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"kernel build {build_s:.2f} s | TF32 off for matmuls and cuDNN")
 
@@ -1714,7 +1921,7 @@ def main() -> int:
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     serve = [phase_serve(torch, tdk, cfg, serve_cfg, params, dev)]
     serve.append(phase_serve(torch, tdk, cfg, ServeConfig(weight_format="w4"), params, dev))
-    b7 = phase_b7(torch, tdk, cfg, serve_cfg, dev)
+    b7 = phase_b7(torch, tdk, cfg, serve_cfg, dev)  # B7 and its merge kernel
     spec = [phase_spec(torch, tdk, cfg, ServeConfig(spec_decode_k=SPEC_K, weight_format=s["weight_format"]),
                        params, dev, s) for s in serve]
     prefix = phase_prefix(torch, tdk, cfg, params, dev)
@@ -1738,7 +1945,7 @@ def main() -> int:
     serving.update({f"spec serve {s['weight_format']}": s["launches"] for s in spec})
     serving.update({f"prefix serve, prefix_cache={on}": prefix[key]["launches"]
                     for key, on in (("on", True), ("off", False))})
-    for k in (b6, b7, b8):
+    for k in (b6, *b7, b8):
         k["launches_by_phase"] = {phase: counts[k["name"]] for phase, counts in serving.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
     # launches: the training paths, by phase (the first design runs on the
@@ -1751,7 +1958,7 @@ def main() -> int:
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
     log(json.dumps({"serve": serve, "spec": spec, "spec_f32": spec_f32, "prefix": prefix, "reference": reference,
                     "train": [train_150m, train_1b, train_f32], "seconds": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [b6, b7, b8, *flash, *xent]}))
+    log(json.dumps({"kernels": [b6, *b7, b8, *flash, *xent]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

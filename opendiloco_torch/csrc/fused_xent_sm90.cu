@@ -1,0 +1,284 @@
+// The fused cross-entropy's dlog and dh passes in bf16 for Hopper (sm_90a),
+// with warpgroup matrix products (wgmma), TMA copies and an mbarrier ring:
+//   dlog (replaces opendiloco_tpu/ops/fused_xent.py _recompute_dlog :174,
+//         inside _dh_kernel :195 and _dw_kernel :219)
+//   dh   (replaces the same file's _bwd_impl, pl.pallas_call at :254,
+//         kernel body _dh_kernel :195; with dlog, the TPU kernel's body)
+// fused_xent.cu keeps the first design of both (mma.sync), which
+// ops/fused_xent.py routes f32 to, together with B3 (fwd) and B4b (dw).
+//
+// Computes, for one chunk of rows, h [M, D], the head w [D, V], labels [M]
+// (int64, -100 = ignored), lse [M] f32 and the masked upstream gradient
+// g [M] f32, with s = h.w from bf16 operands and f32 accumulation:
+//   dlog [M, V] = g * (exp(s - lse) - onehot), rounded to bf16;
+//   dh [M, D] = dlog . w^T, f32 accumulation, rounded to bf16.
+// Columns past V (dlog) and D (dh) and rows past M are neither computed
+// into the outputs nor stored. Any M; D and V multiples of 8 (16-byte rows,
+// as TMA needs); contiguous row-major operands, 16-byte aligned.
+//
+// Why dlog stays a pass of its own (the TPU kernel recomputes it inside
+// its dh body): a dh output tile [rows x D] sums over all of V while a
+// dlog tile [rows x V-tile] sums over all of D, and one 128-row f32 dh
+// tile at D 2048 is 1 MB, beyond an SM's registers and shared memory; a
+// fold would recompute the logits once per D tile.
+//
+// Bound on this card (989 TFLOP/s bf16, 3.35 TB/s; chip_smoke.py
+// xent_work): at one 2048-row chunk of the 1b training shape (D 2048,
+// V 32000) each pass is one product, 0.268 TFLOP, 0.2714 ms, against
+// 131 MB of dlog and 131 MB of w (0.04-0.08 ms): bound by operations.
+//
+// Design (one main loop, gemm_sm90, for both; B4b and B3 can take it too):
+// 1. Persistent CTAs, one an SM, each walking output tiles of 128 rows x
+//    256 columns (two consumer warpgroups of 64 rows, each one m64n256k16
+//    wgmma a 16-deep step, 128 f32 accumulators a thread; 128-column tiles
+//    were slower for both passes on the card, PERF.md section 6).
+//    Tiles go m fastest: the 16 row tiles of a chunk share each column
+//    tile of B, so at any moment the CTAs read a few of B's column tiles
+//    (w, 131 MB, streams through the 50 MB L2 about once) and all of A
+//    (h, 8 MB at the 1b shape, stays in L2).
+// 2. One producer thread keeps a ring of 4 stages (64-deep slices of A and
+//    B, 48 KB) in flight by TMA with mbarriers; the ring runs on across
+//    tiles, so the next tile's loads overlap this tile's epilogue.
+//    setmaxnreg lowers the producer's registers and raises the consumers'.
+//    TMA's zero fill past the edges replaces the ragged-tile code.
+// 3. Operands from shared memory through wgmma descriptors over tiles TMA
+//    wrote with a 128-byte swizzle: A (h for dlog, dlog for dh) K-major;
+//    B K-major for dh (w's rows are D, V contiguous: the reduction) and
+//    MN-major for dlog (w's V columns contiguous) through the transpose
+//    bit. Each consumer keeps one wgmma group in flight and hands a stage
+//    back as soon as the group that read it has finished.
+// 4. Epilogues on the accumulator registers, stored straight from them
+//    (two bf16 a store): dlog takes exp by ex2.approx on s log2 e -
+//    lse log2 e (one FFMA and one MUFU an entry) where the first design
+//    keeps expf; measured on the card (chip_smoke.py phase 9), its worst
+//    bf16 element sits at 0.957 of the element-wise limit (the ragged
+//    1b chunk), max abs error 3.0e-8, the same as the first design's:
+//    both are one bf16 ulp from the plain version where the f32 value
+//    sits at a rounding boundary. dh rounds to bf16.
+// No atomics and no split-K: every output element is summed by one CTA
+// in K order, so results repeat bit for bit.
+#include <math.h>
+
+#include "common.cuh"
+#include "sm90.cuh"
+
+namespace {
+
+constexpr int kBM = 128;  // rows of an output tile: two consumer warpgroups
+constexpr int kBN = 256;  // columns of an output tile
+constexpr int kBK = 64;   // depth of a stage: one 128-byte swizzle row of bf16
+constexpr int kStages = 4;
+constexpr int kStageA = kBM * kBK * 2;           // 16 KB
+constexpr int kStageBytes = kStageA + kBN * kBK * 2;  // + 32 KB of B
+constexpr int kBarOffset = kStages * kStageBytes;     // full[], empty[]
+constexpr size_t kSmemBytes = kBarOffset + 2 * kStages * 8 + 1024;  // + alignment slack
+
+// The output tile i of a CTA's walk, m fastest.
+struct Raster {
+    int mt, nt;  // row tiles, column tiles
+    __device__ __forceinline__ int m0(int i) const { return (i % mt) * kBM; }
+    __device__ __forceinline__ int n0(int i) const { return (i / mt) * kBN; }
+    __device__ __forceinline__ int tiles() const { return mt * nt; }
+};
+
+// C[M, N] = A . B over K, A [M][K] (K-major), B [N][K] (K-major, !B_MN) or
+// [K][N] (MN-major, B_MN), bf16 in, f32 accumulators; epi(row0, n0, acc)
+// runs on each consumer warpgroup's 64 x kBN accumulator (rows row0 ..
+// row0 + 63) after the tile's last step. Launched with kCtaThreads threads.
+template <bool B_MN, typename Epi>
+__device__ __forceinline__ void gemm_sm90(const CUtensorMap* ma, const CUtensorMap* mb, Raster r, int K, Epi epi) {
+    constexpr int kSt = kStages;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* sm = align1024(smem_raw);
+    uint64_t* full = reinterpret_cast<uint64_t*>(sm + kBarOffset);
+    uint64_t* empty = full + kSt;
+    const int nk = (K + kBK - 1) / kBK;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < kSt; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, 8);  // one lane per consumer warp
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x < 128) {
+        // producer warpgroup: thread 0 issues, the rest leave
+        regs_dec<kProducerRegs>();
+        if (threadIdx.x != 0) return;
+        int ring = 0;
+        for (int i = blockIdx.x; i < r.tiles(); i += gridDim.x) {
+            const int m0 = r.m0(i), n0 = r.n0(i);
+            for (int kb = 0; kb < nk; ++kb, ++ring) {
+                const int s = ring % kSt;
+                uint8_t* st = sm + s * kStageBytes;
+                mbar_wait(empty + s, ((ring / kSt) & 1) ^ 1);
+                mbar_arrive_expect_tx(full + s, kStageBytes);
+                tma_load_2d(st, ma, full + s, kb * kBK, m0);
+                if constexpr (B_MN) {
+                    // kBN / 64 column blocks, each [64 k rows][64 columns]
+                    for (int j = 0; j < kBN / 64; ++j)
+                        tma_load_2d(st + kStageA + j * kBK * 128, mb, full + s, n0 + j * 64, kb * kBK);
+                } else {
+                    tma_load_2d(st + kStageA, mb, full + s, kb * kBK, n0);
+                }
+            }
+        }
+        return;
+    }
+
+    regs_inc<kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x & 31;
+    float acc[kBN / 2];
+    zero_acc(acc);  // each tile's first wgmma overwrites it (scale-d 0)
+    int ring = 0;
+    auto release = [&](int pos) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + pos % kSt);
+    };
+    for (int i = blockIdx.x; i < r.tiles(); i += gridDim.x) {
+        for (int kb = 0; kb < nk; ++kb, ++ring) {
+            const int s = ring % kSt;
+            const uint32_t sa = smem_u32(sm + s * kStageBytes), sb = sa + kStageA;
+            mbar_wait(full + s, (ring / kSt) & 1);
+            wgmma_fence();
+#pragma unroll
+            for (int ks = 0; ks < kBK / 16; ++ks) {
+                const uint64_t da = smem_desc(sa + cw * 64 * 128 + ks * 32, 16, 1024, 1);
+                // MN-major: 16 k rows on, the next 64 columns 64 rows of
+                // 128 B further (LBO), 8 k rows 1024 B (SBO)
+                const uint64_t db = B_MN ? smem_desc(sb + ks * 16 * 128, kBK * 128, 1024, 1)
+                                         : smem_desc(sb + ks * 32, 16, 1024, 1);
+                wgmma_ss_n256<B_MN ? 1 : 0>(acc, da, db, kb > 0 || ks > 0);
+            }
+            wgmma_commit();
+            wgmma_wait<1>();  // the group of step kb - 1 is done: its stage is free
+            if (kb > 0) release(ring - 1);
+        }
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(ring - 1);
+        epi(r.m0(i) + cw * 64, r.n0(i), acc);
+    }
+}
+
+// Rows g and g + 8 of a warp's 16-row share, column pair 2t, 2t + 1 of
+// each 8-column block nb: acc[4 nb + 0, 1] row g, acc[4 nb + 2, 3] row g + 8.
+struct Frag {
+    int r0, t2;
+    __device__ __forceinline__ Frag(int row0) {
+        const int tid = threadIdx.x & 127, lane = tid & 31;
+        r0 = row0 + (tid >> 5) * 16 + (lane >> 2);
+        t2 = 2 * (lane & 3);
+    }
+};
+
+__global__ void __launch_bounds__(kCtaThreads, 1)
+    xent_dlog_sm90_kernel(const __grid_constant__ CUtensorMap mh, const __grid_constant__ CUtensorMap mw,
+                          const long long* __restrict__ labels, const float* __restrict__ lse,
+                          const float* __restrict__ gup, __nv_bfloat16* __restrict__ dlog, int M, int D, int V) {
+    const Raster r{(M + kBM - 1) / kBM, (V + kBN - 1) / kBN};
+    gemm_sm90<true>(&mh, &mw, r, D, [&](int row0, int n0, float(&acc)[kBN / 2]) {
+        const Frag f(row0);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int row = f.r0 + 8 * hh;
+            if (row >= M) continue;
+            const float l2 = lse[row] * kLog2e, gr = gup[row];
+            const long long lb = labels[row];
+            __nv_bfloat16* dst = dlog + (size_t)row * V;
+#pragma unroll
+            for (int nb = 0; nb < kBN / 8; ++nb) {
+                const int col = n0 + nb * 8 + f.t2;  // V is even: col < V covers col + 1
+                if (col < V) {
+                    const float p0 = exp2_approx(fmaf(acc[4 * nb + 2 * hh], kLog2e, -l2));
+                    const float p1 = exp2_approx(fmaf(acc[4 * nb + 2 * hh + 1], kLog2e, -l2));
+                    store2(dst + col, gr * (p0 - (col == lb ? 1.0f : 0.0f)),
+                           gr * (p1 - (col + 1 == lb ? 1.0f : 0.0f)));
+                }
+            }
+        }
+    });
+}
+
+__global__ void __launch_bounds__(kCtaThreads, 1)
+    xent_dh_sm90_kernel(const __grid_constant__ CUtensorMap mdl, const __grid_constant__ CUtensorMap mw,
+                        __nv_bfloat16* __restrict__ dh, int M, int D, int V) {
+    const Raster r{(M + kBM - 1) / kBM, (D + kBN - 1) / kBN};
+    gemm_sm90<false>(&mdl, &mw, r, V, [&](int row0, int n0, float(&acc)[kBN / 2]) {
+        const Frag f(row0);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int row = f.r0 + 8 * hh;
+            if (row >= M) continue;
+            __nv_bfloat16* dst = dh + (size_t)row * D;
+#pragma unroll
+            for (int nb = 0; nb < kBN / 8; ++nb) {
+                const int col = n0 + nb * 8 + f.t2;
+                if (col < D) store2(dst + col, acc[4 * nb + 2 * hh], acc[4 * nb + 2 * hh + 1]);
+            }
+        }
+    });
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+bool bad_dims(int M, int D, int V) { return M < 1 || D < 8 || V < 8 || D % 8 != 0 || V % 8 != 0; }
+
+// one persistent CTA an SM
+inline cudaError_t grid_size(int tiles, int* grid) {
+    int sms = 0;
+    const cudaError_t err = sm_count(&sms);
+    *grid = min(tiles, sms);
+    return err;
+}
+
+int dlog_run(const void* h, const void* w, const void* labels, const void* lse, const void* g, void* dlog, int M,
+             int D, int V, cudaStream_t st) {
+    CUtensorMap mh, mw;
+    cudaError_t err;
+    if ((err = bf16_matrix_map(&mh, h, M, D, kBM, kBK)) != cudaSuccess) return (int)err;
+    if ((err = bf16_matrix_map(&mw, w, D, V, kBK, 64)) != cudaSuccess) return (int)err;
+    if ((err = allow_smem<xent_dlog_sm90_kernel>(kSmemBytes)) != cudaSuccess) return (int)err;
+    int grid = 0;
+    if ((err = grid_size((M + kBM - 1) / kBM * ((V + kBN - 1) / kBN), &grid)) != cudaSuccess) return (int)err;
+    xent_dlog_sm90_kernel<<<grid, kCtaThreads, kSmemBytes, st>>>(
+        mh, mw, static_cast<const long long*>(labels), static_cast<const float*>(lse), static_cast<const float*>(g),
+        static_cast<__nv_bfloat16*>(dlog), M, D, V);
+    return (int)cudaGetLastError();
+}
+
+int dh_run(const void* dlog, const void* w, void* dh, int M, int D, int V, cudaStream_t st) {
+    CUtensorMap mdl, mw;
+    cudaError_t err;
+    if ((err = bf16_matrix_map(&mdl, dlog, M, V, kBM, kBK)) != cudaSuccess) return (int)err;
+    if ((err = bf16_matrix_map(&mw, w, D, V, kBN, kBK)) != cudaSuccess) return (int)err;
+    if ((err = allow_smem<xent_dh_sm90_kernel>(kSmemBytes)) != cudaSuccess) return (int)err;
+    int grid = 0;
+    if ((err = grid_size((M + kBM - 1) / kBM * ((D + kBN - 1) / kBN), &grid)) != cudaSuccess) return (int)err;
+    xent_dh_sm90_kernel<<<grid, kCtaThreads, kSmemBytes, st>>>(mdl, mw, static_cast<__nv_bfloat16*>(dh), M, D, V);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+
+int fused_xent_dlog_sm90_bf16(const void* h, const void* w, const void* labels, const void* lse, const void* g,
+                              void* dlog, int N, int D, int V, void* stream) {
+    if (bad_dims(N, D, V)) return (int)cudaErrorInvalidValue;
+    return dlog_run(h, w, labels, lse, g, dlog, N, D, V, static_cast<cudaStream_t>(stream));
+}
+
+int fused_xent_dh_sm90_bf16(const void* dlog, const void* w, void* dh, int N, int D, int V, void* stream) {
+    if (bad_dims(N, D, V)) return (int)cudaErrorInvalidValue;
+    return dh_run(dlog, w, dh, N, D, V, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -127,12 +127,12 @@ __device__ __forceinline__ void zero(float (&c)[NB][4]) {
     for (int nb = 0; nb < NB; ++nb) c[nb][0] = c[nb][1] = c[nb][2] = c[nb][3] = 0.0f;
 }
 
-// Write a warp's 16 x 64 f32 tile, rounded to T, into its shared tile.
-template <typename T>
-__device__ __forceinline__ void tile_to_smem(T* sm, int ld, const float (&c)[8][4]) {
+// Write a warp's 16 x 8 NB f32 tile, rounded to T, into its shared tile.
+template <typename T, int NB>
+__device__ __forceinline__ void tile_to_smem(T* sm, int ld, const float (&c)[NB][4]) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
+    for (int nb = 0; nb < NB; ++nb) {
         store2(sm + g * ld + nb * 8 + 2 * t, c[nb][0], c[nb][1]);
         store2(sm + (g + 8) * ld + nb * 8 + 2 * t, c[nb][2], c[nb][3]);
     }

@@ -8,6 +8,12 @@ The counterparts of ``opendiloco_tpu/ops/decode_kernels.py``
 ``csrc/w4_matmul.cu``; each source notes the TPU kernel it replaces, its
 bound and its design).
 
+B7 cuts the ring into splits across blocks (:func:`spec_tail_splits`)
+and, with more than one, merges the splits' partials in a second kernel
+(``spec_tail_attention_merge``).
+:func:`spec_tail_attention_split_plain` repeats that split-and-merge
+arithmetic for the tests.
+
 Each wrapper sits beside its plain PyTorch version, which repeats the
 kernel's arithmetic in one pass:
 
@@ -22,6 +28,8 @@ through the kernels. Only a launch on the card counts.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # LAUNCHES is re-exported: callers read the one shared counter from here
@@ -30,16 +38,18 @@ from opendiloco_torch.ops.attention import spec_tail_valid
 from opendiloco_torch.ops.launch import launch, on_card as _on_card, register
 from opendiloco_torch.quant import W4_BLOCK, dequant_w4
 
-register("paged_decode_attention", "spec_tail_attention", "w4_matmul")
+register("paged_decode_attention", "spec_tail_attention", "spec_tail_attention_merge", "w4_matmul")
 _ARGTYPES = {
     "paged_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "spec_tail_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "spec_tail_attention": [_P] * 9 + [_I] * 11 + [_F, _P],
+    "spec_tail_attention_merge": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "w4_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
+_SOURCE = {"spec_tail_attention_merge": "spec_tail_attention"}
 
 
 def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
-    launch(name, name, f"{name}_{_SUFFIX[dtype]}", _ARGTYPES[name], device, *args)
+    launch(name, _SOURCE.get(name, name), f"{name}_{_SUFFIX[dtype]}", _ARGTYPES[name], device, *args)
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +150,65 @@ def spec_tail_attention_plain(
     return out.reshape(S, Kq, H, D).to(q.dtype)
 
 
-def spec_tail_attention_fused(
+# ring rows a split holds at the least: two of the kernel's 64-row tiles
+SPLIT_ROWS = 128
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The card's SM count, read once per device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def spec_tail_rows_per_block(rows: int) -> int:
+    """Query rows a B7 block owns for ``rows`` = Kq * rep per (slot, kv
+    head): 16 or 32 when they fit (the block's 4 warps then share one or two
+    16-row slices and split the key tiles), else 64. The one place this is
+    decided: the wrapper passes it to the kernel, which launches the
+    packing it names, and :func:`spec_tail_splits` sizes the grid by it."""
+    return 16 if rows <= 16 else 32 if rows <= 32 else 64
+
+
+def spec_tail_split_chunk(T: int, splits: int) -> tuple[int, int]:
+    """(splits, chunk): ``splits`` cut T ring rows into chunks of ``chunk``
+    rows, the last possibly shorter; splits shrinks until none is empty."""
+    chunk = -(-T // max(1, min(splits, T)))
+    return -(-T // chunk), chunk
+
+
+def spec_tail_splits(S: int, T: int, Kh: int, rows: int, sms: int) -> int:
+    """Ring splits of B7 from the static shape alone (lens stays on the
+    device): one when the query tiles already give at least half a wave
+    of the card's ``sms`` SMs (the suffix shapes), else enough splits of
+    at least :data:`SPLIT_ROWS` rows for about two blocks per SM (the
+    draft and verify shapes at config_1b: 8 splits of 128 rows)."""
+    blocks = -(-rows // spec_tail_rows_per_block(rows)) * Kh * S
+    if 2 * blocks >= sms:
+        return 1
+    return max(1, min(-(-T // SPLIT_ROWS), -(-2 * sms // blocks)))
+
+
+def spec_tail_merge_plain(ml: torch.Tensor, acc: torch.Tensor, Kq: int, dtype: torch.dtype) -> torch.Tensor:
+    """The merge kernel's arithmetic: split partials ``ml`` [S, Kh, P, R, 2]
+    (m, l) and ``acc`` [S, Kh, P, R, D], f32, rows R = Kq * rep
+    token-major, merged in split order into out [S, Kq, Kh * rep, D] in
+    ``dtype``. A split with m = -inf adds exactly 0."""
+    S, Kh, P, R, D = acc.shape
+    m, l = ml[..., 0], ml[..., 1]
+    M = m.amax(dim=2)
+    L = torch.zeros_like(M)
+    A = torch.zeros(S, Kh, R, D, dtype=torch.float32, device=acc.device)
+    for p in range(P):
+        mp = m[:, :, p]
+        w = torch.where(mp == float("-inf"), torch.zeros_like(mp), torch.exp(mp - M))
+        L = L + l[:, :, p] * w
+        A = A + acc[:, :, p] * w[..., None]
+    out = A / torch.where(L == 0, torch.ones_like(L), L)[..., None]
+    rep = R // Kq
+    return out.reshape(S, Kh, Kq, rep, D).permute(0, 2, 1, 3, 4).reshape(S, Kq, Kh * rep, D).to(dtype)
+
+
+def spec_tail_attention_split_plain(
     q: torch.Tensor,
     cache_k: torch.Tensor,
     cache_v: torch.Tensor,
@@ -149,15 +217,43 @@ def spec_tail_attention_fused(
     lens: torch.Tensor,
     *,
     q_start: int = 0,
+    splits: int = 1,
 ) -> torch.Tensor:
-    """Drop-in :func:`~opendiloco_torch.ops.attention.spec_tail_attention`:
-    q [S, Kq, H, D] over ring pages cache_{k,v} [S, T, Kh, D] and the
-    tail's own K/V [S, Kt, Kh, D], one online softmax, the exact ring-wrap
-    eviction mask, with ``lens`` [S] int32 and queries at tail positions
-    ``q_start + i``. Takes f32 or bf16, D a multiple of 8 up to 128 and H
-    divisible by Kh; anything else raises on the card."""
-    if not _on_card(q, cache_k, cache_v, tail_k, tail_v, lens):
-        return spec_tail_attention_plain(q, cache_k, cache_v, tail_k, tail_v, lens, q_start=q_start)
+    """The split kernel's arithmetic in plain PyTorch, for the tests: the
+    ring cut as :func:`spec_tail_split_chunk` cuts it, each split's partial
+    (m, l, unnormalised acc) in f32 over its live ring rows (the last split
+    also over the tail), p = exp(s - m) rounded to v's dtype before p.v,
+    then :func:`spec_tail_merge_plain`. A split with no live entry has
+    m = -inf, l = 0 and acc = 0."""
+    S, T, Kh, D = cache_k.shape
+    Kq, H = q.shape[1], q.shape[2]
+    Kt, rep = tail_k.shape[1], H // Kh
+    splits, chunk = spec_tail_split_chunk(T, splits)
+    ring_valid, tail_valid = spec_tail_valid(lens, T, Kq, Kt, q_start, cache_k.device)
+    qg = q.float().reshape(S, Kq, Kh, rep, D)
+    scale = D**-0.5
+    s_ring = torch.einsum("sqgrd,stgd->sgqrt", qg, cache_k.float()) * scale
+    s_tail = torch.einsum("sqgrd,stgd->sgqrt", qg, tail_k.float()) * scale
+    s_ring = s_ring.masked_fill(~ring_valid[:, None, :, None], float("-inf"))
+    s_tail = s_tail.masked_fill(~tail_valid[:, None, :, None], float("-inf"))
+    idx = torch.arange(T, device=cache_k.device)
+    mls, accs = [], []
+    for p in range(splits):
+        mine = (idx >= p * chunk) & (idx < (p + 1) * chunk)
+        sc = s_ring.masked_fill(~mine, float("-inf"))
+        values = cache_v
+        if p == splits - 1:
+            sc = torch.cat([sc, s_tail], dim=-1)
+            values = torch.cat([cache_v, tail_v], dim=1)
+        m = sc.amax(dim=-1, keepdim=True)
+        pr = torch.exp(sc - torch.where(m == float("-inf"), torch.zeros_like(m), m))
+        acc = torch.einsum("sgqrt,stgd->sgqrd", pr.to(values.dtype).float(), values.float())
+        mls.append(torch.stack([m[..., 0], pr.sum(dim=-1)], dim=-1).reshape(S, Kh, Kq * rep, 2))
+        accs.append(acc.reshape(S, Kh, Kq * rep, D))
+    return spec_tail_merge_plain(torch.stack(mls, dim=2), torch.stack(accs, dim=2), Kq, q.dtype)
+
+
+def _check_spec_tail(q, cache_k, cache_v, tail_k, tail_v, lens, q_start) -> None:
     if q.dim() != 4 or cache_k.dim() != 4 or tail_k.dim() != 4:
         raise ValueError(
             f"bad shapes q {tuple(q.shape)} cache {tuple(cache_k.shape)} tail {tuple(tail_k.shape)}"
@@ -191,11 +287,83 @@ def spec_tail_attention_fused(
         raise ValueError("q, the caches, the tail and lens must be contiguous")
     if any(t.data_ptr() % 16 for t in ops):
         raise ValueError("q, the caches and the tail must be 16-byte aligned")
+
+
+def _spec_tail_partials(q, cache_k, cache_v, tail_k, tail_v, lens, *, q_start: int, splits: int, chunk: int):
+    """Launch the split kernel alone on operands the caller has checked
+    (:func:`_check_spec_tail`), ``splits`` > 1 of ``chunk`` rows: the
+    partials (ml [S, Kh, splits, R, 2], acc [S, Kh, splits, R, D]) f32
+    that :func:`spec_tail_merge` combines."""
+    S, T, Kh, D = cache_k.shape
+    Kq, H, Kt = q.shape[1], q.shape[2], tail_k.shape[1]
+    R = Kq * (H // Kh)
+    ml = torch.empty((S, Kh, splits, R, 2), dtype=torch.float32, device=q.device)
+    acc = torch.empty((S, Kh, splits, R, D), dtype=torch.float32, device=q.device)
+    _launch(
+        "spec_tail_attention", q.dtype, q.device,
+        *(t.data_ptr() for t in (q, cache_k, cache_v, tail_k, tail_v, lens)), 0, ml.data_ptr(), acc.data_ptr(),
+        S, T, Kq, Kt, H, Kh, D, int(q_start), splits, chunk, spec_tail_rows_per_block(R), D**-0.5,
+    )
+    return ml, acc
+
+
+def spec_tail_merge(ml: torch.Tensor, acc: torch.Tensor, Kq: int, dtype: torch.dtype) -> torch.Tensor:
+    """The merge kernel: :func:`spec_tail_merge_plain`'s function on the
+    card, out [S, Kq, H, D] in ``dtype``."""
+    if not _on_card(ml, acc):
+        return spec_tail_merge_plain(ml, acc, Kq, dtype)
+    S, Kh, P, R, D = acc.shape
+    if (ml.shape != (S, Kh, P, R, 2) or R % Kq or ml.dtype != torch.float32 or acc.dtype != torch.float32
+            or dtype not in _SUFFIX):
+        raise ValueError(f"partials ml {tuple(ml.shape)} {ml.dtype}, acc {tuple(acc.shape)} {acc.dtype} "
+                         f"for Kq {Kq} and {dtype}")
+    if not (ml.is_contiguous() and acc.is_contiguous()):
+        raise ValueError("the partials must be contiguous")
+    H = Kh * (R // Kq)
+    out = torch.empty((S, Kq, H, D), dtype=dtype, device=acc.device)
+    _launch("spec_tail_attention_merge", dtype, acc.device, ml.data_ptr(), acc.data_ptr(), out.data_ptr(),
+            S, Kq, H, Kh, D, P)
+    return out
+
+
+def spec_tail_attention_fused(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    tail_k: torch.Tensor,
+    tail_v: torch.Tensor,
+    lens: torch.Tensor,
+    *,
+    q_start: int = 0,
+    splits: int | None = None,
+) -> torch.Tensor:
+    """Drop-in :func:`~opendiloco_torch.ops.attention.spec_tail_attention`:
+    q [S, Kq, H, D] over ring pages cache_{k,v} [S, T, Kh, D] and the
+    tail's own K/V [S, Kt, Kh, D], one softmax, the exact ring-wrap
+    eviction mask, with ``lens`` [S] int32 and queries at tail positions
+    ``q_start + i``. Takes f32 or bf16, D a multiple of 8 up to 128 and H
+    divisible by Kh; anything else raises on the card. The ring is cut
+    into :func:`spec_tail_splits` splits unless ``splits`` is given; with
+    more than one, the merge kernel combines them (one more launch)."""
+    if not _on_card(q, cache_k, cache_v, tail_k, tail_v, lens):
+        return spec_tail_attention_plain(q, cache_k, cache_v, tail_k, tail_v, lens, q_start=q_start)
+    _check_spec_tail(q, cache_k, cache_v, tail_k, tail_v, lens, q_start)
+    S, T, Kh, D = cache_k.shape
+    Kq, H, Kt = q.shape[1], q.shape[2], tail_k.shape[1]
+    if splits is None:
+        splits = spec_tail_splits(S, T, Kh, Kq * (H // Kh), _sm_count(q.device.index or 0))
+    elif not 1 <= splits <= T:
+        raise ValueError(f"splits {splits} must lie in 1 .. T = {T}")
+    splits, chunk = spec_tail_split_chunk(T, splits)
+    if splits > 1:
+        ml, acc = _spec_tail_partials(q, cache_k, cache_v, tail_k, tail_v, lens, q_start=q_start, splits=splits,
+                                     chunk=chunk)
+        return spec_tail_merge(ml, acc, Kq, q.dtype)
     out = torch.empty_like(q)
     _launch(
         "spec_tail_attention", q.dtype, q.device,
-        *(t.data_ptr() for t in ops), lens.data_ptr(), out.data_ptr(),
-        S, T, Kq, Kt, H, Kh, D, int(q_start), D**-0.5,
+        *(t.data_ptr() for t in (q, cache_k, cache_v, tail_k, tail_v, lens)), out.data_ptr(), 0, 0,
+        S, T, Kq, Kt, H, Kh, D, int(q_start), 1, chunk, spec_tail_rows_per_block(Kq * (H // Kh)), D**-0.5,
     )
     return out
 

@@ -14,6 +14,15 @@ and its design):
   B4a ``fused_xent_dh`` gives the chunk's dh = dlog . w^T (``_dh_kernel``)
   and B4b ``fused_xent_dw`` adds its hT . dlog to the f32 dw (``_dw_kernel``).
 
+dlog and dh take one of two routes, chosen from the dtype and sizes alone
+by :func:`_route` (:func:`_on_sm90`): bf16 goes to the wgmma and TMA
+kernels of ``csrc/fused_xent_sm90.cu``, counted as
+``fused_xent_dlog_sm90`` and ``fused_xent_dh_sm90``; f32 to the first
+design's ``mma.sync`` kernels in ``csrc/fused_xent.cu``, counted as
+``fused_xent_dlog`` and ``fused_xent_dh``. ``route=`` launches a given
+route (the smoke times the first design in bf16 that way). B3 and B4b have
+one route, the first design.
+
 Each wrapper sits beside its plain version (``*_plain``), which repeats
 the kernel's arithmetic and roundings on materialized f32 logits: s from
 the operands in their own dtype with f32 sums, statistics in f32, dlog
@@ -47,18 +56,41 @@ IGNORE = -100
 CHUNK_ROWS = 2048
 _TILE = 128  # rows and vocab columns of a kernel's output tile
 SOURCE = "fused_xent"
+SM90_SOURCE = "fused_xent_sm90"
 NAMES = ("fused_xent_fwd", "fused_xent_dlog", "fused_xent_dh", "fused_xent_dw")
-register(*NAMES)
+SM90_NAMES = ("fused_xent_dlog_sm90", "fused_xent_dh_sm90")
+register(*NAMES, *SM90_NAMES)
 _ARGTYPES = {  # the last pointer is the stream
     "fused_xent_fwd": [P, P, P, P, P, P, I, I, I, I, P],
     "fused_xent_dlog": [P, P, P, P, P, P, I, I, I, P],
     "fused_xent_dh": [P, P, P, I, I, I, P],
     "fused_xent_dw": [P, P, P, I, I, I, I, P],
+    "fused_xent_dlog_sm90": [P, P, P, P, P, P, I, I, I, P],
+    "fused_xent_dh_sm90": [P, P, P, I, I, I, P],
 }
 
 
-def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
-    launch(name, SOURCE, f"{name}_{SUFFIX[dtype]}", _ARGTYPES[name], device, *args)
+def _launch(name: str, dtype: torch.dtype, device: torch.device, *args, source: str = SOURCE) -> None:
+    kernel = name if source == SOURCE else f"{name}_sm90"
+    launch(kernel, source, f"{kernel}_{SUFFIX[dtype]}", _ARGTYPES[kernel], device, *args)
+
+
+def _on_sm90(dtype: torch.dtype) -> bool:
+    """The route rule of dlog and dh: the wgmma kernels take bf16 (at every
+    D and V that :func:`_check` lets through: multiples of 8, the 16-byte
+    rows TMA needs); f32 takes the first design."""
+    return dtype == torch.bfloat16
+
+
+def _route(dtype: torch.dtype, route: str | None = None) -> str:
+    """The source of the dlog and dh kernels for ``dtype``: ``route`` when
+    given (SOURCE, or SM90_SOURCE where :func:`_on_sm90` allows it, else
+    ValueError), else the rule's."""
+    if route is None:
+        return SM90_SOURCE if _on_sm90(dtype) else SOURCE
+    if route == SOURCE or (route == SM90_SOURCE and _on_sm90(dtype)):
+        return route
+    raise ValueError(f"route {route!r} does not take {dtype}")
 
 
 def _check(N: int, D: int, V: int, *operands: torch.Tensor) -> None:
@@ -169,33 +201,37 @@ def fused_xent_fwd(h, w, labels) -> tuple[torch.Tensor, torch.Tensor]:
     return nll, lse
 
 
-def fused_xent_dlog(h, w, labels, lse, g) -> torch.Tensor:
-    """The logits' gradient of one chunk of rows, [N, V] in h's dtype."""
+def fused_xent_dlog(h, w, labels, lse, g, *, route: str | None = None) -> torch.Tensor:
+    """The logits' gradient of one chunk of rows, [N, V] in h's dtype, on
+    :func:`_route`'s kernel."""
     if not on_card(h, w, labels, lse, g):
         return fused_xent_dlog_plain(h, w, labels, lse, g)
     (N, D), (_, V) = _dims(h, w, (1, 0), "h [N, D] and w [D, V]")
     _check(N, D, V, h, w)
     _check_rows(N, labels, lse, g)
+    source = _route(h.dtype, route)
     dlog = torch.empty((N, V), dtype=h.dtype, device=h.device)
     _launch(
         "fused_xent_dlog", h.dtype, h.device,
         h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), dlog.data_ptr(),
-        N, D, V,
+        N, D, V, source=source,
     )
     return dlog
 
 
-def fused_xent_dh(dlog, w, out=None) -> torch.Tensor:
+def fused_xent_dh(dlog, w, out=None, *, route: str | None = None) -> torch.Tensor:
     """B4a: dh = dlog . w^T, [N, D] in dlog's dtype, into ``out`` when
-    given."""
+    given, on :func:`_route`'s kernel."""
     if not on_card(dlog, w, *([] if out is None else [out])):
         return fused_xent_dh_plain(dlog, w, out)
     (N, V), (D, _) = _dims(dlog, w, (1, 1), "dlog [N, V] and w [D, V]")
     _check(N, D, V, dlog, w)
+    source = _route(dlog.dtype, route)
     if out is None:
         out = torch.empty((N, D), dtype=dlog.dtype, device=dlog.device)
     _check_out(out, (N, D), dlog.dtype)
-    _launch("fused_xent_dh", dlog.dtype, dlog.device, dlog.data_ptr(), w.data_ptr(), out.data_ptr(), N, D, V)
+    _launch("fused_xent_dh", dlog.dtype, dlog.device, dlog.data_ptr(), w.data_ptr(), out.data_ptr(), N, D, V,
+            source=source)
     return out
 
 
@@ -219,7 +255,8 @@ def fused_xent_dw(h, dlog, out=None) -> torch.Tensor:
 def fused_xent_bwd(h, w, labels, lse, g) -> tuple[torch.Tensor, torch.Tensor]:
     """(dh [N, D] in h's dtype, dw [D, V] f32) for the masked upstream
     gradient ``g`` [N] f32, over chunks of CHUNK_ROWS rows in order: one
-    dlog, one dh and one dw launch per chunk."""
+    dlog, one dh and one dw launch per chunk (dlog and dh on the route
+    :func:`_route` picks)."""
     N = h.shape[0]
     dh = torch.empty_like(h)
     dw = None

@@ -595,7 +595,9 @@ def test_fused_xent_kernels_match_plain(cuda, geom, dtype):
     dh = tfx.fused_xent_dh(ref_dlog, w)
     dw = tfx.fused_xent_dw(h[rows], ref_dlog)
     torch.cuda.synchronize()
-    for name in tfx.NAMES:
+    # bf16 dlog and dh take the sm90 kernels, f32 the first design
+    sfx = "_sm90" if dtype == torch.bfloat16 else ""
+    for name in ("fused_xent_fwd", "fused_xent_dlog" + sfx, "fused_xent_dh" + sfx, "fused_xent_dw"):
         assert tdk.LAUNCHES[name] == n0[name] + 1
     assert nll.dtype == lse.dtype == torch.float32 and nll.shape == lse.shape == (N,)
     assert dlog.dtype == dh.dtype == dtype and dw.dtype == torch.float32
@@ -623,11 +625,114 @@ def test_fused_xent_kernels_repeat_bitwise(cuda):
 
     h, w, labels, gup = _xent_inputs(cuda, 4100, 256, 4000, torch.bfloat16)  # three backward chunks
     runs = []
+    n0 = dict(tdk.LAUNCHES)
     for _ in range(2):
         nll, lse = tfx.fused_xent_fwd(h, w, labels)
         runs.append((nll, lse, *tfx.fused_xent_bwd(h, w, labels, lse, gup)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+    # bf16 took the sm90 dlog and dh (the route under test), 3 chunks a run
+    for name in tfx.SM90_NAMES:
+        assert tdk.LAUNCHES[name] == n0[name] + 6
+    assert tdk.LAUNCHES["fused_xent_dlog"] == n0["fused_xent_dlog"]
+
+
+# (N, D, V): the 1b chunk, the ragged last chunk of 8184 rows, a small and
+# ragged vocab, the 150m width
+SM90_XENT_GEOMS = [(2048, 2048, 32000), (2040, 2048, 32000), (2048, 2048, 1000), (2040, 1024, 32000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", SM90_XENT_GEOMS, ids=lambda g: "x".join(map(str, g)))
+def test_fused_xent_sm90_dlog_dh_match_plain_and_repeat(cuda, geom):
+    """The sm90 dlog and dh against their plain versions, with the element
+    tolerances of test_fused_xent_kernels_match_plain in bf16, and against
+    the first design's kernels within the same limits; each repeats bit
+    for bit."""
+    from opendiloco_torch.ops import fused_xent as tfx
+
+    N, D, V = geom
+    h, w, labels, gup = _xent_inputs(cuda, N, D, V, torch.bfloat16)
+    _, lse = tfx.fused_xent_fwd_plain(h, w, labels)
+    args = (h, w, labels, lse, gup)
+    n0 = dict(tdk.LAUNCHES)
+    dlog = tfx.fused_xent_dlog(*args)
+    again = tfx.fused_xent_dlog(*args)
+    first = tfx.fused_xent_dlog(*args, route=tfx.SOURCE)
+    ref_dlog = tfx.fused_xent_dlog_plain(*args)
+    dh = tfx.fused_xent_dh(ref_dlog, w)
+    dh_again = tfx.fused_xent_dh(ref_dlog, w)
+    dh_first = tfx.fused_xent_dh(ref_dlog, w, route=tfx.SOURCE)
+    torch.cuda.synchronize()
+    assert tdk.LAUNCHES["fused_xent_dlog_sm90"] == n0["fused_xent_dlog_sm90"] + 2
+    assert tdk.LAUNCHES["fused_xent_dh_sm90"] == n0["fused_xent_dh_sm90"] + 2
+    assert tdk.LAUNCHES["fused_xent_dlog"] == n0["fused_xent_dlog"] + 1
+    assert tdk.LAUNCHES["fused_xent_dh"] == n0["fused_xent_dh"] + 1
+    assert dlog.dtype == dh.dtype == torch.bfloat16 and dlog.shape == (N, V) and dh.shape == (N, D)
+    assert torch.equal(dlog, again) and torch.equal(dh, dh_again)
+    r = 2.0**-7
+    atol = r / 2 * float(gup.max()) / V
+    for got in (dlog, first):
+        assert _share_of_limit(got, ref_dlog, r, atol) <= 1.0
+    ref_dh = tfx.fused_xent_dh_plain(ref_dlog, w)
+    for got in (dh, dh_first):
+        assert _share_of_limit(got, ref_dh, r, 1e-5 * float(ref_dh.float().abs().max())) <= 1.0
+    print(f"sm90 {geom}: dlog share {_share_of_limit(dlog, ref_dlog, r, atol):.3f}, dh share "
+          f"{_share_of_limit(dh, ref_dh, r, 1e-5 * float(ref_dh.float().abs().max())):.3f}")
+
+
+@pytest.mark.cuda
+def test_fused_xent_f32_takes_the_first_design(cuda):
+    from opendiloco_torch.ops import fused_xent as tfx
+
+    N, D, V = 300, 256, 1000
+    h, w, labels, gup = _xent_inputs(cuda, N, D, V, torch.float32)
+    _, lse = tfx.fused_xent_fwd_plain(h, w, labels)
+    n0 = dict(tdk.LAUNCHES)
+    dlog = tfx.fused_xent_dlog(h, w, labels, lse, gup)
+    tfx.fused_xent_dh(dlog, w)
+    torch.cuda.synchronize()
+    for name in ("fused_xent_dlog", "fused_xent_dh"):
+        assert tdk.LAUNCHES[name] == n0[name] + 1
+    for name in tfx.SM90_NAMES:
+        assert tdk.LAUNCHES[name] == n0[name]
+    assert tfx._route(torch.float32) == tfx.SOURCE
+    assert tfx._route(torch.bfloat16) == tfx.SM90_SOURCE
+
+
+def test_fused_xent_route_rule():
+    # decided from dtype and sizes alone, so it holds without a card
+    from opendiloco_torch.ops import fused_xent as tfx
+
+    assert tfx._route(torch.bfloat16) == tfx.SM90_SOURCE
+    assert tfx._route(torch.float32) == tfx.SOURCE
+    assert tfx._route(torch.bfloat16, tfx.SOURCE) == tfx.SOURCE
+    for dtype, route in ((torch.float32, tfx.SM90_SOURCE), (torch.bfloat16, "fused_xent_sm80")):
+        with pytest.raises(ValueError):
+            tfx._route(dtype, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [dict(dtype=torch.float32), dict(route="fused_xent_sm80"), dict(D=12)])
+def test_fused_xent_sm90_route_refuses(cuda, bad):
+    """The sm90 route forced on what it does not take raises, and nothing
+    launches."""
+    from opendiloco_torch.ops import fused_xent as tfx
+
+    N, D, V = 64, bad.get("D", 64), 128
+    dtype = bad.get("dtype", torch.bfloat16)
+    route = bad.get("route", tfx.SM90_SOURCE)
+    h = torch.zeros(N, D, device=cuda, dtype=dtype)
+    w = torch.zeros(D, V, device=cuda, dtype=dtype)
+    labels = torch.zeros(N, dtype=torch.int64, device=cuda)
+    stats = torch.zeros(N, device=cuda)
+    dlog = torch.zeros(N, V, device=cuda, dtype=dtype)
+    n0 = dict(tdk.LAUNCHES)
+    with pytest.raises(ValueError):
+        tfx.fused_xent_dlog(h, w, labels, stats, stats, route=route)
+    with pytest.raises(ValueError):
+        tfx.fused_xent_dh(dlog, w, route=route)
+    assert tdk.LAUNCHES == n0
 
 
 @pytest.mark.cuda
@@ -752,6 +857,115 @@ def test_spec_tail_attention_matches_plain(cuda, geom, dtype):
     tol = _spec_tol(ref, dtype)
     print(f"B7 {geom[:8]} {dtype}: max err/tol {float((err / tol).max()):.3f}")
     assert bool((err <= tol).all()), f"per (slot, token) error {err.tolist()} over {tol.tolist()}"
+
+
+# (S, T, Kh, rep, D, Kq, Kt, q_start, lens, splits): the config_1b ring at
+# the verify and draft shapes with whole splits empty (lens 0) or past the
+# live length, lens >= T at q_start 3 (the first rows evicted), lens T - 2
+# with a split boundary inside the live ring, splits that leave a split
+# all dead (T 32 in 8 splits of 4 rows: lens T at q_start 3 evicts split 0),
+# and the suffix pass of a prefix hit padded to the 64 bucket (8 query tiles,
+# the wrapper's 8 splits of 128 rows, the prefix live in split 0 and half
+# of split 1)
+SPLIT_GEOMS = [
+    *((8, 1024, 4, 8, 64, 5, 5, 0, [0, 0, 5, 127, 128, 129, 1022, 1024], sp) for sp in (None, 1, 2, 3, 8)),
+    *((8, 1024, 4, 8, 64, 1, 4, 3, [0, 1024, 1027, 1022, 2049, 700, 256, 129], sp) for sp in (None, 1, 8)),
+    (4, 1024, 4, 8, 64, 1, 4, 3, [1024, 1024, 1025, 2 * 1024 + 1], 8),
+    (3, 32, 2, 4, 64, 2, 5, 3, [32, 0, 30], 8),
+    (1, 1024, 4, 8, 64, 256, 256, 0, [192], 2),
+    (1, 1024, 4, 8, 64, 64, 64, 0, [192], None),
+    (2, 96, 2, 3, 40, 7, 7, 0, [95, 200], 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", SPLIT_GEOMS, ids=lambda g: "x".join(map(str, g[:8])) + f"-s{g[9]}")
+def test_spec_tail_attention_splits_match_plain_and_repeat(cuda, geom, dtype):
+    """The split kernel and its merge against the one-pass plain version
+    (the tolerances of test_spec_tail_attention_matches_plain) and the
+    split plain version, with no NaN and the same bits on a second
+    launch; the merge runs exactly when there is more than one split."""
+    S, T, Kh, rep, D, Kq, Kt, q_start, lens, splits = geom
+    args = _spec_inputs(cuda, S, T, Kh, rep, D, Kq, Kt, dtype, lens)
+    n0 = dict(tdk.LAUNCHES)
+    out = tdk.spec_tail_attention_fused(*args, q_start=q_start, splits=splits)
+    again = tdk.spec_tail_attention_fused(*args, q_start=q_start, splits=splits)
+    torch.cuda.synchronize()
+    used = splits or tdk.spec_tail_splits(S, T, Kh, Kq * rep, tdk._sm_count(cuda.index or 0))
+    used = tdk.spec_tail_split_chunk(T, used)[0]
+    assert tdk.LAUNCHES["spec_tail_attention"] == n0["spec_tail_attention"] + 2
+    merges = tdk.LAUNCHES["spec_tail_attention_merge"] - n0["spec_tail_attention_merge"]
+    assert merges == (2 if used > 1 else 0)
+    assert bool(torch.isfinite(out.float()).all()) and torch.equal(out, again)
+    tol = _spec_tol(tdk.spec_tail_attention_plain(*args, q_start=q_start), dtype)
+    for ref in (tdk.spec_tail_attention_plain(*args, q_start=q_start),
+                tdk.spec_tail_attention_split_plain(*args, q_start=q_start, splits=used)):
+        err = (out.float() - ref.float()).abs().amax(dim=(2, 3))
+        assert bool((err <= tol).all()), f"per (slot, token) error {err.tolist()} over {tol.tolist()}"
+    print(f"B7 split {geom[:8]} splits {used} {dtype}: max err/tol {float((err / tol).max()):.3f}")
+
+
+def test_spec_tail_split_rule():
+    # from the static shape alone (lens stays on the device), without a card:
+    # config_1b's draft (Kq rep 8) and verify (40) shapes fill 132 SMs with 8
+    # splits of 128 ring rows, as does the suffix pass padded to the 64
+    # bucket (8 query tiles); the 256 and 1024 buckets' query tiles fill it
+    # alone
+    assert tdk.spec_tail_splits(8, 1024, 4, 8, 132) == 8
+    assert tdk.spec_tail_splits(8, 1024, 4, 40, 132) == 8
+    assert tdk.spec_tail_splits(1, 1024, 4, 64 * 8, 132) == 8
+    assert tdk.spec_tail_splits(1, 1024, 4, 256 * 8, 132) == 1
+    assert tdk.spec_tail_splits(1, 1024, 4, 1000 * 8, 132) == 1
+    assert tdk.spec_tail_splits(8, 64, 4, 8, 132) == 1  # a ring of one split's rows
+    assert tdk.spec_tail_split_chunk(1024, 8) == (8, 128)
+    assert tdk.spec_tail_split_chunk(10, 8) == (5, 2)  # no split left empty
+    assert tdk.spec_tail_split_chunk(5, 9) == (5, 1)
+    assert [tdk.spec_tail_rows_per_block(r) for r in (8, 16, 17, 32, 40)] == [16, 16, 32, 32, 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spec_tail_attention_loads_nothing_of_an_evicted_split(cuda, dtype):
+    """A split whose rows are all evicted loads nothing: with lens = T at
+    q_start 3, the ring writes of tail tokens 0 .. 3 replaced rows 0 .. 3
+    for every query, split 0 of 8 (4 rows each). Those rows hold NaN: a
+    kernel that loaded them would return NaN, since 0 * NaN is NaN."""
+    S, T, Kh, rep, D, Kq, Kt, q_start = 2, 32, 2, 4, 64, 2, 5, 3
+    q, ck, cv, tk, tv, lens = _spec_inputs(cuda, S, T, Kh, rep, D, Kq, Kt, dtype, [T, 30])
+    clean = tuple(t.clone() for t in (ck, cv))
+    for t in (ck, cv):
+        t[0, :4] = float("nan")
+    out = tdk.spec_tail_attention_fused(q, ck, cv, tk, tv, lens, q_start=q_start, splits=8)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    ref = tdk.spec_tail_attention_plain(q, *clean, tk, tv, lens, q_start=q_start)
+    assert bool(((out.float() - ref.float()).abs().amax(dim=(2, 3)) <= _spec_tol(ref, dtype)).all())
+
+
+# (S, Kq, Kt, lens): config_1b's verify shape and a prefix hit's suffix
+# pass in the 64 bucket, both at the wrapper's 8 splits of 128 rows
+MERGE_GEOMS = [
+    (8, 5, 5, [0, 5, 127, 128, 700, 1022, 1024, 2049]),
+    (1, 64, 64, [192]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", MERGE_GEOMS, ids=lambda g: f"S{g[0]}xKq{g[1]}")
+def test_spec_tail_merge_matches_its_plain_version(cuda, geom):
+    """The merge kernel on the split kernel's own partials against the
+    plain merge of the same partials: the same f32 sums in the same
+    order, exp on both sides correctly rounded to within an ulp or two."""
+    S, Kq, Kt, lens = geom
+    T, Kh, rep, D = 1024, 4, 8, 64
+    args = _spec_inputs(cuda, S, T, Kh, rep, D, Kq, Kt, torch.float32, lens)
+    ml, acc = tdk._spec_tail_partials(*args, q_start=0, splits=8, chunk=128)
+    out = tdk.spec_tail_merge(ml, acc, Kq, torch.float32)
+    ref = tdk.spec_tail_merge_plain(ml, acc, Kq, torch.float32)
+    torch.cuda.synchronize()
+    assert bool((ml[..., 1][ml[..., 0] == float("-inf")] == 0).all())  # a dead split: m -inf, l 0
+    torch.testing.assert_close(out, ref, atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.cuda

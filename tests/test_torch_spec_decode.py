@@ -120,6 +120,60 @@ def test_spec_tail_attention_suffix_shape_matches_jax():
     _b7_against_jax(q, ck, cv, tk, tv, np.asarray([21], np.int32), 0)
 
 
+# (label, S, Kq, Kt, q_start, lens) at a 32-row ring: the verify, draft and
+# suffix shapes. Cut into 2, 3 or 8 splits (16, 11 or 4 rows), the ring
+# has whole splits that are empty (lens 0, lens 5), evicted (lens >= T at
+# q_start 3: rows 0 .. 3, all of split 0 at 8 splits) or wrapped (2T + 1)
+_SPLIT_SHAPES = [
+    ("verify", 5, 5, 5, 0, [0, 5, 30, 32, 65]),
+    ("draft", 5, 1, 4, 3, [0, 32, 35, 30, 65]),
+    ("suffix", 1, 20, 20, 0, [21]),
+]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("shape", _SPLIT_SHAPES, ids=lambda s: s[0])
+def test_spec_tail_split_plain_matches_jax(shape, splits):
+    """The split-and-merge arithmetic of the B7 kernel (per-split partials,
+    merged in split order) against the JAX kernel in interpret mode and the
+    one-pass plain version, f32, atol 2e-6: the splits sum in another order
+    and rescale each partial by exp(m_split - m), a few f32 ulps of outputs
+    of magnitude about 1, as the one-pass version's 2e-6 against JAX."""
+    _, S, Kq, Kt, q_start, lens = shape
+    T, H, Kh, D = 32, 8, 2, 16
+    rng = np.random.default_rng(splits * 31 + Kq)
+    q = _randn(rng, S, Kq, H, D)
+    ck, cv = _randn(rng, S, T, Kh, D), _randn(rng, S, T, Kh, D)
+    tk, tv = _randn(rng, S, Kt, Kh, D), _randn(rng, S, Kt, Kh, D)
+    lens = np.asarray(lens, np.int32)
+    jargs = [jnp.asarray(a) for a in (q, ck, cv, tk, tv, lens)]
+    ref = np.asarray(jdk.spec_tail_attention_fused(*jargs, q_start=q_start, block_t=8, interpret=True))
+    targs = [_t(a) for a in (q, ck, cv, tk, tv, lens)]
+    split = tdk.spec_tail_attention_split_plain(*targs, q_start=q_start, splits=splits).numpy()
+    one = tdk.spec_tail_attention_plain(*targs, q_start=q_start).numpy()
+    assert not np.isnan(split).any()
+    assert tdk.spec_tail_split_chunk(T, splits)[0] == splits
+    np.testing.assert_allclose(split, ref, atol=2e-6)
+    np.testing.assert_allclose(split, one, atol=2e-6)
+
+
+def test_spec_tail_merge_plain_takes_nothing_from_dead_splits():
+    # a split with no live entry (m = -inf, l = 0, acc = 0) between live
+    # ones, and a row whose every split is dead, give no NaN
+    rng = np.random.default_rng(9)
+    S, Kh, P, Kq, rep, D = 2, 2, 3, 2, 2, 8
+    ml = torch.from_numpy(np.stack([_randn(rng, S, Kh, P, Kq * rep), np.abs(_randn(rng, S, Kh, P, Kq * rep))], -1))
+    acc = _t(_randn(rng, S, Kh, P, Kq * rep, D))
+    ml[:, :, 1, :, 0], ml[:, :, 1, :, 1], acc[:, :, 1] = float("-inf"), 0.0, 0.0
+    ml[0, 0, :, 0, 0], ml[0, 0, :, 0, 1], acc[0, 0, :, 0] = float("-inf"), 0.0, 0.0
+    out = tdk.spec_tail_merge_plain(ml, acc, Kq, torch.float32)
+    keep = [0, 2]
+    ref = tdk.spec_tail_merge_plain(ml[:, :, keep].contiguous(), acc[:, :, keep].contiguous(), Kq, torch.float32)
+    assert not torch.isnan(out).any()
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert float(out[0, 0, 0].abs().max()) == 0.0  # kv head 0, row 0 of slot 0: nothing live
+
+
 # ---------------------------------------------------------------------------
 # host bookkeeping
 # ---------------------------------------------------------------------------
