@@ -18,9 +18,14 @@ exits non-zero.
 2. B6, paged decode attention, against its plain version at the
    config_1b decode shape (S 8, T 1024, Kh 4, rep 8, D 64) with ragged
    ``lens`` that include an empty slot and a wrapped ring, in f32 and
-   bf16; device times of kernel, plain version, one
+   bf16, on B7's split kernel at the splits the wrapper picks (8) and at
+   one split, each repeated bit for bit; its merge kernel against the
+   plain merge on the split kernel's partials; its first design, which
+   takes head dims above 128, at D 256. Device times of the kernel at its
+   splits and at one split in turns (the splits must take at most half of
+   one split's time), the merge alone, the plain version, one
    ``scaled_dot_product_attention`` call over the masked dense ring, and
-   the bound.
+   the bounds; the host's microseconds per wrapper call at both grids.
 3. B8, the W4 dequant-matmul, against its plain version at every distinct
    config_1b weight shape, M 8 (decode) and 1024 (prefill), in f32 and
    bf16, plus the identity probe bit for bit; device times and bounds.
@@ -28,7 +33,8 @@ exits non-zero.
    weights from ``torch.Generator("cuda").manual_seed(0)``, 16 requests
    over the three prefill buckets, 48 new tokens each. The launch counters
    are zeroed just before and read just after: B6 must have run 22 times
-   per decode step. Then one ``decode_forward`` step's logits, kernel path
+   per decode step, and its merge 22 times (PAGED_MERGES_PER_STEP).
+   Then one ``decode_forward`` step's logits, kernel path
    against plain path, in f32 and bf16.
 5. The same with ``weight_format="w4"``: B8 must have run 7 x 22 times per
    prefill and per decode step.
@@ -58,8 +64,9 @@ exits non-zero.
    and the fused cross-entropy kernels never (150m resolves
    ``fused_loss=False``). Every loss finite, the last below the first,
    both masters bit-identical after each round. Then one inner step,
-   kernel path against plain path, and one worker's inner-step time alone.
-   Then one inner step in f32 (``precision="fp32"``) with the fused loss
+   kernel path against plain path, and one worker's inner-step time alone
+   on each path, the two paths in turns (a b b a, 3 steps a turn). Then
+   one inner step in f32 (``precision="fp32"``) with the fused loss
    on, which takes the first design's B1 (2 x 12 x accum), B2a and B2b
    (12 x accum each), the delta kernel (12 x accum), B3 (accum) and the
    first design's dlog, B4a and B4b (accum x 4 each), the sm90 kernels
@@ -70,20 +77,22 @@ exits non-zero.
    V 32000; dlog, dh and dw at its first 2048-row chunk), its ragged last
    chunk (N 2040), the 150m width (D 1024) and an odd N and V (1000),
    about a seventh of the labels -100, in f32 and bf16; in bf16 the sm90
-   dlog and dh (wgmma, TMA; the route bf16 takes, each repeated for its
-   bits) and the first design's both. Device times of kernel, plain
-   version and the library pair (cuBLAS ``h @ w`` then
-   ``F.cross_entropy``, and its backward through autograd), cuBLAS
-   ``dlog @ w.T`` beside dh; dlog and dh on both routes in turns; the
-   bounds.
+   dlog, dh and dw (wgmma, TMA; the route bf16 takes, each repeated for
+   its bits; dw also added to a prior dw) and
+   the first design's all three. Device times of kernel, plain version
+   and the library pair (cuBLAS ``h @ w`` then ``F.cross_entropy``, and
+   its backward through autograd), cuBLAS ``dlog @ w.T`` beside dh and
+   ``h.T @ dlog`` plus the f32 add beside dw; dlog, dh and dw on both
+   routes in turns; the bounds.
 10. Training at config_1b, full width and depth, as phase 8 (4 steps,
    local_steps 2: 2 outer rounds), with ``fused_loss`` left at its
    default, which resolves on. Per inner step and worker the sm90 B1 must
    have run 2 x 22 x accum times, the sm90 B2a and B2b and the delta
-   kernel 22 x accum, B3 accum, and the sm90 dlog and B4a and B4b accum x
+   kernel 22 x accum, B3 accum, and the sm90 dlog, B4a and B4b accum x
    4 (a backward walks 8184 rows in chunks of 2048), the first design's
-   dlog and B4a never. Then one inner step with the fused loss against
-   one with ``fused_loss=False`` on the same params and batch.
+   dlog, B4a and B4b never. Then one inner step with the fused loss against
+   one with ``fused_loss=False`` on the same params and batch, and the
+   inner-step times of the two, in turns as in phase 8.
 11. B7, the speculative tail attention, against its plain version in f32
    and bf16 at the shapes of its three passes at config_1b: verify (S 8,
    Kq = Kt = 5), draft (Kq 1, Kt 4, q_start 0..3) and the continued
@@ -126,8 +135,11 @@ exits non-zero.
    loop's on the card and the spec engine's on the CPU.
 15. Phase 12's plain and spec loops at config_1b in f32 compute on 4 of
    its 16 requests (after phase 13): the spec streams must equal the
-   plain loop's token for token.
-16. The kernels line (launches of B6, B7, its merge and B8 by serving
+   plain loop's token for token. The launch counters are zeroed before
+   each loop: the plain loop's B6 (f32, the split kernel) and its merge
+   22 times per decode step, the spec loop's B7 66 and its merge 66 per
+   round.
+16. The kernels line (launches of B6, B7, their merges and B8 by serving
    phase, of the training kernels by training phase), the card line, and
    last the result line.
 
@@ -140,10 +152,12 @@ whichever is larger (the H100 SXM data sheet).
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -213,6 +227,77 @@ def host_us(torch, fn, arg_sets, calls: int = 200) -> float:
     return us
 
 
+class CardSampler:
+    """``nvidia-smi``'s SM clock, power draw, temperature and active clock
+    throttle reasons every 100 ms in a background process, each sample
+    stamped with the host's clock on arrival, until :meth:`stop`. The
+    throttle reasons are left out where the tool refuses them; a query it
+    refuses altogether leaves no samples. It never fails the run."""
+
+    def __init__(self):
+        self.samples = []
+        fields = "clocks.sm,power.draw,temperature.gpu,clocks_throttle_reasons.active"
+        probe = subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, timeout=60)
+        if probe.returncode != 0:
+            fields = fields.rsplit(",", 1)[0]
+        self.proc = subprocess.Popen(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader,nounits",
+                                      "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.samples.append((time.perf_counter(), line.strip()))
+
+    def window(self, t0: float, t1: float) -> dict:
+        """The samples that arrived between host times ``t0`` and ``t1``."""
+        rows = [line.split(", ") for t, line in self.samples if t0 <= t <= t1]
+        rows = [r for r in rows if len(r) >= 3 and r[0].isdigit()]
+        if not rows:
+            return {"samples": 0}
+        sm = sorted(int(r[0]) for r in rows)
+        return {"samples": len(rows), "sm_mhz_min": sm[0], "sm_mhz_median": sm[len(sm) // 2],
+                "power_w_max": max(float(r[1]) for r in rows), "temp_c_max": max(float(r[2]) for r in rows),
+                "throttle_reasons": sorted({r[3] for r in rows if len(r) > 3})}
+
+    def stop(self) -> None:
+        self.proc.terminate()
+        try:
+            self.proc.wait(10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(10)
+        self.reader.join(10)
+
+
+class GcTimer:
+    """Host milliseconds of each Python garbage collection from
+    construction to :meth:`stop` (through ``gc.callbacks``): a collection
+    of the oldest generation walks every object the process holds, and
+    while it runs no kernel is queued."""
+
+    def __init__(self):
+        self.events, self._start = [], None
+        gc.callbacks.append(self)
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._start = time.perf_counter()
+        elif self._start is not None:
+            self.events.append((self._start, info["generation"], (time.perf_counter() - self._start) * 1e3))
+            self._start = None
+
+    def window(self, t0: float, t1: float) -> dict:
+        """The collections that started between host times ``t0`` and ``t1``."""
+        ev = [e for e in self.events if t0 <= e[0] <= t1]
+        return {"collections": len(ev), "oldest_generation": sum(e[1] == 2 for e in ev),
+                "ms": sum(e[2] for e in ev), "longest_ms": max((e[2] for e in ev), default=0.0)}
+
+    def stop(self) -> None:
+        gc.callbacks.remove(self)
+
+
 def copies_for(nbytes: int) -> int:
     """Distinct input copies whose sum is at least twice the L2 cache."""
     return max(1, math.ceil(2 * L2_BYTES / max(1, nbytes)))
@@ -228,46 +313,87 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
-def phase_b6(torch, tdk, cfg, serve_cfg, dev) -> dict:
+def phase_b6(torch, tdk, cfg, serve_cfg, dev) -> list:
+    """B6 against its plain version in f32 and bf16 at the config_1b decode
+    shape, at the splits the wrapper picks (8) and at one split, each
+    repeated for its bits; B6's merge against its plain version on the
+    split kernel's own partials; the first design (head dims above 128)
+    at D 256. Then device times in bf16 of the kernel at its splits and at
+    one split in turns (the splits must take at most half of one split's
+    time), the merge alone, the plain version and one SDPA call, with the
+    bounds, and the host's microseconds per wrapper call at both grids.
+    Returns the kernel's and its merge's rows of the kernels line."""
     import torch.nn.functional as F
 
     S, T = serve_cfg.max_batch, serve_cfg.max_context
     Kh, H, D = cfg.kv_heads, cfg.num_attention_heads, cfg.head_dim
+    rep = H // Kh
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = tdk.spec_tail_split_chunk(T, tdk.spec_tail_splits(S, T, Kh, rep, sms))[0]
+    if splits < 2:
+        raise AssertionError(f"B6: the wrapper picks {splits} split at the decode shape")
     # empty slot, one row, a tile edge, mid ring, the last row, a wrapped
     # ring, and one more mid-ring slot
     lens_list = [0, 1, 255, 256, 700, 1023, 1500, 511][:S]
     lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
-    checks = []
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(S, H, D, generator=g, device=dev).to(dtype)
-        k = torch.randn(S, T, Kh, D, generator=g, device=dev).to(dtype)
-        v = torch.randn(S, T, Kh, D, generator=g, device=dev).to(dtype)
-        out = tdk.paged_decode_attention(q, k, v, lens)
-        torch.cuda.synchronize()
+    checks, merge_checks, first_checks = [], [], []
+    # the split kernel at the decode shape, then the first design at D 256
+    for dtype, d in ((torch.float32, D), (torch.bfloat16, D), (torch.float32, 256), (torch.bfloat16, 256)):
+        q = torch.randn(S, H, d, generator=g, device=dev).to(dtype)
+        k = torch.randn(S, T, Kh, d, generator=g, device=dev).to(dtype)
+        v = torch.randn(S, T, Kh, d, generator=g, device=dev).to(dtype)
         ref = tdk.paged_decode_attention_plain(q, k, v, lens)
-        err = (out.float() - ref.float()).abs().amax(dim=(1, 2))
-        if dtype == torch.float32:
-            # only the order of f32 sums differs (outputs are averages of
-            # N(0,1) values, at most about 1)
-            tol = torch.full_like(err, 1e-5)
-        else:
-            # p is rounded to bf16 at each tile's running max where the plain
-            # version rounds at the global max, and both outputs round to
-            # bf16: 2**-6 of each slot's largest output, two to four bf16
-            # ulps there. Per slot, because a long ring averages its rows to
-            # outputs of about 0.1 while a one-row slot returns v itself
-            tol = 2.0**-6 * ref.float().abs().amax(dim=(1, 2))
-        worst = int((err / tol).argmax())
-        check = {"dtype": str(dtype).removeprefix("torch."), "max_abs_err": float(err.max()),
-                 "worst_slot": {"lens": lens_list[worst], "max_abs_err": float(err[worst]),
-                                "tol": float(tol[worst])},
-                 "per_slot_err": err.tolist(), "per_slot_tol": tol.tolist()}
-        checks.append(check)
-        log(f"B6 {dtype}: max |kernel - plain| = {check['max_abs_err']:.3e}; nearest its tolerance: "
-            f"slot with lens {lens_list[worst]}, {float(err[worst]):.3e} (tol {float(tol[worst]):.3e})")
-        if not bool((err <= tol).all()):
-            raise AssertionError(f"B6 {dtype} disagrees with its plain version: {check}")
+        grids = (((f"{splits} splits", {}), ("1 split", {"splits": 1})) if d == D else
+                 (("first design D 256", {}),))
+        for label, kw in grids:
+            out = tdk.paged_decode_attention(q, k, v, lens, **kw)
+            again = tdk.paged_decode_attention(q, k, v, lens, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().amax(dim=(1, 2))
+            if dtype == torch.float32:
+                # only the order of f32 sums differs (outputs are averages of
+                # N(0,1) values, at most about 1)
+                tol = torch.full_like(err, 1e-5)
+            else:
+                # p is rounded to bf16 at each tile's running max where the
+                # plain version rounds at the global max, and both outputs
+                # round to bf16: 2**-6 of each slot's largest output, two to
+                # four bf16 ulps there. Per slot, because a long ring
+                # averages its rows to outputs of about 0.1 while a one-row
+                # slot returns v itself
+                tol = 2.0**-6 * ref.float().abs().amax(dim=(1, 2))
+            worst = int((err / tol).argmax())
+            check = {"dtype": str(dtype).removeprefix("torch."), "grid": label, "max_abs_err": float(err.max()),
+                     "worst_slot": {"lens": lens_list[worst], "max_abs_err": float(err[worst]),
+                                    "tol": float(tol[worst])},
+                     "per_slot_err": err.tolist(), "per_slot_tol": tol.tolist()}
+            (checks if d == D else first_checks).append(check)
+            log(f"B6 {dtype} {label}: max |kernel - plain| = {check['max_abs_err']:.3e}; nearest its tolerance: "
+                f"slot with lens {lens_list[worst]}, {float(err[worst]):.3e} (tol {float(tol[worst]):.3e})")
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"B6 {dtype} {label} disagrees with its plain version: {check}")
+            if not torch.equal(out, again):
+                raise AssertionError(f"B6 {dtype} {label}: a second launch gave other bits")
+        if d != D:
+            del q, k, v, ref, out, again
+            continue
+        # the merge on the split kernel's own partials against the plain
+        # merge: the same f32 sums in the same order, exp correctly rounded
+        # on both sides to an ulp or two
+        P, chunk = tdk.spec_tail_split_chunk(T, splits)
+        ml, acc = tdk._paged_decode_partials(q, k, v, lens, splits=P, chunk=chunk)
+        out = tdk.paged_decode_merge(ml, acc, dtype)
+        torch.cuda.synchronize()
+        mref = tdk.spec_tail_merge_plain(ml, acc, 1, dtype).reshape(S, H, D).float()
+        err = float((out.float() - mref).abs().max())
+        tol = (1e-6 if dtype == torch.float32 else 2.0**-8) * max(1.0, float(mref.abs().max()))
+        merge_checks.append({"dtype": str(dtype).removeprefix("torch."), "splits": P, "max_abs_err": err,
+                             "tol": tol, "dead_splits": int((ml[..., 0] == float("-inf")).sum())})
+        if not err <= tol:
+            raise AssertionError(f"B6 merge {dtype}: {err} > {tol}")
+        del q, k, v, ref, out, again, ml, acc, mref
+    log(f"B6 merge kernel vs plain merge: {json.dumps(merge_checks)}")
 
     # timing in the serving dtype, KV pages cycled to stay out of L2
     dtype, elt = torch.bfloat16, 2
@@ -279,7 +405,19 @@ def phase_b6(torch, tdk, cfg, serve_cfg, dev) -> dict:
         k = torch.randn(S, T, Kh, D, generator=g, device=dev).to(dtype)
         v = torch.randn(S, T, Kh, D, generator=g, device=dev).to(dtype)
         sets.append((q, k, v, lens))
-    kernel_ms = device_ms(torch, tdk.paged_decode_attention, sets)
+    one = lambda *a: tdk.paged_decode_attention(*a, splits=1)
+    # the two grids in turns (chosen, one split, one split, chosen)
+    runs = [device_ms(torch, f, sets) for f in (tdk.paged_decode_attention, one, one, tdk.paged_decode_attention)]
+    kernel_ms, one_ms = min(runs[0], runs[3]), min(runs[1], runs[2])
+    # the host's cost of the two grids: two launches, the partials'
+    # allocations and the split rule against one launch
+    host = [host_us(torch, f, sets) for f in (tdk.paged_decode_attention, one, one, tdk.paged_decode_attention)]
+    P, chunk = tdk.spec_tail_split_chunk(T, splits)
+    parts = [tdk._paged_decode_partials(*a, splits=P, chunk=chunk) for a in sets]
+    merge_ms = device_ms(torch, lambda ml, acc: tdk.paged_decode_merge(ml, acc, dtype), parts)
+    merge_plain_ms = device_ms(torch, lambda ml, acc: tdk.spec_tail_merge_plain(ml, acc, 1, dtype), parts[:1],
+                               launches=16)
+    del parts
     plain_ms = device_ms(torch, tdk.paged_decode_attention_plain, sets, launches=16)
 
     # library yardstick, timed here only: one SDPA call over the dense ring
@@ -298,27 +436,63 @@ def phase_b6(torch, tdk, cfg, serve_cfg, dev) -> dict:
     nbytes = sum(live) * Kh * D * elt * 2 + 2 * S * H * D * elt + S * 4
     flops = sum(live) * H * D * 4
     b_ms, b_by = bound_ms(nbytes, flops)
+    R = S * Kh * rep
+    merge_b_ms, merge_b_by = bound_ms(R * P * (D + 2) * 4 + R * D * elt, 0.0)
     log(
-        f"B6 bf16 S{S} T{T} Kh{Kh} rep{H // Kh} D{D} live rows {sum(live)}: kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})"
+        f"B6 bf16 S{S} T{T} Kh{Kh} rep{rep} D{D} live rows {sum(live)}: kernel {kernel_ms:.4f} ms at {splits} "
+        f"splits (of it merge {merge_ms:.4f}), one split {one_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); host {host[0]:.1f}/{host[3]:.1f} us a call "
+        f"at {splits} splits, {host[1]:.1f}/{host[2]:.1f} at one split"
     )
-    return {
+    if not kernel_ms <= 0.5 * one_ms:
+        raise AssertionError(f"B6: {kernel_ms:.4f} ms at {splits} splits is more than half of one split's "
+                             f"{one_ms:.4f} ms")
+    source = "opendiloco_torch/csrc/spec_tail_attention.cu"
+    replaces = "opendiloco_tpu/ops/decode_kernels.py:241 (paged_decode_attention, _decode_attn_kernel :112)"
+    shape = {"S": S, "T": T, "Kh": Kh, "rep": rep, "D": D, "lens": lens_list, "splits": splits, "dtype": "bfloat16"}
+    b6 = {
         "name": "paged_decode_attention",
         "route": "cuda",
-        "source": "opendiloco_torch/csrc/paged_decode_attention.cu",
-        "replaces": "opendiloco_tpu/ops/decode_kernels.py:241 (paged_decode_attention, _decode_attn_kernel :112)",
-        "shape": {"S": S, "T": T, "Kh": Kh, "rep": H // Kh, "D": D, "lens": lens_list, "dtype": "bfloat16"},
+        "source": source,
+        "replaces": replaces,
+        "shape": shape,
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "tol": "f32 1e-5; bf16 2**-6 of each slot's largest output",
         "checks": checks,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
+        "kernel_ms_runs": runs,
+        "note": "ms is the wrapper's whole call at the splits it picks, the merge launch included",
+        "one_split_ms": one_ms,
+        "host_us_runs": host[::3],
+        "one_split_host_us_runs": host[1:3],
+        "first_design_checks": first_checks,
+        "first_design_source": "opendiloco_torch/csrc/paged_decode_attention.cu",
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "library": "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True) over the masked dense ring",
         "bound_ms": b_ms,
         "bound_by": b_by,
     }
+    merge = {
+        "name": "paged_decode_attention_merge",
+        "route": "cuda",
+        "source": source,
+        "replaces": f"{replaces}: the (m, l, acc) carry across the TPU kernel's sequential ring grid axis",
+        "shape": {**shape, "rows": rep},
+        "max_abs_err": max(c["max_abs_err"] for c in merge_checks),
+        "tol": "f32 1e-6, bf16 2**-8 of the largest output (at least 1)",
+        "checks": merge_checks,
+        "ms": merge_ms,
+        "kernel_ms": merge_ms,
+        "note": "also counted inside paged_decode_attention's ms",
+        "plain_ms": merge_plain_ms,
+        "library_ms": None,
+        "library": "none: no one call merges softmax partials",
+        "bound_ms": merge_b_ms,
+        "bound_by": merge_b_by,
+    }
+    return [b6, merge]
 
 
 # ---------------------------------------------------------------------------
@@ -486,6 +660,12 @@ def check_launches(launches: dict, want: dict, what: str) -> None:
         raise AssertionError(f"{what}: launch counts {launches} != {full}")
 
 
+# B6 merge launches per decode step at config_1b, as test_paged_decode_split_rule
+# pins the split rule: each of the 22 layers' B6 calls cuts the ring into 8
+# splits (8 slots x 4 kv heads leave 132 SMs short), so each merges once
+PAGED_MERGES_PER_STEP = 22
+
+
 def phase_serve(torch, tdk, cfg, serve_cfg, params, dev) -> dict:
     from opendiloco_torch.models.llama import decode_forward
     from opendiloco_torch.serve import build_serving
@@ -500,6 +680,7 @@ def phase_serve(torch, tdk, cfg, serve_cfg, params, dev) -> dict:
                     cfg.vocab_size)
         steps, prefills, launches = run["steps"], run["prefills"], run["launches"]
         check_launches(launches, {"paged_decode_attention": L * steps,
+                                  "paged_decode_attention_merge": PAGED_MERGES_PER_STEP * steps,
                                   "w4_matmul": 7 * L * (prefills + steps) if w4 else 0},
                        f"serve {serve_cfg.weight_format} ({steps} decode steps, {prefills} prefills)")
         res = {
@@ -988,24 +1169,40 @@ def phase_spec_f32(torch, cfg, params, dev) -> dict:
     agree on few requests; in f32 the verify pass at M = S (k + 1) and the
     decode step at M = S differ only by f32 rounding."""
     from opendiloco_torch.config import ServeConfig
+    from opendiloco_torch.ops import decode_kernels as tdk
     from opendiloco_torch.serve import build_serving
 
+    L = cfg.num_hidden_layers
     prompts = prompts_over_buckets(ServeConfig(), cfg.vocab_size)[::4]
-    streams = {}
+    streams, launches = {}, {}
     for k in (0, SPEC_K):
         plane = build_serving(ServeConfig(spec_decode_k=k), cfg, params, compute_dtype=torch.float32, device=dev)
         try:
+            base = plane.batcher.stats()["decode_steps"]
+            tdk.LAUNCHES.reset()
             reqs = [plane.batcher.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
             for r in reqs:
                 if not r.wait(1200) or r.error is not None:
                     raise AssertionError(f"f32 serving request failed: {r.error}")
+            launches[k] = tdk.LAUNCHES.snapshot()
+            steps = plane.batcher.stats()["decode_steps"] - base
             streams[k] = [r.tokens for r in reqs]
+            if k == 0:
+                # f32 B6 takes the split kernel: 22 a decode step, each merging once
+                want = {"paged_decode_attention": L * steps,
+                        "paged_decode_attention_merge": PAGED_MERGES_PER_STEP * steps}
+            else:
+                per_round = k * plane.engine.draft_layers + L
+                want = {"spec_tail_attention": per_round * steps,
+                        "spec_tail_attention_merge": SPEC_MERGES_PER_ROUND * steps}
+            check_launches(launches[k], want, f"f32 serve spec_k {k} ({steps} decode steps or rounds)")
         finally:
             plane.stop()
         del plane
         torch.cuda.empty_cache()
     res = {"requests": len(prompts), "new_tokens": NEW_TOKENS, "spec_k": SPEC_K,
-           "agreement": agreement(streams[SPEC_K], streams[0])}
+           "agreement": agreement(streams[SPEC_K], streams[0]),
+           "launches": {"plain": launches[0], "spec": launches[SPEC_K]}}
     log(f"spec vs plain, f32 compute, config_1b: {json.dumps(res)}")
     if streams[SPEC_K] != streams[0]:
         raise AssertionError(f"f32 spec streams differ from the plain loop's: {res['agreement']}")
@@ -1398,6 +1595,7 @@ XENT_REPLACES = {
 }
 XENT_REPLACES["fused_xent_dlog_sm90"] = XENT_REPLACES["fused_xent_dlog"]
 XENT_REPLACES["fused_xent_dh_sm90"] = XENT_REPLACES["fused_xent_dh"]
+XENT_REPLACES["fused_xent_dw_sm90"] = XENT_REPLACES["fused_xent_dw"]
 # (label, N, D, V) of the checks, and the timed shape: the 1b training shape
 # (its first 2048-row chunk for dlog, dh and dw), its ragged last chunk
 # (8184 = 3 x 2048 + 2040), the 150m width, an odd N and V
@@ -1411,8 +1609,8 @@ XENT_TOL = ("element by element, |got - ref| <= rtol |ref| + atol: nll and lse a
             "of the largest |dh| (f32 sum-order noise where an element nearly cancels); dh in f32 atol 1e-4 of "
             "the largest |dh| (V-long sums in another order, about 2**-24 * sqrt(V)); dw atol 1e-5 of the "
             "largest |dw| (f32 sums)")
-XENT_SOURCES = {"fused_xent_dlog_sm90": "opendiloco_torch/csrc/fused_xent_sm90.cu",
-                "fused_xent_dh_sm90": "opendiloco_torch/csrc/fused_xent_sm90.cu"}
+XENT_SOURCES = {name: "opendiloco_torch/csrc/fused_xent_sm90.cu"
+                for name in ("fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw_sm90")}
 
 
 def xent_inputs(torch, dev, N, D, V, dtype, seed):
@@ -1437,7 +1635,8 @@ def xent_work(N, D, V, elt) -> dict:
         "fused_xent_dh": (dl + w + h, mm),
         "fused_xent_dw": (h + dl + 2 * D * V * 4, mm),
     }
-    work["fused_xent_dlog_sm90"], work["fused_xent_dh_sm90"] = work["fused_xent_dlog"], work["fused_xent_dh"]
+    for name in ("fused_xent_dlog", "fused_xent_dh", "fused_xent_dw"):
+        work[f"{name}_sm90"] = work[name]
     return work
 
 
@@ -1451,7 +1650,7 @@ def phase_xent(torch, tfx, dev) -> list:
     both routes in turns, beside cuBLAS and the bounds."""
     import torch.nn.functional as F
 
-    sm90 = {"fused_xent_dlog": "fused_xent_dlog_sm90", "fused_xent_dh": "fused_xent_dh_sm90"}
+    sm90 = {name: f"{name}_sm90" for name in ("fused_xent_dlog", "fused_xent_dh", "fused_xent_dw")}
     checks = {name: [] for name in (*tfx.NAMES, *tfx.SM90_NAMES)}
     for gi, (label, N, D, V) in enumerate(XENT_GEOMS):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1464,27 +1663,40 @@ def phase_xent(torch, tfx, dev) -> list:
             routes = [tfx.SM90_SOURCE, tfx.SOURCE] if bf16 else [tfx.SOURCE]
             got = {}
             ref_dlog = tfx.fused_xent_dlog_plain(*args)
+            ref_dw = tfx.fused_xent_dw_plain(h[rows], ref_dlog)
             for route in routes:
                 sfx = "_sm90" if route == tfx.SM90_SOURCE else ""
                 got["fused_xent_dlog" + sfx] = tfx.fused_xent_dlog(*args, route=route)
                 got["fused_xent_dh" + sfx] = tfx.fused_xent_dh(ref_dlog, w, route=route)
+                got["fused_xent_dw" + sfx] = tfx.fused_xent_dw(h[rows], ref_dlog, route=route)
                 if route == tfx.SM90_SOURCE:  # the route bf16 takes: its bits repeat
                     if not (torch.equal(got["fused_xent_dlog_sm90"], tfx.fused_xent_dlog(*args, route=route))
-                            and torch.equal(got["fused_xent_dh_sm90"], tfx.fused_xent_dh(ref_dlog, w, route=route))):
-                        raise AssertionError(f"sm90 dlog or dh {label}: a second launch gave other bits")
-            dw = tfx.fused_xent_dw(h[rows], ref_dlog)
+                            and torch.equal(got["fused_xent_dh_sm90"], tfx.fused_xent_dh(ref_dlog, w, route=route))
+                            and torch.equal(got["fused_xent_dw_sm90"], tfx.fused_xent_dw(h[rows], ref_dlog))):
+                        raise AssertionError(f"sm90 dlog, dh or dw {label}: a second launch gave other bits")
+                    # dw added to a prior dw (the later chunks of a backward):
+                    # the same bits on a second add
+                    added = [ref_dw.clone() for _ in range(2)]
+                    for a in added:
+                        tfx.fused_xent_dw(h[rows], ref_dlog, a)
+                    if not torch.equal(added[0], added[1]):
+                        raise AssertionError(f"sm90 dw {label}: a second add gave other bits")
+                    got["fused_xent_dw_sm90 added"] = added[0]
             torch.cuda.synchronize()
             scale = max(1.0, float(ref_lse.abs().max()))
-            ref_dh, ref_dw = tfx.fused_xent_dh_plain(ref_dlog, w), tfx.fused_xent_dw_plain(h[rows], ref_dlog)
+            ref_dh = tfx.fused_xent_dh_plain(ref_dlog, w)
             top = {"dh": float(ref_dh.float().abs().max()), "dw": float(ref_dw.abs().max())}
             r_dlog = 2.0**-7 if bf16 else 1e-5
             # (kernel, output, got, ref, rtol, atol): see XENT_TOL
             pairs = [("fused_xent_fwd", "lse", lse, ref_lse, 0.0, 1e-4 * scale),
-                     ("fused_xent_fwd", "nll", nll, ref_nll, 0.0, 1e-4 * scale),
-                     ("fused_xent_dw", "dw", dw, ref_dw, 0.0, 1e-5 * top["dw"])]
+                     ("fused_xent_fwd", "nll", nll, ref_nll, 0.0, 1e-4 * scale)]
             for kernel, out in got.items():
                 if "dlog" in kernel:
                     pairs.append((kernel, "dlog", out, ref_dlog, r_dlog, r_dlog / 2 * float(gup.max()) / V))
+                elif "dw" in kernel:
+                    name, _, added = kernel.partition(" ")
+                    pairs.append((name, "dw " + added if added else "dw", out, 2 * ref_dw if added else ref_dw,
+                                  0.0, (2e-5 if added else 1e-5) * top["dw"]))
                 else:
                     pairs.append((kernel, "dh", out, ref_dh, 2.0**-7 if bf16 else 0.0,
                                   (1e-5 if bf16 else 1e-4) * top["dh"]))
@@ -1500,7 +1712,7 @@ def phase_xent(torch, tfx, dev) -> list:
                                          f"limit (rtol {rtol}, atol {atol:.3g})")
             if bool(nll[labels == -100].any()):
                 raise AssertionError(f"fused_xent_fwd {label} {dtype}: an ignored row has a loss")
-            del h, w, labels, gup, nll, lse, ref_nll, ref_lse, got, ref_dlog, dw, ref_dh, ref_dw, diff
+            del h, w, labels, gup, nll, lse, ref_nll, ref_lse, got, ref_dlog, ref_dh, ref_dw, diff
             torch.cuda.empty_cache()
         worst = {f"{k} {c['dtype']}": round(c["worst_share_of_limit"], 4)
                  for k, cs in checks.items() for c in cs if c["shape"] == label}
@@ -1523,6 +1735,10 @@ def phase_xent(torch, tfx, dev) -> list:
     def dh_on(route):
         return lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dh(dl, w, route=route)
 
+    def dw_on(route):
+        # added into the f32 dw, as every chunk after a backward's first
+        return lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dw(h, dl, a, route=route)
+
     runs = {
         "fused_xent_fwd": (lambda h, w, lb, ls, g: tfx.fused_xent_fwd(h, w, lb),
                            lambda h, w, lb, ls, g: tfx.fused_xent_fwd_plain(h, w, lb), fwd_set),
@@ -1530,17 +1746,17 @@ def phase_xent(torch, tfx, dev) -> list:
                             lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dlog_plain(h, w, lb, ls, g), chunk_set),
         "fused_xent_dh": (dh_on(tfx.SOURCE), lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dh_plain(dl, w),
                           chunk_set),
-        "fused_xent_dw": (lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dw(h, dl, a),
-                          lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dw_plain(h, dl, a), chunk_set),
+        "fused_xent_dw": (dw_on(tfx.SOURCE), lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dw_plain(h, dl, a),
+                          chunk_set),
     }
     times = {}
     for name, (kern, plain, sets) in runs.items():
         times[name] = (device_ms(torch, kern, sets, launches=8, replays=3),
                        device_ms(torch, plain, sets, launches=2, replays=3))
         torch.cuda.empty_cache()
-    # both routes of dlog and dh in turns (sm90, first, first, sm90)
+    # both routes of dlog, dh and dw in turns (sm90, first, first, sm90)
     same_call = {}
-    for name, on in (("fused_xent_dlog", dlog_on), ("fused_xent_dh", dh_on)):
+    for name, on in (("fused_xent_dlog", dlog_on), ("fused_xent_dh", dh_on), ("fused_xent_dw", dw_on)):
         order = [tfx.SM90_SOURCE, tfx.SOURCE, tfx.SOURCE, tfx.SM90_SOURCE]
         ms = [device_ms(torch, on(r), chunk_set, launches=8, replays=3) for r in order]
         same_call[name] = {"sm90_ms": [ms[0], ms[3]], "first_design_ms": [ms[1], ms[2]]}
@@ -1567,6 +1783,7 @@ def phase_xent(torch, tfx, dev) -> list:
                                    launches=8, replays=3),
     }
     lib_chunk_ms["fused_xent_dh_sm90"] = lib_chunk_ms["fused_xent_dh"]
+    lib_chunk_ms["fused_xent_dw_sm90"] = lib_chunk_ms["fused_xent_dw"]
     del leaves, fwd_set, chunk_set, h, w, labels, gup, lse, dlog, acc
     torch.cuda.empty_cache()
 
@@ -1609,6 +1826,9 @@ def phase_xent(torch, tfx, dev) -> list:
     pair = {r: times[f"fused_xent_dlog{r}"][0] + times[f"fused_xent_dh{r}"][0] for r in ("_sm90", "")}
     log(f"fused cross-entropy dlog + dh per {C}-row chunk: sm90 {pair['_sm90']:.4f} ms, first design "
         f"{pair['']:.4f} ms (same call; {json.dumps(same_call)})")
+    log(f"fused cross-entropy dw per {C}-row chunk, added into the f32 dw: sm90 {times['fused_xent_dw_sm90'][0]:.4f} "
+        f"ms, first design {times['fused_xent_dw'][0]:.4f} ms, cuBLAS h.T @ dlog + add "
+        f"{lib_chunk_ms['fused_xent_dw']:.4f} ms")
     log(f"fused cross-entropy backward (all {n_chunks} chunks, bf16 N{N} D{D} V{V}): {bwd_ms:.4f} ms; "
         f"library backward (autograd of the cuBLAS + F.cross_entropy pair, dh and dw over all rows) "
         f"{lib_bwd_ms:.4f} ms, library forward {lib_fwd_ms:.4f} ms")
@@ -1646,7 +1866,6 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
     import os
     import pickle
     import tempfile
-    import threading
 
     from opendiloco_torch.config import Config
     from opendiloco_torch.diloco import LoopbackBackend, LoopbackWorld
@@ -1733,8 +1952,8 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
         # launch of each backward kernel
         chunks = -(-run["per_device_train_batch_size"] * (run["seq_length"] - 1) // tfx.CHUNK_ROWS)
         want["fused_xent_fwd"] = inner_steps * accum
-        # bf16 dlog and dh take the sm90 kernels, the first design never
-        for name in ("fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw"):
+        # bf16 dlog, dh and dw take the sm90 kernels, the first design never
+        for name in ("fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw_sm90"):
             want[name] = inner_steps * accum * chunks
     if launches != want:
         raise AssertionError(f"training launch counts {launches} != {want}")
@@ -1761,6 +1980,9 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
         raise AssertionError(f"expected {2 * rounds} outer steps, got {outer_s}")
     hashes = [b.hashes for b in backends]
     del backends, world, summaries
+    # the workers' host state (fp32 masters, outer momentum: GBs at 1b)
+    # may sit in reference cycles: collect it now, not inside a timed turn
+    gc.collect()
     torch.cuda.empty_cache()
 
     # one inner step under each variant, same params and batch
@@ -1768,28 +1990,51 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
 
     ds = iter(FakeTokenizedDataset(run["seq_length"], cfg.vocab_size, seed=7, mode="ramp"))
     ids = np.stack([next(ds)["input_ids"] for _ in range(run["total_batch_size"])])
-    results, step_ms, peak_gib = {}, {}, {}
-    for label, kw in compare.items():
-        torch.cuda.reset_peak_memory_stats()
-        tr = InnerTrainer(cfg, TrainerConfig(precision="bf16-mixed", remat=True, warmup_steps=2,
-                                             total_steps=100, **kw), device=dev)
-        state = tr.init_state(3)
-        batch = tr.shard_batch(ids, ids.copy(), accum=accum)
-        state, m = tr.train_step(state, batch)
-        results[label] = (float(m["loss"]), float(m["grad_norm"]), tr.tc.fused_loss)
-        # steady inner-step time of one worker alone (the first step above
-        # carried the warm-up), and its peak device memory
-        torch.cuda.synchronize()
-        n = 3
-        t1 = time.perf_counter()
-        for _ in range(n):
+    results, step_runs, peak_gib, turns = {}, {}, {}, []
+    # the variants in turns (a b b a), each turn on a trainer of its own;
+    # per turn, the card's time per step (events), its clocks and power,
+    # and the host's garbage collections
+    labels = list(compare)
+    # the smoke's earlier phases hold many Python objects: a collection of
+    # the oldest generation inside a timed turn walked them all and held
+    # a 1b step up by over a quarter (PERF.md section 6), so they are frozen out
+    # of the collector for the turns
+    gc.freeze()
+    sampler, collections = CardSampler(), GcTimer()
+    try:
+        for label in labels + labels[::-1]:
+            torch.cuda.reset_peak_memory_stats()
+            tr = InnerTrainer(cfg, TrainerConfig(precision="bf16-mixed", remat=True, warmup_steps=2,
+                                                 total_steps=100, **compare[label]), device=dev)
+            state = tr.init_state(3)
+            batch = tr.shard_batch(ids, ids.copy(), accum=accum)
             state, m = tr.train_step(state, batch)
-        float(m["loss"])
-        torch.cuda.synchronize()
-        step_ms[label] = (time.perf_counter() - t1) / n * 1e3
-        peak_gib[label] = torch.cuda.max_memory_allocated() / 2**30
-        del tr, state, batch, m
-        torch.cuda.empty_cache()
+            results.setdefault(label, (float(m["loss"]), float(m["grad_norm"]), tr.tc.fused_loss))
+            # steady inner-step time of one worker alone (the first step above
+            # carried the warm-up), and its peak device memory
+            torch.cuda.synchronize()
+            n = 3
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+            t1 = time.perf_counter()
+            events[0].record()
+            for i in range(n):
+                state, m = tr.train_step(state, batch)
+                events[i + 1].record()
+            float(m["loss"])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            step_runs.setdefault(label, []).append((t2 - t1) / n * 1e3)
+            turns.append({"variant": label, "step_ms": (t2 - t1) / n * 1e3,
+                          "card_ms_per_step": [events[i].elapsed_time(events[i + 1]) for i in range(n)],
+                          "card": sampler.window(t1, t2), "gc": collections.window(t1, t2)})
+            peak_gib[label] = max(peak_gib.get(label, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+            del tr, state, batch, m
+            torch.cuda.empty_cache()
+    finally:
+        sampler.stop()
+        collections.stop()
+        gc.unfreeze()
+    step_ms = {label: float(np.mean(runs)) for label, runs in step_runs.items()}
     step_s = next(iter(step_ms.values())) / 1e3
     (a, (kl, kg, kf)), (b, (pl_, pg, pf)) = results.items()
     # bf16: the two paths round attention probabilities and outputs, or the
@@ -1814,6 +2059,8 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
         "inner_step_ms_one_worker": step_s * 1e3,
         "tokens_per_s_one_worker": tokens / step_s,
         "inner_step_ms_one_worker_by_variant": step_ms,
+        "inner_step_ms_one_worker_runs_in_turns": step_runs,
+        "inner_step_turns": turns,
         "peak_memory_gib_one_worker_by_variant": peak_gib,
     }
     log(f"train {model}: inner step {step_s * 1e3:.1f} ms (one worker alone, mb "
@@ -1823,8 +2070,13 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
         f"waiting for the peer {np.mean(outer['outer_wait_s']):.3f} s, all-reduce "
         f"{np.mean(outer['outer_allreduce_s']):.3f} s) | {card}")
     log(f"train {model}: peak device memory {peak_gb:.2f} GiB (two workers on one card) | {card}")
-    log(f"train {model}: one worker alone, {a} / {b}: inner step {step_ms[a]:.1f} / {step_ms[b]:.1f} ms, "
-        f"peak device memory {peak_gib[a]:.2f} / {peak_gib[b]:.2f} GiB | {card}")
+    log(f"train {model}: one worker alone, {a} / {b}: inner step {step_ms[a]:.1f} / {step_ms[b]:.1f} ms (mean of "
+        f"two turns, {a} {b} {b} {a}: {json.dumps(step_runs)}), peak device memory {peak_gib[a]:.2f} / "
+        f"{peak_gib[b]:.2f} GiB | {card}")
+    for t in turns:
+        log(f"train {model}: turn {t['variant']}: {t['step_ms']:.1f} ms a step, card "
+            f"{[round(x, 1) for x in t['card_ms_per_step']]} ms by step, {json.dumps(t['card'])}, python gc "
+            f"{json.dumps({k: round(v, 2) if isinstance(v, float) else v for k, v in t['gc'].items()})}")
     log(f"train {model}: losses {res['losses']}; {a} vs {b} step loss {kl:.5f}/{pl_:.5f}, "
         f"grad norm {kg:.5f}/{pg:.5f}; launches {launches}")
     return res
@@ -1915,7 +2167,7 @@ def main() -> int:
 
     cfg = load_config("1b")
     serve_cfg = ServeConfig()
-    b6 = phase_b6(torch, tdk, cfg, serve_cfg, dev)
+    b6 = phase_b6(torch, tdk, cfg, serve_cfg, dev)  # B6 and its merge
     b8 = phase_b8(torch, tdk, quant, cfg, dev)
 
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
@@ -1945,7 +2197,8 @@ def main() -> int:
     serving.update({f"spec serve {s['weight_format']}": s["launches"] for s in spec})
     serving.update({f"prefix serve, prefix_cache={on}": prefix[key]["launches"]
                     for key, on in (("on", True), ("off", False))})
-    for k in (b6, *b7, b8):
+    serving.update({f"f32 serve {key}": spec_f32["launches"][key] for key in ("plain", "spec")})
+    for k in (*b6, *b7, b8):
         k["launches_by_phase"] = {phase: counts[k["name"]] for phase, counts in serving.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
     # launches: the training paths, by phase (the first design runs on the
@@ -1958,7 +2211,7 @@ def main() -> int:
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
     log(json.dumps({"serve": serve, "spec": spec, "spec_f32": spec_f32, "prefix": prefix, "reference": reference,
                     "train": [train_150m, train_1b, train_f32], "seconds": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [b6, *b7, b8, *flash, *xent]}))
+    log(json.dumps({"kernels": [*b6, *b7, b8, *flash, *xent]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,19 +1,24 @@
-// The fused cross-entropy's dlog and dh passes in bf16 for Hopper (sm_90a),
-// with warpgroup matrix products (wgmma), TMA copies and an mbarrier ring:
+// The fused cross-entropy's dlog, dh and dw passes in bf16 for Hopper
+// (sm_90a), with warpgroup matrix products (wgmma), TMA copies and an
+// mbarrier ring:
 //   dlog (replaces opendiloco_tpu/ops/fused_xent.py _recompute_dlog :174,
 //         inside _dh_kernel :195 and _dw_kernel :219)
 //   dh   (replaces the same file's _bwd_impl, pl.pallas_call at :254,
 //         kernel body _dh_kernel :195; with dlog, the TPU kernel's body)
-// fused_xent.cu keeps the first design of both (mma.sync), which
-// ops/fused_xent.py routes f32 to, together with B3 (fwd) and B4b (dw).
+//   dw   (B4b: replaces _bwd_impl's pl.pallas_call at :276, kernel body
+//         _dw_kernel :219)
+// fused_xent.cu keeps the first design of all three (mma.sync), which
+// ops/fused_xent.py routes f32 to, together with B3 (fwd).
 //
 // Computes, for one chunk of rows, h [M, D], the head w [D, V], labels [M]
 // (int64, -100 = ignored), lse [M] f32 and the masked upstream gradient
 // g [M] f32, with s = h.w from bf16 operands and f32 accumulation:
 //   dlog [M, V] = g * (exp(s - lse) - onehot), rounded to bf16;
-//   dh [M, D] = dlog . w^T, f32 accumulation, rounded to bf16.
-// Columns past V (dlog) and D (dh) and rows past M are neither computed
-// into the outputs nor stored. Any M; D and V multiples of 8 (16-byte rows,
+//   dh [M, D] = dlog . w^T, f32 accumulation, rounded to bf16;
+//   dw [D, V] f32 = h^T . dlog summed over the chunk's M rows, written by
+//     the first chunk and added to the f32 dw by each later one.
+// Columns past V (dlog, dw) and D (dh) and rows past M (D for dw) are
+// neither computed into the outputs nor stored. Any M; D and V multiples of 8 (16-byte rows,
 // as TMA needs); contiguous row-major operands, 16-byte aligned.
 //
 // Why dlog stays a pass of its own (the TPU kernel recomputes it inside
@@ -25,7 +30,10 @@
 // Bound on this card (989 TFLOP/s bf16, 3.35 TB/s; chip_smoke.py
 // xent_work): at one 2048-row chunk of the 1b training shape (D 2048,
 // V 32000) each pass is one product, 0.268 TFLOP, 0.2714 ms, against
-// 131 MB of dlog and 131 MB of w (0.04-0.08 ms): bound by operations.
+// 131 MB of dlog and 131 MB of w (0.04-0.08 ms): bound by operations. dw
+// also reads and writes the 262 MB f32 dw once a chunk: 0.198 ms of bytes
+// in all, still below its 0.2714 ms of products, but the epilogue (a
+// 128 x 256 f32 read-add-write a tile, 256 KB) is a third of its work.
 //
 // Design (one main loop, gemm_sm90, for both; B4b and B3 can take it too):
 // 1. Persistent CTAs, one an SM, each walking output tiles of 128 rows x
@@ -45,7 +53,9 @@
 //    wrote with a 128-byte swizzle: A (h for dlog, dlog for dh) K-major;
 //    B K-major for dh (w's rows are D, V contiguous: the reduction) and
 //    MN-major for dlog (w's V columns contiguous) through the transpose
-//    bit. Each consumer keeps one wgmma group in flight and hands a stage
+//    bit. dw takes both operands MN-major: A = h^T (h [M][D], D
+//    contiguous) and B = dlog ([M][V]); A's 64 rows of a warpgroup are one
+//    swizzle atom, loaded as their own TMA box. Each consumer keeps one wgmma group in flight and hands a stage
 //    back as soon as the group that read it has finished.
 // 4. Epilogues on the accumulator registers, stored straight from them
 //    (two bf16 a store): dlog takes exp by ex2.approx on s log2 e -
@@ -55,8 +65,21 @@
 //    1b chunk), max abs error 3.0e-8, the same as the first design's:
 //    both are one bf16 ulp from the plain version where the f32 value
 //    sits at a rounding boundary. dh rounds to bf16.
+// 5. dw's epilogue. K is a chunk's rows (2048), so the f32 read-add-write
+//    of a tile costs about half of its products. Each warpgroup stages
+//    64 x 32 f32 subtiles in two swizzled shared buffers and hands each
+//    to one TMA store (first chunk) or reduce-add (later chunks), so the
+//    add runs in the memory system while the warpgroup fills the next
+//    subtile and then starts the next tile, whose loads the producer has
+//    kept in flight. Measured against 16-byte read-add-write stores
+//    straight from the accumulators (the loads of 4 column blocks in
+//    flight at a time; it spilled about 300 bytes to the stack) in turns
+//    by chip_smoke.py phase 9 on an H100 at 700 W: 0.4457-0.4625 ms a
+//    1b chunk against 0.7129-0.7270 ms, so only the TMA epilogue is kept
+//    (PERF.md section 6).
 // No atomics and no split-K: every output element is summed by one CTA
-// in K order, so results repeat bit for bit.
+// in K order, and dw gets one store or add per element and chunk, the
+// chunks in launch order, so results repeat bit for bit.
 #include <math.h>
 
 #include "common.cuh"
@@ -81,11 +104,12 @@ struct Raster {
     __device__ __forceinline__ int tiles() const { return mt * nt; }
 };
 
-// C[M, N] = A . B over K, A [M][K] (K-major), B [N][K] (K-major, !B_MN) or
-// [K][N] (MN-major, B_MN), bf16 in, f32 accumulators; epi(row0, n0, acc)
-// runs on each consumer warpgroup's 64 x kBN accumulator (rows row0 ..
-// row0 + 63) after the tile's last step. Launched with kCtaThreads threads.
-template <bool B_MN, typename Epi>
+// C[M, N] = A . B over K, A [M][K] (K-major, !A_MN) or [K][M] (MN-major,
+// A_MN), B [N][K] (K-major, !B_MN) or [K][N] (MN-major, B_MN), bf16 in, f32
+// accumulators; epi(row0, n0, acc) runs on each consumer warpgroup's
+// 64 x kBN accumulator (rows row0 .. row0 + 63) after the tile's last
+// step. Launched with kCtaThreads threads.
+template <bool A_MN, bool B_MN, typename Epi>
 __device__ __forceinline__ void gemm_sm90(const CUtensorMap* ma, const CUtensorMap* mb, Raster r, int K, Epi epi) {
     constexpr int kSt = kStages;
     extern __shared__ uint8_t smem_raw[];
@@ -115,7 +139,14 @@ __device__ __forceinline__ void gemm_sm90(const CUtensorMap* ma, const CUtensorM
                 uint8_t* st = sm + s * kStageBytes;
                 mbar_wait(empty + s, ((ring / kSt) & 1) ^ 1);
                 mbar_arrive_expect_tx(full + s, kStageBytes);
-                tma_load_2d(st, ma, full + s, kb * kBK, m0);
+                if constexpr (A_MN) {
+                    // kBM / 64 row blocks, each [64 k rows][64 rows of C]:
+                    // one per consumer warpgroup
+                    for (int j = 0; j < kBM / 64; ++j)
+                        tma_load_2d(st + j * kBK * 128, ma, full + s, m0 + j * 64, kb * kBK);
+                } else {
+                    tma_load_2d(st, ma, full + s, kb * kBK, m0);
+                }
                 if constexpr (B_MN) {
                     // kBN / 64 column blocks, each [64 k rows][64 columns]
                     for (int j = 0; j < kBN / 64; ++j)
@@ -146,12 +177,14 @@ __device__ __forceinline__ void gemm_sm90(const CUtensorMap* ma, const CUtensorM
             wgmma_fence();
 #pragma unroll
             for (int ks = 0; ks < kBK / 16; ++ks) {
-                const uint64_t da = smem_desc(sa + cw * 64 * 128 + ks * 32, 16, 1024, 1);
                 // MN-major: 16 k rows on, the next 64 columns 64 rows of
-                // 128 B further (LBO), 8 k rows 1024 B (SBO)
+                // 128 B further (LBO), 8 k rows 1024 B (SBO); A's 64 rows
+                // of a warpgroup are one such block
+                const uint64_t da = A_MN ? smem_desc(sa + cw * kBK * 128 + ks * 16 * 128, kBK * 128, 1024, 1)
+                                         : smem_desc(sa + cw * 64 * 128 + ks * 32, 16, 1024, 1);
                 const uint64_t db = B_MN ? smem_desc(sb + ks * 16 * 128, kBK * 128, 1024, 1)
                                          : smem_desc(sb + ks * 32, 16, 1024, 1);
-                wgmma_ss_n256<B_MN ? 1 : 0>(acc, da, db, kb > 0 || ks > 0);
+                wgmma_ss_n256<A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db, kb > 0 || ks > 0);
             }
             wgmma_commit();
             wgmma_wait<1>();  // the group of step kb - 1 is done: its stage is free
@@ -180,7 +213,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
                           const long long* __restrict__ labels, const float* __restrict__ lse,
                           const float* __restrict__ gup, __nv_bfloat16* __restrict__ dlog, int M, int D, int V) {
     const Raster r{(M + kBM - 1) / kBM, (V + kBN - 1) / kBN};
-    gemm_sm90<true>(&mh, &mw, r, D, [&](int row0, int n0, float(&acc)[kBN / 2]) {
+    gemm_sm90<false, true>(&mh, &mw, r, D, [&](int row0, int n0, float(&acc)[kBN / 2]) {
         const Frag f(row0);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
@@ -207,7 +240,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
     xent_dh_sm90_kernel(const __grid_constant__ CUtensorMap mdl, const __grid_constant__ CUtensorMap mw,
                         __nv_bfloat16* __restrict__ dh, int M, int D, int V) {
     const Raster r{(M + kBM - 1) / kBM, (D + kBN - 1) / kBN};
-    gemm_sm90<false>(&mdl, &mw, r, V, [&](int row0, int n0, float(&acc)[kBN / 2]) {
+    gemm_sm90<false, false>(&mdl, &mw, r, V, [&](int row0, int n0, float(&acc)[kBN / 2]) {
         const Frag f(row0);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
@@ -221,6 +254,63 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
             }
         }
     });
+}
+
+// dw's epilogue through TMA: each consumer warpgroup stages its 64 x kBN
+// accumulator as kBN / kEpiCols subtiles of 64 rows x 32 f32 columns (one
+// 128-byte swizzle row, 8 KB) in two shared buffers of its own, past the
+// ring and its barriers, and hands each to one TMA store (the first chunk)
+// or reduce-add (later chunks) while it fills the other.
+constexpr int kEpiCols = 32;
+constexpr int kEpiBytes = 64 * kEpiCols * 4;
+constexpr int kEpiOffset = kBarOffset + 1024;
+constexpr size_t kDwSmemBytes = kEpiOffset + 4 * kEpiBytes + 1024;  // + alignment slack
+static_assert(kDwSmemBytes <= kSmemMax, "dw's ring and epilogue buffers fit one SM");
+
+// dw [D, V] f32 (+)= h^T . dlog over the chunk's M rows: C = A . B with A =
+// h^T (MN-major: h [M][D], D contiguous) and B = dlog (MN-major: [M][V]), K
+// = M, stored or added through the TMA epilogue above.
+__global__ void __launch_bounds__(kCtaThreads, 1)
+    xent_dw_sm90_kernel(const __grid_constant__ CUtensorMap mh, const __grid_constant__ CUtensorMap mdl,
+                        const __grid_constant__ CUtensorMap mdw, int M, int D, int V, int accumulate) {
+    const Raster r{(D + kBM - 1) / kBM, (V + kBN - 1) / kBN};
+    gemm_sm90<true, true>(&mh, &mdl, r, M, [&](int row0, int n0, float(&acc)[kBN / 2]) {
+        const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+        extern __shared__ uint8_t smem_raw[];
+        const int cw = threadIdx.x / 128 - 1;
+        uint8_t* bufs = align1024(smem_raw) + kEpiOffset + cw * 2 * kEpiBytes;
+#pragma unroll
+        for (int j = 0; j < kBN / kEpiCols; ++j) {
+            // the buffer's last copy (subtile j - 2) finished reading it
+            // before the barrier of subtile j - 1
+            uint8_t* buf = bufs + (j & 1) * kEpiBytes;
+#pragma unroll
+            for (int i = 0; i < kEpiCols / 8; ++i) {
+                const int nb = j * (kEpiCols / 8) + i;
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh) {
+                    // row rr, columns 8 i + 2t, + 1: 16-byte chunk 2 i + t / 2
+                    // of the 128-byte row, swizzled by the row's index mod 8
+                    const int rr = warp * 16 + g + 8 * hh;
+                    const int chunk = (2 * i + (t >> 1)) ^ (rr & 7);
+                    *reinterpret_cast<float2*>(buf + rr * 128 + chunk * 16 + (t & 1) * 8) =
+                        make_float2(acc[4 * nb + 2 * hh], acc[4 * nb + 2 * hh + 1]);
+                }
+            }
+            fence_proxy_async();
+            if (tid == 0) bulk_wait_read0();  // subtile j - 1 has left the other buffer
+            named_sync(1 + cw, 128);
+            if (tid == 0) {
+                if (accumulate) {
+                    tma_add_2d(&mdw, buf, n0 + j * kEpiCols, row0);
+                } else {
+                    tma_store_2d(&mdw, buf, n0 + j * kEpiCols, row0);
+                }
+                bulk_commit();
+            }
+        }
+    });
+    if (threadIdx.x >= 128 && (threadIdx.x & 127) == 0) bulk_wait_read0();  // before the CTA's shared memory goes
 }
 
 // ---------------------------------------------------------------------------
@@ -264,6 +354,20 @@ int dh_run(const void* dlog, const void* w, void* dh, int M, int D, int V, cudaS
     return (int)cudaGetLastError();
 }
 
+int dw_run(const void* h, const void* dlog, void* dw, int M, int D, int V, int accumulate, cudaStream_t st) {
+    CUtensorMap mh, mdl, mdw;
+    cudaError_t err;
+    if ((err = bf16_matrix_map(&mh, h, M, D, kBK, 64)) != cudaSuccess) return (int)err;
+    if ((err = bf16_matrix_map(&mdl, dlog, M, V, kBK, 64)) != cudaSuccess) return (int)err;
+    if ((err = matrix_map(&mdw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dw, D, V, 64, kEpiCols)) != cudaSuccess)
+        return (int)err;
+    if ((err = allow_smem<xent_dw_sm90_kernel>(kDwSmemBytes)) != cudaSuccess) return (int)err;
+    int grid = 0;
+    if ((err = grid_size((D + kBM - 1) / kBM * ((V + kBN - 1) / kBN), &grid)) != cudaSuccess) return (int)err;
+    xent_dw_sm90_kernel<<<grid, kCtaThreads, kDwSmemBytes, st>>>(mh, mdl, mdw, M, D, V, accumulate);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -279,6 +383,12 @@ int fused_xent_dlog_sm90_bf16(const void* h, const void* w, const void* labels, 
 int fused_xent_dh_sm90_bf16(const void* dlog, const void* w, void* dh, int N, int D, int V, void* stream) {
     if (bad_dims(N, D, V)) return (int)cudaErrorInvalidValue;
     return dh_run(dlog, w, dh, N, D, V, static_cast<cudaStream_t>(stream));
+}
+
+int fused_xent_dw_sm90_bf16(const void* h, const void* dlog, void* dw, int N, int D, int V, int accumulate,
+                            void* stream) {
+    if (bad_dims(N, D, V)) return (int)cudaErrorInvalidValue;
+    return dw_run(h, dlog, dw, N, D, V, accumulate, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,8 +1,12 @@
-// Paged decode attention for Hopper (sm_90a): one query token per slot over
-// that slot's ring KV page.
+// Paged decode attention for Hopper (sm_90a), the first design: one query
+// token per slot over that slot's ring KV page. Since the split-ring
+// redesign (spec_tail_attention.cu, its kPrefix instance) it runs only
+// where that kernel does not go: head dims 136 .. 256
+// (ops/decode_kernels.py _decode_route). At the 1b decode shape (D 64) it
+// took 0.0392 ms against the split kernel's 0.0094 (PERF.md section 6).
 //
 // Replaces: opendiloco_tpu/ops/decode_kernels.py paged_decode_attention
-// (_decode_attn_kernel, launched by pl.pallas_call at :241).
+// (_decode_attn_kernel :112, launched by pl.pallas_call at :241).
 //
 // Computes, for every slot s and query head h (kv head h / rep):
 //   out[s, h] = softmax_t(q[s, h] . k[s, t, h / rep] * D^-0.5) . v[s, t, h / rep]
@@ -31,11 +35,13 @@
 //
 // Bound on this card: the bytes of live K/V + q + out over 3.35 TB/s; the
 // 4 * rep * D f32 operations per live row are far below the card's rate,
-// but they all run on the one SM of their (slot, kv head). Known weakness,
-// left for a later change: the grid is S * Kh blocks (32 at the 1b serving
-// shape) on 132 SMs, so the longest slot's rows run on one SM; splitting
-// the ring across blocks (flash-decoding) with a second reduction pass
-// would fill the card.
+// but they all run on the one SM of their (slot, kv head): the grid is
+// S * Kh blocks (32 at the 1b serving shape) on 132 SMs, and each lane
+// scores its row with scalar FMAs. The redesign cuts the ring into splits
+// across blocks from the static shape, packs the rep query rows of a kv
+// head onto the tensor cores (mma.sync) and merges the splits' partials in
+// a second kernel (spec_tail_attention.cu): 8 splits, 256 blocks at the
+// 1b serving shape.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

@@ -14,9 +14,10 @@
 //   K-major (the reduction dimension contiguous in a row): the stride
 //     byte offset is 8 rows (one 8-row group to the next); a 16-wide k
 //     step adds 32 bytes to the start address.
-//   MN-major (rows are the reduction dimension, the N columns contiguous):
-//     the stride byte offset is 8 rows; a 16-deep k step adds 16 rows. N
-//     is one swizzle atom (64 columns at 128 B, 32 at 64 B).
+//   MN-major (rows are the reduction dimension, the M or N columns
+//     contiguous): the stride byte offset is 8 rows; a 16-deep k step adds
+//     16 rows; the leading byte offset steps from one swizzle atom (64
+//     columns at 128 B, 32 at 64 B) to the next.
 #pragma once
 
 #include <math.h>
@@ -99,6 +100,23 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
     asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
                      reinterpret_cast<uint64_t>(map)),
                  "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+                 : "memory");
+}
+// TMA: copy a shared-memory box to coordinates (c0 innermost, c1) of a
+// 2-D tensor map, or add it element by element to what is there (f32:
+// one add an element, in the memory system), in this thread's bulk group;
+// what lies outside the tensor is not written. As tma_store_4d, other
+// threads' shared-memory writes must be made visible to the copy first.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+    asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(map)),
+                 "r"(smem_u32(src)), "r"(c0), "r"(c1)
+                 : "memory");
+}
+__device__ __forceinline__ void tma_add_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+    asm volatile("cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(map)),
+                 "r"(smem_u32(src)), "r"(c0), "r"(c1)
                  : "memory");
 }
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
@@ -219,16 +237,15 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d0)[32], float (&d1)[32], 
         : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// d[64 x 256] (+)= A . B, A K-major bf16 in shared memory, B bf16 in
-// shared memory, K-major (TB 0) or MN-major (TB 1, the transpose bit): the
-// register layout of m64n64 repeated for every 64 columns (d[4 nb + e] for
-// 8-column block nb)
-template <int TB>
+// d[64 x 256] (+)= A . B, A and B bf16 in shared memory, each K-major
+// (TA, TB 0) or MN-major (1, the transpose bit): the register layout of
+// m64n64 repeated for every 64 columns (d[4 nb + e] for 8-column block nb)
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -261,7 +278,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a, 
           "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
           "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TB));
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // d[64 x 64] += A . B, A bf16 in registers (the m64k16 fragment), B
@@ -476,21 +493,26 @@ inline cudaError_t bf16_rows_map(CUtensorMap* map, const void* base, int B, int 
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A bf16 row-major [rows, cols] matrix, boxes of box_rows rows and
-// box_cols (64: one 128-byte swizzle row) columns, swizzled to match the
-// wgmma descriptors; what lies past the matrix reads as zeros.
-inline cudaError_t bf16_matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
-                                   int box_cols) {
+// A row-major [rows, cols] matrix of `type` (elements of `elt` bytes),
+// boxes of box_rows rows and box_cols columns (one 128-byte swizzle row:
+// 64 bf16 or 32 f32), swizzled to match the wgmma descriptors and the
+// epilogues' shared tiles; what lies past the matrix reads as zeros.
+inline cudaError_t matrix_map(CUtensorMap* map, CUtensorMapDataType type, int elt, const void* base, int rows,
+                              int cols, int box_rows, int box_cols) {
     EncodeTiledFn fn = encode_tiled();
     if (fn == nullptr) return cudaErrorNotSupported;
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * elt};
     const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
     const cuuint32_t elem[2] = {1, 1};
-    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-                          elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+    const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+inline cudaError_t bf16_matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
+                                   int box_cols) {
+    return matrix_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, box_rows, box_cols);
 }
 
 }  // namespace

@@ -1,12 +1,16 @@
-// Speculative tail attention for Hopper (sm_90a): Kq query tokens per slot
-// over that slot's ring KV page and then over the tail's own K/V, in one
-// softmax. The attention of the draft, verify and continued-prefill
-// (prefix reuse) passes.
+// Speculative tail attention (B7) and paged decode attention (B6) for
+// Hopper (sm_90a), one split-ring kernel and one merge kernel.
+// B7: Kq query tokens per slot over that slot's ring KV page and then over
+// the tail's own K/V, in one softmax: the attention of the draft, verify
+// and continued-prefill (prefix reuse) passes. B6 (the kPrefix instance):
+// one query token per slot over the ring alone, the plain decode step.
 //
 // Replaces: opendiloco_tpu/ops/decode_kernels.py spec_tail_attention_fused
-// (_spec_tail_kernel :265, launched by pl.pallas_call at :438). The TPU
-// kernel carries (m, l, acc) in scratch across its sequential ring grid
-// axis; here that carry becomes partials per ring split and a merge pass.
+// (_spec_tail_kernel :265, launched by pl.pallas_call at :438), and the
+// same file's paged_decode_attention (_decode_attn_kernel :112, launched by
+// pl.pallas_call at :241). Both TPU kernels carry (m, l, acc) in scratch
+// across a sequential ring grid axis; here that carry becomes partials per
+// ring split and a merge pass.
 //
 // Computes, for slot s, query token i at tail position j = q_start + i and
 // query head h reading kv head h / rep:
@@ -20,20 +24,35 @@
 // Masked entries add exactly 0: their score is -inf, so p = exp(-inf - m)
 // = 0, whatever order the tiles come in (the TPU kernel's finite -1e30
 // relies on the tail coming last to wipe a fully masked ring block).
+// B6 is the same function with Kq = 1, no tail and another ring mask:
+//   ring row t is live iff t <= lens[s] or lens[s] >= T (the decode
+//     token's own row was written before the step; no eviction rule),
+// so its live rows are exactly the prefix 0 .. min(lens, T - 1).
 // Scores, running maxima, sums and accumulators are f32; p is rounded to
-// v's dtype before p.v, l sums the f32 p; out = acc / l in q's dtype.
+// v's dtype before p.v, l sums the f32 p; out = acc / (l == 0 ? 1 : l) in
+// q's dtype.
 //
 // Layouts are the JAX package's, read in place with no transpose:
-//   q, out [S, Kq, H, D]; cache k/v [S, T, Kh, D]; tail k/v [S, Kt, Kh, D];
-//   lens [S] int32. All contiguous.
-// Takes f32 and bf16, any rep = H / Kh, D a multiple of 8 up to 128.
+//   q, out [S, Kq, H, D] (B6: [S, H, D]); cache k/v [S, T, Kh, D]; tail k/v
+//   [S, Kt, Kh, D]; lens [S] int32. All contiguous.
+// Takes f32 and bf16, any rep = H / Kh, D a multiple of 8 up to 128 (B6
+// above 128 stays on its first design, paged_decode_attention.cu: the
+// route rule is ops/decode_kernels.py _decode_route).
 //
 // Bound on this card: the bytes of the live ring and tail K/V (each read
 // once per slot and kv head), q and out over 3.35 TB/s; at the draft shape
 // (S 8, T 1024, Kq 1, Kt 4, 32 heads over 4, D 64, bf16, the ragged lens
 // chip_smoke.py times) 3.9 MB, 1.2 us, and at most 8 x 1028 x 256
 // operations per (slot, kv head), far below the tensor cores' rate.
+// B6 at the decode shape (S 8, T 1024, Kh 4, rep 8, D 64, bf16, phase 2's
+// lens, 3777 live rows): 3.9 MB, 1.17 us, bound by bytes likewise.
 // chip_smoke.py computes each bound from the shapes it runs.
+//
+// Why B6 is an instance of this kernel (kPrefix, a template flag) and not a
+// kernel of its own: at config_1b its decode shape is B7's draft shape
+// without the 4-row tail, and the two differ only in the ring mask. One
+// source keeps one split rule, one packing and one merge for both; B7's
+// instances compile as before (kPrefix false folds away).
 //
 // Design. The query rows of one (slot, kv head) are its Kq x rep (token,
 // head) pairs, token-major: row i * rep + r lies at q[s, i, kvh * rep + r].
@@ -43,8 +62,11 @@
 //    spec_tail_splits: S, T, Kh, Kq rep and the SM count), enough to fill
 //    the card where the query tiles alone do not: at the draft and verify
 //    shapes 32 (slot, kv head) pairs become 256 blocks of 128 ring rows.
+//    B6 at config_1b's decode shape takes the same 8 splits (rows = rep =
+//    8), where its first design ran the longest slot's ring on one of 32
+//    blocks (about 3% of the card's bandwidth).
 //    Each block walks its split's live rows in 64-row tiles (cp.async, one
-//    tile ahead); the last split also walks the tail up to its last
+//    tile ahead); the last split of B7 also walks the tail up to its last
 //    query's position. lens stays on the device: a split whose rows all
 //    lie past the live length, or are all evicted for the block's queries
 //    (decided from the split's first row and length alone; a block-wide
@@ -54,10 +76,12 @@
 //    in other ways. With splits > 1 each block writes its unnormalised
 //    partial (m, l, acc) in f32, and spec_tail_merge_kernel combines the
 //    splits of each row in split order, taking 0 from a split with
-//    m = -inf (never (-inf) - (-inf)); every query sees tail row 0, so the
-//    merged maximum is finite. With one split (the suffix shapes, whose
-//    query tiles fill the card) the block writes out directly and no merge
-//    is launched.
+//    m = -inf (never (-inf) - (-inf)); every B7 query sees tail row 0 and
+//    every B6 slot its ring row 0 (lens >= 0), so the merged maximum is
+//    finite. B6's merges are the same kernel, counted under their own
+//    name (paged_decode_attention_merge). With one split (the suffix
+//    shapes, whose query tiles fill the card) the block writes out
+//    directly and no merge is launched.
 // 2. Packed rows. A block is 4 warps, each multiplying a 16-row query
 //    slice on the tensor cores (mma.sync bf16; f32 FMAs in the same layout
 //    for f32). When Kq rep is at most 16 (the draft: 8) or 32, the block
@@ -148,7 +172,9 @@ __device__ __forceinline__ void pv_product(float (&o)[NBD][4], int nbd, const T*
 
 // Block (query tile * splits + split, kv head, slot). KP warps share each
 // 16-row query slice and split its key tiles; the block owns 64 / KP rows.
-template <typename T, int NBD, int KP>
+// kPrefix: paged decode attention (B6), one query a slot over ring rows
+// 0 .. lens (all of them when lens >= T), with no tail and no eviction.
+template <typename T, int NBD, int KP, bool kPrefix>
 __global__ void __launch_bounds__(kThreads)
 spec_tail_kernel(const T* __restrict__ q, const T* __restrict__ ck, const T* __restrict__ cv,
                  const T* __restrict__ tk, const T* __restrict__ tv, const int* __restrict__ lens,
@@ -172,12 +198,13 @@ spec_tail_kernel(const T* __restrict__ q, const T* __restrict__ ck, const T* __r
     const size_t qbase = (size_t)s * d.Kq * qst + (size_t)kvh * rep * D;
     const T* kring = ck + (size_t)s * d.T * kst + (size_t)kvh * D;
     const T* vring = cv + (size_t)s * d.T * kst + (size_t)kvh * D;
-    const T* ktail = tk + (size_t)s * d.Kt * kst + (size_t)kvh * D;
-    const T* vtail = tv + (size_t)s * d.Kt * kst + (size_t)kvh * D;
+    const T* ktail = kPrefix ? nullptr : tk + (size_t)s * d.Kt * kst + (size_t)kvh * D;
+    const T* vtail = kPrefix ? nullptr : tv + (size_t)s * d.Kt * kst + (size_t)kvh * D;
 
     const int len = lens[s];
-    // ring rows 0 .. live - 1 hold the slot's tokens before the tail
-    const int live = len >= d.T ? d.T : max(len, 0);
+    // ring rows 0 .. live - 1 hold the slot's tokens before the tail (B7),
+    // or rows 0 .. lens, the decode token's own row included (B6)
+    const int live = len >= d.T ? d.T : max(kPrefix ? len + 1 : len, 0);
     const int lmod = (len % d.T + d.T) % d.T;  // C++ % keeps the dividend's sign
     // this split's live ring rows: [r_lo, r_hi)
     const int r_lo = split * d.chunk, r_hi = min(r_lo + d.chunk, live);
@@ -186,13 +213,13 @@ spec_tail_kernel(const T* __restrict__ q, const T* __restrict__ ck, const T* __r
     // j]. A split whose live rows all have such a disp (taken without a
     // wrap of disp past T - 1) loads nothing.
     const int n_live = r_hi - r_lo, d0 = ((r_lo - lmod) % d.T + d.T) % d.T;
-    const bool evicted = n_live > 0 && d0 >= max(0, d.T - len) &&
+    const bool evicted = !kPrefix && n_live > 0 && d0 >= max(0, d.T - len) &&
                          d0 + n_live - 1 <= min(d.q_start + row0 / rep, d.T - 1);
     const int nr = n_live > 0 && !evicted ? (n_live + kCols - 1) / kCols : 0;
     // the last split takes the tail; rows past the block's last query
     // position are masked for all of its rows: neither loaded nor computed
     const int last_row = min(row0 + kRowsB, R) - 1;
-    const int tail_rows = split == d.splits - 1 ? min(d.Kt, d.q_start + last_row / rep + 1) : 0;
+    const int tail_rows = !kPrefix && split == d.splits - 1 ? min(d.Kt, d.q_start + last_row / rep + 1) : 0;
     const int nt = (tail_rows + kCols - 1) / kCols;
     const int n_it = nr + nt;  // 0 for a split with no live ring row
 
@@ -249,7 +276,9 @@ spec_tail_kernel(const T* __restrict__ q, const T* __restrict__ ck, const T* __r
             for (int e = 0; e < 4; ++e) {
                 const int c = k0 + nb * 8 + 2 * t4 + (e & 1), jj = j[e >> 1];
                 bool ok;
-                if (ring) {
+                if (kPrefix) {
+                    ok = c < r_hi;
+                } else if (ring) {
                     int disp = c - lmod;
                     if (disp < 0) disp += d.T;
                     ok = c < r_hi && !(disp <= jj && len + disp >= d.T);
@@ -398,17 +427,17 @@ spec_tail_merge_kernel(const float* __restrict__ part_ml, const float* __restric
     store2(dst, a0 / li, a1 / li);
 }
 
-template <typename T, int NBD, int KP>
+template <typename T, int NBD, int KP, bool kPrefix>
 cudaError_t run(const void* q, const void* ck, const void* cv, const void* tk, const void* tv,
                 const void* lens, void* out, void* part_ml, void* part_acc, int S, Dims d, cudaStream_t st) {
     const size_t smem = spec_smem<T, NBD>(d.D);
-    cudaError_t err = allow_smem<spec_tail_kernel<T, NBD, KP>>(smem);
+    cudaError_t err = allow_smem<spec_tail_kernel<T, NBD, KP, kPrefix>>(smem);
     if (err != cudaSuccess) return err;
     const int rows = d.Kq * (d.H / d.Kh), per = kRows / KP;
     const long long x = (long long)((rows + per - 1) / per) * d.splits;
     if (x > 0x7fffffffLL) return cudaErrorInvalidValue;
     dim3 grid((unsigned)x, d.Kh, S);
-    spec_tail_kernel<T, NBD, KP><<<grid, kThreads, smem, st>>>(
+    spec_tail_kernel<T, NBD, KP, kPrefix><<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(ck), static_cast<const T*>(cv),
         static_cast<const T*>(tk), static_cast<const T*>(tv), static_cast<const int*>(lens),
         static_cast<T*>(out), static_cast<float*>(part_ml), static_cast<float*>(part_acc), d);
@@ -416,13 +445,13 @@ cudaError_t run(const void* q, const void* ck, const void* cv, const void* tk, c
 }
 
 // rows_per_block 16, 32 or 64: 4, 2 or 1 warps share each query slice
-template <typename T, int NBD>
+template <typename T, int NBD, bool kPrefix>
 cudaError_t run_kp(const void* q, const void* ck, const void* cv, const void* tk, const void* tv,
                    const void* lens, void* out, void* part_ml, void* part_acc, int S, Dims d, int rows_per_block,
                    cudaStream_t st) {
-    if (rows_per_block == 16) return run<T, NBD, 4>(q, ck, cv, tk, tv, lens, out, part_ml, part_acc, S, d, st);
-    if (rows_per_block == 32) return run<T, NBD, 2>(q, ck, cv, tk, tv, lens, out, part_ml, part_acc, S, d, st);
-    if (rows_per_block == 64) return run<T, NBD, 1>(q, ck, cv, tk, tv, lens, out, part_ml, part_acc, S, d, st);
+    if (rows_per_block == 16) return run<T, NBD, 4, kPrefix>(q, ck, cv, tk, tv, lens, out, part_ml, part_acc, S, d, st);
+    if (rows_per_block == 32) return run<T, NBD, 2, kPrefix>(q, ck, cv, tk, tv, lens, out, part_ml, part_acc, S, d, st);
+    if (rows_per_block == 64) return run<T, NBD, 1, kPrefix>(q, ck, cv, tk, tv, lens, out, part_ml, part_acc, S, d, st);
     return cudaErrorInvalidValue;
 }
 
@@ -443,8 +472,28 @@ int entry(const void* q, const void* ck, const void* cv, const void* tk, const v
     }
     const Dims d{T_, Kq, Kt, H, Kh, D, q_start, splits, chunk, scale};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return (int)(D <= 64 ? run_kp<T, 8>(q, ck, cv, tk, tv, lens, out, part_ml, part_acc, S, d, rows_per_block, st)
-                         : run_kp<T, 16>(q, ck, cv, tk, tv, lens, out, part_ml, part_acc, S, d, rows_per_block, st));
+    return (int)(D <= 64 ? run_kp<T, 8, false>(q, ck, cv, tk, tv, lens, out, part_ml, part_acc, S, d, rows_per_block,
+                                               st)
+                         : run_kp<T, 16, false>(q, ck, cv, tk, tv, lens, out, part_ml, part_acc, S, d, rows_per_block,
+                                                st));
+}
+
+// B6: q, out [S, H, D] (B7's layouts at Kq 1), the ring k/v [S, T, Kh, D];
+// no tail
+template <typename T>
+int decode_entry(const void* q, const void* k, const void* v, const void* lens, void* out, void* part_ml,
+                 void* part_acc, int S, int T_, int H, int Kh, int D, int splits, int chunk, int rows_per_block,
+                 float scale, void* stream) {
+    if (bad_dims(S, T_, 1, 1, H, Kh, D) || splits < 1 || chunk < 1 || (long long)(splits - 1) * chunk >= T_ ||
+        (long long)splits * chunk < T_ || (splits > 1 && (part_ml == nullptr || part_acc == nullptr))) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const Dims d{T_, 1, 0, H, Kh, D, 0, splits, chunk, scale};
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return (int)(D <= 64 ? run_kp<T, 8, true>(q, k, v, nullptr, nullptr, lens, out, part_ml, part_acc, S, d,
+                                              rows_per_block, st)
+                         : run_kp<T, 16, true>(q, k, v, nullptr, nullptr, lens, out, part_ml, part_acc, S, d,
+                                               rows_per_block, st));
 }
 
 template <typename T>
@@ -480,6 +529,20 @@ int spec_tail_attention_bf16(const void* q, const void* ck, const void* cv, cons
                              float scale, void* stream) {
     return entry<__nv_bfloat16>(q, ck, cv, tk, tv, lens, out, part_ml, part_acc, S, T, Kq, Kt, H, Kh, D, q_start,
                                 splits, chunk, rows_per_block, scale, stream);
+}
+
+int paged_decode_split_f32(const void* q, const void* k, const void* v, const void* lens, void* out, void* part_ml,
+                           void* part_acc, int S, int T, int H, int Kh, int D, int splits, int chunk,
+                           int rows_per_block, float scale, void* stream) {
+    return decode_entry<float>(q, k, v, lens, out, part_ml, part_acc, S, T, H, Kh, D, splits, chunk, rows_per_block,
+                               scale, stream);
+}
+
+int paged_decode_split_bf16(const void* q, const void* k, const void* v, const void* lens, void* out, void* part_ml,
+                            void* part_acc, int S, int T, int H, int Kh, int D, int splits, int chunk,
+                            int rows_per_block, float scale, void* stream) {
+    return decode_entry<__nv_bfloat16>(q, k, v, lens, out, part_ml, part_acc, S, T, H, Kh, D, splits, chunk,
+                                       rows_per_block, scale, stream);
 }
 
 int spec_tail_attention_merge_f32(const void* part_ml, const void* part_acc, void* out, int S, int Kq, int H,

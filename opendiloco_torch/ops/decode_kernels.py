@@ -4,15 +4,20 @@ the fused W4 dequant-matmul.
 The counterparts of ``opendiloco_tpu/ops/decode_kernels.py``
 ``paged_decode_attention``, ``spec_tail_attention_fused`` and
 ``w4_matmul``, written by hand in CUDA C++ for Hopper
-(``csrc/paged_decode_attention.cu``, ``csrc/spec_tail_attention.cu``,
-``csrc/w4_matmul.cu``; each source notes the TPU kernel it replaces, its
-bound and its design).
+(``csrc/spec_tail_attention.cu``, ``csrc/w4_matmul.cu``, and
+``csrc/paged_decode_attention.cu`` for B6's first design; each source
+notes the TPU kernel it replaces, its bound and its design).
 
 B7 cuts the ring into splits across blocks (:func:`spec_tail_splits`)
 and, with more than one, merges the splits' partials in a second kernel
 (``spec_tail_attention_merge``).
 :func:`spec_tail_attention_split_plain` repeats that split-and-merge
-arithmetic for the tests.
+arithmetic for the tests. B6 is the same split kernel with a prefix-live
+ring and no tail (its ``kPrefix`` instance), with the same split rule and
+merge kernel, counted as ``paged_decode_attention`` and
+``paged_decode_attention_merge``; :func:`paged_decode_attention_split_plain`
+repeats its arithmetic. Head dims above 128 take B6's first design
+(:func:`_decode_route`), counted as ``paged_decode_attention_first``.
 
 Each wrapper sits beside its plain PyTorch version, which repeats the
 kernel's arithmetic in one pass:
@@ -38,18 +43,26 @@ from opendiloco_torch.ops.attention import spec_tail_valid
 from opendiloco_torch.ops.launch import launch, on_card as _on_card, register
 from opendiloco_torch.quant import W4_BLOCK, dequant_w4
 
-register("paged_decode_attention", "spec_tail_attention", "spec_tail_attention_merge", "w4_matmul")
-_ARGTYPES = {
-    "paged_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "spec_tail_attention": [_P] * 9 + [_I] * 11 + [_F, _P],
-    "spec_tail_attention_merge": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "w4_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+SPLIT_SOURCE = "spec_tail_attention"  # B7, and B6 up to SPLIT_MAX_D
+FIRST_SOURCE = "paged_decode_attention"  # B6's first design
+SPLIT_MAX_D = 128
+_MERGE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+# launch counter: (source, exported C function less its dtype suffix, argtypes)
+_KERNELS = {
+    "paged_decode_attention": (SPLIT_SOURCE, "paged_decode_split", [_P] * 7 + [_I] * 8 + [_F, _P]),
+    "paged_decode_attention_merge": (SPLIT_SOURCE, "spec_tail_attention_merge", _MERGE),
+    "paged_decode_attention_first": (FIRST_SOURCE, "paged_decode_attention",
+                                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "spec_tail_attention": (SPLIT_SOURCE, "spec_tail_attention", [_P] * 9 + [_I] * 11 + [_F, _P]),
+    "spec_tail_attention_merge": (SPLIT_SOURCE, "spec_tail_attention_merge", _MERGE),
+    "w4_matmul": ("w4_matmul", "w4_matmul", [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
-_SOURCE = {"spec_tail_attention_merge": "spec_tail_attention"}
+register(*_KERNELS)
 
 
 def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
-    launch(name, _SOURCE.get(name, name), f"{name}_{_SUFFIX[dtype]}", _ARGTYPES[name], device, *args)
+    source, symbol, argtypes = _KERNELS[name]
+    launch(name, source, f"{symbol}_{_SUFFIX[dtype]}", argtypes, device, *args)
 
 
 # ---------------------------------------------------------------------------
@@ -78,15 +91,43 @@ def paged_decode_attention_plain(
     return out.reshape(S, H, D).to(q.dtype)
 
 
-def paged_decode_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor
+def paged_decode_attention_split_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor, *, splits: int = 1
 ) -> torch.Tensor:
-    """Drop-in :func:`~opendiloco_torch.ops.attention.decode_attention`:
-    q [S, H, D] over ring pages k/v [S, T, Kh, D] with per-slot ``lens``
-    [S] int32. Takes f32 or bf16, any D that is a multiple of 8 up to 256
-    and any H divisible by Kh; anything else raises."""
-    if not _on_card(q, k, v, lens):
-        return paged_decode_attention_plain(q, k, v, lens)
+    """The split kernel's arithmetic for B6 in plain PyTorch, for the
+    tests: the ring cut as :func:`spec_tail_split_chunk` cuts it, each
+    split's partial (m, l, unnormalised acc) in f32 over its live rows,
+    p = exp(s - m) rounded to v's dtype before p.v, then
+    :func:`spec_tail_merge_plain` at Kq 1. A split with no live row has
+    m = -inf, l = 0 and acc = 0."""
+    S, T, Kh, D = k.shape
+    H = q.shape[1]
+    rep = H // Kh
+    splits, chunk = spec_tail_split_chunk(T, splits)
+    qg = q.float().reshape(S, Kh, rep, D)
+    sc = torch.einsum("sgrd,stgd->sgrt", qg, k.float()) * D**-0.5
+    idx = torch.arange(T, device=k.device)
+    lens_ = lens.to(device=k.device, dtype=torch.int64)[:, None, None, None]
+    sc = sc.masked_fill(~((idx <= lens_) | (lens_ >= T)), float("-inf"))
+    mls, accs = [], []
+    for p in range(splits):
+        mine = (idx >= p * chunk) & (idx < (p + 1) * chunk)
+        sp = sc.masked_fill(~mine, float("-inf"))
+        m = sp.amax(dim=-1, keepdim=True)
+        pr = torch.exp(sp - torch.where(m == float("-inf"), torch.zeros_like(m), m))
+        accs.append(torch.einsum("sgrt,stgd->sgrd", pr.to(v.dtype).float(), v.float()))
+        mls.append(torch.stack([m[..., 0], pr.sum(dim=-1)], dim=-1))
+    out = spec_tail_merge_plain(torch.stack(mls, dim=2), torch.stack(accs, dim=2), 1, q.dtype)
+    return out.reshape(S, H, D)
+
+
+def _decode_route(D: int) -> str:
+    """The source of B6's kernel at head dim ``D``: the split kernel up to
+    SPLIT_MAX_D, the first design above."""
+    return SPLIT_SOURCE if D <= SPLIT_MAX_D else FIRST_SOURCE
+
+
+def _check_decode(q, k, v, lens) -> None:
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     S, T, Kh, D = k.shape
@@ -105,11 +146,98 @@ def paged_decode_attention(
         raise ValueError("q, k, v and lens must be contiguous")
     if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError("q, k and v must be 16-byte aligned")
-    out = torch.empty_like(q)
+
+
+def _decode_split(q, k, v, lens, *, splits: int, chunk: int) -> tuple[torch.Tensor, int, int]:
+    """Launch B6's split kernel alone on checked operands, ``splits`` > 1
+    of ``chunk`` rows, into one new f32 buffer: ml [S, Kh, splits, rep, 2]
+    first, then acc [S, Kh, splits, rep, D] from the next 16-byte
+    boundary. Returns the buffer and the two addresses (one allocation
+    and no views: the host time of a decode step is the serving path's
+    bottleneck)."""
+    S, T, Kh, D = k.shape
+    H = q.shape[1]
+    n_ml = S * H * splits * 2
+    n_ml += -n_ml % 4
+    buf = torch.empty(n_ml + S * H * splits * D, dtype=torch.float32, device=q.device)
+    ml = buf.data_ptr()
+    acc = ml + 4 * n_ml
     _launch(
         "paged_decode_attention", q.dtype, q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        S, T, H, Kh, D, D**-0.5,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), 0, ml, acc,
+        S, T, H, Kh, D, splits, chunk, spec_tail_rows_per_block(H // Kh), D**-0.5,
+    )
+    return buf, ml, acc
+
+
+def _paged_decode_partials(q, k, v, lens, *, splits: int, chunk: int):
+    """B6's split kernel alone (:func:`_decode_split`) with its partials as
+    tensors, for the tests: ml [S, Kh, splits, rep, 2] and acc [S, Kh,
+    splits, rep, D] f32, which :func:`paged_decode_merge` combines."""
+    S, T, Kh, D = k.shape
+    rep = q.shape[1] // Kh
+    buf, ml, acc = _decode_split(q, k, v, lens, splits=splits, chunk=chunk)
+    n = S * Kh * splits * rep
+    return buf[: 2 * n].view(S, Kh, splits, rep, 2), buf[(acc - ml) // 4:].view(S, Kh, splits, rep, D)
+
+
+def paged_decode_merge(ml: torch.Tensor, acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """B6's merge: B7's merge kernel at Kq 1 on B6's partials, counted as
+    ``paged_decode_attention_merge``; out [S, H, D] in ``dtype``."""
+    if not _on_card(ml, acc):
+        out = spec_tail_merge_plain(ml, acc, 1, dtype)
+    else:
+        out = _merge("paged_decode_attention_merge", ml, acc, 1, dtype)
+    return out.reshape(out.shape[0], out.shape[2], out.shape[3])
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_grid(S: int, T: int, Kh: int, rep: int, index: int, splits: int | None) -> tuple[int, int]:
+    """(splits, chunk) of B6's split kernel: :func:`spec_tail_splits` (rows
+    = rep) unless ``splits`` is given, cut by :func:`spec_tail_split_chunk`;
+    one answer per shape, kept."""
+    if splits is None:
+        splits = spec_tail_splits(S, T, Kh, rep, _sm_count(index))
+    elif not 1 <= splits <= T:
+        raise ValueError(f"splits {splits} must lie in 1 .. T = {T}")
+    return spec_tail_split_chunk(T, splits)
+
+
+def paged_decode_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor, *, splits: int | None = None
+) -> torch.Tensor:
+    """Drop-in :func:`~opendiloco_torch.ops.attention.decode_attention`:
+    q [S, H, D] over ring pages k/v [S, T, Kh, D] with per-slot ``lens``
+    [S] int32. Takes f32 or bf16, any D that is a multiple of 8 up to 256
+    and any H divisible by Kh; anything else raises. On :func:`_decode_route`'s
+    split kernel the ring is cut into :func:`spec_tail_splits` splits
+    (one query token: rows = rep) unless ``splits`` is given; with more
+    than one, the merge kernel combines them (one more launch, counted as
+    ``paged_decode_attention_merge``)."""
+    if not _on_card(q, k, v, lens):
+        return paged_decode_attention_plain(q, k, v, lens)
+    _check_decode(q, k, v, lens)
+    S, T, Kh, D = k.shape
+    H = q.shape[1]
+    out = torch.empty_like(q)
+    if _decode_route(D) == FIRST_SOURCE:
+        _launch(
+            "paged_decode_attention_first", q.dtype, q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            S, T, H, Kh, D, D**-0.5,
+        )
+        return out
+    splits, chunk = _decode_grid(S, T, Kh, H // Kh, q.device.index or 0, splits)
+    if splits > 1:
+        # out [S, H, D] is the merge's [S, Kq = 1, H, D]; buf keeps the
+        # partials alive until both launches are queued
+        buf, ml, acc = _decode_split(q, k, v, lens, splits=splits, chunk=chunk)
+        _launch("paged_decode_attention_merge", q.dtype, q.device, ml, acc, out.data_ptr(), S, 1, H, Kh, D, splits)
+        return out
+    _launch(
+        "paged_decode_attention", q.dtype, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(), 0, 0,
+        S, T, H, Kh, D, 1, chunk, spec_tail_rows_per_block(H // Kh), D**-0.5,
     )
     return out
 
@@ -312,6 +440,11 @@ def spec_tail_merge(ml: torch.Tensor, acc: torch.Tensor, Kq: int, dtype: torch.d
     card, out [S, Kq, H, D] in ``dtype``."""
     if not _on_card(ml, acc):
         return spec_tail_merge_plain(ml, acc, Kq, dtype)
+    return _merge("spec_tail_attention_merge", ml, acc, Kq, dtype)
+
+
+def _merge(name: str, ml: torch.Tensor, acc: torch.Tensor, Kq: int, dtype: torch.dtype) -> torch.Tensor:
+    """Launch the merge kernel on card partials, counted under ``name``."""
     S, Kh, P, R, D = acc.shape
     if (ml.shape != (S, Kh, P, R, 2) or R % Kq or ml.dtype != torch.float32 or acc.dtype != torch.float32
             or dtype not in _SUFFIX):
@@ -321,8 +454,7 @@ def spec_tail_merge(ml: torch.Tensor, acc: torch.Tensor, Kq: int, dtype: torch.d
         raise ValueError("the partials must be contiguous")
     H = Kh * (R // Kq)
     out = torch.empty((S, Kq, H, D), dtype=dtype, device=acc.device)
-    _launch("spec_tail_attention_merge", dtype, acc.device, ml.data_ptr(), acc.data_ptr(), out.data_ptr(),
-            S, Kq, H, Kh, D, P)
+    _launch(name, dtype, acc.device, ml.data_ptr(), acc.data_ptr(), out.data_ptr(), S, Kq, H, Kh, D, P)
     return out
 
 

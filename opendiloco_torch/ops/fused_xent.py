@@ -14,14 +14,14 @@ and its design):
   B4a ``fused_xent_dh`` gives the chunk's dh = dlog . w^T (``_dh_kernel``)
   and B4b ``fused_xent_dw`` adds its hT . dlog to the f32 dw (``_dw_kernel``).
 
-dlog and dh take one of two routes, chosen from the dtype and sizes alone
-by :func:`_route` (:func:`_on_sm90`): bf16 goes to the wgmma and TMA
-kernels of ``csrc/fused_xent_sm90.cu``, counted as
-``fused_xent_dlog_sm90`` and ``fused_xent_dh_sm90``; f32 to the first
-design's ``mma.sync`` kernels in ``csrc/fused_xent.cu``, counted as
-``fused_xent_dlog`` and ``fused_xent_dh``. ``route=`` launches a given
-route (the smoke times the first design in bf16 that way). B3 and B4b have
-one route, the first design.
+dlog, dh and dw take one of two routes, chosen from the dtype and sizes
+alone by :func:`_route` (:func:`_on_sm90`): bf16 goes to the wgmma and
+TMA kernels of ``csrc/fused_xent_sm90.cu``, counted as
+``fused_xent_dlog_sm90``, ``fused_xent_dh_sm90`` and
+``fused_xent_dw_sm90``; f32 to the first design's ``mma.sync`` kernels in
+``csrc/fused_xent.cu``, counted as ``fused_xent_dlog``, ``fused_xent_dh``
+and ``fused_xent_dw``. ``route=`` launches a given route (the smoke times
+the first design in bf16 that way). B3 has one route, the first design.
 
 Each wrapper sits beside its plain version (``*_plain``), which repeats
 the kernel's arithmetic and roundings on materialized f32 logits: s from
@@ -58,7 +58,7 @@ _TILE = 128  # rows and vocab columns of a kernel's output tile
 SOURCE = "fused_xent"
 SM90_SOURCE = "fused_xent_sm90"
 NAMES = ("fused_xent_fwd", "fused_xent_dlog", "fused_xent_dh", "fused_xent_dw")
-SM90_NAMES = ("fused_xent_dlog_sm90", "fused_xent_dh_sm90")
+SM90_NAMES = ("fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw_sm90")
 register(*NAMES, *SM90_NAMES)
 _ARGTYPES = {  # the last pointer is the stream
     "fused_xent_fwd": [P, P, P, P, P, P, I, I, I, I, P],
@@ -67,6 +67,7 @@ _ARGTYPES = {  # the last pointer is the stream
     "fused_xent_dw": [P, P, P, I, I, I, I, P],
     "fused_xent_dlog_sm90": [P, P, P, P, P, P, I, I, I, P],
     "fused_xent_dh_sm90": [P, P, P, I, I, I, P],
+    "fused_xent_dw_sm90": [P, P, P, I, I, I, I, P],
 }
 
 
@@ -76,14 +77,14 @@ def _launch(name: str, dtype: torch.dtype, device: torch.device, *args, source: 
 
 
 def _on_sm90(dtype: torch.dtype) -> bool:
-    """The route rule of dlog and dh: the wgmma kernels take bf16 (at every
+    """The route rule of dlog, dh and dw: the wgmma kernels take bf16 (at every
     D and V that :func:`_check` lets through: multiples of 8, the 16-byte
     rows TMA needs); f32 takes the first design."""
     return dtype == torch.bfloat16
 
 
 def _route(dtype: torch.dtype, route: str | None = None) -> str:
-    """The source of the dlog and dh kernels for ``dtype``: ``route`` when
+    """The source of the dlog, dh and dw kernels for ``dtype``: ``route`` when
     given (SOURCE, or SM90_SOURCE where :func:`_on_sm90` allows it, else
     ValueError), else the rule's."""
     if route is None:
@@ -235,28 +236,28 @@ def fused_xent_dh(dlog, w, out=None, *, route: str | None = None) -> torch.Tenso
     return out
 
 
-def fused_xent_dw(h, dlog, out=None) -> torch.Tensor:
+def fused_xent_dw(h, dlog, out=None, *, route: str | None = None) -> torch.Tensor:
     """B4b: h^T . dlog in f32 [D, V], added in place to ``out`` when given,
-    else written to a new tensor."""
+    else written to a new tensor, on :func:`_route`'s kernel."""
     if not on_card(h, dlog, *([] if out is None else [out])):
         return fused_xent_dw_plain(h, dlog, out)
     (N, D), (_, V) = _dims(h, dlog, (0, 0), "h [N, D] and dlog [N, V]")
     _check(N, D, V, h, dlog)
+    source = _route(h.dtype, route)
     accumulate = out is not None
     if out is None:
         out = torch.empty((D, V), dtype=torch.float32, device=h.device)
     _check_out(out, (D, V), torch.float32)
-    _launch(
-        "fused_xent_dw", h.dtype, h.device, h.data_ptr(), dlog.data_ptr(), out.data_ptr(), N, D, V, int(accumulate)
-    )
+    _launch("fused_xent_dw", h.dtype, h.device, h.data_ptr(), dlog.data_ptr(), out.data_ptr(), N, D, V,
+            int(accumulate), source=source)
     return out
 
 
 def fused_xent_bwd(h, w, labels, lse, g) -> tuple[torch.Tensor, torch.Tensor]:
     """(dh [N, D] in h's dtype, dw [D, V] f32) for the masked upstream
     gradient ``g`` [N] f32, over chunks of CHUNK_ROWS rows in order: one
-    dlog, one dh and one dw launch per chunk (dlog and dh on the route
-    :func:`_route` picks)."""
+    dlog, one dh and one dw launch per chunk, on the route :func:`_route`
+    picks (the first chunk writes dw, later ones add to it)."""
     N = h.shape[0]
     dh = torch.empty_like(h)
     dw = None

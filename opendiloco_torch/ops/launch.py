@@ -83,7 +83,10 @@ def launch(name: str, source: str, symbol: str, argtypes, device: torch.device, 
     order, after the kernel."""
     fn, lib = _entry(source, symbol, argtypes)
     with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        # the raw stream, not torch.cuda.current_stream(device).cuda_stream:
+        # that builds a torch.cuda.Stream object, microseconds of host time
+        # a launch on a host-bound decode step
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
     if err != 0:
         raise RuntimeError(
             f"{name}: CUDA launch failed: {lib.cuda_error_string(err).decode()} ({err})"

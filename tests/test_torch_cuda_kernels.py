@@ -55,10 +55,12 @@ def _attn_inputs(dev, S, T, Kh, rep, D, dtype, lens):
 def test_paged_decode_attention_matches_plain(cuda, dtype, geom):
     S, T, Kh, rep, D, lens = geom
     q, k, v, ln = _attn_inputs(cuda, S, T, Kh, rep, D, dtype, lens)
-    n0 = tdk.LAUNCHES["paged_decode_attention"]
+    # the split kernel up to D 128, the first design above
+    name = "paged_decode_attention" if D <= tdk.SPLIT_MAX_D else "paged_decode_attention_first"
+    n0 = tdk.LAUNCHES[name]
     out = tdk.paged_decode_attention(q, k, v, ln)
     torch.cuda.synchronize()
-    assert tdk.LAUNCHES["paged_decode_attention"] == n0 + 1
+    assert tdk.LAUNCHES[name] == n0 + 1
     assert out.dtype == dtype and out.shape == q.shape
     ref = tdk.paged_decode_attention_plain(q, k, v, ln).float()
     err = (out.float() - ref).abs().amax(dim=(1, 2))
@@ -87,6 +89,105 @@ def test_paged_decode_attention_reads_no_dead_rows(cuda):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
 
 
+# (S, T, Kh, rep, D, lens, splits): config_1b's decode shape at the
+# wrapper's splits (8 of 128 rows) and forced to 1 and 3 (a split boundary
+# inside the live ring), its split edges (live rows ending just before, on
+# and past a boundary), and small odd shapes: D 8 and rep 1 in 8 splits of
+# 5 rows, D 128 with an odd rep, rep 12 (a block of 16 rows, 12 real)
+PAGED_SPLIT_GEOMS = [
+    *((8, 1024, 4, 8, 64, [0, 1, 255, 256, 700, 1023, 1500, 511], sp) for sp in (None, 1, 3)),
+    (8, 1024, 4, 8, 64, [0, 126, 127, 128, 129, 1022, 1024, 2049], None),
+    (3, 40, 1, 1, 8, [39, 1, 17], 8),
+    (2, 96, 2, 3, 128, [95, 5], 3),
+    (2, 300, 1, 12, 40, [299, 150], 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", PAGED_SPLIT_GEOMS, ids=lambda g: "x".join(map(str, g[:5])) + f"-s{g[6]}")
+def test_paged_decode_attention_splits_match_plain_and_repeat(cuda, geom, dtype):
+    """B6 on the split kernel against the one-pass and the split plain
+    versions (the tolerances of test_paged_decode_attention_matches_plain),
+    finite and bit for bit on a second launch; the merge runs, under its
+    own name, exactly when there is more than one split."""
+    S, T, Kh, rep, D, lens, splits = geom
+    q, k, v, ln = _attn_inputs(cuda, S, T, Kh, rep, D, dtype, lens)
+    n0 = dict(tdk.LAUNCHES)
+    out = tdk.paged_decode_attention(q, k, v, ln, splits=splits)
+    again = tdk.paged_decode_attention(q, k, v, ln, splits=splits)
+    torch.cuda.synchronize()
+    used = splits or tdk.spec_tail_splits(S, T, Kh, rep, tdk._sm_count(cuda.index or 0))
+    used = tdk.spec_tail_split_chunk(T, used)[0]
+    assert tdk.LAUNCHES["paged_decode_attention"] == n0["paged_decode_attention"] + 2
+    merges = tdk.LAUNCHES["paged_decode_attention_merge"] - n0["paged_decode_attention_merge"]
+    assert merges == (2 if used > 1 else 0)
+    for name in ("paged_decode_attention_first", "spec_tail_attention", "spec_tail_attention_merge"):
+        assert tdk.LAUNCHES[name] == n0[name]
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out.float()).all()) and torch.equal(out, again)
+    for ref in (tdk.paged_decode_attention_plain(q, k, v, ln),
+                tdk.paged_decode_attention_split_plain(q, k, v, ln, splits=used)):
+        ref = ref.float()
+        err = (out.float() - ref).abs().amax(dim=(1, 2))
+        tol = torch.full_like(err, 1e-5) if dtype == torch.float32 else 2.0**-6 * ref.abs().amax(dim=(1, 2))
+        assert bool((err <= tol).all()), f"per-slot error {err.tolist()} over tolerance {tol.tolist()}"
+    print(f"B6 {geom[:5]} splits {used} {dtype}: max err/tol {float((err / tol).max()):.3f}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [3, 8])
+def test_paged_decode_attention_splits_read_no_dead_rows(cuda, splits):
+    # as test_paged_decode_attention_reads_no_dead_rows, with the ring cut
+    # into splits: those past a slot's live rows load nothing
+    S, T, Kh, rep, D = 2, 128, 2, 8, 64
+    q, k, v, ln = _attn_inputs(cuda, S, T, Kh, rep, D, torch.float32, [10, 70])
+    clean = (k.clone(), v.clone())
+    for t in (k, v):
+        t[0, 11:] = float("nan")
+        t[1, 71:] = float("nan")
+    out = tdk.paged_decode_attention(q, k, v, ln, splits=splits)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, tdk.paged_decode_attention_plain(q, *clean, ln), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_merge_matches_its_plain_version(cuda, dtype):
+    """B6's merge against B7's plain merge on B6's own partials at the
+    config_1b decode shape: the same f32 sums in the same order (f32 1e-6,
+    bf16 2**-8 of the largest output)."""
+    S, T, Kh, rep, D = 8, 1024, 4, 8, 64
+    q, k, v, ln = _attn_inputs(cuda, S, T, Kh, rep, D, dtype, [0, 5, 127, 128, 700, 1023, 1024, 2049])
+    ml, acc = tdk._paged_decode_partials(q, k, v, ln, splits=8, chunk=128)
+    n0 = dict(tdk.LAUNCHES)
+    out = tdk.paged_decode_merge(ml, acc, dtype)
+    torch.cuda.synchronize()
+    assert tdk.LAUNCHES["paged_decode_attention_merge"] == n0["paged_decode_attention_merge"] + 1
+    assert tdk.LAUNCHES["spec_tail_attention_merge"] == n0["spec_tail_attention_merge"]
+    ref = tdk.spec_tail_merge_plain(ml, acc, 1, dtype).reshape(S, Kh * rep, D).float()
+    assert bool((ml[..., 0] == float("-inf")).any())  # slot 0 leaves 7 splits dead
+    tol = (1e-6 if dtype == torch.float32 else 2.0**-8) * max(1.0, float(ref.abs().max()))
+    assert float((out.float() - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_paged_decode_attention_routes(cuda):
+    """Head dims up to 128 take the split kernel, above 128 the first
+    design (counted as paged_decode_attention_first)."""
+    for D in (64, 128, 136, 256):
+        q, k, v, ln = _attn_inputs(cuda, 2, 96, 2, 3, D, torch.bfloat16, [95, 5])
+        n0 = dict(tdk.LAUNCHES)
+        out = tdk.paged_decode_attention(q, k, v, ln)
+        torch.cuda.synchronize()
+        name = "paged_decode_attention" if D <= 128 else "paged_decode_attention_first"
+        other = "paged_decode_attention_first" if D <= 128 else "paged_decode_attention"
+        assert tdk.LAUNCHES[name] == n0[name] + 1 and tdk.LAUNCHES[other] == n0[other]
+        ref = tdk.paged_decode_attention_plain(q, k, v, ln).float()
+        tol = 2.0**-6 * ref.abs().amax(dim=(1, 2))
+        assert bool(((out.float() - ref).abs().amax(dim=(1, 2)) <= tol).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "bad",
@@ -102,10 +203,10 @@ def test_paged_decode_attention_rejects(cuda, bad):
     q = torch.zeros(2, H, D, device=cuda, dtype=dtype)
     k = torch.zeros(2, 16, 4, D, device=cuda, dtype=dtype)
     lens = torch.zeros(2, dtype=torch.int32, device=cuda)
-    n0 = tdk.LAUNCHES["paged_decode_attention"]
+    n0 = dict(tdk.LAUNCHES)
     with pytest.raises(ValueError):
         tdk.paged_decode_attention(q, k, k, lens)
-    assert tdk.LAUNCHES["paged_decode_attention"] == n0
+    assert tdk.LAUNCHES == n0
 
 
 @pytest.mark.cuda
@@ -595,9 +696,9 @@ def test_fused_xent_kernels_match_plain(cuda, geom, dtype):
     dh = tfx.fused_xent_dh(ref_dlog, w)
     dw = tfx.fused_xent_dw(h[rows], ref_dlog)
     torch.cuda.synchronize()
-    # bf16 dlog and dh take the sm90 kernels, f32 the first design
+    # bf16 dlog, dh and dw take the sm90 kernels, f32 the first design
     sfx = "_sm90" if dtype == torch.bfloat16 else ""
-    for name in ("fused_xent_fwd", "fused_xent_dlog" + sfx, "fused_xent_dh" + sfx, "fused_xent_dw"):
+    for name in ("fused_xent_fwd", "fused_xent_dlog" + sfx, "fused_xent_dh" + sfx, "fused_xent_dw" + sfx):
         assert tdk.LAUNCHES[name] == n0[name] + 1
     assert nll.dtype == lse.dtype == torch.float32 and nll.shape == lse.shape == (N,)
     assert dlog.dtype == dh.dtype == dtype and dw.dtype == torch.float32
@@ -631,7 +732,7 @@ def test_fused_xent_kernels_repeat_bitwise(cuda):
         runs.append((nll, lse, *tfx.fused_xent_bwd(h, w, labels, lse, gup)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
-    # bf16 took the sm90 dlog and dh (the route under test), 3 chunks a run
+    # bf16 took the sm90 dlog, dh and dw (the route under test), 3 chunks a run
     for name in tfx.SM90_NAMES:
         assert tdk.LAUNCHES[name] == n0[name] + 6
     assert tdk.LAUNCHES["fused_xent_dlog"] == n0["fused_xent_dlog"]
@@ -679,6 +780,40 @@ def test_fused_xent_sm90_dlog_dh_match_plain_and_repeat(cuda, geom):
         assert _share_of_limit(got, ref_dh, r, 1e-5 * float(ref_dh.float().abs().max())) <= 1.0
     print(f"sm90 {geom}: dlog share {_share_of_limit(dlog, ref_dlog, r, atol):.3f}, dh share "
           f"{_share_of_limit(dh, ref_dh, r, 1e-5 * float(ref_dh.float().abs().max())):.3f}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [2048, 2040, 1000])
+def test_fused_xent_dw_sm90_matches_plain_and_repeats(cuda, N):
+    """The sm90 dw at the 1b chunk shape (D 2048, V 32000), a full chunk,
+    the ragged last one and a short one (TMA zero-fills both operands' rows
+    past N), written and then added to a prior dw: against the plain
+    version within 1e-5 of the largest |dw| (f32 sums over N rows in
+    another order), the first design within the same limit, bit for bit on
+    a second launch and a second add."""
+    from opendiloco_torch.ops import fused_xent as tfx
+
+    D, V = 2048, 32000
+    h, w, labels, gup = _xent_inputs(cuda, N, D, V, torch.bfloat16)
+    _, lse = tfx.fused_xent_fwd_plain(h, w, labels)
+    dlog = tfx.fused_xent_dlog_plain(h, w, labels, lse, gup)
+    base = torch.randn(D, V, generator=torch.Generator(device=cuda).manual_seed(N), device=cuda) * 1e-3
+    n0 = dict(tdk.LAUNCHES)
+    dw = tfx.fused_xent_dw(h, dlog)
+    again = tfx.fused_xent_dw(h, dlog)
+    acc, acc2 = base.clone(), base.clone()
+    tfx.fused_xent_dw(h, dlog, acc)
+    tfx.fused_xent_dw(h, dlog, acc2)
+    first = tfx.fused_xent_dw(h, dlog, route=tfx.SOURCE)
+    torch.cuda.synchronize()
+    assert tdk.LAUNCHES["fused_xent_dw_sm90"] == n0["fused_xent_dw_sm90"] + 4
+    assert tdk.LAUNCHES["fused_xent_dw"] == n0["fused_xent_dw"] + 1
+    assert torch.equal(dw, again) and torch.equal(acc, acc2)
+    ref = tfx.fused_xent_dw_plain(h, dlog)
+    top = float(ref.abs().max())
+    for got, want in ((dw, ref), (first, ref), (acc, base + ref)):
+        assert float((got - want).abs().max()) <= 1e-5 * top
+    print(f"sm90 dw N{N}: max err {float((dw - ref).abs().max()) / top:.2e} of the largest |dw|")
 
 
 @pytest.mark.cuda
@@ -732,6 +867,8 @@ def test_fused_xent_sm90_route_refuses(cuda, bad):
         tfx.fused_xent_dlog(h, w, labels, stats, stats, route=route)
     with pytest.raises(ValueError):
         tfx.fused_xent_dh(dlog, w, route=route)
+    with pytest.raises(ValueError):
+        tfx.fused_xent_dw(h, dlog, route=route)
     assert tdk.LAUNCHES == n0
 
 
