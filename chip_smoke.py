@@ -12,7 +12,7 @@ non-zero and prints no result. Every phase runs unguarded: any failure
 exits non-zero.
 
 1. Card line: ``nvidia-smi`` name and power limit, torch and CUDA
-   versions, and the seconds the nvcc build of the nine kernel sources
+   versions, and the seconds the nvcc build of the ten kernel sources
    took (one nvcc per source, started together). TF32 is off for matmuls
    and cuDNN, so every f32 product is full f32.
 2. B6, paged decode attention, against its plain version at the
@@ -27,8 +27,14 @@ exits non-zero.
    ``scaled_dot_product_attention`` call over the masked dense ring, and
    the bounds; the host's microseconds per wrapper call at both grids.
 3. B8, the W4 dequant-matmul, against its plain version at every distinct
-   config_1b weight shape, M 8 (decode) and 1024 (prefill), in f32 and
-   bf16, plus the identity probe bit for bit; device times and bounds.
+   config_1b weight shape, M 8 (decode), 40 (the spec verify) and 1024
+   (prefill): bf16 on the sm90 kernel (tensor cores, K split across
+   blocks; the route bf16 takes, repeated for its bits) and on the first
+   design (through route=), f32 on the first design, plus the identity
+   probe (f32) bit for bit; device times in bf16 of both routes in turns
+   (sm90, first, first, sm90), the plain version, and the bounds; at M 8
+   and 40 the sm90 kernel's C entry also at 1-128 splits (the sweep that
+   set ``W4_MAX_SPLITS``).
 4. Serving with fp32 weights: ``build_serving`` at config_1b width, random
    weights from ``torch.Generator("cuda").manual_seed(0)``, 16 requests
    over the three prefill buckets, 48 new tokens each. The launch counters
@@ -36,8 +42,8 @@ exits non-zero.
    per decode step, and its merge 22 times (PAGED_MERGES_PER_STEP).
    Then one ``decode_forward`` step's logits, kernel path
    against plain path, in f32 and bf16.
-5. The same with ``weight_format="w4"``: B8 must have run 7 x 22 times per
-   prefill and per decode step.
+5. The same with ``weight_format="w4"``: the sm90 B8 must have run 7 x 22
+   times per prefill and per decode step, the first design never.
 6. A small-input reference: config_2m through ``ServeEngine`` on the card
    (kernels) against the same engine on the CPU (plain versions).
 7. B1, B2a and B2b (flash attention forward, dq, dk/dv) and the
@@ -77,22 +83,23 @@ exits non-zero.
    V 32000; dlog, dh and dw at its first 2048-row chunk), its ragged last
    chunk (N 2040), the 150m width (D 1024) and an odd N and V (1000),
    about a seventh of the labels -100, in f32 and bf16; in bf16 the sm90
-   dlog, dh and dw (wgmma, TMA; the route bf16 takes, each repeated for
-   its bits; dw also added to a prior dw) and
-   the first design's all three. Device times of kernel, plain version
-   and the library pair (cuBLAS ``h @ w`` then ``F.cross_entropy``, and
-   its backward through autograd), cuBLAS ``dlog @ w.T`` beside dh and
-   ``h.T @ dlog`` plus the f32 add beside dw; dlog, dh and dw on both
-   routes in turns; the bounds.
+   B3, dlog, dh and dw (wgmma, TMA; the route bf16 takes, each repeated
+   for its bits; dw also added to a prior dw) and the first design's all
+   four. Device times of kernel, plain version and the library pair
+   (cuBLAS ``h @ w`` then ``F.cross_entropy``, and its backward through
+   autograd), cuBLAS ``dlog @ w.T`` beside dh and ``h.T @ dlog`` plus the
+   f32 add beside dw; B3, dlog, dh and dw on both routes in turns; the
+   bounds.
 10. Training at config_1b, full width and depth, as phase 8 (4 steps,
    local_steps 2: 2 outer rounds), with ``fused_loss`` left at its
    default, which resolves on. Per inner step and worker the sm90 B1 must
    have run 2 x 22 x accum times, the sm90 B2a and B2b and the delta
-   kernel 22 x accum, B3 accum, and the sm90 dlog, B4a and B4b accum x
-   4 (a backward walks 8184 rows in chunks of 2048), the first design's
-   dlog, B4a and B4b never. Then one inner step with the fused loss against
-   one with ``fused_loss=False`` on the same params and batch, and the
-   inner-step times of the two, in turns as in phase 8.
+   kernel 22 x accum, the sm90 B3 accum, and the sm90 dlog, B4a and B4b
+   accum x 4 (a backward walks 8184 rows in chunks of 2048), the first
+   design's B3, dlog, B4a and B4b never. Then one inner step with the
+   fused loss against one with ``fused_loss=False`` on the same params
+   and batch, and the inner-step times of the two, in turns as in phase
+   8.
 11. B7, the speculative tail attention, against its plain version in f32
    and bf16 at the shapes of its three passes at config_1b: verify (S 8,
    Kq = Kt = 5), draft (Kq 1, Kt 4, q_start 0..3) and the continued
@@ -114,7 +121,7 @@ exits non-zero.
    requests. Per round B7 must have run 4 x 11 + 22 = 66 times, its merge
    kernel as often (SPEC_MERGES_PER_ROUND: 8 slots give 8 ring splits at
    both shapes), and B6
-   never; under w4 B8 7 x 66 times a round and 7 x 22 a prefill. Tokens/s,
+   never; under w4 the sm90 B8 7 x 66 times a round and 7 x 22 a prefill. Tokens/s,
    TTFT, ms per round, acceptance, tokens per round and the draft, verify
    and insert seconds beside phases 4/5's, the token agreement with them
    (reported, not asserted: the bf16 verify pass multiplies at another M),
@@ -196,7 +203,7 @@ def device_ms(torch, fn, arg_sets, launches: int = 64, replays: int = 5) -> floa
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):  # the warmed stream (the sm90 B8 keeps its scratch a stream)
         for i in range(launches):
             fn(*arg_sets[i % len(arg_sets)])
     graph.replay()
@@ -512,11 +519,44 @@ def layer_weight_shapes(cfg) -> dict:
     return shapes
 
 
-def phase_b8(torch, tdk, quant, cfg, dev) -> dict:
+B8_REPLACES = "opendiloco_tpu/ops/decode_kernels.py:561 (w4_matmul, _w4_kernel :468)"
+B8_M = (8, 40, 1024)  # decode, the spec verify (8 slots x 5), a prefill bucket
+B8_TOL = ("f32: 1e-5 of the largest output (K-long f32 sums in another order); bf16: 2**-7 of the largest output "
+          "(both sum in f32 and round once to bf16: one bf16 ulp apart at most)")
+
+
+B8_SWEEP = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128)  # split counts timed at M 8 and 40
+
+
+def w4_sm90_at(torch, tdk, M: int, K: int, N: int, splits: int, dev):
+    """``w4_matmul``'s call signature on the sm90 B8's C entry at a forced
+    split count, with scratch of its own (made here, outside any capture)."""
+    mi = tdk.w4_slices(M)
+    part = torch.empty(max(1, splits * M * N), dtype=torch.float32, device=dev)
+    tickets = torch.zeros(-(-M // (16 * mi)) * (N // tdk.W4_TILE_N), dtype=torch.int32, device=dev)
+
+    def fn(x, q, s, shape, dtype):
+        out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+        tdk._launch("w4_matmul_sm90", torch.bfloat16, dev, x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                    out.data_ptr(), part.data_ptr(), tickets.data_ptr(), M, K, N, mi, splits)
+        return out
+
+    return fn
+
+
+def phase_b8(torch, tdk, quant, cfg, dev) -> list:
+    """B8 at every config_1b weight shape: the identity probe bit for bit
+    (f32, the first design); at M 8, 40 and 1024 the sm90 kernel (bf16)
+    and the first design (f32, and bf16 through route=) against the plain
+    version, the sm90 kernel repeated for its bits; device times in bf16
+    of both routes in turns (sm90, first, first, sm90) and of the plain
+    version, and the bounds."""
     from opendiloco_torch.quant import W4_BLOCK
 
+    first, sm90 = tdk.W4_FIRST_SOURCE, tdk.W4_SM90_SOURCE
     g = torch.Generator(device=dev).manual_seed(2)
-    checks, timings = [], []
+    checks = {"w4_matmul": [], "w4_matmul_sm90": []}
+    timings = []
     for (K, N), count in layer_weight_shapes(cfg).items():
         qs, ss = quant.pack_blockwise4_stacked(torch.randn(1, K, N, generator=g, device=dev))
         q, s = qs[0], ss[0]
@@ -524,22 +564,24 @@ def phase_b8(torch, tdk, quant, cfg, dev) -> dict:
         eye = tdk.w4_matmul(torch.eye(K, device=dev), q, s, (K, N), torch.float32)
         if not torch.equal(eye, quant.dequant_w4(q, s, (K, N), torch.float32)):
             raise AssertionError(f"B8 identity probe at {(K, N)} is not bitwise dequant_w4")
-        for M in (8, 1024):
+        for M in B8_M:
             x = torch.randn(M, K, generator=g, device=dev)
-            for dtype in (torch.float32, torch.bfloat16):
-                out = tdk.w4_matmul(x, q, s, (K, N), dtype)
+            for dtype, route, name in ((torch.float32, first, "w4_matmul"), (torch.bfloat16, first, "w4_matmul"),
+                                       (torch.bfloat16, sm90, "w4_matmul_sm90")):
+                out = tdk.w4_matmul(x, q, s, (K, N), dtype, route=route)
                 ref = tdk.w4_matmul_plain(x, q, s, (K, N), dtype)
+                if name == "w4_matmul_sm90" and not torch.equal(out, tdk.w4_matmul(x, q, s, (K, N), dtype)):
+                    raise AssertionError(f"B8 sm90 {(M, K, N)}: a second launch gave other bits")
                 scale = float(ref.float().abs().max())
                 err = float((out.float() - ref.float()).abs().max())
-                # f32: K-long f32 sums in another order, 1e-5 of the largest
-                # output; bf16: both sum in f32 and round once to bf16, so
-                # one bf16 ulp (2**-7 relative) apart at most
                 tol = 1e-5 * scale if dtype == torch.float32 else 2**-7 * scale
-                checks.append({"K": K, "N": N, "M": M, "dtype": str(dtype).removeprefix("torch."),
-                               "max_abs_err": err, "tol": tol})
+                checks[name].append({"K": K, "N": N, "M": M, "dtype": str(dtype).removeprefix("torch."),
+                                     "max_abs_err": err, "tol": tol, "share_of_tol": err / tol})
                 if not err <= tol:
-                    raise AssertionError(f"B8 {(M, K, N)} {dtype}: {err} > {tol}")
-        log(f"B8 {(K, N)}: identity probe bitwise, f32/bf16 within tolerance at M 8 and 1024")
+                    raise AssertionError(f"B8 {name} {(M, K, N)} {dtype}: {err} > {tol}")
+        log(f"B8 {(K, N)}: identity probe bitwise; first design f32/bf16 and sm90 bf16 within tolerance at M "
+            f"{'/'.join(map(str, B8_M))}, sm90 bit for bit on repeat (splits at M 8: "
+            f"{tdk.w4_splits(8, K, N, torch.cuda.get_device_properties(dev).multi_processor_count)})")
 
         packed_bytes = K * N // 2 + math.ceil(K * N / W4_BLOCK) * 2
         copies = copies_for(packed_bytes)
@@ -547,45 +589,74 @@ def phase_b8(torch, tdk, quant, cfg, dev) -> dict:
         for _ in range(copies):  # distinct weights, so every call reads cold
             qc, sc = quant.pack_blockwise4_stacked(torch.randn(1, K, N, generator=g, device=dev))
             w.append((qc[0], sc[0]))
-        for M in (8, 1024):
+        for M in B8_M:
             x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
             sets = [(x, qc, sc, (K, N), torch.bfloat16) for qc, sc in w]
-            kernel_ms = device_ms(torch, tdk.w4_matmul, sets, launches=max(64, min(len(sets), 256)))
+            launches = max(64, min(len(sets), 256)) if M < 1024 else 16
+
+            def on(route):
+                return lambda *a: tdk.w4_matmul(*a, route=route)
+
+            ms = {r: [] for r in (sm90, first)}
+            for r in (sm90, first, first, sm90):
+                ms[r].append(device_ms(torch, on(r), sets, launches=launches))
             plain_ms = device_ms(torch, tdk.w4_matmul_plain, sets, launches=16)
             nbytes = packed_bytes + M * K * 2 + M * N * 2
             b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N)
-            timings.append({"M": M, "K": K, "N": N, "per_layer": count, "kernel_ms": kernel_ms,
-                            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
-            log(f"B8 bf16 M{M} K{K} N{N}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            timings.append({"M": M, "K": K, "N": N, "per_layer": count, "sm90_ms": min(ms[sm90]),
+                            "first_ms": min(ms[first]), "same_call": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                            "bound_by": b_by})
+            if M < 64:  # the sm90 kernel's C entry at split counts around its rule's
+                rule = tdk.w4_splits(M, K, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+                counts = sorted({S for S in (*B8_SWEEP, rule) if S <= -(-K // 16)})
+                timings[-1]["sm90_ms_by_splits"] = {
+                    S: device_ms(torch, w4_sm90_at(torch, tdk, M, K, N, S, dev), sets, launches=launches)
+                    for S in counts}
+                log(f"B8 sm90 bf16 M{M} K{K} N{N} by splits (rule {rule}): "
+                    f"{json.dumps({S: round(v, 5) for S, v in timings[-1]['sm90_ms_by_splits'].items()})}")
+            log(f"B8 bf16 M{M} K{K} N{N}: sm90 {ms[sm90][0]:.4f}/{ms[sm90][1]:.4f} ms, first design "
+                f"{ms[first][0]:.4f}/{ms[first][1]:.4f} ms (sm90, first, first, sm90), plain {plain_ms:.4f} ms, "
                 f"bound {b_ms:.5f} ms ({b_by})")
         del w
 
     def per_layer(M, key):
         return sum(t[key] * t["per_layer"] for t in timings if t["M"] == M)
 
-    worst = max(checks, key=lambda c: c["max_abs_err"] / c["tol"])
-    b_ms = per_layer(8, "bound_ms")
-    return {
-        "name": "w4_matmul",
-        "route": "cuda",
-        "source": "opendiloco_torch/csrc/w4_matmul.cu",
-        "replaces": "opendiloco_tpu/ops/decode_kernels.py:561 (w4_matmul, _w4_kernel :468)",
-        "shape": "one decoder layer's 7 weight matmuls at M 8 (decode), bfloat16; per-shape times in 'shapes'",
-        "max_abs_err": worst["max_abs_err"],
-        "tol": worst["tol"],
-        "checks": checks,
-        "ms": per_layer(8, "kernel_ms"),
-        "kernel_ms": per_layer(8, "kernel_ms"),
-        "plain_ms": per_layer(8, "plain_ms"),
-        "library_ms": None,
-        "library": "none: no single PyTorch call dequantizes blockwise-4-bit and multiplies",
-        "bound_ms": b_ms,
-        "bound_by": "bytes" if all(t["bound_by"] == "bytes" for t in timings if t["M"] == 8) else "operations",
-        "prefill_layer_ms": per_layer(1024, "kernel_ms"),
-        "prefill_layer_plain_ms": per_layer(1024, "plain_ms"),
-        "prefill_layer_bound_ms": per_layer(1024, "bound_ms"),
-        "shapes": timings,
-    }
+    rows = []
+    for name, source, key in (("w4_matmul_sm90", "opendiloco_torch/csrc/w4_matmul_sm90.cu", "sm90_ms"),
+                              ("w4_matmul", "opendiloco_torch/csrc/w4_matmul.cu", "first_ms")):
+        worst = max(checks[name], key=lambda c: c["share_of_tol"])
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": B8_REPLACES,
+            "shape": "one decoder layer's 7 weight matmuls at M 8 (decode), bfloat16; per-M layer times in "
+                     "'layer_ms_by_M', per-shape times in 'shapes'",
+            "max_abs_err": worst["max_abs_err"],
+            "tol": B8_TOL,
+            "worst_check": worst,
+            "checks": checks[name],
+            "ms": per_layer(8, key),
+            "kernel_ms": per_layer(8, key),
+            "plain_ms": per_layer(8, "plain_ms"),
+            "library_ms": None,
+            "library": "none: no single PyTorch call dequantizes blockwise-4-bit and multiplies",
+            "bound_ms": per_layer(8, "bound_ms"),
+            "bound_by": "bytes" if all(t["bound_by"] == "bytes" for t in timings if t["M"] == 8) else "operations",
+            "layer_ms_by_M": {M: {"kernel_ms": per_layer(M, key), "plain_ms": per_layer(M, "plain_ms"),
+                                  "bound_ms": per_layer(M, "bound_ms")} for M in B8_M},
+            "shapes": [{k: t[k] for k in ("M", "K", "N", "per_layer", key, "plain_ms", "bound_ms", "bound_by")}
+                       for t in timings],
+        })
+    rows[0]["same_call"] = [{k: t[k] for k in ("M", "K", "N", "same_call")} for t in timings]
+    rows[0]["ms_by_splits"] = [{k: t[k] for k in ("M", "K", "N", "sm90_ms_by_splits")}
+                               for t in timings if "sm90_ms_by_splits" in t]
+    for M in B8_M:
+        log(f"B8 bf16 per 1b layer at M {M}: sm90 {per_layer(M, 'sm90_ms'):.4f} ms, first design "
+            f"{per_layer(M, 'first_ms'):.4f} ms, plain {per_layer(M, 'plain_ms'):.4f} ms, bound "
+            f"{per_layer(M, 'bound_ms'):.5f} ms")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -681,7 +752,7 @@ def phase_serve(torch, tdk, cfg, serve_cfg, params, dev) -> dict:
         steps, prefills, launches = run["steps"], run["prefills"], run["launches"]
         check_launches(launches, {"paged_decode_attention": L * steps,
                                   "paged_decode_attention_merge": PAGED_MERGES_PER_STEP * steps,
-                                  "w4_matmul": 7 * L * (prefills + steps) if w4 else 0},
+                                  "w4_matmul_sm90": 7 * L * (prefills + steps) if w4 else 0},
                        f"serve {serve_cfg.weight_format} ({steps} decode steps, {prefills} prefills)")
         res = {
             "weight_format": serve_cfg.weight_format,
@@ -1009,7 +1080,7 @@ def phase_spec(torch, tdk, cfg, serve_cfg, params, dev, plain: dict) -> dict:
         rounds, prefills, launches = run["steps"], run["prefills"], run["launches"]
         check_launches(launches, {"spec_tail_attention": per_round * rounds,
                                   "spec_tail_attention_merge": SPEC_MERGES_PER_ROUND * rounds,
-                                  "w4_matmul": 7 * (L * prefills + per_round * rounds) if w4 else 0},
+                                  "w4_matmul_sm90": 7 * (L * prefills + per_round * rounds) if w4 else 0},
                        f"spec serve {serve_cfg.weight_format} ({rounds} rounds, {prefills} prefills)")
         stages = run["stages"]
         spec_s = stages["draft"] + stages["verify"] + stages["insert"]
@@ -1593,6 +1664,7 @@ XENT_REPLACES = {
     "fused_xent_dh": "opendiloco_tpu/ops/fused_xent.py:254 (_bwd_impl, _dh_kernel :195)",
     "fused_xent_dw": "opendiloco_tpu/ops/fused_xent.py:276 (_bwd_impl, _dw_kernel :219)",
 }
+XENT_REPLACES["fused_xent_fwd_sm90"] = XENT_REPLACES["fused_xent_fwd"]
 XENT_REPLACES["fused_xent_dlog_sm90"] = XENT_REPLACES["fused_xent_dlog"]
 XENT_REPLACES["fused_xent_dh_sm90"] = XENT_REPLACES["fused_xent_dh"]
 XENT_REPLACES["fused_xent_dw_sm90"] = XENT_REPLACES["fused_xent_dw"]
@@ -1610,7 +1682,7 @@ XENT_TOL = ("element by element, |got - ref| <= rtol |ref| + atol: nll and lse a
             "the largest |dh| (V-long sums in another order, about 2**-24 * sqrt(V)); dw atol 1e-5 of the "
             "largest |dw| (f32 sums)")
 XENT_SOURCES = {name: "opendiloco_torch/csrc/fused_xent_sm90.cu"
-                for name in ("fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw_sm90")}
+                for name in ("fused_xent_fwd_sm90", "fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw_sm90")}
 
 
 def xent_inputs(torch, dev, N, D, V, dtype, seed):
@@ -1635,27 +1707,26 @@ def xent_work(N, D, V, elt) -> dict:
         "fused_xent_dh": (dl + w + h, mm),
         "fused_xent_dw": (h + dl + 2 * D * V * 4, mm),
     }
-    for name in ("fused_xent_dlog", "fused_xent_dh", "fused_xent_dw"):
+    for name in ("fused_xent_fwd", "fused_xent_dlog", "fused_xent_dh", "fused_xent_dw"):
         work[f"{name}_sm90"] = work[name]
     return work
 
 
 def phase_xent(torch, tfx, dev) -> list:
     """Each kernel against its plain version on the same inputs (dh and dw
-    take the plain dlog); in bf16 the sm90 dlog and dh (the route bf16
-    takes) and the first design's (through route=) both, each repeated
-    for its bits. Then device times in bf16 at the 1b training shape: B3
-    over all N rows, the backward kernels per launch at one chunk of
-    CHUNK_ROWS rows (a backward at N 8184 makes 4 of each), dlog and dh on
+    take the plain dlog); in bf16 the sm90 B3, dlog, dh and dw (the route
+    bf16 takes), each repeated for its bits, and the first design's
+    (through route=). Then device times in bf16 at the 1b training shape:
+    B3 over all N rows, the backward kernels per launch at one chunk of
+    CHUNK_ROWS rows (a backward at N 8184 makes 4 of each), each kernel on
     both routes in turns, beside cuBLAS and the bounds."""
     import torch.nn.functional as F
 
-    sm90 = {name: f"{name}_sm90" for name in ("fused_xent_dlog", "fused_xent_dh", "fused_xent_dw")}
+    sm90 = {name: f"{name}_sm90" for name in tfx.NAMES}
     checks = {name: [] for name in (*tfx.NAMES, *tfx.SM90_NAMES)}
     for gi, (label, N, D, V) in enumerate(XENT_GEOMS):
         for dtype in (torch.float32, torch.bfloat16):
             h, w, labels, gup = xent_inputs(torch, dev, N, D, V, dtype, 20 + gi)
-            nll, lse = tfx.fused_xent_fwd(h, w, labels)
             ref_nll, ref_lse = tfx.fused_xent_fwd_plain(h, w, labels)
             rows = slice(0, min(N, tfx.CHUNK_ROWS))
             args = (h[rows], w, labels[rows], ref_lse[rows], gup[rows])
@@ -1666,10 +1737,14 @@ def phase_xent(torch, tfx, dev) -> list:
             ref_dw = tfx.fused_xent_dw_plain(h[rows], ref_dlog)
             for route in routes:
                 sfx = "_sm90" if route == tfx.SM90_SOURCE else ""
+                got["fused_xent_fwd" + sfx] = tfx.fused_xent_fwd(h, w, labels, route=route)
                 got["fused_xent_dlog" + sfx] = tfx.fused_xent_dlog(*args, route=route)
                 got["fused_xent_dh" + sfx] = tfx.fused_xent_dh(ref_dlog, w, route=route)
                 got["fused_xent_dw" + sfx] = tfx.fused_xent_dw(h[rows], ref_dlog, route=route)
                 if route == tfx.SM90_SOURCE:  # the route bf16 takes: its bits repeat
+                    again = tfx.fused_xent_fwd(h, w, labels)
+                    if not all(torch.equal(a, b) for a, b in zip(got["fused_xent_fwd_sm90"], again)):
+                        raise AssertionError(f"sm90 B3 {label}: a second launch gave other bits")
                     if not (torch.equal(got["fused_xent_dlog_sm90"], tfx.fused_xent_dlog(*args, route=route))
                             and torch.equal(got["fused_xent_dh_sm90"], tfx.fused_xent_dh(ref_dlog, w, route=route))
                             and torch.equal(got["fused_xent_dw_sm90"], tfx.fused_xent_dw(h[rows], ref_dlog))):
@@ -1688,10 +1763,14 @@ def phase_xent(torch, tfx, dev) -> list:
             top = {"dh": float(ref_dh.float().abs().max()), "dw": float(ref_dw.abs().max())}
             r_dlog = 2.0**-7 if bf16 else 1e-5
             # (kernel, output, got, ref, rtol, atol): see XENT_TOL
-            pairs = [("fused_xent_fwd", "lse", lse, ref_lse, 0.0, 1e-4 * scale),
-                     ("fused_xent_fwd", "nll", nll, ref_nll, 0.0, 1e-4 * scale)]
+            pairs = []
             for kernel, out in got.items():
-                if "dlog" in kernel:
+                if "fwd" in kernel:
+                    pairs += [(kernel, "lse", out[1], ref_lse, 0.0, 1e-4 * scale),
+                              (kernel, "nll", out[0], ref_nll, 0.0, 1e-4 * scale)]
+                    if bool(out[0][labels == -100].any()):
+                        raise AssertionError(f"{kernel} {label} {dtype}: an ignored row has a loss")
+                elif "dlog" in kernel:
                     pairs.append((kernel, "dlog", out, ref_dlog, r_dlog, r_dlog / 2 * float(gup.max()) / V))
                 elif "dw" in kernel:
                     name, _, added = kernel.partition(" ")
@@ -1710,9 +1789,7 @@ def phase_xent(torch, tfx, dev) -> list:
                 if not ratio <= 1.0:
                     raise AssertionError(f"{kernel} {out} {label} {dtype}: an element is {ratio:.3g} times its "
                                          f"limit (rtol {rtol}, atol {atol:.3g})")
-            if bool(nll[labels == -100].any()):
-                raise AssertionError(f"fused_xent_fwd {label} {dtype}: an ignored row has a loss")
-            del h, w, labels, gup, nll, lse, ref_nll, ref_lse, got, ref_dlog, ref_dh, ref_dw, diff
+            del h, w, labels, gup, ref_nll, ref_lse, got, ref_dlog, ref_dh, ref_dw, diff
             torch.cuda.empty_cache()
         worst = {f"{k} {c['dtype']}": round(c["worst_share_of_limit"], 4)
                  for k, cs in checks.items() for c in cs if c["shape"] == label}
@@ -1739,9 +1816,11 @@ def phase_xent(torch, tfx, dev) -> list:
         # added into the f32 dw, as every chunk after a backward's first
         return lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dw(h, dl, a, route=route)
 
+    def fwd_on(route):
+        return lambda h, w, lb, ls, g: tfx.fused_xent_fwd(h, w, lb, route=route)
+
     runs = {
-        "fused_xent_fwd": (lambda h, w, lb, ls, g: tfx.fused_xent_fwd(h, w, lb),
-                           lambda h, w, lb, ls, g: tfx.fused_xent_fwd_plain(h, w, lb), fwd_set),
+        "fused_xent_fwd": (fwd_on(tfx.SOURCE), lambda h, w, lb, ls, g: tfx.fused_xent_fwd_plain(h, w, lb), fwd_set),
         "fused_xent_dlog": (dlog_on(tfx.SOURCE),
                             lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dlog_plain(h, w, lb, ls, g), chunk_set),
         "fused_xent_dh": (dh_on(tfx.SOURCE), lambda h, w, lb, ls, g, dl, a: tfx.fused_xent_dh_plain(dl, w),
@@ -1754,11 +1833,13 @@ def phase_xent(torch, tfx, dev) -> list:
         times[name] = (device_ms(torch, kern, sets, launches=8, replays=3),
                        device_ms(torch, plain, sets, launches=2, replays=3))
         torch.cuda.empty_cache()
-    # both routes of dlog, dh and dw in turns (sm90, first, first, sm90)
+    # both routes of each kernel in turns (sm90, first, first, sm90)
     same_call = {}
-    for name, on in (("fused_xent_dlog", dlog_on), ("fused_xent_dh", dh_on), ("fused_xent_dw", dw_on)):
+    for name, on in (("fused_xent_fwd", fwd_on), ("fused_xent_dlog", dlog_on), ("fused_xent_dh", dh_on),
+                     ("fused_xent_dw", dw_on)):
         order = [tfx.SM90_SOURCE, tfx.SOURCE, tfx.SOURCE, tfx.SM90_SOURCE]
-        ms = [device_ms(torch, on(r), chunk_set, launches=8, replays=3) for r in order]
+        sets = fwd_set if name == "fused_xent_fwd" else chunk_set
+        ms = [device_ms(torch, on(r), sets, launches=8, replays=3) for r in order]
         same_call[name] = {"sm90_ms": [ms[0], ms[3]], "first_design_ms": [ms[1], ms[2]]}
         times[sm90[name]] = (min(ms[0], ms[3]), times[name][1])
         times[name] = (min(ms[1], ms[2]), times[name][1])
@@ -1790,11 +1871,11 @@ def phase_xent(torch, tfx, dev) -> list:
     n_chunks = -(-N // C)
     rows = []
     for name in (*tfx.NAMES, *tfx.SM90_NAMES):
-        n = N if name == "fused_xent_fwd" else C
+        n = N if name.startswith("fused_xent_fwd") else C
         nbytes, flops = xent_work(n, D, V, 2)[name]
         b_ms, b_by = bound_ms(nbytes, flops)
         kernel_ms, plain_ms = times[name]
-        lib = lib_fwd_ms if name == "fused_xent_fwd" else lib_chunk_ms.get(name)
+        lib = lib_fwd_ms if name.startswith("fused_xent_fwd") else lib_chunk_ms.get(name)
         worst = max(checks[name], key=lambda c: c["worst_share_of_limit"])
         log(f"{name} bf16 N{n} D{D} V{V}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.5f} ms ({b_by})")
@@ -1815,7 +1896,7 @@ def phase_xent(torch, tfx, dev) -> list:
             "kernel_ms": kernel_ms,
             "plain_ms": plain_ms,
             "library_ms": lib,
-            "library": ("cuBLAS h @ w, then F.cross_entropy over the f32 logits" if name == "fused_xent_fwd" else
+            "library": ("cuBLAS h @ w, then F.cross_entropy over the f32 logits" if base == "fused_xent_fwd" else
                         "none: the logits' gradient has no call of its own" if base == "fused_xent_dlog" else
                         "cuBLAS dlog @ w.T on the same chunk" if base == "fused_xent_dh" else
                         "cuBLAS h.T @ dlog on the same chunk, added into the f32 dw"),
@@ -1832,6 +1913,9 @@ def phase_xent(torch, tfx, dev) -> list:
     log(f"fused cross-entropy backward (all {n_chunks} chunks, bf16 N{N} D{D} V{V}): {bwd_ms:.4f} ms; "
         f"library backward (autograd of the cuBLAS + F.cross_entropy pair, dh and dw over all rows) "
         f"{lib_bwd_ms:.4f} ms, library forward {lib_fwd_ms:.4f} ms")
+    log(f"fused cross-entropy forward (B3, bf16 N{N} D{D} V{V}): sm90 {json.dumps(same_call['fused_xent_fwd'])} ms "
+        f"in turns (sm90, first, first, sm90); library pair (cuBLAS h @ w + F.cross_entropy) {lib_fwd_ms:.4f} ms; "
+        f"sm90 over library {times['fused_xent_fwd_sm90'][0] / lib_fwd_ms:.3f}")
     rows[0]["backward_ms_all_chunks"] = bwd_ms
     rows[0]["library_backward_ms_all_rows"] = lib_bwd_ms
     rows[0]["dlog_plus_dh_per_chunk_ms"] = {"sm90": pair["_sm90"], "first_design": pair[""]}
@@ -1951,7 +2035,7 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
         # per micro-batch one forward launch, and per backward chunk one
         # launch of each backward kernel
         chunks = -(-run["per_device_train_batch_size"] * (run["seq_length"] - 1) // tfx.CHUNK_ROWS)
-        want["fused_xent_fwd"] = inner_steps * accum
+        want["fused_xent_fwd_sm90"] = inner_steps * accum
         # bf16 dlog, dh and dw take the sm90 kernels, the first design never
         for name in ("fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw_sm90"):
             want[name] = inner_steps * accum * chunks
@@ -1974,7 +2058,8 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
         if backends[0].hashes.get(r) is None or backends[0].hashes[r] != backends[1].hashes.get(r):
             raise AssertionError(f"masters differ after round {r}: {[b.hashes for b in backends]}")
     outer = {k: [r[k] for rr in rows for r in rr if "outer_step_s" in r]
-             for k in ("outer_step_s", "outer_wait_s", "outer_allreduce_s")}
+             for k in ("outer_step_s", "outer_wait_s", "outer_d2h_s", "outer_pseudo_grad_s", "outer_allreduce_s",
+                       "outer_nesterov_s", "outer_h2d_s")}
     outer_s = outer["outer_step_s"]
     if len(outer_s) != 2 * rounds:
         raise AssertionError(f"expected {2 * rounds} outer steps, got {outer_s}")
@@ -2067,8 +2152,10 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
         f"{run['per_device_train_batch_size']} x accum {accum} x seq {run['seq_length']}) | {card}")
     log(f"train {model}: {tokens / step_s:.0f} training tokens/s (one worker alone) | {card}")
     log(f"train {model}: outer step {np.mean(outer_s):.3f} s mean over {len(outer_s)} (two workers; of it "
-        f"waiting for the peer {np.mean(outer['outer_wait_s']):.3f} s, all-reduce "
-        f"{np.mean(outer['outer_allreduce_s']):.3f} s) | {card}")
+        f"waiting for the peer {np.mean(outer['outer_wait_s']):.3f} s, the D2H beside the wait "
+        f"{np.mean(outer['outer_d2h_s']):.3f} s, then pseudo-gradient {np.mean(outer['outer_pseudo_grad_s']):.3f} s, "
+        f"all-reduce {np.mean(outer['outer_allreduce_s']):.3f} s, Nesterov {np.mean(outer['outer_nesterov_s']):.3f} "
+        f"s, H2D {np.mean(outer['outer_h2d_s']):.3f} s) | {card}")
     log(f"train {model}: peak device memory {peak_gb:.2f} GiB (two workers on one card) | {card}")
     log(f"train {model}: one worker alone, {a} / {b}: inner step {step_ms[a]:.1f} / {step_ms[b]:.1f} ms (mean of "
         f"two turns, {a} {b} {b} {a}: {json.dumps(step_runs)}), peak device memory {peak_gib[a]:.2f} / "
@@ -2159,7 +2246,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
-    build_s = build.build(["paged_decode_attention", "spec_tail_attention", "w4_matmul", "flash_attention",
+    build_s = build.build(["paged_decode_attention", "spec_tail_attention", "w4_matmul", "w4_matmul_sm90",
+                           "flash_attention",
                            "flash_attention_fwd_sm90", "flash_attention_bwd_sm90", "flash_attention_delta",
                            "fused_xent", "fused_xent_sm90"])
     log(f"card: {card} | torch {torch.__version__} CUDA {torch.version.cuda} | "
@@ -2198,7 +2286,7 @@ def main() -> int:
     serving.update({f"prefix serve, prefix_cache={on}": prefix[key]["launches"]
                     for key, on in (("on", True), ("off", False))})
     serving.update({f"f32 serve {key}": spec_f32["launches"][key] for key in ("plain", "spec")})
-    for k in (*b6, *b7, b8):
+    for k in (*b6, *b7, *b8):
         k["launches_by_phase"] = {phase: counts[k["name"]] for phase, counts in serving.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
     # launches: the training paths, by phase (the first design runs on the
@@ -2211,7 +2299,7 @@ def main() -> int:
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
     log(json.dumps({"serve": serve, "spec": spec, "spec_f32": spec_f32, "prefix": prefix, "reference": reference,
                     "train": [train_150m, train_1b, train_f32], "seconds": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": [*b6, *b7, b8, *flash, *xent]}))
+    log(json.dumps({"kernels": [*b6, *b7, *b8, *flash, *xent]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,5 +1,7 @@
 // Fused lm-head + cross-entropy for Hopper (sm_90a): the forward kernel and
-// the three kernels of the backward.
+// the three kernels of the backward, the first design (mma.sync). f32
+// takes these; bf16 takes fused_xent_sm90.cu (wgmma and TMA), and reaches
+// these only where ops/fused_xent.py is asked for route="fused_xent".
 //
 // Replaces (opendiloco_tpu/ops/fused_xent.py):
 //   B3  _fwd       (pl.pallas_call at :139, kernel body _fwd_kernel :85)
@@ -56,6 +58,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "fused_xent_merge.cuh"
 
 namespace {
 
@@ -65,7 +68,6 @@ constexpr int kThreads = 256;                  // 8 warps: 2 along M, 4 along N
 constexpr int kWM = 64, kWN = 32;              // warp tile
 constexpr int kMI = kWM / 16, kNI = kWN / 8;   // m16 and n8 tiles of a warp
 constexpr int kColWarps = kBN / kWN;
-constexpr long long kIgnore = -100;
 
 template <typename T>
 __host__ __device__ constexpr int vec() { return 16 / (int)sizeof(T); }
@@ -357,23 +359,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 }
 
-// The vocab splits of each row, merged in split order.
-__global__ void xent_merge_kernel(const float* __restrict__ part, const long long* __restrict__ labels,
-                             float* __restrict__ nll, float* __restrict__ lse, int N, int splits) {
-    const int row = blockIdx.x * blockDim.x + threadIdx.x;
-    if (row >= N) return;
-    float M = kNegInf;
-    for (int s = 0; s < splits; ++s) M = fmaxf(M, part[(size_t)s * N + row]);
-    float L = 0.0f, TG = 0.0f;
-    for (int s = 0; s < splits; ++s) {
-        L += part[((size_t)splits + s) * N + row] * expf(part[(size_t)s * N + row] - M);
-        TG += part[((size_t)2 * splits + s) * N + row];
-    }
-    const float ls = M + logf(L);
-    lse[row] = ls;
-    nll[row] = (ls - TG) * (labels[row] != kIgnore ? 1.0f : 0.0f);
-}
-
 // ---------------------------------------------------------------------------
 // B4, part 1: dlog for one chunk of rows. Block (128-row tile, 128-column
 // vocab tile).
@@ -477,10 +462,7 @@ int fwd_entry(const void* h, const void* w, const void* labels, void* nll, void*
                                                 splits);
     err = cudaGetLastError();
     if (err != cudaSuccess || splits == 1) return (int)err;
-    xent_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(static_cast<const float*>(part),
-                                                  static_cast<const long long*>(labels), static_cast<float*>(nll),
-                                                  static_cast<float*>(lse), N, splits);
-    return (int)cudaGetLastError();
+    return (int)launch_xent_merge(part, labels, nll, lse, N, splits, st);
 }
 
 template <typename T>

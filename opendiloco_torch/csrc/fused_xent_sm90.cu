@@ -1,17 +1,21 @@
-// The fused cross-entropy's dlog, dh and dw passes in bf16 for Hopper
-// (sm_90a), with warpgroup matrix products (wgmma), TMA copies and an
-// mbarrier ring:
-//   dlog (replaces opendiloco_tpu/ops/fused_xent.py _recompute_dlog :174,
-//         inside _dh_kernel :195 and _dw_kernel :219)
-//   dh   (replaces the same file's _bwd_impl, pl.pallas_call at :254,
-//         kernel body _dh_kernel :195; with dlog, the TPU kernel's body)
+// The fused cross-entropy's four passes in bf16 for Hopper (sm_90a), with
+// warpgroup matrix products (wgmma), TMA copies and an mbarrier ring:
+//   fwd  (B3: replaces opendiloco_tpu/ops/fused_xent.py _fwd, pl.pallas_call
+//         at :139, kernel body _fwd_kernel :85)
+//   dlog (replaces the same file's _recompute_dlog :174, inside _dh_kernel
+//         :195 and _dw_kernel :219)
+//   dh   (B4a: replaces _bwd_impl, pl.pallas_call at :254, kernel body
+//         _dh_kernel :195; with dlog, the TPU kernel's body)
 //   dw   (B4b: replaces _bwd_impl's pl.pallas_call at :276, kernel body
 //         _dw_kernel :219)
-// fused_xent.cu keeps the first design of all three (mma.sync), which
-// ops/fused_xent.py routes f32 to, together with B3 (fwd).
+// fused_xent.cu keeps the first design of all four (mma.sync), which
+// ops/fused_xent.py routes f32 to.
 //
-// Computes, for one chunk of rows, h [M, D], the head w [D, V], labels [M]
-// (int64, -100 = ignored), lse [M] f32 and the masked upstream gradient
+// fwd computes, for h [N, D], w [D, V] and labels [N] (int64, -100 =
+// ignored), nll [N] and lse [N] in f32: lse by an online log-sum-exp over
+// the vocab tiles, so the logits are never stored; nll = (lse - s[label])
+// * mask. The backward passes compute, for one chunk of rows, h [M, D],
+// w, labels [M], lse [M] f32 and the masked upstream gradient
 // g [M] f32, with s = h.w from bf16 operands and f32 accumulation:
 //   dlog [M, V] = g * (exp(s - lse) - onehot), rounded to bf16;
 //   dh [M, D] = dlog . w^T, f32 accumulation, rounded to bf16;
@@ -35,7 +39,11 @@
 // in all, still below its 0.2714 ms of products, but the epilogue (a
 // 128 x 256 f32 read-add-write a tile, 256 KB) is a third of its work.
 //
-// Design (one main loop, gemm_sm90, for both; B4b and B3 can take it too):
+// B3 at the 1b training shape (N 8184, D 2048, V 32000) is one product
+// of 1.073 TFLOP, 1.085 ms, against 33.5 MB of h and 131 MB of w
+// (0.049 ms): bound by operations too.
+//
+// Design (one main loop, gemm_sm90, for all four):
 // 1. Persistent CTAs, one an SM, each walking output tiles of 128 rows x
 //    256 columns (two consumer warpgroups of 64 rows, each one m64n256k16
 //    wgmma a 16-deep step, 128 f32 accumulators a thread; 128-column tiles
@@ -77,12 +85,30 @@
 //    by chip_smoke.py phase 9 on an H100 at 700 W: 0.4457-0.4625 ms a
 //    1b chunk against 0.7129-0.7270 ms, so only the TMA epilogue is kept
 //    (PERF.md section 6).
+// 6. B3's epilogue keeps a running (m, l, target) a row across the vocab
+//    tiles of its unit (xent_fwd_sm90_kernel), so the tile's 256 logits
+//    never leave the registers. The vocab is split across CTAs: a unit is
+//    (split, 128-row tile), and ops/fused_xent.py fwd_sm90_splits picks
+//    the split count from N, V and the SM count alone, the smallest that
+//    minimises the vocab tiles the busiest CTA walks (ceil(units / SMs)
+//    units of ceil(vocab tiles / splits) each). At the 1b shape that is
+//    125 splits of one vocab tile each: 8000 units, 61 for the busiest of
+//    132 CTAs against 60.6 on average (2 splits of 62-63 tiles, one unit
+//    a CTA, would leave 4 SMs idle and take 63). Units go row tile
+//    fastest (SplitWalk), so the 132 CTAs at work at any moment hold two
+//    or three vocab tiles over all 64 row tiles: they read two or three
+//    of w's 1 MB column tiles at a time (w streams through L2 about once)
+//    and all of h (33.5 MB, kept in the 50 MB L2 across the walk). A unit
+//    of several tiles carries its (m, l, target) across them.
+//    The splits' (m, l, target) are merged in split order by
+//    xent_merge_kernel (fused_xent_merge.cuh), as the first design does.
 // No atomics and no split-K: every output element is summed by one CTA
 // in K order, and dw gets one store or add per element and chunk, the
 // chunks in launch order, so results repeat bit for bit.
 #include <math.h>
 
 #include "common.cuh"
+#include "fused_xent_merge.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -96,21 +122,45 @@ constexpr int kStageBytes = kStageA + kBN * kBK * 2;  // + 32 KB of B
 constexpr int kBarOffset = kStages * kStageBytes;     // full[], empty[]
 constexpr size_t kSmemBytes = kBarOffset + 2 * kStages * 8 + 1024;  // + alignment slack
 
-// The output tile i of a CTA's walk, m fastest.
+// The output tiles of a CTA's walk for dlog, dh and dw: tile i = blockIdx.x,
+// + gridDim.x, ..., m fastest. walk(f) calls f(m0, n0, tag) for each in
+// turn (tag 0).
 struct Raster {
     int mt, nt;  // row tiles, column tiles
-    __device__ __forceinline__ int m0(int i) const { return (i % mt) * kBM; }
-    __device__ __forceinline__ int n0(int i) const { return (i / mt) * kBN; }
-    __device__ __forceinline__ int tiles() const { return mt * nt; }
+    template <typename F>
+    __device__ __forceinline__ void walk(F f) const {
+        for (int i = blockIdx.x; i < mt * nt; i += gridDim.x) f((i % mt) * kBM, (i / mt) * kBN, 0);
+    }
+};
+
+// B3's walk. The vocab tiles are cut into `splits` contiguous ranges,
+// split p holding tiles nvt p / splits .. nvt (p + 1) / splits - 1 (never
+// empty: splits <= nvt). A unit is (split p, row tile m), numbered p mt +
+// m (m fastest), and CTA c takes units c, c + gridDim.x, ...; within a unit
+// it walks the split's vocab tiles in order, so the CTAs that run at one
+// moment share the column tiles of w that they read. tag: bit 0 the
+// unit's first tile, bit 1 its last, bits 2.. the split.
+struct SplitWalk {
+    int mt, nvt, splits;
+    __device__ __forceinline__ int vt0(int p) const { return (int)((long long)nvt * p / splits); }
+    template <typename F>
+    __device__ __forceinline__ void walk(F f) const {
+        for (int u = blockIdx.x; u < mt * splits; u += gridDim.x) {
+            const int p = u / mt, a = vt0(p), b = vt0(p + 1);
+            for (int vt = a; vt < b; ++vt)
+                f((u % mt) * kBM, vt * kBN, (vt == a ? 1 : 0) | (vt == b - 1 ? 2 : 0) | (p << 2));
+        }
+    }
 };
 
 // C[M, N] = A . B over K, A [M][K] (K-major, !A_MN) or [K][M] (MN-major,
 // A_MN), B [N][K] (K-major, !B_MN) or [K][N] (MN-major, B_MN), bf16 in, f32
-// accumulators; epi(row0, n0, acc) runs on each consumer warpgroup's
+// accumulators, over the output tiles of the walk r (Raster or
+// SplitWalk); epi(row0, n0, tag, acc) runs on each consumer warpgroup's
 // 64 x kBN accumulator (rows row0 .. row0 + 63) after the tile's last
 // step. Launched with kCtaThreads threads.
-template <bool A_MN, bool B_MN, typename Epi>
-__device__ __forceinline__ void gemm_sm90(const CUtensorMap* ma, const CUtensorMap* mb, Raster r, int K, Epi epi) {
+template <bool A_MN, bool B_MN, typename Walk, typename Epi>
+__device__ __forceinline__ void gemm_sm90(const CUtensorMap* ma, const CUtensorMap* mb, Walk r, int K, Epi epi) {
     constexpr int kSt = kStages;
     extern __shared__ uint8_t smem_raw[];
     uint8_t* sm = align1024(smem_raw);
@@ -132,8 +182,7 @@ __device__ __forceinline__ void gemm_sm90(const CUtensorMap* ma, const CUtensorM
         regs_dec<kProducerRegs>();
         if (threadIdx.x != 0) return;
         int ring = 0;
-        for (int i = blockIdx.x; i < r.tiles(); i += gridDim.x) {
-            const int m0 = r.m0(i), n0 = r.n0(i);
+        r.walk([&](int m0, int n0, int) {
             for (int kb = 0; kb < nk; ++kb, ++ring) {
                 const int s = ring % kSt;
                 uint8_t* st = sm + s * kStageBytes;
@@ -155,7 +204,7 @@ __device__ __forceinline__ void gemm_sm90(const CUtensorMap* ma, const CUtensorM
                     tma_load_2d(st + kStageA, mb, full + s, kb * kBK, n0);
                 }
             }
-        }
+        });
         return;
     }
 
@@ -169,7 +218,7 @@ __device__ __forceinline__ void gemm_sm90(const CUtensorMap* ma, const CUtensorM
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + pos % kSt);
     };
-    for (int i = blockIdx.x; i < r.tiles(); i += gridDim.x) {
+    r.walk([&](int m0, int n0, int tag) {
         for (int kb = 0; kb < nk; ++kb, ++ring) {
             const int s = ring % kSt;
             const uint32_t sa = smem_u32(sm + s * kStageBytes), sb = sa + kStageA;
@@ -193,8 +242,8 @@ __device__ __forceinline__ void gemm_sm90(const CUtensorMap* ma, const CUtensorM
         wgmma_wait<0>();
         fence_regs(acc);
         release(ring - 1);
-        epi(r.m0(i) + cw * 64, r.n0(i), acc);
-    }
+        epi(m0 + cw * 64, n0, tag, acc);
+    });
 }
 
 // Rows g and g + 8 of a warp's 16-row share, column pair 2t, 2t + 1 of
@@ -213,7 +262,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
                           const long long* __restrict__ labels, const float* __restrict__ lse,
                           const float* __restrict__ gup, __nv_bfloat16* __restrict__ dlog, int M, int D, int V) {
     const Raster r{(M + kBM - 1) / kBM, (V + kBN - 1) / kBN};
-    gemm_sm90<false, true>(&mh, &mw, r, D, [&](int row0, int n0, float(&acc)[kBN / 2]) {
+    gemm_sm90<false, true>(&mh, &mw, r, D, [&](int row0, int n0, int, float(&acc)[kBN / 2]) {
         const Frag f(row0);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
@@ -236,11 +285,90 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
     });
 }
 
+// B3: per-row nll and lse of s = h . w over the vocab tiles of the CTA's
+// units (SplitWalk). A (h) K-major, B (w) MN-major, as dlog reads them. The
+// epilogue keeps a running (m, l, target) for the thread's two rows (g
+// and g + 8 of its warp's 16) across the unit's vocab tiles: the tile's
+// row max by a quad shuffle, l rescaled by 2^((m - m') log2 e) and added
+// the quad sum of 2^(s log2 e - m' log2 e) (ex2.approx, as dlog), and the
+// target logit taken where the column equals the label. At the unit's
+// last tile it writes nll and lse (one split) or the split's (m, l,
+// target) into part [3][splits][N] for xent_merge_kernel. Columns past V
+// (zero filled by TMA) are left out of the max and the sum; rows past N
+// are computed on zeros and not written.
+__global__ void __launch_bounds__(kCtaThreads, 1)
+    xent_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mh, const __grid_constant__ CUtensorMap mw,
+                         const long long* __restrict__ labels, float* __restrict__ nll, float* __restrict__ lse,
+                         float* __restrict__ part, int N, int D, int V, int splits) {
+    const SplitWalk wk{(N + kBM - 1) / kBM, (V + kBN - 1) / kBN, splits};
+    float m[2], l[2], tg[2];
+    long long lb[2];
+    gemm_sm90<false, true>(&mh, &mw, wk, D, [&](int row0, int n0, int tag, float(&acc)[kBN / 2]) {
+        const Frag f(row0);
+        const bool full = n0 + kBN <= V;  // no column past V in this tile
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int row = f.r0 + 8 * hh;
+            if (tag & 1) {
+                m[hh] = kNegInf;
+                l[hh] = 0.0f;
+                tg[hh] = 0.0f;
+                lb[hh] = row < N ? labels[row] : kIgnore;
+            }
+            float mx = kNegInf;
+#pragma unroll
+            for (int nb = 0; nb < kBN / 8; ++nb) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const float x = acc[4 * nb + 2 * hh + e];
+                    mx = full || n0 + nb * 8 + f.t2 + e < V ? fmaxf(mx, x) : mx;
+                }
+            }
+            const float mn = fmaxf(m[hh], quad_max(mx));
+            const float ml2 = mn * kLog2e;
+            float sum = 0.0f;
+#pragma unroll
+            for (int nb = 0; nb < kBN / 8; ++nb) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const float p = exp2_approx(fmaf(acc[4 * nb + 2 * hh + e], kLog2e, -ml2));
+                    sum += full || n0 + nb * 8 + f.t2 + e < V ? p : 0.0f;
+                }
+            }
+            l[hh] = l[hh] * exp2_approx((m[hh] - mn) * kLog2e) + quad_sum(sum);
+            m[hh] = mn;
+            const long long d = lb[hh] - n0;
+            if (d >= 0 && d < kBN) {  // the label's column lies in this tile: one lane holds it
+#pragma unroll
+                for (int nb = 0; nb < kBN / 8; ++nb) {
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) tg[hh] += nb * 8 + f.t2 + e == d ? acc[4 * nb + 2 * hh + e] : 0.0f;
+                }
+            }
+            if (tag & 2) {
+                const float t = quad_sum(tg[hh]);
+                if ((threadIdx.x & 3) == 0 && row < N) {
+                    if (splits == 1) {
+                        const float ls = m[hh] + logf(l[hh]);
+                        lse[row] = ls;
+                        nll[row] = (ls - t) * (lb[hh] != kIgnore ? 1.0f : 0.0f);
+                    } else {
+                        const int p = tag >> 2;
+                        part[((size_t)0 * splits + p) * N + row] = m[hh];
+                        part[((size_t)1 * splits + p) * N + row] = l[hh];
+                        part[((size_t)2 * splits + p) * N + row] = t;
+                    }
+                }
+            }
+        }
+    });
+}
+
 __global__ void __launch_bounds__(kCtaThreads, 1)
     xent_dh_sm90_kernel(const __grid_constant__ CUtensorMap mdl, const __grid_constant__ CUtensorMap mw,
                         __nv_bfloat16* __restrict__ dh, int M, int D, int V) {
     const Raster r{(M + kBM - 1) / kBM, (D + kBN - 1) / kBN};
-    gemm_sm90<false, false>(&mdl, &mw, r, V, [&](int row0, int n0, float(&acc)[kBN / 2]) {
+    gemm_sm90<false, false>(&mdl, &mw, r, V, [&](int row0, int n0, int, float(&acc)[kBN / 2]) {
         const Frag f(row0);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
@@ -274,7 +402,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
     xent_dw_sm90_kernel(const __grid_constant__ CUtensorMap mh, const __grid_constant__ CUtensorMap mdl,
                         const __grid_constant__ CUtensorMap mdw, int M, int D, int V, int accumulate) {
     const Raster r{(D + kBM - 1) / kBM, (V + kBN - 1) / kBN};
-    gemm_sm90<true, true>(&mh, &mdl, r, M, [&](int row0, int n0, float(&acc)[kBN / 2]) {
+    gemm_sm90<true, true>(&mh, &mdl, r, M, [&](int row0, int n0, int, float(&acc)[kBN / 2]) {
         const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
         extern __shared__ uint8_t smem_raw[];
         const int cw = threadIdx.x / 128 - 1;
@@ -327,6 +455,24 @@ inline cudaError_t grid_size(int tiles, int* grid) {
     return err;
 }
 
+int fwd_run(const void* h, const void* w, const void* labels, void* nll, void* lse, void* part, int N, int D,
+            int V, int splits, cudaStream_t st) {
+    const int mt = (N + kBM - 1) / kBM, nvt = (V + kBN - 1) / kBN;
+    if (splits < 1 || splits > nvt) return (int)cudaErrorInvalidValue;
+    CUtensorMap mh, mw;
+    cudaError_t err;
+    if ((err = bf16_matrix_map(&mh, h, N, D, kBM, kBK)) != cudaSuccess) return (int)err;
+    if ((err = bf16_matrix_map(&mw, w, D, V, kBK, 64)) != cudaSuccess) return (int)err;
+    if ((err = allow_smem<xent_fwd_sm90_kernel>(kSmemBytes)) != cudaSuccess) return (int)err;
+    int grid = 0;
+    if ((err = grid_size(mt * splits, &grid)) != cudaSuccess) return (int)err;
+    xent_fwd_sm90_kernel<<<grid, kCtaThreads, kSmemBytes, st>>>(
+        mh, mw, static_cast<const long long*>(labels), static_cast<float*>(nll), static_cast<float*>(lse),
+        static_cast<float*>(part), N, D, V, splits);
+    if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return (int)err;
+    return (int)launch_xent_merge(part, labels, nll, lse, N, splits, st);
+}
+
 int dlog_run(const void* h, const void* w, const void* labels, const void* lse, const void* g, void* dlog, int M,
              int D, int V, cudaStream_t st) {
     CUtensorMap mh, mw;
@@ -373,6 +519,12 @@ int dw_run(const void* h, const void* dlog, void* dw, int M, int D, int V, int a
 extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+
+int fused_xent_fwd_sm90_bf16(const void* h, const void* w, const void* labels, void* nll, void* lse, void* part,
+                             int N, int D, int V, int splits, void* stream) {
+    if (bad_dims(N, D, V)) return (int)cudaErrorInvalidValue;
+    return fwd_run(h, w, labels, nll, lse, part, N, D, V, splits, static_cast<cudaStream_t>(stream));
+}
 
 int fused_xent_dlog_sm90_bf16(const void* h, const void* w, const void* labels, const void* lse, const void* g,
                               void* dlog, int N, int D, int V, void* stream) {

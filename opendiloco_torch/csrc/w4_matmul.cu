@@ -1,5 +1,9 @@
-// Fused blockwise-4-bit dequant-matmul for Hopper (sm_90a): out = x @ W with W
-// held packed, dequantized in registers and never written to device memory.
+// Fused blockwise-4-bit dequant-matmul for Hopper (sm_90a), the first
+// design: out = x @ W with W held packed, dequantized in registers and
+// never written to device memory. f32 takes it (the identity probe below
+// needs its f32 products); bf16 takes w4_matmul_sm90.cu (tensor cores,
+// K split across blocks), and reaches this kernel only where
+// ops/decode_kernels.py is asked for route="w4_matmul".
 //
 // Replaces: opendiloco_tpu/ops/decode_kernels.py w4_matmul (_w4_kernel,
 // launched by pl.pallas_call at :561).
@@ -32,12 +36,14 @@
 // Bound on this card: at decode (M = 8) the packed bytes + scales + x + out
 // over 3.35 TB/s (about 22 MB per layer at the 1b shape: 0.5 byte per
 // weight is the whole point of w4); at prefill the 2 * M * K * N operations.
-// Known weaknesses, left for a later change: at decode the time goes to
-// issuing the per-weight dequant (scale load, an IEEE divide by 7, two
-// conversions and roundings: tens of instructions per byte) on the N / 64
-// SMs the grid occupies (4 for the 256-wide k/v projections, 32 for the
-// 2048-wide ones), not to moving bytes; a split of K over more blocks and a
-// packed-integer dequant would address that. No tensor cores at prefill.
+// Known weaknesses: at decode the time goes to issuing the per-weight
+// dequant (scale load, an IEEE divide by 7, two conversions and roundings:
+// tens of instructions per byte) on the N / 64 SMs the grid occupies (4
+// for the 256-wide k/v projections, 32 for the 2048-wide ones), not to
+// moving bytes; one byte is loaded per thread per row of W. For bf16,
+// w4_matmul_sm90.cu answers each of these (16-byte staged copies, one
+// factor per row of K, K split across blocks, tensor cores at prefill);
+// f32 keeps this design.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>

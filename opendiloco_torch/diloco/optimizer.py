@@ -36,6 +36,7 @@ from opendiloco_torch.diloco.outer_optimizer import OuterSGD
 from opendiloco_torch.models.llama import flatten_params
 from opendiloco_torch.utils.debug import schema_fingerprint
 from opendiloco_torch.utils.logger import get_text_logger
+from opendiloco_torch.utils.spans import span
 
 log = get_text_logger(__name__)
 
@@ -215,41 +216,62 @@ class DiLoCoOptimizer:
                 "outer_opt": self.outer_opt.state_dict_refs(),
             }
         t0 = time.monotonic()
-        # the D2H copy of the boundary params overlaps the straggler wait
-        device_leaves = flatten_params(state["params"])
-        fetch_result: list = []
-        fetcher = threading.Thread(target=lambda: fetch_result.append([_to_host(x) for x in device_leaves]))
-        fetcher.start()
-        wait_for_peers(
-            self.backend,
-            target_samples=self.target_samples,
-            own_epoch=self.epoch,
-            strategy=self.cfg.all_reduce_strategy,
-            timeout_waiting_for_peers=self.cfg.timeout_waiting_for_peers,
-            log=log,
-        )
-        wait_s = time.monotonic() - t0
-        fetcher.join()
-        if not fetch_result:
-            raise RuntimeError("the device-to-host copy of the boundary params failed")
-        pseudo_grad = self._pseudo_grad_into(fetch_result[0])
+        # the D2H copy of the boundary params overlaps the straggler wait,
+        # which runs on a thread of its own (the copy stays on this thread,
+        # where a profiler sees it)
+        waited: list = []
 
+        def wait():
+            try:
+                wait_for_peers(
+                    self.backend,
+                    target_samples=self.target_samples,
+                    own_epoch=self.epoch,
+                    strategy=self.cfg.all_reduce_strategy,
+                    timeout_waiting_for_peers=self.cfg.timeout_waiting_for_peers,
+                    log=log,
+                )
+                waited.append(time.monotonic() - t0)
+            except BaseException as e:  # re-raised on this thread below
+                waited.append(e)
+
+        waiter = threading.Thread(target=wait)
+        waiter.start()
+        try:
+            with span("outer.d2h"):
+                boundary = [_to_host(x) for x in flatten_params(state["params"])]
+            d2h_s = time.monotonic() - t0
+        finally:
+            waiter.join()
+        if isinstance(waited[0], BaseException):
+            raise waited[0]
+        wait_s = waited[0]
         t1 = time.monotonic()
-        averaged, group_size = self.backend.all_reduce(
-            pseudo_grad, timeout=self.cfg.averaging_timeout, epoch=self.epoch
-        )
+        with span("outer.pseudo_grad"):
+            pseudo_grad = self._pseudo_grad_into(boundary)
+        del boundary
+        t2 = time.monotonic()
+        with span("outer.all_reduce"):
+            averaged, group_size = self.backend.all_reduce(
+                pseudo_grad, timeout=self.cfg.averaging_timeout, epoch=self.epoch
+            )
         self._check_group_size(group_size)
-        allreduce_s = time.monotonic() - t1
+        t3 = time.monotonic()
+        allreduce_s = t3 - t2
         log.info("outer step %d: all-reduce over %d peers took %.3fs", self.epoch, group_size, allreduce_s)
 
         # clone-then-rebind: published master and momentum arrays stay
         # bit-stable for a concurrent state fetch
-        new_master = [m.copy() for m in self.master]
-        new_opt = self.outer_opt.clone()
-        new_opt.step(new_master, averaged)
+        with span("outer.nesterov"):
+            new_master = [m.copy() for m in self.master]
+            new_opt = self.outer_opt.clone()
+            new_opt.step(new_master, averaged)
         self.master = new_master
         self.outer_opt = new_opt
-        state = self._write_master_to_device(state)  # [H2D]
+        t4 = time.monotonic()
+        with span("outer.h2d"):
+            state = self._write_master_to_device(state)
+        t5 = time.monotonic()
 
         with self._serve_lock:
             self.epoch += 1
@@ -261,6 +283,11 @@ class DiLoCoOptimizer:
             "outer_step_s": time.monotonic() - t0,
             "outer_allreduce_s": allreduce_s,
             "outer_wait_s": wait_s,
+            # the phases: the D2H overlaps the wait; the rest run in turn
+            "outer_d2h_s": d2h_s,
+            "outer_pseudo_grad_s": t2 - t1,
+            "outer_nesterov_s": t4 - t3,
+            "outer_h2d_s": t5 - t4,
             "num_peers": group_size,
             **self._round_health_metrics(),
         }

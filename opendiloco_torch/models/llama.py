@@ -43,6 +43,7 @@ from opendiloco_torch.ops.decode_kernels import (
 )
 from opendiloco_torch.ops.flash_attention import flash_attention
 from opendiloco_torch.quant import dequant_w4
+from opendiloco_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,19 +213,33 @@ def _decoder_block(
     B, T, _ = h.shape
     Nh, Nkv, Dh = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
     cos, sin = rope
-    x = _rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
-    q = (x @ layer["q_proj"]).reshape(B, T, Nh, Dh)
-    k = (x @ layer["k_proj"]).reshape(B, T, Nkv, Dh)
-    v = (x @ layer["v_proj"]).reshape(B, T, Nkv, Dh)
-    q = _rope_apply(q, cos, sin)
-    k = _rope_apply(k, cos, sin)
-    attn = attn_fn(q, k, v)
-    attn_out = attn.reshape(B, T, Nh * Dh) @ layer["o_proj"]
+    with span("llama.attn_norm"):
+        x = _rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
+    with span("llama.qkv"):
+        q = (x @ layer["q_proj"]).reshape(B, T, Nh, Dh)
+        k = (x @ layer["k_proj"]).reshape(B, T, Nkv, Dh)
+        v = (x @ layer["v_proj"]).reshape(B, T, Nkv, Dh)
+    with span("llama.rope"):
+        q = _rope_apply(q, cos, sin)
+        k = _rope_apply(k, cos, sin)
+    with span("llama.attention"):
+        attn = attn_fn(q, k, v)
+    with span("llama.o_proj"):
+        attn_out = attn.reshape(B, T, Nh * Dh) @ layer["o_proj"]
     attn_norm = torch.sqrt(torch.sum(attn_out.float() ** 2)) if probe else None
-    h = h + attn_out
-    x = _rms_norm(h, layer["post_attn_norm"], cfg.rms_norm_eps)
-    ffn = (F.silu(x @ layer["gate_proj"]) * (x @ layer["up_proj"])) @ layer["down_proj"]
-    return h + ffn, attn_norm
+    with span("llama.attn_residual"):
+        h = h + attn_out
+    with span("llama.ffn_norm"):
+        x = _rms_norm(h, layer["post_attn_norm"], cfg.rms_norm_eps)
+    with span("llama.gate_up"):
+        gate, up = x @ layer["gate_proj"], x @ layer["up_proj"]
+    with span("llama.swiglu"):
+        act = F.silu(gate) * up
+    del gate, up  # not live at the down product
+    with span("llama.down"):
+        ffn = act @ layer["down_proj"]
+    with span("llama.ffn_residual"):
+        return h + ffn, attn_norm
 
 
 def _attn_fn(attn_impl: str):
@@ -276,9 +291,10 @@ def forward(
     if positions is None:
         positions = torch.arange(T, device=input_ids.device).expand(B, T)
     attn_fn = _attn_fn(attn_impl)
-    cparams = {k: (v.to(compute_dtype) if not isinstance(v, dict)
-                   else {n: w.to(compute_dtype) for n, w in v.items()})
-               for k, v in params.items()}
+    with span("llama.cast_params"):
+        cparams = {k: (v.to(compute_dtype) if not isinstance(v, dict)
+                       else {n: w.to(compute_dtype) for n, w in v.items()})
+                   for k, v in params.items()}
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     names = sorted(cparams["layers"])
 
@@ -286,16 +302,21 @@ def forward(
         return _decoder_block(cfg, attn_fn, h, dict(zip(names, weights)), rope, return_aux)
 
     block = _maybe_remat(block, remat)
-    h = cparams["embed_tokens"][input_ids]
+    with span("llama.embed"):
+        h = cparams["embed_tokens"][input_ids]
     attn_norms = []
     for i in range(cfg.num_hidden_layers):
-        h, norm = block(h, *(cparams["layers"][n][i] for n in names))
+        with span("llama.layer_params"):  # layer i's slices of the stacked weights
+            weights = [cparams["layers"][n][i] for n in names]
+        h, norm = block(h, *weights)
         attn_norms.append(norm)
-    h = _rms_norm(h, cparams["final_norm"], cfg.rms_norm_eps)
+    with span("llama.final_norm"):
+        h = _rms_norm(h, cparams["final_norm"], cfg.rms_norm_eps)
     head = _head(cparams, cfg)
     if return_hidden:
         return h, head
-    logits = (h @ head).float()
+    with span("llama.lm_head"):
+        logits = (h @ head).float()
     if return_aux:
         return logits, {
             "attn_out_norm": torch.stack(attn_norms),
@@ -309,15 +330,16 @@ def causal_lm_loss(
 ) -> torch.Tensor:
     """Shifted next-token cross-entropy, mean over non-ignored targets
     (HF CausalLM loss semantics)."""
-    shift_logits = logits[:, :-1]
-    shift_labels = labels[:, 1:]
-    mask = shift_labels != ignore_index
-    safe_labels = torch.where(mask, shift_labels, torch.zeros_like(shift_labels))
-    logp = torch.log_softmax(shift_logits, dim=-1)
-    nll = -torch.gather(logp, -1, safe_labels[..., None].long())[..., 0]
-    total = torch.sum(nll * mask)
-    count = torch.clamp(torch.sum(mask), min=1)
-    return total / count
+    with span("loss.causal_lm"):
+        shift_logits = logits[:, :-1]
+        shift_labels = labels[:, 1:]
+        mask = shift_labels != ignore_index
+        safe_labels = torch.where(mask, shift_labels, torch.zeros_like(shift_labels))
+        logp = torch.log_softmax(shift_logits, dim=-1)
+        nll = -torch.gather(logp, -1, safe_labels[..., None].long())[..., 0]
+        total = torch.sum(nll * mask)
+        count = torch.clamp(torch.sum(mask), min=1)
+        return total / count
 
 
 def flatten_params(tree: dict) -> list:

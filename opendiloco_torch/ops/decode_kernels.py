@@ -4,9 +4,15 @@ the fused W4 dequant-matmul.
 The counterparts of ``opendiloco_tpu/ops/decode_kernels.py``
 ``paged_decode_attention``, ``spec_tail_attention_fused`` and
 ``w4_matmul``, written by hand in CUDA C++ for Hopper
-(``csrc/spec_tail_attention.cu``, ``csrc/w4_matmul.cu``, and
-``csrc/paged_decode_attention.cu`` for B6's first design; each source
-notes the TPU kernel it replaces, its bound and its design).
+(``csrc/spec_tail_attention.cu``, ``csrc/w4_matmul_sm90.cu``, and
+``csrc/paged_decode_attention.cu`` and ``csrc/w4_matmul.cu`` for B6's and
+B8's first designs; each source notes the TPU kernel it replaces, its
+bound and its design).
+
+B8 has two routes (:func:`w4_route`): bf16 goes to the tensor-core kernel
+with K split across blocks (:func:`w4_splits`), counted as
+``w4_matmul_sm90``; f32 and shapes it does not take to the first design,
+counted as ``w4_matmul``.
 
 B7 cuts the ring into splits across blocks (:func:`spec_tail_splits`)
 and, with more than one, merges the splits' partials in a second kernel
@@ -46,6 +52,8 @@ from opendiloco_torch.quant import W4_BLOCK, dequant_w4
 SPLIT_SOURCE = "spec_tail_attention"  # B7, and B6 up to SPLIT_MAX_D
 FIRST_SOURCE = "paged_decode_attention"  # B6's first design
 SPLIT_MAX_D = 128
+W4_FIRST_SOURCE = "w4_matmul"  # B8's first design: f32, and shapes the sm90 kernel does not take
+W4_SM90_SOURCE = "w4_matmul_sm90"  # B8 on the tensor cores, K split across blocks: bf16
 _MERGE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 # launch counter: (source, exported C function less its dtype suffix, argtypes)
 _KERNELS = {
@@ -55,7 +63,8 @@ _KERNELS = {
                                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "spec_tail_attention": (SPLIT_SOURCE, "spec_tail_attention", [_P] * 9 + [_I] * 11 + [_F, _P]),
     "spec_tail_attention_merge": (SPLIT_SOURCE, "spec_tail_attention_merge", _MERGE),
-    "w4_matmul": ("w4_matmul", "w4_matmul", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "w4_matmul": (W4_FIRST_SOURCE, "w4_matmul", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "w4_matmul_sm90": (W4_SM90_SOURCE, "w4_matmul_sm90", [_P] * 6 + [_I] * 5 + [_P]),
 }
 register(*_KERNELS)
 
@@ -520,14 +529,146 @@ def w4_matmul_plain(
     return (x.to(dtype).float() @ w).to(dtype)
 
 
+W4_TILE_N = 64  # columns of a sm90 block's tile
+
+
+def w4_sm90_dequant_plain(nib: torch.Tensor, scale_bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The sm90 kernel's dequant of nibbles ``nib`` (0..15, any integer
+    dtype) under fp16 scale bits ``scale_bits`` (int16, broadcast against
+    ``nib``), in torch, for the tests: the factor half2float(s) / 7 by an
+    IEEE divide, the exact float nib - 8 as the float of bits 0x4B000000 |
+    nib (2^23 + nib) less 2^23 + 8, one f32 multiply, one rounding to
+    ``dtype``."""
+    f = scale_bits.view(torch.float16).float()
+    f = f / torch.full_like(f, 7.0)
+    v = (torch.bitwise_or(nib.to(torch.int32), 0x4B000000).view(torch.float32) - 8388616.0)
+    return (v * f).to(dtype)
+
+
+def w4_on_sm90(dtype: torch.dtype, K: int, N: int) -> bool:
+    """The route rule of B8: the sm90 kernel takes bf16 where K is a multiple
+    of 8 (16-byte rows of x) and N of 64 (whole column tiles, each row's
+    64 columns in one scale block); everything else, f32 above all (the
+    identity probe's bits), takes the first design."""
+    return dtype == torch.bfloat16 and K % 8 == 0 and N % W4_TILE_N == 0
+
+
+def w4_route(dtype: torch.dtype, K: int, N: int, route: str | None = None) -> str:
+    """B8's source for these operands: ``route`` when given
+    (W4_FIRST_SOURCE, or W4_SM90_SOURCE where :func:`w4_on_sm90` allows it,
+    else ValueError), else the rule's."""
+    if route is None:
+        return W4_SM90_SOURCE if w4_on_sm90(dtype, K, N) else W4_FIRST_SOURCE
+    if route == W4_FIRST_SOURCE or (route == W4_SM90_SOURCE and w4_on_sm90(dtype, K, N)):
+        return route
+    raise ValueError(f"route {route!r} does not take {dtype} at K {K}, N {N}")
+
+
+def w4_slices(M: int) -> int:
+    """16-row slices of x that one sm90 block owns: enough for M up to 64,
+    so decode (M 8) and the spec verify (M 40) take one row tile."""
+    return min(4, max(1, -(-M // 16)))
+
+
+# floats of f32 split partials a SM that the sm90 B8's scratch holds: with
+# more than one split the (row tile, column tile) blocks number fewer than
+# twice the SMs, a tile spans at most 64 x 64 outputs, and splits < 2 SMs /
+# tiles + 1, so splits * M * N < (2 SMs + tiles) * 4096 < 4 * 4096 SMs
+W4_PART_FLOATS_PER_SM = 16384
+
+
+# the most splits of K the sm90 B8 takes: past 8, the splits' partial
+# stores and the last block's ordered sum of them cost more than the added
+# blocks gain (chip_smoke.py phase 3's sweep; PERF.md, B8)
+W4_MAX_SPLITS = 8
+
+
+def w4_splits(M: int, K: int, N: int, sms: int) -> int:
+    """Splits of K for the sm90 B8: 1 where the (row tile, column tile)
+    blocks already number twice the SMs, else as many as bring the blocks
+    to twice the SMs, at most W4_MAX_SPLITS and one 16-row step of K a
+    split. A function of M, K, N and the SM count alone (at M 8 on 132
+    SMs: 8 for the 2048 x 2048, 2048 x 256 and 5632 x 2048 weights, 3 for
+    2048 x 5632)."""
+    tiles = max(1, -(-M // (16 * w4_slices(M))) * (N // W4_TILE_N))
+    if tiles >= 2 * sms:
+        return 1
+    return max(1, min(-(-K // 16), -(-2 * sms // tiles), W4_MAX_SPLITS))
+
+
+def _w4_plan(M: int, K: int, N: int, dtype: torch.dtype, route: str | None, index: int) -> tuple:
+    """(source, slices, splits) of one call's shape; the sm90 kernel's
+    splits always fit :func:`_w4_scratch` (W4_PART_FLOATS_PER_SM)."""
+    if dtype not in _SUFFIX:
+        raise ValueError(f"dtype {dtype}: need one of f32/bf16")
+    source = w4_route(dtype, K, N, route)
+    if source == W4_FIRST_SOURCE or M == 0:
+        return source, 0, 1
+    mi, sms = w4_slices(M), _sm_count(index)
+    splits = w4_splits(M, K, N, sms)
+    tiles = -(-M // (16 * mi)) * (N // W4_TILE_N)
+    if splits > 1 and (tiles >= 2 * sms or splits * M * N > W4_PART_FLOATS_PER_SM * sms):
+        raise RuntimeError(f"w4_splits {splits} at {(M, K, N)} overflows the sm90 scratch")
+    return source, mi, splits
+
+
+_w4_scratch_bufs: dict = {}
+
+
+def _w4_scratch(index: int, stream: int) -> tuple:
+    """The sm90 B8's scratch for launches on one stream of device ``index``:
+    (partials pointer, tickets pointer, partials, tickets). The tickets, one
+    int32 a tile (2 x SMs), start at 0 and the last block of a tile puts its
+    ticket back; the f32 partials hold W4_PART_FLOATS_PER_SM floats a SM,
+    which :func:`w4_splits` never exceeds. So the scratch is made once, at
+    the stream's first split launch, outside CUDA-graph capture, and never
+    grown or freed: a graph captured on the stream keeps valid pointers
+    (replay it in order with that stream's own B8 launches), and launches
+    on two streams never share a ticket or a partial."""
+    bufs = _w4_scratch_bufs.get((index, stream))
+    if bufs is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("w4_matmul: call it once on the capturing stream before the capture "
+                               "(its scratch is made then)")
+        sms, dev = _sm_count(index), torch.device("cuda", index)
+        part = torch.empty(W4_PART_FLOATS_PER_SM * sms, dtype=torch.float32, device=dev)
+        tickets = torch.zeros(2 * sms, dtype=torch.int32, device=dev)
+        bufs = _w4_scratch_bufs.setdefault((index, stream), (part.data_ptr(), tickets.data_ptr(), part, tickets))
+    return bufs
+
+
+_w4_calls: dict = {}
+
+
+def _w4_call(M: int, K: int, N: int, dtype: torch.dtype, route: str | None, index: int) -> tuple:
+    """(source, the launch's arguments after x, q, s and out) of one call's
+    shape on the current stream, made once (the serving loop makes the
+    same few calls every step)."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    key = (M, K, N, dtype, route, index, stream)
+    call = _w4_calls.get(key)
+    if call is None:
+        source, mi, splits = _w4_plan(M, K, N, dtype, route, index)
+        if source == W4_FIRST_SOURCE:
+            call = (source, (M, K, N))
+        else:
+            part, tickets = _w4_scratch(index, stream)[:2] if splits > 1 else (0, 0)
+            call = (source, (part, tickets, M, K, N, mi, splits))
+        call = _w4_calls.setdefault(key, call)
+    return call
+
+
 def w4_matmul(
-    x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, shape, dtype: torch.dtype
+    x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, shape, dtype: torch.dtype, *, route: str | None = None
 ) -> torch.Tensor:
     """``x [M, K] @ dequant(q, s, (K, N))`` in ``dtype`` (f32 or bf16),
     without materializing the weight. ``q`` is one layer's packed stream
     ([K*N/2] uint8) and ``s`` its [ceil(K*N/4096)] fp16 scale bits
     (int16), the :class:`~opendiloco_torch.models.llama.PackedW4` layout.
-    On the card a shape :func:`w4_matmul_supported` refuses raises."""
+    On the card it launches :func:`w4_route`'s kernel (``route`` forces
+    one), counted as ``w4_matmul_sm90`` or ``w4_matmul``; the sm90 kernel
+    splits K as :func:`w4_splits` says. A shape :func:`w4_matmul_supported`
+    refuses raises."""
     if not _on_card(x, q, s):
         return w4_matmul_plain(x, q, s, shape, dtype)
     if not w4_matmul_supported(shape):
@@ -535,17 +676,15 @@ def w4_matmul(
     K, N = (int(d) for d in shape)
     if x.dim() != 2 or x.shape[1] != K:
         raise ValueError(f"x {tuple(x.shape)} does not match weight {shape}")
-    if dtype not in _SUFFIX:
-        raise ValueError(f"dtype {dtype}: need one of f32/bf16")
     if q.dtype != torch.uint8 or q.numel() != K * N // 2 or not q.is_contiguous():
         raise ValueError(f"q must be contiguous uint8 [{K * N // 2}]")
     nb = (K * N + W4_BLOCK - 1) // W4_BLOCK
     if s.dtype != torch.int16 or s.numel() != nb or not s.is_contiguous():
         raise ValueError(f"s must be contiguous int16 [{nb}]")
-    x2 = x.to(dtype).contiguous()
-    M = x2.shape[0]
-    out = torch.empty((M, N), dtype=dtype, device=x.device)
-    if M == 0:
-        return out
-    _launch("w4_matmul", dtype, x.device, x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), M, K, N)
+    M, dev = x.shape[0], x.device
+    source, tail = _w4_call(M, K, N, dtype, route, dev.index)
+    out = torch.empty((M, N), dtype=dtype, device=dev)
+    if M:
+        x2 = x if x.dtype == dtype and x.is_contiguous() else x.to(dtype).contiguous()
+        _launch(source, dtype, dev, x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), *tail)
     return out

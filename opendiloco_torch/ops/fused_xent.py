@@ -3,8 +3,8 @@ the logits in device memory.
 
 The counterpart of ``opendiloco_tpu/ops/fused_xent.py``. Its three Pallas
 kernels are written by hand in CUDA C++ for Hopper in
-``csrc/fused_xent.cu`` (the source notes what each replaces, its bound
-and its design):
+``csrc/fused_xent_sm90.cu`` (bf16) and ``csrc/fused_xent.cu`` (the first
+design; the sources note what each replaces, its bound and its design):
 
 - B3 ``fused_xent_fwd``: per-token nll and lse by an online log-sum-exp
   over vocab tiles (``_fwd`` / ``_fwd_kernel``);
@@ -14,14 +14,17 @@ and its design):
   B4a ``fused_xent_dh`` gives the chunk's dh = dlog . w^T (``_dh_kernel``)
   and B4b ``fused_xent_dw`` adds its hT . dlog to the f32 dw (``_dw_kernel``).
 
-dlog, dh and dw take one of two routes, chosen from the dtype and sizes
-alone by :func:`_route` (:func:`_on_sm90`): bf16 goes to the wgmma and
-TMA kernels of ``csrc/fused_xent_sm90.cu``, counted as
+Every kernel takes one of two routes, chosen from the dtype alone by
+:func:`_route` (:func:`_on_sm90`): bf16 goes to the wgmma and TMA kernels
+of ``csrc/fused_xent_sm90.cu``, counted as ``fused_xent_fwd_sm90``,
 ``fused_xent_dlog_sm90``, ``fused_xent_dh_sm90`` and
 ``fused_xent_dw_sm90``; f32 to the first design's ``mma.sync`` kernels in
-``csrc/fused_xent.cu``, counted as ``fused_xent_dlog``, ``fused_xent_dh``
-and ``fused_xent_dw``. ``route=`` launches a given route (the smoke times
-the first design in bf16 that way). B3 has one route, the first design.
+``csrc/fused_xent.cu``, counted as ``fused_xent_fwd``,
+``fused_xent_dlog``, ``fused_xent_dh`` and ``fused_xent_dw``. ``route=``
+launches a given route (the smoke times the first design in bf16 that
+way). B3 splits the vocab across blocks on both routes and merges the
+splits' (m, l, target) in split order; :func:`fwd_sm90_splits` is the
+sm90 route's split rule.
 
 Each wrapper sits beside its plain version (``*_plain``), which repeats
 the kernel's arithmetic and roundings on materialized f32 logits: s from
@@ -45,6 +48,8 @@ with it at any width; on the card the kernels take every D they support.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # LAUNCHES is re-exported: callers read the one shared counter from here
@@ -58,13 +63,15 @@ _TILE = 128  # rows and vocab columns of a kernel's output tile
 SOURCE = "fused_xent"
 SM90_SOURCE = "fused_xent_sm90"
 NAMES = ("fused_xent_fwd", "fused_xent_dlog", "fused_xent_dh", "fused_xent_dw")
-SM90_NAMES = ("fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw_sm90")
+SM90_NAMES = ("fused_xent_fwd_sm90", "fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw_sm90")
+_SM90_TILE = (128, 256)  # rows and vocab columns of a B3 sm90 tile
 register(*NAMES, *SM90_NAMES)
 _ARGTYPES = {  # the last pointer is the stream
     "fused_xent_fwd": [P, P, P, P, P, P, I, I, I, I, P],
     "fused_xent_dlog": [P, P, P, P, P, P, I, I, I, P],
     "fused_xent_dh": [P, P, P, I, I, I, P],
     "fused_xent_dw": [P, P, P, I, I, I, I, P],
+    "fused_xent_fwd_sm90": [P, P, P, P, P, P, I, I, I, I, P],
     "fused_xent_dlog_sm90": [P, P, P, P, P, P, I, I, I, P],
     "fused_xent_dh_sm90": [P, P, P, I, I, I, P],
     "fused_xent_dw_sm90": [P, P, P, I, I, I, I, P],
@@ -77,15 +84,15 @@ def _launch(name: str, dtype: torch.dtype, device: torch.device, *args, source: 
 
 
 def _on_sm90(dtype: torch.dtype) -> bool:
-    """The route rule of dlog, dh and dw: the wgmma kernels take bf16 (at every
-    D and V that :func:`_check` lets through: multiples of 8, the 16-byte
-    rows TMA needs); f32 takes the first design."""
+    """The route rule of every kernel here: the wgmma kernels take bf16 (at
+    every D and V that :func:`_check` lets through: multiples of 8, the
+    16-byte rows TMA needs); f32 takes the first design."""
     return dtype == torch.bfloat16
 
 
 def _route(dtype: torch.dtype, route: str | None = None) -> str:
-    """The source of the dlog, dh and dw kernels for ``dtype``: ``route`` when
-    given (SOURCE, or SM90_SOURCE where :func:`_on_sm90` allows it, else
+    """The source of the kernels for ``dtype``: ``route`` when given
+    (SOURCE, or SM90_SOURCE where :func:`_on_sm90` allows it, else
     ValueError), else the rule's."""
     if route is None:
         return SM90_SOURCE if _on_sm90(dtype) else SOURCE
@@ -176,28 +183,50 @@ def fused_xent_dw_plain(h, dlog, out=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _fwd_splits(N: int, V: int, device: torch.device) -> int:
-    """Vocab splits of B3: enough 128-row blocks to cover the SMs once. A
-    function of N, V and the card only, so results repeat on one card."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(sms // -(-N // _TILE), -(-V // _TILE)))
+    """Vocab splits of the first design's B3: enough 128-row blocks to cover
+    the SMs once. A function of N, V and the card only, so results repeat
+    on one card."""
+    return max(1, min(_sm_count(device) // -(-N // _TILE), -(-V // _TILE)))
 
 
-def fused_xent_fwd(h, w, labels) -> tuple[torch.Tensor, torch.Tensor]:
-    """B3: (nll [N], lse [N]) in f32."""
+@functools.lru_cache(maxsize=256)
+def fwd_sm90_splits(N: int, V: int, sms: int) -> int:
+    """Vocab splits of the sm90 B3: a unit of work is (split, 128-row tile),
+    a CTA an SM takes units in turn, and a unit walks its split's 256-column
+    vocab tiles. The count is the smallest that minimises the vocab tiles
+    the busiest CTA walks, ceil(units / sms) * ceil(tiles / splits), so it
+    depends on N, V and the SM count alone and results repeat on one card
+    (125, one vocab tile a split, at N 8184, V 32000 on 132
+    SMs)."""
+    mt, nvt = -(-N // _SM90_TILE[0]), -(-V // _SM90_TILE[1])
+    return min(range(1, nvt + 1), key=lambda s: (-(-mt * s // sms) * -(-nvt // s), s))
+
+
+def fused_xent_fwd(h, w, labels, *, route: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """B3: (nll [N], lse [N]) in f32, on :func:`_route`'s kernel, the vocab
+    split across blocks and the splits merged in order."""
     if not on_card(h, w, labels):
         return fused_xent_fwd_plain(h, w, labels)
     (N, D), (_, V) = _dims(h, w, (1, 0), "h [N, D] and w [D, V]")
     _check(N, D, V, h, w)
     _check_rows(N, labels)
+    source = _route(h.dtype, route)
     nll = torch.empty(N, dtype=torch.float32, device=h.device)
     lse = torch.empty(N, dtype=torch.float32, device=h.device)
-    splits = _fwd_splits(N, V, h.device)
+    if source == SM90_SOURCE:
+        splits = fwd_sm90_splits(N, V, _sm_count(h.device))
+    else:
+        splits = _fwd_splits(N, V, h.device)
     part = torch.empty((3, splits, N) if splits > 1 else (1,), dtype=torch.float32, device=h.device)
     _launch(
         "fused_xent_fwd", h.dtype, h.device,
         h.data_ptr(), w.data_ptr(), labels.data_ptr(), nll.data_ptr(), lse.data_ptr(), part.data_ptr(),
-        N, D, V, splits,
+        N, D, V, splits, source=source,
     )
     return nll, lse
 

@@ -82,11 +82,16 @@ def launch(name: str, source: str, symbol: str, argtypes, device: torch.device, 
     every tensor alive, and PyTorch reuses freed memory only in stream
     order, after the kernel."""
     fn, lib = _entry(source, symbol, argtypes)
-    with torch.cuda.device(device):
-        # the raw stream, not torch.cuda.current_stream(device).cuda_stream:
-        # that builds a torch.cuda.Stream object, microseconds of host time
-        # a launch on a host-bound decode step
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
+    # the raw stream, not torch.cuda.current_stream(device).cuda_stream: that
+    # builds a torch.cuda.Stream object, microseconds of host time a launch on
+    # a host-bound decode step; and a device switch only where the device is
+    # not already current (the switch costs more host time than the launch)
+    index = torch.cuda.current_device()
+    if device.index is None or device.index == index:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(
             f"{name}: CUDA launch failed: {lib.cuda_error_string(err).decode()} ({err})"
@@ -97,6 +102,9 @@ def launch(name: str, source: str, symbol: str, argtypes, device: torch.device, 
 def on_card(*tensors: torch.Tensor) -> bool:
     """True when all tensors lie on one CUDA device, False when all lie on
     the CPU; anything else raises."""
+    index = tensors[0].get_device()  # the fast test first: all on one card
+    if index >= 0 and all(t.is_cuda and t.get_device() == index for t in tensors):
+        return True
     dev = tensors[0].device
     if all(t.device == dev for t in tensors) and dev.type in ("cpu", "cuda"):
         return dev.type == "cuda"

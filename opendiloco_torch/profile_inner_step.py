@@ -8,10 +8,14 @@ kernels, and at 1b the fused cross-entropy kernels; fake "ramp" data),
 times ``--steps`` inner steps
 untraced, then traces as many with CPU and CUDA activities. Every device
 event of the trace (kernels, copies, fills) goes into one group by its
-name. Prints one JSON object as its last line: per inner step, the untraced
-and traced wall ms, the device's busy ms (the union of its event
-intervals) and idle share, each group's ms, share, event count and
-longest kernels by function name, and the longest kernels overall; ``--out`` also keeps the Chrome trace::
+name, and into the model op that issued it (the ``record_function`` spans
+of ``utils/spans.py``; :func:`span_table` says how backward kernels find
+their forward op). Prints a table of device ms by span and group, then
+one JSON object as its last line: per inner step, the untraced and traced
+wall ms, the device's busy ms (the union of its event intervals) and idle
+share, each group's ms, share, event count and longest kernels by
+function name, the longest kernels overall, and the device ms by span and
+group; ``--out`` also keeps the Chrome trace::
 
     python -m opendiloco_torch.profile_inner_step [--config 1b] [--steps 3] [--out DIR]
 
@@ -113,7 +117,106 @@ def summarize(events: list, steps: int, step_ms: float) -> dict:
             {"name": n[:120], "ms": us / steps / 1e3, "calls": c / steps, "group": group_of(n)}
             for n, (us, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
         ],
+        "spans": span_table(events, steps),
     }
+
+
+AUTOGRAD_NODE = "autograd::engine::evaluate_function: "
+
+
+def _innermost(intervals: list, points: list) -> dict:
+    """For each point ``(ts, key)``, the payload of the innermost interval
+    ``(start, end, payload)`` that holds it, or None; the intervals nest
+    (record_function ranges and op events of one thread)."""
+    intervals = sorted(intervals, key=lambda iv: (iv[0], -iv[1]))
+    out, stack, i = {}, [], 0
+    for ts, key in sorted(points, key=lambda p: p[0]):
+        while i < len(intervals) and intervals[i][0] <= ts:
+            while stack and stack[-1][1] < intervals[i][0]:
+                stack.pop()
+            stack.append(intervals[i])
+            i += 1
+        while stack and stack[-1][1] < ts:
+            stack.pop()
+        out[key] = stack[-1] if stack else None
+    return out
+
+
+def span_table(events: list, steps: int) -> dict:
+    """Device ms per step by span (``utils/spans.py``) and kernel group.
+
+    A device event is tied to the CPU call that launched it (the runtime
+    or driver call of the same correlation id) and takes the innermost
+    ``record_function`` span around that call on its thread. A kernel that
+    an autograd node launched (a backward op, on the autograd engine's
+    thread, inside ``evaluate_function``) takes instead the span of the
+    forward op whose sequence number the node carries, as "<span>
+    (backward)"; the forward recompute of remat runs its own spans and
+    counts under them. What no span holds is "(none)", and a backward node
+    whose forward op no span holds is "<node> (backward, no span)"."""
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    by_tid: dict = {}
+
+    def thread(tid):
+        return by_tid.setdefault(tid, {"spans": [], "nodes": [], "points": []})
+
+    fwd_ops: dict = {}
+    for e in events:
+        if "dur" not in e:
+            continue
+        cat, name, args = e.get("cat"), e.get("name", ""), e.get("args", {})
+        iv = (e["ts"], e["ts"] + e["dur"], e)
+        if cat == "user_annotation":
+            thread(e["tid"])["spans"].append(iv)
+        elif cat == "cpu_op" and name.startswith(AUTOGRAD_NODE) and "Sequence number" in args:
+            thread(e["tid"])["nodes"].append(iv)
+        elif cat == "cpu_op" and "Sequence number" in args:
+            fwd_ops.setdefault(args["Sequence number"], []).append(e)
+    for k in dev:
+        call = calls.get(k.get("args", {}).get("correlation"))
+        if call is not None:
+            thread(call["tid"])["points"].append((call["ts"], id(k)))
+    for ops in fwd_ops.values():
+        for op in ops:
+            thread(op["tid"])["points"].append((op["ts"], id(op)))
+    span_at, node_at = {}, {}
+    for t in by_tid.values():
+        span_at.update(_innermost(t["spans"], t["points"]))
+        node_at.update(_innermost(t["nodes"], t["points"]))
+
+    def label(key) -> str:
+        sp, node = span_at.get(key), node_at.get(key)
+        if node is not None and (sp is None or node[0] > sp[0]):
+            seq, ts = node[2]["args"]["Sequence number"], node[0]
+            fwd = max((op for op in fwd_ops.get(seq, []) if op["ts"] < ts), key=lambda op: op["ts"], default=None)
+            fsp = span_at.get(id(fwd)) if fwd is not None else None
+            if fsp is None:
+                return f"{node[2]['name'].removeprefix(AUTOGRAD_NODE)} (backward, no span)"
+            return f"{fsp[2]['name']} (backward)"
+        return sp[2]["name"] if sp is not None else "(none)"
+
+    table: dict = {}
+    for k in dev:
+        row = table.setdefault(label(id(k)), {"ms": 0.0, "groups": {}})
+        ms = k["dur"] / steps / 1e3
+        row["ms"] += ms
+        g = group_of(k["name"], k["cat"])
+        row["groups"][g] = row["groups"].get(g, 0.0) + ms
+    return {name: {"ms": row["ms"], "groups": dict(sorted(row["groups"].items(), key=lambda kv: -kv[1]))}
+            for name, row in sorted(table.items(), key=lambda kv: -kv[1]["ms"])}
+
+
+def format_spans(spans: dict) -> str:
+    """The span table as text: one row a span, its device ms a step and
+    its ms by kernel group, longest first."""
+    groups = sorted({g for row in spans.values() for g in row["groups"]})
+    head = ["span", "ms"] + groups
+    rows = [[name, f"{row['ms']:.3f}"] + [f"{row['groups'].get(g, 0.0):.3f}" for g in groups]
+            for name, row in spans.items()]
+    widths = [max(len(r[i]) for r in [head] + rows) for i in range(len(head))]
+    return "\n".join("  ".join(c.ljust(w) for c, w in zip(r, widths)) for r in [head] + rows)
 
 
 def card_line() -> str:
@@ -173,6 +276,7 @@ def main(argv=None) -> int:
         "step_ms_untraced": step_ms, "step_ms_traced": traced_ms,
         **summarize(events, args.steps, step_ms),
     }
+    print(format_spans(res["spans"]))
     if args.out is None:
         os.remove(trace)
         os.rmdir(out_dir)

@@ -188,8 +188,8 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
         if diloco_opt is not None:
             row["num_peers"] = diloco_opt.max_num_peers
             row["outer_epoch"] = diloco_opt.epoch
-            for k in ("outer_step_s", "outer_allreduce_s", "outer_wait_s", "elastic",
-                      "expected_peers", "round_retries"):
+            for k in ("outer_step_s", "outer_allreduce_s", "outer_wait_s", "outer_d2h_s", "outer_pseudo_grad_s",
+                      "outer_nesterov_s", "outer_h2d_s", "elastic", "expected_peers", "round_retries"):
                 if k in metrics:
                     row[k] = metrics[k]
         row.update(extras)

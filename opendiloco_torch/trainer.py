@@ -41,6 +41,7 @@ from opendiloco_torch.models.llama import (
     init_params,
 )
 from opendiloco_torch.ops.fused_xent import fused_linear_cross_entropy_sharded
+from opendiloco_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,35 +147,37 @@ def _adamw_leaves(tc: TrainerConfig, g: list, mu: list, nu: list, p: list, grad_
     """One clipped AdamW step over lists of leaves, in place on ``mu``,
     ``nu`` and ``p``; ``bc1``/``bc2`` are the bias corrections."""
     b1, b2 = tc.adam_betas
-    # clip: select(norm < max_norm, g, (g / norm) * max_norm)
-    clip = grad_norm >= tc.max_grad_norm
-    scaled = torch._foreach_div(g, grad_norm)
-    torch._foreach_mul_(scaled, tc.max_grad_norm)
-    g = [torch.where(clip, a, b) for a, b in zip(scaled, g)]
-    del scaled
-    # moments: (1 - b) * g**order + b * t
-    new_mu = torch._foreach_mul(g, 1 - b1)
-    torch._foreach_add_(new_mu, torch._foreach_mul(mu, b1))
-    g2 = torch._foreach_mul(g, g)
-    torch._foreach_mul_(g2, 1 - b2)
-    torch._foreach_add_(g2, torch._foreach_mul(nu, b2))
-    del g
-    for dst, src in zip(mu, new_mu):
-        dst.copy_(src)
-    for dst, src in zip(nu, g2):
-        dst.copy_(src)
-    del new_mu, g2
-    # m_hat / (sqrt(v_hat) + eps) + wd * p, times -lr
-    denom = torch._foreach_div(nu, bc2)
-    torch._foreach_sqrt_(denom)
-    torch._foreach_add_(denom, tc.adam_eps)
-    upd = torch._foreach_div(mu, bc1)
-    torch._foreach_div_(upd, denom)
-    del denom
-    if tc.weight_decay:
-        torch._foreach_add_(upd, torch._foreach_mul(p, tc.weight_decay))
-    torch._foreach_mul_(upd, -lr)
-    torch._foreach_add_(p, upd)
+    with span("adamw.clip"):
+        # clip: select(norm < max_norm, g, (g / norm) * max_norm)
+        clip = grad_norm >= tc.max_grad_norm
+        scaled = torch._foreach_div(g, grad_norm)
+        torch._foreach_mul_(scaled, tc.max_grad_norm)
+        g = [torch.where(clip, a, b) for a, b in zip(scaled, g)]
+        del scaled
+    with span("adamw.update"):
+        # moments: (1 - b) * g**order + b * t
+        new_mu = torch._foreach_mul(g, 1 - b1)
+        torch._foreach_add_(new_mu, torch._foreach_mul(mu, b1))
+        g2 = torch._foreach_mul(g, g)
+        torch._foreach_mul_(g2, 1 - b2)
+        torch._foreach_add_(g2, torch._foreach_mul(nu, b2))
+        del g
+        for dst, src in zip(mu, new_mu):
+            dst.copy_(src)
+        for dst, src in zip(nu, g2):
+            dst.copy_(src)
+        del new_mu, g2
+        # m_hat / (sqrt(v_hat) + eps) + wd * p, times -lr
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, tc.adam_eps)
+        upd = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(upd, denom)
+        del denom
+        if tc.weight_decay:
+            torch._foreach_add_(upd, torch._foreach_mul(p, tc.weight_decay))
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(p, upd)
 
 
 def make_inner_optimizer(tc: TrainerConfig) -> InnerOptimizer:
@@ -294,9 +297,10 @@ class InnerTrainer:
         states: the single shift and reshape site, as in the JAX package
         (one device, so the unsharded entry)."""
         d = hidden.shape[-1]
-        return fused_linear_cross_entropy_sharded(
-            hidden[:, :-1].reshape(-1, d), head, labels[:, 1:].reshape(-1), mesh=None
-        )
+        with span("loss.fused"):
+            return fused_linear_cross_entropy_sharded(
+                hidden[:, :-1].reshape(-1, d), head, labels[:, 1:].reshape(-1), mesh=None
+            )
 
     def _loss_fn(self, params: dict, input_ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         kw = dict(
@@ -319,18 +323,22 @@ class InnerTrainer:
         loss_sum, grad_sum = None, None
         for i in range(accum):
             loss = self._loss_fn(params, batch["input_ids"][i], batch["labels"][i]) * scale
-            grads = torch.autograd.grad(loss, leaves)
+            with span("trainer.backward"):
+                grads = torch.autograd.grad(loss, leaves)
             loss = loss.detach()
-            if grad_sum is None:
-                loss_sum, grad_sum = loss, list(grads)
-            else:
-                loss_sum = loss_sum + loss
-                torch._foreach_add_(grad_sum, grads)
+            with span("trainer.grad_accum"):
+                if grad_sum is None:
+                    loss_sum, grad_sum = loss, list(grads)
+                else:
+                    loss_sum = loss_sum + loss
+                    torch._foreach_add_(grad_sum, grads)
             del grads
         inv = float(np.float32(1.0) / (np.float32(accum) * np.float32(scale)))
-        torch._foreach_mul_(grad_sum, inv)
-        loss = loss_sum * inv
-        grad_norm = global_norm(grad_sum)
+        with span("trainer.grad_accum"):
+            torch._foreach_mul_(grad_sum, inv)
+            loss = loss_sum * inv
+        with span("trainer.grad_norm"):
+            grad_norm = global_norm(grad_sum)
 
         scaler = state["scaler"]
         if self.tc.use_loss_scaling:

@@ -275,6 +275,151 @@ def test_w4_matmul_bf16_matches_plain(cuda):
     torch.testing.assert_close(out.float(), ref.float(), rtol=2**-7, atol=1e-3)
 
 
+# the config_1b layer's shapes, then K not a multiple of 16, one column tile
+# and a short K
+SM90_W4_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (200, 64), (64, 128), (24, 320)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SM90_W4_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("M", [1, 8, 40, 100, 1024])
+def test_w4_matmul_sm90_matches_plain_and_repeats(cuda, shape, M):
+    """The sm90 B8 (bf16) against its plain version: both sum in f32 and
+    round once to bf16, so 2**-7 of the largest output; bit for bit on a
+    second launch; counted under its own name; its tickets back at 0."""
+    K, N = shape
+    q, s, g = _packed(cuda, K, N, seed=K + N + M)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    n0 = dict(tdk.LAUNCHES)
+    out = tdk.w4_matmul(x, q, s, shape, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tdk.LAUNCHES["w4_matmul_sm90"] == n0["w4_matmul_sm90"] + 1
+    assert tdk.LAUNCHES["w4_matmul"] == n0["w4_matmul"]
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    assert torch.equal(out, tdk.w4_matmul(x, q, s, shape, torch.bfloat16))
+    ref = tdk.w4_matmul_plain(x, q, s, shape, torch.bfloat16).float()
+    assert float((out.float() - ref).abs().max()) <= 2**-7 * float(ref.abs().max())
+    bufs = tdk._w4_scratch_bufs.get((out.device.index, torch.cuda.current_stream().cuda_stream))
+    assert bufs is None or not bool(bufs[3].any())
+
+
+def _w4_sm90_at(x, q, s, K, N, splits):
+    """The sm90 B8's C entry at a forced split count, with scratch of its
+    own: (out, tickets after the launch)."""
+    M = x.shape[0]
+    out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
+    part = torch.empty(max(1, splits * M * N), dtype=torch.float32, device=x.device)
+    tickets = torch.zeros(-(-M // (16 * tdk.w4_slices(M))) * (N // tdk.W4_TILE_N), dtype=torch.int32,
+                          device=x.device)
+    tdk._launch("w4_matmul_sm90", torch.bfloat16, x.device, x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                out.data_ptr(), part.data_ptr(), tickets.data_ptr(), M, K, N, tdk.w4_slices(M), splits)
+    return out, tickets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SM90_W4_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_w4_matmul_sm90_forced_splits_cover_k(cuda, shape):
+    """The kernel's own cut of K: at split counts that do and do not divide
+    its 16-row steps, up to one step a split, every split count agrees with
+    the plain version (2**-7 of the largest output) and leaves its tickets
+    at 0."""
+    K, N = shape
+    q, s, g = _packed(cuda, K, N, seed=K + 3 * N)
+    ksteps = -(-K // 16)
+    for M in (8, 40):
+        x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+        ref = tdk.w4_matmul_plain(x, q, s, shape, torch.bfloat16).float()
+        for splits in sorted({1, 2, 3, 7, max(1, ksteps // 3), max(1, ksteps - 1), ksteps}):
+            if splits > ksteps:
+                continue
+            out, tickets = _w4_sm90_at(x, q, s, K, N, splits)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref).abs().max())
+            assert err <= 2**-7 * float(ref.abs().max()), (M, splits, err)
+            assert not bool(tickets.any()), (M, splits)
+
+
+@pytest.mark.cuda
+def test_w4_matmul_graph_keeps_its_scratch(cuda):
+    """A graph captured on a stream keeps that stream's scratch: calls at a
+    larger shape after the capture (a prefill's 1024 rows through the 2048
+    x 256 weight take more partials than decode's 8) move nothing, and the
+    replay gives the bits the eager call gave."""
+    K, N = 2048, 256
+    q, s, g = _packed(cuda, K, N, seed=21)
+    x = torch.randn(8, K, generator=g, device=cuda).to(torch.bfloat16)
+    big = torch.randn(1024, K, generator=g, device=cuda).to(torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        want = tdk.w4_matmul(x, q, s, (K, N), torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    before = dict(tdk._w4_scratch_bufs)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = tdk.w4_matmul(x, q, s, (K, N), torch.bfloat16)
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            wide = tdk.w4_matmul(big, q, s, (K, N), torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = tdk.w4_matmul_plain(big, q, s, (K, N), torch.bfloat16).float()
+        assert float((wide.float() - ref).abs().max()) <= 2**-7 * float(ref.abs().max())
+    for key, bufs in before.items():
+        assert tdk._w4_scratch_bufs[key][:2] == bufs[:2]
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_w4_matmul_two_streams_keep_their_bits(cuda):
+    """Split launches on two streams at once use a scratch each: 20 rounds
+    of calls issued on both streams with no wait between them give the bits
+    of one call on one stream."""
+    K, N = 2048, 256
+    q, s, g = _packed(cuda, K, N, seed=22)
+    xs = [torch.randn(8, K, generator=g, device=cuda).to(torch.bfloat16) for _ in range(2)]
+    want = [tdk.w4_matmul(x, q, s, (K, N), torch.bfloat16) for x in xs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(tdk.w4_matmul(xs[i], q, s, (K, N), torch.bfloat16))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, want[i]) for o in outs[i]), i
+
+
+@pytest.mark.cuda
+def test_w4_matmul_routes(cuda):
+    """bf16 at N a multiple of 64 takes the sm90 kernel, other shapes and
+    f32 the first design; the sm90 route forced on f32 raises and launches
+    nothing."""
+    q, s, g = _packed(cuda, 64, 96, seed=5)
+    x = torch.randn(8, 64, generator=g, device=cuda)
+    n0 = dict(tdk.LAUNCHES)
+    tdk.w4_matmul(x, q, s, (64, 96), torch.bfloat16)  # 96 columns: the first design
+    torch.cuda.synchronize()
+    assert tdk.LAUNCHES["w4_matmul"] == n0["w4_matmul"] + 1
+    with pytest.raises(ValueError):
+        tdk.w4_matmul(x, q, s, (64, 96), torch.bfloat16, route=tdk.W4_SM90_SOURCE)
+    q, s, _ = _packed(cuda, 64, 128, seed=6)
+    with pytest.raises(ValueError):
+        tdk.w4_matmul(x, q, s, (64, 128), torch.float32, route=tdk.W4_SM90_SOURCE)
+    assert tdk.LAUNCHES["w4_matmul_sm90"] == n0["w4_matmul_sm90"]
+    first = tdk.w4_matmul(x, q, s, (64, 128), torch.bfloat16, route=tdk.W4_FIRST_SOURCE)
+    sm90 = tdk.w4_matmul(x, q, s, (64, 128), torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tdk.LAUNCHES["w4_matmul_sm90"] == n0["w4_matmul_sm90"] + 1
+    assert float((first.float() - sm90.float()).abs().max()) <= 2**-6 * float(first.float().abs().max())
+
+
 # ---------------------------------------------------------------------------
 # flash attention: B1, B2a, B2b
 # ---------------------------------------------------------------------------
@@ -696,9 +841,9 @@ def test_fused_xent_kernels_match_plain(cuda, geom, dtype):
     dh = tfx.fused_xent_dh(ref_dlog, w)
     dw = tfx.fused_xent_dw(h[rows], ref_dlog)
     torch.cuda.synchronize()
-    # bf16 dlog, dh and dw take the sm90 kernels, f32 the first design
+    # bf16 takes the sm90 kernels, f32 the first design
     sfx = "_sm90" if dtype == torch.bfloat16 else ""
-    for name in ("fused_xent_fwd", "fused_xent_dlog" + sfx, "fused_xent_dh" + sfx, "fused_xent_dw" + sfx):
+    for name in ("fused_xent_fwd" + sfx, "fused_xent_dlog" + sfx, "fused_xent_dh" + sfx, "fused_xent_dw" + sfx):
         assert tdk.LAUNCHES[name] == n0[name] + 1
     assert nll.dtype == lse.dtype == torch.float32 and nll.shape == lse.shape == (N,)
     assert dlog.dtype == dh.dtype == dtype and dw.dtype == torch.float32
@@ -732,10 +877,12 @@ def test_fused_xent_kernels_repeat_bitwise(cuda):
         runs.append((nll, lse, *tfx.fused_xent_bwd(h, w, labels, lse, gup)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
-    # bf16 took the sm90 dlog, dh and dw (the route under test), 3 chunks a run
+    # bf16 took the sm90 kernels (the route under test): B3 once a run, dlog,
+    # dh and dw for each of 3 chunks a run
     for name in tfx.SM90_NAMES:
-        assert tdk.LAUNCHES[name] == n0[name] + 6
-    assert tdk.LAUNCHES["fused_xent_dlog"] == n0["fused_xent_dlog"]
+        assert tdk.LAUNCHES[name] == n0[name] + (2 if name == "fused_xent_fwd_sm90" else 6)
+    for name in tfx.NAMES:
+        assert tdk.LAUNCHES[name] == n0[name]
 
 
 # (N, D, V): the 1b chunk, the ragged last chunk of 8184 rows, a small and
@@ -816,6 +963,64 @@ def test_fused_xent_dw_sm90_matches_plain_and_repeats(cuda, N):
     print(f"sm90 dw N{N}: max err {float((dw - ref).abs().max()) / top:.2e} of the largest |dw|")
 
 
+# (N, D, V): the 1b forward, its 150m width, a ragged vocab (masked columns
+# in the last tile), one vocab tile (one split), a small N
+SM90_FWD_GEOMS = [(8184, 2048, 32000), (8184, 1024, 32000), (1000, 1024, 1000), (4096, 256, 256), (300, 256, 4000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", SM90_FWD_GEOMS, ids=lambda g: "x".join(map(str, g)))
+def test_fused_xent_fwd_sm90_matches_plain_and_repeats(cuda, geom):
+    """The sm90 B3 against its plain version and the first design (through
+    route=) with test_fused_xent_kernels_match_plain's limits (nll and lse
+    within 1e-4 of the largest lse), no loss on an ignored row, bit for
+    bit on a second launch, one launch counted under its own name."""
+    from opendiloco_torch.ops import fused_xent as tfx
+
+    N, D, V = geom
+    h, w, labels, _ = _xent_inputs(cuda, N, D, V, torch.bfloat16)
+    n0 = dict(tdk.LAUNCHES)
+    nll, lse = tfx.fused_xent_fwd(h, w, labels)
+    torch.cuda.synchronize()
+    assert tdk.LAUNCHES["fused_xent_fwd_sm90"] == n0["fused_xent_fwd_sm90"] + 1
+    assert tdk.LAUNCHES["fused_xent_fwd"] == n0["fused_xent_fwd"]
+    again = tfx.fused_xent_fwd(h, w, labels)
+    assert torch.equal(nll, again[0]) and torch.equal(lse, again[1])
+    assert not bool(nll[labels == -100].any())
+    ref_nll, ref_lse = tfx.fused_xent_fwd_plain(h, w, labels)
+    first = tfx.fused_xent_fwd(h, w, labels, route=tfx.SOURCE)
+    scale = max(1.0, float(ref_lse.abs().max()))
+    for ref in ((ref_nll, ref_lse), first):
+        assert float((lse - ref[1]).abs().max()) <= 1e-4 * scale
+        assert float((nll - ref[0]).abs().max()) <= 1e-4 * scale
+    print(f"sm90 B3 {geom}: {tfx.fwd_sm90_splits(N, V, torch.cuda.get_device_properties(cuda).multi_processor_count)} "
+          f"splits, lse err {float((lse - ref_lse).abs().max()):.2e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(1000, 256, 4000), (300, 512, 32000)], ids=lambda g: "x".join(map(str, g)))
+def test_fused_xent_fwd_sm90_forced_splits_cover_the_vocab(cuda, geom):
+    """The kernel's own cut of the vocab: at split counts that do and do not
+    divide its 256-column tiles, up to one tile a split, nll and lse agree
+    with the plain version within 1e-4 of the largest lse."""
+    from opendiloco_torch.ops import fused_xent as tfx
+
+    N, D, V = geom
+    h, w, labels, _ = _xent_inputs(cuda, N, D, V, torch.bfloat16)
+    ref_nll, ref_lse = tfx.fused_xent_fwd_plain(h, w, labels)
+    scale = max(1.0, float(ref_lse.abs().max()))
+    nvt = -(-V // 256)
+    for splits in sorted({1, 2, 3, 7, nvt // 2, nvt - 1, nvt}):
+        nll = torch.empty(N, dtype=torch.float32, device=cuda)
+        lse = torch.empty(N, dtype=torch.float32, device=cuda)
+        part = torch.empty((3, splits, N) if splits > 1 else (1,), dtype=torch.float32, device=cuda)
+        tfx._launch("fused_xent_fwd", h.dtype, h.device, h.data_ptr(), w.data_ptr(), labels.data_ptr(),
+                    nll.data_ptr(), lse.data_ptr(), part.data_ptr(), N, D, V, splits, source=tfx.SM90_SOURCE)
+        torch.cuda.synchronize()
+        assert float((lse - ref_lse).abs().max()) <= 1e-4 * scale, splits
+        assert float((nll - ref_nll).abs().max()) <= 1e-4 * scale, splits
+
+
 @pytest.mark.cuda
 def test_fused_xent_f32_takes_the_first_design(cuda):
     from opendiloco_torch.ops import fused_xent as tfx
@@ -824,10 +1029,11 @@ def test_fused_xent_f32_takes_the_first_design(cuda):
     h, w, labels, gup = _xent_inputs(cuda, N, D, V, torch.float32)
     _, lse = tfx.fused_xent_fwd_plain(h, w, labels)
     n0 = dict(tdk.LAUNCHES)
+    tfx.fused_xent_fwd(h, w, labels)
     dlog = tfx.fused_xent_dlog(h, w, labels, lse, gup)
     tfx.fused_xent_dh(dlog, w)
     torch.cuda.synchronize()
-    for name in ("fused_xent_dlog", "fused_xent_dh"):
+    for name in ("fused_xent_fwd", "fused_xent_dlog", "fused_xent_dh"):
         assert tdk.LAUNCHES[name] == n0[name] + 1
     for name in tfx.SM90_NAMES:
         assert tdk.LAUNCHES[name] == n0[name]
@@ -863,6 +1069,8 @@ def test_fused_xent_sm90_route_refuses(cuda, bad):
     stats = torch.zeros(N, device=cuda)
     dlog = torch.zeros(N, V, device=cuda, dtype=dtype)
     n0 = dict(tdk.LAUNCHES)
+    with pytest.raises(ValueError):
+        tfx.fused_xent_fwd(h, w, labels, route=route)
     with pytest.raises(ValueError):
         tfx.fused_xent_dlog(h, w, labels, stats, stats, route=route)
     with pytest.raises(ValueError):

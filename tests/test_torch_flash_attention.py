@@ -13,7 +13,15 @@ an online softmax, the plain version sums each row in one pass).
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda_kernels.py and chip_smoke.py.
+
+With ``OPENDILOCO_TORCH_PARITY_RECORD`` naming a folder, the forward
+parity test saves its inputs and both sides' outputs there, one ``.npz`` a
+run (pass or fail), so a run that misses its tolerance can be held against
+a clean one to see which side moved (ROADMAP queue C, C3).
 """
+import os
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -70,6 +78,12 @@ def test_forward_out_and_lse_match_jax_kernel(interpret_pallas, causal):
     q, k, v, _ = _inputs()
     out, lse = fa._fwd(_bhtd(q), _bhtd(k), _bhtd(v), block_q=128, block_k=128, causal=causal)
     tout, tlse = tfa.flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal)
+    record = os.environ.get("OPENDILOCO_TORCH_PARITY_RECORD")
+    if record:
+        os.makedirs(record, exist_ok=True)
+        name = f"fwd-{'causal' if causal else 'full'}-{os.getpid()}-{time.time_ns()}.npz"
+        np.savez(os.path.join(record, name), q=q, k=k, v=v, jax_out=np.asarray(out), jax_lse=np.asarray(lse),
+                 torch_out=tout.numpy(), torch_lse=tlse.numpy())
     _close(tout.numpy(), np.asarray(out).transpose(0, 2, 1, 3))
     _close(tlse.numpy(), np.asarray(lse)[:, :, 0])
 

@@ -179,6 +179,45 @@ def test_plain_pieces_repeat_the_kernels_roundings():
     torch.testing.assert_close(acc, 2 * dw)
 
 
+def test_route_rule_takes_the_forward_too():
+    """B3 routes as dlog, dh and dw do, from the dtype alone: bf16 to the
+    sm90 kernel, f32 to the first design; a route that cannot take the
+    dtype raises. On the CPU every route is the plain version."""
+    assert tfx._route(torch.bfloat16) == tfx.SM90_SOURCE
+    assert tfx._route(torch.float32) == tfx.SOURCE
+    assert tfx._route(torch.bfloat16, tfx.SOURCE) == tfx.SOURCE
+    for dtype, route in ((torch.float32, tfx.SM90_SOURCE), (torch.bfloat16, "fused_xent_sm80")):
+        with pytest.raises(ValueError):
+            tfx._route(dtype, route)
+    assert "fused_xent_fwd_sm90" in tfx.SM90_NAMES and "fused_xent_fwd" in tfx.NAMES
+    h, w, labels = _inputs(64, 128, 256, seed=10)
+    th, tw, tl = torch.from_numpy(h).bfloat16(), torch.from_numpy(w).bfloat16(), torch.from_numpy(labels).long()
+    before = dict(tfx.LAUNCHES)
+    ref = tfx.fused_xent_fwd_plain(th, tw, tl)
+    for route in (None, tfx.SM90_SOURCE, tfx.SOURCE):
+        assert all(torch.equal(a, b) for a, b in zip(tfx.fused_xent_fwd(th, tw, tl, route=route), ref))
+    assert tfx.LAUNCHES == before
+
+
+@pytest.mark.parametrize("N,V", [(8184, 32000), (2040, 32000), (8184, 1000), (1000, 1000), (128, 256), (20000, 50304)])
+def test_fwd_sm90_split_rule_is_minimal(N, V):
+    """The sm90 B3's vocab splits: a function of (N, V, SMs) alone, between
+    1 and the 256-column vocab tiles (so no split is empty), whose busiest
+    CTA walks no more tiles than under any other count. (The kernel's own
+    cover of the vocab is checked on the card against the plain version,
+    at forced split counts.)"""
+    nvt, mt = -(-V // 256), -(-N // 128)
+    for sms in (132, 114, 7, 1):
+        splits = tfx.fwd_sm90_splits(N, V, sms)
+        assert splits == tfx.fwd_sm90_splits(N, V, sms) and 1 <= splits <= nvt
+
+        def busiest(s):
+            return -(-mt * s // sms) * -(-nvt // s)
+
+        assert busiest(splits) == min(busiest(s) for s in range(1, nvt + 1))
+    assert tfx.fwd_sm90_splits(8184, 32000, 132) == 125  # the 1b shape: 8000 units of one tile
+
+
 def test_sharded_entry_takes_one_device_and_refuses_a_mesh():
     h, w, labels = _inputs(32, 128, 64, seed=9)
     th, tw, tl = torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(labels).long()

@@ -149,6 +149,97 @@ def test_w4_identity_probe_is_bitwise_dequant(shape):
     np.testing.assert_array_equal(out, ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w4_sm90_dequant_equals_dequant_w4_bitwise(monkeypatch, dtype):
+    """The sm90 B8's dequant arithmetic (a factor a scale, 2^23 + nib less
+    2^23 + 8, one multiply, one rounding), emulated in torch, against
+    dequant_w4 for every finite fp16 scale pattern and all 16 nibbles.
+    dequant_w4 runs with scale blocks of 16 elements (the block size only
+    maps scales to elements), so each block holds the 16 nibbles once."""
+    bits = torch.arange(-(2**15), 2**15, dtype=torch.int32).to(torch.int16)
+    bits = bits[torch.isfinite(bits.view(torch.float16))]
+    assert bits.numel() == 2**16 - 2 * 1024  # less the infinities and NaNs
+    nib = torch.arange(16, dtype=torch.uint8)
+    flat = nib.repeat(bits.numel())
+    q = flat[0::2] | (flat[1::2] << 4)
+    monkeypatch.setattr(quant, "W4_BLOCK", 16)
+    ref = quant.dequant_w4(q, bits, (bits.numel(), 16), dtype)
+    emu = tdk.w4_sm90_dequant_plain(nib[None, :], bits[:, None], dtype)
+    assert emu.dtype == ref.dtype == dtype
+    wide = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(emu.view(wide), ref.view(wide))
+
+
+# the seven matmul weights of a config_1b layer (q, k, v, o, gate, up, down
+# give four shapes), then shapes off the tile grid: K not a multiple of 16,
+# one column tile, a K shorter than a split step, a deep down projection
+W4_1B_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]
+W4_ODD_SHAPES = [(200, 64), (64, 128), (8, 64), (5632, 64), (1000, 2048), (24, 5632)]
+
+
+@pytest.mark.parametrize("shape", W4_1B_SHAPES + W4_ODD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_w4_split_rule(shape):
+    """The sm90 B8's K splits: a function of (M, K, N, SMs) alone, between
+    1 and the 16-row steps of K (so no split is empty) and at most
+    W4_MAX_SPLITS; below that cap, enough blocks for twice the SMs. At
+    decode on 132 SMs the config_1b shapes take 8, 8, 3 and 8 splits. (The
+    kernel's own cover of K is checked on the card against the plain
+    version, at forced split counts.)"""
+    K, N = shape
+    for M in (1, 8, 40, 100, 1024):
+        for sms in (132, 114, 16, 1):
+            splits = tdk.w4_splits(M, K, N, sms)
+            assert splits == tdk.w4_splits(M, K, N, sms) and 1 <= splits <= min(-(-K // 16), tdk.W4_MAX_SPLITS)
+            tiles = -(-M // (16 * tdk.w4_slices(M))) * (N // tdk.W4_TILE_N)
+            if splits < min(-(-K // 16), tdk.W4_MAX_SPLITS):
+                assert tiles * splits >= 2 * sms, (M, shape, sms, splits)
+            if splits > 1:
+                assert tiles * (splits - 1) < 2 * sms, (M, shape, sms, splits)
+    if shape in W4_1B_SHAPES:
+        assert tdk.w4_splits(8, K, N, 132) == {(2048, 5632): 3}.get(shape, 8)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16, 1])
+def test_w4_splits_fit_the_fixed_scratch(sms):
+    """The sm90 B8's scratch is made once a stream and never grown: for
+    every shape the rule splits, the tickets (one a tile) fit in 2 x SMs and
+    the f32 partials (splits x M x N) in W4_PART_FLOATS_PER_SM a SM."""
+    for M in (*range(1, 130), 200, 1000, 1024, 4096):
+        for N in (64, 128, 192, 256, 320, 1024, 2048, 5632):
+            for K in (8, 24, 200, 2048, 5632):
+                splits = tdk.w4_splits(M, K, N, sms)
+                if splits > 1:
+                    tiles = -(-M // (16 * tdk.w4_slices(M))) * (N // tdk.W4_TILE_N)
+                    assert tiles < 2 * sms and splits * M * N <= tdk.W4_PART_FLOATS_PER_SM * sms, (M, K, N)
+
+
+def test_w4_route_rule():
+    # from the dtype and shape alone, so it holds without a card
+    sm90, first = tdk.W4_SM90_SOURCE, tdk.W4_FIRST_SOURCE
+    assert tdk.w4_route(torch.bfloat16, 2048, 5632) == sm90
+    assert tdk.w4_route(torch.float32, 2048, 5632) == first  # f32 (the identity probe) keeps the first design
+    assert tdk.w4_route(torch.bfloat16, 64, 66) == first  # N not a multiple of 64
+    assert tdk.w4_route(torch.bfloat16, 12, 64) == first  # K not a multiple of 8
+    assert tdk.w4_route(torch.bfloat16, 2048, 256, first) == first
+    for dtype, K, N, route in ((torch.float32, 2048, 256, sm90), (torch.bfloat16, 64, 66, sm90),
+                               (torch.bfloat16, 2048, 256, "w4_matmul_sm80")):
+        with pytest.raises(ValueError):
+            tdk.w4_route(dtype, K, N, route)
+    assert [tdk.w4_slices(M) for M in (1, 8, 16, 17, 40, 48, 49, 1024)] == [1, 1, 1, 2, 3, 3, 4, 4]
+
+
+def test_w4_matmul_takes_the_plain_version_on_the_cpu_on_either_route():
+    rng = np.random.default_rng(11)
+    K, N = 64, 128
+    (_, _), (tq, ts) = _pack_both(_randn(rng, 1, K, N))
+    x = _t(_randn(rng, 8, K))
+    before = dict(tdk.LAUNCHES)
+    ref = tdk.w4_matmul_plain(x, tq[0], ts[0], (K, N), torch.bfloat16)
+    for route in (None, tdk.W4_SM90_SOURCE, tdk.W4_FIRST_SOURCE):
+        assert torch.equal(tdk.w4_matmul(x, tq[0], ts[0], (K, N), torch.bfloat16, route=route), ref)
+    assert tdk.LAUNCHES == before
+
+
 def test_w4_matmul_rejects_odd_columns(monkeypatch):
     # the kernel gives each thread a column pair, one packed byte: an odd
     # column count is refused on the card, at the wrapper and through the
