@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: serving, speculative
-decode, prefix reuse and training.
+decode, prefix reuse, training, checkpoint and resume, and the command
+line.
 
     python3 chip_smoke.py
 
@@ -77,7 +78,15 @@ exits non-zero.
    (12 x accum each), the delta kernel (12 x accum), B3 (accum) and the
    first design's dlog, B4a and B4b (accum x 4 each), the sm90 kernels
    never, against the same step through plain attention and the
-   materialized loss.
+   materialized loss. The run checkpoints every 4 steps (``ckpt.interval``
+   4, a temporary ``ckpt.path``).
+8b. Resume: two fresh workers on a fresh loopback world run ``train()``
+   with ``ckpt.resume`` at phase 8's ``model_step_4``: steps 5-8 through
+   the same kernels. Each step's loss and LR must equal phase 8's bit for
+   bit, each worker's final master hash phase 8's, and the launch counts
+   (zeroed just before, read just after) half of phase 8's. Each worker's
+   seconds to save and to load and its bytes on disk; then the
+   checkpoints are removed.
 9. B3, the dlog kernel, B4a and B4b (fused lm-head + cross-entropy)
    against their plain versions at the 1b training shape (N 8184, D 2048,
    V 32000; dlog, dh and dw at its first 2048-row chunk), its ragged last
@@ -146,7 +155,17 @@ exits non-zero.
    each loop: the plain loop's B6 (f32, the split kernel) and its merge
    22 times per decode step, the spec loop's B7 66 and its merge 66 per
    round.
-16. The kernels line (launches of B6, B7, their merges and B8 by serving
+16. A weights directory at config_150m: ``save_params`` of params drawn
+   on the card, then ``get_model(dir)``: every leaf equal bit for bit.
+17. The 25-step drive (ROADMAP.md A9 gate 3): config_2m,
+   ``DiLoCoOptimizer`` with ``local_steps`` 10 over ``LoopbackWorld(1)``,
+   ramp data, batch 32 x 256, accum 2: the loss from about ln(1024) to
+   below 6.2, an outer step after steps 10 and 20.
+18. The command line: ``python -m opendiloco_torch.train`` at config_2m in
+   a subprocess on the default device, 20 steps with a checkpoint at 10,
+   then again resuming from ``model_step_10``: steps 11-20 equal bit for
+   bit.
+19. The kernels line (launches of B6, B7, their merges and B8 by serving
    phase, of the training kernels by training phase), the card line, and
    last the result line.
 
@@ -160,6 +179,7 @@ whichever is larger (the H100 SXM data sheet).
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import math
 import subprocess
@@ -1927,9 +1947,77 @@ def phase_xent(torch, tfx, dev) -> list:
 # ---------------------------------------------------------------------------
 
 # phase 8, config_150m: lr 1e-3 rather than the config default 4e-4, so that
-# 8 steps from a random init move the loss well clear of step-to-step noise
+# 8 steps from a random init move the loss well clear of step-to-step noise;
+# a checkpoint every 4 steps, which phase 8b resumes from
 TRAIN_150M = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=2,
-                  total_steps=8, local_steps=4, lr=1e-3)
+                  total_steps=8, local_steps=4, lr=1e-3, ckpt_interval=4)
+
+
+def master_hash(master) -> str:
+    h = hashlib.sha256()
+    for m in master:
+        h.update(memoryview(m).cast("B"))
+    return h.hexdigest()
+
+
+def recording_backends(world) -> list:
+    """One loopback backend a worker of ``world`` that hashes the worker's
+    master as each round begins (the master the previous round left) and
+    keeps its state provider for the final check."""
+    from opendiloco_torch.diloco import LoopbackBackend
+
+    class RecordingBackend(LoopbackBackend):
+        def __init__(self, world, peer_id):
+            super().__init__(world, peer_id)
+            self.hashes: dict = {}
+            self.provider = None
+
+        def serve_state(self, get_state):
+            self.provider = get_state
+            super().serve_state(get_state)
+
+        def all_reduce(self, arrays, *, epoch=None, **kw):
+            if epoch:
+                self.hashes[epoch - 1] = master_hash(self.provider()["master"])
+            return super().all_reduce(arrays, epoch=epoch, **kw)
+
+    return [RecordingBackend(world, f"peer-{i}") for i in range(world.n_peers)]
+
+
+def train_config(model: str, run: dict, rank: int, project: str, ckpt: dict):
+    """The ``Config`` of worker ``rank`` of phases 8, 8b and 10."""
+    from opendiloco_torch.config import Config
+
+    return Config(
+        path_model=model, fake_data=True, fake_data_mode="ramp", precision="bf16-mixed", remat=True,
+        seq_length=run["seq_length"], per_device_train_batch_size=run["per_device_train_batch_size"],
+        total_batch_size=run["total_batch_size"], warmup_steps=run["warmup_steps"],
+        total_steps=run["total_steps"], lr=run["lr"], metric_logger_type="dummy", project=project,
+        ckpt=ckpt,
+        diloco=dict(local_steps=run["local_steps"], backend="loopback", world_rank=rank,
+                    timeout_waiting_for_peers=600.0),
+    )
+
+
+def run_workers(fn, args_by_worker: list) -> list:
+    """``fn(*args)`` for each worker, one thread each; returns their results
+    and raises the first worker's error."""
+    results, errors = [None] * len(args_by_worker), []
+
+    def work(i):
+        try:
+            results[i] = fn(*args_by_worker[i])
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(len(args_by_worker))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
 # phase 10, config_1b: 4 steps, 2 outer rounds (the host outer step moves
 # 4.4 GB of f32 per worker); warmup 1 so that 3 of the 4 steps update
 TRAIN_1B = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=1,
@@ -1946,13 +2034,12 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
     variants in ``compare`` (the first is the path's own), on the same
     params and batch, each with one worker's steady inner-step time and
     peak device memory alone."""
-    import hashlib
     import os
     import pickle
+    import shutil
     import tempfile
 
-    from opendiloco_torch.config import Config
-    from opendiloco_torch.diloco import LoopbackBackend, LoopbackWorld
+    from opendiloco_torch.diloco import LoopbackWorld
     from opendiloco_torch.models.hf_io import load_config
     from opendiloco_torch.ops import fused_xent as tfx
     from opendiloco_torch.train import train
@@ -1960,67 +2047,25 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
 
     cfg = load_config(model)
     L, accum = cfg.num_hidden_layers, run["total_batch_size"] // run["per_device_train_batch_size"]
-
-    def master_hash(master) -> str:
-        h = hashlib.sha256()
-        for m in master:
-            h.update(memoryview(m).cast("B"))
-        return h.hexdigest()
-
-    class RecordingBackend(LoopbackBackend):
-        """Loopback backend that hashes this worker's master as each round
-        begins (the master the previous round left) and keeps its state
-        provider for the final check."""
-
-        def __init__(self, world, peer_id):
-            super().__init__(world, peer_id)
-            self.hashes: dict = {}
-            self.provider = None
-
-        def serve_state(self, get_state):
-            self.provider = get_state
-            super().serve_state(get_state)
-
-        def all_reduce(self, arrays, *, epoch=None, **kw):
-            if epoch:
-                self.hashes[epoch - 1] = master_hash(self.provider()["master"])
-            return super().all_reduce(arrays, epoch=epoch, **kw)
-
-    world = LoopbackWorld(2)
-    backends = [RecordingBackend(world, f"peer-{i}") for i in range(2)]
+    backends = recording_backends(LoopbackWorld(2))
     tmp = tempfile.mkdtemp()
-    summaries, errors = [None, None], []
+    ckpt_path = os.path.join(tmp, "ckpts")
+    if run.get("ckpt_interval"):
+        free = shutil.disk_usage(tmp).free
+        log(f"train {model}: checkpoints every {run['ckpt_interval']} steps under {ckpt_path} "
+            f"({free / 2**30:.1f} GiB free there)")
 
     def config(rank):
-        return Config(
-            path_model=model, fake_data=True, fake_data_mode="ramp", precision="bf16-mixed", remat=True,
-            seq_length=run["seq_length"], per_device_train_batch_size=run["per_device_train_batch_size"],
-            total_batch_size=run["total_batch_size"], warmup_steps=run["warmup_steps"],
-            total_steps=run["total_steps"], lr=run["lr"], metric_logger_type="dummy",
-            project=os.path.join(tmp, f"metrics-{rank}.pkl"),
-            diloco=dict(local_steps=run["local_steps"], backend="loopback", world_rank=rank,
-                        timeout_waiting_for_peers=600.0),
-        )
-
-    def work(rank):
-        try:
-            summaries[rank] = train(config(rank), backends[rank], device=dev)
-        except BaseException as e:
-            errors.append(e)
+        return train_config(model, run, rank, os.path.join(tmp, f"metrics-{rank}.pkl"),
+                            dict(path=ckpt_path, interval=run.get("ckpt_interval")))
 
     torch.cuda.reset_peak_memory_stats()
     tfa.LAUNCHES.reset()
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=work, args=(r,)) for r in range(2)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+    summaries = run_workers(train, [(config(r), backends[r], dev) for r in range(2)])
     wall = time.perf_counter() - t0
     launches = tfa.LAUNCHES.snapshot()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    if errors:
-        raise errors[0]
     steps = run["total_steps"]
     inner_steps = 2 * steps  # two workers
     want = {name: 0 for name in launches}
@@ -2064,7 +2109,8 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
     if len(outer_s) != 2 * rounds:
         raise AssertionError(f"expected {2 * rounds} outer steps, got {outer_s}")
     hashes = [b.hashes for b in backends]
-    del backends, world, summaries
+    ckpt_save_s = [sm["ckpt_save_s"] for sm in summaries]
+    del backends, summaries
     # the workers' host state (fp32 masters, outer momentum: GBs at 1b)
     # may sit in reference cycles: collect it now, not inside a timed turn
     gc.collect()
@@ -2132,10 +2178,13 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
         "config": model, "layers": L, "hidden": cfg.hidden_size, "heads": cfg.num_attention_heads,
         **run, "accum": accum, "workers": 2, "outer_rounds": rounds, "fused_loss": fused,
         "losses": [[r["Loss"] for r in rr] for rr in rows],
+        "lrs": [[r["lr"] for r in rr] for rr in rows],
         "grad_norms": [[r["grad_norm"] for r in rr] for rr in rows],
         "launches": launches,
         "launches_per_inner_step": {k: v / inner_steps for k, v in launches.items()},
         "master_hashes": hashes,
+        "ckpt_save_s": ckpt_save_s,
+        "ckpt_path": ckpt_path if run.get("ckpt_interval") else None,
         **outer,
         "train_wall_s": wall,
         "peak_memory_gib_two_workers": peak_gb,
@@ -2167,6 +2216,203 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
     log(f"train {model}: losses {res['losses']}; {a} vs {b} step loss {kl:.5f}/{pl_:.5f}, "
         f"grad norm {kg:.5f}/{pg:.5f}; launches {launches}")
     return res
+
+
+def phase_resume(torch, tfa, dev, card: str, p8: dict) -> dict:
+    """Phase 8b: two fresh workers on a fresh loopback world resume phase
+    8's run through ``train()`` from its step-4 checkpoint and run steps
+    5-8. Each step's loss and LR must equal phase 8's bit for bit, each
+    worker's final master hash phase 8's final hash, and the launch counts
+    (zeroed just before, read just after) those of 4 steps of phase 8.
+    Prints each worker's seconds to save (in phase 8) and to load, and its
+    checkpoint's bytes on disk; then removes the checkpoints."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from opendiloco_torch.diloco import LoopbackWorld
+    from opendiloco_torch.train import train
+
+    run, ckpt_path = TRAIN_150M, p8["ckpt_path"]
+    step = run["ckpt_interval"]
+    resume_dir = os.path.join(ckpt_path, f"model_step_{step}")
+    disk = {}
+    for rank in range(2):
+        d = os.path.join(resume_dir, f"diloco_rank_{rank}")
+        disk[rank] = {f: os.path.getsize(os.path.join(d, f)) for f in sorted(os.listdir(d))}
+    tmp = tempfile.mkdtemp()
+    backends = recording_backends(LoopbackWorld(2))
+    configs = [train_config("150m", run, r, os.path.join(tmp, f"metrics-{r}.pkl"),
+                            dict(path=ckpt_path, resume=resume_dir)) for r in range(2)]
+    tfa.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    summaries = run_workers(train, [(configs[r], backends[r], dev) for r in range(2)])
+    wall = time.perf_counter() - t0
+    launches = tfa.LAUNCHES.snapshot()
+    want = {k: v * (run["total_steps"] - step) // run["total_steps"] for k, v in p8["launches"].items()}
+    if launches != want:
+        raise AssertionError(f"resumed launch counts {launches} != {want} (4 steps of phase 8)")
+    res = {"resumed_from_step": step, "launches": launches, "train_wall_s": wall, "workers": []}
+    rounds = run["total_steps"] // run["local_steps"]
+    for rank in range(2):
+        with open(os.path.join(tmp, f"metrics-{rank}.pkl"), "rb") as f:
+            rows = pickle.load(f)
+        losses, lrs = [r["Loss"] for r in rows], [r["lr"] for r in rows]
+        final_hash = master_hash(backends[rank].provider()["master"])
+        worker = {
+            "rank": rank, "steps": [r["step"] for r in rows], "losses": losses, "lrs": lrs,
+            "losses_phase8": p8["losses"][rank][step:], "lrs_phase8": p8["lrs"][rank][step:],
+            "final_master_hash": final_hash, "final_master_hash_phase8": p8["master_hashes"][rank][rounds - 1],
+            "save_s": p8["ckpt_save_s"][rank][0], "load_s": summaries[rank]["ckpt_load_s"],
+            "bytes_on_disk": sum(disk[rank].values()), "files": disk[rank],
+        }
+        res["workers"].append(worker)
+        log(f"resume 150m worker {rank}: save {worker['save_s']:.3f} s (phase 8), load {worker['load_s']:.3f} s, "
+            f"{worker['bytes_on_disk']} bytes on disk {json.dumps(disk[rank])} | {card}")
+        log(f"resume 150m worker {rank}: steps {worker['steps']} losses {losses} vs phase 8 "
+            f"{worker['losses_phase8']}; lrs {lrs} vs {worker['lrs_phase8']}; final master "
+            f"{final_hash[:16]} vs phase 8 {worker['final_master_hash_phase8'][:16]}")
+        if worker["steps"] != list(range(step + 1, run["total_steps"] + 1)):
+            raise AssertionError(f"resumed worker {rank} logged steps {worker['steps']}")
+        if losses != worker["losses_phase8"] or lrs != worker["lrs_phase8"]:
+            raise AssertionError(f"resumed worker {rank}: losses/LRs differ from phase 8's: {worker}")
+        if final_hash != worker["final_master_hash_phase8"]:
+            raise AssertionError(f"resumed worker {rank}: final master differs from phase 8's")
+    log(f"resume 150m: launches {launches} (4 steps of phase 8); losses, LRs and final masters bit for bit")
+    shutil.rmtree(os.path.dirname(ckpt_path), ignore_errors=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+# the SKILL's 25-step drive (ROADMAP.md A9, gate 3): 2m, local_steps 10,
+# ramp data, batch 32 x 256, accum 2; ln(1024) = 6.93 at the start
+GATE3 = dict(steps=25, local_steps=10, batch=32, seq=256, accum=2, loss_below=6.2)
+
+
+def phase_gate3(torch, tfa, dev, card: str) -> dict:
+    """``DiLoCoOptimizer`` over ``LoopbackWorld(1)`` at config_2m on the
+    card, as a user drives it: the loss must fall from about ln(1024) to
+    below 6.2 by step 25, with an outer step every 10 steps."""
+    from opendiloco_torch.config import DilocoConfig
+    from opendiloco_torch.diloco import DiLoCoOptimizer, LoopbackWorld
+    from opendiloco_torch.models.hf_io import get_model
+    from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
+
+    cfg, _ = get_model("2m")
+    trainer = InnerTrainer(cfg, TrainerConfig(warmup_steps=5, total_steps=1000), device=dev)
+    state = trainer.init_state(0)
+    (backend,) = LoopbackWorld(1).make_backends()
+    g = GATE3
+    opt = DiLoCoOptimizer(trainer, backend, DilocoConfig(local_steps=g["local_steps"], backend="loopback"),
+                          state, g["batch"])
+    rng = np.random.default_rng(0)
+    losses, outer_at = [], []
+    tfa.LAUNCHES.reset()
+    for step in range(g["steps"]):
+        ids = ((rng.integers(0, cfg.vocab_size, (g["batch"], 1)) + np.arange(g["seq"])) % cfg.vocab_size)
+        ids = ids.astype(np.int32)
+        state, m = opt.step(state, trainer.shard_batch(ids, ids.copy(), accum=g["accum"]))
+        losses.append(float(m["loss"]))
+        if "outer_step_s" in m:
+            outer_at.append(step + 1)
+    launches = {k: v for k, v in tfa.LAUNCHES.snapshot().items() if v}
+    log(f"gate 3 (2m, 25 steps): losses {[round(x, 4) for x in losses]}; outer steps after steps {outer_at}; "
+        f"launches {launches} | {card}")
+    if not (abs(losses[0] - math.log(cfg.vocab_size)) < 0.2 and losses[-1] < g["loss_below"]):
+        raise AssertionError(f"gate 3: loss {losses[0]} -> {losses[-1]}, want ~6.93 -> < {g['loss_below']}")
+    if outer_at != [10, 20]:
+        raise AssertionError(f"gate 3: outer steps after steps {outer_at}, want [10, 20]")
+    return {**g, "losses": losses, "outer_after_steps": outer_at, "launches": launches}
+
+
+def phase_weights_dir(torch, dev, card: str) -> dict:
+    """A weights-directory round trip at config_150m: ``save_params`` of
+    params drawn on the card, then ``get_model(dir)``: every leaf equal bit
+    for bit."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from opendiloco_torch.models.convert import params_to_numpy
+    from opendiloco_torch.models.hf_io import get_model, load_config, save_params
+    from opendiloco_torch.models.llama import flatten_params, init_params
+
+    cfg = load_config("150m")
+    params = init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    d = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        save_params(params, cfg, d)
+        t1 = time.perf_counter()
+        cfg2, loaded = get_model(d)
+        t2 = time.perf_counter()
+        nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    want = flatten_params(params_to_numpy(params))
+    got = flatten_params(loaded)
+    # config.json spells out the kv heads a bare config leaves to default
+    equal = cfg2 == dataclasses.replace(cfg, num_key_value_heads=cfg.kv_heads) and len(got) == len(want) and all(
+        a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b) for a, b in zip(got, want))
+    log(f"weights dir 150m: save_params {t1 - t0:.3f} s, get_model {t2 - t1:.3f} s, {nbytes} bytes, "
+        f"{len(got)} leaves bit for bit: {equal} | {card}")
+    if not equal:
+        raise AssertionError("weights directory round trip at 150m changed a leaf or the config")
+    return {"save_s": t1 - t0, "load_s": t2 - t1, "bytes": nbytes, "leaves": len(got)}
+
+
+# the CLI on the card: config_2m, 20 steps, a checkpoint every 10
+CLI_ARGS = ["--path-model", "2m", "--fake-data", "--fake-data-mode", "ramp", "--seq-length", "256",
+            "--per-device-train-batch-size", "16", "--total-batch-size", "32", "--lr", "1e-3",
+            "--warmup-steps", "4", "--total-steps", "20", "--metric-logger-type", "dummy",
+            "--ckpt.interval", "10"]
+
+
+def phase_cli(card: str) -> dict:
+    """``python -m opendiloco_torch.train`` at 2m in a subprocess on the
+    default device (no ``OPENDILOCO_TORCH_DEVICE``): 20 steps with a
+    checkpoint at step 10, then again resuming from ``model_step_10``. The
+    rows of steps 11-20 must equal the first run's bit for bit."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp()
+    env = {k: v for k, v in os.environ.items() if k != "OPENDILOCO_TORCH_DEVICE"}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    ckpts = os.path.join(tmp, "ckpts")
+    rows, secs = {}, {}
+    try:
+        for label, extra in (("full", []), ("resumed", ["--ckpt.resume", os.path.join(ckpts, "model_step_10")])):
+            project = os.path.join(tmp, f"{label}.pkl")
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", "opendiloco_torch.train", *CLI_ARGS, "--project", project,
+                                  "--ckpt.path", ckpts, *extra], cwd=root, env=env, capture_output=True,
+                                 text=True, timeout=600)
+            secs[label] = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise AssertionError(f"CLI {label} run exited {res.returncode}: {res.stderr[-3000:]}")
+            with open(project, "rb") as f:
+                rows[label] = pickle.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    full = {r["step"]: r for r in rows["full"]}
+    resumed = rows["resumed"]
+    keys = ("Loss", "lr", "grad_norm")
+    log(f"CLI 2m: {len(rows['full'])} rows, resumed {len(resumed)} from step {resumed[0]['step']}; "
+        f"{secs['full']:.1f} s / {secs['resumed']:.1f} s a process; losses "
+        f"{[round(r['Loss'], 4) for r in rows['full']]} | {card}")
+    if len(full) != 20 or [r["step"] for r in resumed] != list(range(11, 21)):
+        raise AssertionError(f"CLI rows: {sorted(full)} and resumed {[r['step'] for r in resumed]}")
+    differ = [r["step"] for r in resumed if any(r[k] != full[r["step"]][k] for k in keys)]
+    if differ:
+        raise AssertionError(f"CLI resume: steps {differ} differ from the first run")
+    return {"steps": len(full), "resumed_steps": len(resumed), "process_s": secs,
+            "losses": [r["Loss"] for r in rows["full"]]}
 
 
 def phase_train_f32(torch, tfa, dev, card: str) -> dict:
@@ -2276,9 +2522,13 @@ def main() -> int:
     flash = phase_flash(torch, tfa, dev)
     train_150m = phase_train(torch, tfa, dev, card, "150m", TRAIN_150M,
                              {"kernels": dict(attn_impl="pallas"), "plain": dict(attn_impl="xla")})
+    resume_150m = phase_resume(torch, tfa, dev, card, train_150m)
     train_f32 = phase_train_f32(torch, tfa, dev, card)
     xent = phase_xent(torch, tfx, dev)
     train_1b = phase_train(torch, tfa, dev, card, "1b", TRAIN_1B, {"fused": {}, "unfused": dict(fused_loss=False)})
+    weights_dir = phase_weights_dir(torch, dev, card)
+    gate3 = phase_gate3(torch, tfa, dev, card)
+    cli = phase_cli(card)
 
     # launches: each serving phase's main path, by phase
     serving = {f"serve {s['weight_format']}": s["launches"] for s in serve}
@@ -2293,12 +2543,14 @@ def main() -> int:
     # f32 step; bf16 training takes the sm90 kernels; delta runs on both)
     for k in (*flash, *xent):
         k["launches_by_phase"] = {"train 150m": train_150m["launches"][k["name"]],
+                                  "resume 150m": resume_150m["launches"][k["name"]],
                                   "train 150m fp32 step": train_f32["launches"][k["name"]],
                                   "train 1b": train_1b["launches"][k["name"]]}
         k["launches"] = sum(k["launches_by_phase"].values())
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
     log(json.dumps({"serve": serve, "spec": spec, "spec_f32": spec_f32, "prefix": prefix, "reference": reference,
-                    "train": [train_150m, train_1b, train_f32], "seconds": time.perf_counter() - t_start}))
+                    "train": [train_150m, train_1b, train_f32], "resume": resume_150m, "weights_dir": weights_dir,
+                    "gate3": gate3, "cli": cli, "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b6, *b7, *b8, *flash, *xent]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

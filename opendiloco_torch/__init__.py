@@ -10,17 +10,22 @@ Layout:
     config     -- the ``Config``/``DilocoConfig``/``ServeConfig`` fields the port reads
     quant      -- blockwise-4-bit packer for ``weight_format="w4"``
     models/    -- functional Llama (training forward and loss, prefill /
-                  paged decode), configs, weight IO
+                  paged decode), configs, HF weight directories
     ops/       -- plain attention, the hand-written CUDA kernels (flash
                   attention, paged decode attention, W4 matmul), their
                   build and their launch counter
     trainer    -- ``InnerTrainer``: one worker's train step (AdamW, clip,
                   accumulation, fp16 loss scaling)
-    diloco/    -- outer loop: loopback backend, outer SGD, ``DiLoCoOptimizer``
+    diloco/    -- outer loop: loopback backend, outer SGD, ``DiLoCoOptimizer``,
+                  state-tree packing
     data/      -- fake token streams and the batching loader
-    train      -- ``train()``: one DiLoCo worker's training loop
+    ckpt       -- checkpoint and resume (``device_state.safetensors`` and
+                  the JAX package's sidecar files)
+    train      -- ``train()``: one DiLoCo worker's training loop, and the
+                  command line (``python -m opendiloco_torch.train``)
     serve/     -- serving engine, continuous batcher, ``build_serving``
-    utils/     -- loggers and parameter fingerprints
+    utils/     -- loggers, the safetensors reader and writer, parameter
+                  fingerprints
 
 Entry points run on the card by default and raise when it is absent;
 tests pass ``device="cpu"``, where every kernel wrapper takes its plain

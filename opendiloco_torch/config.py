@@ -3,16 +3,49 @@
 Copies of ``CkptConfig``, ``DilocoConfig``, ``Config`` and the geometry,
 speculative-decode and prefix-reuse parts of ``ServeConfig`` (same names,
 defaults and validation), as dataclasses so the port needs no pydantic.
-Nested sections may be given as dicts. Fields for hot swap, the KV tier
-and the HTTP front end arrive with the slices that use them; options
-that ``train()`` reads but the port does not run yet raise there.
+Nested sections may be given as dicts, and values as the strings of a
+command line (:func:`parse_argv`, the JAX package's copy), which each
+field converts to its type. Fields for hot swap, the KV tier and the HTTP
+front end arrive with the slices that use them; options that ``train()``
+reads but the port does not run yet raise there.
 """
 from __future__ import annotations
 
 import dataclasses
+import sys
+import typing
 from typing import Any, Optional, Union
 
 WEIGHT_FORMATS = ("fp32", "w4")
+
+
+_TRUE = ("true", "1", "yes", "on", "t", "y")
+_FALSE = ("false", "0", "no", "off", "f", "n")
+
+
+def _to_bool(name: str, value: str) -> bool:
+    if value.lower() in _TRUE:
+        return True
+    if value.lower() in _FALSE:
+        return False
+    raise ValueError(f"{name} must be a boolean, got {value!r}")
+
+
+def _coerce_strings(obj) -> None:
+    """Convert string values (as :func:`parse_argv` gives every flag's
+    value) to the declared type of their field: bool, int, float, or the
+    optional form of one of them. A field whose type admits ``str`` keeps
+    its string, as the JAX package's pydantic config does."""
+    hints = typing.get_type_hints(type(obj))
+    for f in dataclasses.fields(obj):
+        value = getattr(obj, f.name)
+        if not isinstance(value, str):
+            continue
+        kinds = [a for a in typing.get_args(hints[f.name]) if a is not type(None)] or [hints[f.name]]
+        if str in kinds or len(kinds) != 1 or kinds[0] not in (bool, int, float):
+            continue
+        kind = kinds[0]
+        setattr(obj, f.name, _to_bool(f.name, value) if kind is bool else kind(value))
 
 
 def _one_of(name: str, value, allowed) -> None:
@@ -47,6 +80,7 @@ class ServeConfig:
     prefix_cache: bool = False
 
     def __post_init__(self):
+        _coerce_strings(self)
         if isinstance(self.prefill_buckets, str):
             self.prefill_buckets = [
                 int(x) for x in self.prefill_buckets.split(",") if x.strip()
@@ -83,14 +117,20 @@ class ServeConfig:
 class CkptConfig:
     """Checkpoint cadence and paths."""
 
+    path: str = "outputs"
     interval: Optional[int] = None
-    # True: the latest checkpoint; str: a directory; None or False: a
-    # fresh start
+    topk: Optional[int] = None
+    # True: the latest checkpoint under ``path``; str: a checkpoint
+    # directory; None or False: a fresh start
     resume: Optional[Union[str, bool]] = None
 
     def __post_init__(self):
+        _coerce_strings(self)
+        # ``--no-ckpt.interval`` parses to False: disabled
         if self.interval is False:
             self.interval = None
+        if self.topk is False:
+            self.topk = None
 
 
 COMPRESSIONS = (
@@ -132,6 +172,7 @@ class DilocoConfig:
     outer_placement: str = "auto"
 
     def __post_init__(self):
+        _coerce_strings(self)
         _one_of("diloco.all_reduce_strategy", self.all_reduce_strategy, ("wait_for_all", "no_wait"))
         _one_of("diloco.compression", self.compression, COMPRESSIONS)
         _one_of("diloco.backend", self.backend, ("loopback", "tcp"))
@@ -207,7 +248,11 @@ class Config:
     log_activations_steps: Optional[int] = None
     eval_interval: Optional[int] = None
     eval_batches: int = 16
+    # torch.profiler trace of steps [profile_start, profile_start +
+    # profile_steps), counted from the first step this run takes
     profile_dir: Optional[str] = None
+    profile_start: int = 10
+    profile_steps: int = 5
 
     # multi-host inner loop
     multihost: bool = False
@@ -218,9 +263,12 @@ class Config:
     fleet: Any = None
 
     def __post_init__(self):
+        _coerce_strings(self)
         if isinstance(self.adam_betas, str):
             self.adam_betas = tuple(float(x) for x in self.adam_betas.split(","))
         self.adam_betas = tuple(self.adam_betas)
+        if isinstance(self.remat, str) and self.remat.lower() in _TRUE + _FALSE:
+            self.remat = _to_bool("remat", self.remat)
         self.ckpt = _section(CkptConfig, self.ckpt)
         self.diloco = _section(DilocoConfig, self.diloco)
         self.serve = _section(ServeConfig, self.serve)
@@ -235,3 +283,52 @@ class Config:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+# ---------------------------------------------------------------------------
+# argv parsing: nested dotted flags + --no-x booleans
+# ---------------------------------------------------------------------------
+
+
+def _set_nested(tree: dict, dotted: str, value: Any) -> None:
+    keys = dotted.split(".")
+    node = tree
+    for k in keys[:-1]:
+        node = node.setdefault(k, {})
+        if not isinstance(node, dict):
+            raise ValueError(f"flag {dotted!r} conflicts with earlier scalar flag")
+    leaf = keys[-1]
+    node[leaf] = value  # repeated flags: last one wins
+
+
+def parse_argv(argv: Optional[list[str]] = None) -> dict:
+    """Parse ``--a.b value`` / ``--no-a.b`` style flags into a nested dict,
+    as the JAX package's ``parse_argv``: dashes in key names become
+    underscores, ``--no-flag`` sets False, a bare ``--flag`` followed by
+    another flag (or the end) sets True, a repeated flag keeps its last
+    value, and values stay strings (``Config`` converts them)."""
+    if argv is None:
+        argv = sys.argv[1:]
+    tree: dict = {}
+    i = 0
+    while i < len(argv):
+        tok = argv[i]
+        if not tok.startswith("--"):
+            raise ValueError(f"unexpected positional argument {tok!r}")
+        key = tok[2:]
+        value: Any
+        if "=" in key:
+            key, value = key.split("=", 1)
+            i += 1
+        elif key.startswith("no-") or key.startswith("no_"):
+            key, value = key[3:], False
+            i += 1
+        elif i + 1 >= len(argv) or argv[i + 1].startswith("--"):
+            value = True
+            i += 1
+        else:
+            value = argv[i + 1]
+            i += 2
+        key = ".".join(part.replace("-", "_") for part in key.split("."))
+        _set_nested(tree, key, value)
+    return tree

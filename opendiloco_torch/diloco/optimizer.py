@@ -15,11 +15,14 @@ package's ``jax.tree.flatten`` order), so the all-reduce lines up leaf
 for leaf with a JAX worker's. The inner AdamW state is not reset at an
 outer step: only the params become the master.
 
+Every ``average_state_every``-th outer step also averages the master
+itself across the group (tag ``"state"``) before it goes to the device.
+
 Not ported yet, and raising: the device-resident outer plane
 (``outer_placement="device"``, ROADMAP.md A11), overlapped communication
-and streaming fragments (A11), error feedback (A11), gossip rounds (A12)
-and periodic full-state averaging (A9). The multihost world-messenger
-split is not ported either: one process drives one device.
+and streaming fragments (A11), error feedback (A11) and gossip rounds
+(A12). The multihost world-messenger split is not ported either: one
+process drives one device.
 """
 from __future__ import annotations
 
@@ -63,7 +66,6 @@ def _check_ported(cfg: DilocoConfig) -> None:
         (cfg.streaming_fragments > 1, "streaming_fragments > 1", "A11"),
         (cfg.outer_mode == "gossip", "outer_mode='gossip'", "A12"),
         (cfg.error_feedback, "error_feedback", "A11"),
-        (cfg.average_state_every > 0, "average_state_every (full-state averaging)", "A9"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -268,6 +270,16 @@ class DiLoCoOptimizer:
             new_opt.step(new_master, averaged)
         self.master = new_master
         self.outer_opt = new_opt
+        if self._is_state_avg_epoch():
+            # periodic full-state averaging (hivemind average_state_every):
+            # corrects the drift a lossy pseudo-gradient codec accumulates
+            averaged_state, n = self.backend.all_reduce(
+                self.master, timeout=self.cfg.averaging_timeout, tag="state"
+            )
+            # np.array copies: the result may live in a backend buffer that
+            # the next all_reduce reuses
+            self.master = [np.array(a, dtype=np.float32) for a in averaged_state]
+            log.info("averaged full state over %d peers at epoch %d", n, self.epoch)
         t4 = time.monotonic()
         with span("outer.h2d"):
             state = self._write_master_to_device(state)
@@ -292,6 +304,9 @@ class DiLoCoOptimizer:
             **self._round_health_metrics(),
         }
         return state, outer_metrics
+
+    def _is_state_avg_epoch(self) -> bool:
+        return self.cfg.average_state_every > 0 and (self.epoch + 1) % self.cfg.average_state_every == 0
 
     def _round_health_metrics(self) -> dict:
         health = getattr(self.backend, "last_round_health", None) or {}

@@ -86,6 +86,14 @@ class LlamaConfig:
         fields = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in raw.items() if k in fields})
 
+    def to_dict(self) -> dict[str, Any]:
+        """The HF-shaped ``config.json`` body, as the JAX package writes it."""
+        d = dataclasses.asdict(self)
+        if d["num_key_value_heads"] is None:
+            d["num_key_value_heads"] = self.num_attention_heads
+        d.update(architectures=["LlamaForCausalLM"], model_type="llama", hidden_act="silu", use_cache=False)
+        return d
+
 
 def shapes(cfg: LlamaConfig) -> dict:
     """Shapes of the parameter dict (all f32 masters), JAX layout."""

@@ -2,8 +2,17 @@
 
 The port's ``train()`` (``opendiloco_tpu/train.py`` :68): config ->
 model -> dataloader -> trainer -> (DiLoCo optimizer | plain inner loop)
--> train loop with metric rows, activation probes and evaluation. One
-process drives one device, the card unless ``device`` names another.
+-> train loop with metric rows, activation probes, evaluation, a
+profiler window and the checkpoint cadence with resume. One process
+drives one device, the card unless ``device`` names another.
+
+From the command line, with the JAX package's flags::
+
+    python -m opendiloco_torch.train --path-model 150m --fake-data \\
+        --per-device-train-batch-size 8 --total-batch-size 16 \\
+        --ckpt.path outputs --ckpt.interval 500 --metric-logger-type jsonl
+
+runs on the card; ``OPENDILOCO_TORCH_DEVICE=cpu`` runs it on the CPU.
 
 The DiLoCo backend comes from the caller: workers in one process share a
 :class:`~opendiloco_torch.diloco.LoopbackWorld`, one thread each::
@@ -13,23 +22,25 @@ The DiLoCo backend comes from the caller: workers in one process share a
         threading.Thread(target=train, args=(config_for(rank), backend)).start()
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP.md
-items: the TCP backend (A12), outer compression (A3), checkpoints and
-resume (A9), the serving plane and fleet of a training run (A3, A13),
-multihost (A10), the profiler window (A15) and non-fake data (A9).
+items: the TCP backend (A12), outer compression (A3), the serving plane
+and fleet of a training run (A3, A13), multihost and intra-worker
+sharding (A10) and non-fake data (A9).
 
 Text log lines carry the worker's rank, per thread (:func:`log_rank`).
 """
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Optional
 
 import numpy as np
 
-from opendiloco_torch.config import Config, DilocoConfig
+from opendiloco_torch import ckpt as ckpt_lib
+from opendiloco_torch.config import Config, DilocoConfig, parse_argv
 from opendiloco_torch.data.dataloader import get_dataloader
-from opendiloco_torch.device import DeviceLike
+from opendiloco_torch.device import DeviceLike, resolve_device
 from opendiloco_torch.diloco.backend import OuterBackend
 from opendiloco_torch.diloco.optimizer import DiLoCoOptimizer, PeerDropError
 from opendiloco_torch.models import hf_io
@@ -55,12 +66,9 @@ def make_backend(cfg: DilocoConfig) -> OuterBackend:
 
 def _check_ported(config: Config) -> None:
     unported = [
-        (bool(config.ckpt.interval), "checkpointing (ckpt.interval)", "A9"),
-        (bool(config.ckpt.resume), "resume (ckpt.resume)", "A9"),
         (config.serve is not None and config.serve.enabled, "the serving plane of a training run", "A3"),
         (config.fleet is not None, "the serving fleet", "A13"),
         (config.multihost, "the multihost inner loop", "A10"),
-        (config.profile_dir is not None, "the profiler window (profile_dir)", "A15"),
         (
             config.diloco is not None and config.diloco.compression != "none",
             "outer compression other than 'none' (diloco.compression)",
@@ -80,8 +88,9 @@ def _check_ported(config: Config) -> None:
 
 
 def train(config: Config, backend: Optional[OuterBackend] = None, device: DeviceLike = None) -> dict:
-    """Returns a summary dict (final step and loss) for programmatic
-    callers."""
+    """Returns a summary dict for programmatic callers: the final step and
+    loss, the seconds each checkpoint save took (``ckpt_save_s``) and, on a
+    resume, the seconds the load took (``ckpt_load_s``)."""
     _check_ported(config)
     world_rank = config.diloco.world_rank if config.diloco else 0
     with log_rank(world_rank):
@@ -104,6 +113,9 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
         scan_unroll=config.scan_unroll,
     )
     trainer = InnerTrainer(model_cfg, tc, device)
+
+    if config.ckpt.interval:
+        ckpt_lib.check_checkpoint_path_access(config.ckpt.path, world_rank)
 
     # batch/accumulation accounting (one device: dp = 1, one process)
     global_micro = config.per_device_train_batch_size
@@ -138,13 +150,32 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
                                      batch_size=config.total_batch_size)
         log.info("outer data plane: placement=%s (requested %s)", diloco_opt.placement,
                  config.diloco.outer_placement)
-        if not config.diloco.skip_load_from_peers:
-            updated = diloco_opt.load_state_from_peers(state)
-            if updated is not None:
-                state = updated
-                log.info("loaded state from peers (epoch %d)", diloco_opt.epoch)
 
-    metric_logger = get_logger(config.metric_logger_type, config.project, config.to_dict())
+    # resume from a checkpoint; only a worker that resumes none adopts its
+    # peers' state
+    start_step = 0
+    ckpt_times: dict = {"ckpt_save_s": []}
+    resume, resume_dir, resume_step = ckpt_lib.get_resume_info(
+        config.ckpt.resume, config.ckpt.path, diloco_rank=world_rank if config.diloco else None
+    )
+    if resume:
+        log.info("resuming from %s (step %d)", resume_dir, resume_step)
+        t_load = time.perf_counter()
+        state, diloco_state, loader_state, _ = ckpt_lib.load_checkpoint(resume_dir, state)
+        if diloco_opt is not None and diloco_state is not None:
+            diloco_opt.load_state_dict(diloco_state)
+        if loader_state is not None:
+            loader.load_state_dict(loader_state)
+        ckpt_times["ckpt_load_s"] = time.perf_counter() - t_load
+        start_step = resume_step
+    elif diloco_opt is not None and not config.diloco.skip_load_from_peers:
+        updated = diloco_opt.load_state_from_peers(state)
+        if updated is not None:
+            state = updated
+            log.info("loaded state from peers (epoch %d)", diloco_opt.epoch)
+
+    metric_logger = get_logger(config.metric_logger_type, config.project, config.to_dict(),
+                               resume=bool(resume))
 
     eval_iter = None
     if config.eval_interval:
@@ -164,9 +195,10 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
         eval_iter = iter(eval_loader)
 
     tokens_per_step = config.total_batch_size * config.seq_length
-    summary = {"step": 0, "loss": float("nan")}
+    summary = {"step": start_step, "loss": float("nan")}
     data_iter = iter(loader)
     pending = None  # (real_step, metrics, dt, extras) of the prior step
+    profiler = None
 
     def flush(p) -> None:
         """Materialize a step's metrics row, one step behind, so reading
@@ -200,7 +232,12 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
         summary = {"step": real_step, "loss": loss}
 
     try:
-        for step in range(config.total_steps):
+        for step in range(start_step, config.total_steps):
+            if config.profile_dir and step == start_step + config.profile_start:
+                profiler = _start_profiler(trainer.device)
+            if profiler is not None and step == start_step + config.profile_start + config.profile_steps:
+                _stop_profiler(profiler, config.profile_dir, world_rank, step)
+                profiler = None
             t0 = time.perf_counter()
             host_batch = next(data_iter)
             batch = trainer.shard_batch(host_batch["input_ids"], host_batch["labels"], accum)
@@ -225,6 +262,22 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
                 extras["eval_perplexity"] = math.exp(min(extras["eval_loss"], 30.0))
                 log.info("eval at %d: loss %.4f", real_step, extras["eval_loss"])
             pending = (real_step, metrics, dt, extras)
+
+            if config.ckpt.interval and real_step % config.ckpt.interval == 0:
+                flush(pending)
+                pending = None
+                t_save = time.perf_counter()
+                ckpt_lib.save_checkpoint(
+                    config.ckpt.path,
+                    real_step,
+                    state,
+                    diloco_rank=world_rank if config.diloco else None,
+                    diloco_state=diloco_opt.state_dict() if diloco_opt else None,
+                    dataloader_state=loader.state_dict(),
+                    extra={"loss": summary["loss"], "step": real_step},
+                )
+                ckpt_times["ckpt_save_s"].append(time.perf_counter() - t_save)
+                ckpt_lib.delete_old_checkpoints(config.ckpt.path, config.ckpt.topk)
         if pending is not None:
             flush(pending)
             pending = None
@@ -232,8 +285,53 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
         log.error("a DiLoCo worker dropped and fail_rank_drop is set; exiting")
         raise
     finally:
+        if profiler is not None:
+            # a window that reaches past total_steps still writes its trace;
+            # a failure to write it must not hide the real error
+            try:
+                _stop_profiler(profiler, config.profile_dir, world_rank, config.total_steps)
+            except Exception:
+                log.exception("failed to write the profiler trace")
         loader.stop()
         metric_logger.finish()
         if owns_backend and backend is not None:
             backend.close()
-    return summary
+    return {**summary, **ckpt_times}
+
+
+def _start_profiler(device):
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities, record_shapes=False)
+    profiler.__enter__()
+    return profiler
+
+
+def _stop_profiler(profiler, profile_dir: str, rank: int, step: int) -> None:
+    """End the window and write its Chrome trace under ``profile_dir``."""
+    profiler.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_rank{rank}_step{step}.json")
+    profiler.export_chrome_trace(path)
+    log.info("wrote profiler trace to %s", path)
+
+
+def main() -> None:
+    """``python -m opendiloco_torch.train --flag value ...``: the JAX
+    package's flags (:func:`~opendiloco_torch.config.parse_argv`). Runs on
+    the card, or on the device ``OPENDILOCO_TORCH_DEVICE`` names (``cpu``);
+    with neither it raises."""
+    try:
+        device = resolve_device(os.environ.get("OPENDILOCO_TORCH_DEVICE") or None)
+    except RuntimeError as e:
+        raise SystemExit(f"{e} (from the command line: OPENDILOCO_TORCH_DEVICE=cpu)") from None
+    config = Config(**parse_argv())
+    log.info("starting training on %s: %s", device, config.to_dict())
+    train(config, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,12 +3,14 @@
 The port's copy of ``opendiloco_tpu/utils/logger.py``: every logger routes
 rows through :func:`normalize_row`, so the on-disk schema is flat
 JSON-typed scalars whichever backend wrote it. ``DummyLogger`` pickles
-its rows (the integration tests' metrics spy). The wandb and JSONL
-backends are not ported yet.
+its rows (the integration tests' metrics spy); ``JsonlLogger`` appends
+one JSON object a row. The wandb backend is not ported (it needs a
+package and a network the card machine does not have).
 """
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import os
 import pickle
@@ -66,13 +68,49 @@ class DummyLogger:
         os.replace(tmp, self.project)
 
 
+class JsonlLogger:
+    """One JSON object per line, appended to ``project`` as rows arrive and
+    flushed on each write, so a killed worker loses at most its last
+    partial line (which :func:`read_jsonl` skips)."""
+
+    def __init__(self, project: str, config: dict[str, Any], *_args, **_kwargs):
+        self.project = project
+        self.config = config
+        self._f = open(project, "a")
+
+    def log(self, metrics: dict[str, Any]) -> None:
+        self._f.write(json.dumps(normalize_row(metrics)) + "\n")
+        self._f.flush()
+
+    def finish(self) -> None:
+        if not self._f.closed:
+            self._f.close()
+
+
+def read_jsonl(path: str) -> list[dict[str, Any]]:
+    """Load a JsonlLogger file, skipping any trailing partial line."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rows.append(json.loads(line))
+            except json.JSONDecodeError:
+                continue
+    return rows
+
+
 def get_logger(logger_type: str, project: str, config: dict[str, Any], resume: bool = False) -> Logger:
     if logger_type == "dummy":
         return DummyLogger(project=project, config=config)
-    if logger_type in ("wandb", "jsonl"):
+    if logger_type == "jsonl":
+        return JsonlLogger(project=project, config=config)
+    if logger_type == "wandb":
         raise NotImplementedError(
-            f"the {logger_type} metric logger is not ported yet (ROADMAP.md A15); "
-            "use metric_logger_type 'dummy'"
+            "the wandb metric logger is not ported (ROADMAP.md A15: wandb is not installed on the "
+            "card machine and needs a network); use metric_logger_type 'jsonl' or 'dummy'"
         )
     raise ValueError(f"unknown metric_logger_type {logger_type!r}")
 

@@ -1,9 +1,13 @@
 """The import boundary of the PyTorch port, and what ``chip_smoke.py`` does
 where there is no card.
 
-The port (``opendiloco_torch/`` and ``chip_smoke.py``) imports neither JAX
+The port (``opendiloco_torch/``, ``chip_smoke.py`` and its tool
+``phase_turns.py``) imports neither JAX
 nor anything of the JAX package ``opendiloco_tpu``, not even its host-only
 modules: the machine with the card has no JAX. Only tests import both.
+Nor does it import ``safetensors``, ``orbax`` or ``datasets``, which that
+machine lacks too; ``fsspec`` is imported only inside a function, on a
+remote checkpoint path.
 """
 import ast
 import os
@@ -19,7 +23,9 @@ torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "opendiloco_tpu")
-SOURCES = sorted((ROOT / "opendiloco_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# packages the card machine does not have; fsspec only on remote paths
+ABSENT = ("safetensors", "orbax", "datasets", "fsspec")
+SOURCES = sorted((ROOT / "opendiloco_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "phase_turns.py"]
 
 
 def _banned(module: str) -> bool:
@@ -48,6 +54,30 @@ def test_port_source_imports_nothing_of_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _module_level_imports(tree: ast.AST):
+    """The imports of ``_imports`` that sit outside every function."""
+    inside = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            inside.update(map(id, ast.walk(node)))
+    outer = ast.Module(body=[], type_ignores=[])
+    outer.body = [n for n in ast.walk(tree) if isinstance(n, (ast.Import, ast.ImportFrom, ast.Call))
+                  and id(n) not in inside]
+    return set(_imports(outer))
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_imports_no_package_the_card_machine_lacks(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = set(_imports(tree))
+    bad = sorted(m for m in names if m.split(".")[0] in ABSENT and m.split(".")[0] != "fsspec")
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+    top = sorted(m for m in _module_level_imports(tree) if m.split(".")[0] == "fsspec")
+    assert not top, f"{path.relative_to(ROOT)} imports fsspec outside a function"
+    if any(m.split(".")[0] == "fsspec" for m in names):
+        assert path.relative_to(ROOT).as_posix() == "opendiloco_torch/ckpt.py"
+
+
 def test_import_walk_sees_every_kind_of_import():
     src = "import jax.numpy\nfrom opendiloco_tpu.ops import x\nimportlib.import_module('flax')\n"
     assert sorted(_imports(ast.parse(src))) == ["flax", "jax.numpy", "opendiloco_tpu.ops"]
@@ -69,6 +99,8 @@ def test_port_imports_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages(opendiloco_torch.__path__, 'opendiloco_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import opendiloco_torch.serve, chip_smoke\n"
+        f"loaded = sorted(m for m, v in sys.modules.items() if v is not None and m.split('.')[0] in {ABSENT!r})\n"
+        "assert not loaded, f'importing the port loaded {loaded}'\n"
         "print(' '.join(names))\n"
     )
     res = _python(code, ROOT)
@@ -77,7 +109,7 @@ def test_port_imports_with_jax_blocked():
     # the training slice's modules are among those imported
     for mod in ("trainer", "train", "ops.flash_attention", "ops.launch", "diloco.optimizer",
                 "diloco.loopback", "diloco.backend", "diloco.outer_optimizer", "data.dataloader",
-                "utils.logger", "utils.debug"):
+                "utils.logger", "utils.debug", "ckpt", "diloco.state_io", "utils.safetensors_io"):
         assert f"opendiloco_torch.{mod}" in names, mod
 
 

@@ -84,8 +84,42 @@ def test_forward_out_and_lse_match_jax_kernel(interpret_pallas, causal):
         name = f"fwd-{'causal' if causal else 'full'}-{os.getpid()}-{time.time_ns()}.npz"
         np.savez(os.path.join(record, name), q=q, k=k, v=v, jax_out=np.asarray(out), jax_lse=np.asarray(lse),
                  torch_out=tout.numpy(), torch_lse=tlse.numpy())
-    _close(tout.numpy(), np.asarray(out).transpose(0, 2, 1, 3))
-    _close(tlse.numpy(), np.asarray(lse)[:, :, 0])
+    try:
+        _close(tout.numpy(), np.asarray(out).transpose(0, 2, 1, 3))
+        _close(tlse.numpy(), np.asarray(lse)[:, :, 0])
+    except AssertionError as miss:
+        # a miss here has never repeated on demand (ROADMAP queue C, C3):
+        # compute both sides again on the same inputs and say which moved
+        out2, lse2 = fa._fwd(_bhtd(q), _bhtd(k), _bhtd(v), block_q=128, block_k=128, causal=causal)
+        tout2, tlse2 = tfa.flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                               causal)
+        pytest.fail(_which_side_moved(
+            {"out": np.asarray(out), "lse": np.asarray(lse)}, {"out": np.asarray(out2), "lse": np.asarray(lse2)},
+            {"out": tout.numpy(), "lse": tlse.numpy()}, {"out": tout2.numpy(), "lse": tlse2.numpy()},
+        ) + f"\nfirst comparison: {miss}")
+
+
+def _which_side_moved(jax_first, jax_again, torch_first, torch_again) -> str:
+    """Name the side (JAX, torch, both or neither) whose second run on the
+    same inputs differs from its first, with the largest change of each."""
+    def moved(first, again):
+        return {k: float(np.max(np.abs(first[k].astype(np.float64) - again[k])))
+                for k in first if not np.array_equal(first[k], again[k])}
+
+    j, t = moved(jax_first, jax_again), moved(torch_first, torch_again)
+    side = {(False, False): "neither", (True, False): "JAX", (False, True): "torch",
+            (True, True): "both"}[(bool(j), bool(t))]
+    return f"forward parity missed; on a second run {side} side moved (JAX: {j or 'no change'}, torch: " \
+           f"{t or 'no change'})"
+
+
+def test_which_side_moved_names_the_side():
+    a, b = {"out": np.zeros(3, np.float32)}, {"out": np.array([0, 0.5, 0], np.float32)}
+    assert "neither side moved" in _which_side_moved(a, a, a, a)
+    assert "JAX side moved" in _which_side_moved(a, b, a, a)
+    msg = _which_side_moved(a, a, a, b)
+    assert "torch side moved" in msg and "'out': 0.5" in msg
+    assert "both side moved" in _which_side_moved(a, b, a, b)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])

@@ -483,16 +483,12 @@ def test_train_without_diloco_with_eval_and_probes(tmp_path):
         dict(fleet=dict(replicas=2)),
         dict(remat="dots"),
         dict(remat="dots_all"),
-        dict(ckpt=dict(interval=5)),
-        dict(ckpt=dict(resume=True)),
         dict(serve=dict(enabled=True)),
         dict(multihost=True),
-        dict(profile_dir="trace"),
         dict(sharding_strategy="FULL_SHARD"),
         dict(pp_size=2),
         dict(fake_data=False),
         dict(metric_logger_type="wandb"),
-        dict(metric_logger_type="jsonl"),
         dict(path_model="2m_4e"),
         dict(diloco=dict(backend="tcp")),
         dict(diloco=dict(backend="loopback", outer_placement="device")),
@@ -501,7 +497,6 @@ def test_train_without_diloco_with_eval_and_probes(tmp_path):
         dict(diloco=dict(backend="loopback", outer_mode="gossip")),
         dict(diloco=dict(backend="loopback", compression="fp16")),
         dict(diloco=dict(backend="loopback", compression="fp16", error_feedback=True)),
-        dict(diloco=dict(backend="loopback", average_state_every=2)),
     ],
     ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()),
 )
@@ -518,12 +513,10 @@ def test_unported_options_raise(tmp_path, overrides):
     [
         ("config", "prefetch_depth", 0),
         ("config", "num_workers", 4),
-        ("config", "profile_steps", 5),
         ("config", "coordinator_address", "localhost:1234"),
         ("diloco", "link_adapt", True),
         ("diloco", "initial_peers", "localhost:1234"),
         ("diloco", "stream_stagger", 0.5),
-        ("ckpt", "path", "outputs"),
     ],
 )
 def test_fields_the_port_does_not_read_are_refused(section, field, value):
