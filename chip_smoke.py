@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: serving, speculative
-decode, prefix reuse, training, checkpoint and resume, and the command
-line.
+decode, prefix reuse, training, checkpoint and resume, training that
+serves over HTTP with weight hot swap, and the command line.
 
     python3 chip_smoke.py
 
@@ -165,7 +165,32 @@ exits non-zero.
    a subprocess on the default device, 20 steps with a checkpoint at 10,
    then again resuming from ``model_step_10``: steps 11-20 equal bit for
    bit.
-19. The kernels line (launches of B6, B7, their merges and B8 by serving
+19. Training that serves (after phase 8b): phase 8's run with
+   ``serve.enabled`` on worker 0 (w4 weights, ``max_stale_rounds`` 0,
+   a swap check every 4 decode steps, ``ODTP_STATE_CODEC=blockwise4bit``
+   so that each swap re-slices the snapshot into B8's packed layout), no
+   checkpoints, three client threads posting /generate over HTTP (64 and
+   256 buckets, 32 new tokens) and a poller on /healthz and /stats until
+   ``train()`` returns. Every response succeeds or fails with "server
+   stopped"; they carry at least two weight epochs; the engine swapped;
+   the launch counters (zeroed just before, read just after) hold phase
+   8's training kernels, B6 12 a decode step (its merge by the split
+   rule: none at 150m, whose 8 slots x 16 kv heads fill the card) and B8
+   84 a prefill and a decode step; both workers' losses, LRs and master
+   hashes equal phase 8's bit for bit. Each swap's ms by part (encode,
+   decode, H2D, pack), TTFT p50 and max, tokens/s while training, and the
+   inner-step and outer-step times beside phase 8's.
+20. ``install_wire`` at config_1b (after phase 15, on phase 4's
+   params): (a) a w4 engine given a blockwise4bit snapshot (the fast
+   path) keeps its own packing bit for bit, and phase 5's 16 requests
+   give the streams the same engine gives after ``install_params`` of
+   what the snapshot carries (the codec's decode of every dense leaf);
+   (b) the w4 engine given an fp16 snapshot (packed on the card) and (c)
+   an fp32 engine given it give the streams and weights of
+   ``install_params`` of the fp16-rounded params. Host encode s, install
+   s by part and the card's peak memory across each swap; launches as in
+   phases 4 and 5.
+21. The kernels line (launches of B6, B7, their merges and B8 by serving
    phase, of the training kernels by training phase), the card line, and
    last the result line.
 
@@ -764,7 +789,7 @@ def phase_serve(torch, tdk, cfg, serve_cfg, params, dev) -> dict:
     L = cfg.num_hidden_layers
     w4 = serve_cfg.weight_format == "w4"
     prompts = prompts_over_buckets(serve_cfg, cfg.vocab_size)
-    plane = build_serving(serve_cfg, cfg, params, device=dev)
+    plane = build_serving(serve_cfg, cfg, params, device=dev, start_server=False)
     try:
         engine = plane.engine
         run = drive(tdk, plane, prompts, [p[:b] for p, b in zip(prompts, serve_cfg.prefill_buckets)],
@@ -1090,7 +1115,7 @@ def phase_spec(torch, tdk, cfg, serve_cfg, params, dev, plain: dict) -> dict:
     L = cfg.num_hidden_layers
     w4 = serve_cfg.weight_format == "w4"
     prompts = prompts_over_buckets(serve_cfg, cfg.vocab_size)
-    plane = build_serving(serve_cfg, cfg, params, device=dev)
+    plane = build_serving(serve_cfg, cfg, params, device=dev, start_server=False)
     try:
         engine = plane.engine
         k, Ld = engine.spec_k, engine.draft_layers
@@ -1193,7 +1218,7 @@ def phase_prefix(torch, tdk, cfg, params, dev) -> dict:
     runs = {}
     for on in (True, False):
         serve_cfg = ServeConfig(spec_decode_k=4, prefix_cache=on)
-        plane = build_serving(serve_cfg, cfg, params, device=dev)
+        plane = build_serving(serve_cfg, cfg, params, device=dev, start_server=False)
         suffixes = []  # the suffix length of each prefix hit, in admission order
         admit = plane.engine.admit
 
@@ -1267,7 +1292,8 @@ def phase_spec_f32(torch, cfg, params, dev) -> dict:
     prompts = prompts_over_buckets(ServeConfig(), cfg.vocab_size)[::4]
     streams, launches = {}, {}
     for k in (0, SPEC_K):
-        plane = build_serving(ServeConfig(spec_decode_k=k), cfg, params, compute_dtype=torch.float32, device=dev)
+        plane = build_serving(ServeConfig(spec_decode_k=k), cfg, params, compute_dtype=torch.float32, device=dev,
+                              start_server=False)
         try:
             base = plane.batcher.stats()["decode_steps"]
             tdk.LAUNCHES.reset()
@@ -1984,8 +2010,8 @@ def recording_backends(world) -> list:
     return [RecordingBackend(world, f"peer-{i}") for i in range(world.n_peers)]
 
 
-def train_config(model: str, run: dict, rank: int, project: str, ckpt: dict):
-    """The ``Config`` of worker ``rank`` of phases 8, 8b and 10."""
+def train_config(model: str, run: dict, rank: int, project: str, ckpt: dict, serve: dict | None = None):
+    """The ``Config`` of worker ``rank`` of phases 8, 8b, 10 and 19."""
     from opendiloco_torch.config import Config
 
     return Config(
@@ -1996,7 +2022,14 @@ def train_config(model: str, run: dict, rank: int, project: str, ckpt: dict):
         ckpt=ckpt,
         diloco=dict(local_steps=run["local_steps"], backend="loopback", world_rank=rank,
                     timeout_waiting_for_peers=600.0),
+        serve=serve,
     )
+
+
+def inner_step_s(rows: list) -> list:
+    """Each worker's wall seconds a step from its metric rows, the first
+    step (warm-up) and the steps that took an outer step left out."""
+    return [[r["time_taken"] for r in rr if r["step"] > 1 and "outer_step_s" not in r] for rr in rows]
 
 
 def run_workers(fn, args_by_worker: list) -> list:
@@ -2180,6 +2213,7 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
         "losses": [[r["Loss"] for r in rr] for rr in rows],
         "lrs": [[r["lr"] for r in rr] for rr in rows],
         "grad_norms": [[r["grad_norm"] for r in rr] for rr in rows],
+        "step_s": inner_step_s(rows),
         "launches": launches,
         "launches_per_inner_step": {k: v / inner_steps for k, v in launches.items()},
         "master_hashes": hashes,
@@ -2283,6 +2317,374 @@ def phase_resume(torch, tfa, dev, card: str, p8: dict) -> dict:
     shutil.rmtree(os.path.dirname(ckpt_path), ignore_errors=True)
     shutil.rmtree(tmp, ignore_errors=True)
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 19: training that serves live traffic off its masters
+# ---------------------------------------------------------------------------
+
+# phase 19's serving plane on worker 0: w4 weights, a swap as soon as a round
+# lands (checked every 4 decode steps), blockwise4bit snapshots (the fast path)
+TRAIN_SERVE = dict(enabled=True, weight_format="w4", max_stale_rounds=0, swap_every_steps=4, port=0)
+TRAIN_SERVE_CODEC = "blockwise4bit"
+TRAIN_SERVE_CLIENTS = 3
+TRAIN_SERVE_NEW_TOKENS = 32
+
+
+def http_json(url: str, body: bytes | None = None, timeout: float = 600.0) -> dict:
+    """One HTTP call to the front end; an HTTP error's JSON body is the answer."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return json.loads(e.read())
+
+
+def phase_train_serve(torch, tdk, dev, card: str, p8: dict) -> dict:
+    """Phase 19: phase 8's two-worker run at config_150m (checkpoints off)
+    with ``serve.enabled`` on worker 0 (TRAIN_SERVE) and
+    ``ODTP_STATE_CODEC=blockwise4bit``, so that every swap takes
+    ``install_wire``'s fast path into the packed layout B8 reads. Client
+    threads post /generate over HTTP (prompts in the 64 and 256 buckets,
+    32 new tokens) and a poller reads /healthz and /stats until ``train()``
+    returns. Every response must succeed or fail with "server stopped"
+    (in flight when the run ended), the responses must carry at least two
+    weight epochs, the engine must have swapped, the launch counts must be
+    phase 8's training kernels plus B6 L a decode step (its merge by the
+    split rule) and B8 7 L a prefill and a decode step, and both workers'
+    losses, LRs and per-round master hashes must equal phase 8's bit for
+    bit. Prints each swap's seconds by part, TTFT and tokens/s of the
+    requests served while training ran, and the inner-step and outer-step
+    times beside phase 8's."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from opendiloco_torch import serve as tserve
+    from opendiloco_torch.diloco import LoopbackWorld
+    from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.train import train
+
+    cfg = load_config("150m")
+    L = cfg.num_hidden_layers
+    run = {**TRAIN_150M, "ckpt_interval": None}
+    backends = recording_backends(LoopbackWorld(2))
+    tmp = tempfile.mkdtemp()
+    planes, admits, real_build = [], [0], tserve.build_serving
+
+    def capture(*args, **kwargs):
+        plane = real_build(*args, **kwargs)
+        admit = plane.engine.admit
+
+        def counted(*a, **k):  # one prefill an admit
+            admits[0] += 1
+            return admit(*a, **k)
+
+        plane.engine.admit = counted
+        planes.append(plane)
+        return plane
+
+    def config(rank):
+        return train_config("150m", run, rank, os.path.join(tmp, f"metrics-{rank}.pkl"),
+                            dict(path=os.path.join(tmp, "ckpts"), interval=None),
+                            serve=TRAIN_SERVE if rank == 0 else None)
+
+    done, responses, polls, errors = threading.Event(), [], [], []
+
+    def wait_port() -> int:
+        deadline = time.monotonic() + 600
+        while not planes:
+            if done.is_set() or time.monotonic() > deadline:
+                raise AssertionError("the serving plane never came up")
+            time.sleep(0.01)
+        return planes[0].port
+
+    def ended(err) -> bool:
+        # refused once the run has ended and stopped the front end; else a fault
+        if done.is_set() or planes[0].server._stop.is_set():
+            return True
+        raise err
+
+    def client(seed):
+        try:
+            port, rng = wait_port(), np.random.default_rng(seed)
+            while not done.is_set():
+                n = int(rng.integers(33, 65)) if rng.random() < 0.5 else int(rng.integers(65, 257))
+                body = json.dumps({"prompt": rng.integers(1, cfg.vocab_size, n).tolist(),
+                                   "max_new_tokens": TRAIN_SERVE_NEW_TOKENS}).encode()
+                t0 = time.perf_counter()
+                try:
+                    out = http_json(f"http://127.0.0.1:{port}/generate", body)
+                except OSError as e:  # refused or reset: the run has ended
+                    if ended(e):
+                        return
+                responses.append({**out, "prompt_len": n, "t_sent": t0, "t_back": time.perf_counter()})
+        except BaseException as e:
+            errors.append(e)
+
+    def poller():
+        try:
+            port = wait_port()
+            while not done.wait(0.25):
+                try:
+                    polls.append({path: http_json(f"http://127.0.0.1:{port}{path}", timeout=60)
+                                  for path in ("/healthz", "/stats")})
+                except OSError as e:
+                    if ended(e):
+                        return
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(100 + i,)) for i in range(TRAIN_SERVE_CLIENTS)]
+    threads.append(threading.Thread(target=poller))
+    old_codec = os.environ.get("ODTP_STATE_CODEC")
+    os.environ["ODTP_STATE_CODEC"] = TRAIN_SERVE_CODEC
+    tserve.build_serving = capture
+    tdk.LAUNCHES.reset()
+    try:
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        run_workers(train, [(config(r), backends[r], dev) for r in range(2)])
+        wall = time.perf_counter() - t0
+    finally:
+        done.set()
+        tserve.build_serving = real_build
+        if old_codec is None:
+            os.environ.pop("ODTP_STATE_CODEC")
+        else:
+            os.environ["ODTP_STATE_CODEC"] = old_codec
+        for t in threads:
+            t.join(timeout=120)
+    launches = tdk.LAUNCHES.snapshot()
+    if errors:
+        raise errors[0]
+    (plane,) = planes
+    engine, st = plane.engine, plane.batcher.stats()
+
+    # every answer succeeded, or failed because the run ended under it
+    failed = [r for r in responses if "error" in r]
+    if any(r["error"] != "server stopped" for r in failed):
+        raise AssertionError(f"train+serve: failed requests {[r['error'] for r in failed][:5]}")
+    ok = [r for r in responses if "error" not in r]
+    epochs = sorted({r["epoch"] for r in ok})
+    if len(epochs) < 2:
+        raise AssertionError(f"train+serve: {len(ok)} responses from epochs {epochs}; at least two wanted")
+    if any(len(r["tokens"]) != TRAIN_SERVE_NEW_TOKENS for r in ok) or engine.swap_count < 1:
+        raise AssertionError(f"train+serve: short responses or no swap ({engine.swap_count})")
+
+    # launches: phase 8's training kernels, and the serving kernels by count
+    from opendiloco_torch.config import ServeConfig
+
+    steps, prefills = st["decode_steps"], admits[0]
+    sc = ServeConfig(**TRAIN_SERVE)
+    splits, _ = tdk._decode_grid(sc.max_batch, sc.max_context, cfg.kv_heads, cfg.num_attention_heads // cfg.kv_heads,
+                                 dev.index or 0, None)
+    want = {name: (count if name.startswith(("flash_attention", "fused_xent")) else 0)
+            for name, count in p8["launches"].items()}
+    want.update({"paged_decode_attention": L * steps,
+                 "paged_decode_attention_merge": L * steps if splits > 1 else 0,
+                 "w4_matmul_sm90": 7 * L * (prefills + steps)})
+    check_launches(launches, want, f"train+serve ({steps} decode steps, {prefills} prefills)")
+
+    # training is what it was without serving, bit for bit
+    rows = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"metrics-{rank}.pkl"), "rb") as f:
+            rows.append(pickle.load(f))
+    rounds = run["total_steps"] // run["local_steps"]
+    for b in backends:
+        b.hashes[rounds - 1] = master_hash(b.provider()["master"])
+    losses = [[r["Loss"] for r in rr] for rr in rows]
+    lrs = [[r["lr"] for r in rr] for rr in rows]
+    hashes = [b.hashes for b in backends]
+    if losses != p8["losses"] or lrs != p8["lrs"] or hashes != p8["master_hashes"]:
+        raise AssertionError(f"train+serve: training differs from phase 8's: losses {losses} vs {p8['losses']}, "
+                             f"lrs {lrs} vs {p8['lrs']}, master hashes {hashes} vs {p8['master_hashes']}")
+
+    ttft = sorted(plane.batcher._ttfts)
+    served = sum(len(r["tokens"]) for r in ok)
+    window = max(r["t_back"] for r in ok) - min(r["t_sent"] for r in ok)
+    step_s = inner_step_s(rows)
+    outer_s = [r["outer_step_s"] for rr in rows for r in rr if "outer_step_s" in r]
+    p8_outer = p8["outer_step_s"]
+    res = {
+        "config": "150m", **run, "serve": TRAIN_SERVE, "codec": TRAIN_SERVE_CODEC, "clients": TRAIN_SERVE_CLIENTS,
+        "new_tokens": TRAIN_SERVE_NEW_TOKENS, "responses": len(responses), "ok": len(ok),
+        "server_stopped": len(failed), "epochs": epochs, "weight_swaps": engine.swap_count,
+        "swaps": list(engine.swap_log), "decode_steps": steps, "prefills": prefills, "launches": launches,
+        "ttft_ms": {"p50": float(np.percentile(ttft, 50)) * 1e3, "max": ttft[-1] * 1e3, "n": len(ttft)},
+        "tokens_per_s": served / window, "served_tokens": served, "serving_window_s": window,
+        "staleness_hist": st["staleness_hist"], "polls": len(polls),
+        "inner_step_ms": {"serving": [[x * 1e3 for x in s] for s in step_s],
+                          "phase 8": [[x * 1e3 for x in s] for s in p8["step_s"]]},
+        "inner_step_ms_median": {"serving": float(np.median(step_s)) * 1e3,
+                                 "phase 8": float(np.median(p8["step_s"])) * 1e3},
+        "outer_step_s": {"serving": outer_s, "phase 8": p8_outer},
+        "train_wall_s": wall, "losses": losses,
+    }
+    if not polls or not all(p["/healthz"].get("ok") for p in polls):
+        raise AssertionError(f"train+serve: /healthz polls {polls[:3]}")
+    for sw in engine.swap_log:
+        log(f"train+serve 150m swap to epoch {sw['epoch']} ({sw['codec']}): {sw['total_s'] * 1e3:.1f} ms = encode "
+            f"{sw['encode_s'] * 1e3:.1f} + decode {sw['decode_s'] * 1e3:.1f} + H2D {sw['h2d_s'] * 1e3:.1f} + pack "
+            f"{sw['pack_s'] * 1e3:.1f} ms (and the rest) | {card}")
+    log(f"train+serve 150m: {len(ok)} responses ({len(failed)} 'server stopped' at the end) from epochs {epochs}, "
+        f"{engine.swap_count} swaps; TTFT p50 {res['ttft_ms']['p50']:.1f} ms, max {res['ttft_ms']['max']:.1f} ms; "
+        f"{res['tokens_per_s']:.1f} tokens/s while training | {card}")
+    med = res["inner_step_ms_median"]
+    log(f"train+serve 150m: inner step median {med['serving']:.1f} ms against phase 8's {med['phase 8']:.1f} "
+        f"(each worker's steps after the first, outer steps left out: {json.dumps(res['inner_step_ms'])}); outer "
+        f"step {outer_s} s against phase 8's {p8_outer}; launches {launches} | {card}")
+    log(f"train+serve 150m: losses, LRs and master hashes equal phase 8's bit for bit")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 20: install_wire at config_1b
+# ---------------------------------------------------------------------------
+
+
+def packed_leaves(torch, engine) -> list:
+    from opendiloco_torch.models.llama import PackedW4, flatten_params
+
+    return [(w.q.clone(), w.s.clone()) for w in flatten_params(engine.params) if isinstance(w, PackedW4)]
+
+
+def same_bits(torch, a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for p, q in zip(a, b) for x, y in zip(p, q))
+
+
+def phase_install_wire(torch, tdk, cfg, params, dev, card: str, serve: list) -> dict:
+    """Phase 20: ``install_wire`` at config_1b on phase 4's fp32 and phase
+    5's w4 engine (``build_serving`` of the same params), with snapshots
+    encoded on the host from those very params:
+    (a) w4 engine, blockwise4bit snapshot (the fast path): every packed
+        leaf must equal the engine's own packing bit for bit, and phase
+        5's 16 requests' streams must equal those of the same engine given
+        ``install_params`` of what the snapshot carries (the packable
+        leaves as they were, the others through the codec);
+    (b) w4 engine, fp16 snapshot (decoded on the host, packed on the
+        card): the streams and packed leaves must equal those of
+        ``install_params`` of the fp16-rounded params;
+    (c) fp32 engine, fp16 snapshot: the same against ``install_params``.
+    Prints each case's host encode s, the install s by part and the
+    card's peak memory across the swap; launches are checked as phases 4
+    and 5 check them."""
+    from opendiloco_torch.config import ServeConfig
+    from opendiloco_torch.diloco.compression import get_codec
+    from opendiloco_torch.models.llama import flatten_params, unflatten_params
+    from opendiloco_torch.serve import build_serving
+
+    L = cfg.num_hidden_layers
+    host = [x.detach().float().cpu().numpy() for x in flatten_params(params)]
+    snaps, encode_s = {}, {}
+    for name in ("blockwise4bit", "fp16"):
+        codec = get_codec(name)
+        t0 = time.perf_counter()
+        snaps[name] = [(*codec.encode(x.reshape(-1)), x.shape) for x in host]
+        encode_s[name] = time.perf_counter() - t0
+        log(f"install_wire 1b: host encode of the {sum(x.size for x in host)} master values to {name}: "
+            f"{encode_s[name]:.2f} s, {sum(len(p) for p, _, _ in snaps[name])} bytes | {card}")
+
+    def carried(name, keep=None):
+        """The weights a snapshot carries, decoded on the host; leaves where
+        ``keep`` is true stay as they were."""
+        codec = get_codec(name)
+        out = [x if keep is not None and keep[i] else
+               np.asarray(codec.decode(p, (x.size,), m), np.float32).reshape(x.shape)
+               for i, ((p, m, _), x) in enumerate(zip(snaps[name], host))]
+        return unflatten_params(params, out)
+
+    serve_cfg = ServeConfig()
+    prompts = prompts_over_buckets(serve_cfg, cfg.vocab_size)
+    warm = [p[:b] for p, b in zip(prompts, serve_cfg.prefill_buckets)]
+
+    def streams(plane, what):
+        run = drive(tdk, plane, prompts, warm, cfg.vocab_size)
+        w4 = plane.engine.weight_format == "w4"
+        steps, prefills = run["steps"], run["prefills"]
+        check_launches(run["launches"], {"paged_decode_attention": L * steps,
+                                         "paged_decode_attention_merge": PAGED_MERGES_PER_STEP * steps,
+                                         "w4_matmul_sm90": 7 * L * (prefills + steps) if w4 else 0},
+                       f"install_wire {what} ({steps} decode steps, {prefills} prefills)")
+        return [r.tokens for r in run["reqs"]], run["launches"]
+
+    def swap(engine, epoch, name):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        times = engine.install_wire(epoch, snaps[name], name)
+        total = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return {"codec": name, "encode_s": encode_s[name], "install_s": total, **times,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "before_gib": base / 2**30,
+                "after_gib": torch.cuda.memory_allocated() / 2**30}
+
+    cases, launches = {}, {}
+    plane = build_serving(ServeConfig(weight_format="w4"), cfg, params, device=dev, start_server=False)
+    try:
+        engine = plane.engine
+        own = packed_leaves(torch, engine)
+        # (a) the fast path
+        case = swap(engine, 1, "blockwise4bit")
+        if not same_bits(torch, packed_leaves(torch, engine), own):
+            raise AssertionError("install_wire (a): packed leaves differ from the engine's own packing")
+        got, la = streams(plane, "(a) w4 blockwise4bit")
+        engine.install_params(2, carried("blockwise4bit", keep=engine._packable))
+        want, lr = streams(plane, "(a) reference")
+        case.update(streams_equal=got == want, agreement_with_phase5=agreement(got, serve[1]["tokens"]))
+        cases["a"], launches["a"] = case, {k: la[k] + lr[k] for k in la}
+        if got != want:
+            raise AssertionError(f"install_wire (a): streams differ: {agreement(got, want)}")
+        # (b) the slow path: decode on the host, pack on the card
+        case = swap(engine, 3, "fp16")
+        packed = packed_leaves(torch, engine)
+        got, lb = streams(plane, "(b) w4 fp16")
+        engine.install_params(4, carried("fp16"))
+        if not same_bits(torch, packed_leaves(torch, engine), packed):
+            raise AssertionError("install_wire (b): packed leaves differ from install_params'")
+        want, lr = streams(plane, "(b) reference")
+        case.update(streams_equal=got == want)
+        cases["b"], launches["b"] = case, {k: lb[k] + lr[k] for k in lb}
+        if got != want:
+            raise AssertionError(f"install_wire (b): streams differ: {agreement(got, want)}")
+    finally:
+        plane.stop()
+    del plane, engine, own, packed
+    torch.cuda.empty_cache()
+    plane = build_serving(ServeConfig(), cfg, params, device=dev, start_server=False)
+    try:
+        engine = plane.engine
+        # (c) fp32 weights, fp16 snapshot
+        case = swap(engine, 1, "fp16")
+        dense = [w.clone() for w in flatten_params(engine.params)]
+        got, lc = streams(plane, "(c) fp32 fp16")
+        engine.install_params(2, carried("fp16"))
+        if not all(torch.equal(a, b) for a, b in zip(dense, flatten_params(engine.params))):
+            raise AssertionError("install_wire (c): weights differ from install_params'")
+        want, lr = streams(plane, "(c) reference")
+        case.update(streams_equal=got == want, agreement_with_phase4=agreement(got, serve[0]["tokens"]))
+        cases["c"], launches["c"] = case, {k: lc[k] + lr[k] for k in lc}
+        if got != want:
+            raise AssertionError(f"install_wire (c): streams differ: {agreement(got, want)}")
+    finally:
+        plane.stop()
+    del plane, engine, dense
+    torch.cuda.empty_cache()
+    for key, case in cases.items():
+        log(f"install_wire 1b ({key}) {case['codec']}: host encode {case['encode_s']:.2f} s; install "
+            f"{case['install_s']:.3f} s = decode {case['decode_s']:.3f} + H2D {case['h2d_s']:.3f} + pack "
+            f"{case['pack_s']:.3f} s (and the rest); card memory {case['before_gib']:.2f} GiB before, peak "
+            f"{case['peak_gib']:.2f}, after {case['after_gib']:.2f}; streams equal the reference's | {card}")
+    return {"cases": cases, "launches": launches}
 
 
 # the SKILL's 25-step drive (ROADMAP.md A9, gate 3): 2m, local_steps 10,
@@ -2512,6 +2914,7 @@ def main() -> int:
                        params, dev, s) for s in serve]
     prefix = phase_prefix(torch, tdk, cfg, params, dev)
     spec_f32 = phase_spec_f32(torch, cfg, params, dev)
+    wire = phase_install_wire(torch, tdk, cfg, params, dev, card, serve)
     del params
     for s in serve:
         s.pop("tokens")
@@ -2523,6 +2926,7 @@ def main() -> int:
     train_150m = phase_train(torch, tfa, dev, card, "150m", TRAIN_150M,
                              {"kernels": dict(attn_impl="pallas"), "plain": dict(attn_impl="xla")})
     resume_150m = phase_resume(torch, tfa, dev, card, train_150m)
+    train_serve = phase_train_serve(torch, tdk, dev, card, train_150m)
     train_f32 = phase_train_f32(torch, tfa, dev, card)
     xent = phase_xent(torch, tfx, dev)
     train_1b = phase_train(torch, tfa, dev, card, "1b", TRAIN_1B, {"fused": {}, "unfused": dict(fused_loss=False)})
@@ -2536,6 +2940,8 @@ def main() -> int:
     serving.update({f"prefix serve, prefix_cache={on}": prefix[key]["launches"]
                     for key, on in (("on", True), ("off", False))})
     serving.update({f"f32 serve {key}": spec_f32["launches"][key] for key in ("plain", "spec")})
+    serving["train+serve 150m"] = train_serve["launches"]
+    serving.update({f"install_wire 1b ({key})": counts for key, counts in wire["launches"].items()})
     for k in (*b6, *b7, *b8):
         k["launches_by_phase"] = {phase: counts[k["name"]] for phase, counts in serving.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
@@ -2544,12 +2950,14 @@ def main() -> int:
     for k in (*flash, *xent):
         k["launches_by_phase"] = {"train 150m": train_150m["launches"][k["name"]],
                                   "resume 150m": resume_150m["launches"][k["name"]],
+                                  "train+serve 150m": train_serve["launches"][k["name"]],
                                   "train 150m fp32 step": train_f32["launches"][k["name"]],
                                   "train 1b": train_1b["launches"][k["name"]]}
         k["launches"] = sum(k["launches_by_phase"].values())
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
     log(json.dumps({"serve": serve, "spec": spec, "spec_f32": spec_f32, "prefix": prefix, "reference": reference,
                     "train": [train_150m, train_1b, train_f32], "resume": resume_150m, "weights_dir": weights_dir,
+                    "train_serve": train_serve, "install_wire": wire,
                     "gate3": gate3, "cli": cli, "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b6, *b7, *b8, *flash, *xent]}))
     log(card)

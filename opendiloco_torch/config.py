@@ -1,13 +1,13 @@
 """Configuration: the fields of ``opendiloco_tpu.config`` this port reads.
 
-Copies of ``CkptConfig``, ``DilocoConfig``, ``Config`` and the geometry,
-speculative-decode and prefix-reuse parts of ``ServeConfig`` (same names,
-defaults and validation), as dataclasses so the port needs no pydantic.
-Nested sections may be given as dicts, and values as the strings of a
-command line (:func:`parse_argv`, the JAX package's copy), which each
-field converts to its type. Fields for hot swap, the KV tier and the HTTP
-front end arrive with the slices that use them; options that ``train()``
-reads but the port does not run yet raise there.
+Copies of ``CkptConfig``, ``DilocoConfig``, ``Config`` and of
+``ServeConfig`` without its KV-tier and decode-kernel fields (same
+names, defaults and validation), as dataclasses so the port needs no
+pydantic. Nested sections may be given as dicts, and values as the
+strings of a command line (:func:`parse_argv`, the JAX package's copy),
+which each field converts to its type. The KV tier's fields arrive with
+its slice; options that ``train()`` reads but the port does not run yet
+raise there.
 """
 from __future__ import annotations
 
@@ -56,6 +56,8 @@ def _one_of(name: str, value, allowed) -> None:
 @dataclasses.dataclass
 class ServeConfig:
     enabled: bool = False  # the in-process serving plane of a training run
+    host: str = "127.0.0.1"
+    port: int = 0  # 0: an ephemeral port; a port in use falls back to one
     # continuous-batching geometry
     max_batch: int = 8  # decode slots (concurrent sequences)
     max_context: int = 1024  # per-slot ring KV page; longer sequences slide
@@ -65,6 +67,11 @@ class ServeConfig:
         default_factory=lambda: [64, 256, 1024]
     )
     max_queue: int = 1024  # backpressure: submits beyond this are rejected
+    # weight hot swap: check every N decode steps (and when idle); swap when
+    # the served weights lag the trainer's masters by MORE than
+    # max_stale_rounds outer rounds (0: adopt every new round)
+    swap_every_steps: int = 16
+    max_stale_rounds: int = 0
     # replica weight residency: "fp32", or "w4" (stacked matmul weights
     # blockwise-4-bit packed at rest; norms/embeddings/lm head stay fp32)
     weight_format: str = "fp32"

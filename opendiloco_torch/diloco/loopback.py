@@ -6,9 +6,11 @@ DiLoCo algorithm runs in one process. A round completes when every *live*
 peer has contributed; a peer that closes no longer blocks the group, and
 the returned group size is the number of actual contributions.
 
-Only ``compression="none"`` is ported (the other codecs wait for
-ROADMAP.md A3). The chaos and observability hooks, capped gossip groups
-and pair exchange of the JAX backend are left out.
+Each contribution takes the world's codec's wire round trip (encode,
+then decode) before the mean, as the JAX backend's does, so a lossy codec
+shows in the trajectory as it would over sockets. The chaos and
+observability hooks, capped gossip groups and pair exchange of the JAX
+backend are left out.
 """
 from __future__ import annotations
 
@@ -19,18 +21,15 @@ from typing import Any, Callable, Optional
 import numpy as np
 
 from opendiloco_torch.diloco.backend import AllReduceError, OuterBackend, PeerProgress
+from opendiloco_torch.diloco.compression import Codec, get_codec
 
 
 class LoopbackWorld:
     """Shared state for an in-process swarm with elastic membership."""
 
     def __init__(self, n_peers: int, compression: str = "none"):
-        if compression != "none":
-            raise NotImplementedError(
-                f"loopback compression {compression!r} is not ported yet "
-                "(ROADMAP.md A3: the port's own copy of the codecs); use 'none'"
-            )
         self.n_peers = n_peers
+        self.codec: Codec = get_codec(compression)
         self.lock = threading.Lock()
         self.cond = threading.Condition(self.lock)
         self.progress: dict[str, PeerProgress] = {}
@@ -85,8 +84,10 @@ class LoopbackBackend(OuterBackend):
             epoch = own.epoch if own else 0
         w = self.world
         round_key = f"{tag}-epoch-{epoch}"
-        # the "none" codec's wire roundtrip: an f32 copy of each leaf
-        contribution = [np.array(a, dtype=np.float32, copy=True) for a in arrays]
+        # each leaf's wire round trip through the world's codec ("none":
+        # a read-only view of an f32 copy)
+        codec = w.codec
+        contribution = [codec.decode(*_enc(codec, a)) for a in arrays]
         deadline = time.monotonic() + (timeout or 3600.0)
         with w.cond:
             slot = w._rounds.setdefault(
@@ -153,3 +154,8 @@ class LoopbackBackend(OuterBackend):
             self.world.live.discard(self._peer_id)
             self.world.progress.pop(self._peer_id, None)
             self.world.cond.notify_all()
+
+
+def _enc(codec: Codec, a: np.ndarray):
+    payload, meta = codec.encode(a)
+    return payload, a.shape, meta

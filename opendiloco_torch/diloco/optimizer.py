@@ -18,6 +18,11 @@ outer step: only the params become the master.
 Every ``average_state_every``-th outer step also averages the master
 itself across the group (tag ``"state"``) before it goes to the device.
 
+The master is never written in place: every update builds new arrays and
+rebinds ``self.master``, so references taken under ``_serve_lock`` (a
+peer's state fetch, the serving plane's :meth:`master_snapshot`) stay
+bit-stable without a copy.
+
 Not ported yet, and raising: the device-resident outer plane
 (``outer_placement="device"``, ROADMAP.md A11), overlapped communication
 and streaming fragments (A11), error feedback (A11) and gossip rounds
@@ -35,7 +40,9 @@ import torch
 
 from opendiloco_torch.config import DilocoConfig
 from opendiloco_torch.diloco.backend import OuterBackend, PeerProgress, wait_for_peers
+from opendiloco_torch.diloco.compression import get_codec
 from opendiloco_torch.diloco.outer_optimizer import OuterSGD
+from opendiloco_torch.diloco.state_io import state_codec
 from opendiloco_torch.models.llama import flatten_params
 from opendiloco_torch.utils.debug import schema_fingerprint
 from opendiloco_torch.utils.logger import get_text_logger
@@ -138,19 +145,51 @@ class DiLoCoOptimizer:
     # onboarding
     # ------------------------------------------------------------------
 
+    def _state_refs_unlocked(self) -> tuple[list, int, dict]:
+        """(master, epoch, outer optimizer refs), under ``_serve_lock``:
+        while a blocking outer step runs, its consistent pre-round
+        snapshot, never the mid-round master."""
+        snap = self._blocking_snap
+        if snap is not None:
+            return snap["master"], snap["epoch"], snap["outer_opt"]
+        return self.master, self.epoch, self.outer_opt.state_dict_refs()
+
     def _state_for_peers(self) -> dict[str, Any]:
         with self._serve_lock:
-            snap = self._blocking_snap
-            if snap is not None:
-                master, epoch, opt_sd = snap["master"], snap["epoch"], snap["outer_opt"]
-            else:
-                master, epoch, opt_sd = self.master, self.epoch, self.outer_opt.state_dict_refs()
+            master, epoch, opt_sd = self._state_refs_unlocked()
         bufs = opt_sd.get("bufs")
         return {
             "master": [m.copy() for m in master],
             "epoch": epoch,
             "outer_opt": {**opt_sd, "bufs": None if bufs is None else [b.copy() for b in bufs]},
         }
+
+    # ------------------------------------------------------------------
+    # the serving plane's snapshot export
+    # ------------------------------------------------------------------
+
+    def master_snapshot(self) -> tuple[int, list[np.ndarray]]:
+        """(epoch, master leaves) for the in-process serving plane, by the
+        rules of a peer's state fetch (a blocking round serves its
+        pre-round snapshot), with no copies: the master is only ever
+        rebound."""
+        with self._serve_lock:
+            master, epoch, _ = self._state_refs_unlocked()
+        return epoch, list(master)
+
+    def master_snapshot_wire(self) -> tuple[int, list[tuple], str]:
+        """Codec-encoded master snapshot, the serving engine's hot-swap
+        feed: (epoch, blobs, codec_name) with ``blobs[i] = (payload, meta,
+        shape)`` per master leaf in ``flatten_params`` order. The codec is
+        the state payloads' (:func:`state_codec`: fp16 by default,
+        ``ODTP_STATE_CODEC`` overrides)."""
+        codec = state_codec(get_codec(self.cfg.compression))
+        epoch, masters = self.master_snapshot()
+        blobs = []
+        for m in masters:
+            payload, meta = codec.encode(np.ascontiguousarray(m).reshape(-1))
+            blobs.append((payload, meta, tuple(m.shape)))
+        return epoch, blobs, codec.name
 
     def load_state_from_peers(self, state: dict) -> Optional[dict]:
         """Adopt a peer's master, epoch and outer momentum; returns the

@@ -1,11 +1,16 @@
-"""Serving plane: continuous-batching inference on the card.
+"""Serving plane: continuous-batching inference on the card, off the live
+master weights of a training run.
 
-``build_serving(serve_cfg, model_cfg, params)`` returns a started
-:class:`ServingPlane`: a :class:`ServeEngine` (bucketed prefill, paged
-decode, speculative decode and prefix reuse through the hand-written
-kernels) driven by a :class:`ContinuousBatcher` thread. This slice serves static weights with
-no socket front end; hot swap from a DiLoCo optimizer and the HTTP
-server arrive with later slices.
+``build_serving(serve_cfg, model_cfg, params, diloco_opt)`` returns a
+started :class:`ServingPlane`: a :class:`ServeEngine` (bucketed prefill,
+paged decode, speculative decode and prefix reuse through the
+hand-written kernels) driven by a :class:`ContinuousBatcher` thread, and
+a :class:`ServeServer` taking HTTP and JSONL requests. With a DiLoCo
+optimizer the engine hot-swaps its weights from the optimizer's
+codec-encoded master snapshots between decode steps, within
+``serve_cfg.max_stale_rounds`` outer rounds of the trainer. ``train()``
+builds it when ``config.serve.enabled``, so training and serving share
+one process and one card.
 """
 from __future__ import annotations
 
@@ -17,14 +22,16 @@ import torch
 from opendiloco_torch.config import ServeConfig
 from opendiloco_torch.device import DeviceLike
 from opendiloco_torch.models.llama import LlamaConfig
-from opendiloco_torch.serve.engine import ServeEngine, not_ported
+from opendiloco_torch.serve.engine import ServeEngine
 from opendiloco_torch.serve.kvcache import SlotAllocator, pick_bucket
 from opendiloco_torch.serve.scheduler import ContinuousBatcher, Request
+from opendiloco_torch.serve.server import ServeServer
 
 __all__ = [
     "ContinuousBatcher",
     "Request",
     "ServeEngine",
+    "ServeServer",
     "ServingPlane",
     "SlotAllocator",
     "build_serving",
@@ -38,8 +45,17 @@ class ServingPlane:
 
     engine: ServeEngine
     batcher: ContinuousBatcher
+    server: Optional[ServeServer] = None
+
+    @property
+    def port(self) -> Optional[int]:
+        return None if self.server is None else self.server.port
 
     def stop(self) -> None:
+        """Stop accepting, then stop the batcher, which fails every request
+        still queued or in flight with "server stopped"."""
+        if self.server is not None:
+            self.server.stop()
         self.batcher.stop()
 
 
@@ -51,15 +67,21 @@ def build_serving(
     *,
     compute_dtype: Optional[torch.dtype] = None,
     device: DeviceLike = None,
-    start_server: bool = False,
+    start_server: bool = True,
 ) -> ServingPlane:
-    """Assemble and start engine + batcher from a :class:`ServeConfig`,
-    serving ``params`` (a dict of tensors or numpy arrays in the JAX
-    layout). ``device`` defaults to the card and raises without one."""
+    """Assemble and start engine, batcher and (``start_server``) the socket
+    front end on ``serve_cfg.host``/``port``, serving ``params`` (a dict of
+    tensors or numpy arrays in the JAX layout; a trainer's live tensors are
+    copied after the work queued on the caller's stream). ``diloco_opt``
+    supplies the hot-swap source (``master_snapshot_wire`` and ``epoch``);
+    None serves static weights. ``device`` defaults to the card and raises
+    without one."""
+    snapshot_fn = epoch_fn = None
+    epoch = 0
     if diloco_opt is not None:
-        raise not_ported("serving from a DiLoCo optimizer", "hot swap and install_wire")
-    if start_server:
-        raise not_ported("the HTTP front end", "HTTP front end")
+        snapshot_fn = diloco_opt.master_snapshot_wire
+        epoch_fn = lambda: diloco_opt.epoch  # noqa: E731
+        epoch = diloco_opt.epoch
     engine = ServeEngine(
         model_cfg,
         params,
@@ -67,12 +89,26 @@ def build_serving(
         max_context=serve_cfg.max_context,
         prefill_buckets=serve_cfg.prefill_buckets,
         compute_dtype=compute_dtype,
+        epoch=epoch,
         weight_format=serve_cfg.weight_format,
         device=device,
         spec_k=serve_cfg.spec_decode_k,
         draft_layers=serve_cfg.draft_layers,
+        snapshot_fn=snapshot_fn,
+        epoch_fn=epoch_fn,
+        max_stale_rounds=serve_cfg.max_stale_rounds,
     )
     batcher = ContinuousBatcher(
-        engine, max_queue=serve_cfg.max_queue, prefix_cache=serve_cfg.prefix_cache
+        engine,
+        max_queue=serve_cfg.max_queue,
+        swap_every_steps=serve_cfg.swap_every_steps,
+        prefix_cache=serve_cfg.prefix_cache,
     ).start()
-    return ServingPlane(engine=engine, batcher=batcher)
+    server = None
+    if start_server:
+        try:
+            server = ServeServer(batcher, host=serve_cfg.host, port=serve_cfg.port)
+        except BaseException:
+            batcher.stop()
+            raise
+    return ServingPlane(engine=engine, batcher=batcher, server=server)

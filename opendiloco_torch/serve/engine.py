@@ -21,11 +21,29 @@ through the paged-decode-attention kernel, and the attention of the
 draft, verify and continued-prefill passes through the spec-tail-attention
 kernel. On the CPU each takes its plain version.
 
-The KV tier and weight hot swap are later slices of the port: their
-arguments raise ``NotImplementedError``.
+Weight hot swap: with a ``snapshot_fn`` (``DiLoCoOptimizer.
+master_snapshot_wire``), :meth:`maybe_swap` pulls a codec-encoded master
+snapshot when the served weights lag the trainer by more than
+``max_stale_rounds`` outer rounds, and :meth:`install_wire` rebinds the
+weights between decode steps. The KV cache is not touched: cached K/V
+stays what the weights that made it gave, and the staleness bound limits
+how far the weights may lag (DiLoCo-fresh serving, arXiv 2311.08105).
+Under ``w4`` a ``blockwise4bit`` snapshot is re-sliced straight into the
+packed layout where the codec's block grid lands on layer boundaries.
+
+On the card the engine runs on a CUDA stream of its own, so that its
+syncs wait for its own work and never for a training step queued on the
+same card by another thread.
+
+The KV tier is a later slice of the port: its arguments raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import functools
+import math
 import time
 from typing import Callable, Optional, Sequence
 
@@ -34,17 +52,20 @@ import torch
 
 from opendiloco_torch.config import WEIGHT_FORMATS
 from opendiloco_torch.device import DeviceLike, resolve_device
+from opendiloco_torch.diloco.compression import get_codec, split_blockwise4_stacked
 from opendiloco_torch.models.llama import (
     LlamaConfig,
     PackedW4,
     cache_insert,
     decode_forward,
     draft_propose,
+    flatten_params,
     init_kv_cache,
     prefill_forward,
     prefix_copy,
     spec_cache_insert,
     suffix_insert,
+    unflatten_params,
     verify_forward,
 )
 from opendiloco_torch.ops.decode_kernels import (
@@ -62,6 +83,25 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
+# snapshot_fn contract: () -> (epoch, blobs, codec_name) with blobs[i] =
+# (payload, meta, shape) per master leaf in flatten_params order, as
+# DiLoCoOptimizer.master_snapshot_wire returns
+SnapshotFn = Callable[[], tuple]
+
+_STAGES = ("prefill", "draft", "verify", "insert", "decode", "swap")
+
+
+def _on_engine_stream(fn):
+    """Run an engine entry point with the engine's CUDA stream current."""
+
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        with self._streamed():
+            return fn(self, *args, **kwargs)
+
+    return run
+
+
 class ServeEngine:
     def __init__(
         self,
@@ -77,20 +117,25 @@ class ServeEngine:
         device: DeviceLike = None,
         spec_k: int = 0,
         draft_layers: int = 0,
-        snapshot_fn=None,
-        epoch_fn=None,
+        snapshot_fn: Optional[SnapshotFn] = None,
+        epoch_fn: Optional[Callable[[], int]] = None,
         max_stale_rounds: int = 0,
     ):
         """``device`` defaults to the card (and raises without one);
         ``compute_dtype`` defaults to bf16 on the card, f32 on the CPU.
         ``spec_k > 0`` turns on speculative decode with a draft of
-        ``draft_layers`` layers (0: half the stack, at least 1)."""
-        if snapshot_fn is not None or epoch_fn is not None or max_stale_rounds:
-            raise not_ported("weight hot swap", "hot swap and install_wire")
+        ``draft_layers`` layers (0: half the stack, at least 1).
+        ``snapshot_fn`` and ``epoch_fn`` feed hot swap (see
+        :meth:`maybe_swap`)."""
         if weight_format not in WEIGHT_FORMATS:
             raise ValueError(f"unknown weight_format {weight_format!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the engine's own stream on the card (None on the CPU)
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self.snapshot_fn = snapshot_fn
+        self.epoch_fn = epoch_fn
+        self.max_stale_rounds = int(max_stale_rounds)
         if compute_dtype is None:  # bf16 on the card; f32 on the CPU, where bf16 matmuls are slow
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.compute_dtype = compute_dtype
@@ -118,46 +163,163 @@ class ServeEngine:
         # host hook (tests swap in adversarial proposers): (tokens [S],
         # lens [S]) -> proposals [S, spec_k] on the host
         self.propose_fn: Callable[[np.ndarray, np.ndarray], np.ndarray] = self._propose_draft
-        self.params = self._assemble(params)
+        # leaf layout in flatten_params order: what a snapshot must match
+        self._shapes = [tuple(np.shape(x)) for x in flatten_params(params)]
+        self._template = unflatten_params(params, list(range(len(self._shapes))))
+        with self._copying_in():
+            self.params = self._assemble(params)
+            cache = init_kv_cache(
+                cfg, self.num_slots, self.max_context, self.compute_dtype, self.device
+            )
+        # the leaves held packed (w4): where a snapshot may take the fast path
+        self._packable = [isinstance(w, PackedW4) for w in flatten_params(self.params)]
+        self.cache_k, self.cache_v = cache["k"], cache["v"]
         self.weights_epoch = int(epoch)
         self.swap_count = 0
-        # wall seconds per stage, each ending in a device sync
-        self.stage_seconds = {k: 0.0 for k in ("prefill", "draft", "verify", "insert", "decode")}
-        cache = init_kv_cache(
-            cfg, self.num_slots, self.max_context, self.compute_dtype, self.device
-        )
-        self.cache_k, self.cache_v = cache["k"], cache["v"]
+        # each swap's wall seconds by part (maybe_swap): encode, decode,
+        # h2d, pack and total, with the epoch installed
+        self.swap_log: collections.deque = collections.deque(maxlen=256)
+        # wall seconds per stage, each ending in a sync of the engine's stream
+        self.stage_seconds = {k: 0.0 for k in _STAGES}
+
+    def _streamed(self):
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    @contextlib.contextmanager
+    def _copying_in(self):
+        """Copy weights in on the engine's stream: after the work queued
+        on the caller's stream (they may be a trainer's live tensors), and
+        synced at the end, so that the caller may write them again, or
+        read ``self.params``, once the call returns."""
+        if self.stream is None:
+            yield
+            return
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            yield
+        self._sync()
+
+    @property
+    def swap_seconds(self) -> float:
+        """Wall seconds of every hot swap so far, encode included."""
+        return self.stage_seconds["swap"]
 
     # -- weight residency ---------------------------------------------------
 
-    def _assemble(self, params: dict) -> dict:
+    def _assemble(self, params: dict, times: Optional[dict] = None) -> dict:
         """The engine's own copy of ``params`` on its device. Dense leaves
         are held in the compute dtype: the JAX engine keeps f32 masters
         and casts them at every forward, which gives the same weights,
         while the card holds one copy. Under ``w4`` the stacked decoder
         matmuls ([L, in, out] leaves under "layers") are packed instead;
-        norms, embeddings and the lm head stay dense."""
+        norms, embeddings and the lm head stay dense. A leaf that is
+        already a :class:`PackedW4` is kept. With ``times``, the wall
+        seconds of the copies to the device and of the packing are added
+        to its ``h2d_s`` and ``pack_s``, each ending in a sync."""
+
+        def timed(key, fn):
+            if times is None:
+                return fn()
+            t0 = time.perf_counter()
+            out = fn()
+            self._sync()
+            times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+            return out
 
         def walk(tree, path):
             if isinstance(tree, dict):
                 return {k: walk(v, path + (k,)) for k, v in tree.items()}
-            x = torch.as_tensor(tree)
+            if isinstance(tree, PackedW4):
+                return tree
+            x = torch.as_tensor(tree).detach()
             if self.weight_format == "w4" and path[0] == "layers" and x.dim() == 3:
-                q, s = pack_blockwise4_stacked(x.to(self.device, torch.float32))
+                xd = timed("h2d_s", lambda: x.to(self.device, torch.float32))
+                q, s = timed("pack_s", lambda: pack_blockwise4_stacked(xd))
                 return PackedW4(q, s, tuple(x.shape[1:]))
-            return x.to(device=self.device, dtype=self.compute_dtype, copy=True)
+            return timed("h2d_s", lambda: x.to(device=self.device, dtype=self.compute_dtype, copy=True))
 
         return walk(params, ())
 
     def install_params(self, epoch: int, params: dict) -> None:
         """Direct rebind of uncompressed weights (static-weight serving)."""
-        self.params = self._assemble(params)
+        with self._copying_in():
+            self.params = self._assemble(params)
         self.weights_epoch = int(epoch)
         self.swap_count += 1
 
-    def install_wire(self, epoch: int, blobs, codec_name: str) -> None:
-        raise not_ported("install_wire", "hot swap and install_wire")
+    # -- weight hot swap ---------------------------------------------------
 
+    def staleness(self) -> int:
+        """Outer rounds the served weights lag the trainer's masters."""
+        if self.epoch_fn is None:
+            return 0
+        return max(0, int(self.epoch_fn()) - self.weights_epoch)
+
+    @_on_engine_stream
+    def maybe_swap(self) -> bool:
+        """Adopt the trainer's current master snapshot when the staleness
+        exceeds ``max_stale_rounds``. Called between decode steps, so no
+        request is mid-forward across the rebind; the KV cache is not
+        touched. The snapshot is encoded on this thread: the encode is
+        part of the pause that serving sees. Each swap's seconds by part
+        go to ``swap_log``."""
+        if self.snapshot_fn is None or self.staleness() <= self.max_stale_rounds:
+            return False
+        t0 = time.perf_counter()
+        epoch, blobs, codec_name = self.snapshot_fn()
+        t1 = time.perf_counter()
+        if epoch <= self.weights_epoch:
+            return False  # raced an in-flight round: keep the current weights
+        times = self.install_wire(epoch, blobs, codec_name)
+        dt = time.perf_counter() - t0
+        self.stage_seconds["swap"] += dt
+        self.swap_log.append({"epoch": int(epoch), "codec": codec_name, "encode_s": t1 - t0, **times,
+                              "total_s": dt})
+        return True
+
+    def install_wire(self, epoch: int, blobs, codec_name: str) -> dict:
+        """Decode a codec-encoded master snapshot (``blobs[i] = (payload,
+        meta, shape)`` in :func:`flatten_params` order) and rebind the
+        weights. With ``weight_format="w4"`` and a ``blockwise4bit``
+        snapshot, each packable leaf whose codec block grid lands on layer
+        boundaries is re-sliced from the payload into the packed layout
+        (the fp16 scale bits viewed as int16), with no decode and repack;
+        every other leaf is decoded to f32 on the host and assembled.
+        Returns the wall seconds of the host decode (``decode_s``), the
+        copies to the device (``h2d_s``) and the packing (``pack_s``)."""
+        codec = get_codec(codec_name)
+        if len(blobs) != len(self._shapes):
+            raise ValueError(f"snapshot has {len(blobs)} leaves, engine expects {len(self._shapes)}")
+        fast = self.weight_format == "w4" and codec_name == "blockwise4bit"
+        times = {"decode_s": 0.0, "h2d_s": 0.0, "pack_s": 0.0}
+        leaves = []
+        with self._copying_in():
+            for (payload, meta, shape), want, packable in zip(blobs, self._shapes, self._packable):
+                if tuple(shape) != want:
+                    raise ValueError(f"snapshot leaf shape {tuple(shape)} != {want}")
+                size = math.prod(shape)
+                if fast and packable:
+                    res = split_blockwise4_stacked(payload, meta, int(shape[0]), size // int(shape[0]))
+                    if res is not None:
+                        q, s = res
+                        t0 = time.perf_counter()
+                        packed = PackedW4(torch.from_numpy(q).to(self.device),
+                                          torch.from_numpy(s.view(np.int16)).to(self.device), tuple(shape[1:]))
+                        self._sync()
+                        times["h2d_s"] += time.perf_counter() - t0
+                        leaves.append(packed)
+                        continue
+                t0 = time.perf_counter()
+                leaves.append(np.asarray(codec.decode(payload, (size,), meta), np.float32).reshape(shape))
+                times["decode_s"] += time.perf_counter() - t0
+            self.params = self._assemble(unflatten_params(self._template, leaves), times)
+            self.weights_epoch = int(epoch)
+            self.swap_count += 1
+        return times
+
+    @_on_engine_stream
     def kernel_probe(self, iters: int = 3) -> dict:
         """Time the decode-path kernels alone on the engine's live shapes:
         B6 (one query per slot) and B7 (a ``tail_width`` tail per slot)
@@ -200,14 +362,15 @@ class ServeEngine:
         return out
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if self.stream is not None:
+            self.stream.synchronize()
 
     # -- admission ---------------------------------------------------------
 
     def prompt_fits(self, n: int) -> bool:
         return pick_bucket(n, self.prefill_buckets) is not None
 
+    @_on_engine_stream
     def admit(
         self,
         slot: int,
@@ -271,6 +434,7 @@ class ServeEngine:
 
     # -- decode ------------------------------------------------------------
 
+    @_on_engine_stream
     def decode_step(
         self, tokens: np.ndarray, lens: np.ndarray
     ) -> tuple[np.ndarray, torch.Tensor]:
@@ -300,6 +464,7 @@ class ServeEngine:
         )
         return props.cpu().numpy()  # waits for the device
 
+    @_on_engine_stream
     def spec_step(self, tokens: np.ndarray, lens: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """One self-speculative round over all S slots: draft k proposals,
         verify the [current, d_1..d_k] tail at full depth, keep the

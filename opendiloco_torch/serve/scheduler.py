@@ -1,13 +1,15 @@
 """Continuous-batching scheduler: request queue and the decode loop.
 
 The counterpart of ``opendiloco_tpu/serve/scheduler.py``
-``ContinuousBatcher`` without its KV tier. One daemon thread owns the
-engine and runs the cycle: retire finished sequences (their slots free at
-once), admit queued prompts into free slots (a prefill joins them to the
-batch; with ``prefix_cache`` a prompt that shares at least
-``MIN_PREFIX_TOKENS`` leading tokens with a live slot reuses that slot's
-prefix K/V), and take one decode step, or one speculative round when the
-engine has ``spec_k > 0``, for every live slot. Any thread may
+``ContinuousBatcher`` without its KV tier and request tracing. One daemon
+thread owns the engine and runs the cycle: retire finished sequences
+(their slots free at once), admit queued prompts into free slots (a
+prefill joins them to the batch; with ``prefix_cache`` a prompt that
+shares at least ``MIN_PREFIX_TOKENS`` leading tokens with a live slot
+reuses that slot's prefix K/V), take one decode step, or one speculative
+round when the engine has ``spec_k > 0``, for every live slot, and every
+``swap_every_steps`` decode steps (and when idle) let the engine hot-swap
+its weights (``ServeEngine.maybe_swap``). Any thread may
 :meth:`ContinuousBatcher.submit`; each request signals completion
 through its own event. Nothing is dropped: a request completes, is
 rejected at submit, or is failed explicitly when the loop dies or the
@@ -86,6 +88,7 @@ class ContinuousBatcher:
         engine: ServeEngine,
         *,
         max_queue: int = 1024,
+        swap_every_steps: int = 16,
         prefix_cache: bool = False,
         kv_tier=None,
     ):
@@ -93,6 +96,7 @@ class ContinuousBatcher:
             raise not_ported("the KV tier", "KV tier")
         self.engine = engine
         self.max_queue = int(max_queue)
+        self.swap_every_steps = max(1, int(swap_every_steps))
         self.prefix_cache = bool(prefix_cache)
         self.spec_decode = engine.spec_k > 0
         self.slots = SlotAllocator(engine.num_slots)
@@ -110,8 +114,13 @@ class ContinuousBatcher:
         self.cancelled = 0
         self.shed = 0
         self.total_new_tokens = 0
+        # EWMA of completed-request latency: the wait estimate behind the
+        # front end's Retry-After hints
+        self._lat_ewma: Optional[float] = None
         self._latencies: collections.deque = collections.deque(maxlen=4096)
         self._ttfts: collections.deque = collections.deque(maxlen=4096)
+        # decode steps by the staleness of the weights that took them
+        self.staleness_hist: collections.Counter = collections.Counter()
         self.loop_error: Optional[str] = None
         # speculative-decode and prefix-reuse accounting (loop thread only)
         self.spec_proposed = 0
@@ -212,7 +221,11 @@ class ContinuousBatcher:
                 self._sweep_cancelled()
                 admitted = self._admit()
                 stepped = self._decode()
+                if stepped and self.decode_steps % self.swap_every_steps == 0:
+                    self.engine.maybe_swap()
                 if not admitted and not stepped:
+                    # idle: still honour the staleness bound, then sleep
+                    self.engine.maybe_swap()
                     with self._cond:
                         if not self._queue and not self._stop.is_set():
                             self._cond.wait(timeout=0.05)
@@ -343,6 +356,7 @@ class ContinuousBatcher:
         if self.spec_decode:
             return self._decode_spec()
         next_tokens, _ = self.engine.decode_step(*self._step_inputs())
+        self.staleness_hist[self.engine.staleness()] += 1
         # counted before any request of this step finishes, so a client
         # that wakes on completion reads consistent stats
         self.decode_steps += 1
@@ -366,6 +380,7 @@ class ContinuousBatcher:
         many plain decode steps would have given (``ServeEngine.spec_step``).
         A round counts as one decode step."""
         g, m = self.engine.spec_step(*self._step_inputs())
+        self.staleness_hist[self.engine.staleness()] += 1
         self.decode_steps += 1  # before any request finishes: see _decode
         self.spec_proposed += self.engine.spec_k * len(self._active)
         self.spec_accepted += sum(int(m[slot]) for slot in self._active)
@@ -402,17 +417,43 @@ class ContinuousBatcher:
         req.finish(error)
         if error is None:
             self._latencies.append(req.latency_s)
+            ewma = self._lat_ewma
+            self._lat_ewma = req.latency_s if ewma is None else 0.8 * ewma + 0.2 * req.latency_s
             if req.ttft_s is not None:
                 self._ttfts.append(req.ttft_s)
 
+    def estimate_wait_s(self) -> float:
+        """Rough time a new request spends queued: the queue length over
+        the slots, paced by the completed-latency EWMA (0.25 s before the
+        first completion). A hint for Retry-After, not a promise."""
+        ewma = self._lat_ewma if self._lat_ewma is not None else 0.25
+        with self._cond:
+            depth = len(self._queue)
+        return (depth / max(1, self.slots.num_slots)) * ewma
+
     # -- metrics -----------------------------------------------------------
+
+    def health(self) -> dict:
+        """Compact load vector: queue depth, occupancy, p99 latency, the
+        wait estimate, completed and shed counts."""
+        lat = np.asarray(self._latencies, np.float64)
+        with self._cond:
+            depth = len(self._queue)
+        return {
+            "queue_depth": depth,
+            "occupancy": round(self.slots.num_active / self.slots.num_slots, 4),
+            "p99_ms": round(float(np.percentile(lat, 99)) * 1e3, 3) if lat.size else None,
+            "wait_estimate_s": round(self.estimate_wait_s(), 4),
+            "completed": self.completed,
+            "shed": self.shed,
+        }
 
     def stats(self) -> dict:
         """Point-in-time summary, in the reference batcher's schema: request
         counts, tokens, latency and time-to-first-token percentiles in ms
-        (completed requests), stage seconds, spec and prefix counters. The
-        port tracks no staleness and has no host KV tier yet: those keys
-        read 0, {}, 0 host hits and None."""
+        (completed requests), weight swaps and staleness, stage seconds,
+        spec and prefix counters. The port has no host KV tier yet: its
+        keys read 0 host hits and None."""
         lat = np.asarray(self._latencies, np.float64) * 1e3
         ttft = np.asarray(self._ttfts, np.float64) * 1e3
 
@@ -438,8 +479,9 @@ class ContinuousBatcher:
             "ttft_ms": {"p50": pct(ttft, 50), "p99": pct(ttft, 99)},
             "weight_swaps": self.engine.swap_count,
             "weights_epoch": self.engine.weights_epoch,
-            "staleness": 0,
-            "staleness_hist": {},
+            "staleness": self.engine.staleness(),
+            # int keys in numeric order
+            "staleness_hist": {int(k): v for k, v in sorted(self.staleness_hist.items())},
             "stages_s": {k: round(v, 6) for k, v in self.engine.stage_seconds.items()},
             "spec": {
                 "proposed": self.spec_proposed,

@@ -21,10 +21,17 @@ The DiLoCo backend comes from the caller: workers in one process share a
     for rank, backend in enumerate(world.make_backends()):
         threading.Thread(target=train, args=(config_for(rank), backend)).start()
 
+With ``serve.enabled`` the worker also serves: ``build_serving`` starts an
+engine on the same card, its batcher thread and the HTTP/JSONL front end
+on ``serve.host``/``serve.port``, and the engine hot-swaps its weights
+from this worker's DiLoCo masters (``max_stale_rounds``). A loopback
+world's codec (``LoopbackWorld(n, compression=...)``) carries the outer
+all-reduce; ``diloco.compression`` picks the serving snapshots' codec
+(``state_codec``, which ``ODTP_STATE_CODEC`` overrides).
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP.md
-items: the TCP backend (A12), outer compression (A3), the serving plane
-and fleet of a training run (A3, A13), multihost and intra-worker
-sharding (A10) and non-fake data (A9).
+items: the TCP backend (A12), error feedback (A11), the serving fleet
+(A13), multihost and intra-worker sharding (A10) and non-fake data (A9).
 
 Text log lines carry the worker's rank, per thread (:func:`log_rank`).
 """
@@ -66,14 +73,8 @@ def make_backend(cfg: DilocoConfig) -> OuterBackend:
 
 def _check_ported(config: Config) -> None:
     unported = [
-        (config.serve is not None and config.serve.enabled, "the serving plane of a training run", "A3"),
         (config.fleet is not None, "the serving fleet", "A13"),
         (config.multihost, "the multihost inner loop", "A10"),
-        (
-            config.diloco is not None and config.diloco.compression != "none",
-            "outer compression other than 'none' (diloco.compression)",
-            "A3",
-        ),
         (
             config.sharding_strategy != "NO_SHARD"
             or max(config.dp_size or 1, config.fsdp_size or 1, config.tp_size, config.sp_size,
@@ -194,6 +195,17 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
         )
         eval_iter = iter(eval_loader)
 
+    # the in-process serving plane: engine, batcher and front end share this
+    # process and card with the inner loop, and hot-swap from the masters
+    serving = None
+    if config.serve is not None and config.serve.enabled:
+        from opendiloco_torch.serve import build_serving
+
+        serving = build_serving(config.serve, model_cfg, state["params"], diloco_opt,
+                                compute_dtype=tc.compute_dtype, device=trainer.device)
+        log.info("serving plane up on %s:%d (%d slots, ctx %d)", config.serve.host, serving.port,
+                 config.serve.max_batch, config.serve.max_context)
+
     tokens_per_step = config.total_batch_size * config.seq_length
     summary = {"step": start_step, "loss": float("nan")}
     data_iter = iter(loader)
@@ -285,6 +297,10 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
         log.error("a DiLoCo worker dropped and fail_rank_drop is set; exiting")
         raise
     finally:
+        if serving is not None:
+            # before the backend goes away: the batcher may be mid-swap,
+            # pulling a master snapshot through diloco_opt
+            serving.stop()
         if profiler is not None:
             # a window that reaches past total_steps still writes its trace;
             # a failure to write it must not hide the real error

@@ -109,7 +109,8 @@ def test_port_imports_with_jax_blocked():
     # the training slice's modules are among those imported
     for mod in ("trainer", "train", "ops.flash_attention", "ops.launch", "diloco.optimizer",
                 "diloco.loopback", "diloco.backend", "diloco.outer_optimizer", "data.dataloader",
-                "utils.logger", "utils.debug", "ckpt", "diloco.state_io", "utils.safetensors_io"):
+                "utils.logger", "utils.debug", "ckpt", "diloco.state_io", "utils.safetensors_io",
+                "native", "diloco.compression", "serve.server"):
         assert f"opendiloco_torch.{mod}" in names, mod
 
 

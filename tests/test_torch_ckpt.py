@@ -194,14 +194,23 @@ def test_pack_tree_matches_jax(name, tree):
             assert np.array_equal(x, y) and np.asarray(x).dtype == np.asarray(y).dtype
 
 
-def test_state_codecs_raise_naming_a3():
-    from opendiloco_torch.diloco import state_io
+def test_state_codecs_round_trip_like_jax():
+    # codecs on state payloads are ported: an fp16 payload is the JAX
+    # package's (tests/test_torch_codecs.py holds every codec) and reads
+    # back in both packages
+    from opendiloco_tpu.diloco import tcp as jtcp
+    from opendiloco_tpu.diloco.compression import get_codec as jget_codec
 
-    with pytest.raises(NotImplementedError, match="A3"):
-        state_io.serialize_state({"a": np.zeros(2, np.float32)}, codec="fp16")
-    meta, blob = state_io.serialize_state({"a": np.zeros(2, np.float32)})
-    with pytest.raises(NotImplementedError, match="A3"):
-        state_io.deserialize_state({**meta, "enc": [{"codec": "fp16", "meta": {}}]}, blob)
+    from opendiloco_torch.diloco import state_io
+    from opendiloco_torch.diloco.compression import get_codec
+
+    tree = {"a": np.linspace(-1, 1, 5, dtype=np.float32), "n": np.arange(3, dtype=np.int64)}
+    meta, blob = state_io.serialize_state(tree, get_codec("fp16"))
+    assert (meta, blob) == jtcp.serialize_state(tree, jget_codec("fp16"))
+    assert meta["enc"][1] is None and len(blob) == 5 * 2 + 3 * 8
+    for back in (state_io.deserialize_state(meta, blob), jtcp.deserialize_state(meta, blob)):
+        assert np.array_equal(back["a"], tree["a"].astype(np.float16).astype(np.float32))
+        assert np.array_equal(back["n"], tree["n"])
 
 
 def test_multihost_sidecar_scoping_matches_jax(tmp_path, tiny_cfg, monkeypatch):

@@ -1359,3 +1359,34 @@ def test_spec_tail_attention_rejects(cuda, bad):
     with pytest.raises(ValueError):
         tdk.spec_tail_attention_fused(q, ck, ck, tk, tk, lens, q_start=bad.get("q_start", 0))
     assert tdk.LAUNCHES["spec_tail_attention"] == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight_format", ["fp32", "w4"])
+def test_engine_weight_copies_are_ordered_for_the_caller(cuda, weight_format):
+    """A serving engine copies weights in on its own stream: after the work
+    queued on the caller's stream (here a 0.3 s sleep, then the doubling of
+    the weights in place), and done when ``install_params`` returns, so
+    the caller reads ``engine.params`` and writes its own tensors again
+    on its stream with no sync."""
+    from opendiloco_torch.models.llama import LlamaConfig, PackedW4, flatten_params, init_params
+    from opendiloco_torch.serve.engine import ServeEngine
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                      num_attention_heads=4)
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    engine = ServeEngine(cfg, params, num_slots=2, max_context=64, prefill_buckets=(16,),
+                         compute_dtype=torch.float32, weight_format=weight_format, device=cuda)
+    leaves = flatten_params(params)
+    want = [quant.pack_blockwise4_stacked(2 * x) if isinstance(w, PackedW4) else 2 * x
+            for x, w in zip(leaves, flatten_params(engine.params))]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2**29)
+    for x in leaves:
+        x.mul_(2)
+    engine.install_params(1, params)
+    for x in leaves:
+        x.zero_()
+    got = [(w.q, w.s) if isinstance(w, PackedW4) else w for w in flatten_params(engine.params)]
+    same = [all(map(torch.equal, g, w)) if isinstance(g, tuple) else torch.equal(g, w) for g, w in zip(got, want)]
+    assert all(same), same

@@ -254,7 +254,7 @@ def test_build_serving_on_cpu_matches_engine(cfg):
     serve_cfg = ServeConfig(max_batch=2, max_context=24, prefill_buckets=[8, 16])
     prompt = [3, 1, 4, 1, 5, 9]
     want = _generate(_port_engine(cfg, params), prompt, 6)
-    plane = build_serving(serve_cfg, cfg, params, compute_dtype=torch.float32, device="cpu")
+    plane = build_serving(serve_cfg, cfg, params, compute_dtype=torch.float32, device="cpu", start_server=False)
     try:
         req = plane.batcher.submit(prompt, max_new_tokens=6)
         assert req.wait(60) and req.error is None
@@ -283,7 +283,8 @@ def test_serve_config_validates_like_jax(bad):
 
 def test_serve_config_defaults_match_jax():
     ours, ref = ServeConfig(), JServeConfig()
-    for f in ("max_batch", "max_context", "prefill_buckets", "max_queue", "weight_format"):
+    for f in ("max_batch", "max_context", "prefill_buckets", "max_queue", "weight_format", "host", "port",
+              "swap_every_steps", "max_stale_rounds"):
         assert getattr(ours, f) == getattr(ref, f)
     assert ServeConfig(prefill_buckets="8, 16").prefill_buckets == [8, 16]
 
@@ -300,9 +301,12 @@ def test_entry_points_raise_without_a_card(cfg, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [dict(snapshot_fn=lambda: None), dict(max_stale_rounds=1)])
-def test_later_slices_raise_not_implemented(cfg, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_engine(cfg, _np_params(cfg), **kwargs)
+def test_hot_swap_arguments_are_taken(cfg, kwargs):
+    # hot swap is ported: the engine takes its arguments and, with no
+    # epoch source, reports no staleness and does not swap
+    engine = _port_engine(cfg, _np_params(cfg), **kwargs)
+    assert engine.staleness() == 0 and engine.maybe_swap() is False
+    assert engine.max_stale_rounds == kwargs.get("max_stale_rounds", 0)
 
 
 @pytest.mark.parametrize(
@@ -319,17 +323,16 @@ def test_engine_spec_validation_like_jax(tiny_cfg, cfg, kwargs):
 
 
 def test_later_slice_paths_raise_not_implemented(cfg):
+    # the KV tier is a later slice; install_wire, a DiLoCo optimizer and
+    # the front end are ported (tests/test_torch_hot_swap.py and
+    # tests/test_torch_server.py hold them against the JAX package)
     engine = _port_engine(cfg, _np_params(cfg))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.admit(0, [1, 2, 3], host_prefix=(None, None, 2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.install_wire(1, [], "fp16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousBatcher(engine, kv_tier=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_serving(ServeConfig(), cfg, {}, diloco_opt=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_serving(ServeConfig(), cfg, {}, start_server=True, device="cpu")
+    with pytest.raises(ValueError, match="leaves"):
+        engine.install_wire(1, [], "fp16")
 
 
 def test_install_params_rebinds(cfg):

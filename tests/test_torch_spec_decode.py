@@ -518,7 +518,7 @@ def test_build_serving_passes_spec_and_prefix(cfg):
     serve_cfg = ServeConfig(max_batch=2, max_context=32, prefill_buckets=[8, 16], spec_decode_k=2,
                             draft_layers=1, prefix_cache=True)
     sysp = [3, 1, 4, 1, 5, 9]
-    plane = build_serving(serve_cfg, cfg, params, compute_dtype=torch.float32, device="cpu")
+    plane = build_serving(serve_cfg, cfg, params, compute_dtype=torch.float32, device="cpu", start_server=False)
     try:
         assert (plane.engine.spec_k, plane.engine.draft_layers) == (2, 1)
         assert plane.batcher.prefix_cache and plane.batcher.spec_decode

@@ -296,12 +296,12 @@ def test_eval_loss_and_probe_norms_match_jax(tiny_cfg):
 # ---------------------------------------------------------------------------
 
 
-def _torch_diloco_workers(tiny_cfg, params, n_workers, n_steps, local_steps):
+def _torch_diloco_workers(tiny_cfg, params, n_workers, n_steps, local_steps, compression="none"):
     """The port's side of tests/test_diloco.py run_diloco_workers: the same
     trainer settings, data and outer config, one thread per worker."""
     from test_diloco import batches
 
-    world = LoopbackWorld(n_workers)
+    world = LoopbackWorld(n_workers, compression=compression)
     backends = world.make_backends()
     results, errors, masters = [None] * n_workers, [], [[] for _ in range(n_workers)]
 
@@ -483,7 +483,6 @@ def test_train_without_diloco_with_eval_and_probes(tmp_path):
         dict(fleet=dict(replicas=2)),
         dict(remat="dots"),
         dict(remat="dots_all"),
-        dict(serve=dict(enabled=True)),
         dict(multihost=True),
         dict(sharding_strategy="FULL_SHARD"),
         dict(pp_size=2),
@@ -495,7 +494,6 @@ def test_train_without_diloco_with_eval_and_probes(tmp_path):
         dict(diloco=dict(backend="loopback", overlap_comm="eager")),
         dict(diloco=dict(backend="loopback", streaming_fragments=2)),
         dict(diloco=dict(backend="loopback", outer_mode="gossip")),
-        dict(diloco=dict(backend="loopback", compression="fp16")),
         dict(diloco=dict(backend="loopback", compression="fp16", error_feedback=True)),
     ],
     ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()),
@@ -506,6 +504,25 @@ def test_unported_options_raise(tmp_path, overrides):
     backend = None if tcp else LoopbackWorld(1).make_backends()[0]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(_train_config(tmp_path, 0, **overrides), backend, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [
+        dict(serve=dict(enabled=True, max_batch=2, max_context=64, prefill_buckets=[16])),
+        dict(diloco=dict(backend="loopback", local_steps=2, compression="fp16")),
+    ],
+    ids=["serve=enabled", "compression=fp16"],
+)
+def test_formerly_unported_options_run(tmp_path, overrides):
+    """The serving plane of a run and outer compression are ported: train()
+    takes them (tests/test_torch_hot_swap.py holds both against the JAX
+    package)."""
+    if "diloco" in overrides:
+        overrides["diloco"] = {**_train_config(tmp_path, 0).to_dict()["diloco"], **overrides["diloco"]}
+    backend = LoopbackWorld(1, compression="fp16").make_backends()[0]
+    summary = train(_train_config(tmp_path, 0, total_steps=4, **overrides), backend, device="cpu")
+    assert summary["step"] == 4 and np.isfinite(summary["loss"])
 
 
 @pytest.mark.parametrize(
@@ -554,8 +571,8 @@ def test_log_lines_carry_each_threads_rank():
 
 
 def test_unported_codec_and_fp16_kernels_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LoopbackWorld(2, compression="blockwise4bit")
+    # loopback codecs are ported (tests/test_torch_hot_swap.py)
+    assert LoopbackWorld(2, compression="blockwise4bit").codec.name == "blockwise4bit"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tllama.forward({}, torch.zeros(1, 4, dtype=torch.long), tllama.LlamaConfig(), pp_mesh=object())
 
