@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: serving, speculative
 decode, prefix reuse, training, checkpoint and resume, training that
-serves over HTTP with weight hot swap, and the command line.
+serves over HTTP with weight hot swap, the command line, and the outer
+plane on the card (overlapped and streaming rounds, error feedback).
 
     python3 chip_smoke.py
 
@@ -108,7 +109,13 @@ exits non-zero.
    design's B3, dlog, B4a and B4b never. Then one inner step with the
    fused loss against one with ``fused_loss=False`` on the same params
    and batch, and the inner-step times of the two, in turns as in phase
-   8.
+   8. Then the two-worker training once more with
+   ``outer_placement="device"`` (the master and momentum on the card):
+   launch counts, each step's loss and LR, and the master hashes at each
+   round and at the end equal the host run's bit for bit; the outer
+   step's split (wait, D2H, pseudo-gradient, all-reduce, Nesterov, H2D)
+   for both placements side by side, and the peak device memory of the
+   two workers under each.
 11. B7, the speculative tail attention, against its plain version in f32
    and bf16 at the shapes of its three passes at config_1b: verify (S 8,
    Kq = Kt = 5), draft (Kq 1, Kt 4, q_start 0..3) and the continued
@@ -190,7 +197,20 @@ exits non-zero.
    ``install_params`` of the fp16-rounded params. Host encode s, install
    s by part and the card's peak memory across each swap; launches as in
    phases 4 and 5.
-21. The kernels line (launches of B6, B7, their merges and B8 by serving
+21. The outer plane on the card, host against device placement: phase
+   8's config_150m (two workers, mb 8, accum 2, seq 1024, 4 steps,
+   ``local_steps`` 2: two rounds, the second with the momentum armed)
+   through ``InnerTrainer`` and ``DiLoCoOptimizer``, in four cases:
+   blocking; ``overlap_comm`` "eager"; "delayed" (each round drained
+   before the next step, so both placements land it at the same step);
+   ``streaming_fragments`` 3 x eager with ``error_feedback`` over the
+   ``uniform8bit`` loopback codec (rounds landed after each step). In
+   each case the device run equals the host run bit for bit: every
+   loss and LR, each worker's final master, momentum and residual hashes,
+   its serving snapshot (``master_snapshot_wire``, fp16: cast on the card
+   against numpy's cast) byte for byte, and the launch counts (zeroed
+   just before, read just after); the residuals are non-zero.
+22. The kernels line (launches of B6, B7, their merges and B8 by serving
    phase, of the training kernels by training phase), the card line, and
    last the result line.
 
@@ -2010,8 +2030,10 @@ def recording_backends(world) -> list:
     return [RecordingBackend(world, f"peer-{i}") for i in range(world.n_peers)]
 
 
-def train_config(model: str, run: dict, rank: int, project: str, ckpt: dict, serve: dict | None = None):
-    """The ``Config`` of worker ``rank`` of phases 8, 8b, 10 and 19."""
+def train_config(model: str, run: dict, rank: int, project: str, ckpt: dict, serve: dict | None = None,
+                 diloco: dict | None = None):
+    """The ``Config`` of worker ``rank`` of phases 8, 8b, 10 and 19
+    (``diloco``: more DiLoCo options, phase 10's device placement)."""
     from opendiloco_torch.config import Config
 
     return Config(
@@ -2021,7 +2043,7 @@ def train_config(model: str, run: dict, rank: int, project: str, ckpt: dict, ser
         total_steps=run["total_steps"], lr=run["lr"], metric_logger_type="dummy", project=project,
         ckpt=ckpt,
         diloco=dict(local_steps=run["local_steps"], backend="loopback", world_rank=rank,
-                    timeout_waiting_for_peers=600.0),
+                    timeout_waiting_for_peers=600.0, **(diloco or {})),
         serve=serve,
     )
 
@@ -2057,16 +2079,41 @@ TRAIN_1B = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size
                 total_steps=4, local_steps=2, lr=1e-3)
 
 
-def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict) -> dict:
+OUTER_KEYS = ("outer_step_s", "outer_wait_s", "outer_d2h_s", "outer_pseudo_grad_s", "outer_allreduce_s",
+              "outer_nesterov_s", "outer_h2d_s")
+
+
+def training_launches(torch, dev, cfg, run: dict, inner_steps: int, names) -> dict:
+    """The launch counts a bf16 training run of ``inner_steps`` inner steps
+    (all workers) must show: forward and backward take the sm90 kernels at
+    D 64, the first design never; one delta a backward; with the fused
+    loss (as ``TrainerConfig`` resolves it for ``cfg`` on the card) one
+    forward launch a micro-batch and one launch of each backward kernel a
+    backward chunk."""
+    from opendiloco_torch.ops import fused_xent as tfx
+    from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
+
+    L, accum = cfg.num_hidden_layers, run["total_batch_size"] // run["per_device_train_batch_size"]
+    want = {name: 0 for name in names}
+    want.update({"flash_attention_fwd_sm90": inner_steps * 2 * L * accum,
+                 "flash_attention_delta": inner_steps * L * accum,
+                 "flash_attention_dq_sm90": inner_steps * L * accum,
+                 "flash_attention_dkv_sm90": inner_steps * L * accum})
+    if InnerTrainer(cfg, TrainerConfig(), device=dev).tc.fused_loss:
+        chunks = -(-run["per_device_train_batch_size"] * (run["seq_length"] - 1) // tfx.CHUNK_ROWS)
+        want["fused_xent_fwd_sm90"] = inner_steps * accum
+        for name in ("fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw_sm90"):
+            want[name] = inner_steps * accum * chunks
+    return want
+
+
+def train_workers(torch, tfa, dev, model: str, run: dict, diloco: dict | None = None) -> dict:
     """Two DiLoCo workers, one thread each, run ``train()`` at ``model``'s
-    full width and depth through the kernels (TrainerConfig defaults, so
-    fused_loss resolves as a user gets it). The launch counters are
-    zeroed just before and read just after. Masters are compared across
-    workers after each outer round (at the next round's all-reduce, and at
-    the end). Then one inner step under each of the two TrainerConfig
-    variants in ``compare`` (the first is the path's own), on the same
-    params and batch, each with one worker's steady inner-step time and
-    peak device memory alone."""
+    full width and depth through the kernels. The launch counters are
+    zeroed just before and read just after, and held to
+    :func:`training_launches`. Masters are hashed as each round begins
+    (the recording backends: inside the all-reduce's seconds) and at the
+    end, and compared across workers."""
     import os
     import pickle
     import shutil
@@ -2074,12 +2121,9 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
 
     from opendiloco_torch.diloco import LoopbackWorld
     from opendiloco_torch.models.hf_io import load_config
-    from opendiloco_torch.ops import fused_xent as tfx
     from opendiloco_torch.train import train
-    from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
 
     cfg = load_config(model)
-    L, accum = cfg.num_hidden_layers, run["total_batch_size"] // run["per_device_train_batch_size"]
     backends = recording_backends(LoopbackWorld(2))
     tmp = tempfile.mkdtemp()
     ckpt_path = os.path.join(tmp, "ckpts")
@@ -2090,7 +2134,7 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
 
     def config(rank):
         return train_config(model, run, rank, os.path.join(tmp, f"metrics-{rank}.pkl"),
-                            dict(path=ckpt_path, interval=run.get("ckpt_interval")))
+                            dict(path=ckpt_path, interval=run.get("ckpt_interval")), diloco=diloco)
 
     torch.cuda.reset_peak_memory_stats()
     tfa.LAUNCHES.reset()
@@ -2100,23 +2144,7 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
     launches = tfa.LAUNCHES.snapshot()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steps = run["total_steps"]
-    inner_steps = 2 * steps  # two workers
-    want = {name: 0 for name in launches}
-    # bf16 at D 64: forward and backward take the sm90 kernels, the first
-    # design never; one delta a backward
-    want.update({"flash_attention_fwd_sm90": inner_steps * 2 * L * accum,
-                 "flash_attention_delta": inner_steps * L * accum,
-                 "flash_attention_dq_sm90": inner_steps * L * accum,
-                 "flash_attention_dkv_sm90": inner_steps * L * accum})
-    fused = InnerTrainer(cfg, TrainerConfig(), device=dev).tc.fused_loss
-    if fused:
-        # per micro-batch one forward launch, and per backward chunk one
-        # launch of each backward kernel
-        chunks = -(-run["per_device_train_batch_size"] * (run["seq_length"] - 1) // tfx.CHUNK_ROWS)
-        want["fused_xent_fwd_sm90"] = inner_steps * accum
-        # bf16 dlog, dh and dw take the sm90 kernels, the first design never
-        for name in ("fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw_sm90"):
-            want[name] = inner_steps * accum * chunks
+    want = training_launches(torch, dev, cfg, run, 2 * steps, launches)
     if launches != want:
         raise AssertionError(f"training launch counts {launches} != {want}")
 
@@ -2135,19 +2163,41 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
     for r in range(rounds):
         if backends[0].hashes.get(r) is None or backends[0].hashes[r] != backends[1].hashes.get(r):
             raise AssertionError(f"masters differ after round {r}: {[b.hashes for b in backends]}")
-    outer = {k: [r[k] for rr in rows for r in rr if "outer_step_s" in r]
-             for k in ("outer_step_s", "outer_wait_s", "outer_d2h_s", "outer_pseudo_grad_s", "outer_allreduce_s",
-                       "outer_nesterov_s", "outer_h2d_s")}
-    outer_s = outer["outer_step_s"]
-    if len(outer_s) != 2 * rounds:
-        raise AssertionError(f"expected {2 * rounds} outer steps, got {outer_s}")
-    hashes = [b.hashes for b in backends]
-    ckpt_save_s = [sm["ckpt_save_s"] for sm in summaries]
+    outer = {k: [r[k] for rr in rows for r in rr if "outer_step_s" in r] for k in OUTER_KEYS}
+    if len(outer["outer_step_s"]) != 2 * rounds:
+        raise AssertionError(f"expected {2 * rounds} outer steps, got {outer['outer_step_s']}")
+    out = {"rows": rows, "launches": launches, "hashes": [b.hashes for b in backends], "outer": outer,
+           "peak_gb": peak_gb, "wall": wall, "ckpt_save_s": [sm["ckpt_save_s"] for sm in summaries],
+           "ckpt_path": ckpt_path if run.get("ckpt_interval") else None, "rounds": rounds}
     del backends, summaries
     # the workers' host state (fp32 masters, outer momentum: GBs at 1b)
     # may sit in reference cycles: collect it now, not inside a timed turn
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict) -> dict:
+    """Two DiLoCo workers, one thread each, run ``train()`` at ``model``'s
+    full width and depth through the kernels (TrainerConfig defaults, so
+    fused_loss resolves as a user gets it): :func:`train_workers`. Then
+    one inner step under each of the two TrainerConfig variants in
+    ``compare`` (the first is the path's own), on the same params and
+    batch, each with one worker's steady inner-step time and peak device
+    memory alone."""
+    from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
+
+    cfg = load_config(model)
+    L, accum = cfg.num_hidden_layers, run["total_batch_size"] // run["per_device_train_batch_size"]
+    tw = train_workers(torch, tfa, dev, model, run)
+    rows, launches, hashes, outer, peak_gb, wall = (tw[k] for k in ("rows", "launches", "hashes", "outer",
+                                                                     "peak_gb", "wall"))
+    steps, rounds = run["total_steps"], tw["rounds"]
+    inner_steps = 2 * steps  # two workers
+    outer_s = outer["outer_step_s"]
+    fused = InnerTrainer(cfg, TrainerConfig(), device=dev).tc.fused_loss
+    ckpt_save_s, ckpt_path = tw["ckpt_save_s"], tw["ckpt_path"]
 
     # one inner step under each variant, same params and batch
     from opendiloco_torch.data.dataloader import FakeTokenizedDataset
@@ -2218,7 +2268,7 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
         "launches_per_inner_step": {k: v / inner_steps for k, v in launches.items()},
         "master_hashes": hashes,
         "ckpt_save_s": ckpt_save_s,
-        "ckpt_path": ckpt_path if run.get("ckpt_interval") else None,
+        "ckpt_path": ckpt_path,
         **outer,
         "train_wall_s": wall,
         "peak_memory_gib_two_workers": peak_gb,
@@ -2871,6 +2921,172 @@ def phase_train_f32(torch, tfa, dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10, device placement; phase 21: the outer plane on the card
+# ---------------------------------------------------------------------------
+
+
+def outer_split(outer: dict) -> dict:
+    """Each outer-step phase's seconds, the mean over workers and rounds."""
+    return {k: float(np.mean(v)) for k, v in outer.items()}
+
+
+def phase_train_device(torch, tfa, dev, card: str, model: str, run: dict, host: dict) -> dict:
+    """Phase 10's two-worker training once more with
+    ``outer_placement="device"``: the launch counts, each step's loss and
+    LR, and the master hashes as each round begins and at the end must
+    equal the host run's (``host``: phase 10's result) bit for bit. Prints
+    the outer step's split for both placements side by side (the
+    all-reduce includes the smoke's hash of the master, which a peer fetch
+    copies first: from host RAM or, here, from the card) and the peak
+    device memory of the two workers."""
+    tw = train_workers(torch, tfa, dev, model, run, diloco=dict(outer_placement="device"))
+    losses = [[r["Loss"] for r in rr] for rr in tw["rows"]]
+    lrs = [[r["lr"] for r in rr] for rr in tw["rows"]]
+    if tw["launches"] != host["launches"]:
+        raise AssertionError(f"device placement launches {tw['launches']} != host's {host['launches']}")
+    if losses != host["losses"] or lrs != host["lrs"] or tw["hashes"] != host["master_hashes"]:
+        raise AssertionError(f"device placement differs from host: losses {losses} vs {host['losses']}, lrs {lrs} "
+                             f"vs {host['lrs']}, master hashes {tw['hashes']} vs {host['master_hashes']}")
+    split = {"host": outer_split({k: host[k] for k in OUTER_KEYS}), "device": outer_split(tw["outer"])}
+    res = {"config": model, "outer_placement": "device", "losses": losses, "lrs": lrs, "launches": tw["launches"],
+           "master_hashes": tw["hashes"], **tw["outer"], "outer_split_by_placement": split,
+           "peak_memory_gib_two_workers": {"host": host["peak_memory_gib_two_workers"], "device": tw["peak_gb"]},
+           "train_wall_s": {"host": host["train_wall_s"], "device": tw["wall"]}}
+    for pl in ("host", "device"):
+        sp = split[pl]
+        log(f"train {model} outer step, {pl} placement: {sp['outer_step_s']:.3f} s mean over "
+            f"{len(tw['outer']['outer_step_s'])} (wait {sp['outer_wait_s']:.3f}, D2H {sp['outer_d2h_s']:.3f} beside "
+            f"it, pseudo-gradient {sp['outer_pseudo_grad_s']:.3f}, all-reduce {sp['outer_allreduce_s']:.3f}, "
+            f"Nesterov {sp['outer_nesterov_s']:.3f}, H2D {sp['outer_h2d_s']:.3f}) | {card}")
+    log(f"train {model}: peak device memory, two workers: host placement {host['peak_memory_gib_two_workers']:.2f} "
+        f"GiB, device placement {tw['peak_gb']:.2f} GiB | {card}")
+    log(f"train {model}: device placement's losses, LRs, launches and master hashes equal the host run's bit for bit")
+    return res
+
+
+# phase 21, config_150m as phase 8 (mb 8, accum 2, seq 1024), 4 steps and
+# local_steps 2: two outer rounds, so the second finds the momentum armed
+OUTER_150M = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=2,
+                  total_steps=4, local_steps=2, lr=1e-3)
+OUTER_CASES = {
+    "blocking": dict(diloco={}, compression="none", pin=None),
+    "eager": dict(diloco=dict(overlap_comm="eager"), compression="none", pin="pending"),
+    "delayed": dict(diloco=dict(overlap_comm="delayed"), compression="none", pin="pending"),
+    "streaming x eager, error feedback, uniform8bit": dict(
+        diloco=dict(streaming_fragments=3, overlap_comm="eager", error_feedback=True, compression="uniform8bit"),
+        compression="uniform8bit", pin="flush"),
+}
+
+
+def outer_run(torch, tfa, dev, cfg, run: dict, placement: str, case: dict) -> dict:
+    """Two workers, one thread each, through ``InnerTrainer`` and
+    ``DiLoCoOptimizer`` (what ``train()`` drives) on phase 8's data and
+    init. The landings are pinned as the CPU suites pin them, so both
+    placements land every round at the same step: "pending" waits for
+    the overlapped round before the next step, "flush" lands the streaming
+    rounds after each step. Per worker: losses, LRs, hashes of the final
+    master, momentum and error-feedback residuals, and of the serving
+    snapshot ``master_snapshot_wire``; the launch counters are zeroed just
+    before and read just after."""
+    from opendiloco_torch.config import DilocoConfig
+    from opendiloco_torch.data.dataloader import FakeTokenizedDataset
+    from opendiloco_torch.diloco import DiLoCoOptimizer, LoopbackWorld
+    from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
+
+    accum = run["total_batch_size"] // run["per_device_train_batch_size"]
+    backends = LoopbackWorld(2, compression=case["compression"]).make_backends()
+
+    def worker(rank):
+        t0 = time.perf_counter()
+        trainer = InnerTrainer(cfg, TrainerConfig(lr=run["lr"], warmup_steps=run["warmup_steps"],
+                                                  total_steps=run["total_steps"], precision="bf16-mixed", remat=True),
+                               device=dev)
+        state = trainer.init_state(42)
+        dc = DilocoConfig(local_steps=run["local_steps"], backend="loopback", world_rank=rank,
+                          timeout_waiting_for_peers=600.0, outer_placement=placement,
+                          **{"compression": case["compression"], **case["diloco"]})
+        opt = DiLoCoOptimizer(trainer, backends[rank], dc, state, batch_size=run["total_batch_size"])
+        ds = iter(FakeTokenizedDataset(run["seq_length"], cfg.vocab_size, seed=42 + rank, mode="ramp"))
+        losses, lrs, outer = [], [], []
+        t1 = time.perf_counter()
+        for step in range(run["total_steps"]):
+            ids = np.stack([next(ds)["input_ids"] for _ in range(run["total_batch_size"])])
+            state, m = opt.step(state, trainer.shard_batch(ids, ids.copy(), accum))
+            losses.append(float(m["loss"]))
+            lrs.append(trainer.current_lr(step + 1))
+            if "outer_step_s" in m:
+                outer.append(m["outer_step_s"])
+            if case["pin"] == "pending" and opt._pending is not None:
+                while not opt._pending["future"].done():
+                    time.sleep(0.001)
+            elif case["pin"] == "flush":
+                state = opt.flush(state)
+        state = opt.flush(state)
+        t2 = time.perf_counter()
+        sd = opt.state_dict()
+        _, blobs, codec = opt.master_snapshot_wire()
+        wire = hashlib.sha256()
+        for payload, meta, shape in blobs:
+            wire.update(bytes(payload))
+            wire.update(json.dumps([meta, list(shape)], sort_keys=True).encode())
+        ef = sd.get("ef_residual")
+        return {"losses": losses, "lrs": lrs, "outer_step_s": outer, "epoch": sd["epoch"],
+                "master": master_hash(sd["master"]), "bufs": master_hash(sd["outer_opt"]["bufs"]),
+                "ef": None if ef is None else master_hash([np.ascontiguousarray(r, np.float32) for r in ef]),
+                "ef_abs_max": None if ef is None else max(float(np.abs(r).max()) for r in ef if r is not None),
+                "wire": wire.hexdigest(), "wire_codec": codec,
+                "seconds": {"init": t1 - t0, "steps": t2 - t1, "checks": time.perf_counter() - t2}}
+
+    torch.cuda.synchronize()
+    tfa.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    workers = run_workers(worker, [(r,) for r in range(2)])
+    res = {"workers": workers, "launches": tfa.LAUNCHES.snapshot(), "wall_s": time.perf_counter() - t0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_outer_plane(torch, tfa, dev, card: str) -> dict:
+    """Phase 21: each case of ``OUTER_CASES`` under host, then device
+    placement (:func:`outer_run`); everything must be equal bit for bit:
+    each worker's losses, LRs, final master, momentum and residual hashes
+    and serving snapshot bytes, and the launch counts (those of
+    :func:`training_launches`). Under error feedback the residuals are
+    non-zero."""
+    from opendiloco_torch.models.hf_io import load_config
+
+    cfg, run = load_config("150m"), OUTER_150M
+    out = {}
+    for name, case in OUTER_CASES.items():
+        runs = {pl: outer_run(torch, tfa, dev, cfg, run, pl, case) for pl in ("host", "device")}
+        want = training_launches(torch, dev, cfg, run, 2 * run["total_steps"], runs["host"]["launches"])
+        for pl, r in runs.items():
+            if r["launches"] != want:
+                raise AssertionError(f"outer plane {name}, {pl}: launch counts {r['launches']} != {want}")
+        keys = ("losses", "lrs", "epoch", "master", "bufs", "ef", "wire", "wire_codec")
+        h, d = ([{k: w[k] for k in keys} for w in runs[pl]["workers"]] for pl in ("host", "device"))
+        if h != d:
+            raise AssertionError(f"outer plane {name}: device placement differs from host: {d} vs {h}")
+        if h[0]["master"] != h[1]["master"] or h[0]["epoch"] != run["total_steps"] // run["local_steps"]:
+            raise AssertionError(f"outer plane {name}: workers' masters differ or rounds missing: {h}")
+        if case["diloco"].get("error_feedback") and not all(w["ef_abs_max"] > 0 for w in runs["device"]["workers"]):
+            raise AssertionError(f"outer plane {name}: residuals are zero: {runs['device']['workers']}")
+        out[name] = {pl: {"wall_s": r["wall_s"], "launches": r["launches"],
+                          "outer_step_s": [w["outer_step_s"] for w in r["workers"]],
+                          "worker_seconds": [w["seconds"] for w in r["workers"]],
+                          "ef_abs_max": [w["ef_abs_max"] for w in r["workers"]]} for pl, r in runs.items()}
+        out[name]["workers"] = h
+        log(f"outer plane 150m, {name}: device placement equals host bit for bit (losses {h[0]['losses']}, "
+            f"master {h[0]['master'][:12]}, momentum {h[0]['bufs'][:12]}, snapshot {h[0]['wire_codec']} "
+            f"{h[0]['wire'][:12]}); wall host {runs['host']['wall_s']:.1f} s, device {runs['device']['wall_s']:.1f} s; "
+            f"outer step s host {out[name]['host']['outer_step_s']}, device {out[name]['device']['outer_step_s']}; "
+            f"worker s (init, steps, checks) host {out[name]['host']['worker_seconds']}, device "
+            f"{out[name]['device']['worker_seconds']} | {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2930,9 +3146,11 @@ def main() -> int:
     train_f32 = phase_train_f32(torch, tfa, dev, card)
     xent = phase_xent(torch, tfx, dev)
     train_1b = phase_train(torch, tfa, dev, card, "1b", TRAIN_1B, {"fused": {}, "unfused": dict(fused_loss=False)})
+    train_1b_device = phase_train_device(torch, tfa, dev, card, "1b", TRAIN_1B, train_1b)
     weights_dir = phase_weights_dir(torch, dev, card)
     gate3 = phase_gate3(torch, tfa, dev, card)
     cli = phase_cli(card)
+    outer_plane = phase_outer_plane(torch, tfa, dev, card)
 
     # launches: each serving phase's main path, by phase
     serving = {f"serve {s['weight_format']}": s["launches"] for s in serve}
@@ -2952,11 +3170,15 @@ def main() -> int:
                                   "resume 150m": resume_150m["launches"][k["name"]],
                                   "train+serve 150m": train_serve["launches"][k["name"]],
                                   "train 150m fp32 step": train_f32["launches"][k["name"]],
-                                  "train 1b": train_1b["launches"][k["name"]]}
+                                  "train 1b": train_1b["launches"][k["name"]],
+                                  "train 1b device placement": train_1b_device["launches"][k["name"]],
+                                  "outer plane 150m": sum(r[pl]["launches"][k["name"]]
+                                                          for r in outer_plane.values() for pl in ("host", "device"))}
         k["launches"] = sum(k["launches_by_phase"].values())
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
     log(json.dumps({"serve": serve, "spec": spec, "spec_f32": spec_f32, "prefix": prefix, "reference": reference,
-                    "train": [train_150m, train_1b, train_f32], "resume": resume_150m, "weights_dir": weights_dir,
+                    "train": [train_150m, train_1b, train_f32], "train_1b_device": train_1b_device,
+                    "outer_plane": outer_plane, "resume": resume_150m, "weights_dir": weights_dir,
                     "train_serve": train_serve, "install_wire": wire,
                     "gate3": gate3, "cli": cli, "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b6, *b7, *b8, *flash, *xent]}))

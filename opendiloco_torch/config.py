@@ -149,9 +149,9 @@ COMPRESSIONS = (
 @dataclasses.dataclass
 class DilocoConfig:
     """Outer-loop (DiLoCo) configuration: the JAX package's fields and
-    defaults. The port runs the host-placement blocking path over an
-    in-process loopback backend; the other options raise where they are
-    read (``diloco/optimizer.py``, ``train.py``)."""
+    defaults. The port runs them over an in-process loopback backend;
+    the TCP backend and gossip rounds raise where they are read
+    (``diloco/optimizer.py``, ``train.py``)."""
 
     outer_lr: float = 0.7
     outer_momentum: float = 0.9
@@ -176,6 +176,10 @@ class DilocoConfig:
     outer_mode: str = "allreduce"
     overlap_comm: str = "none"
     streaming_fragments: int = 0
+    # streaming x overlap: fragment k launches after inner step
+    # min(H, int(k * stagger * H / N) + 1); 1.0 spreads the launches over
+    # the phase, smaller values front-load them
+    stream_stagger: float = 1.0
     outer_placement: str = "auto"
 
     def __post_init__(self):
@@ -191,6 +195,8 @@ class DilocoConfig:
                 "streaming_fragments makes average_state_every unnecessary AND "
                 "destructive (see the JAX package's DilocoConfig)"
             )
+        if not 0.0 < self.stream_stagger <= 1.0:
+            raise ValueError(f"stream_stagger must be in (0, 1], got {self.stream_stagger}")
         if self.error_feedback and self.compression == "none":
             raise ValueError(
                 "error_feedback carries the codec's encode/decode residual; "

@@ -1,5 +1,6 @@
-"""The DiLoCo outer loop: backend interface, loopback world, outer SGD and
-the optimizer that drives one worker (host placement, blocking rounds)."""
+"""The DiLoCo outer loop: backend interface, loopback world, outer SGD, the
+device-resident outer plane, streaming fragments, error feedback and the
+optimizer that drives one worker."""
 from opendiloco_torch.diloco.backend import AllReduceError, OuterBackend, PeerProgress
 from opendiloco_torch.diloco.loopback import LoopbackBackend, LoopbackWorld
 from opendiloco_torch.diloco.optimizer import DiLoCoOptimizer, PeerDropError

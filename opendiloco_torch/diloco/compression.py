@@ -465,3 +465,16 @@ def split_blockwise4_stacked(
     qa = np.frombuffer(q, np.uint8).reshape(L, n_layer // 2)
     sa = np.frombuffer(scales, np.uint16).reshape(L, n_layer // _BLOCK)
     return qa.copy(), sa.copy()
+
+
+def device_wire_dtype(name: str) -> str | None:
+    """The dtype the device outer plane may cast a pseudo-gradient to on
+    the card before its D2H copy, or None (full-width f32).
+
+    Only a codec whose host encode is idempotent under the cast
+    qualifies: plain fp16 encodes f16(x), and f16(f32(f16(x))) == f16(x)
+    bit for bit, so the wire bytes are the host placement's. scaled-fp16
+    divides by a host abs-max before its cast and the 8-bit codecs bucket
+    full-precision values, so a cast on the card would change their
+    bytes."""
+    return "float16" if name == "fp16" else None

@@ -29,9 +29,15 @@ world's codec (``LoopbackWorld(n, compression=...)``) carries the outer
 all-reduce; ``diloco.compression`` picks the serving snapshots' codec
 (``state_codec``, which ``ODTP_STATE_CODEC`` overrides).
 
+The DiLoCo options run as the JAX package runs them: the outer plane on
+the host or the device (``outer_placement``), blocking, overlapped and
+streaming rounds, error feedback. A round in flight lands before each
+checkpoint and at the end of the run (``flush``), and is dropped when the
+run fails (``drop_pending``).
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP.md
-items: the TCP backend (A12), error feedback (A11), the serving fleet
-(A13), multihost and intra-worker sharding (A10) and non-fake data (A9).
+items: the TCP backend and gossip rounds (A12), the serving fleet (A13),
+multihost and intra-worker sharding (A10) and non-fake data (A9).
 
 Text log lines carry the worker's rank, per thread (:func:`log_rank`).
 """
@@ -278,6 +284,9 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
             if config.ckpt.interval and real_step % config.ckpt.interval == 0:
                 flush(pending)
                 pending = None
+                if diloco_opt is not None:
+                    # the saved master holds every launched outer round
+                    state = diloco_opt.flush(state)
                 t_save = time.perf_counter()
                 ckpt_lib.save_checkpoint(
                     config.ckpt.path,
@@ -293,6 +302,8 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
         if pending is not None:
             flush(pending)
             pending = None
+        if diloco_opt is not None:
+            state = diloco_opt.flush(state)
     except PeerDropError:
         log.error("a DiLoCo worker dropped and fail_rank_drop is set; exiting")
         raise
@@ -301,6 +312,9 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
             # before the backend goes away: the batcher may be mid-swap,
             # pulling a master snapshot through diloco_opt
             serving.stop()
+        if diloco_opt is not None:
+            # a failed run leaves no outer round holding the backend
+            diloco_opt.drop_pending()
         if profiler is not None:
             # a window that reaches past total_steps still writes its trace;
             # a failure to write it must not hide the real error

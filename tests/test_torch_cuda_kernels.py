@@ -1390,3 +1390,51 @@ def test_engine_weight_copies_are_ordered_for_the_caller(cuda, weight_format):
     got = [(w.q, w.s) if isinstance(w, PackedW4) else w for w in flatten_params(engine.params)]
     same = [all(map(torch.equal, g, w)) if isinstance(g, tuple) else torch.equal(g, w) for g, w in zip(got, want)]
     assert all(same), same
+
+
+@pytest.mark.cuda
+def test_outer_plane_snapshots_wait_for_queued_writes(cuda):
+    """The device outer plane's host snapshots, taken from other threads
+    (each on a stream of its own, as the serving engine's batcher is)
+    while the plane's writes are still queued on the trainer's stream
+    behind a 0.3 s sleep, see the written values: the post-round masters
+    and momentum of the eager estimate, bit for bit the host OuterSGD's,
+    and their f16 casts for the serving snapshot."""
+    import threading
+
+    import numpy as np
+
+    from opendiloco_torch.diloco.outer_device import DeviceOuterPlane
+    from opendiloco_torch.diloco.outer_optimizer import OuterSGD
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    leaves = [torch.randn(s, generator=gen, device=cuda) for s in ((4096, 1024), (1024,), (2048, 2048))]
+    plane = DeviceOuterPlane(leaves, lr=0.7, momentum=0.9, nesterov=True)
+    params = [x - 1e-3 * torch.randn(x.shape, generator=gen, device=cuda) for x in leaves]
+    pre, bufs = plane.host_state()
+    assert bufs is None
+    host_params = [p.cpu().numpy() for p in params]
+    est = [m.copy() for m in pre]
+    opt = OuterSGD(0.7, 0.9, nesterov=True)
+    opt.step(est, [m - p for m, p in zip(pre, host_params)])
+    pg = [m - p for m, p in zip(plane.masters, params)]
+    boundary = plane.copy_leaves(params)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2**29)
+    plane.estimate(pg, boundary)  # returns at once; its writes wait behind the sleep
+    got: dict = {}
+
+    def snap(key, fn):
+        with torch.cuda.stream(torch.cuda.Stream()):
+            got[key] = fn()
+
+    threads = [threading.Thread(target=snap, args=("state", plane.host_state)),
+               threading.Thread(target=snap, args=("f16", lambda: plane.host_masters(wire_dtype="float16")))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    masters, bufs = got["state"]
+    assert all(np.array_equal(a, b) for a, b in zip(masters, est))
+    assert all(np.array_equal(a, b) for a, b in zip(bufs, opt.bufs))
+    assert all(np.array_equal(a, b.astype(np.float16)) for a, b in zip(got["f16"], est))

@@ -62,13 +62,36 @@ def _assert_rows_equal(resumed, full, first_step):
 # ---------------------------------------------------------------------------
 
 
+# Runs the CLI module as ``python -m`` does, and at exit writes the
+# process's thread settings and MKL/OMP environment to stderr between two
+# markers: what a failed exact comparison of two processes reports.
+_CLI = """
+import atexit, json, os, runpy, sys
+def _report():
+    import torch
+    env = {k: v for k, v in os.environ.items() if k.startswith(("MKL", "OMP", "KMP"))}
+    sys.stderr.write("THREADS_BEGIN\\n" + torch.__config__.parallel_info()
+                     + "env " + json.dumps(env, sort_keys=True) + "\\nTHREADS_END\\n")
+atexit.register(_report)
+sys.argv[0] = "opendiloco_torch.train"
+runpy.run_module("opendiloco_torch.train", run_name="__main__", alter_sys=True)
+"""
+
+
 def _cli(args, device="cpu", timeout=300):
     env = {k: v for k, v in os.environ.items() if k != "OPENDILOCO_TORCH_DEVICE"}
     if device is not None:
         env["OPENDILOCO_TORCH_DEVICE"] = device
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    return subprocess.run([sys.executable, "-m", "opendiloco_torch.train", *args], capture_output=True,
-                          text=True, timeout=timeout, env=env, cwd=REPO)
+    return subprocess.run([sys.executable, "-c", _CLI, *args], capture_output=True, text=True, timeout=timeout,
+                          env=env, cwd=REPO)
+
+
+def _threads(stderr: str) -> str:
+    """The thread settings a CLI process reported at exit."""
+    if "THREADS_BEGIN" not in stderr:
+        return "(not reported)"
+    return stderr.split("THREADS_BEGIN", 1)[1].split("THREADS_END", 1)[0].strip()
 
 
 def _cli_args(tmp_path, project, precision="fp32"):
@@ -80,14 +103,29 @@ def _cli_args(tmp_path, project, precision="fp32"):
 
 def _cli_resume(tmp_path, device, precision):
     full = tmp_path / "full.pkl"
-    r = _cli(_cli_args(tmp_path, full, precision), device)
-    assert r.returncode == 0, r.stderr[-3000:]
+    r_full = _cli(_cli_args(tmp_path, full, precision), device)
+    assert r_full.returncode == 0, r_full.stderr[-3000:]
     resumed = tmp_path / "resumed.pkl"
-    r = _cli(_cli_args(tmp_path, resumed, precision)
-             + ["--ckpt.resume", str(tmp_path / "ckpts" / "model_step_10")], device)
-    assert r.returncode == 0, r.stderr[-3000:]
+    r_res = _cli(_cli_args(tmp_path, resumed, precision)
+                 + ["--ckpt.resume", str(tmp_path / "ckpts" / "model_step_10")], device)
+    assert r_res.returncode == 0, r_res.stderr[-3000:]
     assert len(_rows(full)) == 20
-    _assert_rows_equal(_rows(resumed), _rows(full), 11)
+    rows_full, rows_res = _rows(full), _rows(resumed)
+    try:
+        _assert_rows_equal(rows_res, rows_full, 11)
+    except AssertionError:
+        # the check stays exact; a miss says what differed between the two
+        # processes: their rows at the first differing step, their thread
+        # settings, their MKL/OMP environment
+        by_step = {r["step"]: r for r in rows_full}
+        first = next((r for r in rows_res if any(r[k] != by_step.get(r["step"], {}).get(k) for k in ROW_KEYS)),
+                     None)
+        step = None if first is None else first["step"]
+        raise AssertionError(
+            f"resumed rows differ from the full run's; first differing step {step}\n"
+            f"full run's row: {by_step.get(step)}\nresumed run's row: {first}\n"
+            f"full run's process:\n{_threads(r_full.stderr)}\nresumed run's process:\n{_threads(r_res.stderr)}\n"
+            f"steps: full {[r['step'] for r in rows_full]}, resumed {[r['step'] for r in rows_res]}")
 
 
 def test_cli_train_and_resume_deterministic(tmp_path):

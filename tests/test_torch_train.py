@@ -490,11 +490,7 @@ def test_train_without_diloco_with_eval_and_probes(tmp_path):
         dict(metric_logger_type="wandb"),
         dict(path_model="2m_4e"),
         dict(diloco=dict(backend="tcp")),
-        dict(diloco=dict(backend="loopback", outer_placement="device")),
-        dict(diloco=dict(backend="loopback", overlap_comm="eager")),
-        dict(diloco=dict(backend="loopback", streaming_fragments=2)),
         dict(diloco=dict(backend="loopback", outer_mode="gossip")),
-        dict(diloco=dict(backend="loopback", compression="fp16", error_feedback=True)),
     ],
     ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()),
 )
@@ -511,13 +507,21 @@ def test_unported_options_raise(tmp_path, overrides):
     [
         dict(serve=dict(enabled=True, max_batch=2, max_context=64, prefill_buckets=[16])),
         dict(diloco=dict(backend="loopback", local_steps=2, compression="fp16")),
+        dict(diloco=dict(backend="loopback", local_steps=2, outer_placement="device")),
+        dict(diloco=dict(backend="loopback", local_steps=2, overlap_comm="eager")),
+        dict(diloco=dict(backend="loopback", local_steps=2, streaming_fragments=2)),
+        dict(diloco=dict(backend="loopback", local_steps=2, compression="fp16", error_feedback=True)),
     ],
-    ids=["serve=enabled", "compression=fp16"],
+    ids=["serve=enabled", "compression=fp16", "outer_placement=device", "overlap_comm=eager",
+         "streaming_fragments=2", "error_feedback"],
 )
 def test_formerly_unported_options_run(tmp_path, overrides):
-    """The serving plane of a run and outer compression are ported: train()
-    takes them (tests/test_torch_hot_swap.py holds both against the JAX
-    package)."""
+    """The serving plane of a run, outer compression, the device outer
+    plane, overlapped and streaming rounds and error feedback are ported:
+    train() takes them (tests/test_torch_hot_swap.py holds the first two
+    against the JAX package; test_torch_outer_device.py,
+    test_torch_overlap.py, test_torch_streaming.py and
+    test_torch_error_feedback.py the rest)."""
     if "diloco" in overrides:
         overrides["diloco"] = {**_train_config(tmp_path, 0).to_dict()["diloco"], **overrides["diloco"]}
     backend = LoopbackWorld(1, compression="fp16").make_backends()[0]
@@ -533,7 +537,6 @@ def test_formerly_unported_options_run(tmp_path, overrides):
         ("config", "coordinator_address", "localhost:1234"),
         ("diloco", "link_adapt", True),
         ("diloco", "initial_peers", "localhost:1234"),
-        ("diloco", "stream_stagger", 0.5),
     ],
 )
 def test_fields_the_port_does_not_read_are_refused(section, field, value):
@@ -544,6 +547,23 @@ def test_fields_the_port_does_not_read_are_refused(section, field, value):
             Config(**{field: value})
         else:
             Config(**{section: {field: value}})
+
+
+def test_stream_stagger_sets_launch_schedule():
+    """``stream_stagger`` is read now: it sets the streaming scheduler's
+    launch slots (tests/test_torch_streaming.py drives them), and values
+    outside (0, 1] are refused as in the JAX package."""
+    from opendiloco_tpu.config import DilocoConfig as JDilocoConfig
+    from opendiloco_tpu.diloco.streaming import launch_schedule as jlaunch_schedule
+    from opendiloco_torch.diloco.streaming import launch_schedule
+
+    cfg = Config(diloco={"stream_stagger": 0.5, "streaming_fragments": 4, "overlap_comm": "eager",
+                         "local_steps": 8})
+    assert cfg.diloco.stream_stagger == 0.5 == JDilocoConfig(stream_stagger=0.5).stream_stagger
+    assert launch_schedule(8, 4, cfg.diloco.stream_stagger) == jlaunch_schedule(8, 4, 0.5) == [1, 2, 3, 4]
+    for bad in (0.0, 1.5):
+        with pytest.raises(ValueError, match="stream_stagger"):
+            DilocoConfig(stream_stagger=bad)
 
 
 def test_log_lines_carry_each_threads_rank():
