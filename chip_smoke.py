@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: serving, speculative
-decode, prefix reuse, training, checkpoint and resume, training that
-serves over HTTP with weight hot swap, the command line, and the outer
-plane on the card (overlapped and streaming rounds, error feedback).
+decode, prefix reuse, the host KV tier, training, checkpoint and resume,
+training that serves over HTTP with weight hot swap, the command line,
+and the outer plane on the card (overlapped and streaming rounds, error
+feedback).
 
     python3 chip_smoke.py
 
@@ -210,7 +211,22 @@ exits non-zero.
    its serving snapshot (``master_snapshot_wire``, fp16: cast on the card
    against numpy's cast) byte for byte, and the launch counts (zeroed
    just before, read just after); the residuals are non-zero.
-22. The kernels line (launches of B6, B7, their merges and B8 by serving
+22. The host KV tier at config_1b (after phase 20, on phase 4's params):
+   bf16, w4 weights, 4 decode slots, 12 of phase 4's prompts at once, 48
+   tokens each, (a) tier off, (b) ``kv_tier`` on with codec none and 16
+   host slots: evictions, as many resumes, nothing paused at the end,
+   every stream equal to (a)'s; (c) codec blockwise4bit: every request
+   completes (agreement with (a) recorded); launches as phase 5's per
+   decode step and prefill in all three. A page's page-out and page-in
+   ms at 256 and 1024 rows (a restore equal to its source bit for bit),
+   each codec's encode and decode s and stored bytes for a full page;
+   TTFT and tokens/s of (b) against (a). (d) The host prefix store: one
+   of phase 13's prompts, then after it retired another that shares its
+   128-row prefix: one host hit, B7 22 times for its suffix pass (its
+   merge by SUFFIX_MERGES), the installed rows bit for bit a cold
+   prefill's, and in f32 the host-prefix admit's logits against a cold
+   admit's (1e-3).
+23. The kernels line (launches of B6, B7, their merges and B8 by serving
    phase, of the training kernels by training phase), the card line, and
    last the result line.
 
@@ -1378,6 +1394,199 @@ def phase_spec_reference(torch, cfg, dev) -> list:
     if not streams["card spec"] == streams["card plain"] == streams["cpu spec"]:
         raise AssertionError(f"config_2m spec streams differ: {streams}")
     return [{"config": "2m", "spec_k": 3, "tokens": n, "streams_equal": True}]
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the host KV tier
+# ---------------------------------------------------------------------------
+
+TIER_SLOTS = 4  # decode slots of the tier runs: 12 requests share them
+TIER_REQUESTS = 12
+TIER_HOST_SLOTS = 16
+
+
+def tier_page_cost(torch, engine, rows_list=(256, 1024), reps: int = 5) -> dict:
+    """A page's cost on the engine of a finished run: page-out (gather,
+    D2H into pinned memory, wait) and page-in (H2D from pinned memory,
+    cast, write) ms at the median of ``reps``, each ending in a sync; a
+    restore into another slot must give the source rows bit for bit
+    (bf16 -> f32 -> bf16). Then the host tier's encode and decode s and
+    stored bytes of a full page under each codec."""
+    from opendiloco_torch.serve import HostKVTier
+
+    out = {"ms": {}, "codecs": {}}
+    page = None
+    for rows in rows_list:
+        t_out, t_in = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pk, pv = engine.fetch_slot_pages(0, rows)
+            k, v = np.asarray(pk), np.asarray(pv)
+            t1 = time.perf_counter()
+            engine.install_slot_pages(1, k, v)
+            torch.cuda.synchronize()
+            t_in.append(time.perf_counter() - t1)
+            t_out.append(t1 - t0)
+        for cache in (engine.cache_k, engine.cache_v):
+            if not torch.equal(cache[:, 1, :rows], cache[:, 0, :rows]):
+                raise AssertionError(f"tier page of {rows} rows: restored rows differ from the source rows")
+        out["ms"][rows] = {"page_out_ms": float(np.median(t_out)) * 1e3, "page_in_ms": float(np.median(t_in)) * 1e3,
+                           "f32_bytes": int(k.nbytes + v.nbytes)}
+        page = (k, v)
+    for codec in ("none", "blockwise4bit"):
+        tier = HostKVTier(host_slots=2, codec=codec)
+        t0 = time.perf_counter()
+        tier.put_paused(0, *page)
+        t1 = time.perf_counter()
+        stored = tier.stored_bytes()
+        rk, rv = tier.pop_paused(0)
+        t2 = time.perf_counter()
+        err = float(max(np.abs(rk - page[0]).max(), np.abs(rv - page[1]).max()))
+        if codec == "none" and err != 0.0:
+            raise AssertionError(f"tier codec none: restore error {err}")
+        out["codecs"][codec] = {"encode_s": t1 - t0, "decode_s": t2 - t1, "stored_bytes": stored,
+                                "max_abs_restore_err": err}
+    return out
+
+
+def phase_tier(torch, tdk, cfg, params, dev) -> dict:
+    """Phase 22: the host KV tier at config_1b, bf16, w4 weights, 4 decode
+    slots, 12 of phase 4's prompts at once, 48 tokens each:
+    (a) tier off; (b) ``kv_tier`` on, codec none, 16 host slots: evictions
+        > 0, resumes equal to evictions, nothing paused at the end, every
+        stream equal to (a)'s, launches as phase 5's per decode step and
+        prefill; (c) codec blockwise4bit: every request completes, its
+        agreement with (a) recorded;
+    then the page cost (``tier_page_cost``), and
+    (d) the host prefix store (``prefix_cache`` and the tier on): one of
+        phase 13's shared-prefix prompts, then, after it retired, another:
+        one host hit, B7 22 times for its suffix pass, the installed rows
+        bit for bit what a cold prefill of the first prompt writes, and in
+        f32 the host-prefix admit's logits against a cold admit's."""
+    from opendiloco_torch.config import ServeConfig
+    from opendiloco_torch.serve import ServeEngine, build_serving
+    from opendiloco_torch.serve.kvcache import pick_bucket, prefix_grid_lengths
+
+    L = cfg.num_hidden_layers
+    base_cfg = ServeConfig(weight_format="w4", max_batch=TIER_SLOTS)
+    prompts = prompts_over_buckets(base_cfg, cfg.vocab_size)[:TIER_REQUESTS]
+    warm = [p[:b] for p, b in zip(prompts, base_cfg.prefill_buckets)]
+    rep = cfg.num_attention_heads // cfg.kv_heads
+    merges = int(tdk.spec_tail_splits(TIER_SLOTS, base_cfg.max_context, cfg.kv_heads, rep,
+                                      torch.cuda.get_device_properties(dev).multi_processor_count) > 1)
+    runs, res = {}, {}
+    for name, tier in (("a", {}), ("b", dict(kv_tier=True, kv_tier_codec="none")),
+                       ("c", dict(kv_tier=True, kv_tier_codec="blockwise4bit"))):
+        scfg = ServeConfig(weight_format="w4", max_batch=TIER_SLOTS, kv_host_slots=TIER_HOST_SLOTS, **tier)
+        plane = build_serving(scfg, cfg, params, device=dev, start_server=False)
+        try:
+            run = drive(tdk, plane, prompts, warm, cfg.vocab_size)
+            st = plane.batcher.stats()
+        finally:
+            plane.stop()
+        steps, prefills = run["steps"], run["prefills"]
+        check_launches(run["launches"], {"paged_decode_attention": L * steps,
+                                         "paged_decode_attention_merge": L * steps * merges,
+                                         "w4_matmul_sm90": 7 * L * (prefills + steps)},
+                       f"tier ({name}) ({steps} decode steps, {prefills} prefills)")
+        runs[name] = run
+        res[name] = {**run["summary"], "decode_steps": steps, "launches": run["launches"], "tier": st["tier"],
+                     "stages_s": {k: run["stages"][k] for k in ("prefill", "decode", "page_out", "page_in")}}
+        if name == "b":
+            tier_st = st["tier"]
+            if not (tier_st["evictions"] > 0 and tier_st["resumes"] == tier_st["evictions"]
+                    and tier_st["paused"] == 0):
+                raise AssertionError(f"tier (b): {tier_st}")
+            got, want = [r.tokens for r in run["reqs"]], [r.tokens for r in runs["a"]["reqs"]]
+            if got != want:
+                raise AssertionError(f"tier (b): streams differ from (a)'s: {agreement(got, want)}")
+            res["page_cost"] = tier_page_cost(torch, plane.engine)
+        if name == "c":
+            res["c"]["agreement_with_a"] = agreement([r.tokens for r in run["reqs"]],
+                                                     [r.tokens for r in runs["a"]["reqs"]])
+        del plane
+        torch.cuda.empty_cache()
+    res["b_over_a"] = {k: res["b"][k] / res["a"][k] for k in ("tokens_per_s", "ttft_p50_ms", "ttft_max_ms")}
+
+    # (d) the host prefix store: the first prompt's 128-row prefix is stored
+    # after its cold prefill; the second looks it up once the first retired
+    shared = prefix_prompts(cfg.vocab_size)
+    first, second = shared[0][:200], shared[1]
+    glen = prefix_grid_lengths(len(first))[0]
+    scfg = ServeConfig(weight_format="w4", max_batch=TIER_SLOTS, kv_tier=True, kv_host_slots=TIER_HOST_SLOTS,
+                       prefix_cache=True)
+    plane = build_serving(scfg, cfg, params, device=dev, start_server=False)
+    engine, batcher = plane.engine, plane.batcher
+    hosted = []  # (slot, plen) of each host-prefix admit
+    admit = engine.admit
+
+    def recording_admit(slot, prompt, *, host_prefix=None, **kw):
+        if host_prefix is not None:
+            hosted.append((slot, int(host_prefix[2])))
+        return admit(slot, prompt, host_prefix=host_prefix, **kw)
+
+    engine.admit = recording_admit
+    try:
+        for r in [batcher.submit([3, 4, 5], max_new_tokens=2)]:
+            if not r.wait(600) or r.error is not None:
+                raise AssertionError(f"tier (d) warm-up failed: {r.error}")
+        base = batcher.stats()
+        tdk.LAUNCHES.reset()
+        ra = batcher.submit(first, max_new_tokens=NEW_TOKENS)
+        if not ra.wait(600) or ra.error is not None:
+            raise AssertionError(f"tier (d): first prompt failed: {ra.error}")
+        deadline = time.monotonic() + 60
+        while batcher.kv_tier.prefix_count == 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        rb = batcher.submit(second, max_new_tokens=NEW_TOKENS)
+        if not rb.wait(600) or rb.error is not None:
+            raise AssertionError(f"tier (d): second prompt failed: {rb.error}")
+        launches = tdk.LAUNCHES.snapshot()
+        st = batcher.stats()
+    finally:
+        plane.stop()
+    hits = st["prefix"]["host_hits"] - base["prefix"]["host_hits"]
+    steps = st["decode_steps"] - base["decode_steps"]
+    if hits != 1 or len(hosted) != 1 or hosted[0][1] != glen:
+        raise AssertionError(f"tier (d): {hits} host hits, admits {hosted}, want one at {glen} rows")
+    suffix_bucket = pick_bucket(len(second) - glen, scfg.prefill_buckets)
+    check_launches(launches, {"spec_tail_attention": L, "spec_tail_attention_merge": L * SUFFIX_MERGES[suffix_bucket],
+                              "paged_decode_attention": L * steps,
+                              "paged_decode_attention_merge": L * steps * merges,
+                              "w4_matmul_sm90": 7 * L * (2 + steps)},
+                   f"tier (d) ({hits} host hit, suffix bucket {suffix_bucket}, {steps} decode steps)")
+    # the installed rows against a cold prefill of the first prompt, which
+    # pads to the same bucket: the same kernels give the same bits
+    slot = hosted[0][0]
+    installed = [c[:, slot, :glen].clone() for c in (engine.cache_k, engine.cache_v)]
+    admit(slot ^ 1, first)
+    for got, cache in zip(installed, (engine.cache_k, engine.cache_v)):
+        if not torch.equal(got, cache[:, slot ^ 1, :glen]):
+            raise AssertionError("tier (d): installed prefix rows differ from a cold prefill's")
+    res["d"] = {"host_hits": hits, "prefix_rows": glen, "prompt_lengths": [len(first), len(second)],
+                "suffix_bucket": suffix_bucket, "decode_steps": steps, "launches": launches,
+                "ttft_ms": [ra.ttft_s * 1e3, rb.ttft_s * 1e3], "tier": st["tier"]}
+    del plane, engine, installed
+    torch.cuda.empty_cache()
+
+    # f32: the host-prefix admit's first-token logits against a cold admit's
+    eng = ServeEngine(cfg, params, num_slots=2, max_context=1024, prefill_buckets=(64, 256, 1024),
+                      compute_dtype=torch.float32, device=dev)
+    _, cold = eng.admit(1, second)
+    eng.admit(0, first)
+    hk, hv = (np.asarray(p) for p in eng.fetch_slot_pages(0, glen))
+    _, warm_row = eng.admit(1, second, host_prefix=(hk, hv, glen))
+    err = float(np.abs(warm_row - cold).max())
+    res["d"]["host_prefix_admit_vs_cold_f32"] = {"max_abs_err": err, "tol": 1e-3,
+                                                 "argmax_equal": int(warm_row.argmax()) == int(cold.argmax())}
+    del eng
+    torch.cuda.empty_cache()
+    log(f"kv tier: {json.dumps(res)}")
+    # f32 sums in another order over 22 layers, as phase 13
+    if not err <= 1e-3:
+        raise AssertionError(f"tier (d): host-prefix admit logits differ from a cold admit's by {err}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3131,6 +3340,7 @@ def main() -> int:
     prefix = phase_prefix(torch, tdk, cfg, params, dev)
     spec_f32 = phase_spec_f32(torch, cfg, params, dev)
     wire = phase_install_wire(torch, tdk, cfg, params, dev, card, serve)
+    tier = phase_tier(torch, tdk, cfg, params, dev)
     del params
     for s in serve:
         s.pop("tokens")
@@ -3160,6 +3370,7 @@ def main() -> int:
     serving.update({f"f32 serve {key}": spec_f32["launches"][key] for key in ("plain", "spec")})
     serving["train+serve 150m"] = train_serve["launches"]
     serving.update({f"install_wire 1b ({key})": counts for key, counts in wire["launches"].items()})
+    serving.update({f"kv tier 1b ({key})": tier[key]["launches"] for key in ("a", "b", "c", "d")})
     for k in (*b6, *b7, *b8):
         k["launches_by_phase"] = {phase: counts[k["name"]] for phase, counts in serving.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
@@ -3179,7 +3390,7 @@ def main() -> int:
     log(json.dumps({"serve": serve, "spec": spec, "spec_f32": spec_f32, "prefix": prefix, "reference": reference,
                     "train": [train_150m, train_1b, train_f32], "train_1b_device": train_1b_device,
                     "outer_plane": outer_plane, "resume": resume_150m, "weights_dir": weights_dir,
-                    "train_serve": train_serve, "install_wire": wire,
+                    "train_serve": train_serve, "install_wire": wire, "kv_tier": tier,
                     "gate3": gate3, "cli": cli, "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b6, *b7, *b8, *flash, *xent]}))
     log(card)

@@ -17,6 +17,7 @@ import typing
 from typing import Any, Optional, Union
 
 WEIGHT_FORMATS = ("fp32", "w4")
+KV_TIER_CODECS = ("none", "blockwise4bit")  # ServeConfig.kv_tier_codec
 
 
 _TRUE = ("true", "1", "yes", "on", "t", "y")
@@ -85,6 +86,15 @@ class ServeConfig:
     # shared-prefix KV reuse: copy a live slot's prompt-prefix K/V into a
     # joining slot and prefill only the suffix
     prefix_cache: bool = False
+    # host-memory cold KV tier: evicted slot pages wait in host memory
+    # between decode steps, so the batcher time-slices more live sequences
+    # than the ring holds; off keeps every sequence resident
+    kv_tier: bool = False
+    # the tier's codec: "none" stores f32 (evict and restore are exact),
+    # "blockwise4bit" about 8x fewer bytes with a bounded restore error
+    kv_tier_codec: str = "none"
+    # the tier's budget: paused pages and prefix entries it holds at once
+    kv_host_slots: int = 32
 
     def __post_init__(self):
         _coerce_strings(self)
@@ -118,6 +128,9 @@ class ServeConfig:
                 "serve.spec_decode_k + 1 exceeds serve.max_context "
                 "(a speculative tail must fit the ring)"
             )
+        _one_of("serve.kv_tier_codec", self.kv_tier_codec, KV_TIER_CODECS)
+        if self.kv_host_slots < 1:
+            raise ValueError("serve.kv_host_slots must be >= 1")
 
 
 @dataclasses.dataclass

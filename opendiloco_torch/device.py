@@ -6,6 +6,7 @@ silently on the CPU.
 """
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import torch
@@ -23,3 +24,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "false; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def pin_cpu_gemm_bits() -> None:
+    """Make MKL's CPU gemm give the same bits at any thread count.
+
+    MKL splits a gemm's work by the number of threads it runs on, and with
+    ``MKL_DYNAMIC`` (on by default) it may run a call on fewer threads than
+    its maximum; so a process could compute one step's matmuls in another
+    order than the process it is compared with. ``MKL_CBWR=AUTO,STRICT``
+    (MKL's strict conditional numerical reproducibility) fixes the order
+    for any thread count. MKL reads the variable once, at its first call:
+    call this before the process computes anything. A value the caller
+    set is kept."""
+    os.environ.setdefault("MKL_CBWR", "AUTO,STRICT")

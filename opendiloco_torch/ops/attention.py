@@ -51,6 +51,23 @@ def xla_attention(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def ring_live_rows(cache_len: int, t: int) -> int:
+    """Ring rows that hold a sequence of ``cache_len`` cached tokens in a
+    T-row page: what a KV-tier eviction pages out and a restore writes
+    back at row 0.
+
+    The host-side mirror of the lens masks below: before the page wraps,
+    rows [0, cache_len) hold the sequence; once ``cache_len >= t`` the
+    whole ring is live at positions ``pos % t``. The ring layout is kept
+    in both regimes, so the decode and spec-tail masks (and the kernels,
+    which mask by the same ``lens``) are exact over a restored page: rows
+    beyond the restored count belong to an earlier tenant and stay masked
+    until the sequence's own writes reach them, as on slot reuse."""
+    if cache_len < 0:
+        raise ValueError(f"cache_len must be >= 0, got {cache_len}")
+    return min(int(cache_len), int(t))
+
+
 def decode_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor
 ) -> torch.Tensor:

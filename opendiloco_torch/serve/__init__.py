@@ -8,13 +8,16 @@ hand-written kernels) driven by a :class:`ContinuousBatcher` thread, and
 a :class:`ServeServer` taking HTTP and JSONL requests. With a DiLoCo
 optimizer the engine hot-swaps its weights from the optimizer's
 codec-encoded master snapshots between decode steps, within
-``serve_cfg.max_stale_rounds`` outer rounds of the trainer. ``train()``
+``serve_cfg.max_stale_rounds`` outer rounds of the trainer. With
+``serve_cfg.kv_tier`` the batcher gets a :class:`HostKVTier` (evicted
+slot pages and a prompt-prefix store in host memory). ``train()``
 builds it when ``config.serve.enabled``, so training and serving share
 one process and one card.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -23,12 +26,13 @@ from opendiloco_torch.config import ServeConfig
 from opendiloco_torch.device import DeviceLike
 from opendiloco_torch.models.llama import LlamaConfig
 from opendiloco_torch.serve.engine import ServeEngine
-from opendiloco_torch.serve.kvcache import SlotAllocator, pick_bucket
+from opendiloco_torch.serve.kvcache import HostKVTier, SlotAllocator, pick_bucket
 from opendiloco_torch.serve.scheduler import ContinuousBatcher, Request
 from opendiloco_torch.serve.server import ServeServer
 
 __all__ = [
     "ContinuousBatcher",
+    "HostKVTier",
     "Request",
     "ServeEngine",
     "ServeServer",
@@ -75,7 +79,9 @@ def build_serving(
     copied after the work queued on the caller's stream). ``diloco_opt``
     supplies the hot-swap source (``master_snapshot_wire`` and ``epoch``);
     None serves static weights. ``device`` defaults to the card and raises
-    without one."""
+    without one. ``ODTP_KV_TIER`` (0 or 1), ``ODTP_KV_HOST_SLOTS`` and
+    ``ODTP_KV_TIER_CODEC`` override the config's tier fields, as in the JAX
+    package."""
     snapshot_fn = epoch_fn = None
     epoch = 0
     if diloco_opt is not None:
@@ -98,11 +104,19 @@ def build_serving(
         epoch_fn=epoch_fn,
         max_stale_rounds=serve_cfg.max_stale_rounds,
     )
+    env_tier = os.environ.get("ODTP_KV_TIER")
+    kv_tier = None
+    if bool(int(env_tier)) if env_tier else serve_cfg.kv_tier:
+        kv_tier = HostKVTier(
+            host_slots=int(os.environ.get("ODTP_KV_HOST_SLOTS") or serve_cfg.kv_host_slots),
+            codec=os.environ.get("ODTP_KV_TIER_CODEC") or serve_cfg.kv_tier_codec,
+        )
     batcher = ContinuousBatcher(
         engine,
         max_queue=serve_cfg.max_queue,
         swap_every_steps=serve_cfg.swap_every_steps,
         prefix_cache=serve_cfg.prefix_cache,
+        kv_tier=kv_tier,
     ).start()
     server = None
     if start_server:

@@ -35,8 +35,12 @@ On the card the engine runs on a CUDA stream of its own, so that its
 syncs wait for its own work and never for a training step queued on the
 same card by another thread.
 
-The KV tier is a later slice of the port: its arguments raise
-``NotImplementedError``.
+KV tiering: :meth:`fetch_slot_pages` starts a by-value copy of a slot's
+leading ring rows to host memory (f32, asynchronous on the card) and
+:meth:`install_slot_pages` writes host rows back into a slot; the
+batcher's host tier (``serve.kvcache.HostKVTier``) stores them between
+the two. ``admit(host_prefix=(k, v, plen))`` installs a stored prompt
+prefix and runs only the suffix, as a live-slot prefix hit does.
 """
 from __future__ import annotations
 
@@ -77,18 +81,41 @@ from opendiloco_torch.quant import pack_blockwise4_stacked
 from opendiloco_torch.serve.kvcache import accept_counts, pick_bucket
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A: {item})"
-    )
-
-
 # snapshot_fn contract: () -> (epoch, blobs, codec_name) with blobs[i] =
 # (payload, meta, shape) per master leaf in flatten_params order, as
 # DiLoCoOptimizer.master_snapshot_wire returns
 SnapshotFn = Callable[[], tuple]
 
-_STAGES = ("prefill", "draft", "verify", "insert", "decode", "swap")
+_STAGES = ("prefill", "draft", "verify", "insert", "decode", "swap", "page_out", "page_in")
+
+
+class HostPage:
+    """One page of a slot's ring rows on its way to the host, f32
+    [L, rows, Nkv, Dh]. On the card the copy runs asynchronously on the
+    engine's stream, from a fresh device tensor (the gather is by value,
+    so the slot may take a new tenant at once) into pinned host memory;
+    ``np.asarray(page)`` waits for it. The device tensor is held until
+    then, so that the caching allocator cannot hand its memory to another
+    stream while the copy reads it."""
+
+    def __init__(self, host: torch.Tensor, src: Optional[torch.Tensor] = None, event=None):
+        self._host, self._src, self._event = host, src, event
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self._host.shape)
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = self._src = None
+        return self._host.numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.numpy()
+        if dtype is not None:
+            out = out.astype(dtype, copy=False)
+        return out.copy() if copy else out
 
 
 def _on_engine_stream(fn):
@@ -179,7 +206,9 @@ class ServeEngine:
         # each swap's wall seconds by part (maybe_swap): encode, decode,
         # h2d, pack and total, with the epoch installed
         self.swap_log: collections.deque = collections.deque(maxlen=256)
-        # wall seconds per stage, each ending in a sync of the engine's stream
+        # wall seconds per stage, each ending in a sync of the engine's
+        # stream, but for page_out and page_in: the host's time to queue
+        # the copies (and the batcher's wait for a page-out to land)
         self.stage_seconds = {k: 0.0 for k in _STAGES}
 
     def _streamed(self):
@@ -388,9 +417,10 @@ class ServeEngine:
         the first ``prefix_len`` tokens are not recomputed: their K/V rows
         are copied from the live source slot (what a cold prefill writes
         there: causal attention makes prefix K/V independent of anything
-        after it) and only the suffix runs through the model."""
-        if host_prefix is not None:
-            raise not_ported("the host prefix store", "KV tier")
+        after it) and only the suffix runs through the model.
+        ``host_prefix=(k, v, plen)`` takes the prefix rows from the host
+        prefix store instead ([L, rows >= plen, Nkv, Dh] f32 host arrays,
+        written at rows [0, rows) of ``slot``)."""
         n = len(prompt)
         bucket = pick_bucket(n, self.prefill_buckets)
         if bucket is None:
@@ -398,7 +428,11 @@ class ServeEngine:
                 f"prompt length {n} exceeds max bucket {self.prefill_buckets[-1]}"
             )
         t0 = time.perf_counter()
-        if prefix_src is not None and 0 < prefix_len < n:
+        if host_prefix is not None and 0 < host_prefix[2] < n:
+            hk, hv, plen = host_prefix
+            self._install_rows(slot, hk, hv)
+            tok, row = self._run_suffix(slot, prompt, int(plen))
+        elif prefix_src is not None and 0 < prefix_len < n:
             prefix_copy(self.cache_k, self.cache_v, prefix_src, slot, prefix_len)
             tok, row = self._run_suffix(slot, prompt, prefix_len)
         else:
@@ -431,6 +465,69 @@ class ServeEngine:
         suffix_insert(self.cache_k, self.cache_v, tks[:, 0], tvs[:, 0], slot, plen, ns)
         row = logits[0, ns - 1].cpu().numpy()  # waits for the device
         return int(row.argmax()), row
+
+    # -- KV-tier page transfers ---------------------------------------------
+
+    def page_rows(self, rows: int) -> int:
+        """Transfer row count for ``rows`` live ring rows: padded up the
+        prefill-bucket grid, as the JAX engine pads it, so that the pages
+        of the two packages have the same shapes. Padding rows carry an
+        earlier tenant's masked rows, which a restore writes back as they
+        were (``ops.attention.ring_live_rows``)."""
+        if not 0 < rows <= self.max_context:
+            raise ValueError(f"rows {rows} outside (0, {self.max_context}]")
+        return pick_bucket(rows, self.prefill_buckets) or self.max_context
+
+    @_on_engine_stream
+    def fetch_slot_pages(self, slot: int, rows: int) -> tuple[HostPage, HostPage]:
+        """Start copying ``slot``'s leading ``rows`` ring rows (padded by
+        :meth:`page_rows`) to the host as f32. Returns two :class:`HostPage`
+        (k, v) whose ``np.asarray`` waits for the copy: the batcher reads
+        them on a later iteration, so that the copy overlaps a decode step.
+        On the card the rows are gathered into a fresh tensor on the
+        engine's stream and copied into pinned memory without blocking;
+        bf16 to f32 is exact. Work queued after the call (a new tenant's
+        prefill) cannot change what is copied."""
+        t0 = time.perf_counter()
+        r = self.page_rows(rows)
+        pages = []
+        for cache in (self.cache_k, self.cache_v):
+            src = torch.empty((cache.shape[0], r) + tuple(cache.shape[3:]), dtype=torch.float32,
+                              device=self.device)
+            src.copy_(cache[:, slot, :r])
+            if self.stream is None:
+                pages.append(HostPage(src))
+                continue
+            host = torch.empty(src.shape, dtype=torch.float32, pin_memory=True)
+            host.copy_(src, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+            pages.append(HostPage(host, src, event))
+        self.stage_seconds["page_out"] += time.perf_counter() - t0
+        return pages[0], pages[1]
+
+    @_on_engine_stream
+    def install_slot_pages(self, slot: int, k: np.ndarray, v: np.ndarray) -> None:
+        """Write host rows back into ``slot`` (a tier restore): rows [0, R)
+        of the ring page from ``k``/``v`` [L, R, Nkv, Dh], cast to the cache
+        dtype. On the card the copy is queued on the engine's stream and
+        the call returns at once; the next decode step runs after it."""
+        t0 = time.perf_counter()
+        self._install_rows(slot, k, v)
+        self.stage_seconds["page_in"] += time.perf_counter() - t0
+
+    def _install_rows(self, slot: int, k: np.ndarray, v: np.ndarray) -> None:
+        for cache, rows in ((self.cache_k, k), (self.cache_v, v)):
+            rows = np.asarray(rows, np.float32)
+            if self.stream is None:
+                src = torch.from_numpy(rows.copy())  # the tier's arrays may be read-only
+            else:
+                # staged through pinned memory; the caching host allocator
+                # keeps the buffer until the copy that reads it completes
+                staged = torch.empty(rows.shape, dtype=torch.float32, pin_memory=True)
+                staged.numpy()[...] = rows
+                src = staged.to(self.device, non_blocking=True)
+            cache[:, slot, : src.shape[1]].copy_(src)
 
     # -- decode ------------------------------------------------------------
 

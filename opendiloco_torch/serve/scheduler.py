@@ -1,19 +1,27 @@
 """Continuous-batching scheduler: request queue and the decode loop.
 
 The counterpart of ``opendiloco_tpu/serve/scheduler.py``
-``ContinuousBatcher`` without its KV tier and request tracing. One daemon
-thread owns the engine and runs the cycle: retire finished sequences
-(their slots free at once), admit queued prompts into free slots (a
-prefill joins them to the batch; with ``prefix_cache`` a prompt that
-shares at least ``MIN_PREFIX_TOKENS`` leading tokens with a live slot
-reuses that slot's prefix K/V), take one decode step, or one speculative
-round when the engine has ``spec_k > 0``, for every live slot, and every
-``swap_every_steps`` decode steps (and when idle) let the engine hot-swap
-its weights (``ServeEngine.maybe_swap``). Any thread may
+``ContinuousBatcher`` without its request tracing and metrics plane. One
+daemon thread owns the engine and runs the cycle: retire finished
+sequences (their slots free at once), admit queued prompts into free
+slots (a prefill joins them to the batch; with ``prefix_cache`` a prompt
+that shares at least ``MIN_PREFIX_TOKENS`` leading tokens with a live
+slot reuses that slot's prefix K/V), take one decode step, or one
+speculative round when the engine has ``spec_k > 0``, for every live
+slot, and every ``swap_every_steps`` decode steps (and when idle) let the
+engine hot-swap its weights (``ServeEngine.maybe_swap``). Any thread may
 :meth:`ContinuousBatcher.submit`; each request signals completion
 through its own event. Nothing is dropped: a request completes, is
 rejected at submit, or is failed explicitly when the loop dies or the
 batcher stops.
+
+With a ``kv_tier`` (:class:`~opendiloco_torch.serve.kvcache.HostKVTier`)
+the batcher time-slices more live sequences than the ring holds: a
+queued request may displace the longest-resident slot, whose ring rows
+go to host memory, and a paused sequence resumes where it stopped when
+a slot frees or its turn comes. With ``prefix_cache`` too, a cold
+prefill's prompt prefix is stored in the tier, and a later prompt with
+that prefix installs it when no live slot holds it.
 """
 from __future__ import annotations
 
@@ -26,12 +34,24 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from opendiloco_torch.serve.engine import ServeEngine, not_ported
-from opendiloco_torch.serve.kvcache import SlotAllocator, common_prefix_len
+from opendiloco_torch.ops.attention import ring_live_rows
+from opendiloco_torch.serve.engine import ServeEngine
+from opendiloco_torch.serve.kvcache import (
+    HostKVTier,
+    SlotAllocator,
+    common_prefix_len,
+    prefix_grid_lengths,
+    prefix_key,
+)
 
 # a reused prefix must be worth the copy: below this many shared tokens the
 # batcher prefills cold (the suffix pass would cover about the whole prompt)
 MIN_PREFIX_TOKENS = 4
+
+# slot evictions started per scheduler iteration: bounds the page-out work
+# one pass stacks between decode steps, so a long queue drains the batch
+# gradually instead of stalling a step
+EVICT_PER_PASS = 2
 
 
 @dataclasses.dataclass
@@ -80,6 +100,19 @@ class _Slot:
     req: Request
     cache_len: int  # tokens in the ring page (position of the next write)
     last_token: int
+    # decode steps since this tenancy began (admit or resume): the
+    # eviction order and its guard against thrashing
+    resident_steps: int = 0
+
+
+@dataclasses.dataclass
+class _Paused:
+    """A live request whose ring rows are in the host tier (keyed by
+    ``req.id``): what it needs to resume decoding where it stopped."""
+
+    req: Request
+    cache_len: int
+    last_token: int
 
 
 class ContinuousBatcher:
@@ -90,14 +123,22 @@ class ContinuousBatcher:
         max_queue: int = 1024,
         swap_every_steps: int = 16,
         prefix_cache: bool = False,
-        kv_tier=None,
+        kv_tier: Optional[HostKVTier] = None,
+        tier_quantum_steps: int = 8,
+        tier_min_resident_steps: int = 2,
     ):
-        if kv_tier is not None:
-            raise not_ported("the KV tier", "KV tier")
+        """``kv_tier`` None keeps every sequence resident. With a tier,
+        ``tier_quantum_steps`` is how many steps a slot holds the batch
+        before a paused sequence may displace it (the rotation period),
+        and ``tier_min_resident_steps`` the floor before a queued request
+        may displace it (never a slot that has not decoded)."""
         self.engine = engine
         self.max_queue = int(max_queue)
         self.swap_every_steps = max(1, int(swap_every_steps))
         self.prefix_cache = bool(prefix_cache)
+        self.kv_tier = kv_tier
+        self.tier_quantum_steps = max(1, int(tier_quantum_steps))
+        self.tier_min_resident_steps = max(1, int(tier_min_resident_steps))
         self.spec_decode = engine.spec_k > 0
         self.slots = SlotAllocator(engine.num_slots)
         self._active: dict[int, _Slot] = {}  # slot id -> state
@@ -125,8 +166,18 @@ class ContinuousBatcher:
         # speculative-decode and prefix-reuse accounting (loop thread only)
         self.spec_proposed = 0
         self.spec_accepted = 0
-        self.prefix_hits = 0
+        self.prefix_hits = 0  # live-slot copies and host-tier installs
         self.prefix_tokens_saved = 0
+        self.host_prefix_hits = 0
+        # KV-tier state (loop thread only): paused requests in pause order,
+        # page-outs whose copy is in flight, prefix pages waiting to be
+        # encoded into the tier
+        self._paused: collections.OrderedDict[int, _Paused] = collections.OrderedDict()
+        self._pending_evict: list = []
+        self._pending_prefix: list = []
+        self.evictions = 0
+        self.resumes = 0
+        self.paused_peak = 0
 
     # -- client API --------------------------------------------------------
 
@@ -202,13 +253,29 @@ class ContinuousBatcher:
             self.failed += 1
             st.req.finish("server stopped")
         self._active.clear()
+        self._fail_cold("server stopped")
+
+    def _fail_cold(self, error: str) -> None:
+        """Fail every request in the tier (paused or mid-page-out), so that
+        no client waits for ever when the batcher stops or its loop dies."""
+        for st, _pk, _pv, _t0 in self._pending_evict:
+            self.failed += 1
+            st.req.finish(error)
+        self._pending_evict.clear()
+        for p in self._paused.values():
+            if self.kv_tier is not None:
+                self.kv_tier.drop_paused(p.req.id)
+            self.failed += 1
+            p.req.finish(error)
+        self._paused.clear()
 
     def drain(self, timeout: float = 60.0) -> bool:
-        """Block until the queue and the batch are empty."""
+        """Block until the queue, the batch and the tier's paused requests
+        are empty."""
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             with self._cond:
-                if not self._queue and not self._active:
+                if not self._queue and not self._active and not self._paused and not self._pending_evict:
                     return True
             time.sleep(0.01)
         return False
@@ -219,13 +286,16 @@ class ContinuousBatcher:
         try:
             while not self._stop.is_set():
                 self._sweep_cancelled()
+                # page-outs started last iteration land here: their copies
+                # overlapped the decode step in between
+                self._finish_pageouts()
                 admitted = self._admit()
                 stepped = self._decode()
                 if stepped and self.decode_steps % self.swap_every_steps == 0:
-                    self.engine.maybe_swap()
+                    self._maybe_swap()
                 if not admitted and not stepped:
                     # idle: still honour the staleness bound, then sleep
-                    self.engine.maybe_swap()
+                    self._maybe_swap()
                     with self._cond:
                         if not self._queue and not self._stop.is_set():
                             self._cond.wait(timeout=0.05)
@@ -236,12 +306,19 @@ class ContinuousBatcher:
                 self._retire(st, error=self.loop_error)
                 self.slots.free(slot)
             self._active.clear()
+            self._fail_cold(self.loop_error)
             with self._cond:
                 pending = list(self._queue)
                 self._queue.clear()
             for req in pending:
                 self.failed += 1
                 req.finish(self.loop_error)
+
+    def _maybe_swap(self) -> None:
+        """Hot-swap check; after a swap the tier's prefix entries of older
+        weights never serve again (paused pages stay)."""
+        if self.engine.maybe_swap() and self.kv_tier is not None:
+            self.kv_tier.purge_stale(self.engine.weights_epoch)
 
     def _sweep_cancelled(self) -> None:
         """Retire cancelled and deadline-expired requests: queued ones
@@ -274,6 +351,18 @@ class ContinuousBatcher:
             else:
                 self.shed += 1
                 st.req.finish("deadline exceeded")
+        # paused requests: the same sweep, and the tier drops the page, so
+        # a gone client's cold state holds no host budget
+        for rid in [r for r, p in self._paused.items() if p.req.cancelled or expired(p.req)]:
+            p = self._paused.pop(rid)
+            if self.kv_tier is not None:
+                self.kv_tier.drop_paused(rid)
+            if p.req.cancelled:
+                self.cancelled += 1
+                p.req.finish("cancelled")
+            else:
+                self.shed += 1
+                p.req.finish("deadline exceeded")
 
     def _pop_next(self) -> Optional[Request]:
         """Most urgent queued request: lowest priority tier, then earliest
@@ -293,14 +382,51 @@ class ContinuousBatcher:
             return best
 
     def _admit(self) -> bool:
-        """Fill free slots from the queue."""
+        """Fill free slots, and with a tier make slots when there is
+        demand: resume the oldest paused request first (it has had its
+        first token; first in, first out bounds its latency), then admit
+        queued prompts; with the batch full, a queued request may displace
+        the longest-resident slot (``tier_min_resident_steps`` floor) and a
+        paused one a slot that has held its quantum. That is round-robin
+        time-slicing over more sequences than the ring holds."""
         admitted = False
-        while self.slots.num_free:
-            req = self._pop_next()
-            if req is None:
+        evictions = 0
+        while True:
+            if self.slots.num_free:
+                if self._paused:
+                    self._resume_one(self.slots.alloc())
+                    admitted = True
+                    continue
+                req = self._pop_next()
+                if req is None:
+                    break
+                self._admit_into(self.slots.alloc(), req)
+                admitted = True
+                continue
+            if self.kv_tier is None or evictions >= EVICT_PER_PASS:
                 break
-            self._admit_into(self.slots.alloc(), req)
-            admitted = True
+            req = self._pop_next()
+            if req is not None:
+                # a request that has not started is worth an early
+                # eviction: the displaced sequence keeps its state in the
+                # tier and rotates back in
+                if self._evict_one(self.tier_min_resident_steps):
+                    evictions += 1
+                    self._admit_into(self.slots.alloc(), req)
+                    admitted = True
+                    continue
+                with self._cond:
+                    self._queue.append(req)  # nothing evictable yet
+                break
+            if self._paused:
+                # rotation: the oldest paused request displaces the slot
+                # that has held the batch longest, once per quantum
+                if self._evict_one(self.tier_quantum_steps):
+                    evictions += 1
+                    self._resume_one(self.slots.alloc())
+                    admitted = True
+                    continue
+            break
         return admitted
 
     def _find_prefix(self, prompt: list) -> tuple[Optional[int], int]:
@@ -322,13 +448,23 @@ class ContinuousBatcher:
         return None, 0
 
     def _admit_into(self, slot: int, req: Request) -> None:
-        src, plen = self._find_prefix(req.prompt) if self.prefix_cache else (None, 0)
+        src, plen, host = None, 0, None
+        if self.prefix_cache:
+            src, plen = self._find_prefix(req.prompt)
+            if src is None and self.kv_tier is not None:
+                host, plen = self._host_prefix_lookup(req.prompt)
         if src is not None:
             tok, _ = self.engine.admit(slot, req.prompt, prefix_src=src, prefix_len=plen)
             self.prefix_hits += 1
             self.prefix_tokens_saved += plen
+        elif host is not None:
+            tok, _ = self.engine.admit(slot, req.prompt, host_prefix=host)
+            self.prefix_hits += 1
+            self.host_prefix_hits += 1
+            self.prefix_tokens_saved += plen
         else:
             tok, _ = self.engine.admit(slot, req.prompt)
+            self._maybe_store_prefix(slot, req.prompt)
         req.t_first = time.perf_counter()
         req.tokens.append(tok)
         st = _Slot(req=req, cache_len=len(req.prompt), last_token=tok)
@@ -337,6 +473,106 @@ class ContinuousBatcher:
             self.slots.free(slot)
         else:
             self._active[slot] = st
+
+    # -- KV tiering (evict, resume, host prefix store) ------------------------
+
+    def _evict_one(self, min_resident: int) -> bool:
+        """Page the coldest slot out to the host tier and free it. Coldest
+        is the most decode steps since its tenancy began (every live slot
+        decodes every step, so residency age is the order of last page-in);
+        ``min_resident`` guards against thrashing. The copy is only started
+        here: :meth:`_finish_pageouts` stores it next iteration, after it
+        overlapped a decode step."""
+        # page-outs in flight land in the tier next iteration: count them
+        # against the pin budget now, or a two-evict pass could overflow it
+        if self.kv_tier.paused_count + len(self._pending_evict) >= self.kv_tier.host_slots:
+            return False
+        best_slot = None
+        for slot, st in self._active.items():
+            if st.resident_steps < min_resident:
+                continue
+            if best_slot is None or st.resident_steps > self._active[best_slot].resident_steps:
+                best_slot = slot
+        if best_slot is None:
+            return False
+        st = self._active.pop(best_slot)
+        t0 = time.perf_counter()
+        rows = ring_live_rows(st.cache_len, self.engine.max_context)
+        pk, pv = self.engine.fetch_slot_pages(best_slot, rows)
+        self._pending_evict.append((st, pk, pv, t0))
+        self.slots.free(best_slot)
+        self.evictions += 1
+        return True
+
+    def _finish_pageouts(self) -> None:
+        if not self._pending_evict:
+            self._finish_prefix_stores()
+            return
+        pending, self._pending_evict = self._pending_evict, []
+        for st, pk, pv, t0 in pending:
+            k, v = np.asarray(pk), np.asarray(pv)
+            self.kv_tier.put_paused(st.req.id, k, v)
+            self._paused[st.req.id] = _Paused(req=st.req, cache_len=st.cache_len, last_token=st.last_token)
+            self.engine.stage_seconds["page_out"] += time.perf_counter() - t0
+        self.paused_peak = max(self.paused_peak, len(self._paused))
+        self._finish_prefix_stores()
+
+    def _resume_one(self, slot: int) -> None:
+        """Page the oldest paused request back in: it rejoins the batch
+        where it stopped (its tokens, cache_len and last token are its
+        own; the ring rows come back from the tier)."""
+        rid, p = self._paused.popitem(last=False)
+        k, v = self.kv_tier.pop_paused(rid)
+        self.engine.install_slot_pages(slot, k, v)
+        self._active[slot] = _Slot(req=p.req, cache_len=p.cache_len, last_token=p.last_token)
+        self.resumes += 1
+
+    def _host_prefix_lookup(self, prompt: list):
+        """Longest grid-length prompt prefix the tier holds at the current
+        weights epoch: ``((k, v, glen), glen)``, or ``(None, 0)``."""
+        epoch = self.engine.weights_epoch
+        for glen in prefix_grid_lengths(len(prompt)):
+            got = self.kv_tier.get_prefix(prefix_key(prompt, glen), glen, epoch)
+            if got is not None:
+                return (got[0], got[1], glen), glen
+        return None, 0
+
+    def _maybe_store_prefix(self, slot: int, prompt: list) -> None:
+        """After a cold prefill, copy the prompt's longest grid-length
+        prefix towards the tier (stored next iteration): prefix reuse that
+        outlives the slot."""
+        if self.kv_tier is None or not self.prefix_cache:
+            return
+        grid = prefix_grid_lengths(len(prompt))
+        if not grid:
+            return
+        glen = grid[0]
+        key = prefix_key(prompt, glen)
+        epoch = self.engine.weights_epoch
+        if self.kv_tier.has_prefix(key, glen, epoch):
+            return
+        t0 = time.perf_counter()
+        pk, pv = self.engine.fetch_slot_pages(slot, glen)
+        self._pending_prefix.append((key, glen, epoch, pk, pv, t0))
+
+    def _finish_prefix_stores(self) -> None:
+        if not self._pending_prefix:
+            return
+        pending, self._pending_prefix = self._pending_prefix, []
+        for key, glen, epoch, pk, pv, t0 in pending:
+            if epoch != self.engine.weights_epoch:
+                continue  # the weights swapped since the copy: stale, dropped
+            k, v = np.asarray(pk), np.asarray(pv)
+            self.kv_tier.put_prefix(key, glen, epoch, k, v)
+            self.engine.stage_seconds["page_out"] += time.perf_counter() - t0
+
+    def resident_prefixes(self) -> list:
+        """``[[key, glen], ...]`` of the tier's prefix entries at the current
+        weights epoch (what a fleet directory advertises); [] without a
+        tier."""
+        if self.kv_tier is None:
+            return []
+        return self.kv_tier.resident_prefixes(self.engine.weights_epoch)
 
     def _step_inputs(self) -> tuple[np.ndarray, np.ndarray]:
         """Dense [S] current tokens and cache lengths; free slots pass 0s
@@ -366,6 +602,7 @@ class ContinuousBatcher:
             st.req.tokens.append(tok)
             st.cache_len += 1
             st.last_token = tok
+            st.resident_steps += 1
             self.total_new_tokens += 1
             if self._finished(st):
                 done_slots.append(slot)
@@ -386,6 +623,7 @@ class ContinuousBatcher:
         self.spec_accepted += sum(int(m[slot]) for slot in self._active)
         done_slots = []
         for slot, st in self._active.items():
+            st.resident_steps += 1
             for tok in g[slot, : int(m[slot]) + 1].tolist():
                 st.req.tokens.append(int(tok))
                 st.cache_len += 1
@@ -435,11 +673,12 @@ class ContinuousBatcher:
 
     def health(self) -> dict:
         """Compact load vector: queue depth, occupancy, p99 latency, the
-        wait estimate, completed and shed counts."""
+        wait estimate, completed and shed counts, and with a tier its
+        occupancy and paused count."""
         lat = np.asarray(self._latencies, np.float64)
         with self._cond:
             depth = len(self._queue)
-        return {
+        out = {
             "queue_depth": depth,
             "occupancy": round(self.slots.num_active / self.slots.num_slots, 4),
             "p99_ms": round(float(np.percentile(lat, 99)) * 1e3, 3) if lat.size else None,
@@ -447,13 +686,16 @@ class ContinuousBatcher:
             "completed": self.completed,
             "shed": self.shed,
         }
+        if self.kv_tier is not None:
+            out["tier_occupancy"] = round(self.kv_tier.occupancy(), 4)
+            out["tier_paused"] = len(self._paused)
+        return out
 
     def stats(self) -> dict:
         """Point-in-time summary, in the reference batcher's schema: request
         counts, tokens, latency and time-to-first-token percentiles in ms
         (completed requests), weight swaps and staleness, stage seconds,
-        spec and prefix counters. The port has no host KV tier yet: its
-        keys read 0 host hits and None."""
+        spec and prefix counters, and the tier's (None without one)."""
         lat = np.asarray(self._latencies, np.float64) * 1e3
         ttft = np.asarray(self._ttfts, np.float64) * 1e3
 
@@ -490,7 +732,21 @@ class ContinuousBatcher:
                     self.spec_accepted / self.spec_proposed if self.spec_proposed else None
                 ),
             },
-            "prefix": {"hits": self.prefix_hits, "host_hits": 0, "tokens_saved": self.prefix_tokens_saved},
-            "tier": None,
+            "prefix": {
+                "hits": self.prefix_hits,
+                "host_hits": self.host_prefix_hits,
+                "tokens_saved": self.prefix_tokens_saved,
+            },
+            "tier": (
+                {
+                    **self.kv_tier.stats(),
+                    "evictions": self.evictions,
+                    "resumes": self.resumes,
+                    "paused": len(self._paused),
+                    "paused_peak": self.paused_peak,
+                }
+                if self.kv_tier is not None
+                else None
+            ),
             "loop_error": self.loop_error,
         }

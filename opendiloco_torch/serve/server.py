@@ -223,6 +223,15 @@ class ServeServer:
                     "weights_epoch": self.batcher.engine.weights_epoch,
                     "staleness": self.batcher.engine.staleness(),
                     "free_slots": self.batcher.slots.num_free,
+                    # the tier's load, so a poller sees paging pressure
+                    **(
+                        {
+                            "tier_occupancy": round(self.batcher.kv_tier.occupancy(), 4),
+                            "tier_paused": self.batcher.kv_tier.paused_count,
+                        }
+                        if self.batcher.kv_tier is not None
+                        else {}
+                    ),
                 },
             )
         elif method == b"GET" and path.startswith(b"/stats"):

@@ -53,7 +53,7 @@ import numpy as np
 from opendiloco_torch import ckpt as ckpt_lib
 from opendiloco_torch.config import Config, DilocoConfig, parse_argv
 from opendiloco_torch.data.dataloader import get_dataloader
-from opendiloco_torch.device import DeviceLike, resolve_device
+from opendiloco_torch.device import DeviceLike, pin_cpu_gemm_bits, resolve_device
 from opendiloco_torch.diloco.backend import OuterBackend
 from opendiloco_torch.diloco.optimizer import DiLoCoOptimizer, PeerDropError
 from opendiloco_torch.models import hf_io
@@ -353,7 +353,9 @@ def main() -> None:
     """``python -m opendiloco_torch.train --flag value ...``: the JAX
     package's flags (:func:`~opendiloco_torch.config.parse_argv`). Runs on
     the card, or on the device ``OPENDILOCO_TORCH_DEVICE`` names (``cpu``);
-    with neither it raises."""
+    with neither it raises. CPU runs repeat bit for bit whatever number of
+    threads MKL takes (:func:`~opendiloco_torch.device.pin_cpu_gemm_bits`)."""
+    pin_cpu_gemm_bits()
     try:
         device = resolve_device(os.environ.get("OPENDILOCO_TORCH_DEVICE") or None)
     except RuntimeError as e:

@@ -1438,3 +1438,41 @@ def test_outer_plane_snapshots_wait_for_queued_writes(cuda):
     assert all(np.array_equal(a, b) for a, b in zip(masters, est))
     assert all(np.array_equal(a, b) for a, b in zip(bufs, opt.bufs))
     assert all(np.array_equal(a, b.astype(np.float16)) for a, b in zip(got["f16"], est))
+
+
+@pytest.mark.cuda
+def test_engine_tier_pages_are_by_value_and_ordered(cuda):
+    """The KV tier's page transfers on the card: a fetch queued behind a
+    0.3 s sleep on the engine's stream copies a slot's rows as they were
+    when it was called, although the slot's next tenant is written right
+    after it; an install returns at once and takes arrays the caller
+    overwrites afterwards; bf16 -> f32 -> bf16 is exact."""
+    import numpy as np
+
+    from opendiloco_torch.models.llama import LlamaConfig, init_params
+    from opendiloco_torch.serve.engine import ServeEngine
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                      num_attention_heads=4)
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    engine = ServeEngine(cfg, params, num_slots=3, max_context=64, prefill_buckets=(16, 32), device=cuda)
+    assert engine.cache_k.dtype == torch.bfloat16
+    engine.admit(0, list(range(1, 15)))
+    want = [c[:, 0, :16].float().cpu() for c in (engine.cache_k, engine.cache_v)]
+    with torch.cuda.stream(engine.stream):
+        torch.cuda._sleep(2**29)
+    pk, pv = engine.fetch_slot_pages(0, 14)
+    engine.admit(0, list(range(100, 130)))  # the next tenant, queued after the gather
+    k, v = np.asarray(pk), np.asarray(pv)
+    assert k.dtype == np.float32 and k.shape == (2, 16, cfg.kv_heads, cfg.head_dim)
+    assert np.array_equal(k, want[0].numpy()) and np.array_equal(v, want[1].numpy())
+    assert not torch.equal(engine.cache_k[:, 0, :16].float().cpu(), want[0])
+    with torch.cuda.stream(engine.stream):
+        torch.cuda._sleep(2**29)
+    k2, v2 = k.copy(), v.copy()
+    engine.install_slot_pages(2, k2, v2)
+    k2[...] = 0
+    v2[...] = 0
+    engine.stream.synchronize()
+    assert torch.equal(engine.cache_k[:, 2, :16].float().cpu(), want[0])
+    assert torch.equal(engine.cache_v[:, 2, :16].float().cpu(), want[1])

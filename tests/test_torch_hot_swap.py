@@ -376,11 +376,12 @@ def _post(port, payload, timeout=60.0) -> dict:
         return json.loads(e.read())
 
 
-def _run_two_workers(tmp_path, serve: bool, monkeypatch):
+def _run_two_workers(tmp_path, serve: bool, monkeypatch, serve_extra=None):
     """Two loopback workers through train() (2m, local_steps 2); with
-    ``serve`` worker 0 serves and a client posts /generate over HTTP until
-    both workers return. Returns (losses by worker, client responses,
-    polled /healthz and /stats bodies)."""
+    ``serve`` worker 0 serves (``serve_extra``: more ServeConfig fields) and
+    a client posts /generate over HTTP until both workers return. Returns
+    (losses by worker, client responses, polled /healthz and /stats
+    bodies)."""
     planes = []
     if serve:
         real = tserve.build_serving
@@ -394,7 +395,7 @@ def _run_two_workers(tmp_path, serve: bool, monkeypatch):
     backends = world.make_backends()
     run = dict(total_steps=16, diloco=dict(local_steps=2, backend="loopback", timeout_waiting_for_peers=60.0))
     serve_cfg = dict(enabled=True, max_batch=2, max_context=64, prefill_buckets=[16, 32], swap_every_steps=1,
-                     max_stale_rounds=0, port=0)
+                     max_stale_rounds=0, port=0, **(serve_extra or {}))
     errors = []
 
     def work(rank):

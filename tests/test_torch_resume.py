@@ -78,10 +78,11 @@ runpy.run_module("opendiloco_torch.train", run_name="__main__", alter_sys=True)
 """
 
 
-def _cli(args, device="cpu", timeout=300):
+def _cli(args, device="cpu", timeout=300, extra_env=None):
     env = {k: v for k, v in os.environ.items() if k != "OPENDILOCO_TORCH_DEVICE"}
     if device is not None:
         env["OPENDILOCO_TORCH_DEVICE"] = device
+    env.update(extra_env or {})
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     return subprocess.run([sys.executable, "-c", _CLI, *args], capture_output=True, text=True, timeout=timeout,
                           env=env, cwd=REPO)
@@ -132,6 +133,21 @@ def test_cli_train_and_resume_deterministic(tmp_path):
     """``python -m opendiloco_torch.train`` on the CPU: 20 steps with a
     checkpoint at 10, then a run resuming from ``model_step_10``."""
     _cli_resume(tmp_path, "cpu", "fp32")
+
+
+def test_cli_rows_do_not_depend_on_mkl_threads(tmp_path):
+    """The CLI's CPU rows are the same bits whatever number of threads MKL
+    runs on (ROADMAP.md C5: the CLI pins MKL's strict reproducible mode,
+    ``device.pin_cpu_gemm_bits``; without it, 2 threads against 8 moved
+    ``Loss`` or ``grad_norm`` at nine of these 20 steps)."""
+    rows = {}
+    for n in (2, 8):
+        project = tmp_path / f"mkl{n}.pkl"
+        r = _cli(_cli_args(tmp_path / f"run{n}", project), extra_env={"MKL_NUM_THREADS": str(n)})
+        assert r.returncode == 0, r.stderr[-3000:]
+        rows[n] = _rows(project)
+    assert len(rows[8]) == 20
+    _assert_rows_equal(rows[2], rows[8], 1)
 
 
 def test_cli_without_a_device_exits_nonzero(tmp_path):

@@ -323,14 +323,17 @@ def test_engine_spec_validation_like_jax(tiny_cfg, cfg, kwargs):
 
 
 def test_later_slice_paths_raise_not_implemented(cfg):
-    # the KV tier is a later slice; install_wire, a DiLoCo optimizer and
-    # the front end are ported (tests/test_torch_hot_swap.py and
-    # tests/test_torch_server.py hold them against the JAX package)
+    # the KV tier, the serving plane's last later slice, is ported: a host
+    # prefix admit and a batcher with a tier run (tests/test_torch_kv_tier.py
+    # holds them against the JAX package); install_wire checks its leaves
+    from opendiloco_torch.serve import HostKVTier
+
     engine = _port_engine(cfg, _np_params(cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.admit(0, [1, 2, 3], host_prefix=(None, None, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(engine, kv_tier=object())
+    hk, hv = (np.asarray(p) for p in engine.fetch_slot_pages(1, 2))
+    tok, row = engine.admit(0, [1, 2, 3], host_prefix=(hk, hv, 2))
+    assert 0 <= tok < cfg.vocab_size and row.shape == (cfg.vocab_size,)
+    b = ContinuousBatcher(engine, kv_tier=HostKVTier(host_slots=2))
+    assert b.kv_tier.host_slots == 2 and b.stats()["tier"]["evictions"] == 0
     with pytest.raises(ValueError, match="leaves"):
         engine.install_wire(1, [], "fp16")
 
