@@ -226,7 +226,27 @@ exits non-zero.
    merge by SUFFIX_MERGES), the installed rows bit for bit a cold
    prefill's, and in f32 the host-prefix admit's logits against a cold
    admit's (1e-3).
-23. The kernels line (launches of B6, B7, their merges and B8 by serving
+23. Sharded 150m (after phase 21): a one-worker loopback galaxy runs
+   ``train()`` at config_150m full width and depth (mb 8, accum 2, seq
+   1024, bf16, remat, ``attn_implementation="pallas"``,
+   ``fused_loss=True``, 8 steps, ``local_steps`` 4, ``outer_placement``
+   "device") without a process group, then in a world-1 NCCL group (a ``file://`` store in a
+   temporary folder, destroyed at the end) under each of NO_SHARD,
+   SHARD_GRAD_OP, FULL_SHARD, HYBRID_SHARD and HYBRID_SHARD_ZERO2: the
+   per-layer gathers, the reduce-scatters of their backward and the
+   once-a-step gradient collectives run (each an identity at one rank),
+   and each strategy's losses, LRs and master hashes (at each round and
+   at the end) equal the run without a group bit for bit. Launches per
+   kernel (zeroed before each run, read after): the sm90 B1 2 x 12 x
+   accum a step, B2a, B2b and the delta kernel 12 x accum, the sm90 B3
+   accum, its dlog, B4a and B4b accum x 4. Per strategy the median step
+   ms after the first step and the peak device memory. Then phase 18's
+   command line (2m, no DiLoCo) under ``python -m torch.distributed.run
+   --standalone --nproc-per-node 1 -m opendiloco_torch.train
+   --sharding-strategy FULL_SHARD``, bf16, attention through the kernels, 8 steps
+   with a checkpoint at step 4, then resuming from it: steps 5-8 equal
+   bit for bit.
+24. The kernels line (launches of B6, B7, their merges and B8 by serving
    phase, of the training kernels by training phase), the card line, and
    last the result line.
 
@@ -2292,7 +2312,7 @@ OUTER_KEYS = ("outer_step_s", "outer_wait_s", "outer_d2h_s", "outer_pseudo_grad_
               "outer_nesterov_s", "outer_h2d_s")
 
 
-def training_launches(torch, dev, cfg, run: dict, inner_steps: int, names) -> dict:
+def training_launches(torch, dev, cfg, run: dict, inner_steps: int, names, fused: bool | None = None) -> dict:
     """The launch counts a bf16 training run of ``inner_steps`` inner steps
     (all workers) must show: forward and backward take the sm90 kernels at
     D 64, the first design never; one delta a backward; with the fused
@@ -2308,7 +2328,7 @@ def training_launches(torch, dev, cfg, run: dict, inner_steps: int, names) -> di
                  "flash_attention_delta": inner_steps * L * accum,
                  "flash_attention_dq_sm90": inner_steps * L * accum,
                  "flash_attention_dkv_sm90": inner_steps * L * accum})
-    if InnerTrainer(cfg, TrainerConfig(), device=dev).tc.fused_loss:
+    if fused if fused is not None else InnerTrainer(cfg, TrainerConfig(), device=dev).tc.fused_loss:
         chunks = -(-run["per_device_train_batch_size"] * (run["seq_length"] - 1) // tfx.CHUNK_ROWS)
         want["fused_xent_fwd_sm90"] = inner_steps * accum
         for name in ("fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw_sm90"):
@@ -3295,6 +3315,151 @@ def phase_outer_plane(torch, tfa, dev, card: str) -> dict:
     return out
 
 
+SHARDED_150M = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=2,
+                    total_steps=8, local_steps=4, lr=1e-3)
+SHARDED_STRATEGIES = ("NO_SHARD", "SHARD_GRAD_OP", "FULL_SHARD", "HYBRID_SHARD", "HYBRID_SHARD_ZERO2")
+# phase 18's command line (2m, bf16, attention through the kernels) under
+# torchrun, FULL_SHARD
+SHARDED_CLI = ["--path-model", "2m", "--fake-data", "--fake-data-mode", "ramp", "--seq-length", "256",
+               "--per-device-train-batch-size", "16", "--total-batch-size", "32", "--lr", "1e-3", "--warmup-steps", "2",
+               "--total-steps", "8", "--metric-logger-type", "dummy", "--ckpt.interval", "4",
+               "--sharding-strategy", "FULL_SHARD"]
+
+
+def sharded_run(torch, tfa, dev, tmp: str, strategy: str | None) -> dict:
+    """``train()`` of one loopback worker at SHARDED_150M, under
+    ``strategy`` in the caller's process group (None: NO_SHARD with no
+    group); the launch counters zeroed just before and read just after."""
+    import os
+    import pickle
+
+    from opendiloco_torch.config import Config
+    from opendiloco_torch.diloco import LoopbackWorld
+    from opendiloco_torch.train import train
+
+    run = SHARDED_150M
+    label = strategy or "no group"
+    project = os.path.join(tmp, f"{label.replace(' ', '-')}.pkl")
+    config = Config(
+        path_model="150m", fake_data=True, fake_data_mode="ramp", precision="bf16-mixed", remat=True,
+        attn_implementation="pallas", fused_loss=True, seq_length=run["seq_length"],
+        per_device_train_batch_size=run["per_device_train_batch_size"], total_batch_size=run["total_batch_size"],
+        warmup_steps=run["warmup_steps"], total_steps=run["total_steps"], lr=run["lr"], metric_logger_type="dummy",
+        project=project, sharding_strategy=strategy or "NO_SHARD",
+        # the device plane: the host outer step (about 6 s a round at 150m)
+        # would take most of the phase
+        diloco=dict(local_steps=run["local_steps"], backend="loopback", world_rank=0, outer_placement="device"))
+    (backend,) = recording_backends(LoopbackWorld(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfa.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    train(config, backend, dev)
+    wall = time.perf_counter() - t0
+    launches = tfa.LAUNCHES.snapshot()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with open(project, "rb") as f:
+        rows = pickle.load(f)
+    rounds = run["total_steps"] // run["local_steps"]
+    backend.hashes[rounds] = master_hash(backend.provider()["master"])
+    out = {"losses": [r["Loss"] for r in rows], "lrs": [r["lr"] for r in rows],
+           "grad_norms": [r["grad_norm"] for r in rows], "hashes": dict(backend.hashes),
+           "step_ms_median": float(np.median([r["time_taken"] for r in rows[1:]])) * 1e3,
+           "step_ms": [r["time_taken"] * 1e3 for r in rows], "peak_gib": peak_gib, "launches": launches,
+           "wall_s": wall}
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_cli(tmp: str) -> dict:
+    """SHARDED_CLI under ``torch.distributed.run`` with one process, then
+    resuming from its ``model_step_4``: steps 5-8 must equal bit for bit."""
+    import os
+    import pickle
+
+    env = {k: v for k, v in os.environ.items() if k != "OPENDILOCO_TORCH_DEVICE"}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    ckpts = os.path.join(tmp, "cli-ckpts")
+    rows, secs = {}, {}
+    for label, extra in (("full", []), ("resumed", ["--ckpt.resume", os.path.join(ckpts, "model_step_4")])):
+        project = os.path.join(tmp, f"cli-{label}.pkl")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+                              "-m", "opendiloco_torch.train", *SHARDED_CLI, "--project", project,
+                              "--ckpt.path", ckpts if label == "full" else os.path.join(tmp, "cli-ckpts2"), *extra],
+                             cwd=root, env=env, capture_output=True, text=True, timeout=400)
+        secs[label] = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"torchrun CLI {label} run exited {res.returncode}: {res.stderr[-3000:]}")
+        with open(project, "rb") as f:
+            rows[label] = pickle.load(f)
+    full = {r["step"]: r for r in rows["full"]}
+    resumed = rows["resumed"]
+    if sorted(full) != list(range(1, 9)) or [r["step"] for r in resumed] != [5, 6, 7, 8]:
+        raise AssertionError(f"torchrun CLI rows: {sorted(full)} and resumed {[r['step'] for r in resumed]}")
+    keys = ("Loss", "lr", "grad_norm")
+    differ = [r["step"] for r in resumed if any(r[k] != full[r["step"]][k] for k in keys)]
+    if differ:
+        raise AssertionError(f"torchrun CLI resume: steps {differ} differ from the first run")
+    if not os.path.exists(os.path.join(ckpts, "model_step_4", "dataloader_0.json")):
+        raise AssertionError("torchrun CLI: no dataloader_0.json in the checkpoint")
+    return {"process_s": secs, "losses": [full[s]["Loss"] for s in sorted(full)],
+            "step_ms": [full[s]["time_taken"] * 1e3 for s in sorted(full)]}
+
+
+def phase_sharded(torch, tfa, dev, card: str) -> dict:
+    """Phase 23: the sharded trainer on the card at world 1 over NCCL (see
+    the module docstring). Every strategy's losses, LRs and master hashes
+    equal the run without a group bit for bit, and each run's launches
+    are those of :func:`training_launches` with the fused loss on."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from opendiloco_torch.models.hf_io import load_config
+
+    cfg, run = load_config("150m"), SHARDED_150M
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    try:
+        runs = {"no group": sharded_run(torch, tfa, dev, tmp, None)}
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            for strategy in SHARDED_STRATEGIES:
+                runs[strategy] = sharded_run(torch, tfa, dev, tmp, strategy)
+        finally:
+            dist.destroy_process_group()
+        cli = sharded_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref = runs["no group"]
+    want = training_launches(torch, dev, cfg, run, run["total_steps"], ref["launches"], fused=True)
+    for label, r in runs.items():
+        if r["launches"] != want:
+            raise AssertionError(f"sharded 150m, {label}: launch counts {r['launches']} != {want}")
+        if not all(math.isfinite(x) for x in r["losses"]) or len(r["losses"]) != run["total_steps"]:
+            raise AssertionError(f"sharded 150m, {label}: losses {r['losses']}")
+        if (r["losses"], r["lrs"], r["grad_norms"], r["hashes"]) != (ref["losses"], ref["lrs"], ref["grad_norms"],
+                                                                     ref["hashes"]):
+            raise AssertionError(f"sharded 150m, {label}: differs from the run without a group: losses "
+                                 f"{r['losses']} vs {ref['losses']}, hashes {r['hashes']} vs {ref['hashes']}")
+    secs = time.perf_counter() - t0
+    for label, r in runs.items():
+        log(f"sharded 150m, {label}: step {r['step_ms_median']:.1f} ms (median after the first), peak device "
+            f"memory {r['peak_gib']:.2f} GiB, wall {r['wall_s']:.1f} s, launches "
+            f"{json.dumps({k: v for k, v in r['launches'].items() if v})} | {card}")
+    log(f"sharded 150m: every strategy at world 1 over NCCL equals the run without a group bit for bit (losses "
+        f"{[round(x, 4) for x in ref['losses']]}, master {ref['hashes'][max(ref['hashes'])][:12]}); torchrun CLI "
+        f"FULL_SHARD resumes bit for bit ({cli['process_s']['full']:.1f} s / {cli['process_s']['resumed']:.1f} s a "
+        f"process); phase {secs:.1f} s | {card}")
+    return {"runs": runs, "cli": cli, "seconds": secs, "launches": {
+        name: sum(r["launches"].get(name, 0) for r in runs.values()) for name in ref["launches"]}}
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -3361,6 +3526,7 @@ def main() -> int:
     gate3 = phase_gate3(torch, tfa, dev, card)
     cli = phase_cli(card)
     outer_plane = phase_outer_plane(torch, tfa, dev, card)
+    sharded = phase_sharded(torch, tfa, dev, card)
 
     # launches: each serving phase's main path, by phase
     serving = {f"serve {s['weight_format']}": s["launches"] for s in serve}
@@ -3384,12 +3550,13 @@ def main() -> int:
                                   "train 1b": train_1b["launches"][k["name"]],
                                   "train 1b device placement": train_1b_device["launches"][k["name"]],
                                   "outer plane 150m": sum(r[pl]["launches"][k["name"]]
-                                                          for r in outer_plane.values() for pl in ("host", "device"))}
+                                                          for r in outer_plane.values() for pl in ("host", "device")),
+                                  "sharded 150m": sharded["launches"].get(k["name"], 0)}
         k["launches"] = sum(k["launches_by_phase"].values())
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
     log(json.dumps({"serve": serve, "spec": spec, "spec_f32": spec_f32, "prefix": prefix, "reference": reference,
                     "train": [train_150m, train_1b, train_f32], "train_1b_device": train_1b_device,
-                    "outer_plane": outer_plane, "resume": resume_150m, "weights_dir": weights_dir,
+                    "outer_plane": outer_plane, "sharded": sharded, "resume": resume_150m, "weights_dir": weights_dir,
                     "train_serve": train_serve, "install_wire": wire, "kv_tier": tier,
                     "gate3": gate3, "cli": cli, "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b6, *b7, *b8, *flash, *xent]}))

@@ -15,7 +15,10 @@ Layout:
                   attention, paged decode attention, W4 matmul), their
                   build and their launch counter
     trainer    -- ``InnerTrainer``: one worker's train step (AdamW, clip,
-                  accumulation, fp16 loss scaling)
+                  accumulation, fp16 loss scaling), on one device or cut
+                  over a process group
+    parallel/  -- the sharding strategies over ``torch.distributed``: mesh,
+                  specs and blocks, collectives, the world messenger
     diloco/    -- outer loop: loopback backend, outer SGD, ``DiLoCoOptimizer``,
                   state-tree packing
     data/      -- fake token streams and the batching loader

@@ -280,8 +280,14 @@ class Config:
     profile_start: int = 10
     profile_steps: int = 5
 
-    # multi-host inner loop
+    # a worker of several processes, one device each (torch.distributed):
+    # the group from these fields, or, where one is None, from the
+    # launcher's environment (RANK, WORLD_SIZE, MASTER_ADDR/MASTER_PORT);
+    # coordinator "host:port", or an init_method URL such as file://...
     multihost: bool = False
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
 
     ckpt: Any = dataclasses.field(default_factory=CkptConfig)
     diloco: Any = None  # None -> plain data-parallel mode

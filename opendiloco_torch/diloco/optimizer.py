@@ -34,9 +34,20 @@ carries each leaf's codec round trip error into the next round
 (tag ``"state"``). The inner AdamW state is not reset at an outer step:
 only the params become the master.
 
-Not ported yet, and raising: gossip rounds (A12). The multihost
-world-messenger split is not ported either: one process drives one
-device.
+A worker of several processes (``world``, a
+:class:`~opendiloco_torch.parallel.world.DistWorld`) runs the
+world-messenger split of the JAX package: only rank 0 holds a backend;
+boundary params reach every rank whole through ``trainer.host_params``,
+the messenger's averages and control values fan out through
+``world.broadcast_*`` (a header first, so a failure on the messenger
+raises on every rank), every rank replays the same host Nesterov step and
+writes its blocks (``trainer.host_block``). With more than one process the
+device placement and streaming x overlap fall back (to host placement
+and blocking fragments), as in the JAX package. Every rank makes the
+same calls in the same order: the poll of a round in flight agrees on
+the messenger's verdict through one small broadcast.
+
+Not ported yet, and raising: gossip rounds (A12).
 """
 from __future__ import annotations
 
@@ -59,6 +70,7 @@ from opendiloco_torch.diloco.planner import fragment_partition
 from opendiloco_torch.diloco.state_io import state_codec
 from opendiloco_torch.diloco.streaming import StreamScheduler
 from opendiloco_torch.models.llama import flatten_params
+from opendiloco_torch.parallel.world import HostWorld
 from opendiloco_torch.utils.debug import schema_fingerprint
 from opendiloco_torch.utils.logger import get_text_logger
 from opendiloco_torch.utils.spans import span
@@ -70,11 +82,20 @@ class PeerDropError(RuntimeError):
     """Raised when a DiLoCo worker disappears and fail_rank_drop is set."""
 
 
-def resolve_outer_placement(cfg: DilocoConfig) -> str:
+def resolve_outer_placement(cfg: DilocoConfig, world: Optional[HostWorld] = None) -> str:
     """'host' or 'device'. 'auto' picks the device plane only on a TPU, as
     the JAX package does, so it is 'host' here; 'device' is the device
-    plane on the trainer's device."""
-    return "device" if cfg.outer_placement == "device" else "host"
+    plane on the trainer's device, on a worker of one process (several
+    fall back to host, as in the JAX package)."""
+    if cfg.outer_placement != "device":
+        return "host"
+    if world is not None and world.process_count > 1:
+        log.warning(
+            "outer_placement=device is single-process only (multihost "
+            "slices replicate the host master); falling back to host"
+        )
+        return "host"
+    return "device"
 
 
 def _check_ported(cfg: DilocoConfig) -> None:
@@ -82,26 +103,22 @@ def _check_ported(cfg: DilocoConfig) -> None:
         raise NotImplementedError("DiLoCo outer_mode='gossip' is not ported yet (ROADMAP.md A12)")
 
 
-def _to_host(leaf: torch.Tensor) -> np.ndarray:
-    """A host f32 view or copy (a view of a CPU f32 tensor: use it before
-    the tensor changes)."""
-    return leaf.detach().to("cpu", torch.float32).numpy()
-
-
 class DiLoCoOptimizer:
     """Owns inner trainer state transitions and the outer DiLoCo loop."""
 
     def __init__(self, trainer, backend: Optional[OuterBackend], cfg: DilocoConfig, state: dict,
-                 batch_size: int):
-        if backend is None:
-            raise ValueError("DiLoCoOptimizer needs a backend")
+                 batch_size: int, world: Optional[HostWorld] = None):
+        # the world-messenger split: only the messenger holds a backend
+        self.world = world if world is not None else HostWorld()
+        if self.world.is_messenger and backend is None:
+            raise ValueError("DiLoCoOptimizer needs a backend on the world messenger")
         _check_ported(cfg)
         self.trainer = trainer
-        self.backend = backend
+        self.backend = backend if self.world.is_messenger else None
         self.cfg = cfg
         self.batch_size = batch_size
         self.target_samples = batch_size * cfg.local_steps
-        self.placement = resolve_outer_placement(cfg)
+        self.placement = resolve_outer_placement(cfg, self.world)
         leaves = flatten_params(state["params"])
         self._plane: Optional[DeviceOuterPlane] = None
         if self.placement == "device":
@@ -111,7 +128,7 @@ class DiLoCoOptimizer:
             # the plane owns master and momentum; the host list stays empty
             self.master: list[np.ndarray] = []
         else:
-            self.master = self._fetch_params(leaves)
+            self.master = trainer.host_params(leaves)
         # error feedback: the device plane adds the residual on the card as
         # it forms the pseudo-gradient and keeps it there; host placement
         # adds it in prepare()
@@ -157,17 +174,26 @@ class DiLoCoOptimizer:
         # post-dispatch hook, inside the inner phase
         self._stream: Optional[StreamScheduler] = None
         if self._fragments is not None and cfg.overlap_comm != "none":
-            self._stream = StreamScheduler(self)
-            trainer.add_post_dispatch_hook(self._stream_tick)
+            if self.world.process_count > 1:
+                log.warning(
+                    "streaming_fragments x overlap_comm is single-process "
+                    "only; falling back to blocking fragment sync"
+                )
+            else:
+                self._stream = StreamScheduler(self)
+                trainer.add_post_dispatch_hook(self._stream_tick)
 
-        self.backend.serve_state(self._state_for_peers)
-        # announce at join, so a faster peer's WAIT_FOR_ALL sees this one
-        try:
-            self._announce(samples=0, sps=0.0)
-        except Exception as e:  # never kill the joiner over gossip
-            log.warning("join announce failed: %s", e)
+        if self.backend is not None:
+            self.backend.serve_state(self._state_for_peers)
+            # announce at join, so a faster peer's WAIT_FOR_ALL sees this one
+            try:
+                self._announce(samples=0, sps=0.0)
+            except Exception as e:  # never kill the joiner over gossip
+                log.warning("join announce failed: %s", e)
 
     def _announce(self, *, samples: int, sps: float, epoch: Optional[int] = None) -> None:
+        if self.backend is None:
+            return
         self.backend.report_progress(
             PeerProgress(
                 peer_id=self.backend.peer_id,
@@ -178,11 +204,11 @@ class DiLoCoOptimizer:
             )
         )
 
-    @staticmethod
-    def _fetch_params(leaves: list) -> list[np.ndarray]:
-        """Host f32 copies that own their memory (the trainer writes its
-        params in place)."""
-        return [x.detach().to("cpu", torch.float32, copy=True).numpy() for x in leaves]
+    def _fetch_params(self, leaves: list, frag: Optional[list[int]] = None) -> list[np.ndarray]:
+        """Whole host f32 copies that own their memory (the trainer writes
+        its params in place) of the leaves, or of ``frag``'s: a collective
+        on a worker of several processes."""
+        return self.trainer.host_params(leaves, frag)
 
     def _pseudo_grad_into(self, boundary: list, slot: int) -> list[np.ndarray]:
         """master - boundary, written into the persistent slot buffers."""
@@ -300,11 +326,35 @@ class DiLoCoOptimizer:
             blobs.append((payload, meta, tuple(m.shape)))
         return epoch, blobs, codec.name
 
+    def _broadcast_remote_state(self, remote: Optional[dict]) -> Optional[dict]:
+        """A fetched swarm state from the messenger to every rank (every
+        rank calls; followers pass None): a small header, then the master
+        and momentum arrays."""
+        w = self.world
+        header = None
+        if remote is not None:
+            opt = remote["outer_opt"]
+            header = {"epoch": int(remote["epoch"]),
+                      "opt_scalars": {k: opt[k] for k in ("lr", "momentum", "nesterov")},
+                      "has_bufs": opt.get("bufs") is not None}
+        header = w.broadcast_obj(header)
+        if header is None:
+            return None
+        tmpl = [np.zeros(m.shape, np.float32) for m in self.master]
+        master = w.broadcast_arrays(remote["master"] if remote is not None else tmpl)
+        bufs = None
+        if header["has_bufs"]:
+            bufs = w.broadcast_arrays(remote["outer_opt"]["bufs"] if remote is not None else tmpl)
+        return {"master": master, "epoch": header["epoch"], "outer_opt": {**header["opt_scalars"], "bufs": bufs}}
+
     def load_state_from_peers(self, state: dict) -> Optional[dict]:
         """Adopt a peer's master, epoch and outer momentum; returns the
-        updated device state (None when no peer serves)."""
+        updated device state (None when no peer serves). A collective on a
+        worker of several processes."""
         self.drop_pending()  # adopted state supersedes rounds in flight
-        remote = self.backend.fetch_state()
+        remote = self.backend.fetch_state() if self.world.is_messenger else None
+        if self.world.process_count > 1:
+            remote = self._broadcast_remote_state(remote)
         if remote is None:
             return None
         if self._plane is not None:
@@ -333,6 +383,8 @@ class DiLoCoOptimizer:
 
     def _behind_swarm(self) -> bool:
         """True when another peer is >= 2 epochs ahead."""
+        if self.backend is None:
+            return False
         for p in self.backend.peer_progress():
             if p.peer_id != self.backend.peer_id and p.epoch >= self.epoch + 2:
                 return True
@@ -347,7 +399,7 @@ class DiLoCoOptimizer:
         boundary. Returns (state, metrics)."""
         if self._pending is not None:
             state = self._poll_pending(state, block=False)
-        if self.local_step == 0 and self._behind_swarm():
+        if self.local_step == 0 and self._desynced():
             updated = self.load_state_from_peers(state)
             if updated is not None:
                 state = updated
@@ -378,6 +430,14 @@ class DiLoCoOptimizer:
             metrics.update(outer_metrics)
         return state, metrics
 
+    def _desynced(self) -> bool:
+        """The messenger's desync verdict, the same on every rank (one small
+        broadcast at each epoch start on a worker of several processes)."""
+        behind = self._behind_swarm() if self.world.is_messenger else False
+        if self.world.process_count > 1:
+            behind = bool(self.world.broadcast_obj(behind))
+        return behind
+
     def _stream_tick(self, state: dict) -> dict:
         """The trainer's post-dispatch hook: fires after every inner step,
         before step() counts it, so that step is ``local_step + 1``."""
@@ -398,6 +458,8 @@ class DiLoCoOptimizer:
         helper (a profiler records this thread); returns (work's result,
         seconds until both ended)."""
         t0 = time.monotonic()
+        if self.backend is None:  # a follower has no peer view: no wait
+            return work(), time.monotonic() - t0
         waited: list = []
 
         def wait():
@@ -451,7 +513,8 @@ class DiLoCoOptimizer:
             "boundary": boundary,
             "epoch": self.epoch,
             "t_launch": t0,
-            "future": self._spawn_all_reduce(pseudo_grad, self.epoch),
+            # a follower carries no future: the messenger's landing fans out
+            "future": self._spawn_all_reduce(pseudo_grad, self.epoch) if self.world.is_messenger else None,
         }
         if self.cfg.overlap_comm == "eager":
             est_opt = self.outer_opt.clone()
@@ -548,20 +611,78 @@ class DiLoCoOptimizer:
         threading.Thread(target=_run, name="diloco-outer-comm", daemon=True).start()
         return fut
 
+    def _messenger_fanout(self, produce, shapes: list):
+        """Run ``produce() -> (arrays, meta)`` on the messenger and fan the
+        result out: a small header first (so a failure there raises on
+        every rank instead of leaving the followers at the array
+        broadcast), then the arrays (followers pass zero templates of
+        ``shapes``). Returns ``(arrays, meta)``."""
+        exc: Optional[BaseException] = None
+        arrays, meta = None, {}
+        if self.world.is_messenger:
+            try:
+                arrays, meta = produce()
+                # own the data: backend results may be views of pooled buffers
+                arrays = [np.array(a, dtype=np.float32) for a in arrays]
+            except BaseException as e:
+                exc = e
+        header = self.world.broadcast_obj(
+            {"err": None if exc is None else f"{type(exc).__name__}: {exc}", "meta": meta}
+            if self.world.is_messenger else None)
+        if exc is not None:
+            raise exc
+        if header["err"] is not None:
+            raise RuntimeError(f"messenger outer round failed: {header['err']}")
+        arrays = self.world.broadcast_arrays(
+            arrays if self.world.is_messenger else [np.zeros(sh, np.float32) for sh in shapes])
+        return arrays, header["meta"]
+
+    def _wan_all_reduce(self, arrays: list, **kw) -> tuple[list, int]:
+        """backend.all_reduce on the messenger, its result on every rank."""
+        kw.setdefault("timeout", self.cfg.averaging_timeout)
+        if self.world.process_count == 1:
+            return self.backend.all_reduce(arrays, **kw)
+
+        def produce():
+            avg, n = self.backend.all_reduce(arrays, **kw)
+            return avg, {"n": n}
+
+        avg, meta = self._messenger_fanout(produce, [a.shape for a in arrays])
+        return avg, int(meta["n"])
+
+    def _overlap_result(self, pending: dict, *, block: bool) -> tuple[list, int]:
+        """(averaged, group size) of the round in flight, on every rank."""
+        fut = pending["future"]
+        timeout = self.cfg.averaging_timeout + 60 if block else None
+        if self.world.process_count == 1:
+            return fut.result(timeout=timeout)
+
+        def produce():
+            avg, n = fut.result(timeout=timeout)
+            return avg, {"n": n}
+
+        avg, meta = self._messenger_fanout(produce, [m.shape for m in pending["master_snap"]])
+        return avg, int(meta["n"])
+
     def _poll_pending(self, state: dict, *, block: bool) -> dict:
         """Land the round in flight if it resolved (or wait for it when
         ``block``): the (corrected) outer update goes to the params as a
         delta. ``_pending`` stays published until the landed master is in
         place, so a snapshot never pairs the new epoch with the old
-        master."""
+        master. On several processes whether the round landed is the
+        messenger's fact, broadcast to every rank."""
         pending = self._pending
         if pending is None:
             return state
         fut = pending["future"]
-        if not block and not fut.done():
-            return state
+        if not block:
+            done = fut.done() if fut is not None else False
+            if self.world.process_count > 1:
+                done = bool(self.world.broadcast_obj(done if self.world.is_messenger else None))
+            if not done:
+                return state
         try:
-            avg, group_size = fut.result(timeout=self.cfg.averaging_timeout + 60 if block else None)
+            avg, group_size = self._overlap_result(pending, block=block)
             self._check_group_size(group_size)
             if self._ef is not None:
                 # the swarm adopted the compressed pg: its round trip error
@@ -616,7 +737,7 @@ class DiLoCoOptimizer:
             self._stream.drop_all()
         if self._pending is not None:
             fut = self._pending["future"]
-            if not fut.cancel():
+            if fut is not None and not fut.cancel():
                 self._abandoned = fut
             self._pending = None
         if self._ef is not None:
@@ -638,7 +759,9 @@ class DiLoCoOptimizer:
         leaves = flatten_params(state["params"])
         for i, d in zip(frag, delta):
             p = leaves[i]
-            p.add_(d if isinstance(d, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(d)).to(p.device))
+            if not isinstance(d, torch.Tensor):  # this rank's block of a host delta
+                d = torch.from_numpy(self.trainer.host_block(i, d)).to(p.device)
+            p.add_(d)
         return state
 
     def _apply_delta_to_device(self, state: dict, delta: list) -> dict:
@@ -664,11 +787,10 @@ class DiLoCoOptimizer:
         # pseudo-gradient and crosses D2H, H2D and the wire
         frag = self._fragments[self.epoch % len(self._fragments)] if self._fragments is not None else None
         leaves = flatten_params(state["params"])
-        src = leaves if frag is None else [leaves[i] for i in frag]
 
         def d2h():
             with span("outer.d2h"):
-                boundary = [_to_host(x) for x in src]
+                boundary = self._fetch_params(leaves, frag)
             return boundary, time.monotonic() - t0
 
         # the D2H overlaps the straggler wait
@@ -698,8 +820,7 @@ class DiLoCoOptimizer:
         self.outer_opt = new_opt
         if self._is_state_avg_epoch():
             # periodic full-state averaging (hivemind average_state_every)
-            averaged_state, n = self.backend.all_reduce(self.master, timeout=self.cfg.averaging_timeout,
-                                                        tag="state")
+            averaged_state, n = self._wan_all_reduce(self.master, tag="state")
             # copies: the result may live in a backend buffer the next
             # all_reduce reuses
             self.master = [np.array(a, dtype=np.float32) for a in averaged_state]
@@ -723,8 +844,7 @@ class DiLoCoOptimizer:
         t = time.monotonic()
         try:
             with span("outer.all_reduce"):
-                averaged, group_size = self.backend.all_reduce(pseudo_grad, timeout=self.cfg.averaging_timeout,
-                                                               epoch=self.epoch)
+                averaged, group_size = self._wan_all_reduce(pseudo_grad, epoch=self.epoch)
             self._check_group_size(group_size)
         except BaseException:
             if self._ef is not None:
@@ -848,7 +968,7 @@ class DiLoCoOptimizer:
         as it is."""
         leaves = flatten_params(state["params"])
         for i in range(len(leaves)) if frag is None else frag:
-            leaves[i].copy_(torch.from_numpy(self.master[i]), non_blocking=False)
+            leaves[i].copy_(torch.from_numpy(self.trainer.host_block(i, self.master[i])), non_blocking=False)
         return state
 
     # ------------------------------------------------------------------

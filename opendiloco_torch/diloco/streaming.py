@@ -164,7 +164,7 @@ class StreamScheduler:
         else:
             # host placement: own the boundary bytes now, on the training
             # thread (the next inner step writes these params in place)
-            bh = opt._fetch_params([leaves[i] for i in frag])
+            bh = opt._fetch_params(leaves, frag)
             pg = [np.subtract(opt.master[i], b) for i, b in zip(frag, bh)]
             if opt._ef is not None:
                 # the residual goes into the wire pg and the eager estimate

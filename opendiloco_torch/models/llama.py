@@ -274,6 +274,7 @@ def forward(
     ring_mesh=None,
     pp_mesh=None,
     scan_unroll: Optional[int] = None,
+    gather=None,
 ):
     """input_ids [B, T] int -> logits [B, T, V] float32.
 
@@ -286,12 +287,18 @@ def forward(
     The f32 params are cast to ``compute_dtype`` here, inside the autograd
     graph, so gradients arrive in f32 at the f32 leaves. ``scan_unroll``
     is accepted for the JAX signature and has no effect: the layers are a
-    Python loop. Multi-device meshes (``ring_mesh``), the pipeline
-    (``pp_mesh``) and routed experts raise."""
+    Python loop. Sequence-sharded attention (``ring_mesh``), the pipeline
+    (``pp_mesh``) and routed experts raise.
+
+    ``gather`` (a :class:`~opendiloco_torch.parallel.sharding.ParamGather`)
+    means ``params`` hold this rank's blocks of a FULL_SHARD or
+    HYBRID_SHARD layout: the stacks are unbound once, and each layer's
+    weights are gathered inside its block when it runs (again on
+    recompute under ``remat``), never the whole stack."""
     if pp_mesh is not None:
         raise _not_ported("the pipeline-parallel forward (pp_mesh)", "A14")
     if ring_mesh is not None:
-        raise _not_ported("sharded attention over a device mesh (ring_mesh)", "A10")
+        raise _not_ported("sequence-sharded attention over a device mesh (ring_mesh)", "A14")
     if cfg.num_experts:
         raise _not_ported("the routed-expert (MoE) forward", "A14")
     del scan_unroll
@@ -299,15 +306,27 @@ def forward(
     if positions is None:
         positions = torch.arange(T, device=input_ids.device).expand(B, T)
     attn_fn = _attn_fn(attn_impl)
-    with span("llama.cast_params"):
-        cparams = {k: (v.to(compute_dtype) if not isinstance(v, dict)
-                       else {n: w.to(compute_dtype) for n, w in v.items()})
-                   for k, v in params.items()}
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    names = sorted(cparams["layers"])
+    names = sorted(params["layers"])
+    if gather is None:
+        with span("llama.cast_params"):
+            cparams = {k: (v.to(compute_dtype) if not isinstance(v, dict)
+                           else {n: w.to(compute_dtype) for n, w in v.items()})
+                       for k, v in params.items()}
+        stacks = cparams["layers"]
 
-    def block(h, *weights):
-        return _decoder_block(cfg, attn_fn, h, dict(zip(names, weights)), rope, return_aux)
+        def block(h, *weights):
+            return _decoder_block(cfg, attn_fn, h, dict(zip(names, weights)), rope, return_aux)
+    else:
+        with span("llama.gather_params"):
+            cparams = {k: gather(k, v, compute_dtype) for k, v in params.items() if k != "layers"}
+        with span("llama.layer_params"):  # one unbind a stack, not a slice per use
+            stacks = {n: params["layers"][n].unbind(0) for n in names}
+
+        def block(h, *blocks):
+            with span("llama.gather_params"):
+                weights = gather.layer(names, list(blocks), compute_dtype)
+            return _decoder_block(cfg, attn_fn, h, dict(zip(names, weights)), rope, return_aux)
 
     block = _maybe_remat(block, remat)
     with span("llama.embed"):
@@ -315,7 +334,7 @@ def forward(
     attn_norms = []
     for i in range(cfg.num_hidden_layers):
         with span("llama.layer_params"):  # layer i's slices of the stacked weights
-            weights = [cparams["layers"][n][i] for n in names]
+            weights = [stacks[n][i] for n in names]
         h, norm = block(h, *weights)
         attn_norms.append(norm)
     with span("llama.final_norm"):
@@ -334,10 +353,13 @@ def forward(
 
 
 def causal_lm_loss(
-    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100
+    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100, *, group=None
 ) -> torch.Tensor:
     """Shifted next-token cross-entropy, mean over non-ignored targets
-    (HF CausalLM loss semantics)."""
+    (HF CausalLM loss semantics). With ``group`` the rows are this rank's
+    share of a batch cut over the group: the sum and the count are summed
+    over it before the division (the mean over the whole batch), and each
+    rank's gradient is its own rows' share."""
     with span("loss.causal_lm"):
         shift_logits = logits[:, :-1]
         shift_labels = labels[:, 1:]
@@ -346,8 +368,12 @@ def causal_lm_loss(
         logp = torch.log_softmax(shift_logits, dim=-1)
         nll = -torch.gather(logp, -1, safe_labels[..., None].long())[..., 0]
         total = torch.sum(nll * mask)
-        count = torch.clamp(torch.sum(mask), min=1)
-        return total / count
+        count = torch.sum(mask)
+        if group is not None:
+            from opendiloco_torch.parallel.comm import all_reduce_, sum_over
+
+            total, count = sum_over(total, group), all_reduce_(count, group)
+        return total / torch.clamp(count, min=1)
 
 
 def flatten_params(tree: dict) -> list:

@@ -345,11 +345,22 @@ def fused_linear_cross_entropy(h: torch.Tensor, w: torch.Tensor, labels: torch.T
 def fused_linear_cross_entropy_sharded(
     h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *, mesh=None, batch_axes: tuple = (), tp_axis=None
 ) -> torch.Tensor:
-    """The SPMD entry. Without a mesh, or on a one-device mesh, the
-    unsharded entry; a multi-device mesh (rows sharded over the batch
-    axes, a (sum, count) all-reduce) is not ported yet."""
-    if mesh is None or getattr(mesh, "size", 1) <= 1:
+    """The SPMD entry. ``mesh`` is the trainer's
+    :class:`~opendiloco_torch.parallel.mesh.MeshPlan`: without one, on one
+    process, or with no batch axes, the unsharded entry. Otherwise the rows
+    of ``h``/``labels`` are this rank's share of the batch: the kernels run
+    on them, and the local (nll sum, count) are summed over the batch group
+    before the division, as the JAX entry's psum does. The returned mean is
+    the whole batch's; each rank's gradient is its rows' share, and the
+    head's (``w``, whole on every rank) is summed by the trainer's gradient
+    reduction like any other leaf's. A tensor-parallel head (``tp_axis``)
+    is not ported (ROADMAP.md A14)."""
+    if tp_axis is not None:
+        raise NotImplementedError("the fused cross-entropy over a tp-sharded head is not ported yet (ROADMAP.md A14)")
+    if mesh is None or getattr(mesh, "size", 1) <= 1 or not batch_axes:
         return fused_linear_cross_entropy(h, w, labels)
-    raise NotImplementedError(
-        "the fused cross-entropy over a multi-device mesh is not ported yet (ROADMAP.md A10)"
-    )
+    from opendiloco_torch.parallel.comm import all_reduce_, sum_over
+
+    group = mesh.batch_group()
+    s, c = _nll_sum_count(h, w, labels)
+    return sum_over(s, group) / torch.clamp(all_reduce_(c, group), min=1)

@@ -1,0 +1,5 @@
+"""Intra-worker parallelism over ``torch.distributed``: the device mesh of
+a sharding strategy (:mod:`.mesh`), which dim of each leaf it shards
+(:mod:`.sharding`), the collectives on blocks of a leaf (:mod:`.comm`) and
+the world messenger that joins a sharded worker to the outer loop
+(:mod:`.world`)."""

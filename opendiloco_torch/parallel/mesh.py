@@ -1,0 +1,234 @@
+"""Device mesh and sharding strategies over ``torch.distributed``.
+
+The port's copy of ``opendiloco_tpu/parallel/mesh.py``, with the same
+strategy names (the reference's FSDP menu, open_diloco/utils.py:138-152):
+
+- NO_SHARD            -> data parallel: params replicated, grads all-reduced.
+- FULL_SHARD (ZeRO-3) -> params and optimizer state cut over the "fsdp"
+                         axis; each layer's weights are gathered when it runs.
+- SHARD_GRAD_OP (ZeRO-2) -> params replicated, optimizer state cut.
+- HYBRID_SHARD        -> (dp, fsdp): ZeRO-3 inside fsdp, replicas across dp.
+- HYBRID_SHARD_ZERO2  -> (dp, fsdp): ZeRO-2 inside fsdp.
+
+One process drives one device. The axis arithmetic (:func:`mesh_sizes`)
+is a pure function of the number of processes and gives the JAX
+function's sizes and ``ValueError`` texts for that many devices; then
+``init_device_mesh`` builds the ``("pp", "dp", "fsdp", "ep", "sp", "tp")``
+mesh whose groups the trainer's collectives run over. Rank ``r`` sits at
+mesh coordinate ``r`` in row-major order, as device ``r`` of the JAX mesh
+does, so batch rows and leaf blocks fall where the JAX layout puts them.
+Without a process group the plan is the single-device plan (no mesh, no
+collectives). tp, sp, pp and ep above 1 are not ported (ROADMAP.md A14).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from typing import Any, Optional
+
+SHARDING_STRATEGIES = (
+    "NO_SHARD",
+    "SHARD_GRAD_OP",
+    "FULL_SHARD",
+    "HYBRID_SHARD",
+    "HYBRID_SHARD_ZERO2",
+)
+AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
+
+# strategies where parameters themselves live sharded on the fsdp axis
+_PARAM_SHARDED = {"FULL_SHARD", "HYBRID_SHARD"}
+# strategies where optimizer state is sharded on the fsdp axis
+_OPTSTATE_SHARDED = {"FULL_SHARD", "HYBRID_SHARD", "SHARD_GRAD_OP", "HYBRID_SHARD_ZERO2"}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """A strategy laid over the processes of one worker. ``mesh`` is the
+    ``DeviceMesh`` (None: one device, no process group)."""
+
+    strategy: str
+    sizes: tuple  # one size per name of AXES
+    batch_axes: tuple = ("dp", "fsdp")  # axes the batch dim is sharded over
+    fsdp_axis: Optional[str] = None  # axis params/opt-state shard over (or None)
+    tp_axis: Optional[str] = None
+    sp_axis: Optional[str] = None
+    pp_axis: Optional[str] = None
+    ep_axis: Optional[str] = None
+    mesh: Any = None
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(AXES, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    @property
+    def data_parallel_size(self) -> int:
+        return math.prod(self.shape[a] for a in self.batch_axes)
+
+    def group(self, axis: str):
+        """The process group of this rank along ``axis`` (None without a mesh)."""
+        return None if self.mesh is None else self.mesh.get_group(axis)
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        return 0 if self.mesh is None else self.mesh.get_local_rank(axis)
+
+    def batch_group(self):
+        """The group the batch is cut over: every process of the worker
+        (tp, sp, pp and ep are 1)."""
+        import torch.distributed as dist
+
+        return None if self.mesh is None else dist.group.WORLD
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's block of the batch: dp coordinate * fsdp + fsdp coordinate."""
+        return self.coord("dp") * self.shape["fsdp"] + self.coord("fsdp")
+
+
+def mesh_sizes(
+    strategy: str,
+    n: int,
+    *,
+    dp_size: Optional[int] = None,
+    fsdp_size: Optional[int] = None,
+    tp_size: int = 1,
+    sp_size: int = 1,
+    pp_size: int = 1,
+    ep_size: int = 1,
+    local_count: Optional[int] = None,
+) -> dict:
+    """The (pp, dp, fsdp, ep, sp, tp) sizes ``build_mesh`` of the JAX
+    package gives on ``n`` devices, with its ``ValueError`` texts.
+    ``local_count`` is the devices of one host (the hybrid default shards
+    within a host); None means ``n``."""
+    if strategy not in SHARDING_STRATEGIES:
+        raise ValueError(f"unknown sharding strategy {strategy!r}")
+    total = n
+    if n % (tp_size * sp_size * pp_size * ep_size) != 0:
+        raise ValueError(
+            f"{n} devices not divisible by tp*sp*pp*ep="
+            f"{tp_size * sp_size * pp_size * ep_size}"
+        )
+    n = n // pp_size
+    n_data = n // (tp_size * sp_size * ep_size)
+
+    if strategy in ("HYBRID_SHARD", "HYBRID_SHARD_ZERO2"):
+        if dp_size and dp_size > n_data:
+            raise ValueError(
+                f"dp_size {dp_size} exceeds the {n_data} data devices left "
+                f"after pp={pp_size} x ep={ep_size} x sp={sp_size} x "
+                f"tp={tp_size} ({n * pp_size} devices total)"
+            )
+        if fsdp_size is None:
+            fsdp_size = dp_size and n_data // dp_size
+        if fsdp_size is None:
+            # default: shard within a host, replicate across hosts
+            fsdp_size = max(1, min(n_data, total if local_count is None else local_count))
+        dp_size = n_data // fsdp_size
+    elif strategy == "NO_SHARD":
+        dp_size, fsdp_size = n_data, 1
+    else:  # FULL_SHARD / SHARD_GRAD_OP: one flat axis
+        dp_size, fsdp_size = 1, n_data
+
+    if dp_size * fsdp_size * tp_size * sp_size * ep_size != n:
+        raise ValueError(
+            f"mesh pp={pp_size} dp={dp_size} fsdp={fsdp_size} ep={ep_size} "
+            f"sp={sp_size} tp={tp_size} does not cover {n * pp_size} devices"
+        )
+    return dict(zip(AXES, (pp_size, dp_size, fsdp_size, ep_size, sp_size, tp_size)))
+
+
+def _plan(strategy: str, sizes: dict, mesh=None) -> MeshPlan:
+    return MeshPlan(
+        strategy=strategy,
+        sizes=tuple(sizes[a] for a in AXES),
+        fsdp_axis="fsdp" if strategy in _PARAM_SHARDED | _OPTSTATE_SHARDED else None,
+        tp_axis="tp" if sizes["tp"] > 1 else None,
+        sp_axis="sp" if sizes["sp"] > 1 else None,
+        pp_axis="pp" if sizes["pp"] > 1 else None,
+        ep_axis="ep" if sizes["ep"] > 1 else None,
+        mesh=mesh,
+    )
+
+
+def layout_plan(strategy: str = "NO_SHARD", n: int = 1, **sizes) -> MeshPlan:
+    """The plan of ``strategy`` on ``n`` devices without a process group:
+    its sizes and specs, no collectives (``sizes``: as :func:`mesh_sizes`)."""
+    return _plan(strategy, mesh_sizes(strategy, n, **sizes))
+
+
+def single_device_plan(strategy: str = "NO_SHARD") -> MeshPlan:
+    """One device, no process group: every axis 1, no collectives."""
+    return layout_plan(strategy)
+
+
+def _host_process_count(backend: str) -> Optional[int]:
+    """The processes of one host, one device each: torchrun's
+    ``LOCAL_WORLD_SIZE`` where it is set, else the host's CUDA devices
+    under NCCL (torch FSDP's own hybrid default), else None (unknown)."""
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    if local:
+        return int(local)
+    if backend == "nccl":
+        import torch
+
+        return torch.cuda.device_count()
+    return None
+
+
+def build_mesh(
+    strategy: str = "NO_SHARD",
+    *,
+    dp_size: Optional[int] = None,
+    fsdp_size: Optional[int] = None,
+    tp_size: int = 1,
+    sp_size: int = 1,
+    pp_size: int = 1,
+    ep_size: int = 1,
+) -> MeshPlan:
+    """The plan of ``strategy`` over the processes of the default
+    ``torch.distributed`` group, one device each (the single-device plan
+    when no group is initialized). The device type follows the group's
+    backend: NCCL on the card, gloo on the CPU. A hybrid strategy with
+    neither size shards over the processes of one host
+    (:func:`_host_process_count`), and raises where they are not known."""
+    import torch.distributed as dist
+
+    grouped = dist.is_available() and dist.is_initialized()
+    n = dist.get_world_size() if grouped else 1
+    local_count = None
+    if n > 1 and strategy.startswith("HYBRID") and dp_size is None and fsdp_size is None:
+        local_count = _host_process_count(dist.get_backend())
+        if local_count is None:
+            raise ValueError(
+                f"{strategy} over {n} processes shards within a host by default, and the processes of one "
+                "host are not known here (no LOCAL_WORLD_SIZE, no CUDA): give fsdp_size or dp_size "
+                "(--fsdp-size / --dp-size)"
+            )
+    sizes = mesh_sizes(strategy, n, dp_size=dp_size, fsdp_size=fsdp_size, tp_size=tp_size, sp_size=sp_size,
+                       pp_size=pp_size, ep_size=ep_size, local_count=local_count)
+    for axis in ("tp", "sp", "pp", "ep"):
+        if sizes[axis] > 1:
+            raise NotImplementedError(
+                f"{axis}_size > 1 is not ported yet (ROADMAP.md A14): the port shards over dp and fsdp only"
+            )
+    if not grouped:
+        return _plan(strategy, sizes)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    mesh = init_device_mesh(device_type, tuple(sizes[a] for a in AXES), mesh_dim_names=AXES)
+    return _plan(strategy, sizes, mesh)
+
+
+def params_sharded(strategy: str) -> bool:
+    return strategy in _PARAM_SHARDED
+
+
+def optstate_sharded(strategy: str) -> bool:
+    return strategy in _OPTSTATE_SHARDED

@@ -6,6 +6,20 @@ model -> dataloader -> trainer -> (DiLoCo optimizer | plain inner loop)
 profiler window and the checkpoint cadence with resume. One process
 drives one device, the card unless ``device`` names another.
 
+A worker may be several processes, one device each, cut by
+``sharding_strategy`` with ``dp_size``/``fsdp_size``
+(:mod:`~opendiloco_torch.parallel`). Launch one process per card with
+``torchrun`` (``python -m torch.distributed.run --nproc-per-node 8 -m
+opendiloco_torch.train --sharding-strategy FULL_SHARD ...``: the group
+comes from ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR``),
+or with ``--multihost --coordinator-address HOST:PORT --num-processes N
+--process-id I`` on each (an address with a scheme, such as
+``file:///shared/store``, is passed to ``init_process_group`` as it is).
+The group runs over NCCL on the card (``cuda:LOCAL_RANK``) and over gloo
+on the CPU. Each process loads its rows of the global batch; only rank
+0, the world messenger, holds the DiLoCo backend and writes metric rows
+and the checkpoint's shared files.
+
 From the command line, with the JAX package's flags::
 
     python -m opendiloco_torch.train --path-model 150m --fake-data \\
@@ -37,9 +51,11 @@ run fails (``drop_pending``).
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP.md
 items: the TCP backend and gossip rounds (A12), the serving fleet (A13),
-multihost and intra-worker sharding (A10) and non-fake data (A9).
+tp, sp, pp and ep above 1 (A14), a serving plane on a worker of several
+processes (A10) and non-fake data (A9).
 
-Text log lines carry the worker's rank, per thread (:func:`log_rank`).
+Text log lines carry the worker's rank, per thread (:func:`log_rank`),
+and after it the process's rank when the worker has several.
 """
 from __future__ import annotations
 
@@ -57,6 +73,8 @@ from opendiloco_torch.device import DeviceLike, pin_cpu_gemm_bits, resolve_devic
 from opendiloco_torch.diloco.backend import OuterBackend
 from opendiloco_torch.diloco.optimizer import DiLoCoOptimizer, PeerDropError
 from opendiloco_torch.models import hf_io
+from opendiloco_torch.parallel.mesh import build_mesh
+from opendiloco_torch.parallel.world import make_world
 from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
 from opendiloco_torch.utils.logger import get_logger, get_text_logger, log_rank
 
@@ -80,32 +98,76 @@ def make_backend(cfg: DilocoConfig) -> OuterBackend:
 def _check_ported(config: Config) -> None:
     unported = [
         (config.fleet is not None, "the serving fleet", "A13"),
-        (config.multihost, "the multihost inner loop", "A10"),
-        (
-            config.sharding_strategy != "NO_SHARD"
-            or max(config.dp_size or 1, config.fsdp_size or 1, config.tp_size, config.sp_size,
-                   config.pp_size, config.ep_size) > 1,
-            "intra-worker sharding (one process drives one device)",
-            "A10",
-        ),
+        *((getattr(config, f"{axis}_size") > 1, f"{axis}_size > 1", "A14") for axis in ("tp", "sp", "pp", "ep")),
     ]
     for bad, what, item in unported:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
+def _init_process_group(config: Config, device):
+    """Join this worker's process group: the one already initialized, or a
+    new one from ``multihost`` and the three fields, or from ``torchrun``'s
+    environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``/``MASTER_PORT``); no group when there is neither.
+    Returns (the device this process drives, whether it made the group).
+    NCCL on the card, on ``cuda:LOCAL_RANK``; gloo on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    env = os.environ
+    if dist.is_available() and dist.is_initialized():
+        return device, False
+    if not (config.multihost or ("RANK" in env and "WORLD_SIZE" in env)):
+        return device, False
+    world = config.num_processes if config.num_processes is not None else int(env.get("WORLD_SIZE", 1))
+    rank = config.process_id if config.process_id is not None else int(env.get("RANK", 0))
+    if config.coordinator_address:
+        addr = config.coordinator_address
+        init_method = addr if "://" in addr else f"tcp://{addr}"
+    elif "MASTER_ADDR" in env:
+        init_method = "env://"
+    else:
+        raise ValueError("a multihost worker needs coordinator_address (--coordinator-address host:port) or "
+                         "the launcher's MASTER_ADDR and MASTER_PORT")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(env.get("LOCAL_RANK", rank % torch.cuda.device_count())))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=init_method, rank=rank,
+                            world_size=world)
+    log.info("process %d of %d (%s over %s)", rank, world, device, dist.get_backend())
+    return device, True
+
+
 def train(config: Config, backend: Optional[OuterBackend] = None, device: DeviceLike = None) -> dict:
     """Returns a summary dict for programmatic callers: the final step and
     loss, the seconds each checkpoint save took (``ckpt_save_s``) and, on a
-    resume, the seconds the load took (``ckpt_load_s``)."""
+    resume, the seconds the load took (``ckpt_load_s``). Under a process
+    group every process of the worker calls it (see the module docstring)."""
+    import torch.distributed as dist
+
     _check_ported(config)
     world_rank = config.diloco.world_rank if config.diloco else 0
-    with log_rank(world_rank):
-        return _train(config, backend, device, world_rank)
+    device, owns_group = _init_process_group(config, resolve_device(device))
+    try:
+        process = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+        nproc = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        with log_rank(world_rank if nproc == 1 else f"{world_rank}.{process}"):
+            return _train(config, backend, device, world_rank, process, nproc)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
 
 
-def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, world_rank: int) -> dict:
+def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: int, process: int,
+           nproc: int) -> dict:
+    if nproc > 1 and config.serve is not None and config.serve.enabled:
+        raise NotImplementedError("a serving plane on a worker of several processes is not ported yet "
+                                  "(ROADMAP.md A10)")
     model_cfg, params = hf_io.get_model(config.path_model)
+    plan = build_mesh(config.sharding_strategy, dp_size=config.dp_size, fsdp_size=config.fsdp_size,
+                      tp_size=config.tp_size, sp_size=config.sp_size, pp_size=config.pp_size,
+                      ep_size=config.ep_size)
     tc = TrainerConfig(
         lr=config.lr,
         weight_decay=config.weight_decay,
@@ -119,18 +181,38 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
         fused_loss=config.fused_loss,
         scan_unroll=config.scan_unroll,
     )
-    trainer = InnerTrainer(model_cfg, tc, device)
+    trainer = InnerTrainer(model_cfg, tc, device, plan)
 
     if config.ckpt.interval:
         ckpt_lib.check_checkpoint_path_access(config.ckpt.path, world_rank)
 
-    # batch/accumulation accounting (one device: dp = 1, one process)
-    global_micro = config.per_device_train_batch_size
+    # batch/accumulation accounting (train_fsdp.py:189-190)
+    global_micro = config.per_device_train_batch_size * plan.data_parallel_size
     accum = max(1, config.total_batch_size // global_micro)
     if config.total_batch_size % global_micro:
         raise ValueError(
             f"total_batch_size {config.total_batch_size} not divisible by "
             f"per_device_train_batch_size*dp = {global_micro}"
+        )
+    # each process loads its rows of the global batch (the fake stream
+    # strides by rank, so a micro-batch holds the same samples at any
+    # process count)
+    if config.total_batch_size % nproc:
+        raise ValueError(
+            f"total_batch_size {config.total_batch_size} not divisible by "
+            f"process_count {nproc}"
+        )
+    local_batch_size = config.total_batch_size // nproc
+    if local_batch_size % accum:
+        raise ValueError(
+            f"per-process batch {local_batch_size} not divisible by the "
+            f"accumulation factor {accum} (= total_batch_size / "
+            f"(per_device_train_batch_size * dp)); adjust batch sizes"
+        )
+    if config.eval_interval and (global_micro % nproc):
+        raise ValueError(
+            f"eval batch per_device_train_batch_size*dp = {global_micro} "
+            f"not divisible by process_count {nproc}"
         )
     loader = get_dataloader(
         fake_data=config.fake_data,
@@ -138,7 +220,7 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
         dataset_name_or_paths=config.dataset_name_or_paths,
         tokenizer_name=config.tokenizer_name,
         seq_length=config.seq_length,
-        batch_size=config.total_batch_size,
+        batch_size=local_batch_size,
         vocab_size=model_cfg.vocab_size,
         world_rank=world_rank,
         galaxy_size=config.diloco.galaxy_size if config.diloco else 1,
@@ -150,11 +232,14 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
     diloco_opt: Optional[DiLoCoOptimizer] = None
     owns_backend = False
     if config.diloco is not None:
-        if backend is None:
+        # the world-messenger split (train_fsdp.py:183, 205-212): only rank
+        # 0 joins the outer fabric; the other ranks meet it at collectives
+        world = make_world(trainer.device)
+        if backend is None and world.is_messenger:
             backend = make_backend(config.diloco)
             owns_backend = True
         diloco_opt = DiLoCoOptimizer(trainer, backend, config.diloco, state,
-                                     batch_size=config.total_batch_size)
+                                     batch_size=config.total_batch_size, world=world)
         log.info("outer data plane: placement=%s (requested %s)", diloco_opt.placement,
                  config.diloco.outer_placement)
 
@@ -168,7 +253,10 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
     if resume:
         log.info("resuming from %s (step %d)", resume_dir, resume_step)
         t_load = time.perf_counter()
-        state, diloco_state, loader_state, _ = ckpt_lib.load_checkpoint(resume_dir, state)
+        # the checkpoint holds whole leaves: load them, then keep this rank's blocks
+        full, diloco_state, loader_state, _ = ckpt_lib.load_checkpoint(resume_dir, trainer.gather_state(state))
+        state = trainer.scatter_state(full)
+        del full
         if diloco_opt is not None and diloco_state is not None:
             diloco_opt.load_state_dict(diloco_state)
         if loader_state is not None:
@@ -181,8 +269,9 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
             state = updated
             log.info("loaded state from peers (epoch %d)", diloco_opt.epoch)
 
-    metric_logger = get_logger(config.metric_logger_type, config.project, config.to_dict(),
-                               resume=bool(resume))
+    # metric rows from the messenger alone
+    metric_logger = get_logger(config.metric_logger_type if process == 0 else "dummy", config.project,
+                               config.to_dict(), resume=bool(resume))
 
     eval_iter = None
     if config.eval_interval:
@@ -192,7 +281,7 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
             dataset_name_or_paths=config.dataset_name_or_paths,
             tokenizer_name=config.tokenizer_name,
             seq_length=config.seq_length,
-            batch_size=global_micro,
+            batch_size=global_micro // nproc,
             vocab_size=model_cfg.vocab_size,
             world_rank=world_rank,
             galaxy_size=config.diloco.galaxy_size if config.diloco else 1,
@@ -213,6 +302,7 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
                  config.serve.max_batch, config.serve.max_context)
 
     tokens_per_step = config.total_batch_size * config.seq_length
+    trace_rank = world_rank if nproc == 1 else f"{world_rank}.{process}"
     summary = {"step": start_step, "loss": float("nan")}
     data_iter = iter(loader)
     pending = None  # (real_step, metrics, dt, extras) of the prior step
@@ -254,7 +344,7 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
             if config.profile_dir and step == start_step + config.profile_start:
                 profiler = _start_profiler(trainer.device)
             if profiler is not None and step == start_step + config.profile_start + config.profile_steps:
-                _stop_profiler(profiler, config.profile_dir, world_rank, step)
+                _stop_profiler(profiler, config.profile_dir, trace_rank, step)
                 profiler = None
             t0 = time.perf_counter()
             host_batch = next(data_iter)
@@ -291,14 +381,15 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
                 ckpt_lib.save_checkpoint(
                     config.ckpt.path,
                     real_step,
-                    state,
+                    trainer.gather_state(state),
                     diloco_rank=world_rank if config.diloco else None,
                     diloco_state=diloco_opt.state_dict() if diloco_opt else None,
                     dataloader_state=loader.state_dict(),
                     extra={"loss": summary["loss"], "step": real_step},
                 )
                 ckpt_times["ckpt_save_s"].append(time.perf_counter() - t_save)
-                ckpt_lib.delete_old_checkpoints(config.ckpt.path, config.ckpt.topk)
+                if process == 0:
+                    ckpt_lib.delete_old_checkpoints(config.ckpt.path, config.ckpt.topk)
         if pending is not None:
             flush(pending)
             pending = None
@@ -319,7 +410,7 @@ def _train(config: Config, backend: Optional[OuterBackend], device: DeviceLike, 
             # a window that reaches past total_steps still writes its trace;
             # a failure to write it must not hide the real error
             try:
-                _stop_profiler(profiler, config.profile_dir, world_rank, config.total_steps)
+                _stop_profiler(profiler, config.profile_dir, trace_rank, config.total_steps)
             except Exception:
                 log.exception("failed to write the profiler trace")
         loader.stop()
@@ -340,7 +431,7 @@ def _start_profiler(device):
     return profiler
 
 
-def _stop_profiler(profiler, profile_dir: str, rank: int, step: int) -> None:
+def _stop_profiler(profiler, profile_dir: str, rank, step: int) -> None:
     """End the window and write its Chrome trace under ``profile_dir``."""
     profiler.__exit__(None, None, None)
     os.makedirs(profile_dir, exist_ok=True)

@@ -1,4 +1,5 @@
-"""Inner-loop trainer: one worker's train step on one device.
+"""Inner-loop trainer: one worker's train step, on one device or cut over
+the processes of a ``torch.distributed`` group.
 
 The counterpart of ``opendiloco_tpu/trainer.py``: forward and backward per
 micro-batch with gradient accumulation over ``[accum, mb, seq]``,
@@ -20,6 +21,29 @@ the device; ``opt_state`` holds the Adam moments (device tensors in
 :func:`~opendiloco_torch.models.llama.flatten_params` order) and the two
 integer counts of the optax chain. Where the JAX step is functional and
 donates its state, the port updates params and moments in place.
+
+Under a :class:`~opendiloco_torch.parallel.mesh.MeshPlan` with a process
+group the strategies are explicit collectives on these leaves (the
+layouts XLA derives from the JAX package's PartitionSpecs):
+
+- each rank is handed its rows of the global batch (:meth:`InnerTrainer.shard_batch`);
+  the loss stays the mean over the global micro-batch's non-ignored
+  tokens (sum and count summed over the ranks before the division), and
+  each rank's gradient is its rows' share;
+- FULL_SHARD and HYBRID_SHARD hold each cut leaf's block
+  (:mod:`~opendiloco_torch.parallel.sharding`); the forward gathers a
+  layer's weights when it runs, in the compute dtype, and the backward
+  reduce-scatters that layer's f32 gradient into the block;
+- once a step, after accumulation, the gradients are summed in f32:
+  all-reduced over the world (NO_SHARD, and every replicated leaf),
+  reduce-scattered into the optimizer state's blocks over fsdp (ZeRO-2),
+  and all-reduced over dp for the hybrids;
+- the global norm sums each leaf's squares over the ranks that hold
+  distinct blocks, a replicated leaf once;
+- AdamW updates the local blocks; ZeRO-2 then all-gathers the params (f32).
+
+At one process every collective is an identity and the step is the
+single-device step bit for bit.
 """
 from __future__ import annotations
 
@@ -39,8 +63,11 @@ from opendiloco_torch.models.llama import (
     flatten_params,
     forward,
     init_params,
+    unflatten_params,
 )
 from opendiloco_torch.ops.fused_xent import fused_linear_cross_entropy_sharded
+from opendiloco_torch.parallel.mesh import MeshPlan, params_sharded, single_device_plan
+from opendiloco_torch.parallel.sharding import ParamGather, local_block, param_specs, spec_dim
 from opendiloco_torch.utils.spans import span
 
 
@@ -184,12 +211,16 @@ def make_inner_optimizer(tc: TrainerConfig) -> InnerOptimizer:
     return InnerOptimizer(tc)
 
 
-def global_norm(tensors: list) -> torch.Tensor:
-    """sqrt of the sum over leaves of sum(x**2), as optax.global_norm."""
-    total = None
-    for t in tensors:
-        sq = torch.sum(t * t)
-        total = sq if total is None else total + sq
+def global_norm(tensors: list, reduce_squares=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of sum(x**2), as optax.global_norm.
+    ``reduce_squares`` (list -> list) may first sum each leaf's square
+    over the ranks that hold its blocks."""
+    sq = [torch.sum(t * t) for t in tensors]
+    if reduce_squares is not None:
+        sq = reduce_squares(sq)
+    total = sq[0]
+    for x in sq[1:]:
+        total = total + x
     return torch.sqrt(total)
 
 
@@ -226,13 +257,19 @@ def _resolve_perf_defaults(
 
 class InnerTrainer:
     """Owns the optimizer and the train/eval steps of one worker on one
-    device (the card unless ``device`` names another).
+    device (the card unless ``device`` names another), or of this rank of a
+    worker cut over a process group (``plan``, from
+    :func:`~opendiloco_torch.parallel.mesh.build_mesh`; default the
+    single-device plan).
 
-    state: {"params": f32 dict tree, "opt_state": see InnerOptimizer,
-    "step": int, "scaler": {"scale": float, "good_steps": int}}
+    state: {"params": f32 dict tree (this rank's blocks under FULL_SHARD
+    and HYBRID_SHARD), "opt_state": see InnerOptimizer (blocks under every
+    strategy but NO_SHARD), "step": int, "scaler": {"scale": float,
+    "good_steps": int}}
     """
 
-    def __init__(self, model_cfg: LlamaConfig, tc: TrainerConfig, device: DeviceLike = None):
+    def __init__(self, model_cfg: LlamaConfig, tc: TrainerConfig, device: DeviceLike = None,
+                 plan: Optional[MeshPlan] = None):
         self.device = resolve_device(device)
         tc = _resolve_perf_defaults(tc, model_cfg, self.device)
         _maybe_remat(None, tc.remat)  # an unported policy raises here, not mid-step
@@ -250,7 +287,50 @@ class InnerTrainer:
         self.optimizer = make_inner_optimizer(tc)
         self.schedule = make_schedule(tc)
         self._post_dispatch_hooks: list = []
+        self._set_plan(plan if plan is not None else single_device_plan())
 
+    def _set_plan(self, plan: MeshPlan) -> None:
+        """The layout: which dim each param and optimizer-state leaf is cut
+        along on this rank (None: whole), and the groups."""
+        self.plan = plan
+        self._dist = plan.mesh is not None
+        if self._dist:
+            import torch.distributed as dist
+
+            # a CUDA run never drops to gloo
+            want = "nccl" if self.device.type == "cuda" else "gloo"
+            if dist.get_backend() != want:
+                raise ValueError(f"a trainer on {self.device.type} runs its collectives over {want}, "
+                                 f"not {dist.get_backend()!r}")
+        self._fsdp_n, self._fsdp_r = plan.shape["fsdp"], plan.coord("fsdp")
+        self._params_cut = params_sharded(plan.strategy)
+        specs = param_specs(self.model_cfg, plan)
+        self.param_dims = [spec_dim(x) for x in flatten_params(specs)]
+        self.opt_dims = [spec_dim(x) for x in flatten_params(param_specs(self.model_cfg, plan, for_params=False))]
+        # the resident params' layout (ZeRO-2 keeps them whole)
+        self.resident_dims = self.param_dims if self._params_cut else [None] * len(self.param_dims)
+        self._gather = ParamGather(specs, plan.group("fsdp")) if self._dist and self._params_cut else None
+        self._batch_group = plan.batch_group() if self._dist and plan.size > 1 else None
+
+    def _block(self, x, dim: Optional[int]):
+        """This rank's block of a full leaf (a view; the leaf at fsdp 1)."""
+        return local_block(x, dim, self._fsdp_n, self._fsdp_r)
+
+    def _whole(self, x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """A leaf cut along ``dim`` joined over fsdp (a collective); a
+        whole leaf as it is. Detached."""
+        if dim is None or not self._dist or self._fsdp_n == 1:
+            return x.detach()
+        from opendiloco_torch.parallel.comm import all_gather_dim
+
+        return all_gather_dim(x.detach(), dim, self.plan.group("fsdp"))
+
+    def _opt_targets(self, leaves: list) -> list:
+        """The param tensors AdamW updates: the leaves themselves, or under
+        ZeRO-2 views of their optimizer-state blocks."""
+        if self._params_cut:
+            return list(leaves)
+        return [self._block(p, d) for p, d in zip(leaves, self.opt_dims)]
     # -- state ------------------------------------------------------------
 
     def init_state(
@@ -269,13 +349,63 @@ class InnerTrainer:
                 p.requires_grad_(True)
         else:
             params = params_from_numpy(params, self.device, torch.float32, requires_grad=True)
+        # drawn whole on every rank (the same draws under any layout), then cut
+        params = self.local_params(params)
         scale = self.tc.init_loss_scale if self.tc.use_loss_scaling else 1.0
         return {
             "params": params,
-            "opt_state": self.optimizer.init(flatten_params(params)),
+            "opt_state": self.optimizer.init(self._opt_targets(flatten_params(params))),
             "step": 0,
             "scaler": {"scale": float(scale), "good_steps": 0},
         }
+
+    def local_params(self, params: dict) -> dict:
+        """Full f32 leaves -> this rank's resident params: blocks under
+        FULL_SHARD and HYBRID_SHARD (own memory, requiring grad), the
+        leaves themselves otherwise."""
+        if not self._params_cut or self._fsdp_n == 1:
+            return params
+        leaves = [self._block(p, d).detach().clone().requires_grad_(True)
+                  for p, d in zip(flatten_params(params), self.param_dims)]
+        return unflatten_params(params, leaves)
+
+    def gather_state(self, state: dict) -> dict:
+        """The state with every leaf whole (params and AdamW moments
+        gathered over fsdp, f32): a checkpoint's layout, which loads at any
+        world size. A collective: every rank calls it. Returns ``state``
+        itself when nothing is cut."""
+        if not self._dist or self._fsdp_n == 1:
+            return state
+        whole = lambda xs, dims: [self._whole(x, d) for x, d in zip(xs, dims)]
+        opt = dict(state["opt_state"])
+        opt["mu"], opt["nu"] = whole(opt["mu"], self.opt_dims), whole(opt["nu"], self.opt_dims)
+        return {**state, "params": unflatten_params(state["params"], whole(flatten_params(state["params"]), self.resident_dims)),
+                "opt_state": opt}
+
+    def host_params(self, leaves: list, idx: Optional[list] = None) -> list[np.ndarray]:
+        """Whole f32 host copies, owning their memory, of the resident
+        param ``leaves`` (or of those at ``idx``): the outer loop's view of
+        the params. A collective when the params are cut."""
+        idx = range(len(leaves)) if idx is None else idx
+        return [self._whole(leaves[i], self.resident_dims[i]).to("cpu", torch.float32, copy=True).numpy()
+                for i in idx]
+
+    def host_block(self, i: int, host_arr: np.ndarray) -> np.ndarray:
+        """This rank's block of resident param leaf ``i`` from the whole
+        host array (the array itself when the leaf is whole)."""
+        return np.ascontiguousarray(self._block(host_arr, self.resident_dims[i]))
+
+    @torch.no_grad()
+    def scatter_state(self, full: dict) -> dict:
+        """The inverse of :meth:`gather_state`: this rank's blocks of a
+        state whose leaves are whole (a loaded checkpoint)."""
+        if not self._dist or self._fsdp_n == 1:
+            return full
+        params = self.local_params(full["params"])
+        opt = dict(full["opt_state"])
+        opt["mu"] = [self._block(x, d).clone() for x, d in zip(opt["mu"], self.opt_dims)]
+        opt["nu"] = [self._block(x, d).clone() for x, d in zip(opt["nu"], self.opt_dims)]
+        return {**full, "params": params, "opt_state": opt}
 
     def force_step_position(self, state: dict, step: int) -> dict:
         """Teleport the LR-schedule position to ``step``: rewrites
@@ -295,11 +425,12 @@ class InnerTrainer:
     def _fused_lm_loss(self, hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """The shifted fused lm-head + cross-entropy over the final hidden
         states: the single shift and reshape site, as in the JAX package
-        (one device, so the unsharded entry)."""
+        (the sharded entry over the plan's batch axes)."""
         d = hidden.shape[-1]
         with span("loss.fused"):
             return fused_linear_cross_entropy_sharded(
-                hidden[:, :-1].reshape(-1, d), head, labels[:, 1:].reshape(-1), mesh=None
+                hidden[:, :-1].reshape(-1, d), head, labels[:, 1:].reshape(-1),
+                mesh=self.plan if self._dist else None, batch_axes=self.plan.batch_axes, tp_axis=self.plan.tp_axis,
             )
 
     def _loss_fn(self, params: dict, input_ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -308,11 +439,12 @@ class InnerTrainer:
             attn_impl=self.tc.attn_impl,
             remat=self.tc.remat,
             scan_unroll=self.tc.scan_unroll,
+            gather=self._gather,
         )
         if self.tc.fused_loss:
             hidden, head = forward(params, input_ids, self.model_cfg, return_hidden=True, **kw)
             return self._fused_lm_loss(hidden, head, labels)
-        return causal_lm_loss(forward(params, input_ids, self.model_cfg, **kw), labels)
+        return causal_lm_loss(forward(params, input_ids, self.model_cfg, **kw), labels, group=self._batch_group)
 
     def _train_step_impl(self, state: dict, batch: dict):
         """batch tensors are [accum, mb, seq]."""
@@ -337,8 +469,12 @@ class InnerTrainer:
         with span("trainer.grad_accum"):
             torch._foreach_mul_(grad_sum, inv)
             loss = loss_sum * inv
+        if self._dist:
+            with span("trainer.grad_reduce"):
+                grad_sum = self._reduce_grads(grad_sum)
         with span("trainer.grad_norm"):
-            grad_norm = global_norm(grad_sum)
+            grad_norm = global_norm(grad_sum, self._sum_cut_squares if self._dist else None)
+        targets = self._opt_targets(leaves)
 
         scaler = state["scaler"]
         if self.tc.use_loss_scaling:
@@ -346,7 +482,8 @@ class InnerTrainer:
             # halve the scale; grow 2x after scale_growth_interval clean steps
             finite = bool(torch.isfinite(grad_norm))
             if finite:
-                self.optimizer.update(grad_sum, state["opt_state"], leaves, grad_norm)
+                self.optimizer.update(grad_sum, state["opt_state"], targets, grad_norm)
+                self._gather_updated(leaves, targets)
             good = scaler["good_steps"] + 1 if finite else 0
             grow = finite and good >= self.tc.scale_growth_interval
             new_scale = (scale * 2.0 if grow else scale) if finite else scale * 0.5
@@ -358,7 +495,8 @@ class InnerTrainer:
                 "loss_scale": torch.tensor(scale),
             }
         else:
-            self.optimizer.update(grad_sum, state["opt_state"], leaves, grad_norm)
+            self.optimizer.update(grad_sum, state["opt_state"], targets, grad_norm)
+            self._gather_updated(leaves, targets)
             metrics = {"loss": loss, "grad_norm": grad_norm}
         new_state = {
             "params": params,
@@ -367,6 +505,48 @@ class InnerTrainer:
             "scaler": scaler,
         }
         return new_state, metrics
+
+    def _reduce_grads(self, grads: list) -> list:
+        """The once-a-step gradient sum over the ranks, in f32 (see the
+        module docstring); returns each leaf's gradient in its optimizer
+        state's layout."""
+        from opendiloco_torch.parallel.comm import all_reduce_, reduce_scatter_dim
+
+        plan, world = self.plan, self.plan.batch_group()
+        dp = plan.group("dp") if plan.shape["dp"] > 1 else None
+        out = []
+        for g, pd, od in zip(grads, self.param_dims, self.opt_dims):
+            if self._params_cut and pd is not None:
+                pass  # reduce-scattered over fsdp by the forward's gather
+            elif od is not None:
+                g = reduce_scatter_dim(g, od, plan.group("fsdp"))
+            else:
+                out.append(all_reduce_(g, world))
+                continue
+            out.append(all_reduce_(g, dp) if dp is not None else g)
+        return out
+
+    def _sum_cut_squares(self, sq: list) -> list:
+        """Each cut leaf's square summed over the fsdp group (one
+        all-reduce of the per-leaf sums); a replicated leaf's as it is."""
+        cut = [i for i, d in enumerate(self.opt_dims) if d is not None]
+        if cut:
+            from opendiloco_torch.parallel.comm import all_reduce_
+
+            summed = all_reduce_(torch.stack([sq[i] for i in cut]), self.plan.group("fsdp"))
+            for j, i in enumerate(cut):
+                sq[i] = summed[j]
+        return sq
+
+    @torch.no_grad()
+    def _gather_updated(self, leaves: list, targets: list) -> None:
+        """ZeRO-2: each rank updated its block of the whole params; gather
+        the blocks back into every rank's copy (f32)."""
+        if not self._dist or self._params_cut:
+            return
+        for p, t, d in zip(leaves, targets, self.opt_dims):
+            if d is not None:
+                p.copy_(self._whole(t, d))
 
     @torch.no_grad()
     def _eval_step_impl(self, params: dict, batch: dict) -> torch.Tensor:
@@ -380,7 +560,13 @@ class InnerTrainer:
             attn_impl=self.tc.attn_impl,
             remat=False,
             return_aux=True,
+            gather=self._gather,
         )
+        if self._batch_group is not None:
+            # L2 norms over the whole batch: the ranks' squares summed
+            from opendiloco_torch.parallel.comm import all_reduce_
+
+            aux = {k: torch.sqrt(all_reduce_(v.float() ** 2, self._batch_group)) for k, v in aux.items()}
         return aux
 
     # -- host API ---------------------------------------------------------
@@ -389,7 +575,11 @@ class InnerTrainer:
         return torch.from_numpy(np.ascontiguousarray(a).astype(np.int64)).to(self.device)
 
     def shard_batch(self, input_ids: np.ndarray, labels: np.ndarray, accum: int) -> dict:
-        """[bs, T] host arrays -> [accum, bs / accum, T] device tensors."""
+        """[bs, T] host arrays -> [accum, bs / accum, T] device tensors.
+        Under a plan of several processes the arrays are this process's
+        rows of the global batch (a dataloader that strides by rank, as
+        ``train()`` runs it; the JAX batch spec cuts each micro-batch the
+        same way)."""
         gbs, seq = input_ids.shape
         if gbs % accum:
             raise ValueError(f"batch {gbs} not divisible by accum {accum}")
@@ -408,6 +598,8 @@ class InnerTrainer:
         return state, metrics
 
     def eval_loss(self, params: dict, input_ids: np.ndarray, labels: np.ndarray) -> float:
+        """The mean loss of a [bs, T] batch (this process's rows, as
+        :meth:`shard_batch`), over the whole batch's counted tokens."""
         batch = {"input_ids": self._batch(input_ids), "labels": self._batch(labels)}
         return float(self._eval_step_impl(params, batch))
 

@@ -30,7 +30,7 @@ from opendiloco_tpu.parallel.mesh import build_mesh
 from opendiloco_tpu.trainer import InnerTrainer as JInnerTrainer
 from opendiloco_tpu.trainer import TrainerConfig as JTrainerConfig
 from opendiloco_tpu.trainer import make_schedule as j_make_schedule
-from opendiloco_torch.config import Config, DilocoConfig
+from opendiloco_torch.config import Config, DilocoConfig, parse_argv
 from opendiloco_torch.diloco import DiLoCoOptimizer, LoopbackWorld
 from opendiloco_torch.models import llama as tllama
 from opendiloco_torch.models.convert import params_from_numpy, params_to_numpy
@@ -483,9 +483,10 @@ def test_train_without_diloco_with_eval_and_probes(tmp_path):
         dict(fleet=dict(replicas=2)),
         dict(remat="dots"),
         dict(remat="dots_all"),
-        dict(multihost=True),
-        dict(sharding_strategy="FULL_SHARD"),
+        dict(tp_size=2),
+        dict(sp_size=2),
         dict(pp_size=2),
+        dict(ep_size=2),
         dict(fake_data=False),
         dict(metric_logger_type="wandb"),
         dict(path_model="2m_4e"),
@@ -511,17 +512,24 @@ def test_unported_options_raise(tmp_path, overrides):
         dict(diloco=dict(backend="loopback", local_steps=2, overlap_comm="eager")),
         dict(diloco=dict(backend="loopback", local_steps=2, streaming_fragments=2)),
         dict(diloco=dict(backend="loopback", local_steps=2, compression="fp16", error_feedback=True)),
+        dict(multihost=True),
+        dict(sharding_strategy="FULL_SHARD"),
     ],
     ids=["serve=enabled", "compression=fp16", "outer_placement=device", "overlap_comm=eager",
-         "streaming_fragments=2", "error_feedback"],
+         "streaming_fragments=2", "error_feedback", "multihost=True", "sharding_strategy=FULL_SHARD"],
 )
 def test_formerly_unported_options_run(tmp_path, overrides):
     """The serving plane of a run, outer compression, the device outer
-    plane, overlapped and streaming rounds and error feedback are ported:
-    train() takes them (tests/test_torch_hot_swap.py holds the first two
-    against the JAX package; test_torch_outer_device.py,
-    test_torch_overlap.py, test_torch_streaming.py and
-    test_torch_error_feedback.py the rest)."""
+    plane, overlapped and streaming rounds, error feedback, a multihost
+    worker and the sharding strategies are ported: train() takes them
+    (tests/test_torch_hot_swap.py holds the first two against the JAX
+    package; test_torch_outer_device.py, test_torch_overlap.py,
+    test_torch_streaming.py, test_torch_error_feedback.py,
+    test_torch_parallel.py and test_torch_sharded_train.py the rest). Here
+    at one process: a multihost worker of one joins a gloo group of one."""
+    if overrides.get("multihost"):
+        overrides = {**overrides, "coordinator_address": f"file://{tmp_path / 'store'}", "num_processes": 1,
+                     "process_id": 0}
     if "diloco" in overrides:
         overrides["diloco"] = {**_train_config(tmp_path, 0).to_dict()["diloco"], **overrides["diloco"]}
     backend = LoopbackWorld(1, compression="fp16").make_backends()[0]
@@ -534,7 +542,6 @@ def test_formerly_unported_options_run(tmp_path, overrides):
     [
         ("config", "prefetch_depth", 0),
         ("config", "num_workers", 4),
-        ("config", "coordinator_address", "localhost:1234"),
         ("diloco", "link_adapt", True),
         ("diloco", "initial_peers", "localhost:1234"),
     ],
@@ -547,6 +554,21 @@ def test_fields_the_port_does_not_read_are_refused(section, field, value):
             Config(**{field: value})
         else:
             Config(**{section: {field: value}})
+
+
+@pytest.mark.parametrize(
+    "field,flag,value,want",
+    [("coordinator_address", "--coordinator-address", "localhost:1234", "localhost:1234"),
+     ("num_processes", "--num-processes", "4", 4),
+     ("process_id", "--process-id", "3", 3)],
+)
+def test_process_group_fields_are_accepted(field, flag, value, want):
+    """The JAX fields of a multihost worker are read now (train() joins a
+    process group from them): Config takes them, from the command line
+    too, with the JAX defaults (None: from the launcher's environment)."""
+    assert getattr(Config(), field) is None
+    assert getattr(Config(**{field: want}), field) == want
+    assert getattr(Config(**parse_argv(["--multihost", flag, value])), field) == want
 
 
 def test_stream_stagger_sets_launch_schedule():

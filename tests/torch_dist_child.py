@@ -1,0 +1,201 @@
+"""One rank of a CPU process group for the port's sharding tests.
+
+``python tests/torch_dist_child.py JOB RANK WORLD STORE SPEC OUT`` joins a
+gloo group of WORLD processes through the ``file://`` store STORE, runs
+JOB with the pickled SPEC and pickles this rank's result to OUT. It
+imports the port alone (no JAX), so a spawn of several ranks starts fast;
+the tests hold the results against the JAX package in their own process.
+"""
+import os
+import pickle
+import sys
+
+
+def _cfg(spec):
+    from opendiloco_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(**spec["cfg"])
+
+
+def rank_rows(plan, a, accum=None):
+    """This rank's rows of a global [bs, T] batch, as the JAX batch spec
+    cuts it: of each of ``accum`` micro-batches, or of the whole batch
+    (``accum`` None). The batch itself at one rank."""
+    import numpy as np
+
+    from opendiloco_torch.parallel.sharding import local_block
+
+    n, r = plan.data_parallel_size, plan.batch_index
+    if accum is None:
+        return np.ascontiguousarray(local_block(a, 0, n, r))
+    bs, t = a.shape
+    return np.ascontiguousarray(local_block(a.reshape(accum, bs // accum, t), 1, n, r)).reshape(-1, t)
+
+
+def job_strategies(spec: dict) -> dict:
+    """Every case of ``spec["cases"]`` (strategy, mesh kwargs and optionally
+    TrainerConfig overrides): a fresh trainer on the same numpy params and
+    global batches, each rank handed its rows; the losses and grad norms
+    of each step, the whole params and moments after the last
+    (``gather_state``, a checkpoint's layout), this rank's leaf shapes, and
+    the eval loss and probes of ``spec["eval"]``."""
+    from opendiloco_torch.models.llama import flatten_params
+    from opendiloco_torch.parallel.mesh import build_mesh
+    from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
+
+    cfg = _cfg(spec)
+    out = {}
+    for name, (strategy, kw, *tc) in spec["cases"].items():
+        plan = build_mesh(strategy, **kw)
+        trainer = InnerTrainer(cfg, TrainerConfig(**{**spec["tc"], **(tc[0] if tc else {})}), device="cpu",
+                               plan=plan)
+        state = trainer.init_state(params=spec["params"])
+        shapes = {"params": [tuple(p.shape) for p in flatten_params(state["params"])],
+                  "mu": [tuple(m.shape) for m in state["opt_state"]["mu"]]}
+        losses, norms = [], []
+        for ids, labels in spec["batches"]:
+            rows = [rank_rows(plan, a, spec["accum"]) for a in (ids, labels)]
+            state, m = trainer.train_step(state, trainer.shard_batch(*rows, accum=spec["accum"]))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        full = trainer.gather_state(state)
+        out[name] = {
+            "losses": losses, "norms": norms, "shapes": shapes,
+            "params": [p.detach().numpy().copy() for p in flatten_params(full["params"])],
+            "mu": [m.numpy().copy() for m in full["opt_state"]["mu"]],
+            "nu": [v.numpy().copy() for v in full["opt_state"]["nu"]],
+            "eval": trainer.eval_loss(state["params"], *(rank_rows(plan, a) for a in spec["eval"])),
+            "probe": trainer.probe_norms(state["params"], rank_rows(plan, spec["eval"][0])),
+        }
+    return out
+
+
+def job_mesh(spec: dict) -> dict:
+    """``build_mesh`` for each case of ``spec["cases"]`` (strategy, mesh
+    kwargs, ``LOCAL_WORLD_SIZE`` or None): the axis sizes, or the
+    ``ValueError`` text."""
+    from opendiloco_torch.parallel.mesh import build_mesh
+
+    out = {}
+    for name, (strategy, kw, local) in spec["cases"].items():
+        os.environ.pop("LOCAL_WORLD_SIZE", None)
+        if local is not None:
+            os.environ["LOCAL_WORLD_SIZE"] = str(local)
+        try:
+            out[name] = build_mesh(strategy, **kw).shape
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def job_fused(spec: dict) -> dict:
+    """The sharded fused-loss entry on this rank's rows: the loss, this
+    rank's rows' hidden gradient and its share of the head's gradient."""
+    import torch
+
+    from opendiloco_torch.ops.fused_xent import fused_linear_cross_entropy_sharded
+    from opendiloco_torch.parallel.mesh import build_mesh
+
+    plan = build_mesh("FULL_SHARD")
+    h, w, labels = (torch.from_numpy(a) for a in spec["hwl"])
+    h = torch.from_numpy(rank_rows(plan, h.numpy())).requires_grad_(True)
+    w = w.clone().requires_grad_(True)
+    labels = torch.from_numpy(rank_rows(plan, labels.numpy()))
+    loss = fused_linear_cross_entropy_sharded(h, w, labels, mesh=plan, batch_axes=plan.batch_axes)
+    loss.backward()
+    return {"loss": float(loss), "dh": h.grad.numpy(), "dw": w.grad.numpy()}
+
+
+def job_diloco(spec: dict) -> dict:
+    """One DiLoCo worker of WORLD ranks in a one-worker loopback galaxy:
+    the master after every step, whether this rank holds a backend."""
+    from opendiloco_torch.config import DilocoConfig
+    from opendiloco_torch.diloco import DiLoCoOptimizer, LoopbackWorld
+    from opendiloco_torch.parallel.mesh import build_mesh
+    from opendiloco_torch.parallel.world import make_world
+    from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
+
+    import torch.distributed as dist
+
+    cfg = _cfg(spec)
+    out = {}
+    for name, (strategy, kw, dcfg) in spec["cases"].items():
+        plan = build_mesh(strategy, **kw)
+        trainer = InnerTrainer(cfg, TrainerConfig(**spec["tc"]), device="cpu", plan=plan)
+        state = trainer.init_state(params=spec["params"])
+        world = make_world(trainer.device)
+        backend = LoopbackWorld(1).make_backends()[0] if dist.get_rank() == 0 else None
+        opt = DiLoCoOptimizer(trainer, backend, DilocoConfig(**dcfg), state, batch_size=spec["batch_size"],
+                              world=world)
+        updated = opt.load_state_from_peers(state)
+        state = updated if updated is not None else state
+        masters, losses = [], []
+        for ids, labels in spec["batches"]:
+            rows = [rank_rows(plan, a, spec["accum"]) for a in (ids, labels)]
+            state, m = opt.step(state, trainer.shard_batch(*rows, accum=spec["accum"]))
+            losses.append(float(m["loss"]))
+            if opt._pending is not None and opt._pending["future"] is not None:
+                opt._pending["future"].result()  # land each round at the next poll
+            masters.append([x.copy() for x in opt.master])
+        state = opt.flush(state)
+        out[name] = {"masters": masters, "losses": losses, "has_backend": opt.backend is not None,
+                     "placement": opt.placement, "streams": opt._stream is not None,
+                     "final": [x.copy() for x in opt.master]}
+    return out
+
+
+def spawn(job: str, world: int, spec: dict, tmp, timeout: float = 120.0) -> list:
+    """Run ``job`` on ``world`` ranks (one process each, a ``file://``
+    store under ``tmp``); returns the ranks' results in rank order. Every
+    process is waited for with ``timeout`` and killed if it is still
+    running; a rank that fails fails the call with its output."""
+    import subprocess
+
+    tmp = str(tmp)
+    os.makedirs(tmp, exist_ok=True)
+    spec_path = os.path.join(tmp, f"{job}-{world}.spec")
+    with open(spec_path, "wb") as f:
+        pickle.dump(spec, f)
+    store = os.path.join(tmp, f"{job}-{world}.store")
+    outs = [os.path.join(tmp, f"{job}-{world}-{r}.out") for r in range(world)]
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_CBWR": "AUTO,STRICT"}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), job, str(r), str(world), store, spec_path,
+                               outs[r]], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+             for r in range(world)]
+    try:
+        texts = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:  # never leak a wedged rank
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    assert not failed, "\n".join(f"rank {r}: {texts[r][-3000:]}" for r in failed)
+    results = []
+    for path in outs:
+        with open(path, "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def main() -> None:
+    job, rank, world, store, spec_path, out_path = sys.argv[1:7]
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=int(rank), world_size=int(world))
+    try:
+        result = globals()[f"job_{job}"](spec)
+    finally:
+        dist.destroy_process_group()
+    with open(out_path + ".tmp", "wb") as f:
+        pickle.dump(result, f)
+    os.replace(out_path + ".tmp", out_path)
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    main()
