@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch port on one CUDA card: serving, speculative
 decode, prefix reuse, the host KV tier, training, checkpoint and resume,
 training that serves over HTTP with weight hot swap, the command line,
-and the outer plane on the card (overlapped and streaming rounds, error
-feedback).
+the outer plane on the card (overlapped and streaming rounds, error
+feedback), sharding, and a galaxy of two workers over TCP.
 
     python3 chip_smoke.py
 
@@ -246,7 +246,24 @@ exits non-zero.
    --sharding-strategy FULL_SHARD``, bf16, attention through the kernels, 8 steps
    with a checkpoint at step 4, then resuming from it: steps 5-8 equal
    bit for bit.
-24. The kernels line (launches of B6, B7, their merges and B8 by serving
+24. The TCP galaxy (after phase 10): phase 10's two config_1b workers
+   (4 steps, ``local_steps`` 2, codec none) with ``diloco.backend="tcp"``,
+   no backend handed in and the outer plane on the card (host RAM: two
+   host-placed TCP workers of one process need about 2 x 30 GB): each
+   ``train()`` makes a ``TcpBackend`` that
+   meets the other at the port's ``RendezvousServer`` on localhost
+   (``ODTP_EXPECT_PEERS`` 2) and averages over real sockets, the bulk
+   plane carrying the 2.2 GB parts. Launches, each step's loss and LR and
+   the master hashes at each round and at the end equal phase 10's bit
+   for bit (two workers: a + b then x 0.5 is exact in any order); on a
+   miss the largest difference of the final master is printed. Then one
+   150m round (4 steps, ``local_steps`` 4) on the ``uniform8bit`` codec
+   through the port's host library (``csrc/odtp_host.cpp``, built with
+   g++ here): both masters equal. Each round's stage times from the round
+   ledger (matchmaking, flatten, scatter-reduce, gather, encode,
+   accumulate, wire send and receive), the outer step's split and the
+   phase's peak host RSS.
+25. The kernels line (launches of B6, B7, their merges and B8 by serving
    phase, of the training kernels by training phase), the card line, and
    last the result line.
 
@@ -2235,34 +2252,64 @@ def master_hash(master) -> str:
     return h.hexdigest()
 
 
+def master_now(provider) -> list:
+    """The master a worker's state provider serves: the optimizer's own
+    host arrays under host placement (hashed in place: the provider's copy
+    would hold the master twice, 4.4 GB more a 1b worker), else the
+    provider's fetch."""
+    opt = getattr(provider, "__self__", None)
+    if getattr(opt, "placement", None) == "host":
+        return opt.master
+    return provider()["master"]
+
+
+def save_master(master, path: str) -> None:
+    with open(path, "wb") as f:
+        for m in master:
+            f.write(memoryview(np.ascontiguousarray(m)).cast("B"))
+
+
+def load_master(path: str, like) -> list:
+    out, off = [], 0
+    for m in like:
+        out.append(np.fromfile(path, np.float32, m.size, offset=off).reshape(m.shape))
+        off += m.nbytes
+    return out
+
+
+def record_masters(backend):
+    """Make ``backend`` hash its worker's master as each round begins (the
+    master the previous round left) and keep the worker's state provider
+    for the final check."""
+    backend.hashes, backend.provider = {}, None
+    serve, reduce = backend.serve_state, backend.all_reduce
+
+    def serve_state(get_state):
+        backend.provider = get_state
+        serve(get_state)
+
+    def all_reduce(arrays, *, epoch=None, **kw):
+        if epoch:
+            backend.hashes[epoch - 1] = master_hash(master_now(backend.provider))
+        return reduce(arrays, epoch=epoch, **kw)
+
+    backend.serve_state, backend.all_reduce = serve_state, all_reduce
+    return backend
+
+
 def recording_backends(world) -> list:
-    """One loopback backend a worker of ``world`` that hashes the worker's
-    master as each round begins (the master the previous round left) and
-    keeps its state provider for the final check."""
+    """One loopback backend a worker of ``world``, recording
+    (:func:`record_masters`)."""
     from opendiloco_torch.diloco import LoopbackBackend
 
-    class RecordingBackend(LoopbackBackend):
-        def __init__(self, world, peer_id):
-            super().__init__(world, peer_id)
-            self.hashes: dict = {}
-            self.provider = None
-
-        def serve_state(self, get_state):
-            self.provider = get_state
-            super().serve_state(get_state)
-
-        def all_reduce(self, arrays, *, epoch=None, **kw):
-            if epoch:
-                self.hashes[epoch - 1] = master_hash(self.provider()["master"])
-            return super().all_reduce(arrays, epoch=epoch, **kw)
-
-    return [RecordingBackend(world, f"peer-{i}") for i in range(world.n_peers)]
+    return [record_masters(LoopbackBackend(world, f"peer-{i}")) for i in range(world.n_peers)]
 
 
 def train_config(model: str, run: dict, rank: int, project: str, ckpt: dict, serve: dict | None = None,
                  diloco: dict | None = None):
-    """The ``Config`` of worker ``rank`` of phases 8, 8b, 10 and 19
-    (``diloco``: more DiLoCo options, phase 10's device placement)."""
+    """The ``Config`` of worker ``rank`` of phases 8, 8b, 10, 19 and 24
+    (``diloco``: more DiLoCo options, phase 10's device placement, phase
+    24's TCP backend)."""
     from opendiloco_torch.config import Config
 
     return Config(
@@ -2271,8 +2318,8 @@ def train_config(model: str, run: dict, rank: int, project: str, ckpt: dict, ser
         total_batch_size=run["total_batch_size"], warmup_steps=run["warmup_steps"],
         total_steps=run["total_steps"], lr=run["lr"], metric_logger_type="dummy", project=project,
         ckpt=ckpt,
-        diloco=dict(local_steps=run["local_steps"], backend="loopback", world_rank=rank,
-                    timeout_waiting_for_peers=600.0, **(diloco or {})),
+        diloco={**dict(local_steps=run["local_steps"], backend="loopback", world_rank=rank,
+                       timeout_waiting_for_peers=600.0), **(diloco or {})},
         serve=serve,
     )
 
@@ -2336,13 +2383,17 @@ def training_launches(torch, dev, cfg, run: dict, inner_steps: int, names, fused
     return want
 
 
-def train_workers(torch, tfa, dev, model: str, run: dict, diloco: dict | None = None) -> dict:
+def train_workers(torch, tfa, dev, model: str, run: dict, diloco: dict | None = None, made: list | None = None,
+                  keep_master: bool = False) -> dict:
     """Two DiLoCo workers, one thread each, run ``train()`` at ``model``'s
     full width and depth through the kernels. The launch counters are
     zeroed just before and read just after, and held to
     :func:`training_launches`. Masters are hashed as each round begins
     (the recording backends: inside the all-reduce's seconds) and at the
-    end, and compared across workers."""
+    end, and compared across workers. With ``made`` the workers get no
+    backend: ``train()`` makes its own (phase 24), and ``made`` collects
+    them, recording. ``keep_master`` writes worker 0's final master to a
+    file (its path under "master")."""
     import os
     import pickle
     import shutil
@@ -2353,7 +2404,7 @@ def train_workers(torch, tfa, dev, model: str, run: dict, diloco: dict | None = 
     from opendiloco_torch.train import train
 
     cfg = load_config(model)
-    backends = recording_backends(LoopbackWorld(2))
+    handed = recording_backends(LoopbackWorld(2)) if made is None else [None, None]
     tmp = tempfile.mkdtemp()
     ckpt_path = os.path.join(tmp, "ckpts")
     if run.get("ckpt_interval"):
@@ -2368,8 +2419,9 @@ def train_workers(torch, tfa, dev, model: str, run: dict, diloco: dict | None = 
     torch.cuda.reset_peak_memory_stats()
     tfa.LAUNCHES.reset()
     t0 = time.perf_counter()
-    summaries = run_workers(train, [(config(r), backends[r], dev) for r in range(2)])
+    summaries = run_workers(train, [(config(r), handed[r], dev) for r in range(2)])
     wall = time.perf_counter() - t0
+    backends = handed if made is None else sorted(made, key=lambda b: b.peer_id)
     launches = tfa.LAUNCHES.snapshot()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steps = run["total_steps"]
@@ -2388,7 +2440,7 @@ def train_workers(torch, tfa, dev, model: str, run: dict, diloco: dict | None = 
             raise AssertionError(f"worker {rank}: last loss {losses[-1]} not below first {losses[0]}")
     rounds = steps // run["local_steps"]
     for b in backends:
-        b.hashes[rounds - 1] = master_hash(b.provider()["master"])
+        b.hashes[rounds - 1] = master_hash(master_now(b.provider))
     for r in range(rounds):
         if backends[0].hashes.get(r) is None or backends[0].hashes[r] != backends[1].hashes.get(r):
             raise AssertionError(f"masters differ after round {r}: {[b.hashes for b in backends]}")
@@ -2398,6 +2450,9 @@ def train_workers(torch, tfa, dev, model: str, run: dict, diloco: dict | None = 
     out = {"rows": rows, "launches": launches, "hashes": [b.hashes for b in backends], "outer": outer,
            "peak_gb": peak_gb, "wall": wall, "ckpt_save_s": [sm["ckpt_save_s"] for sm in summaries],
            "ckpt_path": ckpt_path if run.get("ckpt_interval") else None, "rounds": rounds}
+    if keep_master:  # on disk: a 1b master is 4.4 GB of host memory
+        out["master"] = os.path.join(tmp, "master-0.f32")
+        save_master(master_now(backends[0].provider), out["master"])
     del backends, summaries
     # the workers' host state (fp32 masters, outer momentum: GBs at 1b)
     # may sit in reference cycles: collect it now, not inside a timed turn
@@ -2406,20 +2461,21 @@ def train_workers(torch, tfa, dev, model: str, run: dict, diloco: dict | None = 
     return out
 
 
-def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict) -> dict:
+def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict, keep_master: bool = False) -> dict:
     """Two DiLoCo workers, one thread each, run ``train()`` at ``model``'s
     full width and depth through the kernels (TrainerConfig defaults, so
     fused_loss resolves as a user gets it): :func:`train_workers`. Then
     one inner step under each of the two TrainerConfig variants in
     ``compare`` (the first is the path's own), on the same params and
     batch, each with one worker's steady inner-step time and peak device
-    memory alone."""
+    memory alone. ``keep_master``: the result keeps the file of worker
+    0's final master under "master" (phase 24 pops it)."""
     from opendiloco_torch.models.hf_io import load_config
     from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
 
     cfg = load_config(model)
     L, accum = cfg.num_hidden_layers, run["total_batch_size"] // run["per_device_train_batch_size"]
-    tw = train_workers(torch, tfa, dev, model, run)
+    tw = train_workers(torch, tfa, dev, model, run, keep_master=keep_master)
     rows, launches, hashes, outer, peak_gb, wall = (tw[k] for k in ("rows", "launches", "hashes", "outer",
                                                                      "peak_gb", "wall"))
     steps, rounds = run["total_steps"], tw["rounds"]
@@ -2510,6 +2566,8 @@ def phase_train(torch, tfa, dev, card: str, model: str, run: dict, compare: dict
         "inner_step_turns": turns,
         "peak_memory_gib_one_worker_by_variant": peak_gib,
     }
+    if keep_master:
+        res["master"] = tw["master"]
     log(f"train {model}: inner step {step_s * 1e3:.1f} ms (one worker alone, mb "
         f"{run['per_device_train_batch_size']} x accum {accum} x seq {run['seq_length']}) | {card}")
     log(f"train {model}: {tokens / step_s:.0f} training tokens/s (one worker alone) | {card}")
@@ -3461,6 +3519,163 @@ def phase_sharded(torch, tfa, dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 24: the TCP galaxy
+# ---------------------------------------------------------------------------
+
+# phase 24's 150m round on the uniform8bit codec: 4 steps, one outer round
+TCP_150M = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=2,
+                total_steps=4, local_steps=4, lr=1e-3)
+# the stage times of a round's health row (diloco/tcp.py last_round_health):
+# matchmaking, flatten, scatter-reduce, gather and the round's wall, then the
+# per-stage work summed over the pipelined chunks
+ROUND_KEYS = ("matchmake_s", "flatten_s", "scatter_reduce_s", "all_gather_s", "round_s", "encode_s",
+              "accumulate_s", "wire_send_s", "wire_recv_s")
+
+
+class RssSampler:
+    """The process's resident set (``/proc/self/status`` VmRSS) every 50 ms
+    on a daemon thread until :meth:`stop`, which returns the peak in GiB."""
+
+    def __init__(self):
+        self.peak, self._stop = 0.0, threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def now() -> float:
+        with open("/proc/self/status") as f:
+            return next(int(line.split()[1]) for line in f if line.startswith("VmRSS")) / 2**20
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self.now())
+            time.sleep(0.05)
+
+    def stop(self) -> float:
+        self._stop.set()
+        self._thread.join()
+        return self.peak
+
+
+def tcp_workers(torch, tfa, dev, address: str, model: str, run: dict, codec: str, placement: str = "host") -> dict:
+    """:func:`train_workers` over TCP: each worker's ``train()`` gets no
+    backend and makes its own (``train.make_backend``: a ``TcpBackend`` at
+    the rendezvous ``address``), which records as the loopback ones do.
+    Both start from the same seed and fetch no state from each other
+    (``skip_load_from_peers``: a joiner's download is fp16, which would
+    round its master). Adds each worker's round ledger (its
+    ``last_round_health`` rows), and the backends themselves (their state
+    providers read the workers' final masters)."""
+    import opendiloco_torch.train as ttrain
+
+    made, make = [], ttrain.make_backend
+
+    def make_backend(cfg):
+        backend = record_masters(make(cfg))
+        made.append(backend)
+        return backend
+
+    ttrain.make_backend = make_backend
+    try:
+        tw = train_workers(torch, tfa, dev, model, run, made=made,
+                           diloco=dict(backend="tcp", initial_peers=[address], compression=codec,
+                                       skip_load_from_peers=True, outer_placement=placement))
+    finally:
+        ttrain.make_backend = make
+    tw["backends"] = sorted(made, key=lambda b: b.peer_id)
+    tw["ledgers"] = [[{k: h[k] for k in ("round", "group_size", *ROUND_KEYS) if k in h} for h in b.round_ledger]
+                     for b in tw["backends"]]
+    return tw
+
+
+def phase_tcp(torch, tfa, dev, card: str, loopback: dict) -> dict:
+    """Phase 24: the TCP galaxy. Two config_1b workers, one thread each,
+    run ``train()`` as phase 10 does (same seeds, data and steps: 4 steps,
+    ``local_steps`` 2, two outer rounds, codec none), but with
+    ``diloco.backend="tcp"`` and no backend handed in, and the master and
+    momentum on the card (``outer_placement="device"``, which equals
+    phase 10's host placement bit for bit: phase 10b; on the host two
+    TCP workers of one process would hold 2 x 30 GB of host RAM against
+    the machine's 96 GiB): each makes a
+    ``TcpBackend`` (``train.make_backend``) that meets the other at the
+    port's ``RendezvousServer`` on localhost (``ODTP_EXPECT_PEERS`` 2, so
+    the round closes when both have joined) and averages over real
+    sockets, the bulk plane carrying the 2.2 GB parts. With two workers a
+    + b then x 0.5 is exact whatever the order, so the launch counts, each
+    step's loss and LR and the master hashes as each round begins and at
+    the end must equal phase 10's (``loopback``) bit for bit; otherwise
+    the largest difference of worker 0's final master is printed and the
+    phase fails. Then one 150m round on the ``uniform8bit`` codec through
+    the port's host library (built here with g++): both workers' masters
+    equal each other's bit for bit. Each round's stage times (the round
+    ledger), the launches and the phase's peak host RSS are printed. The
+    all-reduce is host work."""
+    import os
+
+    from opendiloco_torch import native
+    from opendiloco_torch.diloco.rendezvous import RendezvousServer
+
+    t0 = time.perf_counter()
+    native.load()
+    native_s = time.perf_counter() - t0
+    ref_path = loopback.pop("master")
+    rss = RssSampler()
+    daemon = RendezvousServer("127.0.0.1", 0).start_in_thread()
+    expect = os.environ.get("ODTP_EXPECT_PEERS")
+    os.environ["ODTP_EXPECT_PEERS"] = "2"
+    try:
+        runs = {"1b": tcp_workers(torch, tfa, dev, daemon.address, "1b", TRAIN_1B, "none", placement="device")}
+        tw = runs["1b"]
+        backends = tw.pop("backends")
+        losses = [[r["Loss"] for r in rr] for rr in tw["rows"]]
+        lrs = [[r["lr"] for r in rr] for rr in tw["rows"]]
+        if (tw["launches"], losses, lrs, tw["hashes"]) != (loopback["launches"], loopback["losses"],
+                                                            loopback["lrs"], loopback["master_hashes"]):
+            master = master_now(backends[0].provider)
+            diff = max(float(np.max(np.abs(a - b))) for a, b in zip(master, load_master(ref_path, master)))
+            raise AssertionError(f"TCP 1b differs from the loopback run: final master max |diff| {diff}, losses "
+                                 f"{losses} vs {loopback['losses']}, lrs {lrs} vs {loopback['lrs']}, hashes "
+                                 f"{tw['hashes']} vs {loopback['master_hashes']}, launches {tw['launches']} vs "
+                                 f"{loopback['launches']}")
+        # the two workers' host state (masters, momentum) goes before the next run
+        del backends
+        os.remove(ref_path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs["150m uniform8bit"] = tcp_workers(torch, tfa, dev, daemon.address, "150m", TCP_150M, "uniform8bit")
+        runs["150m uniform8bit"].pop("backends")
+    finally:
+        rss_gib = rss.stop()
+        daemon.stop()
+        if expect is None:
+            os.environ.pop("ODTP_EXPECT_PEERS")
+        else:
+            os.environ["ODTP_EXPECT_PEERS"] = expect
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    res = {"host_library_load_s": native_s, "seconds": secs, "host_peak_rss_gib": rss_gib}
+    for label, r in runs.items():
+        for rank, ledger in enumerate(r["ledgers"]):
+            for h in ledger:
+                log(f"tcp {label} worker {rank} round {h['round']}: group {h['group_size']}, "
+                    + ", ".join(f"{k[:-2]} {h[k]:.3f} s" for k in ROUND_KEYS if k in h) + f" | {card}")
+        split = outer_split(r["outer"])
+        log(f"tcp {label}: outer step {split['outer_step_s']:.3f} s mean (all-reduce {split['outer_allreduce_s']:.3f} s, "
+            f"the smoke's master hash inside it; pseudo-gradient {split['outer_pseudo_grad_s']:.3f}, Nesterov "
+            f"{split['outer_nesterov_s']:.3f}, D2H {split['outer_d2h_s']:.3f}, H2D {split['outer_h2d_s']:.3f}), "
+            f"launches {json.dumps({k: v for k, v in r['launches'].items() if v})}, wall {r['wall']:.1f} s | {card}")
+        res[label] = {"ledgers": r["ledgers"], "outer_split": split, "launches": r["launches"],
+                      "master_hashes": r["hashes"], "losses": [[x["Loss"] for x in rr] for rr in r["rows"]],
+                      "train_wall_s": r["wall"], "peak_memory_gib_two_workers": r["peak_gb"]}
+    log(f"tcp: 1b over TcpBackends equals the loopback run bit for bit (losses, LRs, master hashes, launches); "
+        f"150m uniform8bit masters equal across workers (host library loaded in {native_s:.2f} s, built at its first "
+        f"use); the phase's peak host "
+        f"RSS {rss_gib:.1f} GiB; phase {secs:.1f} s | {card}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3520,7 +3735,9 @@ def main() -> int:
     train_serve = phase_train_serve(torch, tdk, dev, card, train_150m)
     train_f32 = phase_train_f32(torch, tfa, dev, card)
     xent = phase_xent(torch, tfx, dev)
-    train_1b = phase_train(torch, tfa, dev, card, "1b", TRAIN_1B, {"fused": {}, "unfused": dict(fused_loss=False)})
+    train_1b = phase_train(torch, tfa, dev, card, "1b", TRAIN_1B, {"fused": {}, "unfused": dict(fused_loss=False)},
+                           keep_master=True)
+    tcp = phase_tcp(torch, tfa, dev, card, train_1b)
     train_1b_device = phase_train_device(torch, tfa, dev, card, "1b", TRAIN_1B, train_1b)
     weights_dir = phase_weights_dir(torch, dev, card)
     gate3 = phase_gate3(torch, tfa, dev, card)
@@ -3549,6 +3766,8 @@ def main() -> int:
                                   "train 150m fp32 step": train_f32["launches"][k["name"]],
                                   "train 1b": train_1b["launches"][k["name"]],
                                   "train 1b device placement": train_1b_device["launches"][k["name"]],
+                                  "tcp 1b": tcp["1b"]["launches"][k["name"]],
+                                  "tcp 150m uniform8bit": tcp["150m uniform8bit"]["launches"][k["name"]],
                                   "outer plane 150m": sum(r[pl]["launches"][k["name"]]
                                                           for r in outer_plane.values() for pl in ("host", "device")),
                                   "sharded 150m": sharded["launches"].get(k["name"], 0)}
@@ -3556,7 +3775,7 @@ def main() -> int:
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
     log(json.dumps({"serve": serve, "spec": spec, "spec_f32": spec_f32, "prefix": prefix, "reference": reference,
                     "train": [train_150m, train_1b, train_f32], "train_1b_device": train_1b_device,
-                    "outer_plane": outer_plane, "sharded": sharded, "resume": resume_150m, "weights_dir": weights_dir,
+                    "outer_plane": outer_plane, "sharded": sharded, "tcp": tcp, "resume": resume_150m, "weights_dir": weights_dir,
                     "train_serve": train_serve, "install_wire": wire, "kv_tier": tier,
                     "gate3": gate3, "cli": cli, "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b6, *b7, *b8, *flash, *xent]}))

@@ -162,16 +162,20 @@ COMPRESSIONS = (
 @dataclasses.dataclass
 class DilocoConfig:
     """Outer-loop (DiLoCo) configuration: the JAX package's fields and
-    defaults. The port runs them over an in-process loopback backend;
-    the TCP backend and gossip rounds raise where they are read
-    (``diloco/optimizer.py``, ``train.py``)."""
+    defaults. ``backend="tcp"`` (the default) joins a galaxy over TCP at
+    the rendezvous daemons of ``initial_peers`` (``train.make_backend``);
+    gossip rounds raise where they are read (``diloco/optimizer.py``)."""
 
     outer_lr: float = 0.7
     outer_momentum: float = 0.9
     outer_nesterov: bool = True
     local_steps: int = 500
 
-    # identity
+    # peer bootstrap / identity: rendezvous daemons as "host:port" (a
+    # comma-separated string is split), this worker's bind address
+    initial_peers: list[str] = dataclasses.field(default_factory=list)
+    host: str = "0.0.0.0"
+    port: int = 0  # 0 -> ephemeral
     world_rank: int = 0
     galaxy_size: int = 1
 
@@ -179,6 +183,9 @@ class DilocoConfig:
     all_reduce_strategy: str = "wait_for_all"
     timeout_waiting_for_peers: float = 600.0
     averaging_timeout: float = 300.0
+    # matchmaking window of an outer round; the rendezvous closes it early
+    # once every live peer (or ODTP_EXPECT_PEERS of them) has joined
+    matchmaking_time: float = 60.0
     fail_rank_drop: bool = False
 
     compression: str = "none"
@@ -194,9 +201,14 @@ class DilocoConfig:
     # the phase, smaller values front-load them
     stream_stagger: float = 1.0
     outer_placement: str = "auto"
+    # adaptive outer transport (diloco/linkstate.py): True forces it on,
+    # False defers to the ODTP_LINK_ADAPT switch
+    link_adapt: bool = False
 
     def __post_init__(self):
         _coerce_strings(self)
+        if isinstance(self.initial_peers, str):
+            self.initial_peers = [x.strip() for x in self.initial_peers.split(",") if x.strip()]
         _one_of("diloco.all_reduce_strategy", self.all_reduce_strategy, ("wait_for_all", "no_wait"))
         _one_of("diloco.compression", self.compression, COMPRESSIONS)
         _one_of("diloco.backend", self.backend, ("loopback", "tcp"))

@@ -38,3 +38,21 @@ def pin_cpu_gemm_bits() -> None:
     call this before the process computes anything. A value the caller
     set is kept."""
     os.environ.setdefault("MKL_CBWR", "AUTO,STRICT")
+
+
+def pin_cpu_threads(device: torch.device) -> None:
+    """Run every CPU op of the process on one thread when ``device`` is
+    the CPU, so its bits depend on no thread setting.
+
+    PyTorch takes its intra-op thread count from ``MKL_NUM_THREADS`` when
+    ``OMP_NUM_THREADS`` is unset, and ATen's reductions fold their input
+    in another order on one thread than on several (a 2m run's
+    ``grad_norm`` moves at one thread against two or more), as do the MKL
+    calls that strict reproducible mode does not cover. With
+    ``MKL_DYNAMIC`` (on by default) MKL may run a call on fewer threads
+    than its maximum, so two processes could split the same step
+    differently. One thread (ATen, OpenMP and MKL:
+    ``torch.set_num_threads`` sets all three) gives one order for any
+    environment. A card run is unaffected."""
+    if device.type == "cpu":
+        torch.set_num_threads(1)

@@ -1,4 +1,5 @@
-"""The DiLoCo outer loop: backend interface, loopback world, outer SGD, the
+"""The DiLoCo outer loop: backend interface, loopback world, the TCP
+galaxy (``tcp``, ``bulk``, ``rendezvous``, ``wire``), outer SGD, the
 device-resident outer plane, streaming fragments, error feedback and the
 optimizer that drives one worker."""
 from opendiloco_torch.diloco.backend import AllReduceError, OuterBackend, PeerProgress

@@ -7,9 +7,9 @@ outer loop needs from the network, behind one interface.
   group this round (elastic group size).
 - ``report_progress`` / ``peer_progress`` carry the progress gossip.
 - ``fetch_state`` / ``serve_state`` carry late-joiner onboarding.
-
-The gossip pair exchange and async matchmaking of the JAX interface
-belong to ``outer_mode="gossip"``, which the port does not run yet.
+- ``gossip_view`` / ``pair_exchange`` / ``async_pair_match`` carry the
+  gossip pair rounds (``outer_mode="gossip"``, which the optimizer does
+  not run yet: ROADMAP.md A12b); the TCP backend implements them.
 """
 from __future__ import annotations
 
@@ -79,6 +79,54 @@ class OuterBackend(abc.ABC):
 
     def serve_state(self, get_state: Callable[[], dict[str, Any]]) -> None:
         """Register a callback that provides state to late joiners."""
+
+    def gossip_view(self) -> tuple[list[str], Optional[dict]]:
+        """(sorted live member ids, link matrix or None) — the local view
+        the gossip pair scheduler derives pairings from. Default: whoever
+        has gossiped progress recently (no barrier, no extra messages)."""
+        members = {p.peer_id for p in self.peer_progress()}
+        members.add(self.peer_id)
+        return sorted(members), None
+
+    def pair_exchange(
+        self,
+        payload: bytes,
+        meta: dict,
+        *,
+        partner_id: str,
+        round_key: str,
+        timeout: Optional[float] = None,
+    ) -> tuple[dict, bytes]:
+        """One symmetric push-pull with ``partner_id`` under ``round_key``:
+        deposit own (meta, payload), return the partner's. Raises
+        AllReduceError on partner death / timeout (the gossip plane treats
+        that as a dropped round, a non-event)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support gossip pair exchange"
+        )
+
+    def async_pair_match(
+        self,
+        *,
+        frag_id: int,
+        epoch: int,
+        window: int,
+        patience: Optional[float] = None,
+    ) -> Optional[tuple[str, int, str]]:
+        """Bounded-staleness matchmaking for free-running async gossip:
+        find ANY available partner working fragment ``frag_id`` whose
+        outer epoch is within ``window`` of ``epoch`` — no round
+        alignment. Returns ``(partner_id, partner_epoch, match_key)``
+        with both sides handed the SAME fresh ``match_key`` (the
+        subsequent ``pair_exchange`` rides it), or None when no
+        compatible partner turned up within ``patience`` seconds (the
+        caller steps alone — a fast worker never blocks on a slow one).
+        Default: async matching unsupported; callers fall back to the
+        lockstep epoch-keyed pairing."""
+        return None
+
+    def barrier(self, *, timeout: Optional[float] = None) -> None:
+        """Optional synchronization point (used by tests)."""
 
     def close(self) -> None: ...
 

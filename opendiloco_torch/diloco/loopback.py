@@ -76,7 +76,7 @@ class LoopbackBackend(OuterBackend):
         moment they close()."""
         if group_cap:
             raise NotImplementedError(
-                "capped gossip groups are not ported yet (ROADMAP.md A12)"
+                "capped gossip groups are not ported yet (ROADMAP.md A12b)"
             )
         if epoch is None:
             with self.world.lock:

@@ -47,7 +47,7 @@ and blocking fragments), as in the JAX package. Every rank makes the
 same calls in the same order: the poll of a round in flight agrees on
 the messenger's verdict through one small broadcast.
 
-Not ported yet, and raising: gossip rounds (A12).
+Not ported yet, and raising: gossip rounds (A12b).
 """
 from __future__ import annotations
 
@@ -100,7 +100,7 @@ def resolve_outer_placement(cfg: DilocoConfig, world: Optional[HostWorld] = None
 
 def _check_ported(cfg: DilocoConfig) -> None:
     if cfg.outer_mode == "gossip":
-        raise NotImplementedError("DiLoCo outer_mode='gossip' is not ported yet (ROADMAP.md A12)")
+        raise NotImplementedError("DiLoCo outer_mode='gossip' is not ported yet (ROADMAP.md A12b)")
 
 
 class DiLoCoOptimizer:

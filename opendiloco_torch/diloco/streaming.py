@@ -2,7 +2,7 @@
 phase.
 
 The port's copy of ``opendiloco_tpu/diloco/streaming.py``
-``launch_schedule`` and ``StreamScheduler`` (the gossip rounds are A12).
+``launch_schedule`` and ``StreamScheduler`` (the gossip rounds are A12b).
 With ``streaming_fragments=N`` and ``overlap_comm`` on, every fragment
 syncs every epoch: fragment k's all-reduce opens after inner step
 ``min(H, int(k*stagger*H/N)+1)`` and lands when the swarm completes it,

@@ -28,7 +28,16 @@ From the command line, with the JAX package's flags::
 
 runs on the card; ``OPENDILOCO_TORCH_DEVICE=cpu`` runs it on the CPU.
 
-The DiLoCo backend comes from the caller: workers in one process share a
+With ``diloco.backend="tcp"`` (the default) and no backend handed in, the
+worker joins a galaxy over TCP (:func:`make_backend`,
+:class:`~opendiloco_torch.diloco.tcp.TcpBackend`) at the rendezvous
+daemons of ``diloco.initial_peers``; port and JAX workers share one::
+
+    python -m opendiloco_torch.diloco.rendezvous --port 29400
+    python -m opendiloco_torch.train ... --diloco.initial-peers HOST:29400 \
+        --diloco.world-rank 1
+
+Workers in one process may instead share a
 :class:`~opendiloco_torch.diloco.LoopbackWorld`, one thread each::
 
     world = LoopbackWorld(2)
@@ -50,7 +59,7 @@ checkpoint and at the end of the run (``flush``), and is dropped when the
 run fails (``drop_pending``).
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP.md
-items: the TCP backend and gossip rounds (A12), the serving fleet (A13),
+items: gossip rounds (A12b), the serving fleet (A13),
 tp, sp, pp and ep above 1 (A14), a serving plane on a worker of several
 processes (A10) and non-fake data (A9).
 
@@ -69,7 +78,7 @@ import numpy as np
 from opendiloco_torch import ckpt as ckpt_lib
 from opendiloco_torch.config import Config, DilocoConfig, parse_argv
 from opendiloco_torch.data.dataloader import get_dataloader
-from opendiloco_torch.device import DeviceLike, pin_cpu_gemm_bits, resolve_device
+from opendiloco_torch.device import DeviceLike, pin_cpu_gemm_bits, pin_cpu_threads, resolve_device
 from opendiloco_torch.diloco.backend import OuterBackend
 from opendiloco_torch.diloco.optimizer import DiLoCoOptimizer, PeerDropError
 from opendiloco_torch.models import hf_io
@@ -85,9 +94,18 @@ INIT_SEED = 42  # every worker draws the same initial weights
 
 def make_backend(cfg: DilocoConfig) -> OuterBackend:
     if cfg.backend == "tcp":
-        raise NotImplementedError(
-            "the TCP outer backend is not ported yet (ROADMAP.md A12); pass a "
-            "loopback backend to train()"
+        from opendiloco_torch.diloco.tcp import TcpBackend
+
+        return TcpBackend(
+            cfg.initial_peers,
+            host=cfg.host if cfg.host != "0.0.0.0" else "127.0.0.1",
+            port=cfg.port,
+            peer_id=f"worker-{cfg.world_rank}",
+            compression=cfg.compression,
+            matchmaking_time=cfg.matchmaking_time,
+            # config True forces adaptive transport on; False defers to the
+            # ODTP_LINK_ADAPT env switch (None = backend reads env per round)
+            link_adapt=cfg.link_adapt or None,
         )
     raise ValueError(
         f"backend {cfg.backend!r} has no factory (loopback backends are "
@@ -444,13 +462,16 @@ def main() -> None:
     """``python -m opendiloco_torch.train --flag value ...``: the JAX
     package's flags (:func:`~opendiloco_torch.config.parse_argv`). Runs on
     the card, or on the device ``OPENDILOCO_TORCH_DEVICE`` names (``cpu``);
-    with neither it raises. CPU runs repeat bit for bit whatever number of
-    threads MKL takes (:func:`~opendiloco_torch.device.pin_cpu_gemm_bits`)."""
+    with neither it raises. CPU runs repeat bit for bit whatever thread
+    settings the environment gives: they run on one thread, with MKL in its
+    strict reproducible mode (:func:`~opendiloco_torch.device.pin_cpu_threads`,
+    :func:`~opendiloco_torch.device.pin_cpu_gemm_bits`)."""
     pin_cpu_gemm_bits()
     try:
         device = resolve_device(os.environ.get("OPENDILOCO_TORCH_DEVICE") or None)
     except RuntimeError as e:
         raise SystemExit(f"{e} (from the command line: OPENDILOCO_TORCH_DEVICE=cpu)") from None
+    pin_cpu_threads(device)
     config = Config(**parse_argv())
     log.info("starting training on %s: %s", device, config.to_dict())
     train(config, device=device)

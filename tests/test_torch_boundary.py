@@ -110,7 +110,9 @@ def test_port_imports_with_jax_blocked():
     for mod in ("trainer", "train", "ops.flash_attention", "ops.launch", "diloco.optimizer",
                 "diloco.loopback", "diloco.backend", "diloco.outer_optimizer", "data.dataloader",
                 "utils.logger", "utils.debug", "ckpt", "diloco.state_io", "utils.safetensors_io",
-                "native", "diloco.compression", "serve.server"):
+                "native", "diloco.compression", "serve.server", "diloco.tcp", "diloco.bulk",
+                "diloco.rendezvous", "diloco.wire", "diloco.schema", "diloco.chaos", "diloco.linkstate",
+                "diloco.planner"):
         assert f"opendiloco_torch.{mod}" in names, mod
 
 

@@ -1,29 +1,21 @@
 """The port's wire codecs against the JAX package's, byte for byte.
 
 ``opendiloco_torch/diloco/compression.py`` over ``opendiloco_torch/native.py``
-(numpy bodies) must give the JAX package's payload and meta for every
-codec, whether the JAX package runs its native library or its numpy
-fallback (forced here the way ``tests/test_native.py`` forces it), and
-decode any payload to the JAX package's bits. Inputs come from a numpy
-seed: odd sizes, an all-zero block, a tail shorter than a block, values
-beyond the fp16 range, and one part long enough for the quantile
-codebook's strided sample.
+must give the JAX package's payload and meta for every codec and decode
+any payload to the JAX package's bits, on both paths: the port's host
+library (``csrc/odtp_host.cpp``) against the JAX package's native
+library, and the port's plain numpy bodies (``native._plain`` set) against
+the JAX package's numpy fallback (forced here the way
+``tests/test_native.py`` forces it). Inputs come from a numpy seed: odd
+sizes, an all-zero block, a tail shorter than a block, values beyond the
+fp16 range, and one part long enough for the quantile codebook's strided
+sample.
 
-Two exceptions are recorded in ROADMAP.md queue C (C4), both where the
-JAX package's native path and its numpy fallback differ from each other
-(the port follows the fallback):
-
-- uniform8bit: the native encode returns ``span`` as an f32 (``hi - lo``
-  in f32), the fallback as a Python float (``hi - lo`` in double), and
-  the native decode rounds a given span to f32 first. The payloads are
-  equal and the spans equal once rounded to f32; against the native path
-  the uniform8bit cases hold that, and decode metas whose span is an f32.
-- quantile8bit: the native codebook interpolates the quantiles in double,
-  the fallback through ``np.quantile``; on the 35-value leaf of
-  :func:`_state_tree` four codebook entries differ by an ulp (first
-  differing payload byte 496, entry 124). The inputs of :data:`INPUTS`
-  give equal bytes on both paths and are held to that; the state-tree
-  case is held against the fallback only.
+The JAX package's two paths differ from each other (ROADMAP.md C4, closed
+by the port's library): uniform8bit's native encode returns ``span`` as
+an f32, the fallback as a double, and quantile8bit's native codebook
+interpolates in double where the fallback calls ``np.quantile``. Each of
+the port's paths equals the JAX path of its kind bit for bit.
 """
 import json
 
@@ -33,6 +25,7 @@ import pytest
 from opendiloco_tpu import native as jnative
 from opendiloco_tpu.diloco import compression as jcomp
 from opendiloco_tpu.diloco import tcp as jtcp
+from opendiloco_torch import native as tnative
 from opendiloco_torch.diloco import compression as tcomp
 from opendiloco_torch.diloco import state_io
 
@@ -63,28 +56,27 @@ INPUTS = _inputs()
 
 @pytest.fixture(params=["native", "fallback"])
 def jax_path(request, monkeypatch):
-    """The JAX package's codecs on its native library, or on its numpy
-    fallback."""
-    if request.param == "native":
+    """Both packages on their native libraries, or both on their numpy
+    bodies (the JAX package's fallback, the port's plain versions)."""
+    _paths(request.param, monkeypatch)
+    return request.param
+
+
+def _paths(path: str, monkeypatch) -> None:
+    if path == "native":
         if not jnative.available():
             pytest.skip("the JAX package's native library is not built here")
     else:
         monkeypatch.setattr(jnative, "_lib", None)
         monkeypatch.setattr(jnative, "_tried", True)
-    return request.param
+        monkeypatch.setattr(tnative, "_plain", True)
 
 
 def _bytes(payload) -> bytes:
     return bytes(payload)
 
 
-def _assert_meta(name: str, got: dict, want: dict, jax_path: str) -> None:
-    if name == "uniform8bit" and jax_path == "native":
-        # C4: the native span is f32, the fallback's a double of the same
-        # f32 difference
-        assert got["lo"] == want["lo"]
-        assert np.float32(got["span"]) == np.float32(want["span"])
-        return
+def _assert_meta(got: dict, want: dict) -> None:
     assert json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True)
 
 
@@ -94,16 +86,7 @@ def test_encode_bytes_match_jax(name, jax_path):
         jp, jm = jcomp.get_codec(name).encode(x)
         tp, tm = tcomp.get_codec(name).encode(x)
         assert _bytes(tp) == _bytes(jp), (name, label)
-        _assert_meta(name, tm, jm, jax_path)
-
-
-def _f32_span(name: str, meta: dict, jax_path: str) -> dict:
-    """C4: against the JAX package's native path, a uniform8bit meta with
-    its span rounded to f32 (what its native encode gives and its native
-    decode reads)."""
-    if name == "uniform8bit" and jax_path == "native":
-        return {**meta, "span": float(np.float32(meta["span"]))}
-    return meta
+        _assert_meta(tm, jm)
 
 
 def _bits(a: np.ndarray) -> np.ndarray:
@@ -118,7 +101,7 @@ def test_decodes_match_jax_bitwise(name, jax_path):
     jc, tc = jcomp.get_codec(name), tcomp.get_codec(name)
     for label, x in INPUTS.items():
         for payload, meta in (jc.encode(x), tc.encode(x)):
-            payload, meta = _bytes(payload), _f32_span(name, meta, jax_path)
+            payload = _bytes(payload)
             want = np.asarray(jc.decode(payload, x.shape, meta))
             np.testing.assert_array_equal(_bits(tc.decode(payload, x.shape, meta)), _bits(want), err_msg=label)
             base = rng.standard_normal(x.size).astype(np.float32)
@@ -148,7 +131,7 @@ def test_chunked_encode_matches_jax(name, jax_path):
             jp, jm = jc.encode_chunk(x[a:b], js)
             tp, tm = tc.encode_chunk(x[a:b], ts)
             assert _bytes(tp) == _bytes(jp), (name, label, a)
-            _assert_meta(name, tm, jm, jax_path)
+            _assert_meta(tm, jm)
             tc.decode_into(_bytes(tp), tm, out[a:b])
         whole_p, whole_m = tc.encode(x)
         np.testing.assert_array_equal(_bits(out), _bits(tc.decode(_bytes(whole_p), x.shape, whole_m)),
@@ -230,30 +213,14 @@ STATE_CODECS = ["none", "fp16", "scaled-fp16", "uniform8bit", "blockwise4bit", "
 
 
 @pytest.mark.parametrize(
-    "path,name",
-    # quantile8bit's codebook of this tree differs between the JAX
-    # package's two paths (C4): it is held against the fallback
-    [("native", n) for n in STATE_CODECS if n != "quantile8bit"] + [("fallback", n) for n in STATE_CODECS],
+    "path,name", [("native", n) for n in STATE_CODECS] + [("fallback", n) for n in STATE_CODECS]
 )
 def test_state_io_with_codec_matches_tcp(path, name, monkeypatch, tmp_path):
-    jax_path = path
-    if path == "fallback":
-        monkeypatch.setattr(jnative, "_lib", None)
-        monkeypatch.setattr(jnative, "_tried", True)
-    elif not jnative.available():
-        pytest.skip("the JAX package's native library is not built here")
+    _paths(path, monkeypatch)
     tree = _state_tree()
     jmeta, jblob = jtcp.serialize_state(tree, jcomp.get_codec(name))
     tmeta, tblob = state_io.serialize_state(tree, tcomp.get_codec(name))
     assert tblob == jblob
-    if name == "uniform8bit" and jax_path == "native":
-        for te, je in zip(tmeta["enc"], jmeta["enc"]):
-            assert (te is None) == (je is None)
-            if te is not None:
-                _assert_meta(name, te["meta"], je["meta"], jax_path)
-        # from here on both read metas whose spans are f32 (C4)
-        enc = [e and {**e, "meta": _f32_span(name, e["meta"], jax_path)} for e in tmeta["enc"]]
-        jmeta = tmeta = {**tmeta, "enc": enc}
     assert json.dumps(tmeta) == json.dumps(jmeta)
     # each package reads the other's payload to the same leaves
     for got in (state_io.deserialize_state(jmeta, jblob), jtcp.deserialize_state(tmeta, tblob)):

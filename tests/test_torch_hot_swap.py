@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from opendiloco_tpu import native as jnative
+from opendiloco_torch import native as tnative
 from opendiloco_tpu.config import DilocoConfig as JDilocoConfig
 from opendiloco_tpu.diloco import DiLoCoOptimizer as JDiLoCoOptimizer
 from opendiloco_tpu.diloco import LoopbackWorld as JLoopbackWorld
@@ -235,10 +236,11 @@ def test_master_snapshot_wire_fp16(tiny_cfg, cfg, compression, monkeypatch):
 @pytest.mark.parametrize("codec", ["none", "blockwise4bit", "uniform8bit"])
 def test_master_snapshot_wire_codec_override(tiny_cfg, cfg, codec, monkeypatch):
     monkeypatch.setenv("ODTP_STATE_CODEC", codec)
-    # the JAX side on its fallback, whose uniform8bit meta the port's
-    # equals (ROADMAP.md C4)
+    # the JAX side on its fallback and the port on its plain bodies (the
+    # two paths' uniform8bit metas differ: ROADMAP.md C4)
     monkeypatch.setattr(jnative, "_lib", None)
     monkeypatch.setattr(jnative, "_tried", True)
+    monkeypatch.setattr(tnative, "_plain", True)
     params = _np_params(cfg, 5)
     opt, _, _ = _port_opt(cfg, params)
     snap = opt.master_snapshot_wire()
@@ -478,9 +480,11 @@ def test_loopback_codec_master_trajectory_matches_jax(codec, monkeypatch):
     side runs its numpy fallback: its native outer step is a fused kernel
     that rounds differently from the numpy body (both packages' tests
     hold that one to rtol 1e-6), and its native uniform8bit meta differs
-    from its fallback's (ROADMAP.md C4)."""
+    from its fallback's (ROADMAP.md C4), so the port runs its plain
+    bodies."""
     monkeypatch.setattr(jnative, "_lib", None)
     monkeypatch.setattr(jnative, "_tried", True)
+    monkeypatch.setattr(tnative, "_plain", True)
     shapes = [(64, 96), (4097,), (3, 5)]
     rng = np.random.default_rng(11)
     init = [rng.standard_normal(s).astype(np.float32) for s in shapes]

@@ -138,8 +138,9 @@ def test_cli_train_and_resume_deterministic(tmp_path):
 def test_cli_rows_do_not_depend_on_mkl_threads(tmp_path):
     """The CLI's CPU rows are the same bits whatever number of threads MKL
     runs on (ROADMAP.md C5: the CLI pins MKL's strict reproducible mode,
-    ``device.pin_cpu_gemm_bits``; without it, 2 threads against 8 moved
-    ``Loss`` or ``grad_norm`` at nine of these 20 steps)."""
+    ``device.pin_cpu_gemm_bits``, and one CPU thread,
+    ``device.pin_cpu_threads``; without the first, 2 threads against 8
+    moved ``Loss`` or ``grad_norm`` at nine of these 20 steps)."""
     rows = {}
     for n in (2, 8):
         project = tmp_path / f"mkl{n}.pkl"

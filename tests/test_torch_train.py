@@ -490,15 +490,12 @@ def test_train_without_diloco_with_eval_and_probes(tmp_path):
         dict(fake_data=False),
         dict(metric_logger_type="wandb"),
         dict(path_model="2m_4e"),
-        dict(diloco=dict(backend="tcp")),
         dict(diloco=dict(backend="loopback", outer_mode="gossip")),
     ],
     ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()),
 )
 def test_unported_options_raise(tmp_path, overrides):
-    # a tcp config gets no backend from the caller, so train() asks make_backend
-    tcp = overrides.get("diloco", {}).get("backend") == "tcp"
-    backend = None if tcp else LoopbackWorld(1).make_backends()[0]
+    backend = LoopbackWorld(1).make_backends()[0]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(_train_config(tmp_path, 0, **overrides), backend, device="cpu")
 
@@ -514,26 +511,43 @@ def test_unported_options_raise(tmp_path, overrides):
         dict(diloco=dict(backend="loopback", local_steps=2, compression="fp16", error_feedback=True)),
         dict(multihost=True),
         dict(sharding_strategy="FULL_SHARD"),
+        dict(diloco=dict(backend="tcp", local_steps=2)),
     ],
     ids=["serve=enabled", "compression=fp16", "outer_placement=device", "overlap_comm=eager",
-         "streaming_fragments=2", "error_feedback", "multihost=True", "sharding_strategy=FULL_SHARD"],
+         "streaming_fragments=2", "error_feedback", "multihost=True", "sharding_strategy=FULL_SHARD",
+         "backend=tcp"],
 )
 def test_formerly_unported_options_run(tmp_path, overrides):
     """The serving plane of a run, outer compression, the device outer
     plane, overlapped and streaming rounds, error feedback, a multihost
-    worker and the sharding strategies are ported: train() takes them
-    (tests/test_torch_hot_swap.py holds the first two against the JAX
-    package; test_torch_outer_device.py, test_torch_overlap.py,
-    test_torch_streaming.py, test_torch_error_feedback.py,
-    test_torch_parallel.py and test_torch_sharded_train.py the rest). Here
-    at one process: a multihost worker of one joins a gloo group of one."""
+    worker, the sharding strategies and the TCP backend are ported:
+    train() takes them (tests/test_torch_hot_swap.py holds the first two
+    against the JAX package; test_torch_outer_device.py,
+    test_torch_overlap.py, test_torch_streaming.py,
+    test_torch_error_feedback.py, test_torch_parallel.py,
+    test_torch_sharded_train.py and test_torch_tcp*.py the rest). Here at
+    one process: a multihost worker of one joins a gloo group of one, and
+    a TCP worker with no backend handed in joins a galaxy of one at the
+    port's rendezvous daemon."""
+    from opendiloco_torch.diloco.rendezvous import RendezvousServer
+
     if overrides.get("multihost"):
         overrides = {**overrides, "coordinator_address": f"file://{tmp_path / 'store'}", "num_processes": 1,
                      "process_id": 0}
+    daemon = None
     if "diloco" in overrides:
         overrides["diloco"] = {**_train_config(tmp_path, 0).to_dict()["diloco"], **overrides["diloco"]}
-    backend = LoopbackWorld(1, compression="fp16").make_backends()[0]
-    summary = train(_train_config(tmp_path, 0, total_steps=4, **overrides), backend, device="cpu")
+    if overrides.get("diloco", {}).get("backend") == "tcp":
+        daemon = RendezvousServer("127.0.0.1", 0).start_in_thread()
+        overrides["diloco"]["initial_peers"] = [daemon.address]
+        backend = None
+    else:
+        backend = LoopbackWorld(1, compression="fp16").make_backends()[0]
+    try:
+        summary = train(_train_config(tmp_path, 0, total_steps=4, **overrides), backend, device="cpu")
+    finally:
+        if daemon is not None:
+            daemon.stop()
     assert summary["step"] == 4 and np.isfinite(summary["loss"])
 
 
@@ -542,8 +556,6 @@ def test_formerly_unported_options_run(tmp_path, overrides):
     [
         ("config", "prefetch_depth", 0),
         ("config", "num_workers", 4),
-        ("diloco", "link_adapt", True),
-        ("diloco", "initial_peers", "localhost:1234"),
     ],
 )
 def test_fields_the_port_does_not_read_are_refused(section, field, value):
@@ -569,6 +581,25 @@ def test_process_group_fields_are_accepted(field, flag, value, want):
     assert getattr(Config(), field) is None
     assert getattr(Config(**{field: want}), field) == want
     assert getattr(Config(**parse_argv(["--multihost", flag, value])), field) == want
+
+
+@pytest.mark.parametrize(
+    "field,flag,value,want",
+    [("initial_peers", "--diloco.initial-peers", "h1:1,h2:2", ["h1:1", "h2:2"]),
+     ("host", "--diloco.host", "10.0.0.7", "10.0.0.7"),
+     ("port", "--diloco.port", "29500", 29500),
+     ("matchmaking_time", "--diloco.matchmaking-time", "2.5", 2.5),
+     ("link_adapt", "--diloco.link-adapt", "true", True)],
+)
+def test_galaxy_fields_are_accepted(field, flag, value, want):
+    """The JAX fields of a TCP galaxy worker are read now
+    (``train.make_backend``): DilocoConfig takes them with the JAX
+    defaults, and from the command line as the JAX package parses them."""
+    from opendiloco_tpu.config import DilocoConfig as JDilocoConfig
+
+    assert getattr(DilocoConfig(), field) == getattr(JDilocoConfig(), field)
+    assert getattr(Config(**parse_argv([flag, value])).diloco, field) == want
+    assert getattr(JDilocoConfig(**parse_argv([flag, value])["diloco"]), field) == want
 
 
 def test_stream_stagger_sets_launch_schedule():
