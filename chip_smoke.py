@@ -3,7 +3,8 @@
 decode, prefix reuse, the host KV tier, training, checkpoint and resume,
 training that serves over HTTP with weight hot swap, the command line,
 the outer plane on the card (overlapped and streaming rounds, error
-feedback), sharding, and a galaxy of two workers over TCP.
+feedback), sharding, a galaxy of two workers over TCP, NoLoCo gossip
+rounds and the serving fleet.
 
     python3 chip_smoke.py
 
@@ -263,7 +264,32 @@ exits non-zero.
    ledger (matchmaking, flatten, scatter-reduce, gather, encode,
    accumulate, wire send and receive), the outer step's split and the
    phase's peak host RSS.
-25. The kernels line (launches of B6, B7, their merges and B8 by serving
+25. Gossip (after phase 23): three loopback workers at config_150m's
+   widths and 2 of its 12 layers (phase 8's run: mb 8, accum 2, seq 1024;
+   4 steps, ``local_steps`` 2) with
+   ``outer_mode="gossip"``, blockwise4bit and error feedback, host then
+   device placement: launches phase 8's kernels' for 12 inner steps, one
+   self-round a round (an odd galaxy), and the device run's losses, LRs
+   and final master hashes the host run's bit for bit. Then one pair
+   round on fragment 0 (of 4) of two workers' final master, momentum
+   and a pseudo-gradient, lockstep on loopback, async at distance 0, and over
+   two ``TcpBackend``s at the port's rendezvous: the three equal bit for
+   bit. Each round's exchange seconds and wire bytes, the self-round
+   share, the inner step beside phase 8's.
+26. The serving fleet: one training worker at the same cut of
+   config_150m (4 steps, ``local_steps`` 2) with ``fleet.enabled`` (two replicas, keyframe
+   every 2 epochs, prefix cache on), first with the replicas in process,
+   then as ``python -m opendiloco_torch.fleet.replica`` processes on the
+   card. At the fleet's teardown (the training done, both replicas on
+   the last epoch's keyframe) each replica's two shared-prefix streams
+   (the second a prefix hit) equal a ``ServeEngine``'s on the keyframed
+   masters; in process B6 runs once a layer a decode step and B7 once a
+   layer a hit.
+   16 requests through the router's HTTP from 4 clients; with processes
+   one replica is SIGKILLed under them and every request answers. Time
+   to the first ready replica, keyframe and delta push bytes, TTFT and
+   tokens/s through the router, redispatches.
+27. The kernels line (launches of B6, B7, their merges and B8 by serving
    phase, of the training kernels by training phase), the card line, and
    last the result line.
 
@@ -2306,10 +2332,10 @@ def recording_backends(world) -> list:
 
 
 def train_config(model: str, run: dict, rank: int, project: str, ckpt: dict, serve: dict | None = None,
-                 diloco: dict | None = None):
-    """The ``Config`` of worker ``rank`` of phases 8, 8b, 10, 19 and 24
-    (``diloco``: more DiLoCo options, phase 10's device placement, phase
-    24's TCP backend)."""
+                 diloco: dict | None = None, fleet: dict | None = None):
+    """The ``Config`` of worker ``rank`` of phases 8, 8b, 10, 19, 24, 25
+    and 26 (``diloco``: more DiLoCo options, phase 10's device placement,
+    phase 24's TCP backend, phase 25's gossip; ``fleet``: phase 26's)."""
     from opendiloco_torch.config import Config
 
     return Config(
@@ -2321,6 +2347,7 @@ def train_config(model: str, run: dict, rank: int, project: str, ckpt: dict, ser
         diloco={**dict(local_steps=run["local_steps"], backend="loopback", world_rank=rank,
                        timeout_waiting_for_peers=600.0), **(diloco or {})},
         serve=serve,
+        fleet=fleet,
     )
 
 
@@ -3676,6 +3703,516 @@ def phase_tcp(torch, tfa, dev, card: str, loopback: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 25: NoLoCo gossip rounds
+# ---------------------------------------------------------------------------
+
+def cut_depth(model: str, layers: int, folder: str) -> str:
+    """A config file of ``model`` cut to ``layers`` decoder layers, its
+    widths unchanged (phases 25 and 26: the smoke's time limit)."""
+    import os
+
+    from opendiloco_torch.models.hf_io import load_config
+
+    path = os.path.join(folder, f"config_{model}_{layers}l.json")
+    with open(path, "w") as f:
+        json.dump({**load_config(model).to_dict(), "num_hidden_layers": layers}, f)
+    return path
+
+
+# phases 25 and 26 run config_150m's widths (d 1024, 16 heads x 64, ffn 2688,
+# vocab 32000) at 2 of its 12 layers: at full depth, on an H100 machine with
+# 8 host cores, the two took 222 s and the smoke 1157.6 s of its 1200 s (a
+# 150m pair round is 13-24 s of host work)
+CUT_LAYERS = 2
+# phase 25, as phase 8's run (mb 8, accum 2, seq 1024, lr 1e-3): three
+# loopback workers (an odd galaxy: one self-round a round), 4 steps,
+# local_steps 2 (2 gossip rounds), blockwise4bit with error feedback
+GOSSIP_150M = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=2,
+                   total_steps=4, local_steps=2, lr=1e-3)
+GOSSIP_PAIR_FRAGMENTS = 4  # the three-way pair round runs on fragment 0 of 4
+GOSSIP_DILOCO = dict(outer_mode="gossip", compression="blockwise4bit", error_feedback=True)
+GOSSIP_WORKERS = 3
+
+
+def gossip_workers(torch, tfa, dev, model: str, run: dict, placement: str, n: int) -> dict:
+    """``n`` loopback workers, one thread each, run ``train()`` with
+    ``outer_mode="gossip"`` on ``placement``; the launch counters are zeroed
+    just before and read just after and held to :func:`training_launches`.
+    Returns the metric rows, launches, each worker's final master hash,
+    round ledger and state provider."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from opendiloco_torch.diloco import LoopbackWorld
+    from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.train import train
+
+    cfg = load_config(model)
+    backends = recording_backends(LoopbackWorld(n))  # for their state providers (gossip runs no all-reduce)
+    tmp = tempfile.mkdtemp()
+
+    def config(rank):
+        return train_config(model, run, rank, os.path.join(tmp, f"metrics-{rank}.pkl"),
+                            dict(path=os.path.join(tmp, "ckpts"), interval=None),
+                            diloco={**GOSSIP_DILOCO, "outer_placement": placement})
+
+    tfa.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    run_workers(train, [(config(r), backends[r], dev) for r in range(n)])
+    wall = time.perf_counter() - t0
+    launches = tfa.LAUNCHES.snapshot()
+    want = training_launches(torch, dev, cfg, run, n * run["total_steps"], launches)
+    check_launches(launches, want, f"gossip {model} {placement}")
+    rows = []
+    for rank in range(n):
+        with open(os.path.join(tmp, f"metrics-{rank}.pkl"), "rb") as f:
+            rows.append(pickle.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    losses = [[r["Loss"] for r in rr] for rr in rows]
+    for rank, ls in enumerate(losses):
+        if len(ls) != run["total_steps"] or not all(math.isfinite(x) for x in ls) or not ls[-1] < ls[0]:
+            raise AssertionError(f"gossip {placement} worker {rank}: losses {ls}")
+    return {"rows": rows, "losses": losses, "lrs": [[r["lr"] for r in rr] for rr in rows], "launches": launches,
+            "hashes": [master_hash(master_now(b.provider)) for b in backends],
+            "ledgers": [[h for h in b.round_ledger if h.get("gossip")] for b in backends],
+            "providers": [b.provider for b in backends], "wall": wall}
+
+
+def pair_exchange_runs(inputs: list, n_leaves: int) -> dict:
+    """One pair round on the 150m leaves of two workers (their master,
+    momentum and a pseudo-gradient), three ways: two GossipPlanes on a
+    loopback world (lockstep), the same at async distance 0, and two over
+    the port's TcpBackends and rendezvous on localhost. Each way's mixed
+    master, momentum and pseudo-gradient on both ends, and its ledger."""
+    import os
+
+    from opendiloco_torch.diloco import LoopbackWorld
+    from opendiloco_torch.diloco.backend import PeerProgress
+    from opendiloco_torch.diloco.gossip import GossipPlane
+    from opendiloco_torch.diloco.rendezvous import RendezvousServer
+    from opendiloco_torch.diloco.tcp import TcpBackend
+
+    def exchange(backends):
+        planes = [GossipPlane(b, n_leaves, compression=GOSSIP_DILOCO["compression"], error_feedback=True)
+                  for b in backends]
+        out = run_workers(lambda r: planes[r].exchange(epoch=7, frag_id=0, idxs=list(range(n_leaves)),
+                                                       masters=inputs[r][0], bufs=inputs[r][1], pgs=inputs[r][2],
+                                                       timeout=300.0), [(0,), (1,)])
+        if any(o is None or o[4] != 2 for o in out):
+            raise AssertionError(f"pair exchange: a side did not pair ({[None if o is None else o[3:] for o in out]})")
+        return [o[:3] for o in out], [dict(b.last_round_health) for b in backends]
+
+    runs = {"loopback": exchange(LoopbackWorld(2).make_backends())}
+    env = {"ODTP_ASYNC_STALENESS": "1", "ODTP_ASYNC_PATIENCE_S": "60"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        runs["async"] = exchange(LoopbackWorld(2).make_backends())
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    daemon = RendezvousServer("127.0.0.1", 0).start_in_thread()
+    # the loopback ids, so the sorted-pair operand order is the same
+    backends = [TcpBackend([daemon.address], peer_id=f"peer-{r}", matchmaking_time=2.0) for r in (0, 1)]
+    try:
+        for _ in range(2):  # the second report sees both members
+            for b in backends:
+                b.report_progress(PeerProgress(b.peer_id, 7, 0, 1.0, time.time()))
+        runs["tcp"] = exchange(backends)
+    finally:
+        for b in backends:
+            b.close()
+        daemon.stop()
+    return runs
+
+
+def phase_gossip(torch, tfa, dev, card: str, p8: dict) -> dict:
+    """Phase 25: three workers at config_150m's widths and CUT_LAYERS of
+    its layers (GOSSIP_150M),
+    ``outer_mode="gossip"`` with blockwise4bit and error feedback, on host
+    then device placement: launches those of phase 8's kernels for 12
+    inner steps, losses falling, one self-round a round, and the device
+    run's losses, LRs and final master hashes the host run's bit for bit.
+    Then one pair round on fragment 0 (of 4) of two workers' final
+    masters and momentum, lockstep on loopback, async at distance 0 and
+    over TcpBackends: the three equal bit for bit. Prints each round's exchange seconds and wire
+    bytes a pair, the self-round share and the inner step beside phase
+    8's."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    n, run = GOSSIP_WORKERS, GOSSIP_150M
+    folder = tempfile.mkdtemp()
+    model = cut_depth("150m", CUT_LAYERS, folder)
+    host = gossip_workers(torch, tfa, dev, model, run, "host", n)
+    rounds = run["total_steps"] // run["local_steps"]
+    for rank, led in enumerate(host["ledgers"]):
+        if len(led) != rounds:
+            raise AssertionError(f"gossip worker {rank}: {len(led)} rounds in its ledger, want {rounds}")
+    for r in range(rounds):
+        sizes = sorted(led[r]["group_size"] for led in host["ledgers"])
+        if sizes != [1, 2, 2]:
+            raise AssertionError(f"gossip round {r}: group sizes {sizes}, want one self-round and one pair")
+    dev_run = gossip_workers(torch, tfa, dev, model, run, "device", n)
+    shutil.rmtree(folder, ignore_errors=True)
+    for key in ("losses", "lrs", "hashes"):
+        if dev_run[key] != host[key]:
+            raise AssertionError(f"gossip: device placement's {key} {dev_run[key]} != host's {host[key]}")
+    if dev_run["launches"] != host["launches"]:
+        raise AssertionError(f"gossip: launches {dev_run['launches']} != {host['launches']}")
+
+    # one pair round three ways, on fragment 0 of two workers' final state
+    from opendiloco_torch.diloco.planner import fragment_partition
+
+    inputs = []
+    for provide in host["providers"][:2]:
+        st = provide()
+        frag = fragment_partition([x.size for x in st["master"]], GOSSIP_PAIR_FRAGMENTS)[0]
+        m = [np.asarray(st["master"][i], np.float32) for i in frag]
+        inputs.append((m, [np.asarray(st["outer_opt"]["bufs"][i], np.float32) for i in frag],
+                       [x * np.float32(1e-3) for x in m]))
+        del st
+    t0 = time.perf_counter()
+    pairs = pair_exchange_runs(inputs, len(inputs[0][0]))
+    pair_wall = time.perf_counter() - t0
+    ref = pairs["loopback"][0]
+    for way in ("async", "tcp"):
+        for side in range(2):
+            for k in range(3):
+                a, b = pairs[way][0][side][k], ref[side][k]
+                if len(a) != len(b) or not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                    raise AssertionError(f"pair round {way} side {side} part {k} differs from the loopback lockstep's")
+    for k in range(3):  # both ends hold the same bits
+        if not all(np.array_equal(x, y) for x, y in zip(ref[0][k], ref[1][k])):
+            raise AssertionError(f"pair round: the two ends differ in part {k}")
+    del inputs, pairs["loopback"], ref
+
+    def per_round(ledgers):
+        return [[{k: h.get(k) for k in ("group_size", "partner", "pair_s", "wire_bytes")} for h in led]
+                for led in ledgers]
+
+    steps = {"gossip": inner_step_s(host["rows"]), "phase 8": p8["step_s"]}
+    outer = {p: [r["outer_step_s"] for rr in x["rows"] for r in rr if "outer_step_s" in r]
+             for p, x in (("host", host), ("device", dev_run))}
+    pair_s = [h["pair_s"] for led in host["ledgers"] for h in led if h["group_size"] == 2]
+    wire = [h["wire_bytes"] for led in host["ledgers"] for h in led if h["group_size"] == 2]
+    res = {
+        "config": f"150m widths, {CUT_LAYERS} layers", **run, "workers": n, **GOSSIP_DILOCO,
+        "launches": host["launches"],
+        "losses": host["losses"], "rounds": per_round(host["ledgers"]),
+        "rounds_device": per_round(dev_run["ledgers"]),
+        "pair_s": {"min": min(pair_s), "median": float(np.median(pair_s)), "max": max(pair_s)},
+        "wire_bytes_per_side": sorted(set(wire)),
+        "self_round_share": sum(h["group_size"] == 1 for led in host["ledgers"] for h in led) / (n * rounds),
+        "inner_step_ms_median": {k: float(np.median(v)) * 1e3 for k, v in steps.items()},
+        "outer_step_s": outer,
+        "pair_exchange": {way: {"health": [{k: h.get(k) for k in ("pair_s", "wire_bytes", "pair_lag", "round")}
+                                           for h in pairs[way][1]]} for way in ("async", "tcp")},
+        "pair_exchange_wall_s": pair_wall,
+        "train_wall_s": {"host": host["wall"], "device": dev_run["wall"]},
+        "seconds": time.perf_counter() - t_phase,
+    }
+    log(f"gossip 150m ({CUT_LAYERS} layers) x{n}: {rounds} rounds, one self-round a round ({res['self_round_share']:.3f} of worker-rounds); "
+        f"pair rounds {res['pair_s']} s, {res['wire_bytes_per_side']} wire bytes a side; inner step median "
+        f"{res['inner_step_ms_median']} ms; outer step {outer} s | {card}")
+    ran = {k: v for k, v in host["launches"].items() if v}
+    log(f"gossip 150m ({CUT_LAYERS} layers): device placement equals host (losses, LRs, master hashes, launches {ran}); a "
+        f"150m pair round equals on loopback, async at distance 0 and over TcpBackends "
+        f"({json.dumps(res['pair_exchange'])}); phase {res['seconds']:.1f} s | {card}")
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the serving fleet
+# ---------------------------------------------------------------------------
+
+# phase 26: one config_150m training worker (mb 8, accum 2, seq 1024; 4
+# steps, local_steps 2: the last of its 2 rounds a keyframe) feeding two
+# replicas (the fleet's geometry: 4 slots, ring 256, buckets 32/128)
+FLEET_150M = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=2,
+                  total_steps=4, local_steps=2, lr=1e-3)
+FLEET = dict(enabled=True, replicas=2, keyframe_every=2, prefix_cache=True, push_interval_s=0.1)
+FLEET_PREFIX, FLEET_SUFFIX, FLEET_NEW_TOKENS = 96, 16, 32
+FLEET_CLIENTS, FLEET_REQUESTS = 4, 4  # router traffic: clients x requests each
+
+
+def fleet_prompts(vocab: int, seed: int) -> tuple[list, list]:
+    """A shared 96-token prefix and two 16-token suffixes: (A, B)."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, vocab, FLEET_PREFIX).tolist()
+    return shared + rng.integers(1, vocab, FLEET_SUFFIX).tolist(), shared + rng.integers(1, vocab, FLEET_SUFFIX).tolist()
+
+
+def pair_streams(submit_a, started, submit_b) -> list:
+    """A, then B once A holds a slot (so that B's admit copies A's prefix):
+    both streams. ``submit_*`` return a callable that waits and gives the
+    tokens; ``started`` tells whether A holds a slot."""
+    wait_a = submit_a()
+    deadline = time.monotonic() + 120
+    while not started():
+        if time.monotonic() > deadline:
+            raise AssertionError("fleet: the first request never reached a slot")
+        time.sleep(0.002)
+    wait_b = submit_b()
+    return [wait_a(), wait_b()]
+
+
+def http_async(port: int, prompt: list, n: int):
+    """Post /generate on a thread; the returned callable waits for its
+    tokens."""
+    out = {}
+
+    def go():
+        out.update(http_json(f"http://127.0.0.1:{port}/generate",
+                             json.dumps({"prompt": prompt, "max_new_tokens": n}).encode()))
+
+    t = threading.Thread(target=go)
+    t.start()
+
+    def wait():
+        t.join(timeout=300)
+        if "tokens" not in out or "error" in out:
+            raise AssertionError(f"fleet: a request failed: {out}")
+        return out["tokens"]
+
+    return wait
+
+
+def fleet_checks(torch, tdk, dev, plane, cfg, inprocess: bool, prompts: tuple) -> dict:
+    """At the fleet's teardown, the training done: wait until both replicas
+    serve the last epoch, hold each replica's shared-prefix pair to a
+    ServeEngine on the keyframed masters, then send router traffic (and,
+    with processes, SIGKILL one replica under it)."""
+    import signal
+
+    from opendiloco_torch.models.llama import flatten_params, init_params, unflatten_params
+    from opendiloco_torch.serve import ContinuousBatcher, ServeEngine
+
+    L = cfg.num_hidden_layers
+    epoch, masters = plane.publisher.snapshot_fn()
+    rids = sorted(plane.replicas)
+    deadline = time.monotonic() + 180
+    while True:
+        replies = plane.manager.status()["replicas"]
+        if all(replies.get(r, {}).get("weights_epoch") == epoch for r in rids):
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fleet: replicas never served epoch {epoch}: {replies}")
+        time.sleep(0.02)
+    pub = plane.publisher.stats()
+    if any(pub["replicas"][r]["last_keyframe"] != epoch for r in rids):
+        raise AssertionError(f"fleet: the last push was not a keyframe at epoch {epoch}: {pub}")
+
+    # the reference: a ServeEngine holding the keyframe's decode of the masters
+    codec = plane.publisher.kf_codec
+    leaves = []
+    for m in masters:
+        flat = np.ascontiguousarray(m, np.float32).reshape(-1)
+        payload, meta = codec.encode(flat)
+        leaves.append(torch.from_numpy(np.asarray(codec.decode(payload, (flat.size,), meta), np.float32)
+                                       .reshape(m.shape)))
+    compute = torch.bfloat16 if inprocess else torch.float32  # the trainer's dtype in process, else f32
+    template = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    geom = dict(num_slots=4, max_context=256, prefill_buckets=(32, 128))
+    engine = ServeEngine(cfg, unflatten_params(template, leaves), compute_dtype=compute, device=dev, **geom)
+    del template, leaves
+    batcher = ContinuousBatcher(engine, prefix_cache=True).start()
+
+    def ref_submit(p):
+        def go():
+            req = batcher.submit(p, max_new_tokens=FLEET_NEW_TOKENS)
+            return lambda: (req.wait(300), req.tokens)[1]
+        return go
+
+    try:
+        want = pair_streams(ref_submit(prompts[0]), lambda: batcher.slots.num_active >= 1, ref_submit(prompts[1]))
+        if batcher.prefix_hits != 1:
+            raise AssertionError(f"fleet reference: {batcher.prefix_hits} prefix hits, want 1")
+    finally:
+        batcher.stop()
+    del engine, batcher
+    torch.cuda.empty_cache()
+
+    # each replica, directly: its streams against the reference's
+    ports = {r: plane.manager.addr(r)[1] for r in rids}
+
+    def stats(r):
+        return http_json(f"http://127.0.0.1:{ports[r]}/stats", timeout=60)
+
+    before = {r: stats(r) for r in rids}
+    tdk.LAUNCHES.reset()
+    streams = {}
+    for r in rids:
+        streams[r] = pair_streams(lambda r=r: http_async(ports[r], prompts[0], FLEET_NEW_TOKENS),
+                                  lambda r=r: stats(r)["active"] >= 1,
+                                  lambda r=r: http_async(ports[r], prompts[1], FLEET_NEW_TOKENS))
+    launches = tdk.LAUNCHES.snapshot()
+    after = {r: stats(r) for r in rids}
+    for r in rids:
+        if streams[r] != want:
+            raise AssertionError(f"fleet replica {r}: streams {streams[r]} != the reference's {want}")
+    hits = sum(after[r]["prefix"]["hits"] - before[r]["prefix"]["hits"] for r in rids)
+    steps = sum(after[r]["decode_steps"] - before[r]["decode_steps"] for r in rids)
+    if hits != len(rids):
+        raise AssertionError(f"fleet: {hits} prefix hits over {len(rids)} replicas, want one each")
+    per_step = None
+    if inprocess and dev.type == "cuda":  # the replicas' kernels launch in this process
+        if launches.get("paged_decode_attention") != L * steps or launches.get("spec_tail_attention") != L * hits:
+            raise AssertionError(f"fleet: launches {launches}, want B6 {L} x {steps} decode steps and B7 {L} x "
+                                 f"{hits} prefix hits")
+        per_step = {k: launches.get(k, 0) / steps for k in ("paged_decode_attention", "paged_decode_attention_merge")}
+
+    # router traffic, shared-prefix prompts; with processes a SIGKILL under it
+    shared = prompts[0][:FLEET_PREFIX]
+    outs, errors = [], []
+    router_url = f"http://127.0.0.1:{plane.router.port}/generate"
+
+    def client(i):
+        rng = np.random.default_rng(100 + i)
+        try:
+            for _ in range(FLEET_REQUESTS):
+                p = shared + rng.integers(1, cfg.vocab_size, FLEET_SUFFIX).tolist()
+                t0 = time.perf_counter()
+                out = http_json(router_url, json.dumps({"prompt": p, "max_new_tokens": FLEET_NEW_TOKENS}).encode())
+                outs.append({**out, "t_sent": t0, "t_back": time.perf_counter()})
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(FLEET_CLIENTS)]
+    killed = None
+    for t in threads:
+        t.start()
+    if not inprocess:
+        while len(outs) < FLEET_CLIENTS and not errors and any(t.is_alive() for t in threads):
+            time.sleep(0.01)
+        killed = rids[-1]
+        plane.replicas[killed].send_signal(signal.SIGKILL)
+    for t in threads:
+        t.join(timeout=600)
+    if errors:
+        raise errors[0]
+    bad = [o for o in outs if "error" in o or len(o.get("tokens", [])) != FLEET_NEW_TOKENS]
+    if len(outs) != FLEET_CLIENTS * FLEET_REQUESTS or bad:
+        raise AssertionError(f"fleet router: {len(outs)} answers, dropped or failed {bad[:3]}")
+    rstats = plane.router.stats()
+    if killed is not None and not rstats["replicas"][killed]["dead"]:
+        raise AssertionError(f"fleet: the killed replica {killed} was not marked dead: {rstats}")
+    window = max(o["t_back"] for o in outs) - min(o["t_sent"] for o in outs)
+    alive = [r for r in rids if r != killed]
+    ttft = {r: stats(r)["ttft_ms"] for r in alive}
+    return {"epoch": epoch, "publisher": pub, "streams_equal_reference": True, "prefix_hits": hits,
+            "decode_steps": steps, "launches": launches, "launches_per_decode_step": per_step,
+            "router": {k: rstats[k] for k in ("redispatches", "deaths", "shed")}, "killed": killed,
+            "router_answers": len(outs), "router_tokens_per_s": sum(len(o["tokens"]) for o in outs) / window,
+            "router_latency_ms": {"p50": float(np.percentile([(o["t_back"] - o["t_sent"]) * 1e3 for o in outs], 50)),
+                                  "max": max((o["t_back"] - o["t_sent"]) * 1e3 for o in outs)},
+            "replica_ttft_ms": ttft}
+
+
+def fleet_run(torch, tdk, dev, inprocess: bool) -> dict:
+    """One ``train()`` at config_150m with ``fleet.enabled`` (FLEET,
+    ``inprocess`` as given), :func:`fleet_checks` at the fleet's teardown
+    (``FleetPlane.stop``, which ``train()`` calls in its finally)."""
+    import os
+    import shutil
+    import tempfile
+
+    import opendiloco_torch.fleet as tfleet
+    from opendiloco_torch.diloco import LoopbackWorld
+    from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.train import train
+
+    tmp = tempfile.mkdtemp()
+    model = cut_depth("150m", CUT_LAYERS, tmp)
+    cfg = load_config(model)
+    prompts = fleet_prompts(cfg.vocab_size, seed=11)
+    seen: dict = {}
+    real_build, real_stop = tfleet.build_fleet, tfleet.FleetPlane.stop
+
+    def watch(plane):
+        while "t_ready" not in seen and not seen.get("stopped"):
+            if any(r.get("ready") for r in plane.manager.status()["replicas"].values()):
+                seen["t_ready"] = time.perf_counter()
+            time.sleep(0.005)
+
+    def build(*a, **k):
+        seen["t_build"] = time.perf_counter()
+        plane = real_build(*a, **k)
+        seen["t_built"] = time.perf_counter()
+        threading.Thread(target=watch, args=(plane,), daemon=True).start()
+        return plane
+
+    def stop(plane):
+        seen["stopped"] = True
+        seen["train_launches"] = tdk.LAUNCHES.snapshot()  # training done, no request served yet
+        try:
+            seen["checks"] = fleet_checks(torch, tdk, dev, plane, cfg, inprocess, prompts)
+        except BaseException as e:
+            seen["error"] = e
+        finally:
+            real_stop(plane)
+
+    config = train_config(model, FLEET_150M, 0, os.path.join(tmp, "metrics-0.pkl"), dict(path=tmp, interval=None),
+                          fleet={**FLEET, "inprocess": inprocess})
+    tfleet.build_fleet, tfleet.FleetPlane.stop = build, stop
+    tdk.LAUNCHES.reset()
+    try:
+        t0 = time.perf_counter()
+        train(config, LoopbackWorld(1).make_backends()[0], dev)
+        wall = time.perf_counter() - t0
+    finally:
+        tfleet.build_fleet, tfleet.FleetPlane.stop = real_build, real_stop
+        shutil.rmtree(tmp, ignore_errors=True)
+    if "error" in seen:
+        raise seen["error"]
+    if "checks" not in seen or "t_ready" not in seen:
+        raise AssertionError(f"fleet (inprocess={inprocess}): the teardown checks did not run: {sorted(seen)}")
+    train_launches = seen["train_launches"]
+    check_launches(train_launches, training_launches(torch, dev, cfg, FLEET_150M, FLEET_150M["total_steps"],
+                                                     train_launches), f"fleet training (inprocess={inprocess})")
+    return {"inprocess": inprocess, "build_s": seen["t_built"] - seen["t_build"],
+            "first_ready_s": seen["t_ready"] - seen["t_build"], "train_wall_s": wall,
+            "train_launches": train_launches, **seen["checks"]}
+
+
+def phase_fleet(torch, tdk, dev, card: str) -> dict:
+    """Phase 26: the serving fleet at config_150m's widths and CUT_LAYERS
+    of its layers. One training worker with
+    ``fleet.enabled`` feeds two replicas (FLEET: keyframe every 2 epochs,
+    prefix cache on), first in process (bf16 compute, the trainer's), then
+    as ``python -m opendiloco_torch.fleet.replica`` processes on the card
+    (f32, the replica's default). At the teardown, both replicas serving
+    the last epoch's keyframe, each replica's two shared-prefix streams
+    equal a ServeEngine's on the keyframed masters (the second a prefix
+    hit); in process B6 runs once a layer a decode step and B7 once a
+    layer a prefix hit. Then 16 requests through the router's HTTP from 4 clients; with
+    processes one replica is SIGKILLed under them: every request answers.
+    Prints time to the first ready replica, push bytes of keyframes and
+    deltas, TTFT and tokens/s through the router and the redispatches."""
+    t0 = time.perf_counter()
+    runs = [fleet_run(torch, tdk, dev, inprocess) for inprocess in (True, False)]
+    res = {"config": f"150m widths, {CUT_LAYERS} layers", **FLEET_150M, "fleet": FLEET, "runs": runs, "seconds": time.perf_counter() - t0}
+    for r in runs:
+        pub = {rid: {k: v for k, v in x.items() if k.endswith(("bytes", "frames"))}
+               for rid, x in r["publisher"]["replicas"].items()}
+        log(f"fleet 150m ({CUT_LAYERS} layers) inprocess={r['inprocess']}: first replica ready {r['first_ready_s']:.2f} s after the build "
+            f"began (build {r['build_s']:.2f} s); streams equal the reference engine's; pushes {json.dumps(pub)} "
+            f"(fp16 snapshot {r['publisher']['fp16_snapshot_bytes']} B); router {r['router']}, killed "
+            f"{r['killed']}, {r['router_answers']} answers, {r['router_tokens_per_s']:.1f} tokens/s, latency "
+            f"{r['router_latency_ms']} ms, replica TTFT {json.dumps(r['replica_ttft_ms'])}; B6 a decode step "
+            f"{r['launches_per_decode_step']} | {card}")
+    log(f"fleet 150m ({CUT_LAYERS} layers): phase {res['seconds']:.1f} s | {card}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3744,6 +4281,8 @@ def main() -> int:
     cli = phase_cli(card)
     outer_plane = phase_outer_plane(torch, tfa, dev, card)
     sharded = phase_sharded(torch, tfa, dev, card)
+    gossip = phase_gossip(torch, tfa, dev, card, train_150m)
+    fleet = phase_fleet(torch, tdk, dev, card)
 
     # launches: each serving phase's main path, by phase
     serving = {f"serve {s['weight_format']}": s["launches"] for s in serve}
@@ -3754,8 +4293,9 @@ def main() -> int:
     serving["train+serve 150m"] = train_serve["launches"]
     serving.update({f"install_wire 1b ({key})": counts for key, counts in wire["launches"].items()})
     serving.update({f"kv tier 1b ({key})": tier[key]["launches"] for key in ("a", "b", "c", "d")})
+    serving["fleet 150m (2 layers), replicas in process"] = fleet["runs"][0]["launches"]
     for k in (*b6, *b7, *b8):
-        k["launches_by_phase"] = {phase: counts[k["name"]] for phase, counts in serving.items()}
+        k["launches_by_phase"] = {phase: counts.get(k["name"], 0) for phase, counts in serving.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
     # launches: the training paths, by phase (the first design runs on the
     # f32 step; bf16 training takes the sm90 kernels; delta runs on both)
@@ -3770,12 +4310,16 @@ def main() -> int:
                                   "tcp 150m uniform8bit": tcp["150m uniform8bit"]["launches"][k["name"]],
                                   "outer plane 150m": sum(r[pl]["launches"][k["name"]]
                                                           for r in outer_plane.values() for pl in ("host", "device")),
-                                  "sharded 150m": sharded["launches"].get(k["name"], 0)}
+                                  "sharded 150m": sharded["launches"].get(k["name"], 0),
+                                  "gossip 150m (2 layers) host": gossip["launches"][k["name"]],
+                                  "gossip 150m (2 layers) device": gossip["launches"][k["name"]],
+                                  **{f"fleet 150m (2 layers) training (replicas {'in process' if r['inprocess'] else 'apart'})":
+                                     r["train_launches"].get(k["name"], 0) for r in fleet["runs"]}}
         k["launches"] = sum(k["launches_by_phase"].values())
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
     log(json.dumps({"serve": serve, "spec": spec, "spec_f32": spec_f32, "prefix": prefix, "reference": reference,
                     "train": [train_150m, train_1b, train_f32], "train_1b_device": train_1b_device,
-                    "outer_plane": outer_plane, "sharded": sharded, "tcp": tcp, "resume": resume_150m, "weights_dir": weights_dir,
+                    "outer_plane": outer_plane, "sharded": sharded, "tcp": tcp, "gossip": gossip, "fleet": fleet, "resume": resume_150m, "weights_dir": weights_dir,
                     "train_serve": train_serve, "install_wire": wire, "kv_tier": tier,
                     "gate3": gate3, "cli": cli, "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b6, *b7, *b8, *flash, *xent]}))

@@ -1,13 +1,12 @@
 """Configuration: the fields of ``opendiloco_tpu.config`` this port reads.
 
-Copies of ``CkptConfig``, ``DilocoConfig``, ``Config`` and of
-``ServeConfig`` without its KV-tier and decode-kernel fields (same
-names, defaults and validation), as dataclasses so the port needs no
-pydantic. Nested sections may be given as dicts, and values as the
-strings of a command line (:func:`parse_argv`, the JAX package's copy),
-which each field converts to its type. The KV tier's fields arrive with
-its slice; options that ``train()`` reads but the port does not run yet
-raise there.
+Copies of ``CkptConfig``, ``DilocoConfig``, ``FleetConfig``, ``Config``
+and of ``ServeConfig`` without its decode-kernel fields (same names,
+defaults and validation), as dataclasses so the port needs no pydantic.
+Nested sections may be given as dicts, and values as the strings of a
+command line (:func:`parse_argv`, the JAX package's copy), which each
+field converts to its type. Options that ``train()`` reads but the port
+does not run yet raise there.
 """
 from __future__ import annotations
 
@@ -133,6 +132,93 @@ class ServeConfig:
             raise ValueError("serve.kv_host_slots must be >= 1")
 
 
+FLEET_CODECS = ("blockwise4bit", "topk")  # FleetConfig.codec
+
+
+@dataclasses.dataclass
+class FleetConfig:
+    """The serving fleet (``opendiloco_torch/fleet``): N replica engines fed
+    by delta pushes off the trainer's masters, behind one router."""
+
+    enabled: bool = False
+    replicas: int = 2
+    host: str = "127.0.0.1"
+    port: int = 0  # the router's ingress; 0: an ephemeral port
+    # replicas inside the trainer's process instead of as
+    # `python -m opendiloco_torch.fleet.replica` subprocesses
+    inprocess: bool = False
+    # the push channel: per-fragment master deltas in this codec with
+    # per-replica error feedback, and a state-codec keyframe every
+    # keyframe_every epochs (which also onboards a (re)joining replica)
+    codec: str = "blockwise4bit"
+    fragments: int = 4
+    keyframe_every: int = 8
+    error_feedback: bool = True
+    push_interval_s: float = 0.25
+    # a replica whose served weights lag the trainer by MORE outer rounds
+    # than this reports itself stale, and the router stops preferring it
+    max_stale_rounds: int = 2
+    # each replica engine's geometry (as ServeConfig's)
+    max_batch: int = 4
+    max_context: int = 256
+    prefill_buckets: Union[list, str] = dataclasses.field(default_factory=lambda: [32, 128])
+    max_queue: int = 1024
+    prefix_cache: bool = True
+    # the fleet's prefix directory: replicas advertise the prompt prefixes
+    # their host KV tier holds and the router sends matching prompts to a
+    # holder; turning it on arms each replica's tier
+    prefix_directory: bool = False
+    # SLO-driven autoscaling (fleet/autoscaler.py): `replicas` is the
+    # initial size, held within [min_replicas, max_replicas]
+    autoscale: bool = False
+    # the SLO: the worst replica's p99 (0: no latency signal) and the queue
+    # depth above which a replica is backlogged
+    slo_p99_ms: float = 0.0
+    slo_queue_depth: int = 8
+    min_replicas: int = 1
+    max_replicas: int = 8
+    # standby replicas (push channel attached, router not)
+    warm_spares: int = 0
+    # the control loop's damping: seconds between scale actions, the
+    # evaluation cadence, and consecutive breached or clear evaluations
+    # before scaling up or down
+    scale_cooldown_s: float = 5.0
+    scale_eval_interval_s: float = 0.5
+    scale_up_evals: int = 2
+    scale_down_evals: int = 8
+
+    def __post_init__(self):
+        _coerce_strings(self)
+        if isinstance(self.prefill_buckets, str):
+            self.prefill_buckets = [int(x) for x in self.prefill_buckets.split(",") if x.strip()]
+        self.prefill_buckets = [int(b) for b in self.prefill_buckets]
+        _one_of("fleet.codec", self.codec, FLEET_CODECS)
+        if self.replicas < 1:
+            raise ValueError("fleet.replicas must be >= 1")
+        if self.fragments < 1:
+            raise ValueError("fleet.fragments must be >= 1")
+        if self.keyframe_every < 1:
+            raise ValueError("fleet.keyframe_every must be >= 1")
+        if self.max_stale_rounds < 0:
+            raise ValueError("fleet.max_stale_rounds must be >= 0")
+        if not self.prefill_buckets:
+            raise ValueError("fleet.prefill_buckets must be non-empty")
+        if max(self.prefill_buckets) > self.max_context:
+            raise ValueError("largest fleet prefill bucket exceeds fleet.max_context")
+        if self.min_replicas < 1:
+            raise ValueError("fleet.min_replicas must be >= 1")
+        if self.max_replicas < self.min_replicas:
+            raise ValueError("fleet.max_replicas must be >= fleet.min_replicas")
+        if self.warm_spares < 0:
+            raise ValueError("fleet.warm_spares must be >= 0")
+        if self.slo_p99_ms < 0:
+            raise ValueError("fleet.slo_p99_ms must be >= 0")
+        if self.slo_queue_depth < 1:
+            raise ValueError("fleet.slo_queue_depth must be >= 1")
+        if self.scale_up_evals < 1 or self.scale_down_evals < 1:
+            raise ValueError("fleet.scale_*_evals must be >= 1")
+
+
 @dataclasses.dataclass
 class CkptConfig:
     """Checkpoint cadence and paths."""
@@ -164,7 +250,8 @@ class DilocoConfig:
     """Outer-loop (DiLoCo) configuration: the JAX package's fields and
     defaults. ``backend="tcp"`` (the default) joins a galaxy over TCP at
     the rendezvous daemons of ``initial_peers`` (``train.make_backend``);
-    gossip rounds raise where they are read (``diloco/optimizer.py``)."""
+    ``outer_mode="gossip"`` runs NoLoCo pair rounds
+    (``diloco/gossip.py``)."""
 
     outer_lr: float = 0.7
     outer_momentum: float = 0.9
@@ -304,7 +391,7 @@ class Config:
     ckpt: Any = dataclasses.field(default_factory=CkptConfig)
     diloco: Any = None  # None -> plain data-parallel mode
     serve: Any = None
-    fleet: Any = None
+    fleet: Any = None  # a FleetConfig; None or enabled=False: no fleet
 
     def __post_init__(self):
         _coerce_strings(self)
@@ -316,6 +403,7 @@ class Config:
         self.ckpt = _section(CkptConfig, self.ckpt)
         self.diloco = _section(DilocoConfig, self.diloco)
         self.serve = _section(ServeConfig, self.serve)
+        self.fleet = _section(FleetConfig, self.fleet)
         _one_of("attn_implementation", self.attn_implementation, ("auto", "xla", "pallas", "ring"))
         _one_of("precision", self.precision, ("bf16-mixed", "fp16-mixed", "fp32"))
         _one_of("metric_logger_type", self.metric_logger_type, ("wandb", "dummy", "jsonl"))

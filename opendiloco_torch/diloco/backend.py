@@ -8,8 +8,8 @@ outer loop needs from the network, behind one interface.
 - ``report_progress`` / ``peer_progress`` carry the progress gossip.
 - ``fetch_state`` / ``serve_state`` carry late-joiner onboarding.
 - ``gossip_view`` / ``pair_exchange`` / ``async_pair_match`` carry the
-  gossip pair rounds (``outer_mode="gossip"``, which the optimizer does
-  not run yet: ROADMAP.md A12b); the TCP backend implements them.
+  gossip pair rounds (``outer_mode="gossip"``, ``diloco/gossip.py``); the
+  loopback and TCP backends implement them.
 """
 from __future__ import annotations
 

@@ -34,6 +34,16 @@ carries each leaf's codec round trip error into the next round
 (tag ``"state"``). The inner AdamW state is not reset at an outer step:
 only the params become the master.
 
+``outer_mode="gossip"`` replaces the all-reduce with NoLoCo pair rounds
+(:mod:`~opendiloco_torch.diloco.gossip`): each boundary mixes master,
+momentum and pseudo-gradient with one partner drawn from a schedule every
+worker derives alone, then takes the Nesterov step on the mixed state.
+There is no straggler wait; a dropped pair round is a non-event (master,
+momentum and residual stay, the params keep their local progress). Error
+feedback is then per partner, in the gossip plane, on either placement.
+Full-model overlap falls back to blocking under gossip; streaming
+fragments pair and land inside the inner phase.
+
 A worker of several processes (``world``, a
 :class:`~opendiloco_torch.parallel.world.DistWorld`) runs the
 world-messenger split of the JAX package: only rank 0 holds a backend;
@@ -46,8 +56,6 @@ device placement and streaming x overlap fall back (to host placement
 and blocking fragments), as in the JAX package. Every rank makes the
 same calls in the same order: the poll of a round in flight agrees on
 the messenger's verdict through one small broadcast.
-
-Not ported yet, and raising: gossip rounds (A12b).
 """
 from __future__ import annotations
 
@@ -64,8 +72,9 @@ from opendiloco_torch.config import DilocoConfig
 from opendiloco_torch.diloco.backend import OuterBackend, PeerProgress, wait_for_peers
 from opendiloco_torch.diloco.compression import device_wire_dtype, get_codec
 from opendiloco_torch.diloco.error_feedback import ErrorFeedback
+from opendiloco_torch.diloco.gossip import GossipPlane
 from opendiloco_torch.diloco.outer_device import DeviceOuterPlane
-from opendiloco_torch.diloco.outer_optimizer import OuterSGD
+from opendiloco_torch.diloco.outer_optimizer import OuterSGD, noloco_step
 from opendiloco_torch.diloco.planner import fragment_partition
 from opendiloco_torch.diloco.state_io import state_codec
 from opendiloco_torch.diloco.streaming import StreamScheduler
@@ -98,11 +107,6 @@ def resolve_outer_placement(cfg: DilocoConfig, world: Optional[HostWorld] = None
     return "device"
 
 
-def _check_ported(cfg: DilocoConfig) -> None:
-    if cfg.outer_mode == "gossip":
-        raise NotImplementedError("DiLoCo outer_mode='gossip' is not ported yet (ROADMAP.md A12b)")
-
-
 class DiLoCoOptimizer:
     """Owns inner trainer state transitions and the outer DiLoCo loop."""
 
@@ -112,7 +116,6 @@ class DiLoCoOptimizer:
         self.world = world if world is not None else HostWorld()
         if self.world.is_messenger and backend is None:
             raise ValueError("DiLoCoOptimizer needs a backend on the world messenger")
-        _check_ported(cfg)
         self.trainer = trainer
         self.backend = backend if self.world.is_messenger else None
         self.cfg = cfg
@@ -120,11 +123,15 @@ class DiLoCoOptimizer:
         self.target_samples = batch_size * cfg.local_steps
         self.placement = resolve_outer_placement(cfg, self.world)
         leaves = flatten_params(state["params"])
+        gossip = cfg.outer_mode == "gossip"
         self._plane: Optional[DeviceOuterPlane] = None
         if self.placement == "device":
+            # gossip keeps its per-partner residuals in the gossip plane, on
+            # the host: the device plane's per-worker residual would mix
+            # partners' residuals into every pair round
             self._plane = DeviceOuterPlane(leaves, lr=cfg.outer_lr, momentum=cfg.outer_momentum,
                                            nesterov=cfg.outer_nesterov, compression=cfg.compression,
-                                           error_feedback=cfg.error_feedback)
+                                           error_feedback=cfg.error_feedback and not gossip)
             # the plane owns master and momentum; the host list stays empty
             self.master: list[np.ndarray] = []
         else:
@@ -133,9 +140,17 @@ class DiLoCoOptimizer:
         # it forms the pseudo-gradient and keeps it there; host placement
         # adds it in prepare()
         self._ef: Optional[ErrorFeedback] = None
-        if cfg.error_feedback:
+        if cfg.error_feedback and not gossip:
             self._ef = ErrorFeedback(get_codec(cfg.compression), len(leaves),
                                      device_setter=self._plane.set_ef_residuals if self._plane else None)
+        # the NoLoCo gossip plane: pair scheduling, the pair push-pull and
+        # per-partner error feedback; on the messenger only (followers get
+        # the mixed result through the fan-out)
+        self._gossip: Optional[GossipPlane] = None
+        if gossip and self.backend is not None:
+            self._gossip = GossipPlane(self.backend, len(leaves), compression=cfg.compression,
+                                       error_feedback=cfg.error_feedback)
+        self._warned_gossip_overlap = False
         # host placement's optimizer; under device placement it mirrors the
         # scalars only
         self.outer_opt = OuterSGD(lr=cfg.outer_lr, momentum=cfg.outer_momentum, nesterov=cfg.outer_nesterov)
@@ -423,12 +438,26 @@ class DiLoCoOptimizer:
                 # the fragments synced inside the phase (or still fly): the
                 # boundary is bookkeeping
                 state, outer_metrics = self._stream.boundary(state)
-            elif self.cfg.overlap_comm != "none" and self._fragments is None and not self._is_state_avg_epoch():
+            elif self._overlap_full_model():
                 state, outer_metrics = self._outer_step_overlapped(state)
             else:
                 state, outer_metrics = self.outer_step(state)
             metrics.update(outer_metrics)
         return state, metrics
+
+    def _overlap_full_model(self) -> bool:
+        """Whether this boundary takes the full-model overlapped round. Its
+        delta landing carries pseudo-gradients only: under gossip it falls
+        back to blocking (streaming fragments overlap gossip instead)."""
+        if self.cfg.overlap_comm == "none" or self._fragments is not None or self._is_state_avg_epoch():
+            return False
+        if self.cfg.outer_mode == "gossip":
+            if not self._warned_gossip_overlap:
+                self._warned_gossip_overlap = True
+                log.warning("overlap_comm without streaming_fragments falls back to blocking under "
+                            "outer_mode='gossip'; set streaming_fragments>1 for overlapped gossip rounds")
+            return False
+        return True
 
     def _desynced(self) -> bool:
         """The messenger's desync verdict, the same on every rank (one small
@@ -458,7 +487,9 @@ class DiLoCoOptimizer:
         helper (a profiler records this thread); returns (work's result,
         seconds until both ended)."""
         t0 = time.monotonic()
-        if self.backend is None:  # a follower has no peer view: no wait
+        # a follower has no peer view; gossip has no group to wait for (the
+        # pair push-pull bounds how long a worker waits on its partner)
+        if self.backend is None or self.cfg.outer_mode == "gossip":
             return work(), time.monotonic() - t0
         waited: list = []
 
@@ -743,6 +774,9 @@ class DiLoCoOptimizer:
         if self._ef is not None:
             # abandoned rounds never commit; the live residual stays
             self._ef.abort_all()
+        if self._gossip is not None:
+            # the same per partner: staged pair rounds go, residuals stay
+            self._gossip.abort_all()
 
     def flush(self, state: dict) -> dict:
         """Land every round in flight, waiting for each (before a
@@ -805,19 +839,47 @@ class DiLoCoOptimizer:
                 self._ef.prepare("main", frag if frag is not None else range(len(pseudo_grad)), pseudo_grad)
         del boundary
         t2 = time.monotonic()
-        averaged, group_size, allreduce_s = self._all_reduce_round(pseudo_grad)
+        gossip = self.cfg.outer_mode == "gossip"
+        dropped = False
+        if gossip:
+            # NoLoCo: mix (master, momentum) with one partner over the pair
+            # push-pull, then the unchanged Nesterov rule on the mixed state
+            # with the pair-averaged pseudo-gradient (step_mixed_indices)
+            idxs = frag if frag is not None else list(range(len(self.master)))
+            g_bufs = None
+            if self.cfg.outer_momentum != 0.0:
+                oo = self.outer_opt
+                # zeros before momentum arms: both sides' sections line up
+                g_bufs = [np.zeros_like(self.master[i]) if oo.bufs is None else oo.bufs[i] for i in idxs]
+            mix_m, mix_b, averaged, group_size, live_peers = self._gossip_round(
+                [self.master[i] for i in idxs], g_bufs, pseudo_grad, idxs=idxs, frag_id=self._frag_id(),
+                epoch=self.epoch)
+            dropped = group_size == 0
+            # a pair says nothing of the swarm: peer-drop detection runs on
+            # the live-peer count
+            self._check_group_size(live_peers)
+            allreduce_s = time.monotonic() - t2
+            log.info("outer step %d: gossip exchange over %d peers took %.3fs", self.epoch, group_size,
+                     allreduce_s)
+        else:
+            averaged, group_size, allreduce_s = self._all_reduce_round(pseudo_grad)
         t3 = time.monotonic()
         # clone-then-rebind: published master and momentum arrays stay
-        # bit-stable for a concurrent state fetch
-        with span("outer.nesterov"):
-            new_master = [m.copy() for m in self.master]
-            new_opt = self.outer_opt.clone()
-            if frag is not None:
-                new_opt.step_indices(new_master, averaged, frag)
-            else:
-                new_opt.step(new_master, averaged)
-        self.master = new_master
-        self.outer_opt = new_opt
+        # bit-stable for a concurrent state fetch. A dropped pair round is a
+        # non-event: master, momentum and residual stay, and the params keep
+        # their local progress (the next pseudo-gradient re-captures it)
+        if not dropped:
+            with span("outer.nesterov"):
+                new_master = [m.copy() for m in self.master]
+                new_opt = self.outer_opt.clone()
+                if gossip:
+                    new_opt.step_mixed_indices(new_master, mix_m, mix_b, averaged, idxs)
+                elif frag is not None:
+                    new_opt.step_indices(new_master, averaged, frag)
+                else:
+                    new_opt.step(new_master, averaged)
+            self.master = new_master
+            self.outer_opt = new_opt
         if self._is_state_avg_epoch():
             # periodic full-state averaging (hivemind average_state_every)
             averaged_state, n = self._wan_all_reduce(self.master, tag="state")
@@ -826,10 +888,11 @@ class DiLoCoOptimizer:
             self.master = [np.array(a, dtype=np.float32) for a in averaged_state]
             log.info("averaged full state over %d peers at epoch %d", n, self.epoch)
         t4 = time.monotonic()
-        with span("outer.h2d"):
-            # streaming: only the synced fragment resets to the master, the
-            # other leaves keep their local progress
-            state = self._write_master_to_device(state, frag)
+        if not dropped:
+            with span("outer.h2d"):
+                # streaming: only the synced fragment resets to the master,
+                # the other leaves keep their local progress
+                state = self._write_master_to_device(state, frag)
         t5 = time.monotonic()
         with self._serve_lock:
             self.epoch += 1
@@ -837,6 +900,52 @@ class DiLoCoOptimizer:
             self.samples_in_epoch = 0
             self._blocking_snap = None
         return state, self._round_metrics(t0, wait_s, d2h_s, t2 - t1, allreduce_s, t4 - t3, t5 - t4, group_size)
+
+    def _frag_id(self) -> int:
+        """The fragment a blocking boundary syncs (0 without fragments).
+        Under async gossip two workers meet on a fragment only when their
+        epoch distance is a multiple of the fragment count; streaming x
+        overlap syncs every fragment each epoch and matches at any
+        distance."""
+        return self.epoch % len(self._fragments) if self._fragments is not None else 0
+
+    def _gossip_round(self, masters: list, bufs: Optional[list], pgs: list, *, idxs, frag_id: int,
+                      epoch: int) -> tuple:
+        """One NoLoCo pair round through the gossip plane, fanned out from
+        the messenger as ``_wan_all_reduce``. Returns ``(mix_m, mix_b,
+        avg_g, pair_n, live_peers)``; ``pair_n`` 0 when the round dropped
+        (the mix arrays None then)."""
+        k = len(masters)
+
+        def exchange():
+            res = self._gossip.exchange(epoch=epoch, frag_id=frag_id, idxs=idxs, masters=masters, bufs=bufs,
+                                        pgs=pgs, timeout=self.cfg.averaging_timeout)
+            return res, self.backend.num_peers()
+
+        if self.world.process_count == 1:
+            res, live = exchange()
+            if res is None:
+                return None, None, None, 0, live
+            mix_m, mix_b, avg_g, _partner, n = res
+            return mix_m, mix_b, avg_g, n, live
+        # momentum is armed the same on every process: followers' templates
+        # follow from the config
+        has_b = bufs is not None
+
+        def produce():
+            res, live = exchange()
+            if res is None:
+                # a dropped round fans the inputs out (right shapes); n 0
+                # tells every process to ignore them
+                return masters + (bufs or []) + pgs, {"n": 0, "live": live}
+            mix_m, mix_b, avg_g, _partner, n = res
+            return mix_m + (mix_b or []) + avg_g, {"n": n, "live": live}
+
+        arrays, meta = self._messenger_fanout(produce, [a.shape for a in masters + (bufs or []) + pgs])
+        n, live = int(meta["n"]), int(meta["live"])
+        if n == 0:
+            return None, None, None, 0, live
+        return arrays[:k], arrays[k:2 * k] if has_b else None, arrays[-k:], n, live
 
     def _all_reduce_round(self, pseudo_grad: list) -> tuple[list, int, float]:
         """The round's all-reduce with error feedback's commit or abort
@@ -905,6 +1014,9 @@ class DiLoCoOptimizer:
 
         # the pseudo-gradient and its D2H overlap the straggler wait
         (pseudo_grad, pg_secs, fetch_s), wait_s = self._wait_beside(fetch)
+        if self.cfg.outer_mode == "gossip":
+            return self._outer_step_device_gossip(state, leaves, frag, pseudo_grad, t0=t0, wait_s=wait_s,
+                                                  fetch_s=fetch_s, pg_secs=pg_secs)
         t1 = time.monotonic()
         if self._ef is not None:
             # the plane added the residual; stage the round trip error
@@ -942,6 +1054,45 @@ class DiLoCoOptimizer:
         # and Nesterov rows split the apply
         return state, self._round_metrics(t0, wait_s, fetch_s - pg_secs["pseudo_grad_s"], pg_secs["pseudo_grad_s"],
                                           allreduce_s, secs["nesterov_s"], secs["h2d_s"], group_size)
+
+    def _outer_step_device_gossip(self, state: dict, leaves: list, frag: Optional[list[int]], pseudo_grad: list,
+                                  *, t0: float, wait_s: float, fetch_s: float, pg_secs: dict) -> tuple[dict, dict]:
+        """The gossip tail of the blocking device-placement round: the pair
+        mix and the NoLoCo step run on host f32 copies of this boundary's
+        fragment (the pair wire is encoded on the host either way), and the
+        result lands through :meth:`DeviceOuterPlane.gossip_land`, which
+        also writes params <- master for the fragment."""
+        plane = self._plane
+        idxs = frag if frag is not None else list(range(len(leaves)))
+        masters_np, bufs_np = plane.host_frag(frag)
+        if self.cfg.outer_momentum != 0.0 and bufs_np is None:
+            bufs_np = [np.zeros_like(m) for m in masters_np]  # the wire's shapes are static
+        t1 = time.monotonic()
+        mix_m, mix_b, avg_g, group_size, live_peers = self._gossip_round(
+            masters_np, bufs_np, pseudo_grad, idxs=idxs, frag_id=self._frag_id(), epoch=self.epoch)
+        dropped = group_size == 0
+        self._check_group_size(live_peers)
+        allreduce_s = time.monotonic() - t1
+        log.info("outer step %d: gossip exchange over %d peers took %.3fs", self.epoch, group_size, allreduce_s)
+        if self._is_state_avg_epoch() and not dropped:
+            # pair mixing averages the masters every round; the full-state
+            # leg would need the global collective gossip removes
+            log.debug("average_state_every is redundant under gossip (masters mix every pair round); skipping")
+        t2 = time.monotonic()
+        with plane.lock:
+            if not dropped:
+                # a dropped round is a non-event: master, momentum and
+                # residual stay, the params keep their local progress
+                new_m, new_b = noloco_step(mix_m, mix_b, avg_g, lr=self.cfg.outer_lr,
+                                           momentum=self.cfg.outer_momentum, nesterov=self.cfg.outer_nesterov)
+                plane.gossip_land(frag, new_m, new_b, sync=leaves)
+            with self._serve_lock:
+                self.epoch += 1
+                self.local_step = 0
+                self.samples_in_epoch = 0
+                self._blocking_snap = None
+        return state, self._round_metrics(t0, wait_s, fetch_s - pg_secs["pseudo_grad_s"], pg_secs["pseudo_grad_s"],
+                                          allreduce_s, time.monotonic() - t2, 0.0, group_size)
 
     def _round_health_metrics(self) -> dict:
         health = getattr(self.backend, "last_round_health", None) or {}
@@ -993,6 +1144,10 @@ class DiLoCoOptimizer:
         sd.update(epoch=self.epoch, local_step=self.local_step, samples_in_epoch=self.samples_in_epoch)
         if self._ef is not None:
             sd["ef_residual"] = ef
+        if self._gossip is not None:
+            # the per-partner residuals: the compression debt owed to each
+            # pair link outlives the checkpoint
+            sd["gossip_ef"] = self._gossip.host_state()
         return sd
 
     def load_state_dict(self, sd: dict) -> None:
@@ -1018,3 +1173,5 @@ class DiLoCoOptimizer:
                 self.epoch = int(sd["epoch"])
                 self.local_step = int(sd["local_step"])
                 self.samples_in_epoch = int(sd.get("samples_in_epoch", self.local_step * self.batch_size))
+        if self._gossip is not None:
+            self._gossip.load(sd.get("gossip_ef"))

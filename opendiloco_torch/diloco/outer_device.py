@@ -480,6 +480,39 @@ class DeviceOuterPlane:
             b = self.fetch(self._sel(self.bufs, frag)) if self.bufs is not None else None
         return m, b
 
+    def gossip_land(self, frag: Optional[list[int]], masters_np: Sequence[np.ndarray],
+                    bufs_np: Optional[Sequence[np.ndarray]], *, sync: Optional[Sequence[torch.Tensor]] = None,
+                    base: Optional[list[torch.Tensor]] = None) -> Optional[list[torch.Tensor]]:
+        """Adopt a NoLoCo-stepped fragment (host numpy from ``noloco_step``):
+        copy the new masters and momentum to the device and rebind the
+        fragment's entries. The blocking path passes ``sync`` (the live
+        param leaves, all of them) and the fragment's params become copies
+        of the new masters; streaming passes ``base`` (the launch's
+        retained estimate or boundary copy) and gets the device delta
+        ``new - base`` back, in ``base``'s buffers. The landing is ordered
+        after the plane's earlier writes (the trainer's stream), and a
+        later host copy waits for it (:meth:`fetch`)."""
+        idxs = list(range(len(self.masters))) if frag is None else list(frag)
+        with self.lock, self._run():
+            new_m = [self._h2d(m) for m in masters_np]
+            masters = list(self.masters)
+            for j, i in enumerate(idxs):
+                masters[i] = new_m[j]
+            self.masters = masters
+            if self._has_mom and bufs_np is not None:
+                self._ensure_bufs()
+                bufs = list(self.bufs)
+                for j, i in enumerate(idxs):
+                    bufs[i] = self._h2d(bufs_np[j])
+                self.bufs = bufs
+            out = None
+            if sync is not None:
+                _overwrite_fused(new_m, self._sel(sync, frag))
+            elif base is not None:
+                out = _sub_fused(new_m, base)
+            self._mark()
+            return out
+
     def set_ef_residuals(self, idxs: Sequence[int], host_errs: list[np.ndarray]) -> None:
         """ErrorFeedback's commit: the round's round trip errors become the
         live residuals of ``idxs``."""

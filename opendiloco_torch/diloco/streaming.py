@@ -2,7 +2,7 @@
 phase.
 
 The port's copy of ``opendiloco_tpu/diloco/streaming.py``
-``launch_schedule`` and ``StreamScheduler`` (the gossip rounds are A12b).
+``launch_schedule`` and ``StreamScheduler``.
 With ``streaming_fragments=N`` and ``overlap_comm`` on, every fragment
 syncs every epoch: fragment k's all-reduce opens after inner step
 ``min(H, int(k*stagger*H/N)+1)`` and lands when the swarm completes it,
@@ -27,6 +27,12 @@ While rounds fly the master is fragment-mixed, each fragment at its own
 landing. A round that fails is dropped with a warning: the eager estimate
 stays applied and the fragment's next pseudo-gradient re-captures it.
 
+Under gossip the comm thread carries the fragment's (master, momentum)
+beside its pseudo-gradient into a pair round and runs the NoLoCo step
+itself (``noloco_step``); the landing adopts the new master and momentum
+and applies ``new - est`` (eager) or ``new - boundary`` (delayed) to the
+fragment's params.
+
 The schedule is a pure function of (local_steps, fragments, stagger) and
 the partition of the shared leaf sizes, so every peer opens round
 ``frag{k}-epoch-{e}`` with the same shapes and no coordination. On the
@@ -43,7 +49,8 @@ from typing import Any, Optional
 
 import numpy as np
 
-from opendiloco_torch.diloco.outer_optimizer import OuterSGD
+from opendiloco_torch.diloco.backend import AllReduceError
+from opendiloco_torch.diloco.outer_optimizer import OuterSGD, noloco_step
 from opendiloco_torch.models.llama import flatten_params
 from opendiloco_torch.utils.logger import get_text_logger
 
@@ -158,6 +165,13 @@ class StreamScheduler:
             wire, delta, retained, ready = opt._plane.stream_launch(leaves, frag, eager=eager)
             rec["placement"] = "device"
             rec["retained"] = retained
+            if opt._gossip is not None:
+                # the pair round carries (master, momentum) beside the pg:
+                # the launch never rebinds and a gossip landing rebinds, so
+                # these refs stay this fragment's pre-round values
+                with opt._plane.lock:
+                    rec["m_refs"] = opt._plane._sel(opt._plane.masters, frag)
+                    rec["b_refs"] = opt._plane._sel(opt._plane.bufs, frag) if opt._plane.bufs is not None else None
             if eager:
                 state = opt._apply_frag_delta(state, frag, delta)
             fut = self._spawn(k, epoch, wire=wire, ready=ready, rec=rec)
@@ -171,8 +185,13 @@ class StreamScheduler:
                 # below; the round trip error stages until this round lands
                 opt._ef.prepare(rec["round"], frag, pg)
             rec["placement"] = "host"
+            oo = opt.outer_opt
+            if opt._gossip is not None:
+                # the master and momentum are only ever rebound: these refs
+                # stay the pre-round values for the comm thread
+                rec["m_refs"] = [opt.master[i] for i in frag]
+                rec["b_refs"] = None if oo.bufs is None else [oo.bufs[i] for i in frag]
             if eager:
-                oo = opt.outer_opt
                 est_opt = OuterSGD(lr=oo.lr, momentum=oo.momentum, nesterov=oo.nesterov)
                 est_opt.bufs = None if oo.bufs is None else [oo.bufs[i].copy() for i in frag]
                 est_m = [opt.master[i].copy() for i in frag]
@@ -207,6 +226,9 @@ class StreamScheduler:
                               for x in opt._plane.fetch(wire, after=ready)]
                     if opt._ef is not None:
                         opt._ef.prepare(rec["round"], rec["frag"], arrays)
+                if opt._gossip is not None:
+                    fut.set_result(self._gossip_round(k, epoch, arrays, rec, ready))
+                    return
                 avg, n = opt.backend.all_reduce(arrays, timeout=opt.cfg.averaging_timeout, tag=f"frag{k}",
                                                 epoch=epoch)
                 fut.set_result(([np.array(a, np.float32) for a in avg], n))
@@ -215,6 +237,32 @@ class StreamScheduler:
 
         threading.Thread(target=_run, name=f"diloco-stream-frag{k}", daemon=True).start()
         return fut
+
+    def _gossip_round(self, k: int, epoch: int, pgs: list, rec: dict, ready) -> tuple:
+        """The comm thread's pair round for fragment k: host copies of the
+        retained refs, the exchange, and the NoLoCo step. Returns ((new
+        masters, new momentum), pair size); a dropped round raises (its
+        per-partner residual was kept by the exchange). Lockstep pairs on
+        the (epoch, fragment) key; async matches any in-window partner on
+        fragment k, and a patience miss lands as a self-round."""
+        opt = self.opt
+        m_refs, b_refs = rec["m_refs"], rec["b_refs"]
+        if rec["placement"] == "device":
+            m_np = opt._plane.fetch(m_refs, after=ready)
+            b_np = None if b_refs is None else opt._plane.fetch(b_refs, after=ready)
+        else:
+            m_np = [np.array(x, np.float32) for x in m_refs]
+            b_np = None if b_refs is None else [np.array(x, np.float32) for x in b_refs]
+        if b_np is None and opt.cfg.outer_momentum != 0.0:
+            b_np = [np.zeros_like(m) for m in m_np]
+        res = opt._gossip.exchange(epoch=epoch, frag_id=k, idxs=rec["frag"], masters=m_np, bufs=b_np, pgs=pgs,
+                                   timeout=opt.cfg.averaging_timeout)
+        if res is None:
+            raise AllReduceError(f"gossip pair round dropped (frag {k} epoch {epoch})")
+        mix_m, mix_b, avg_g, _partner, n = res
+        new = noloco_step(mix_m, mix_b, avg_g, lr=opt.cfg.outer_lr, momentum=opt.cfg.outer_momentum,
+                          nesterov=opt.cfg.outer_nesterov)
+        return new, n
 
     # -- land --------------------------------------------------------------
 
@@ -230,38 +278,37 @@ class StreamScheduler:
             if opt._ef is not None:
                 opt._ef.abort(rec["round"])
             return state
-        opt._check_group_size(group)
+        if opt._gossip is None:
+            opt._check_group_size(group)
         if opt._ef is not None:
             opt._ef.commit(rec["round"])
         frag = rec["frag"]
+        # under gossip the comm thread ran the NoLoCo step: ``avg`` is the
+        # fragment's new (master, momentum), landed like an all-reduce's
+        # true step against the retained estimate or boundary
         if rec["placement"] == "device":
-            if rec["eager"]:
+            if opt._gossip is not None:
+                delta = opt._plane.gossip_land(frag, *avg, base=rec["retained"])
+            elif rec["eager"]:
                 delta = opt._plane.stream_land(frag, avg, est_m=rec["retained"])
             else:
                 delta = opt._plane.stream_land(frag, avg, boundary=rec["retained"])
             state = opt._apply_frag_delta(state, frag, delta)
         else:
-            # the true fragment step on copies of the live (pre-round for
-            # this fragment) master and momentum, then a rebind
-            oo = opt.outer_opt
-            true_opt = OuterSGD(lr=oo.lr, momentum=oo.momentum, nesterov=oo.nesterov)
-            true_opt.bufs = None if oo.bufs is None else [oo.bufs[i].copy() for i in frag]
-            true_m = [opt.master[i].copy() for i in frag]
-            true_opt.step(true_m, avg)
+            if opt._gossip is not None:
+                true_m, true_b = avg
+            else:
+                # the true fragment step on copies of the live (pre-round for
+                # this fragment) master and momentum
+                oo = opt.outer_opt
+                true_opt = OuterSGD(lr=oo.lr, momentum=oo.momentum, nesterov=oo.nesterov)
+                true_opt.bufs = None if oo.bufs is None else [oo.bufs[i].copy() for i in frag]
+                true_m = [opt.master[i].copy() for i in frag]
+                true_opt.step(true_m, avg)
+                true_b = true_opt.bufs
             base = rec["est_m"] if rec["eager"] else rec["boundary"]
             state = opt._apply_frag_delta(state, frag, [t - b for t, b in zip(true_m, base)])
-            new_master = list(opt.master)
-            for j, i in enumerate(frag):
-                new_master[i] = true_m[j]
-            new_opt = OuterSGD(lr=oo.lr, momentum=oo.momentum, nesterov=oo.nesterov)
-            if oo.momentum != 0.0:
-                bufs = [np.zeros_like(p) for p in opt.master] if oo.bufs is None else list(oo.bufs)
-                for j, i in enumerate(frag):
-                    bufs[i] = true_opt.bufs[j]
-                new_opt.bufs = bufs
-            with opt._serve_lock:
-                opt.master = new_master
-                opt.outer_opt = new_opt
+            self._rebind(frag, true_m, true_b)
         landed_s = time.monotonic() - rec["t_launch"]
         lm = opt._landed_metrics or {}
         lm.update({"outer_allreduce_s": landed_s, "num_peers": group, **opt._round_health_metrics()})
@@ -271,3 +318,22 @@ class StreamScheduler:
         log.info("fragment %d (epoch %d): all-reduce over %d peers landed after %.3fs", k, rec["epoch"], group,
                  landed_s)
         return state
+
+    def _rebind(self, frag: list, masters: list, bufs: Optional[list]) -> None:
+        """Publish a fragment's new master and momentum by rebinding, the
+        other leaves' arrays shared (a published array is never written)."""
+        opt = self.opt
+        oo = opt.outer_opt
+        new_master = list(opt.master)
+        for j, i in enumerate(frag):
+            new_master[i] = np.asarray(masters[j], np.float32)
+        new_opt = OuterSGD(lr=oo.lr, momentum=oo.momentum, nesterov=oo.nesterov)
+        if oo.momentum != 0.0:
+            new_bufs = [np.zeros_like(p) for p in opt.master] if oo.bufs is None else list(oo.bufs)
+            if bufs is not None:
+                for j, i in enumerate(frag):
+                    new_bufs[i] = np.asarray(bufs[j], np.float32)
+            new_opt.bufs = new_bufs
+        with opt._serve_lock:
+            opt.master = new_master
+            opt.outer_opt = new_opt

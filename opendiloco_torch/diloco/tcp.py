@@ -23,9 +23,9 @@ The port's copy of ``opendiloco_tpu/diloco/tcp.py``, the wire bytes
 unchanged, so port and JAX workers average in one group. Left out: the
 obs plane's counters, spans, gauges, overseer and request-trace calls
 (ROADMAP.md A17; the ``metrics``, ``health`` and ``reqtrace`` RPCs answer
-as the JAX package does with obs off) and the serving fleet (A13; the
-``fleet`` RPC answers ``{"enabled": False}``). ``close`` also drops the
-round-buffer pool. The per-round stage times
+as the JAX package does with obs off). The ``fleet`` RPC answers
+``fleet.status()``, this process's serving fleet (``{"enabled": False}``
+without one). ``close`` also drops the round-buffer pool. The per-round stage times
 (encode, wire_send, wire_recv, accumulate) are always folded into
 ``last_round_health``. State payloads go through
 :mod:`opendiloco_torch.diloco.state_io`. No torch call runs on the
@@ -668,9 +668,12 @@ class TcpBackend(OuterBackend):
                         writer, "ok", self._async_offer_reply(meta)
                     )
                 elif msg == "fleet":
-                    # serving-fleet roll-up: no fleet runs on a port worker
-                    # yet, which the JAX package answers so
-                    await send_frame(writer, "ok", {"enabled": False})
+                    # the serving fleet's roll-up: publisher, router and
+                    # replicas of this worker's plane ({"enabled": False}
+                    # when no fleet runs here)
+                    from opendiloco_torch import fleet as _fleet
+
+                    await send_frame(writer, "ok", _fleet.status())
                 elif msg == "fetch_state":
                     if self._state_provider is None:
                         await send_frame(writer, "error", {"error": "no state"})

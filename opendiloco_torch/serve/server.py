@@ -16,9 +16,11 @@ A request the server rejects for load ("queue full", "deadline
 exceeded") gets a structured 503 with ``Retry-After`` from the batcher's
 wait estimate. A port in use falls back to an ephemeral one with a
 warning, so a training run is never taken down by a port clash; the
-bound port is ``ServeServer.port``. Request tracing is not ported (the
-JAX package's is off unless its obs plane is on): a ``"trace"`` field in
-a request is ignored.
+bound port is ``ServeServer.port``. ``identity`` (a dict, or a callable
+read at each request) says who the server is, a fleet replica's id and
+staleness for instance, on ``/healthz`` and ``/stats``. Request tracing
+is not ported (the JAX package's is off unless its obs plane is on): a
+``"trace"`` field in a request is ignored.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import select
 import socket
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional, Union
 
 from opendiloco_torch.serve.scheduler import ContinuousBatcher
 
@@ -45,26 +47,34 @@ _OVERLOAD_ERRORS = ("queue full", "deadline exceeded")
 _REQUEST_TIMEOUT_S = 300.0
 
 
-def bind_with_fallback(host: str, port: int, what: str) -> socket.socket:
+def bind_with_fallback(host: str, port: int, what: str, retry_s: float = 0.0) -> socket.socket:
     """Bind (host, port), falling back to an ephemeral port when the
     requested one is taken — a shared-process serving plane must never
-    take down training over a port clash."""
+    take down training over a port clash.
+
+    ``retry_s`` keeps retrying an explicit port, with a bounded backoff,
+    before the fallback: a replica respawned at its old address races its
+    predecessor's listener teardown, and the router and the manager dial
+    the address they know."""
     sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
     sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-    try:
-        sock.bind((host, port))
-    except OSError as e:
-        if port == 0:
-            sock.close()
-            raise
-        log.warning(
-            "%s port %d unavailable (%s); falling back to an ephemeral port",
-            what,
-            port,
-            e,
-        )
-        sock.bind((host, 0))
-    return sock
+    deadline = time.monotonic() + max(0.0, retry_s)
+    pause = 0.05
+    while True:
+        try:
+            sock.bind((host, port))
+            return sock
+        except OSError as e:
+            if port == 0:
+                sock.close()
+                raise
+            if time.monotonic() + pause <= deadline:
+                time.sleep(pause)
+                pause = min(pause * 2, 0.5)
+                continue
+            log.warning("%s port %d unavailable (%s); falling back to an ephemeral port", what, port, e)
+            sock.bind((host, 0))
+            return sock
 
 
 class ServeServer:
@@ -74,10 +84,13 @@ class ServeServer:
         *,
         host: str = "127.0.0.1",
         port: int = 0,
+        identity: Optional[Union[dict, Callable[[], dict]]] = None,
+        bind_retry_s: float = 0.0,
     ):
         self.batcher = batcher
         self.rejected_total = 0  # structured 503 rejects served
-        self._sock = bind_with_fallback(host, port, "serve")
+        self._identity = identity
+        self._sock = bind_with_fallback(host, port, "serve", bind_retry_s)
         self._sock.listen(32)
         self.host = host
         self.port = self._sock.getsockname()[1]
@@ -86,6 +99,12 @@ class ServeServer:
             target=self._accept_loop, name="odt-serve-http", daemon=True
         )
         self._thread.start()
+
+    def identity(self) -> dict:
+        ident = self._identity
+        if ident is None:
+            return {}
+        return dict(ident() if callable(ident) else ident)
 
     # -- accept / dispatch -------------------------------------------------
 
@@ -232,11 +251,15 @@ class ServeServer:
                         if self.batcher.kv_tier is not None
                         else {}
                     ),
+                    **self.identity(),
                 },
             )
         elif method == b"GET" and path.startswith(b"/stats"):
             stats = self.batcher.stats()
             stats["rejected_total"] = self.rejected_total
+            ident = self.identity()
+            if ident:
+                stats["identity"] = ident
             self._respond(conn, 200, stats)
         else:
             self._respond(conn, 404, {"error": "unknown route"})

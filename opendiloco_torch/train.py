@@ -58,10 +58,17 @@ streaming rounds, error feedback. A round in flight lands before each
 checkpoint and at the end of the run (``flush``), and is dropped when the
 run fails (``drop_pending``).
 
+``diloco.outer_mode="gossip"`` runs NoLoCo pair rounds in place of the
+all-reduce, on either backend (``ODTP_GOSSIP_*`` and ``ODTP_ASYNC_*``
+tune them). With ``fleet.enabled`` the worker feeds a serving fleet
+(:func:`~opendiloco_torch.fleet.build_fleet`): replicas, in process or
+as ``python -m opendiloco_torch.fleet.replica`` processes on this
+worker's device, take delta pushes off the masters behind one router on
+``fleet.host``/``fleet.port``.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP.md
-items: gossip rounds (A12b), the serving fleet (A13),
-tp, sp, pp and ep above 1 (A14), a serving plane on a worker of several
-processes (A10) and non-fake data (A9).
+items: tp, sp, pp and ep above 1 (A14), a serving plane on a worker of
+several processes (A10) and non-fake data (A9).
 
 Text log lines carry the worker's rank, per thread (:func:`log_rank`),
 and after it the process's rank when the worker has several.
@@ -114,13 +121,9 @@ def make_backend(cfg: DilocoConfig) -> OuterBackend:
 
 
 def _check_ported(config: Config) -> None:
-    unported = [
-        (config.fleet is not None, "the serving fleet", "A13"),
-        *((getattr(config, f"{axis}_size") > 1, f"{axis}_size > 1", "A14") for axis in ("tp", "sp", "pp", "ep")),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+    for axis in ("tp", "sp", "pp", "ep"):
+        if getattr(config, f"{axis}_size") > 1:
+            raise NotImplementedError(f"{axis}_size > 1 is not ported yet (ROADMAP.md A14)")
 
 
 def _init_process_group(config: Config, device):
@@ -179,7 +182,8 @@ def train(config: Config, backend: Optional[OuterBackend] = None, device: Device
 
 def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: int, process: int,
            nproc: int) -> dict:
-    if nproc > 1 and config.serve is not None and config.serve.enabled:
+    fleet_on = config.fleet is not None and config.fleet.enabled
+    if nproc > 1 and ((config.serve is not None and config.serve.enabled) or fleet_on):
         raise NotImplementedError("a serving plane on a worker of several processes is not ported yet "
                                   "(ROADMAP.md A10)")
     model_cfg, params = hf_io.get_model(config.path_model)
@@ -319,6 +323,17 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
         log.info("serving plane up on %s:%d (%d slots, ctx %d)", config.serve.host, serving.port,
                  config.serve.max_batch, config.serve.max_context)
 
+    # the serving fleet: replicas (processes unless fleet.inprocess) fed by
+    # delta pushes off the masters, behind one router
+    fleet_plane = None
+    if fleet_on:
+        from opendiloco_torch.fleet import build_fleet
+
+        fleet_plane = build_fleet(config.fleet, model_cfg, state["params"], diloco_opt,
+                                  compute_dtype=tc.compute_dtype, device=trainer.device)
+        log.info("serving fleet up: router %s:%d over %d replicas (codec %s)", config.fleet.host, fleet_plane.port,
+                 config.fleet.replicas, config.fleet.codec)
+
     tokens_per_step = config.total_batch_size * config.seq_length
     trace_rank = world_rank if nproc == 1 else f"{world_rank}.{process}"
     summary = {"step": start_step, "loss": float("nan")}
@@ -417,6 +432,10 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
         log.error("a DiLoCo worker dropped and fail_rank_drop is set; exiting")
         raise
     finally:
+        if fleet_plane is not None:
+            # the pushers read master snapshots through diloco_opt: stop
+            # them, and the replicas, before the backend goes away
+            fleet_plane.stop()
         if serving is not None:
             # before the backend goes away: the batcher may be mid-swap,
             # pulling a master snapshot through diloco_opt

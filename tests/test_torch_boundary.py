@@ -112,7 +112,8 @@ def test_port_imports_with_jax_blocked():
                 "utils.logger", "utils.debug", "ckpt", "diloco.state_io", "utils.safetensors_io",
                 "native", "diloco.compression", "serve.server", "diloco.tcp", "diloco.bulk",
                 "diloco.rendezvous", "diloco.wire", "diloco.schema", "diloco.chaos", "diloco.linkstate",
-                "diloco.planner"):
+                "diloco.planner", "diloco.gossip", "fleet", "fleet.wire", "fleet.publisher", "fleet.router",
+                "fleet.autoscaler", "fleet.replica"):
         assert f"opendiloco_torch.{mod}" in names, mod
 
 

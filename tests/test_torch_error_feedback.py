@@ -119,13 +119,13 @@ def test_config_rejects_unsupported_ef_combos(tiny_cfg, init_params):
     DilocoConfig(local_steps=3, backend="loopback", compression="blockwise4bit", error_feedback=True)
     with pytest.raises(ValueError):
         DilocoConfig(local_steps=3, backend="loopback", compression="none", error_feedback=True)
-    # gossip's per-partner residuals come with gossip rounds (A12)
+    # gossip keeps its residuals per partner, in the gossip plane
     trainer = port_trainer(tiny_cfg)
     state = trainer.init_state(params=init_params)
     cfg = DilocoConfig(local_steps=3, backend="loopback", compression="blockwise4bit", error_feedback=True,
                        outer_mode="gossip")
-    with pytest.raises(NotImplementedError, match="A12"):
-        DiLoCoOptimizer(trainer, LoopbackWorld(1).make_backends()[0], cfg, state, 8)
+    opt = DiLoCoOptimizer(trainer, LoopbackWorld(1).make_backends()[0], cfg, state, 8)
+    assert opt._ef is None and opt._gossip.error_feedback and opt._gossip.codec.name == "blockwise4bit"
 
 
 # ---------------------------------------------------------------------------

@@ -137,8 +137,14 @@ def test_explicit_device_resolves_device(tiny_cfg, init_params):
 
 
 def test_gossip_still_raises(tiny_cfg, init_params):
-    with pytest.raises(NotImplementedError, match="A12"):
-        _make_opt(tiny_cfg, init_params, outer_placement="device", outer_mode="gossip")
+    """Gossip on the device plane was not ported before; now it builds: the
+    plane holds master and momentum, and error feedback goes to the gossip
+    plane's per-partner ledgers (the device plane keeps none).
+    tests/test_torch_gossip.py holds its rounds to host placement."""
+    _, _, opt = _make_opt(tiny_cfg, init_params, outer_placement="device", outer_mode="gossip",
+                          compression="blockwise4bit", error_feedback=True)
+    assert opt._plane is not None and opt._gossip is not None
+    assert opt._plane.error_feedback is False and opt._ef is None and opt._gossip.error_feedback
 
 
 # ---------------------------------------------------------------------------

@@ -480,7 +480,6 @@ def test_train_without_diloco_with_eval_and_probes(tmp_path):
     "overrides",
     [
         dict(attn_implementation="ring"),
-        dict(fleet=dict(replicas=2)),
         dict(remat="dots"),
         dict(remat="dots_all"),
         dict(tp_size=2),
@@ -490,7 +489,6 @@ def test_train_without_diloco_with_eval_and_probes(tmp_path):
         dict(fake_data=False),
         dict(metric_logger_type="wandb"),
         dict(path_model="2m_4e"),
-        dict(diloco=dict(backend="loopback", outer_mode="gossip")),
     ],
     ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()),
 )
@@ -512,23 +510,27 @@ def test_unported_options_raise(tmp_path, overrides):
         dict(multihost=True),
         dict(sharding_strategy="FULL_SHARD"),
         dict(diloco=dict(backend="tcp", local_steps=2)),
+        dict(diloco=dict(backend="loopback", local_steps=2, outer_mode="gossip")),
+        dict(fleet=dict(replicas=2)),
     ],
     ids=["serve=enabled", "compression=fp16", "outer_placement=device", "overlap_comm=eager",
          "streaming_fragments=2", "error_feedback", "multihost=True", "sharding_strategy=FULL_SHARD",
-         "backend=tcp"],
+         "backend=tcp", "outer_mode=gossip", "fleet=disabled"],
 )
 def test_formerly_unported_options_run(tmp_path, overrides):
     """The serving plane of a run, outer compression, the device outer
     plane, overlapped and streaming rounds, error feedback, a multihost
-    worker, the sharding strategies and the TCP backend are ported:
-    train() takes them (tests/test_torch_hot_swap.py holds the first two
-    against the JAX package; test_torch_outer_device.py,
-    test_torch_overlap.py, test_torch_streaming.py,
-    test_torch_error_feedback.py, test_torch_parallel.py,
-    test_torch_sharded_train.py and test_torch_tcp*.py the rest). Here at
-    one process: a multihost worker of one joins a gloo group of one, and
-    a TCP worker with no backend handed in joins a galaxy of one at the
-    port's rendezvous daemon."""
+    worker, the sharding strategies, the TCP backend, gossip rounds and
+    the fleet section are ported: train() takes them
+    (tests/test_torch_hot_swap.py holds the first two against the JAX
+    package; test_torch_outer_device.py, test_torch_overlap.py,
+    test_torch_streaming.py, test_torch_error_feedback.py,
+    test_torch_parallel.py, test_torch_sharded_train.py,
+    test_torch_tcp*.py, test_torch_gossip*.py and test_torch_fleet.py the
+    rest). Here at one process: a multihost worker of one joins a gloo
+    group of one, a TCP worker with no backend handed in joins a galaxy of
+    one at the port's rendezvous daemon, a lone gossip worker self-rounds,
+    and a fleet section that is not enabled builds no fleet."""
     from opendiloco_torch.diloco.rendezvous import RendezvousServer
 
     if overrides.get("multihost"):
