@@ -4,7 +4,7 @@ decode, prefix reuse, the host KV tier, training, checkpoint and resume,
 training that serves over HTTP with weight hot swap, the command line,
 the outer plane on the card (overlapped and streaming rounds, error
 feedback), sharding, a galaxy of two workers over TCP, NoLoCo gossip
-rounds and the serving fleet.
+rounds, the serving fleet, routed experts and ring attention.
 
     python3 chip_smoke.py
 
@@ -102,11 +102,13 @@ exits non-zero.
    autograd), cuBLAS ``dlog @ w.T`` beside dh and ``h.T @ dlog`` plus the
    f32 add beside dw; B3, dlog, dh and dw on both routes in turns; the
    bounds.
-10. Training at config_1b, full width and depth, as phase 8 (4 steps,
+10. Training at config_1b's full width and 17 of its 22 layers (the
+   smoke's time limit; more than 16, so the stack stays looped), as phase
+   8 (4 steps,
    local_steps 2: 2 outer rounds), with ``fused_loss`` left at its
    default, which resolves on. Per inner step and worker the sm90 B1 must
-   have run 2 x 22 x accum times, the sm90 B2a and B2b and the delta
-   kernel 22 x accum, the sm90 B3 accum, and the sm90 dlog, B4a and B4b
+   have run 2 x L x accum times, the sm90 B2a and B2b and the delta
+   kernel L x accum (L = 17), the sm90 B3 accum, and the sm90 dlog, B4a and B4b
    accum x 4 (a backward walks 8184 rows in chunks of 2048), the first
    design's B3, dlog, B4a and B4b never. Then one inner step with the
    fused loss against one with ``fused_loss=False`` on the same params
@@ -200,7 +202,8 @@ exits non-zero.
    s by part and the card's peak memory across each swap; launches as in
    phases 4 and 5.
 21. The outer plane on the card, host against device placement: phase
-   8's config_150m (two workers, mb 8, accum 2, seq 1024, 4 steps,
+   8's config_150m at 2 of its 12 layers (the smoke's time limit) (two
+   workers, mb 8, accum 2, seq 1024, 4 steps,
    ``local_steps`` 2: two rounds, the second with the momentum armed)
    through ``InnerTrainer`` and ``DiLoCoOptimizer``, in four cases:
    blocking; ``overlap_comm`` "eager"; "delayed" (each round drained
@@ -228,7 +231,8 @@ exits non-zero.
    prefill's, and in f32 the host-prefix admit's logits against a cold
    admit's (1e-3).
 23. Sharded 150m (after phase 21): a one-worker loopback galaxy runs
-   ``train()`` at config_150m full width and depth (mb 8, accum 2, seq
+   ``train()`` at config_150m's widths and 2 of its 12 layers (the
+   smoke's time limit) (mb 8, accum 2, seq
    1024, bf16, remat, ``attn_implementation="pallas"``,
    ``fused_loss=True``, 8 steps, ``local_steps`` 4, ``outer_placement``
    "device") without a process group, then in a world-1 NCCL group (a ``file://`` store in a
@@ -289,9 +293,33 @@ exits non-zero.
    one replica is SIGKILLed under them and every request answers. Time
    to the first ready replica, keyframe and delta push bytes, TTFT and
    tokens/s through the router, redispatches.
-27. The kernels line (launches of B6, B7, their merges and B8 by serving
-   phase, of the training kernels by training phase), the card line, and
-   last the result line.
+27. Routed experts: two loopback workers run ``train()`` at
+   config_150m_8e's full width and depth (12 layers, 8 experts of ffn
+   2688: 0.91 B params; mb 8, accum 2, seq 1024, bf16, remat, 3 steps,
+   one outer round on the device plane) with attention and loss left to
+   resolve, which on the card is the kernels and the fused loss: per inner
+   step and worker the sm90 B1 2 x 12 x accum, B2a, B2b and the delta
+   kernel 12 x accum, the sm90 B3 accum and its dlog, B4a and B4b accum x
+   4. Then the same run through plain attention and the materialized
+   loss (no launch): each step's loss and grad norm within phase 8's bf16
+   tolerance, the masters within the displacement bound of one round
+   (``phase_moe``). Launches per inner step, ms a step, peak memory, and
+   the tokens each layer's capacity drops on the first micro-batch.
+28. Ring attention (B5): the flash-chunk ring in one process over a
+   loopback ring of 4 ranks (threads) at T 4096 (chunks of 1024), bf16,
+   B 2, at config_150m's heads (16 x 64) and config_1b's (32 over 4 x 64):
+   out, lse, dq, dk and dv against B1, delta, B2a and B2b over the whole
+   causal sequence and against the plain (einsum) ring; B2a and B2b's f32
+   outputs from bf16 operands without the causal mask against their plain
+   versions; launches 10 of B1, B2a and B2b each and 4 deltas (rank r: 1
+   causal + r full chunks, each way); the ring's forward and backward ms
+   (all ranks on one card) against one flash call over T 4096. Then
+   ``train()`` at config_150m's widths and 2 of its layers with
+   ``attn_implementation="ring"`` at sp 1 and with ``"pallas"``: losses,
+   grad norms, launches and master hashes bit for bit.
+29. The kernels line (launches of B6, B7, their merges and B8 by serving
+   phase, of the training kernels by training phase), each phase's
+   seconds and the smoke's, the card line, and last the result line.
 
 Device times come from CUDA-graph replays of many launches that cycle
 through enough copies of the inputs to exceed the 50 MB L2 cache, as the
@@ -2332,10 +2360,11 @@ def recording_backends(world) -> list:
 
 
 def train_config(model: str, run: dict, rank: int, project: str, ckpt: dict, serve: dict | None = None,
-                 diloco: dict | None = None, fleet: dict | None = None):
-    """The ``Config`` of worker ``rank`` of phases 8, 8b, 10, 19, 24, 25
-    and 26 (``diloco``: more DiLoCo options, phase 10's device placement,
-    phase 24's TCP backend, phase 25's gossip; ``fleet``: phase 26's)."""
+                 diloco: dict | None = None, fleet: dict | None = None, **extra):
+    """The ``Config`` of worker ``rank`` of phases 8, 8b, 10, 19, 24-28
+    (``diloco``: more DiLoCo options, phase 10's device placement, phase
+    24's TCP backend, phase 25's gossip; ``fleet``: phase 26's; ``extra``:
+    more ``Config`` fields, phases 27 and 28's attention and loss)."""
     from opendiloco_torch.config import Config
 
     return Config(
@@ -2348,6 +2377,7 @@ def train_config(model: str, run: dict, rank: int, project: str, ckpt: dict, ser
                        timeout_waiting_for_peers=600.0), **(diloco or {})},
         serve=serve,
         fleet=fleet,
+        **extra,
     )
 
 
@@ -2380,6 +2410,7 @@ def run_workers(fn, args_by_worker: list) -> list:
 # 4.4 GB of f32 per worker); warmup 1 so that 3 of the 4 steps update
 TRAIN_1B = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=1,
                 total_steps=4, local_steps=2, lr=1e-3)
+TRAIN_1B_LAYERS = 17  # of config_1b's 22 (phases 10 and 24: the smoke's time limit)
 
 
 OUTER_KEYS = ("outer_step_s", "outer_wait_s", "outer_d2h_s", "outer_pseudo_grad_s", "outer_allreduce_s",
@@ -3368,9 +3399,13 @@ def phase_outer_plane(torch, tfa, dev, card: str) -> dict:
     and serving snapshot bytes, and the launch counts (those of
     :func:`training_launches`). Under error feedback the residuals are
     non-zero."""
+    import dataclasses
+
     from opendiloco_torch.models.hf_io import load_config
 
-    cfg, run = load_config("150m"), OUTER_150M
+    # 150m's widths at CUT_LAYERS of its 12 layers: the smoke's time limit
+    # (at full depth the phase took 167.7 s of a 993.6 s smoke on an H100)
+    cfg, run = dataclasses.replace(load_config("150m"), num_hidden_layers=CUT_LAYERS), OUTER_150M
     out = {}
     for name, case in OUTER_CASES.items():
         runs = {pl: outer_run(torch, tfa, dev, cfg, run, pl, case) for pl in ("host", "device")}
@@ -3411,8 +3446,8 @@ SHARDED_CLI = ["--path-model", "2m", "--fake-data", "--fake-data-mode", "ramp", 
                "--sharding-strategy", "FULL_SHARD"]
 
 
-def sharded_run(torch, tfa, dev, tmp: str, strategy: str | None) -> dict:
-    """``train()`` of one loopback worker at SHARDED_150M, under
+def sharded_run(torch, tfa, dev, tmp: str, strategy: str | None, model: str) -> dict:
+    """``train()`` of one loopback worker at SHARDED_150M on ``model``, under
     ``strategy`` in the caller's process group (None: NO_SHARD with no
     group); the launch counters zeroed just before and read just after."""
     import os
@@ -3426,7 +3461,7 @@ def sharded_run(torch, tfa, dev, tmp: str, strategy: str | None) -> dict:
     label = strategy or "no group"
     project = os.path.join(tmp, f"{label.replace(' ', '-')}.pkl")
     config = Config(
-        path_model="150m", fake_data=True, fake_data_mode="ramp", precision="bf16-mixed", remat=True,
+        path_model=model, fake_data=True, fake_data_mode="ramp", precision="bf16-mixed", remat=True,
         attn_implementation="pallas", fused_loss=True, seq_length=run["seq_length"],
         per_device_train_batch_size=run["per_device_train_batch_size"], total_batch_size=run["total_batch_size"],
         warmup_steps=run["warmup_steps"], total_steps=run["total_steps"], lr=run["lr"], metric_logger_type="dummy",
@@ -3507,15 +3542,17 @@ def phase_sharded(torch, tfa, dev, card: str) -> dict:
 
     from opendiloco_torch.models.hf_io import load_config
 
-    cfg, run = load_config("150m"), SHARDED_150M
+    run = SHARDED_150M
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp()
+    model = cut_depth("150m", CUT_LAYERS, tmp)  # the smoke's time limit
+    cfg = load_config(model)
     try:
-        runs = {"no group": sharded_run(torch, tfa, dev, tmp, None)}
+        runs = {"no group": sharded_run(torch, tfa, dev, tmp, None, model)}
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
         try:
             for strategy in SHARDED_STRATEGIES:
-                runs[strategy] = sharded_run(torch, tfa, dev, tmp, strategy)
+                runs[strategy] = sharded_run(torch, tfa, dev, tmp, strategy, model)
         finally:
             dist.destroy_process_group()
         cli = sharded_cli(tmp)
@@ -3651,7 +3688,8 @@ def phase_tcp(torch, tfa, dev, card: str, loopback: dict) -> dict:
     expect = os.environ.get("ODTP_EXPECT_PEERS")
     os.environ["ODTP_EXPECT_PEERS"] = "2"
     try:
-        runs = {"1b": tcp_workers(torch, tfa, dev, daemon.address, "1b", TRAIN_1B, "none", placement="device")}
+        runs = {"1b": tcp_workers(torch, tfa, dev, daemon.address, loopback["config"], TRAIN_1B, "none",
+                                  placement="device")}
         tw = runs["1b"]
         backends = tw.pop("backends")
         losses = [[r["Loss"] for r in rr] for rr in tw["rows"]]
@@ -4130,7 +4168,7 @@ def fleet_run(torch, tdk, dev, inprocess: bool) -> dict:
     from opendiloco_torch.train import train
 
     tmp = tempfile.mkdtemp()
-    model = cut_depth("150m", CUT_LAYERS, tmp)
+    model = cut_depth(RING_TRAIN_MODEL, CUT_LAYERS, tmp)
     cfg = load_config(model)
     prompts = fleet_prompts(cfg.vocab_size, seed=11)
     seen: dict = {}
@@ -4215,6 +4253,424 @@ def phase_fleet(torch, tdk, dev, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 27: routed experts at config_150m_8e
+# ---------------------------------------------------------------------------
+
+# two loopback workers at config_150m_8e's full width and depth (12 layers,
+# d 1024, 16 heads x 64, 8 experts of ffn 2688, vocab 32000: 0.91 B params):
+# mb 8, accum 2, seq 1024, 3 steps and one outer round (local_steps 3), on
+# the device plane as phase 23 (the host plane's numpy would move 3.6 GB a
+# worker). warmup 2: the lrs are 0, 5e-4 and 1e-3
+MOE_MODEL = "150m_8e"
+MOE_150M = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=2,
+                total_steps=3, local_steps=3, lr=1e-3)
+MOE_NAMES = ("flash_attention_fwd_sm90", "flash_attention_delta", "flash_attention_dq_sm90",
+             "flash_attention_dkv_sm90", "fused_xent_fwd_sm90", "fused_xent_dlog_sm90", "fused_xent_dh_sm90",
+             "fused_xent_dw_sm90")
+
+
+def moe_workers(torch, tfa, dev, extra: dict) -> dict:
+    """Two workers, one thread each, run ``train()`` at MOE_150M with the
+    ``Config`` fields ``extra``; the launch counters zeroed just before and
+    read just after. Returns the rows, launches, worker 0's final master
+    (host arrays; worker 1's must equal it), peak device memory and wall
+    seconds."""
+    import os
+    import pickle
+    import tempfile
+
+    from opendiloco_torch.diloco import LoopbackWorld
+    from opendiloco_torch.train import train
+
+    run = MOE_150M
+    tmp = tempfile.mkdtemp()
+    backends = recording_backends(LoopbackWorld(2))
+
+    def config(rank):
+        return train_config(MOE_MODEL, run, rank, os.path.join(tmp, f"metrics-{rank}.pkl"),
+                            dict(path=os.path.join(tmp, "ckpts")), diloco=dict(outer_placement="device"), **extra)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfa.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    run_workers(train, [(config(r), backends[r], dev) for r in range(2)])
+    wall = time.perf_counter() - t0
+    launches = tfa.LAUNCHES.snapshot()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rows = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"metrics-{rank}.pkl"), "rb") as f:
+            rows.append(pickle.load(f))
+    # compared in place: hashing two 3.6 GB masters took most of 10 s
+    master, other = (master_now(b.provider) for b in backends)
+    if not all(np.array_equal(a, b) for a, b in zip(master, other)):
+        raise AssertionError(f"moe 150m_8e {extra}: the two workers' masters differ")
+    del other
+    out = {"rows": rows, "launches": launches, "master": master, "peak_gib": peak_gib, "wall_s": wall}
+    del backends
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_dropped(torch, dev) -> dict:
+    """The tokens each layer's capacity drops on phase 27's first
+    micro-batch (mb 8 x seq 1024) through the initial params (drawn as
+    ``train()`` draws them), in bf16 through the kernels: of N = 8192
+    tokens, capacity ceil(N / 8 x 1.25) = 1280 a expert."""
+    from opendiloco_torch.data.dataloader import FakeTokenizedDataset
+    from opendiloco_torch.models import llama
+    from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.train import INIT_SEED
+
+    cfg = load_config(MOE_MODEL)
+    run = MOE_150M
+    params = llama.init_params(torch.Generator(device=dev).manual_seed(INIT_SEED), cfg)
+    ds = iter(FakeTokenizedDataset(run["seq_length"], cfg.vocab_size, seed=42, mode="ramp"))
+    ids = torch.from_numpy(np.stack([next(ds)["input_ids"] for _ in range(run["per_device_train_batch_size"])]))
+    stats: list = []
+    with torch.no_grad():
+        llama.forward(params, ids.to(dev).long(), cfg, compute_dtype=torch.bfloat16, attn_impl="pallas",
+                      remat=False, moe_stats=stats)
+    n = ids.numel()
+    del params
+    torch.cuda.empty_cache()
+    return {"tokens": n, "capacity": math.ceil(n / cfg.num_experts * cfg.expert_capacity_factor),
+            "dropped_by_layer": [int(x) for x in stats]}
+
+
+def phase_moe(torch, tfa, dev, card: str) -> dict:
+    """Phase 27: config_150m_8e trains through ``train()`` (two workers, one
+    outer round) with attention and loss left to resolve (the kernels:
+    B1, B2a, B2b, delta, and the fused loss's B3, dlog, B4a, B4b, which an
+    MoE stack resolves on), then the same run through plain attention and
+    the materialized loss. Per inner step and worker the flash kernels as
+    phase 8's (remat), B3 accum, dlog, B4a and B4b accum x 4; the plain run
+    launches nothing. bf16: each step's loss within 1e-3 and grad norm
+    within 0.5% of the plain run's (phase 8's tolerance). The final masters
+    within twice the largest displacement a round can give an element, and
+    the directions of the round's update agreeing on at least 90% of the
+    elements: the first two AdamW steps move an element by at most their
+    lr each (times 1 + wd |p|), and the outer Nesterov step multiplies the
+    round's displacement by outer lr x (1 + momentum); routing and rounding
+    that differ in bf16 may flip an element's direction."""
+    from opendiloco_torch.models import llama
+    from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.train import INIT_SEED
+    from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    cfg, run = load_config(MOE_MODEL), MOE_150M
+    tc = InnerTrainer(cfg, TrainerConfig(), device=dev).tc
+    if not (tc.attn_impl == "pallas" and tc.fused_loss):
+        raise AssertionError(f"150m_8e resolves attn {tc.attn_impl}, fused_loss {tc.fused_loss} on the card")
+    accum = run["total_batch_size"] // run["per_device_train_batch_size"]
+    steps = 2 * run["total_steps"]
+    kern = moe_workers(torch, tfa, dev, {})
+    want = training_launches(torch, dev, cfg, run, steps, kern["launches"], fused=True)
+    if kern["launches"] != want:
+        raise AssertionError(f"moe 150m_8e launch counts {kern['launches']} != {want}")
+    plain = moe_workers(torch, tfa, dev, dict(attn_implementation="xla", fused_loss=False))
+    if any(plain["launches"].values()):
+        raise AssertionError(f"moe 150m_8e plain run launched {plain['launches']}")
+    losses = {k: [[r["Loss"] for r in rr] for rr in x["rows"]] for k, x in (("kernels", kern), ("plain", plain))}
+    norms = {k: [[r["grad_norm"] for r in rr] for rr in x["rows"]] for k, x in (("kernels", kern), ("plain", plain))}
+    for w in range(2):
+        if len(losses["kernels"][w]) != run["total_steps"] or not all(math.isfinite(x) for x in losses["kernels"][w]):
+            raise AssertionError(f"moe 150m_8e worker {w}: losses {losses['kernels'][w]}")
+        for a, b, ga, gb in zip(losses["kernels"][w], losses["plain"][w], norms["kernels"][w], norms["plain"][w]):
+            if not (abs(a - b) <= 1e-3 and abs(ga - gb) <= 5e-3 * gb):
+                raise AssertionError(f"moe 150m_8e worker {w}: loss {a} vs plain {b}, grad norm {ga} vs {gb}")
+    init = [x.cpu().numpy() for x in llama.flatten_params(
+        llama.init_params(torch.Generator(device=dev).manual_seed(INIT_SEED), cfg))]
+    worst, agree, total = 0.0, 0, 0
+    for m0, mk, mp in zip(init, kern["master"], plain["master"]):
+        worst = max(worst, float(np.abs(mk - mp).max()))
+        dk, dp = np.sign(mk - m0), np.sign(mp - m0)
+        agree += int(np.count_nonzero(dk == dp))
+        total += m0.size
+    del init
+    from opendiloco_torch.config import DilocoConfig
+    from opendiloco_torch.trainer import make_schedule
+
+    dc, sched = DilocoConfig(), make_schedule(TrainerConfig(lr=run["lr"], warmup_steps=run["warmup_steps"],
+                                                             total_steps=run["total_steps"]))
+    reach = sum(sched(i) for i in range(run["total_steps"])) * (1 + TrainerConfig().weight_decay)
+    master_tol = 2 * dc.outer_lr * (1 + dc.outer_momentum) * reach + 1e-6
+    if not (worst <= master_tol and agree >= 0.9 * total):
+        raise AssertionError(f"moe 150m_8e masters: largest difference {worst} (tol {master_tol}), "
+                             f"update directions agree on {agree / total:.4f}")
+    kern.pop("master")
+    plain.pop("master")
+    gc.collect()
+    dropped = moe_dropped(torch, dev)
+    inner = kern["launches"]
+    per_step = {k: inner[k] / steps for k in MOE_NAMES}
+    step_ms = {k: 1e3 * float(np.median([r["time_taken"] for rr in x["rows"] for r in rr
+                                         if r["step"] > 1 and "outer_step_s" not in r]))
+               for k, x in (("kernels", kern), ("plain", plain))}
+    outer = {k: [r["outer_step_s"] for rr in x["rows"] for r in rr if "outer_step_s" in r]
+             for k, x in (("kernels", kern), ("plain", plain))}
+    secs = time.perf_counter() - t0
+    res = {"config": MOE_MODEL, "layers": cfg.num_hidden_layers, "experts": cfg.num_experts, **run, "accum": accum,
+           "workers": 2, "attn_impl": tc.attn_impl, "fused_loss": tc.fused_loss, "losses": losses,
+           "grad_norms": norms, "launches": inner, "launches_per_inner_step": per_step,
+           "step_ms_median_two_workers": step_ms, "outer_step_s": outer,
+           "peak_memory_gib_two_workers": {"kernels": kern["peak_gib"], "plain": plain["peak_gib"]},
+           "wall_s": {"kernels": kern["wall_s"], "plain": plain["wall_s"]},
+           "master_largest_difference": worst,
+           "master_update_direction_agreement": agree / total, "capacity": dropped, "seconds": secs,
+           "tol": f"loss 1e-3 abs, grad norm 0.5% rel (bf16); master {master_tol:.3e} abs, 90% update directions"}
+    log(f"moe 150m_8e: launches per inner step and worker {json.dumps(per_step)} | {card}")
+    log(f"moe 150m_8e: step {step_ms['kernels']:.1f} ms kernels / {step_ms['plain']:.1f} ms plain (median, two "
+        f"workers on one card, mb {run['per_device_train_batch_size']} x accum {accum} x seq {run['seq_length']}), "
+        f"outer step {outer['kernels']} / {outer['plain']} s, peak device memory {kern['peak_gib']:.2f} / "
+        f"{plain['peak_gib']:.2f} GiB | {card}")
+    log(f"moe 150m_8e: losses {losses['kernels']} (plain {losses['plain']}); masters within {worst:.2e}, update "
+        f"directions agree on {agree / total:.4f}; capacity {dropped['capacity']} a expert drops "
+        f"{dropped['dropped_by_layer']} of {dropped['tokens']} tokens by layer; phase {secs:.1f} s | {card}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the flash-chunk ring (B5) on a loopback ring of 4 ranks
+# ---------------------------------------------------------------------------
+
+# T 4096 over 4 ranks (chunks of 1024), bf16, B 2, at config_150m's heads
+# (16 x 64) and config_1b's (32 over 4 kv heads x 64)
+RING_N = 4
+RING_GEOMS = {"150m heads": (2, 4096, 16, 16, 64), "1b heads": (2, 4096, 32, 4, 64)}
+RING_TOL = ("bf16 outputs (out, dq, dk, dv) 2**-6 of each (batch, head)'s largest, lse 1e-4 of the largest |lse| "
+            "(phase 7's); f32 gradient chunks against their plain version 2**-8 of each (batch, head)'s largest")
+
+
+def ring_ranks(torch, ra, fn_fwd, fn_bwd, q, k, v, do, n: int) -> dict:
+    """The ring's forward (``fn_fwd(q, k, v, ring) -> (out, lse)``) and
+    backward (``fn_bwd(q, k, v, out, lse, do, ring) -> (dq, dk, dv)``) on a
+    loopback ring of ``n`` ranks, one thread each, called directly (an
+    autograd backward of CUDA tensors runs on one engine thread, where the
+    ranks would wait on each other). Returns the joined outputs and the
+    card's ms of the forward and of the backward (all ranks, events on the
+    shared stream)."""
+    T = q.shape[1]
+    tl = T // n
+    chunk = lambda x, r: x[:, r * tl:(r + 1) * tl].contiguous()
+    ins = [[chunk(x, r) for x in (q, k, v, do)] for r in range(n)]
+    fwd, bwd = [None] * n, [None] * n
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def stage(work):
+        ring, errors = ra.LoopbackRing(n), []
+
+        def one(r):
+            try:
+                work(r, ring.rank(r))
+            except BaseException as e:
+                errors.append(e)
+                ring._barrier.abort()
+
+        threads = [threading.Thread(target=one, args=(r,)) for r in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+
+    def f(r, ring):
+        fwd[r] = fn_fwd(*ins[r][:3], ring)
+
+    def b(r, ring):
+        bwd[r] = fn_bwd(*ins[r][:3], fwd[r][0], fwd[r][1], ins[r][3], ring)
+
+    torch.cuda.synchronize()
+    events[0].record()
+    stage(f)
+    events[1].record()
+    stage(b)
+    events[2].record()
+    torch.cuda.synchronize()
+    lse_dim = 2 if fwd[0][1].dim() == 3 else 3
+    return {"out": torch.cat([x[0] for x in fwd], 1), "lse": torch.cat([x[1] for x in fwd], lse_dim),
+            "dq": torch.cat([x[0] for x in bwd], 1), "dk": torch.cat([x[1] for x in bwd], 1),
+            "dv": torch.cat([x[2] for x in bwd], 1), "fwd_ms": events[0].elapsed_time(events[1]),
+            "bwd_ms": events[1].elapsed_time(events[2])}
+
+
+def per_head_err(torch, got, ref, dim_t: int = 1) -> tuple:
+    """(largest error, the error over 2**-6 of each (batch, head)'s largest
+    reference value) of [B, T, H, D] tensors."""
+    err = (got.float() - ref.float()).abs().amax(dim=(dim_t, 3))
+    tol = 2.0**-6 * ref.float().abs().amax(dim=(dim_t, 3))
+    return float(err.max()), float((err / tol).max())
+
+
+def phase_ring(torch, tfa, dev, card: str) -> dict:
+    """Phase 28: B5, the flash-chunk ring, in one process over a loopback
+    ring of 4 ranks at T 4096 (see the module docstring): against B1 and
+    B2a/B2b over the whole causal sequence and against the plain (einsum)
+    ring; B2a and B2b's f32 outputs from bf16 operands without the causal
+    mask held to their plain versions; the launches (rank r: 1 causal and
+    r full B1 chunks forward, one delta, and 1 + r of each of B2a and
+    B2b); the ring's ms against one flash call over T 4096. Then
+    ``train()`` with ``attn_implementation="ring"`` at sp 1 against
+    ``"pallas"``: losses, grad norms and master hashes bit for bit."""
+    from opendiloco_torch.ops import ring_attention as ra
+
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    out: dict = {"geoms": {}, "tol": RING_TOL}
+    for label, (B, T, H, Hkv, D) in RING_GEOMS.items():
+        q, k, v, do = flash_inputs(torch, dev, B, T, H, Hkv, D, torch.bfloat16, 31)
+        # the whole sequence through B1, delta, B2a, B2b
+        ref_out, ref_lse = tfa.flash_attention_fwd(q, k, v, True)
+        delta = tfa.attention_delta(do, ref_out)
+        ref = {"out": ref_out, "lse": ref_lse, "dq": tfa.flash_attention_dq(q, k, v, do, ref_lse, delta, True)}
+        ref["dk"], ref["dv"] = tfa.flash_attention_dkv(q, k, v, do, ref_lse, delta, True)
+        tfa.LAUNCHES.reset()
+        got = ring_ranks(torch, ra, ra.ring_flash_fwd, ra.ring_flash_bwd, q, k, v, do, RING_N)
+        launches = {kk: vv for kk, vv in tfa.LAUNCHES.snapshot().items() if vv}
+        chunks = RING_N * (RING_N + 1) // 2  # sum over ranks of 1 + r
+        want = {"flash_attention_fwd_sm90": chunks, "flash_attention_delta": RING_N,
+                "flash_attention_dq_sm90": chunks, "flash_attention_dkv_sm90": chunks}
+        if launches != want:
+            raise AssertionError(f"ring {label}: launches {launches} != {want}")
+        plain = ring_ranks(torch, ra, lambda q, k, v, ring: ra.ring_attention_fwd(q, k, v, ring),
+                           lambda q, k, v, o, lse, do, ring: ra.ring_attention_bwd(q, k, v, o, lse, do, ring),
+                           q, k, v, do, RING_N)
+        plain["lse"] = plain["lse"][..., 0].reshape(B, H, T)  # [B, Hkv, G, T, 1] -> [B, H, T]
+        checks = {}
+        for name in ("out", "dq", "dk", "dv"):
+            if got[name].dtype != q.dtype:
+                raise AssertionError(f"ring {label} {name}: dtype {got[name].dtype}")
+            for against, r in (("whole", ref), ("plain ring", plain)):
+                err, over = per_head_err(torch, got[name], r[name])
+                checks[f"{name} vs {against}"] = {"max_abs_err": err, "worst_err_over_tol": over}
+                if not over <= 1.0:
+                    raise AssertionError(f"ring {label} {name} vs {against}: error/tol {over}")
+        for against, r in (("whole", ref), ("plain ring", plain)):
+            err = float((got["lse"] - r["lse"]).abs().max())
+            tol = 1e-4 * max(1.0, float(r["lse"].abs().max()))
+            checks[f"lse vs {against}"] = {"max_abs_err": err, "worst_err_over_tol": err / tol}
+            if not err <= tol:
+                raise AssertionError(f"ring {label} lse vs {against}: {err} over {tol}")
+        # B2a and B2b write f32 from bf16 operands without the causal mask
+        # (the ring's earlier chunks): rank 1's queries against chunk 0
+        tl = T // RING_N
+        qc, doc = (x[:, tl:2 * tl].contiguous() for x in (q, do))
+        kc, vc = (x[:, :tl].contiguous() for x in (k, v))
+        lse_c = got["lse"][:, :, tl:2 * tl].contiguous()
+        delta_c = tfa.attention_delta(doc, got["out"][:, tl:2 * tl].contiguous())
+        f32_out = {"dq": tfa.flash_attention_dq(qc, kc, vc, doc, lse_c, delta_c, False, f32)}
+        f32_out["dk"], f32_out["dv"] = tfa.flash_attention_dkv(qc, kc, vc, doc, lse_c, delta_c, False, f32)
+        f32_ref = {"dq": tfa.flash_attention_dq_plain(qc, kc, vc, doc, lse_c, delta_c, False, f32)}
+        f32_ref["dk"], f32_ref["dv"] = tfa.flash_attention_dkv_plain(qc, kc, vc, doc, lse_c, delta_c, False, f32)
+        for name, x in f32_out.items():
+            if x.dtype != f32 or torch.equal(x, x.to(torch.bfloat16).float()):
+                raise AssertionError(f"ring {label}: {name} is not an f32 output ({x.dtype})")
+            err = (x - f32_ref[name]).abs().amax(dim=(1, 3))
+            over = float((err / (2.0**-8 * f32_ref[name].abs().amax(dim=(1, 3)))).max())
+            checks[f"{name} f32 full chunk vs plain"] = {"max_abs_err": float(err.max()), "worst_err_over_tol": over}
+            if not over <= 1.0:
+                raise AssertionError(f"ring {label}: f32 {name} of a full chunk, error/tol {over}")
+        # one flash call over the whole T, forward and backward, against the ring
+        fwd_ms = device_ms(torch, lambda: tfa.flash_attention_fwd(q, k, v, True), [()], launches=8, replays=3)
+        bwd_ms = device_ms(torch, lambda: (tfa.attention_delta(do, ref_out),
+                                           tfa.flash_attention_dq(q, k, v, do, ref_lse, delta, True),
+                                           tfa.flash_attention_dkv(q, k, v, do, ref_lse, delta, True)),
+                           [()], launches=8, replays=3)
+        # the library's one call for the same function: SDPA over the whole T
+        import torch.nn.functional as F
+
+        qT, kT, vT = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(qT, kT, vT, is_causal=True,
+                                                                          enable_gqa=H != Hkv),
+                            [()], launches=8, replays=3)
+        timed = {"ring_fwd_ms": [], "ring_bwd_ms": []}
+        for _ in range(3):
+            again = ring_ranks(torch, ra, ra.ring_flash_fwd, ra.ring_flash_bwd, q, k, v, do, RING_N)
+            timed["ring_fwd_ms"].append(again["fwd_ms"])
+            timed["ring_bwd_ms"].append(again["bwd_ms"])
+        out["geoms"][label] = {"B": B, "T": T, "H": H, "Hkv": Hkv, "D": D, "ranks": RING_N, "launches": launches,
+                               "launches_by_rank": {r: {"fwd causal": 1, "fwd full": r, "delta": 1,
+                                                        "dq": 1 + r, "dkv": 1 + r} for r in range(RING_N)},
+                               "checks": checks, "flash_fwd_ms_whole_T": fwd_ms, "flash_bwd_ms_whole_T": bwd_ms,
+                               "ring_fwd_ms": min(timed["ring_fwd_ms"]), "ring_bwd_ms": min(timed["ring_bwd_ms"]),
+                               "ring_ms_runs": timed, "plain_ring_fwd_ms": plain["fwd_ms"],
+                               "plain_ring_bwd_ms": plain["bwd_ms"], "sdpa_fwd_ms_whole_T": sdpa_ms,
+                               "bound_fwd_ms": bound_ms(*flash_work(B, T, H, Hkv, D, 2, True)["flash_attention_fwd"])[0]}
+        log(f"ring {label}: B {B} T {T} over {RING_N} ranks: forward {min(timed['ring_fwd_ms']):.3f} ms, "
+            f"backward {min(timed['ring_bwd_ms']):.3f} ms (all ranks on one card, loopback) against one flash "
+            f"call over T {T}: forward {fwd_ms:.3f} ms, backward (delta, B2a, B2b) {bwd_ms:.3f} ms; SDPA forward "
+            f"{sdpa_ms:.3f} ms; the plain ring {plain['fwd_ms']:.3f} / {plain['bwd_ms']:.3f} ms; launches "
+            f"{json.dumps(launches)}; worst error/tol {max(c['worst_err_over_tol'] for c in checks.values()):.3f} "
+            f"| {card}")
+        del q, k, v, do, ref, got, plain
+        torch.cuda.empty_cache()
+    out["train_sp1"] = ring_train_sp1(torch, tfa, dev)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"ring: train() with attn ring at sp 1 equals pallas bit for bit (losses "
+        f"{out['train_sp1']['losses']}); phase {out['seconds']:.1f} s | {card}")
+    return out
+
+
+# phase 28's train() pair: one loopback worker at config_150m's widths and
+# CUT_LAYERS of its layers, mb 8, accum 2, seq 1024, 4 steps, one outer
+# round on the device plane
+RING_TRAIN_MODEL = "150m"
+RING_TRAIN = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=1,
+                  total_steps=4, local_steps=4, lr=1e-3)
+
+
+def ring_train_sp1(torch, tfa, dev) -> dict:
+    """``train()`` with ``attn_implementation="ring"`` at sp 1 and with
+    ``"pallas"``: the same launches, and each step's loss and grad norm and
+    the master hashes bit for bit."""
+    import os
+    import pickle
+    import tempfile
+
+    from opendiloco_torch.diloco import LoopbackWorld
+    from opendiloco_torch.train import train
+
+    tmp = tempfile.mkdtemp()
+    model = cut_depth(RING_TRAIN_MODEL, CUT_LAYERS, tmp)
+    runs = {}
+    for impl in ("ring", "pallas"):
+        (backend,) = recording_backends(LoopbackWorld(1))
+        project = os.path.join(tmp, f"{impl}.pkl")
+        config = train_config(model, RING_TRAIN, 0, project, dict(path=os.path.join(tmp, "ckpts")),
+                              diloco=dict(outer_placement="device"), attn_implementation=impl, fused_loss=False)
+        tfa.LAUNCHES.reset()
+        train(config, backend, dev)
+        with open(project, "rb") as f:
+            rows = pickle.load(f)
+        backend.hashes["end"] = master_hash(master_now(backend.provider))
+        runs[impl] = {"losses": [r["Loss"] for r in rows], "grad_norms": [r["grad_norm"] for r in rows],
+                      "hashes": dict(backend.hashes), "launches": tfa.LAUNCHES.snapshot()}
+        del backend
+    a, b = runs["ring"], runs["pallas"]
+    if a != b or not a["launches"]["flash_attention_fwd_sm90"]:
+        raise AssertionError(f"train(): ring at sp 1 {a} != pallas {b}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return a
+
+
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds kept under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+
+
 def main() -> int:
     import torch
 
@@ -4245,44 +4701,53 @@ def main() -> int:
 
     cfg = load_config("1b")
     serve_cfg = ServeConfig()
-    b6 = phase_b6(torch, tdk, cfg, serve_cfg, dev)  # B6 and its merge
-    b8 = phase_b8(torch, tdk, quant, cfg, dev)
+    b6 = timed("2 b6", phase_b6, torch, tdk, cfg, serve_cfg, dev)  # B6 and its merge
+    b8 = timed("3 b8", phase_b8, torch, tdk, quant, cfg, dev)
 
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
-    serve = [phase_serve(torch, tdk, cfg, serve_cfg, params, dev)]
-    serve.append(phase_serve(torch, tdk, cfg, ServeConfig(weight_format="w4"), params, dev))
-    b7 = phase_b7(torch, tdk, cfg, serve_cfg, dev)  # B7 and its merge kernel
-    spec = [phase_spec(torch, tdk, cfg, ServeConfig(spec_decode_k=SPEC_K, weight_format=s["weight_format"]),
-                       params, dev, s) for s in serve]
-    prefix = phase_prefix(torch, tdk, cfg, params, dev)
-    spec_f32 = phase_spec_f32(torch, cfg, params, dev)
-    wire = phase_install_wire(torch, tdk, cfg, params, dev, card, serve)
-    tier = phase_tier(torch, tdk, cfg, params, dev)
+    serve = [timed("4 serve fp32", phase_serve, torch, tdk, cfg, serve_cfg, params, dev)]
+    serve.append(timed("5 serve w4", phase_serve, torch, tdk, cfg, ServeConfig(weight_format="w4"), params, dev))
+    b7 = timed("11 b7", phase_b7, torch, tdk, cfg, serve_cfg, dev)  # B7 and its merge kernel
+    spec = [timed(f"12 spec {s['weight_format']}", phase_spec, torch, tdk, cfg,
+                  ServeConfig(spec_decode_k=SPEC_K, weight_format=s["weight_format"]), params, dev, s) for s in serve]
+    prefix = timed("13 prefix", phase_prefix, torch, tdk, cfg, params, dev)
+    spec_f32 = timed("15 spec f32", phase_spec_f32, torch, cfg, params, dev)
+    wire = timed("20 install_wire", phase_install_wire, torch, tdk, cfg, params, dev, card, serve)
+    tier = timed("22 kv tier", phase_tier, torch, tdk, cfg, params, dev)
     del params
     for s in serve:
         s.pop("tokens")
-    reference = phase_reference(torch, load_config("2m"), dev)
-    reference += phase_spec_reference(torch, load_config("2m"), dev)
+    reference = timed("6 reference", phase_reference, torch, load_config("2m"), dev)
+    reference += timed("14 spec reference", phase_spec_reference, torch, load_config("2m"), dev)
     torch.cuda.empty_cache()
 
-    flash = phase_flash(torch, tfa, dev)
-    train_150m = phase_train(torch, tfa, dev, card, "150m", TRAIN_150M,
-                             {"kernels": dict(attn_impl="pallas"), "plain": dict(attn_impl="xla")})
-    resume_150m = phase_resume(torch, tfa, dev, card, train_150m)
-    train_serve = phase_train_serve(torch, tdk, dev, card, train_150m)
-    train_f32 = phase_train_f32(torch, tfa, dev, card)
-    xent = phase_xent(torch, tfx, dev)
-    train_1b = phase_train(torch, tfa, dev, card, "1b", TRAIN_1B, {"fused": {}, "unfused": dict(fused_loss=False)},
-                           keep_master=True)
-    tcp = phase_tcp(torch, tfa, dev, card, train_1b)
-    train_1b_device = phase_train_device(torch, tfa, dev, card, "1b", TRAIN_1B, train_1b)
-    weights_dir = phase_weights_dir(torch, dev, card)
-    gate3 = phase_gate3(torch, tfa, dev, card)
-    cli = phase_cli(card)
-    outer_plane = phase_outer_plane(torch, tfa, dev, card)
-    sharded = phase_sharded(torch, tfa, dev, card)
-    gossip = phase_gossip(torch, tfa, dev, card, train_150m)
-    fleet = phase_fleet(torch, tdk, dev, card)
+    flash = timed("7 flash", phase_flash, torch, tfa, dev)
+    train_150m = timed("8 train 150m", phase_train, torch, tfa, dev, card, "150m", TRAIN_150M,
+                       {"kernels": dict(attn_impl="pallas"), "plain": dict(attn_impl="xla")})
+    resume_150m = timed("8b resume", phase_resume, torch, tfa, dev, card, train_150m)
+    train_serve = timed("19 train+serve", phase_train_serve, torch, tdk, dev, card, train_150m)
+    train_f32 = timed("8 f32 step", phase_train_f32, torch, tfa, dev, card)
+    xent = timed("9 xent", phase_xent, torch, tfx, dev)
+    import tempfile
+
+    # config_1b's widths at TRAIN_1B_LAYERS of its 22 layers (the smoke's
+    # time limit): more than 16 layers, so the stack stays looped
+    # and the fused loss resolves on, as at full depth
+    model_1b = cut_depth("1b", TRAIN_1B_LAYERS, tempfile.mkdtemp())
+    train_1b = timed("10 train 1b", phase_train, torch, tfa, dev, card, model_1b, TRAIN_1B,
+                     {"fused": {}, "unfused": dict(fused_loss=False)}, keep_master=True)
+    tcp = timed("24 tcp", phase_tcp, torch, tfa, dev, card, train_1b)
+    train_1b_device = timed("10 device placement", phase_train_device, torch, tfa, dev, card, model_1b, TRAIN_1B,
+                            train_1b)
+    weights_dir = timed("16 weights dir", phase_weights_dir, torch, dev, card)
+    gate3 = timed("17 gate3", phase_gate3, torch, tfa, dev, card)
+    cli = timed("18 cli", phase_cli, card)
+    outer_plane = timed("21 outer plane", phase_outer_plane, torch, tfa, dev, card)
+    sharded = timed("23 sharded", phase_sharded, torch, tfa, dev, card)
+    gossip = timed("25 gossip", phase_gossip, torch, tfa, dev, card, train_150m)
+    fleet = timed("26 fleet", phase_fleet, torch, tdk, dev, card)
+    moe = timed("27 moe 150m_8e", phase_moe, torch, tfa, dev, card)
+    ring = timed("28 ring", phase_ring, torch, tfa, dev, card)
 
     # launches: each serving phase's main path, by phase
     serving = {f"serve {s['weight_format']}": s["launches"] for s in serve}
@@ -4308,21 +4773,29 @@ def main() -> int:
                                   "train 1b device placement": train_1b_device["launches"][k["name"]],
                                   "tcp 1b": tcp["1b"]["launches"][k["name"]],
                                   "tcp 150m uniform8bit": tcp["150m uniform8bit"]["launches"][k["name"]],
-                                  "outer plane 150m": sum(r[pl]["launches"][k["name"]]
+                                  "outer plane 150m (2 layers)": sum(r[pl]["launches"][k["name"]]
                                                           for r in outer_plane.values() for pl in ("host", "device")),
-                                  "sharded 150m": sharded["launches"].get(k["name"], 0),
+                                  "sharded 150m (2 layers)": sharded["launches"].get(k["name"], 0),
                                   "gossip 150m (2 layers) host": gossip["launches"][k["name"]],
                                   "gossip 150m (2 layers) device": gossip["launches"][k["name"]],
                                   **{f"fleet 150m (2 layers) training (replicas {'in process' if r['inprocess'] else 'apart'})":
-                                     r["train_launches"].get(k["name"], 0) for r in fleet["runs"]}}
+                                     r["train_launches"].get(k["name"], 0) for r in fleet["runs"]},
+                                  "moe 150m_8e": moe["launches"].get(k["name"], 0),
+                                  **{f"ring {label} (4 ranks, T 4096)": g["launches"].get(k["name"], 0)
+                                     for label, g in ring["geoms"].items()},
+                                  "ring train 150m (2 layers) sp 1": ring["train_sp1"]["launches"].get(k["name"], 0)}
         k["launches"] = sum(k["launches_by_phase"].values())
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
+        k["launches_per_inner_step_150m_8e"] = moe["launches_per_inner_step"].get(k["name"], 0)
     log(json.dumps({"serve": serve, "spec": spec, "spec_f32": spec_f32, "prefix": prefix, "reference": reference,
                     "train": [train_150m, train_1b, train_f32], "train_1b_device": train_1b_device,
                     "outer_plane": outer_plane, "sharded": sharded, "tcp": tcp, "gossip": gossip, "fleet": fleet, "resume": resume_150m, "weights_dir": weights_dir,
                     "train_serve": train_serve, "install_wire": wire, "kv_tier": tier,
-                    "gate3": gate3, "cli": cli, "seconds": time.perf_counter() - t_start}))
+                    "gate3": gate3, "cli": cli, "moe": moe, "ring": ring, "phase_seconds": PHASE_SECONDS,
+                    "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b6, *b7, *b8, *flash, *xent]}))
+    log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}; smoke "
+        f"{time.perf_counter() - t_start:.1f} s | {card}")
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -147,14 +147,18 @@ def get_dataloader(
     seed: int = 42,
     split: str = "train",
     streaming: bool = True,
+    shard: Optional[tuple[int, int]] = None,
 ) -> DataLoader:
-    """The JAX package's factory; only ``fake_data=True`` is ported."""
+    """The JAX package's factory; only ``fake_data=True`` is ported.
+    ``shard`` (index, count): the block of the batch this process loads,
+    default the process's rank and count (ranks that hold the same rows,
+    as the sp and ep ranks of one batch block do, pass the same index)."""
     if not fake_data:
         raise NotImplementedError(
             f"loading {dataset_name_or_paths!r} (HF streaming or indexed data) is not "
             "ported yet (ROADMAP.md A9); use fake_data"
         )
-    index, count = process_index_and_count()
+    index, count = shard if shard is not None else process_index_and_count()
     # a different seed stream acts as the held-out split
     offset = 0 if split == "train" else 10_000_019
     ds = FakeTokenizedDataset(

@@ -83,7 +83,10 @@ class FleetAutoscaler:
         self.ticks = 0
         self._up_streak = 0
         self._down_streak = 0
-        self._last_scale = 0.0  # monotonic time of last scale action
+        # monotonic time of the last scale action; None: none yet (the
+        # monotonic clock starts near 0 at boot, so a 0.0 start would hold
+        # a fresh machine's first action for cooldown_s)
+        self._last_scale: Optional[float] = None
         self._seq = 0  # autoscaled-replica name counter
         self._booting: set = set()  # spare boots in flight (background)
         self._booting_active: set = set()  # cold scale-up boots in flight
@@ -286,7 +289,7 @@ class FleetAutoscaler:
             _, exemplars = self._breach_evidence(active)
 
         now = time.monotonic()
-        cooled = now - self._last_scale >= self.cooldown_s
+        cooled = self._last_scale is None or now - self._last_scale >= self.cooldown_s
         with self._lock:
             pending = len(self._booting_active)
         if (

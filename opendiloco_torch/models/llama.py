@@ -12,9 +12,13 @@ x's dtype, attention scores in f32, logits in f32.
 
 The training :func:`forward` routes attention through the hand-written
 flash-attention kernels (``attn_impl="pallas"``, the JAX name kept so a
-config carries over) or the plain ``xla_attention`` (``"xla"``), and
-checkpoints each layer under ``remat=True`` (``torch.utils.checkpoint``,
-non-reentrant: the backward reruns the layer's forward, kernels included).
+config carries over), the plain ``xla_attention`` (``"xla"``) or the
+flash-chunk ring over a sequence cut into chunks (``"ring"``,
+:mod:`~opendiloco_torch.ops.ring_attention`), and checkpoints each layer
+under ``remat=True`` (``torch.utils.checkpoint``, non-reentrant: the
+backward reruns the layer's forward, kernels included). A config with
+``num_experts > 0`` runs the Switch top-1 routed-expert FFN
+(:func:`_switch_ffn`) in every layer.
 
 For serving, ``kernels=True`` routes decode attention through the hand-written
 paged-decode-attention kernel, the tail attention of the speculative
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from typing import Any, Optional, Union
 
 import torch
@@ -42,6 +47,7 @@ from opendiloco_torch.ops.decode_kernels import (
     w4_matmul,
 )
 from opendiloco_torch.ops.flash_attention import flash_attention
+from opendiloco_torch.ops.ring_attention import SOLO, ring_flash_attention
 from opendiloco_torch.quant import dequant_w4
 from opendiloco_torch.utils.spans import span
 
@@ -62,8 +68,8 @@ class LlamaConfig:
     rope_theta: float = 10_000.0
     tie_word_embeddings: bool = False
     initializer_range: float = 0.02
-    # routed experts: carried so every config file loads; the serving
-    # forward takes dense stacks only
+    # routed experts: 0 = dense FFN; > 0 = Switch top-1 routed experts in
+    # every layer (training only: the serving forwards take dense stacks)
     num_experts: int = 0
     expert_capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
@@ -212,12 +218,73 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
+def _switch_ffn(cfg: LlamaConfig, x: torch.Tensor, layer: dict, experts=None,
+                stats: Optional[list] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Switch-Transformer top-1 routed expert FFN -> (out, aux loss), the
+    JAX function's form: router logits in f32, top-1 by argmax, capacity
+    ``ceil(N / E * capacity_factor)``, a token's slot the cumsum of the
+    one-hot over the token order, dense [N, E, C] dispatch and combine,
+    and over-capacity tokens passed through by the residual only.
+
+    ``experts`` (a :class:`~opendiloco_torch.parallel.experts.ExpertPlan`)
+    means x holds this rank's tokens of a batch cut over a process group
+    and ``layer`` this rank's block of the experts: N is the global token
+    count, the slots and the load-balance means are the global ones, and
+    the partial combine is summed over ep. ``stats`` gets this rank's
+    count of tokens dropped by capacity."""
+    B, T, D = x.shape
+    E = cfg.num_experts
+    N = B * T
+    xf = x.reshape(N, D)
+    logits = (xf @ layer["router"]).float()  # [N, E]
+    probs = torch.softmax(logits, dim=-1)
+    expert = probs.argmax(dim=-1)  # [N]
+    gate = probs.gather(1, expert[:, None])[:, 0]
+    onehot = F.one_hot(expert, E).float()  # [N, E]
+    if experts is None:
+        n_all = N
+        density, density_proxy = onehot.mean(dim=0), probs.mean(dim=0)
+        pos = torch.cumsum(onehot, dim=0) * onehot - 1.0  # slot within expert
+    else:
+        ids, b0, t0 = experts.global_expert_ids(expert.reshape(B, T))
+        n_all = ids.numel()
+        onehot_all = F.one_hot(ids.reshape(-1), E).float()
+        pos = (torch.cumsum(onehot_all, dim=0) * onehot_all - 1.0).reshape(*ids.shape, E)
+        pos = pos[b0:b0 + B, t0:t0 + T].reshape(N, E)
+        density = onehot_all.mean(dim=0)
+        density_proxy = experts.sum_data(probs.sum(dim=0)) / n_all
+    # load-balance aux (Switch eq. 4): density * router-probability mass
+    aux = E * torch.sum(density * density_proxy)
+    cap = max(1, math.ceil(n_all / E * cfg.expert_capacity_factor))
+    if stats is not None:
+        stats.append((pos >= cap).sum())
+    e0, n_local = (0, E) if experts is None else experts.local_experts(E)
+    pos = pos[:, e0:e0 + n_local]
+    # -1 (not routed here) and >= cap (over capacity) dispatch nowhere
+    keep = (pos >= 0) & (pos < cap)
+    slot = torch.where(keep, pos, torch.zeros_like(pos)).long()
+    d = torch.zeros((N, n_local, cap), dtype=x.dtype, device=x.device)
+    d.scatter_(2, slot[..., None], keep[..., None].to(x.dtype))  # [N, E, C]
+    if experts is not None:
+        xf, gate = experts.to_experts(xf, gate)
+    expert_in = torch.einsum("nec,nd->ecd", d, xf)  # [E, C, D]
+    h1 = F.silu(torch.einsum("ecd,edf->ecf", expert_in, layer["gate_proj"])) * torch.einsum(
+        "ecd,edf->ecf", expert_in, layer["up_proj"])
+    out_e = torch.einsum("ecf,efd->ecd", h1, layer["down_proj"])
+    combine = d * gate.to(x.dtype)[:, None, None]
+    y = torch.einsum("nec,ecd->nd", combine, out_e)
+    if experts is not None:
+        y = experts.from_experts(y)
+    return y.reshape(B, T, D), aux
+
+
 def _decoder_block(
-    cfg: LlamaConfig, attn_fn, h: torch.Tensor, layer: dict, rope: tuple, probe: bool
-) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Returns (hidden, attn-output L2 norm or None): the dense branch of
-    the JAX block. The norm is the activation probe the reference attaches
-    to ``self_attn``; it is computed only when ``probe`` is set."""
+    cfg: LlamaConfig, attn_fn, h: torch.Tensor, layer: dict, rope: tuple, probe: bool, ffn_fn=None
+) -> tuple:
+    """Returns (hidden, attn-output L2 norm or None, moe aux or None). The
+    norm is the activation probe the reference attaches to ``self_attn``;
+    it is computed only when ``probe`` is set. ``ffn_fn(x, layer) ->
+    (out, aux)`` replaces the dense FFN (the routed experts)."""
     B, T, _ = h.shape
     Nh, Nkv, Dh = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
     cos, sin = rope
@@ -239,6 +306,11 @@ def _decoder_block(
         h = h + attn_out
     with span("llama.ffn_norm"):
         x = _rms_norm(h, layer["post_attn_norm"], cfg.rms_norm_eps)
+    if ffn_fn is not None:
+        with span("llama.moe"):
+            ffn, aux = ffn_fn(x, layer)
+        with span("llama.ffn_residual"):
+            return h + ffn, attn_norm, aux
     with span("llama.gate_up"):
         gate, up = x @ layer["gate_proj"], x @ layer["up_proj"]
     with span("llama.swiglu"):
@@ -247,16 +319,17 @@ def _decoder_block(
     with span("llama.down"):
         ffn = act @ layer["down_proj"]
     with span("llama.ffn_residual"):
-        return h + ffn, attn_norm
+        return h + ffn, attn_norm, None
 
 
-def _attn_fn(attn_impl: str):
+def _attn_fn(attn_impl: str, ring=None):
     if attn_impl == "xla":
         return lambda q, k, v: xla_attention(q, k, v, causal=True)
     if attn_impl == "pallas":
         return lambda q, k, v: flash_attention(q, k, v, causal=True)
     if attn_impl == "ring":
-        raise _not_ported("ring attention (attn_impl='ring')", "A14")
+        ring = SOLO if ring is None else ring
+        return lambda q, k, v: ring_flash_attention(q, k, v, ring)
     raise ValueError(f"unknown attn_impl {attn_impl!r}")
 
 
@@ -273,39 +346,51 @@ def forward(
     return_hidden: bool = False,
     ring_mesh=None,
     pp_mesh=None,
+    return_moe_aux: bool = False,
     scan_unroll: Optional[int] = None,
     gather=None,
+    experts=None,
+    moe_stats: Optional[list] = None,
 ):
     """input_ids [B, T] int -> logits [B, T, V] float32.
 
     ``attn_impl`` "pallas" runs the flash-attention kernels (their plain
-    versions on the CPU), "xla" the plain attention. return_hidden=True
-    returns (final_hidden [B, T, D], head [D, V]) instead of logits.
-    return_aux=True also returns the activation probes
-    {"attn_out_norm": [L], "lm_head_norm": scalar}.
+    versions on the CPU), "xla" the plain attention, "ring" the flash-chunk
+    ring over ``ring_mesh`` (a ring of
+    :mod:`~opendiloco_torch.ops.ring_attention`: ``input_ids`` and
+    ``positions`` are then this rank's chunk of the sequence; without a
+    ring, one causal chunk). return_hidden=True returns (final_hidden
+    [B, T, D], head [D, V]) instead of logits, and with
+    return_moe_aux=True (final_hidden, head, moe_aux); return_moe_aux=True
+    alone returns (logits, moe_aux), the routers' aux loss averaged over
+    the layers (0 for a dense stack). return_aux=True also returns the
+    activation probes {"attn_out_norm": [L], "lm_head_norm": scalar,
+    "moe_aux": scalar}.
 
     The f32 params are cast to ``compute_dtype`` here, inside the autograd
     graph, so gradients arrive in f32 at the f32 leaves. ``scan_unroll``
     is accepted for the JAX signature and has no effect: the layers are a
-    Python loop. Sequence-sharded attention (``ring_mesh``), the pipeline
-    (``pp_mesh``) and routed experts raise.
+    Python loop. The pipeline (``pp_mesh``) raises.
 
     ``gather`` (a :class:`~opendiloco_torch.parallel.sharding.ParamGather`)
     means ``params`` hold this rank's blocks of a FULL_SHARD or
     HYBRID_SHARD layout: the stacks are unbound once, and each layer's
     weights are gathered inside its block when it runs (again on
-    recompute under ``remat``), never the whole stack."""
+    recompute under ``remat``), never the whole stack. ``experts`` (an
+    :class:`~opendiloco_torch.parallel.experts.ExpertPlan`) means the batch
+    and the expert leaves are cut over a process group (:func:`_switch_ffn`);
+    ``moe_stats`` (a list) gets each layer's count of tokens dropped by
+    capacity."""
     if pp_mesh is not None:
-        raise _not_ported("the pipeline-parallel forward (pp_mesh)", "A14")
-    if ring_mesh is not None:
-        raise _not_ported("sequence-sharded attention over a device mesh (ring_mesh)", "A14")
-    if cfg.num_experts:
-        raise _not_ported("the routed-expert (MoE) forward", "A14")
+        raise _not_ported("the pipeline-parallel forward (pp_mesh)", "A14b")
     del scan_unroll
     B, T = input_ids.shape
     if positions is None:
         positions = torch.arange(T, device=input_ids.device).expand(B, T)
-    attn_fn = _attn_fn(attn_impl)
+    attn_fn = _attn_fn(attn_impl, ring_mesh)
+    ffn_fn = None
+    if cfg.num_experts:
+        ffn_fn = lambda x, layer: _switch_ffn(cfg, x, layer, experts, moe_stats)
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     names = sorted(params["layers"])
     if gather is None:
@@ -316,7 +401,7 @@ def forward(
         stacks = cparams["layers"]
 
         def block(h, *weights):
-            return _decoder_block(cfg, attn_fn, h, dict(zip(names, weights)), rope, return_aux)
+            return _decoder_block(cfg, attn_fn, h, dict(zip(names, weights)), rope, return_aux, ffn_fn)
     else:
         with span("llama.gather_params"):
             cparams = {k: gather(k, v, compute_dtype) for k, v in params.items() if k != "layers"}
@@ -326,43 +411,50 @@ def forward(
         def block(h, *blocks):
             with span("llama.gather_params"):
                 weights = gather.layer(names, list(blocks), compute_dtype)
-            return _decoder_block(cfg, attn_fn, h, dict(zip(names, weights)), rope, return_aux)
+            return _decoder_block(cfg, attn_fn, h, dict(zip(names, weights)), rope, return_aux, ffn_fn)
 
     block = _maybe_remat(block, remat)
     with span("llama.embed"):
         h = cparams["embed_tokens"][input_ids]
-    attn_norms = []
+    attn_norms, layer_auxs = [], []
     for i in range(cfg.num_hidden_layers):
         with span("llama.layer_params"):  # layer i's slices of the stacked weights
             weights = [stacks[n][i] for n in names]
-        h, norm = block(h, *weights)
+        h, norm, aux = block(h, *weights)
         attn_norms.append(norm)
+        layer_auxs.append(aux)
+    moe_aux = torch.stack(layer_auxs).mean() if cfg.num_experts else torch.zeros((), device=h.device)
     with span("llama.final_norm"):
         h = _rms_norm(h, cparams["final_norm"], cfg.rms_norm_eps)
     head = _head(cparams, cfg)
     if return_hidden:
-        return h, head
+        return (h, head, moe_aux) if return_moe_aux else (h, head)
     with span("llama.lm_head"):
         logits = (h @ head).float()
     if return_aux:
         return logits, {
             "attn_out_norm": torch.stack(attn_norms),
             "lm_head_norm": torch.sqrt(torch.sum(logits**2)),
+            "moe_aux": moe_aux,
         }
+    if return_moe_aux:
+        return logits, moe_aux
     return logits
 
 
 def causal_lm_loss(
-    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100, *, group=None
+    logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100, *, group=None, shift: bool = True
 ) -> torch.Tensor:
     """Shifted next-token cross-entropy, mean over non-ignored targets
     (HF CausalLM loss semantics). With ``group`` the rows are this rank's
     share of a batch cut over the group: the sum and the count are summed
     over it before the division (the mean over the whole batch), and each
-    rank's gradient is its own rows' share."""
+    rank's gradient is its own rows' share. ``shift=False``: ``labels``
+    are already the next-token targets of each position (a chunk of a
+    sequence cut over sp, whose last target lies in the next chunk)."""
     with span("loss.causal_lm"):
-        shift_logits = logits[:, :-1]
-        shift_labels = labels[:, 1:]
+        shift_logits = logits[:, :-1] if shift else logits
+        shift_labels = labels[:, 1:] if shift else labels
         mask = shift_labels != ignore_index
         safe_labels = torch.where(mask, shift_labels, torch.zeros_like(shift_labels))
         logp = torch.log_softmax(shift_logits, dim=-1)

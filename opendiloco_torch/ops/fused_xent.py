@@ -354,9 +354,9 @@ def fused_linear_cross_entropy_sharded(
     the whole batch's; each rank's gradient is its rows' share, and the
     head's (``w``, whole on every rank) is summed by the trainer's gradient
     reduction like any other leaf's. A tensor-parallel head (``tp_axis``)
-    is not ported (ROADMAP.md A14)."""
+    is not ported (ROADMAP.md A14b)."""
     if tp_axis is not None:
-        raise NotImplementedError("the fused cross-entropy over a tp-sharded head is not ported yet (ROADMAP.md A14)")
+        raise NotImplementedError("the fused cross-entropy over a tp-sharded head is not ported yet (ROADMAP.md A14b)")
     if mesh is None or getattr(mesh, "size", 1) <= 1 or not batch_axes:
         return fused_linear_cross_entropy(h, w, labels)
     from opendiloco_torch.parallel.comm import all_reduce_, sum_over

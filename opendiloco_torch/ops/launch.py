@@ -51,6 +51,7 @@ class LaunchCounter(dict):
 LAUNCHES = LaunchCounter()
 _fns: dict = {}
 _fns_lock = threading.Lock()
+_bound = threading.local()  # the device indices this thread has a CUDA context bound for
 
 
 def register(*names: str) -> None:
@@ -82,6 +83,7 @@ def launch(name: str, source: str, symbol: str, argtypes, device: torch.device, 
     every tensor alive, and PyTorch reuses freed memory only in stream
     order, after the kernel."""
     fn, lib = _entry(source, symbol, argtypes)
+    _bind_context(device.index if device.index is not None else torch.cuda.current_device())
     # the raw stream, not torch.cuda.current_stream(device).cuda_stream: that
     # builds a torch.cuda.Stream object, microseconds of host time a launch on
     # a host-bound decode step; and a device switch only where the device is
@@ -97,6 +99,21 @@ def launch(name: str, source: str, symbol: str, argtypes, device: torch.device, 
             f"{name}: CUDA launch failed: {lib.cuda_error_string(err).decode()} ({err})"
         )
     LAUNCHES.add(name)
+
+
+def _bind_context(index: int) -> None:
+    """Bind the device's CUDA context to this thread once: a thread that
+    has run no PyTorch op on the card has none current, and a kernel
+    launched from it fails ("invalid argument") though the same launch
+    from the main thread succeeds (the ring's loopback ranks, one thread
+    each, launch before any op of their own). One small PyTorch op binds
+    it; afterwards the check is one attribute read."""
+    done = getattr(_bound, "indices", None)
+    if done is None:
+        done = _bound.indices = set()
+    if index not in done:
+        torch.zeros(1, device=torch.device("cuda", index)).add_(1)
+        done.add(index)
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

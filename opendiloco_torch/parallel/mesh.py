@@ -18,7 +18,13 @@ mesh whose groups the trainer's collectives run over. Rank ``r`` sits at
 mesh coordinate ``r`` in row-major order, as device ``r`` of the JAX mesh
 does, so batch rows and leaf blocks fall where the JAX layout puts them.
 Without a process group the plan is the single-device plan (no mesh, no
-collectives). tp, sp, pp and ep above 1 are not ported (ROADMAP.md A14).
+collectives).
+
+The batch is cut over ("dp", "fsdp") and the sequence over "sp", as the
+JAX ``MeshPlan.batch_spec`` cuts them; "ep" is not a batch axis: the ranks
+of an ep group hold the same tokens and different experts. The data group
+(:meth:`MeshPlan.batch_group`) is the ranks that hold distinct tokens, all
+of them but ep's. tp and pp above 1 are not ported (ROADMAP.md A14b).
 """
 from __future__ import annotations
 
@@ -56,6 +62,8 @@ class MeshPlan:
     pp_axis: Optional[str] = None
     ep_axis: Optional[str] = None
     mesh: Any = None
+    # the ranks that share this rank's ep coordinate (None: every rank)
+    data_group: Any = None
 
     @property
     def shape(self) -> dict:
@@ -78,11 +86,19 @@ class MeshPlan:
         return 0 if self.mesh is None else self.mesh.get_local_rank(axis)
 
     def batch_group(self):
-        """The group the batch is cut over: every process of the worker
-        (tp, sp, pp and ep are 1)."""
+        """The data group: the ranks that hold distinct tokens (the batch cut
+        over dp and fsdp, the sequence over sp), every process of the worker
+        when ep is 1. Losses and gradients are summed over it."""
         import torch.distributed as dist
 
-        return None if self.mesh is None else dist.group.WORLD
+        if self.mesh is None:
+            return None
+        return dist.group.WORLD if self.data_group is None else self.data_group
+
+    @property
+    def data_size(self) -> int:
+        """The ranks of the data group."""
+        return self.data_parallel_size * self.shape["sp"]
 
     @property
     def batch_index(self) -> int:
@@ -143,7 +159,7 @@ def mesh_sizes(
     return dict(zip(AXES, (pp_size, dp_size, fsdp_size, ep_size, sp_size, tp_size)))
 
 
-def _plan(strategy: str, sizes: dict, mesh=None) -> MeshPlan:
+def _plan(strategy: str, sizes: dict, mesh=None, data_group=None) -> MeshPlan:
     return MeshPlan(
         strategy=strategy,
         sizes=tuple(sizes[a] for a in AXES),
@@ -153,6 +169,7 @@ def _plan(strategy: str, sizes: dict, mesh=None) -> MeshPlan:
         pp_axis="pp" if sizes["pp"] > 1 else None,
         ep_axis="ep" if sizes["ep"] > 1 else None,
         mesh=mesh,
+        data_group=data_group,
     )
 
 
@@ -212,10 +229,10 @@ def build_mesh(
             )
     sizes = mesh_sizes(strategy, n, dp_size=dp_size, fsdp_size=fsdp_size, tp_size=tp_size, sp_size=sp_size,
                        pp_size=pp_size, ep_size=ep_size, local_count=local_count)
-    for axis in ("tp", "sp", "pp", "ep"):
+    for axis in ("tp", "pp"):
         if sizes[axis] > 1:
             raise NotImplementedError(
-                f"{axis}_size > 1 is not ported yet (ROADMAP.md A14): the port shards over dp and fsdp only"
+                f"{axis}_size > 1 is not ported yet (ROADMAP.md A14b): the port shards over dp, fsdp, ep and sp"
             )
     if not grouped:
         return _plan(strategy, sizes)
@@ -223,7 +240,27 @@ def build_mesh(
 
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     mesh = init_device_mesh(device_type, tuple(sizes[a] for a in AXES), mesh_dim_names=AXES)
-    return _plan(strategy, sizes, mesh)
+    return _plan(strategy, sizes, mesh, _data_group(sizes, dist.get_rank()))
+
+
+def _data_group(sizes: dict, rank: int):
+    """The group of the ranks that share ``rank``'s ep coordinate, in
+    global rank order (None when ep is 1: every rank). Every rank makes
+    every group, in one order, as ``new_group`` asks."""
+    import torch.distributed as dist
+
+    ep = sizes["ep"]
+    if ep == 1:
+        return None
+    inner = sizes["sp"] * sizes["tp"]  # ranks a step of ep apart
+    world = math.prod(sizes.values())
+    mine = None
+    for e in range(ep):
+        ranks = [r for r in range(world) if (r // inner) % ep == e]
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine = group
+    return mine
 
 
 def params_sharded(strategy: str) -> bool:

@@ -1,15 +1,20 @@
-"""Which dim of each Llama leaf a strategy cuts over the fsdp axis.
+"""Which dim of each Llama leaf a strategy cuts over the fsdp and ep axes.
 
-The port's copy of the fsdp part of ``opendiloco_tpu/parallel/sharding.py``:
-a spec is the tuple form of the JAX ``PartitionSpec`` (``(None, "fsdp",
-None)``; ``()`` for a replicated leaf), by the JAX rules:
+The port's copy of the fsdp and ep parts of
+``opendiloco_tpu/parallel/sharding.py``: a spec is the tuple form of the
+JAX ``PartitionSpec`` (``(None, "ep", "fsdp", None)``; ``()`` for a
+replicated leaf), by the JAX rules:
 
-- the preferred dim of ``_LAYOUT``, else the largest divisible other dim;
+- an expert-stacked FFN leaf ([L, E, ...]) cuts its expert dim over ep
+  (under every strategy), and its fsdp index moves one place past it;
+- fsdp: the preferred dim of ``_LAYOUT``, else the largest divisible
+  other free dim;
 - norms replicated;
 - the leading stacked-layer dim never cut.
 
-Rank ``r`` of the fsdp axis holds the ``r``-th of the equal contiguous
-blocks along that dim (:func:`local_block`), as JAX's shard ``r`` does.
+Rank ``r`` of an axis holds the ``r``-th of the equal contiguous blocks
+along that dim (:func:`local_block`), as JAX's shard ``r`` does; a leaf
+cut over both is cut over ep first, then its ep block over fsdp.
 """
 from __future__ import annotations
 
@@ -34,24 +39,32 @@ _LAYOUT: dict[str, tuple[Optional[int], int]] = {
     "o_proj": (0, 1),  # [Nh*Dh, D]
     "gate_proj": (1, 0),  # [D, F]
     "up_proj": (1, 0),
-    "down_proj": (0, 1),  # [F, D]
+    "down_proj": (0, 1),  # [F, D] (or [E, F, D] under MoE)
+    "router": (None, 0),  # [D, E]: small, fsdp on D
 }
 
+# FFN leaves that gain a leading expert dim when num_experts > 0
+_EXPERT_LEAVES = {"gate_proj", "up_proj", "down_proj"}
 
-def _leaf_spec(name: str, shape: tuple, stacked: bool, *, shard: bool, fsdp_n: int) -> tuple:
+
+def _leaf_spec(name: str, shape: tuple, stacked: bool, *, shard: bool, fsdp_n: int, ep_n: int = 1) -> tuple:
     ndim = len(shape)
     offset = 1 if stacked else 0
     if ndim <= offset + 1:
         return ()  # norm vectors: replicate
     axes: list = [None] * ndim
+    if name in _EXPERT_LEAVES and ndim == offset + 3:
+        if ep_n > 1 and shape[offset] % ep_n == 0:
+            axes[offset] = "ep"
+        offset += 1  # the fsdp index applies past the expert dim
     fsdp_dim = _LAYOUT[name][1]
     if shard and fsdp_dim >= 0:
         d = fsdp_dim + offset
-        if shape[d] % fsdp_n == 0:
+        if axes[d] is None and shape[d] % fsdp_n == 0:
             axes[d] = "fsdp"
         else:
-            # preferred dim not divisible: any other non-layer dim, largest first
-            for i in sorted(range(offset, ndim), key=lambda i: -shape[i]):
+            # preferred dim not divisible: any other free non-layer dim, largest first
+            for i in sorted((i for i in range(offset, ndim) if axes[i] is None), key=lambda i: -shape[i]):
                 if shape[i] % fsdp_n == 0:
                     axes[i] = "fsdp"
                     break
@@ -61,15 +74,15 @@ def _leaf_spec(name: str, shape: tuple, stacked: bool, *, shard: bool, fsdp_n: i
 def param_specs(cfg: LlamaConfig, plan: MeshPlan, *, for_params: bool = True) -> dict:
     """Dict tree of spec tuples matching ``llama.shapes(cfg)``:
     for_params=True the resident layout of the params, False that of the
-    optimizer state (ZeRO-2 cuts the state while params stay whole)."""
-    if cfg.num_experts:
-        raise NotImplementedError("sharding routed-expert leaves is not ported yet (ROADMAP.md A14)")
+    optimizer state (ZeRO-2 cuts the state while params stay whole). The
+    expert dim is cut over ep in both."""
     shard = bool(plan.fsdp_axis) and (
         params_sharded(plan.strategy) if for_params else optstate_sharded(plan.strategy))
-    fsdp_n = plan.shape["fsdp"]
+    fsdp_n, ep_n = plan.shape["fsdp"], plan.shape["ep"]
 
     def one(tree: dict, stacked: bool) -> dict:
-        return {k: one(v, True) if isinstance(v, dict) else _leaf_spec(k, v, stacked, shard=shard, fsdp_n=fsdp_n)
+        return {k: one(v, True) if isinstance(v, dict)
+                else _leaf_spec(k, v, stacked, shard=shard, fsdp_n=fsdp_n, ep_n=ep_n)
                 for k, v in tree.items()}
 
     return one(shapes(cfg), False)
@@ -86,9 +99,9 @@ def optstate_specs(cfg: LlamaConfig, plan: MeshPlan) -> dict:
     return {"mu": list(specs), "nu": list(specs)}
 
 
-def spec_dim(spec: tuple) -> Optional[int]:
-    """The dim a spec cuts over fsdp, or None."""
-    return spec.index("fsdp") if "fsdp" in spec else None
+def spec_dim(spec: tuple, axis: str = "fsdp") -> Optional[int]:
+    """The dim a spec cuts over ``axis``, or None."""
+    return spec.index(axis) if axis in spec else None
 
 
 def block_bounds(size: int, n: int, r: int) -> tuple[int, int]:

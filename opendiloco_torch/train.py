@@ -66,9 +66,12 @@ as ``python -m opendiloco_torch.fleet.replica`` processes on this
 worker's device, take delta pushes off the masters behind one router on
 ``fleet.host``/``fleet.port``.
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP.md
-items: tp, sp, pp and ep above 1 (A14), a serving plane on a worker of
-several processes (A10) and non-fake data (A9).
+``sp_size`` and ``ep_size`` above 1 cut each sequence over the ranks of
+an sp group (ring attention) and the routed experts over the ranks of an
+ep group; the ranks of one batch block load the same rows. Not ported
+yet, and raising ``NotImplementedError`` with their ROADMAP.md items: tp
+and pp above 1 (A14b), a serving plane on a worker of several processes
+(A10) and non-fake data (A9).
 
 Text log lines carry the worker's rank, per thread (:func:`log_rank`),
 and after it the process's rank when the worker has several.
@@ -121,9 +124,9 @@ def make_backend(cfg: DilocoConfig) -> OuterBackend:
 
 
 def _check_ported(config: Config) -> None:
-    for axis in ("tp", "sp", "pp", "ep"):
+    for axis in ("tp", "pp"):
         if getattr(config, f"{axis}_size") > 1:
-            raise NotImplementedError(f"{axis}_size > 1 is not ported yet (ROADMAP.md A14)")
+            raise NotImplementedError(f"{axis}_size > 1 is not ported yet (ROADMAP.md A14b)")
 
 
 def _init_process_group(config: Config, device):
@@ -216,25 +219,27 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
             f"total_batch_size {config.total_batch_size} not divisible by "
             f"per_device_train_batch_size*dp = {global_micro}"
         )
-    # each process loads its rows of the global batch (the fake stream
-    # strides by rank, so a micro-batch holds the same samples at any
-    # process count)
-    if config.total_batch_size % nproc:
+    # each process loads its batch block's rows of the global batch (the
+    # fake stream strides by block, so a micro-batch holds the same samples
+    # at any process count); the sp and ep ranks of a block load the same
+    blocks = plan.data_parallel_size if nproc > 1 else 1
+    shard = (plan.batch_index, blocks) if nproc > 1 else None
+    if config.total_batch_size % blocks:
         raise ValueError(
             f"total_batch_size {config.total_batch_size} not divisible by "
-            f"process_count {nproc}"
+            f"process_count {blocks}"
         )
-    local_batch_size = config.total_batch_size // nproc
+    local_batch_size = config.total_batch_size // blocks
     if local_batch_size % accum:
         raise ValueError(
             f"per-process batch {local_batch_size} not divisible by the "
             f"accumulation factor {accum} (= total_batch_size / "
             f"(per_device_train_batch_size * dp)); adjust batch sizes"
         )
-    if config.eval_interval and (global_micro % nproc):
+    if config.eval_interval and (global_micro % blocks):
         raise ValueError(
             f"eval batch per_device_train_batch_size*dp = {global_micro} "
-            f"not divisible by process_count {nproc}"
+            f"not divisible by process_count {blocks}"
         )
     loader = get_dataloader(
         fake_data=config.fake_data,
@@ -247,6 +252,7 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
         world_rank=world_rank,
         galaxy_size=config.diloco.galaxy_size if config.diloco else 1,
         streaming=config.dataset_streaming,
+        shard=shard,
     )
 
     state = trainer.init_state(INIT_SEED, params)
@@ -303,12 +309,13 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
             dataset_name_or_paths=config.dataset_name_or_paths,
             tokenizer_name=config.tokenizer_name,
             seq_length=config.seq_length,
-            batch_size=global_micro // nproc,
+            batch_size=global_micro // blocks,
             vocab_size=model_cfg.vocab_size,
             world_rank=world_rank,
             galaxy_size=config.diloco.galaxy_size if config.diloco else 1,
             split="validation",
             streaming=config.dataset_streaming,
+            shard=shard,
         )
         eval_iter = iter(eval_loader)
 

@@ -42,6 +42,16 @@ layouts XLA derives from the JAX package's PartitionSpecs):
   distinct blocks, a replicated leaf once;
 - AdamW updates the local blocks; ZeRO-2 then all-gathers the params (f32).
 
+Over sp each rank holds a chunk of every sequence: attention is the
+flash-chunk ring over the sp group, rope takes global positions, and the
+loss pairs each position with the next token's label across chunk
+boundaries (the global last position is dropped), summed over the data
+group as the batch is. Over ep each rank holds ``E/ep`` experts of every
+routed-expert leaf and the same tokens as its ep peers; the FFN sums its
+partial combine over ep (:mod:`~opendiloco_torch.parallel.experts`), so
+every replicated leaf's gradient is whole on each ep rank and is summed
+over the data group only, never over ep.
+
 At one process every collective is an identity and the step is the
 single-device step bit for bit.
 """
@@ -65,7 +75,9 @@ from opendiloco_torch.models.llama import (
     init_params,
     unflatten_params,
 )
-from opendiloco_torch.ops.fused_xent import fused_linear_cross_entropy_sharded
+from opendiloco_torch.ops.fused_xent import IGNORE, fused_linear_cross_entropy_sharded
+from opendiloco_torch.ops.ring_attention import DistRing
+from opendiloco_torch.parallel.experts import ExpertPlan
 from opendiloco_torch.parallel.mesh import MeshPlan, params_sharded, single_device_plan
 from opendiloco_torch.parallel.sharding import ParamGather, local_block, param_specs, spec_dim
 from opendiloco_torch.utils.spans import span
@@ -84,8 +96,8 @@ class TrainerConfig:
     max_grad_norm: float = 1.0
     precision: str = "bf16-mixed"
     # "auto": the hand-written kernels on the card, plain attention on the
-    # CPU; "pallas": the kernels (their plain versions on the CPU); "xla":
-    # plain attention
+    # CPU, the ring under sp; "pallas": the kernels (their plain versions
+    # on the CPU); "xla": plain attention; "ring": the flash-chunk ring
     attn_impl: str = "auto"
     remat: RematPolicy = True
     # the fused lm-head + cross-entropy (B3/B4): None resolves to on for
@@ -225,33 +237,34 @@ def global_norm(tensors: list, reduce_squares=None) -> torch.Tensor:
 
 
 def _resolve_perf_defaults(
-    tc: TrainerConfig, model_cfg: LlamaConfig, device: torch.device
+    tc: TrainerConfig, model_cfg: LlamaConfig, device: torch.device, plan: Optional[MeshPlan] = None
 ) -> TrainerConfig:
     """Resolve attn_impl="auto" / fused_loss=None / scan_unroll=None.
 
-    On the card "auto" takes the hand-written flash-attention kernels (the
-    JAX package's "pallas" on a TPU); elsewhere the plain attention.
-    scan_unroll resolves as the JAX package's does (full unroll for dense
-    stacks of at most 16 layers on the card, else 1), and fused_loss=None
-    follows it: on where the card runs the kernel attention and the layer
-    loop stays rolled (unroll < layers), as at config_1b's 22 layers; off
-    at config_150m and on the CPU. An explicit True or False passes
-    through, on the CPU too, where the kernels' plain versions run."""
-    if tc.attn_impl == "ring":
-        raise NotImplementedError("ring attention is not ported yet (ROADMAP.md A14)")
-    if tc.attn_impl not in ("auto", "pallas", "xla"):
+    Under a plan with an sp axis "auto" takes the ring (the only attention
+    that keeps the sequence chunks local); otherwise on the card the
+    hand-written flash-attention kernels (the JAX package's "pallas" on a
+    TPU), elsewhere the plain attention. scan_unroll resolves as the JAX
+    package's does (full unroll for dense stacks of at most 16 layers on
+    the card, else 1), and fused_loss=None follows it: on where the card
+    runs the kernel attention without sp and the layer loop stays rolled
+    (unroll < layers), as at config_1b's 22 layers and at every MoE
+    config; off at config_150m and on the CPU. An explicit True or False
+    passes through, on the CPU too, where the kernels' plain versions run."""
+    if tc.attn_impl not in ("auto", "pallas", "xla", "ring"):
         raise ValueError(f"unknown attn_impl {tc.attn_impl!r}")
     on_card = device.type == "cuda"
+    sp = plan is not None and plan.sp_axis is not None
     changes: dict = {}
     if tc.attn_impl == "auto":
-        changes["attn_impl"] = "pallas" if on_card else "xla"
+        changes["attn_impl"] = "ring" if sp else ("pallas" if on_card else "xla")
     if tc.scan_unroll is None:
         dense_shallow = not model_cfg.num_experts and model_cfg.num_hidden_layers <= 16
         changes["scan_unroll"] = model_cfg.num_hidden_layers if on_card and dense_shallow else 1
     if tc.fused_loss is None:
         attn = changes.get("attn_impl", tc.attn_impl)
         unroll = changes.get("scan_unroll", tc.scan_unroll) or 1
-        changes["fused_loss"] = on_card and attn == "pallas" and unroll < model_cfg.num_hidden_layers
+        changes["fused_loss"] = on_card and attn == "pallas" and not sp and unroll < model_cfg.num_hidden_layers
     return dataclasses.replace(tc, **changes)
 
 
@@ -271,7 +284,8 @@ class InnerTrainer:
     def __init__(self, model_cfg: LlamaConfig, tc: TrainerConfig, device: DeviceLike = None,
                  plan: Optional[MeshPlan] = None):
         self.device = resolve_device(device)
-        tc = _resolve_perf_defaults(tc, model_cfg, self.device)
+        plan = plan if plan is not None else single_device_plan()
+        tc = _resolve_perf_defaults(tc, model_cfg, self.device, plan)
         _maybe_remat(None, tc.remat)  # an unported policy raises here, not mid-step
         on_card = self.device.type == "cuda"
         if on_card and tc.compute_dtype == torch.float16 and (tc.attn_impl == "pallas" or tc.fused_loss):
@@ -280,14 +294,26 @@ class InnerTrainer:
                 "cross-entropy kernels is not ported (they take f32 and bf16; "
                 "ROADMAP.md A7): use bf16-mixed, or attn_impl='xla' and fused_loss=False"
             )
-        if model_cfg.num_experts:
-            raise NotImplementedError("routed-expert (MoE) training is not ported yet (ROADMAP.md A14)")
+        if plan.sp_axis and tc.attn_impl != "ring":
+            raise ValueError(
+                f"sp_size {plan.shape['sp']} cuts every sequence into chunks, and attn_impl={tc.attn_impl!r} "
+                "would attend within a chunk only: use attn_impl 'ring' or 'auto'"
+            )
+        if plan.ep_axis:
+            ep_n = plan.shape["ep"]
+            if model_cfg.num_experts == 0:
+                raise ValueError(
+                    f"--ep-size {ep_n} with a dense model silently replicates work across the ep axis; use an "
+                    "MoE config (num_experts > 0) or drop ep_size"
+                )
+            if model_cfg.num_experts % ep_n:
+                raise ValueError(f"{model_cfg.num_experts} experts cannot shard over ep={ep_n} (must divide evenly)")
         self.model_cfg = model_cfg
         self.tc = tc
         self.optimizer = make_inner_optimizer(tc)
         self.schedule = make_schedule(tc)
         self._post_dispatch_hooks: list = []
-        self._set_plan(plan if plan is not None else single_device_plan())
+        self._set_plan(plan)
 
     def _set_plan(self, plan: MeshPlan) -> None:
         """The layout: which dim each param and optimizer-state leaf is cut
@@ -303,27 +329,43 @@ class InnerTrainer:
                 raise ValueError(f"a trainer on {self.device.type} runs its collectives over {want}, "
                                  f"not {dist.get_backend()!r}")
         self._fsdp_n, self._fsdp_r = plan.shape["fsdp"], plan.coord("fsdp")
+        self._ep_n, self._ep_r = plan.shape["ep"], plan.coord("ep")
+        self._sp_n, self._sp_r = plan.shape["sp"], plan.coord("sp")
         self._params_cut = params_sharded(plan.strategy)
         specs = param_specs(self.model_cfg, plan)
         self.param_dims = [spec_dim(x) for x in flatten_params(specs)]
         self.opt_dims = [spec_dim(x) for x in flatten_params(param_specs(self.model_cfg, plan, for_params=False))]
+        # the expert dim, cut over ep in params and optimizer state alike
+        self.ep_dims = [spec_dim(x, "ep") for x in flatten_params(specs)]
         # the resident params' layout (ZeRO-2 keeps them whole)
         self.resident_dims = self.param_dims if self._params_cut else [None] * len(self.param_dims)
         self._gather = ParamGather(specs, plan.group("fsdp")) if self._dist and self._params_cut else None
-        self._batch_group = plan.batch_group() if self._dist and plan.size > 1 else None
+        self._batch_group = plan.batch_group() if self._dist and plan.data_size > 1 else None
+        self._ring = DistRing(plan.group("sp")) if self._dist and self._sp_n > 1 else None
+        self._experts = ExpertPlan(plan) if self._dist and self.model_cfg.num_experts else None
+        ep_cut = self._dist and any(d is not None for d in self.ep_dims)
+        # whether this rank holds blocks: of the params, of any state leaf
+        self._params_blocked = ep_cut or (self._dist and self._params_cut and self._fsdp_n > 1)
+        self._blocked = ep_cut or (self._dist and self._fsdp_n > 1)
 
-    def _block(self, x, dim: Optional[int]):
-        """This rank's block of a full leaf (a view; the leaf at fsdp 1)."""
-        return local_block(x, dim, self._fsdp_n, self._fsdp_r)
+    def _block(self, x, dim: Optional[int], ep_dim: Optional[int] = None):
+        """This rank's block of a full leaf: of its expert dim over ep, then
+        along ``dim`` over fsdp (a view; the leaf itself where neither cuts)."""
+        return local_block(local_block(x, ep_dim, self._ep_n, self._ep_r), dim, self._fsdp_n, self._fsdp_r)
 
-    def _whole(self, x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        """A leaf cut along ``dim`` joined over fsdp (a collective); a
-        whole leaf as it is. Detached."""
-        if dim is None or not self._dist or self._fsdp_n == 1:
-            return x.detach()
+    def _whole(self, x: torch.Tensor, dim: Optional[int], ep_dim: Optional[int] = None) -> torch.Tensor:
+        """A leaf cut along ``dim`` over fsdp and ``ep_dim`` over ep, joined
+        (collectives); a whole leaf as it is. Detached."""
+        x = x.detach()
+        if not self._dist:
+            return x
         from opendiloco_torch.parallel.comm import all_gather_dim
 
-        return all_gather_dim(x.detach(), dim, self.plan.group("fsdp"))
+        if dim is not None and self._fsdp_n > 1:
+            x = all_gather_dim(x, dim, self.plan.group("fsdp"))
+        if ep_dim is not None and self._ep_n > 1:
+            x = all_gather_dim(x, ep_dim, self.plan.group("ep"))
+        return x
 
     def _opt_targets(self, leaves: list) -> list:
         """The param tensors AdamW updates: the leaves themselves, or under
@@ -363,10 +405,10 @@ class InnerTrainer:
         """Full f32 leaves -> this rank's resident params: blocks under
         FULL_SHARD and HYBRID_SHARD (own memory, requiring grad), the
         leaves themselves otherwise."""
-        if not self._params_cut or self._fsdp_n == 1:
+        if not self._params_blocked:
             return params
-        leaves = [self._block(p, d).detach().clone().requires_grad_(True)
-                  for p, d in zip(flatten_params(params), self.param_dims)]
+        leaves = [self._block(p, d, e).detach().clone().requires_grad_(True)
+                  for p, d, e in zip(flatten_params(params), self.resident_dims, self.ep_dims)]
         return unflatten_params(params, leaves)
 
     def gather_state(self, state: dict) -> dict:
@@ -374,9 +416,9 @@ class InnerTrainer:
         gathered over fsdp, f32): a checkpoint's layout, which loads at any
         world size. A collective: every rank calls it. Returns ``state``
         itself when nothing is cut."""
-        if not self._dist or self._fsdp_n == 1:
+        if not self._blocked:
             return state
-        whole = lambda xs, dims: [self._whole(x, d) for x, d in zip(xs, dims)]
+        whole = lambda xs, dims: [self._whole(x, d, e) for x, d, e in zip(xs, dims, self.ep_dims)]
         opt = dict(state["opt_state"])
         opt["mu"], opt["nu"] = whole(opt["mu"], self.opt_dims), whole(opt["nu"], self.opt_dims)
         return {**state, "params": unflatten_params(state["params"], whole(flatten_params(state["params"]), self.resident_dims)),
@@ -387,24 +429,24 @@ class InnerTrainer:
         param ``leaves`` (or of those at ``idx``): the outer loop's view of
         the params. A collective when the params are cut."""
         idx = range(len(leaves)) if idx is None else idx
-        return [self._whole(leaves[i], self.resident_dims[i]).to("cpu", torch.float32, copy=True).numpy()
-                for i in idx]
+        return [self._whole(leaves[i], self.resident_dims[i], self.ep_dims[i])
+                .to("cpu", torch.float32, copy=True).numpy() for i in idx]
 
     def host_block(self, i: int, host_arr: np.ndarray) -> np.ndarray:
         """This rank's block of resident param leaf ``i`` from the whole
         host array (the array itself when the leaf is whole)."""
-        return np.ascontiguousarray(self._block(host_arr, self.resident_dims[i]))
+        return np.ascontiguousarray(self._block(host_arr, self.resident_dims[i], self.ep_dims[i]))
 
     @torch.no_grad()
     def scatter_state(self, full: dict) -> dict:
         """The inverse of :meth:`gather_state`: this rank's blocks of a
         state whose leaves are whole (a loaded checkpoint)."""
-        if not self._dist or self._fsdp_n == 1:
+        if not self._blocked:
             return full
         params = self.local_params(full["params"])
         opt = dict(full["opt_state"])
-        opt["mu"] = [self._block(x, d).clone() for x, d in zip(opt["mu"], self.opt_dims)]
-        opt["nu"] = [self._block(x, d).clone() for x, d in zip(opt["nu"], self.opt_dims)]
+        opt["mu"] = [self._block(x, d, e).clone() for x, d, e in zip(opt["mu"], self.opt_dims, self.ep_dims)]
+        opt["nu"] = [self._block(x, d, e).clone() for x, d, e in zip(opt["nu"], self.opt_dims, self.ep_dims)]
         return {**full, "params": params, "opt_state": opt}
 
     def force_step_position(self, state: dict, step: int) -> dict:
@@ -425,26 +467,39 @@ class InnerTrainer:
     def _fused_lm_loss(self, hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """The shifted fused lm-head + cross-entropy over the final hidden
         states: the single shift and reshape site, as in the JAX package
-        (the sharded entry over the plan's batch axes)."""
+        (the sharded entry over the plan's batch axes). Under sp the labels
+        are already the next-token targets (:meth:`_seq_chunk`)."""
         d = hidden.shape[-1]
+        if self._sp_n == 1:
+            hidden, labels = hidden[:, :-1], labels[:, 1:]
         with span("loss.fused"):
             return fused_linear_cross_entropy_sharded(
-                hidden[:, :-1].reshape(-1, d), head, labels[:, 1:].reshape(-1),
+                hidden.reshape(-1, d), head, labels.reshape(-1),
                 mesh=self.plan if self._dist else None, batch_axes=self.plan.batch_axes, tp_axis=self.plan.tp_axis,
             )
 
+    def _forward_kw(self, input_ids: torch.Tensor) -> dict:
+        """The model's options on this rank: the ring, the expert plan and,
+        under sp, the global positions of this rank's sequence chunk."""
+        kw = dict(compute_dtype=self.tc.compute_dtype, attn_impl=self.tc.attn_impl, gather=self._gather,
+                  ring_mesh=self._ring, experts=self._experts)
+        if self._sp_n > 1:
+            B, T = input_ids.shape
+            kw["positions"] = torch.arange(self._sp_r * T, (self._sp_r + 1) * T, device=input_ids.device).expand(B, T)
+        return kw
+
     def _loss_fn(self, params: dict, input_ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        kw = dict(
-            compute_dtype=self.tc.compute_dtype,
-            attn_impl=self.tc.attn_impl,
-            remat=self.tc.remat,
-            scan_unroll=self.tc.scan_unroll,
-            gather=self._gather,
-        )
+        kw = dict(self._forward_kw(input_ids), remat=self.tc.remat, scan_unroll=self.tc.scan_unroll)
+        moe = bool(self.model_cfg.num_experts)
         if self.tc.fused_loss:
-            hidden, head = forward(params, input_ids, self.model_cfg, return_hidden=True, **kw)
-            return self._fused_lm_loss(hidden, head, labels)
-        return causal_lm_loss(forward(params, input_ids, self.model_cfg, **kw), labels, group=self._batch_group)
+            out = forward(params, input_ids, self.model_cfg, return_hidden=True, return_moe_aux=moe, **kw)
+            loss = self._fused_lm_loss(out[0], out[1], labels)
+        else:
+            out = forward(params, input_ids, self.model_cfg, return_moe_aux=moe, **kw)
+            loss = causal_lm_loss(out[0] if moe else out, labels, group=self._batch_group, shift=self._sp_n == 1)
+        if moe:
+            loss = loss + self.model_cfg.router_aux_coef * out[-1]
+        return loss
 
     def _train_step_impl(self, state: dict, batch: dict):
         """batch tensors are [accum, mb, seq]."""
@@ -512,8 +567,11 @@ class InnerTrainer:
         state's layout."""
         from opendiloco_torch.parallel.comm import all_reduce_, reduce_scatter_dim
 
-        plan, world = self.plan, self.plan.batch_group()
-        dp = plan.group("dp") if plan.shape["dp"] > 1 else None
+        plan, data = self.plan, self._batch_group
+        if data is None:
+            return grads  # no other rank holds distinct tokens
+        # the ranks that hold the same block of a leaf cut over fsdp
+        replicas = [plan.group(a) for a in ("dp", "sp") if plan.shape[a] > 1]
         out = []
         for g, pd, od in zip(grads, self.param_dims, self.opt_dims):
             if self._params_cut and pd is not None:
@@ -521,21 +579,25 @@ class InnerTrainer:
             elif od is not None:
                 g = reduce_scatter_dim(g, od, plan.group("fsdp"))
             else:
-                out.append(all_reduce_(g, world))
+                out.append(all_reduce_(g, data))
                 continue
-            out.append(all_reduce_(g, dp) if dp is not None else g)
+            for group in replicas:
+                g = all_reduce_(g, group)
+            out.append(g)
         return out
 
     def _sum_cut_squares(self, sq: list) -> list:
-        """Each cut leaf's square summed over the fsdp group (one
-        all-reduce of the per-leaf sums); a replicated leaf's as it is."""
-        cut = [i for i, d in enumerate(self.opt_dims) if d is not None]
-        if cut:
-            from opendiloco_torch.parallel.comm import all_reduce_
+        """Each cut leaf's square summed over the fsdp group, then an expert
+        leaf's over the ep group (one all-reduce of the per-leaf sums
+        each); a replicated leaf's as it is."""
+        from opendiloco_torch.parallel.comm import all_reduce_
 
-            summed = all_reduce_(torch.stack([sq[i] for i in cut]), self.plan.group("fsdp"))
-            for j, i in enumerate(cut):
-                sq[i] = summed[j]
+        for dims, axis in ((self.opt_dims, "fsdp"), (self.ep_dims, "ep")):
+            cut = [i for i, d in enumerate(dims) if d is not None]
+            if cut and self.plan.shape[axis] > 1:
+                summed = all_reduce_(torch.stack([sq[i] for i in cut]), self.plan.group(axis))
+                for j, i in enumerate(cut):
+                    sq[i] = summed[j]
         return sq
 
     @torch.no_grad()
@@ -554,19 +616,14 @@ class InnerTrainer:
 
     @torch.no_grad()
     def _probe_step_impl(self, params: dict, batch: dict) -> dict:
-        _, aux = forward(
-            params, batch["input_ids"], self.model_cfg,
-            compute_dtype=self.tc.compute_dtype,
-            attn_impl=self.tc.attn_impl,
-            remat=False,
-            return_aux=True,
-            gather=self._gather,
-        )
+        _, aux = forward(params, batch["input_ids"], self.model_cfg, remat=False, return_aux=True,
+                         **self._forward_kw(batch["input_ids"]))
         if self._batch_group is not None:
             # L2 norms over the whole batch: the ranks' squares summed
             from opendiloco_torch.parallel.comm import all_reduce_
 
-            aux = {k: torch.sqrt(all_reduce_(v.float() ** 2, self._batch_group)) for k, v in aux.items()}
+            aux = {k: torch.sqrt(all_reduce_(aux[k].float() ** 2, self._batch_group))
+                   for k in ("attn_out_norm", "lm_head_norm")}
         return aux
 
     # -- host API ---------------------------------------------------------
@@ -574,17 +631,35 @@ class InnerTrainer:
     def _batch(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a).astype(np.int64)).to(self.device)
 
+    def _seq_chunk(self, input_ids: np.ndarray, labels: Optional[np.ndarray]) -> tuple:
+        """Under sp, this rank's chunk of each sequence [..., T] of the ids,
+        and of the next-token targets (the labels shifted by one, the
+        global last position ignored), which the loss then takes unshifted:
+        the last position of chunk r is scored against the first label of
+        chunk r + 1, as the JAX loss's shift on the global arrays does."""
+        if self._sp_n == 1:
+            return input_ids, labels
+        T = input_ids.shape[-1]
+        if T % self._sp_n:
+            raise ValueError(f"sequence {T} not divisible by sp={self._sp_n}")
+        cut = slice(self._sp_r * (T // self._sp_n), (self._sp_r + 1) * (T // self._sp_n))
+        if labels is not None:
+            pad = np.full(labels.shape[:-1] + (1,), IGNORE, labels.dtype)
+            labels = np.concatenate([labels[..., 1:], pad], axis=-1)[..., cut]
+        return input_ids[..., cut], labels
+
     def shard_batch(self, input_ids: np.ndarray, labels: np.ndarray, accum: int) -> dict:
-        """[bs, T] host arrays -> [accum, bs / accum, T] device tensors.
+        """[bs, T] host arrays -> [accum, bs / accum, T / sp] device tensors.
         Under a plan of several processes the arrays are this process's
-        rows of the global batch (a dataloader that strides by rank, as
-        ``train()`` runs it; the JAX batch spec cuts each micro-batch the
-        same way)."""
+        rows of the global batch (a dataloader that strides by batch block,
+        as ``train()`` runs it; the JAX batch spec cuts each micro-batch the
+        same way), whole sequences; under sp the trainer keeps its chunk
+        (:meth:`_seq_chunk`)."""
         gbs, seq = input_ids.shape
         if gbs % accum:
             raise ValueError(f"batch {gbs} not divisible by accum {accum}")
-        shaped = lambda a: self._batch(a.reshape(accum, gbs // accum, seq))
-        return {"input_ids": shaped(input_ids), "labels": shaped(labels)}
+        ids, labels = self._seq_chunk(*(a.reshape(accum, gbs // accum, seq) for a in (input_ids, labels)))
+        return {"input_ids": self._batch(ids), "labels": self._batch(labels)}
 
     def add_post_dispatch_hook(self, fn) -> None:
         """Register a ``state -> state`` callback fired after every
@@ -600,11 +675,12 @@ class InnerTrainer:
     def eval_loss(self, params: dict, input_ids: np.ndarray, labels: np.ndarray) -> float:
         """The mean loss of a [bs, T] batch (this process's rows, as
         :meth:`shard_batch`), over the whole batch's counted tokens."""
+        input_ids, labels = self._seq_chunk(input_ids, labels)
         batch = {"input_ids": self._batch(input_ids), "labels": self._batch(labels)}
         return float(self._eval_step_impl(params, batch))
 
     def probe_norms(self, params: dict, input_ids: np.ndarray) -> dict:
-        aux = self._probe_step_impl(params, {"input_ids": self._batch(input_ids)})
+        aux = self._probe_step_impl(params, {"input_ids": self._batch(self._seq_chunk(input_ids, None)[0])})
         out = {
             f"activation_norm/layers.{i}.self_attn": float(v)
             for i, v in enumerate(aux["attn_out_norm"].cpu())

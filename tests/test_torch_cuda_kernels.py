@@ -632,6 +632,30 @@ def test_flash_attention_backward_routes_count_their_own_launches(cuda):
         assert tuple(tdk.LAUNCHES[n] - n0[n] for n in names) == want, (dtype, D, route)
 
 
+@pytest.mark.cuda
+def test_a_fresh_thread_launches_the_kernels(cuda):
+    """A thread that has run no PyTorch op on the card launches B1 and the
+    backward kernels as the main thread does (the loopback ring's ranks:
+    ROADMAP.md C7), with the same bits."""
+    import threading
+
+    from opendiloco_torch.ops import flash_attention as tfa
+
+    q, k, v, do = _flash_inputs(cuda, 2, 256, 4, 2, 64, torch.bfloat16)
+
+    def run():
+        out, lse = tfa.flash_attention_fwd(q, k, v)
+        delta = tfa.attention_delta(do, out)
+        return [out, lse, tfa.flash_attention_dq(q, k, v, do, lse, delta, False, torch.float32)]
+
+    main, got = run(), []
+    thread = threading.Thread(target=lambda: got.extend(run()))
+    thread.start()
+    thread.join()
+    torch.cuda.synchronize()
+    assert len(got) == 3 and all(torch.equal(a, b) for a, b in zip(got, main))
+
+
 def test_flash_attention_backward_route_rule():
     # dtype and head dim alone decide; runs without a card
     from opendiloco_torch.ops import flash_attention as tfa

@@ -503,7 +503,10 @@ def test_disconnect_mid_generation_retires_the_slot_and_identity_shows(tiny_cfg)
     srv = ServeServer(batcher, port=0, identity=lambda: {"worker": "r7", "staleness": 1, "stale": False})
     try:
         conn = socket.create_connection(("127.0.0.1", srv.port), timeout=10)
-        conn.sendall((json.dumps({"prompt": [1, 2, 3], "max_new_tokens": 48}) + "\n").encode())
+        # long enough to be mid-generation when the server looks: it watches
+        # the socket every 50 ms, and 48 tokens here take about as long (a
+        # request that finishes first leaves nothing to cancel)
+        conn.sendall((json.dumps({"prompt": [1, 2, 3], "max_new_tokens": 480}) + "\n").encode())
         conn.close()
         assert wait(lambda: batcher.cancelled >= 1, 30)
         assert batcher.cancelled == 1 and batcher.stats()["cancelled"] == 1

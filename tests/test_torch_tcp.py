@@ -22,6 +22,7 @@ import json
 import os
 import signal
 import struct
+import subprocess
 import threading
 import time
 import weakref
@@ -42,7 +43,7 @@ from opendiloco_torch.diloco import compression as tcomp
 from opendiloco_torch.diloco.backend import PeerProgress
 from opendiloco_torch.diloco.rendezvous import RendezvousServer
 from opendiloco_torch.diloco.tcp import TcpBackend
-from test_tcp_backend import _NATIVE_DAEMON, _NativeDaemon
+from test_tcp_backend import _NativeDaemon
 
 CODECS = sorted(jcomp._CODECS)
 
@@ -288,14 +289,39 @@ def test_backoff_and_retries_match(spec, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture(scope="session")
+def native_daemon_binary(tmp_path_factory) -> str:
+    """The C++ rendezvous daemon compiled once for the test run, from
+    ``native/odtp_rendezvousd.cpp`` with the flags of ``native/Makefile``,
+    into a temporary folder of its own: the native cases then run whether
+    or not another test has run ``make -C native`` first, and the JAX
+    package's tree is neither built nor edited."""
+    out = str(tmp_path_factory.mktemp("native-daemon") / "odtp-rendezvousd")
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native", "odtp_rendezvousd.cpp")
+    subprocess.run(["g++", "-O2", "-std=c++17", "-Wall", "-o", out, src], check=True, capture_output=True,
+                   timeout=300)
+    return out
+
+
+class _BuiltDaemon(_NativeDaemon):
+    """:class:`_NativeDaemon` on the binary :func:`native_daemon_binary` built."""
+
+    def __init__(self, binary: str):
+        import re
+
+        self.proc = subprocess.Popen([binary, "--port", "0"], stdout=subprocess.PIPE, text=True)
+        line = self.proc.stdout.readline()
+        m = re.search(r":(\d+)", line)
+        assert m, f"daemon did not announce a port: {line!r}"
+        self.address = f"127.0.0.1:{m.group(1)}"
+
+
 @pytest.fixture(params=["port", "jax", "native"])
 def daemon(request):
     """The port's rendezvous daemon, the JAX package's, or the C++ one
-    where it is built."""
+    (compiled for the test run: :func:`native_daemon_binary`)."""
     if request.param == "native":
-        if not os.path.exists(_NATIVE_DAEMON):
-            pytest.skip("native/odtp-rendezvousd is not built here (make -C native)")
-        server = _NativeDaemon()
+        server = _BuiltDaemon(request.getfixturevalue("native_daemon_binary"))
     else:
         cls = RendezvousServer if request.param == "port" else JRendezvousServer
         server = cls(host="127.0.0.1", port=0).start_in_thread()

@@ -479,23 +479,62 @@ def test_train_without_diloco_with_eval_and_probes(tmp_path):
 @pytest.mark.parametrize(
     "overrides",
     [
-        dict(attn_implementation="ring"),
         dict(remat="dots"),
         dict(remat="dots_all"),
         dict(tp_size=2),
-        dict(sp_size=2),
         dict(pp_size=2),
-        dict(ep_size=2),
         dict(fake_data=False),
         dict(metric_logger_type="wandb"),
-        dict(path_model="2m_4e"),
     ],
     ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()),
 )
 def test_unported_options_raise(tmp_path, overrides):
     backend = LoopbackWorld(1).make_backends()[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    match = "ROADMAP.md A14b" if "tp_size" in overrides or "pp_size" in overrides else "ROADMAP"
+    with pytest.raises(NotImplementedError, match=match):
         train(_train_config(tmp_path, 0, **overrides), backend, device="cpu")
+
+
+# the options of ROADMAP.md A14a: in one process (ring attention at sp 1,
+# an MoE config), or over two CLI processes of one worker (sp 2, ep 2)
+A14A_CASES = [
+    dict(attn_implementation="ring"),
+    dict(path_model="2m_4e"),
+    dict(sp_size=2),
+    dict(ep_size=2, path_model="2m_4e"),
+]
+
+
+@pytest.mark.parametrize("overrides", A14A_CASES, ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
+def test_sp_ep_ring_and_moe_options_train(tmp_path, overrides):
+    """train() runs each A14a option on the CPU for a few steps, and the
+    loss falls on the ramp data. sp and ep above 1 take two processes:
+    ``python -m opendiloco_torch.train --multihost`` over a gloo group."""
+    if "sp_size" not in overrides and "ep_size" not in overrides:
+        world = LoopbackWorld(1)
+        summary = train(_train_config(tmp_path, 0, **overrides), world.make_backends()[0], device="cpu")
+        rows = _rows(tmp_path / "metrics-0.pkl")
+    else:
+        from test_torch_sharded_train import _launch
+
+        kw = {"path_model": "2m", **overrides}
+        extra = [x for k, v in kw.items() for x in (f"--{k.replace('_', '-')}", str(v))]
+        args = ["--fake-data", "--fake-data-mode", "ramp", "--seq-length", "64",
+                "--per-device-train-batch-size", "4", "--total-batch-size", "8", "--total-steps", "12",
+                "--warmup-steps", "2", "--lr", "3e-3", "--precision", "fp32", "--metric-logger-type", "dummy",
+                "--project", str(tmp_path / "metrics-0.pkl"), *extra]
+        _launch([[*args, "--multihost", "--coordinator-address", f"file://{tmp_path / 'store'}",
+                  "--num-processes", "2", "--process-id", str(i)] for i in range(2)])
+        rows = _rows(tmp_path / "metrics-0.pkl")
+        summary = {"step": rows[-1]["step"], "loss": rows[-1]["Loss"]}
+    assert summary["step"] == 12 and np.isfinite(summary["loss"])
+    assert [r["step"] for r in rows] == list(range(1, 13))
+    assert rows[-1]["Loss"] < rows[0]["Loss"]
+
+
+def _rows(path) -> list:
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 @pytest.mark.parametrize(

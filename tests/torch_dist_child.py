@@ -144,6 +144,56 @@ def job_diloco(spec: dict) -> dict:
     return out
 
 
+def job_ring(spec: dict) -> dict:
+    """Both ring bodies over the world as one sp ring (``DistRing``), on
+    this rank's chunks of ``spec["qkv"]`` (f32 numpy, cast to
+    ``spec["dtype"]``): the output and the q, k, v gradients of
+    sum(out * w) with w the rank's chunk of ``spec["w"]``. Rank 0 also
+    runs both bodies on a loopback ring of as many threads, in this same
+    process (``"loopback"``: every rank's chunks)."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from opendiloco_torch.ops import ring_attention as ra
+
+    dtype = getattr(torch, spec["dtype"])
+    n = dist.get_world_size()
+    tl = spec["qkv"][0].shape[1] // n
+
+    def one(fn, ring, r):
+        cut = slice(r * tl, (r + 1) * tl)
+        q, k, v = (torch.from_numpy(a[:, cut].copy()).to(dtype).requires_grad_(True) for a in spec["qkv"])
+        o = fn(q, k, v, ring)
+        (o.float() * torch.from_numpy(spec["w"][:, cut].copy())).sum().backward()
+        return [t.detach().float().numpy() for t in (o, q.grad, k.grad, v.grad)]
+
+    bodies = (("flash", ra.ring_flash_attention), ("einsum", ra.ring_attention))
+    out = {name: one(fn, ra.DistRing(dist.group.WORLD), dist.get_rank()) for name, fn in bodies}
+    if dist.get_rank() == 0:
+        out["loopback"] = {}
+        for name, fn in bodies:
+            ring, res = ra.LoopbackRing(n), [None] * n
+
+            def run(r, fn=fn, ring=ring, res=res):
+                res[r] = one(fn, ring.rank(r), r)
+
+            threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            out["loopback"][name] = res
+    return out
+
+
+def job_many(spec: dict) -> list:
+    """Several jobs in one launch: ``spec["jobs"]`` holds (job name, its
+    spec) pairs; returns their results in order."""
+    return [globals()[f"job_{name}"](sub) for name, sub in spec["jobs"]]
+
+
 def spawn(job: str, world: int, spec: dict, tmp, timeout: float = 120.0) -> list:
     """Run ``job`` on ``world`` ranks (one process each, a ``file://``
     store under ``tmp``); returns the ranks' results in rank order. Every
