@@ -4,7 +4,8 @@ decode, prefix reuse, the host KV tier, training, checkpoint and resume,
 training that serves over HTTP with weight hot swap, the command line,
 the outer plane on the card (overlapped and streaming rounds, error
 feedback), sharding, a galaxy of two workers over TCP, NoLoCo gossip
-rounds, the serving fleet, routed experts and ring attention.
+rounds, the serving fleet, routed experts, ring attention, and tensor
+and pipeline parallelism.
 
     python3 chip_smoke.py
 
@@ -317,7 +318,27 @@ exits non-zero.
    ``train()`` at config_150m's widths and 2 of its layers with
    ``attn_implementation="ring"`` at sp 1 and with ``"pallas"``: losses,
    grad norms, launches and master hashes bit for bit.
-29. The kernels line (launches of B6, B7, their merges and B8 by serving
+29. Tensor and pipeline parallelism at config_1b's full width and depth
+   (22 layers; phase 10's run settings: seq 1024, mb 8, accum 2; bf16,
+   remat, the kernels and the fused loss; three inner steps, warmup 1):
+   ``InnerTrainer`` without a group, then at pp 2 (two stage threads of
+   11 layers over the loopback P2P exchange, 2 micro-batches), then at tp
+   2 (two rank threads over the loopback group: 16 q and 2 kv heads, ffn
+   2816 and vocab 16000 a rank, the head gathered for the loss), on the
+   same numpy params and batches; each rank thread runs its CUDA backward
+   on its own thread (``set_multithreading_enabled(False)``), so a rank
+   that waits inside a backward node does not hold up the others. Every
+   rank's loss and grad norm within 1e-3 and 0.5% of the unsplit run's at
+   each step, the whole params after step 3 within phase 27's master
+   bound, update directions on at least 90% of the elements
+   (``TPPP_TOL``), and the leaves tp and pp do not cut bit
+   for bit across the ranks after every step. Each thread's launches
+   (zeroed before each run) against the counts written down before it:
+   per stage 2 x (L/pp) x M x accum of the sm90 B1 a step and half that
+   of B2a, B2b and delta, the loss kernels on the last stage only (B3
+   accum, dlog, B4a and B4b accum x 4); per tp rank phase 10's counts at
+   22 layers. Step ms and peak device memory of each run.
+30. The kernels line (launches of B6, B7, their merges and B8 by serving
    phase, of the training kernels by training phase), each phase's
    seconds and the smoke's, the card line, and last the result line.
 
@@ -4659,6 +4680,208 @@ def ring_train_sp1(torch, tfa, dev) -> dict:
     return a
 
 
+# ---------------------------------------------------------------------------
+# phase 29: tensor and pipeline parallelism at config_1b over loopback ranks
+# ---------------------------------------------------------------------------
+
+# config_1b at full width and depth (22 layers), phase 10's run settings
+# (seq 1024, mb 8, accum 2), three inner steps; warmup 1 so that two steps
+# update
+TPPP_1B = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=1, total_steps=3,
+               lr=1e-3)
+TPPP_NAMES = MOE_NAMES
+TPPP_TOL = ("bf16: each step's loss within 1e-3 and grad norm within 0.5% of the unsplit run's (phase 8's); the whole "
+            "params after step 3 within phase 27's master bound (2 x outer lr x (1 + momentum) x the steps' lrs x "
+            "(1 + wd); three AdamW steps move an element by at most the lrs x (1 + wd) each way, so a split run "
+            "whose rounding flips an element's direction at every step lands within 2 x that) and the update "
+            "directions agreeing on at least 90% of the elements; the leaves tp and pp do not cut bit for bit "
+            "across the ranks after every step")
+
+
+def tppp_launches(accum: int, steps: int, mb: int, seq: int, *, layers: int, microbatches: int,
+                  loss: bool) -> dict:
+    """The launches one rank thread must show over ``steps`` inner steps:
+    per micro-batch of the pipeline and layer, B1 twice (forward and its
+    recompute under remat), delta, B2a and B2b once; where the rank runs the
+    loss, B3 once an accumulation step and dlog, B4a and B4b once a
+    2048-row chunk of its mb x (seq - 1) rows."""
+    from opendiloco_torch.ops import fused_xent as tfx
+
+    n = steps * accum * layers * microbatches
+    want = {name: 0 for name in TPPP_NAMES}
+    want.update({"flash_attention_fwd_sm90": 2 * n, "flash_attention_delta": n, "flash_attention_dq_sm90": n,
+                 "flash_attention_dkv_sm90": n})
+    if loss:
+        chunks = -(-mb * (seq - 1) // tfx.CHUNK_ROWS)
+        want["fused_xent_fwd_sm90"] = steps * accum
+        for name in ("fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw_sm90"):
+            want[name] = steps * accum * chunks
+    return want
+
+
+def tppp_run(torch, tfa, dev, cfg, tc, params: dict, batches: list, plans: list) -> dict:
+    """``InnerTrainer`` on each plan (one thread each, CUDA backward on the
+    calling thread: ``set_multithreading_enabled(False)``; one plan: this
+    thread) over ``batches``: each step's loss and grad norm (every rank's),
+    the leaves tp and pp do not cut compared across the ranks after every
+    step (bit for bit), the whole params after the last step (rank 0, host
+    arrays), each thread's launches, ms a step after the first, and the
+    peak device memory."""
+    from opendiloco_torch.models import llama
+    from opendiloco_torch.trainer import InnerTrainer
+
+    n = len(plans)
+    out = [None] * n
+    states: list = [None] * n
+    errors: list = []
+    step_bar = threading.Barrier(n)
+    idents = [None] * n
+    mismatch: list = []
+
+    def one(r):
+        try:
+            idents[r] = threading.get_ident()
+            with torch.autograd.set_multithreading_enabled(False):
+                tr = InnerTrainer(cfg, tc, device=dev, plan=plans[r])
+                state = tr.init_state(params=params)
+                accum = TPPP_1B["total_batch_size"] // TPPP_1B["per_device_train_batch_size"]
+                uncut = [i for i, d in enumerate(zip(tr.mp_dims["tp"], tr.mp_dims["pp"])) if d == (None, None)]
+                losses, norms, times = [], [], []
+                for ids in batches:
+                    batch = tr.shard_batch(ids, ids.copy(), accum=accum)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = tr.train_step(state, batch)
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    if n > 1:  # the uncut leaves of every rank, bit for bit
+                        states[r] = [llama.flatten_params(state["params"])[i] for i in uncut]
+                        step_bar.wait()
+                        if r == 0:
+                            for other in states[1:]:
+                                if not all(torch.equal(a, b) for a, b in zip(states[0], other)):
+                                    mismatch.append(len(losses))
+                        step_bar.wait()
+                whole = tr.host_params(llama.flatten_params(state["params"]))  # a collective
+                out[r] = {"losses": losses, "norms": norms, "step_ms": [t * 1e3 for t in times],
+                          "uncut": len(uncut), "params": whole if r == 0 else None}
+                del tr, state, whole
+        except BaseException as e:
+            errors.append(e)
+            step_bar.abort()
+            for plan in plans:
+                for c in (plan.comms or {}).values():
+                    c.g.abort()
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tfa.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    if n == 1:
+        one(0)
+    else:
+        threads = [threading.Thread(target=one, args=(r,)) for r in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if mismatch:
+        raise AssertionError(f"the leaves tp and pp do not cut differ across ranks after steps {mismatch}")
+    by_thread = tfa.LAUNCHES.by_thread()
+    launches = [{k: by_thread.get(idents[r], {}).get(k, 0) for k in TPPP_NAMES} for r in range(n)]
+    return {"ranks": out, "launches": launches, "wall_s": wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_tp_pp(torch, tfa, dev, card: str) -> dict:
+    """Phase 29: config_1b at full width and depth trains three inner steps
+    through ``InnerTrainer`` unsplit, at pp 2 (two stage threads of 11
+    layers over the loopback P2P exchange, 2 micro-batches) and at tp 2
+    (two rank threads over the loopback group: 16 q and 2 kv heads, ffn
+    2816 and vocab 16000 a rank, the head gathered for the loss), on the
+    same numpy params and batches, bf16, remat, the kernels and the fused
+    loss. Held: TPPP_TOL, and each thread's launches against
+    :func:`tppp_launches` written down before the run."""
+    from opendiloco_torch.data.dataloader import FakeTokenizedDataset
+    from opendiloco_torch.models import llama
+    from opendiloco_torch.models.convert import params_to_numpy
+    from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.parallel.mesh import loopback_plans, single_device_plan
+    from opendiloco_torch.train import INIT_SEED
+    from opendiloco_torch.trainer import TrainerConfig, make_schedule
+
+    t_phase = time.perf_counter()
+    cfg, run = load_config("1b"), TPPP_1B
+    L = cfg.num_hidden_layers
+    mb, seq = run["per_device_train_batch_size"], run["seq_length"]
+    accum, steps = run["total_batch_size"] // mb, run["total_steps"]
+    tc = TrainerConfig(lr=run["lr"], warmup_steps=run["warmup_steps"], total_steps=100, precision="bf16-mixed",
+                       remat=True, attn_impl="pallas", fused_loss=True)
+    params = params_to_numpy(llama.init_params(torch.Generator(device=dev).manual_seed(INIT_SEED), cfg))
+    torch.cuda.empty_cache()
+    ds = iter(FakeTokenizedDataset(seq, cfg.vocab_size, seed=42, mode="ramp"))
+    batches = [np.stack([next(ds)["input_ids"] for _ in range(run["total_batch_size"])]) for _ in range(steps)]
+    want = {"unsplit": [tppp_launches(accum, steps, mb, seq, layers=L, microbatches=1, loss=True)],
+            "pp 2": [tppp_launches(accum, steps, mb, seq, layers=L // 2, microbatches=2, loss=r == 1)
+                     for r in range(2)],
+            "tp 2": [tppp_launches(accum, steps, mb, seq, layers=L, microbatches=1, loss=True) for _ in range(2)]}
+    plans = {"unsplit": [single_device_plan()], "pp 2": loopback_plans(pp_size=2), "tp 2": loopback_plans(tp_size=2)}
+    runs = {}
+    for label in ("unsplit", "pp 2", "tp 2"):
+        res = tppp_run(torch, tfa, dev, cfg, tc, params, batches, plans[label])
+        if res["launches"] != want[label]:
+            raise AssertionError(f"tp/pp 1b {label}: launches by thread {res['launches']} != {want[label]}")
+        runs[label] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref = runs["unsplit"]["ranks"][0]
+    from opendiloco_torch.config import DilocoConfig
+
+    dc, sched = DilocoConfig(), make_schedule(tc)
+    reach = sum(sched(i) for i in range(steps)) * (1 + tc.weight_decay)
+    param_tol = 2 * dc.outer_lr * (1 + dc.outer_momentum) * reach + 1e-6  # phase 27's
+    checks = {}
+    for label in ("pp 2", "tp 2"):
+        for r, got in enumerate(runs[label]["ranks"]):
+            for step, (a, b, ga, gb) in enumerate(zip(got["losses"], ref["losses"], got["norms"], ref["norms"])):
+                if not (math.isfinite(a) and abs(a - b) <= 1e-3 and abs(ga - gb) <= 5e-3 * gb):
+                    raise AssertionError(f"tp/pp 1b {label} rank {r} step {step + 1}: loss {a} vs {b}, grad norm "
+                                         f"{ga} vs {gb}")
+        worst, agree, total = 0.0, 0, 0
+        init = llama.flatten_params(params)
+        for p0, pg, pr in zip(init, runs[label]["ranks"][0]["params"], ref["params"]):
+            worst = max(worst, float(np.abs(pg - pr).max()))
+            agree += int(np.count_nonzero(np.sign(pg - p0) == np.sign(pr - p0)))
+            total += p0.size
+        if not (worst <= param_tol and agree >= 0.9 * total):
+            raise AssertionError(f"tp/pp 1b {label}: params differ by up to {worst} (tol {param_tol}), update "
+                                 f"directions agree on {agree / total:.4f}")
+        checks[label] = {"params_largest_difference": worst, "update_direction_agreement": agree / total}
+        runs[label]["ranks"][0]["params"] = None
+    ref["params"] = None
+    res = {"config": "1b", "layers": L, **run, "accum": accum, "attn_impl": tc.attn_impl, "fused_loss": tc.fused_loss,
+           "remat": tc.remat, "pp_microbatches": 2, "tol": TPPP_TOL, "param_tol": param_tol, "checks": checks,
+           "runs": {label: {"losses": [x["losses"] for x in r["ranks"]], "grad_norms": [x["norms"] for x in r["ranks"]],
+                            "step_ms": [x["step_ms"] for x in r["ranks"]], "launches_by_thread": r["launches"],
+                            "uncut_leaves": r["ranks"][0]["uncut"], "wall_s": r["wall_s"],
+                            "peak_memory_gib": r["peak_gib"]} for label, r in runs.items()},
+           "seconds": time.perf_counter() - t_phase}
+    for label, r in res["runs"].items():
+        ms = float(np.median([x for ranks in r["step_ms"] for x in ranks[1:]]))
+        r["step_ms_median_after_first"] = ms
+        log(f"tp/pp 1b {label}: step {ms:.1f} ms (median after the first; mb {mb} x accum {accum} x seq {seq}, "
+            f"{L} layers, ranks as threads on one card), peak device memory {r['peak_memory_gib']:.2f} GiB, "
+            f"losses {r['losses'][0]}, grad norms {r['grad_norms'][0]}, launches {r['launches_by_thread']} | {card}")
+    log(f"tp/pp 1b: {json.dumps(checks)} (tol {param_tol:.3e}); phase {res['seconds']:.1f} s | {card}")
+    return res
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -4748,6 +4971,7 @@ def main() -> int:
     fleet = timed("26 fleet", phase_fleet, torch, tdk, dev, card)
     moe = timed("27 moe 150m_8e", phase_moe, torch, tfa, dev, card)
     ring = timed("28 ring", phase_ring, torch, tfa, dev, card)
+    tp_pp = timed("29 tp pp 1b", phase_tp_pp, torch, tfa, dev, card)
 
     # launches: each serving phase's main path, by phase
     serving = {f"serve {s['weight_format']}": s["launches"] for s in serve}
@@ -4783,7 +5007,9 @@ def main() -> int:
                                   "moe 150m_8e": moe["launches"].get(k["name"], 0),
                                   **{f"ring {label} (4 ranks, T 4096)": g["launches"].get(k["name"], 0)
                                      for label, g in ring["geoms"].items()},
-                                  "ring train 150m (2 layers) sp 1": ring["train_sp1"]["launches"].get(k["name"], 0)}
+                                  "ring train 150m (2 layers) sp 1": ring["train_sp1"]["launches"].get(k["name"], 0),
+                                  **{f"tp/pp 1b {label}": sum(t.get(k["name"], 0) for t in r["launches_by_thread"])
+                                     for label, r in tp_pp["runs"].items()}}
         k["launches"] = sum(k["launches_by_phase"].values())
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
         k["launches_per_inner_step_150m_8e"] = moe["launches_per_inner_step"].get(k["name"], 0)
@@ -4791,7 +5017,8 @@ def main() -> int:
                     "train": [train_150m, train_1b, train_f32], "train_1b_device": train_1b_device,
                     "outer_plane": outer_plane, "sharded": sharded, "tcp": tcp, "gossip": gossip, "fleet": fleet, "resume": resume_150m, "weights_dir": weights_dir,
                     "train_serve": train_serve, "install_wire": wire, "kv_tier": tier,
-                    "gate3": gate3, "cli": cli, "moe": moe, "ring": ring, "phase_seconds": PHASE_SECONDS,
+                    "gate3": gate3, "cli": cli, "moe": moe, "ring": ring, "tp_pp": tp_pp,
+                    "phase_seconds": PHASE_SECONDS,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b6, *b7, *b8, *flash, *xent]}))
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}; smoke "

@@ -338,6 +338,10 @@ class Config:
     remat: Union[bool, str] = True
     fused_loss: Optional[bool] = None
     scan_unroll: Optional[int] = None
+    # sp + pp through a non-ring attention: the sp axis then shards
+    # activations only (every rank attends over the whole sequence). Without
+    # it the combination is an error rather than a silent downgrade.
+    allow_sp_activation_sharding: bool = False
 
     # data
     dataset_name_or_paths: str = "allenai/c4"

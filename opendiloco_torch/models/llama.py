@@ -18,7 +18,12 @@ flash-chunk ring over a sequence cut into chunks (``"ring"``,
 under ``remat=True`` (``torch.utils.checkpoint``, non-reentrant: the
 backward reruns the layer's forward, kernels included). A config with
 ``num_experts > 0`` runs the Switch top-1 routed-expert FFN
-(:func:`_switch_ffn`) in every layer.
+(:func:`_switch_ffn`) in every layer. Under tensor parallelism (``tp``,
+:class:`~opendiloco_torch.parallel.comm.TensorParallel`) a rank runs its
+heads and FFN columns (Megatron: :func:`_tp_attention`, :func:`_tp_ffn`)
+and looks up its rows of a vocab-cut embedding; under the pipeline each
+stage runs its layers (:func:`stage_fn`,
+:mod:`~opendiloco_torch.parallel.pipeline`).
 
 For serving, ``kernels=True`` routes decode attention through the hand-written
 paged-decode-attention kernel, the tail attention of the speculative
@@ -219,7 +224,7 @@ def _not_ported(what: str, item: str):
 
 
 def _switch_ffn(cfg: LlamaConfig, x: torch.Tensor, layer: dict, experts=None,
-                stats: Optional[list] = None) -> tuple[torch.Tensor, torch.Tensor]:
+                stats: Optional[list] = None, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Switch-Transformer top-1 routed expert FFN -> (out, aux loss), the
     JAX function's form: router logits in f32, top-1 by argmax, capacity
     ``ceil(N / E * capacity_factor)``, a token's slot the cumsum of the
@@ -231,7 +236,11 @@ def _switch_ffn(cfg: LlamaConfig, x: torch.Tensor, layer: dict, experts=None,
     and ``layer`` this rank's block of the experts: N is the global token
     count, the slots and the load-balance means are the global ones, and
     the partial combine is summed over ep. ``stats`` gets this rank's
-    count of tokens dropped by capacity."""
+    count of tokens dropped by capacity. Under ``tp`` (a
+    :class:`~opendiloco_torch.parallel.comm.TensorParallel`) the expert
+    leaves hold this rank's columns of F where tp divides it: the experts'
+    input enters the region and their outputs are summed over tp before
+    the combine; routing is the same on every tp rank."""
     B, T, D = x.shape
     E = cfg.num_experts
     N = B * T
@@ -268,9 +277,14 @@ def _switch_ffn(cfg: LlamaConfig, x: torch.Tensor, layer: dict, experts=None,
     if experts is not None:
         xf, gate = experts.to_experts(xf, gate)
     expert_in = torch.einsum("nec,nd->ecd", d, xf)  # [E, C, D]
+    cut = tp is not None and cfg.intermediate_size % tp.size == 0
+    if cut:
+        expert_in = tp.copy(expert_in)
     h1 = F.silu(torch.einsum("ecd,edf->ecf", expert_in, layer["gate_proj"])) * torch.einsum(
         "ecd,edf->ecf", expert_in, layer["up_proj"])
     out_e = torch.einsum("ecf,efd->ecd", h1, layer["down_proj"])
+    if cut:
+        out_e = tp.reduce(out_e)
     combine = d * gate.to(x.dtype)[:, None, None]
     y = torch.einsum("nec,ecd->nd", combine, out_e)
     if experts is not None:
@@ -278,29 +292,109 @@ def _switch_ffn(cfg: LlamaConfig, x: torch.Tensor, layer: dict, experts=None,
     return y.reshape(B, T, D), aux
 
 
+def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, q0: int, hl: int, group: int) -> tuple:
+    """The kv heads that q heads [q0, q0 + hl) of a GQA layer attend with
+    (``group`` q heads a kv head) where tp does not divide the kv heads, as
+    kernel operands: one kv head when the rank's q heads lie inside one
+    group, else one kv head per q head."""
+    if group % hl == 0:
+        return k[:, :, q0 // group:q0 // group + 1], v[:, :, q0 // group:q0 // group + 1]
+    idx = torch.arange(q0, q0 + hl, device=k.device) // group
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _tp_attention(cfg: LlamaConfig, attn_fn, x: torch.Tensor, layer: dict, rope: tuple, tp) -> torch.Tensor:
+    """Attention and o_proj on a tp rank, summed over tp (Megatron). q/k/v
+    hold the rank's columns where tp divides them (the JAX specs), o_proj
+    the matching rows. Where tp divides the q heads the rank attends with
+    its own: its kv heads when tp divides those too, else the kv heads its
+    q heads need out of k and v gathered over tp (JAX's
+    ``flash_attention_sharded`` replicates them into the kernel's region).
+    Where it does not, every rank attends with all heads and multiplies its
+    rows' slice of the output. A tensor a rank uses only in part enters
+    through ``tp.copy`` or a partial gather, so that every gradient that
+    leaves the block is whole and the same on every rank."""
+    B, T, _ = x.shape
+    Nh, Nkv, Dh = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+    n, r = tp.size, tp.rank
+    cos, sin = rope
+    q_cut, kv_cut = (Nh * Dh) % n == 0, (Nkv * Dh) % n == 0
+    xc = tp.copy(x)
+
+    def whole(name: str, cut: bool) -> torch.Tensor:  # all columns, for partial consumers
+        return tp.gather(xc @ layer[name], -1, partial=True) if cut else tp.copy(x @ layer[name])
+
+    with span("llama.qkv"):
+        if q_cut and Nh % n == 0:
+            hl = Nh // n
+            q = (xc @ layer["q_proj"]).reshape(B, T, hl, Dh)
+            if kv_cut and Nkv % n == 0:
+                k = (xc @ layer["k_proj"]).reshape(B, T, Nkv // n, Dh)
+                v = (xc @ layer["v_proj"]).reshape(B, T, Nkv // n, Dh)
+            else:
+                k = whole("k_proj", kv_cut).reshape(B, T, Nkv, Dh)
+                v = whole("v_proj", kv_cut).reshape(B, T, Nkv, Dh)
+                k, v = (t.contiguous() for t in _kv_for_heads(k, v, r * hl, hl, Nh // Nkv))
+            rows = None
+        else:
+            q = whole("q_proj", q_cut).reshape(B, T, Nh, Dh)
+            k = whole("k_proj", kv_cut).reshape(B, T, Nkv, Dh)
+            v = whole("v_proj", kv_cut).reshape(B, T, Nkv, Dh)
+            lo, hi = (r * Nh * Dh) // n, ((r + 1) * Nh * Dh) // n  # this rank's rows of o_proj
+            rows = (lo, hi)
+    with span("llama.rope"):
+        q = _rope_apply(q, cos, sin)
+        k = _rope_apply(k, cos, sin)
+    with span("llama.attention"):
+        attn = attn_fn(q, k, v).reshape(B, T, -1)
+    with span("llama.o_proj"):
+        if rows is None:
+            out = attn @ layer["o_proj"]
+        else:
+            w = layer["o_proj"] if q_cut else tp.copy(layer["o_proj"])[rows[0]:rows[1]]
+            out = attn[..., rows[0]:rows[1]] @ w
+        return tp.reduce(out)
+
+
+def _tp_ffn(cfg: LlamaConfig, x: torch.Tensor, layer: dict, tp) -> torch.Tensor:
+    """The SwiGLU FFN on a tp rank: its columns of gate/up and rows of down
+    where tp divides the FFN dim, the partial products summed over tp; the
+    whole FFN on every rank otherwise."""
+    if cfg.intermediate_size % tp.size:
+        return (F.silu(x @ layer["gate_proj"]) * (x @ layer["up_proj"])) @ layer["down_proj"]
+    xc = tp.copy(x)
+    act = F.silu(xc @ layer["gate_proj"]) * (xc @ layer["up_proj"])
+    return tp.reduce(act @ layer["down_proj"])
+
+
 def _decoder_block(
-    cfg: LlamaConfig, attn_fn, h: torch.Tensor, layer: dict, rope: tuple, probe: bool, ffn_fn=None
+    cfg: LlamaConfig, attn_fn, h: torch.Tensor, layer: dict, rope: tuple, probe: bool, ffn_fn=None, tp=None
 ) -> tuple:
     """Returns (hidden, attn-output L2 norm or None, moe aux or None). The
     norm is the activation probe the reference attaches to ``self_attn``;
-    it is computed only when ``probe`` is set. ``ffn_fn(x, layer) ->
-    (out, aux)`` replaces the dense FFN (the routed experts)."""
+    it is computed only when ``probe`` is set (under tp on the summed
+    output). ``ffn_fn(x, layer) -> (out, aux)`` replaces the dense FFN (the
+    routed experts). ``tp``: this rank's heads and FFN columns
+    (:func:`_tp_attention`, :func:`_tp_ffn`)."""
     B, T, _ = h.shape
     Nh, Nkv, Dh = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
     cos, sin = rope
     with span("llama.attn_norm"):
         x = _rms_norm(h, layer["input_norm"], cfg.rms_norm_eps)
-    with span("llama.qkv"):
-        q = (x @ layer["q_proj"]).reshape(B, T, Nh, Dh)
-        k = (x @ layer["k_proj"]).reshape(B, T, Nkv, Dh)
-        v = (x @ layer["v_proj"]).reshape(B, T, Nkv, Dh)
-    with span("llama.rope"):
-        q = _rope_apply(q, cos, sin)
-        k = _rope_apply(k, cos, sin)
-    with span("llama.attention"):
-        attn = attn_fn(q, k, v)
-    with span("llama.o_proj"):
-        attn_out = attn.reshape(B, T, Nh * Dh) @ layer["o_proj"]
+    if tp is not None:
+        attn_out = _tp_attention(cfg, attn_fn, x, layer, rope, tp)
+    else:
+        with span("llama.qkv"):
+            q = (x @ layer["q_proj"]).reshape(B, T, Nh, Dh)
+            k = (x @ layer["k_proj"]).reshape(B, T, Nkv, Dh)
+            v = (x @ layer["v_proj"]).reshape(B, T, Nkv, Dh)
+        with span("llama.rope"):
+            q = _rope_apply(q, cos, sin)
+            k = _rope_apply(k, cos, sin)
+        with span("llama.attention"):
+            attn = attn_fn(q, k, v)
+        with span("llama.o_proj"):
+            attn_out = attn.reshape(B, T, Nh * Dh) @ layer["o_proj"]
     attn_norm = torch.sqrt(torch.sum(attn_out.float() ** 2)) if probe else None
     with span("llama.attn_residual"):
         h = h + attn_out
@@ -311,6 +405,11 @@ def _decoder_block(
             ffn, aux = ffn_fn(x, layer)
         with span("llama.ffn_residual"):
             return h + ffn, attn_norm, aux
+    if tp is not None:
+        with span("llama.ffn"):
+            ffn = _tp_ffn(cfg, x, layer, tp)
+        with span("llama.ffn_residual"):
+            return h + ffn, attn_norm, None
     with span("llama.gate_up"):
         gate, up = x @ layer["gate_proj"], x @ layer["up_proj"]
     with span("llama.swiglu"):
@@ -322,15 +421,102 @@ def _decoder_block(
         return h + ffn, attn_norm, None
 
 
-def _attn_fn(attn_impl: str, ring=None):
+def _attn_fn(attn_impl: str, ring=None, seq=None):
+    """The attention of a block. ``seq`` (a
+    :class:`~opendiloco_torch.parallel.comm.TensorParallel` over sp): the
+    activation-sharding mode of sp + pp, where a rank holds a chunk of each
+    sequence and attends over the whole: q, k and v are gathered over sp
+    (each rank uses its chunk's rows of the output: partial gathers) and
+    the rank keeps its chunk of the output."""
     if attn_impl == "xla":
-        return lambda q, k, v: xla_attention(q, k, v, causal=True)
-    if attn_impl == "pallas":
-        return lambda q, k, v: flash_attention(q, k, v, causal=True)
-    if attn_impl == "ring":
+        fn = lambda q, k, v: xla_attention(q, k, v, causal=True)
+    elif attn_impl == "pallas":
+        fn = lambda q, k, v: flash_attention(q, k, v, causal=True)
+    elif attn_impl == "ring":
         ring = SOLO if ring is None else ring
         return lambda q, k, v: ring_flash_attention(q, k, v, ring)
-    raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    else:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    if seq is None:
+        return fn
+
+    def whole_sequence(q, k, v):
+        T = q.shape[1]
+        out = fn(*(seq.gather(t, 1, partial=True) for t in (q, k, v)))
+        return out.narrow(1, seq.rank * T, T)
+
+    return whole_sequence
+
+
+def run_layers(cfg: LlamaConfig, layers: dict, h: torch.Tensor, positions: torch.Tensor, *,
+               compute_dtype: torch.dtype, attn_fn, ffn_fn=None, remat: RematPolicy = True, probe: bool = False,
+               gather=None, tp=None) -> tuple:
+    """The stacked layer leaves ``layers`` ([L', ...]: the whole stack, or a
+    pipeline stage's) over ``h`` at ``positions``: (h, the attn-output
+    norms (None unless ``probe``), the MoE aux of each layer (None for a
+    dense stack)). The f32 leaves are cast to ``compute_dtype`` here; under
+    ``gather`` (FULL_SHARD/HYBRID_SHARD blocks) each layer's weights are
+    gathered inside its block when it runs (again on recompute under
+    ``remat``), never the whole stack."""
+    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    names = sorted(layers)
+    if gather is None:
+        with span("llama.cast_params"):
+            stacks = {n: layers[n].to(compute_dtype) for n in names}
+
+        def block(h, *weights):
+            return _decoder_block(cfg, attn_fn, h, dict(zip(names, weights)), rope, probe, ffn_fn, tp)
+    else:
+        with span("llama.layer_params"):  # one unbind a stack, not a slice per use
+            stacks = {n: layers[n].unbind(0) for n in names}
+
+        def block(h, *blocks):
+            with span("llama.gather_params"):
+                weights = gather.layer(names, list(blocks), compute_dtype)
+            return _decoder_block(cfg, attn_fn, h, dict(zip(names, weights)), rope, probe, ffn_fn, tp)
+
+    block = _maybe_remat(block, remat)
+    norms, auxs = [], []
+    for i in range(layers[names[0]].shape[0]):
+        with span("llama.layer_params"):  # layer i's slices of the stacked weights
+            weights = [stacks[n][i] for n in names]
+        h, norm, aux = block(h, *weights)
+        norms.append(norm)
+        auxs.append(aux)
+    return h, norms, auxs
+
+
+def _cast_top(params: dict, compute_dtype: torch.dtype, gather) -> dict:
+    """The leaves outside the stack in the compute dtype (gathered over
+    fsdp under ``gather``)."""
+    with span("llama.gather_params" if gather is not None else "llama.cast_params"):
+        if gather is not None:
+            return {k: gather(k, v, compute_dtype) for k, v in params.items() if k != "layers"}
+        return {k: v.to(compute_dtype) for k, v in params.items() if k != "layers"}
+
+
+def embed(cparams: dict, input_ids: torch.Tensor, cfg: LlamaConfig, tp=None) -> torch.Tensor:
+    """The embedding rows of ``input_ids``: a vocab-parallel lookup where
+    tp cuts the table's vocab."""
+    with span("llama.embed"):
+        if tp is not None and cfg.vocab_size % tp.size == 0:
+            return tp.embed(cparams["embed_tokens"], input_ids)
+        return cparams["embed_tokens"][input_ids]
+
+
+def stage_fn(params: dict, cfg: LlamaConfig, *, compute_dtype: torch.dtype, attn_fn, ffn_fn=None,
+             remat: RematPolicy = True, probe: bool = False, gather=None, tp=None):
+    """A pipeline stage: ``(x, positions) -> (y, MoE aux summed over the
+    stage's layers or None, attn-output norms)`` through the stacked layer
+    leaves of ``params`` (this stage's L/pp layers)."""
+
+    def run(x: torch.Tensor, positions: torch.Tensor) -> tuple:
+        y, norms, auxs = run_layers(cfg, params["layers"], x, positions, compute_dtype=compute_dtype,
+                                    attn_fn=attn_fn, ffn_fn=ffn_fn, remat=remat, probe=probe, gather=gather, tp=tp)
+        aux = torch.stack(auxs).sum() if cfg.num_experts else None
+        return y, aux, norms
+
+    return run
 
 
 def forward(
@@ -346,11 +532,14 @@ def forward(
     return_hidden: bool = False,
     ring_mesh=None,
     pp_mesh=None,
+    pp_microbatches: Optional[int] = None,
     return_moe_aux: bool = False,
     scan_unroll: Optional[int] = None,
     gather=None,
     experts=None,
     moe_stats: Optional[list] = None,
+    tp=None,
+    seq=None,
 ):
     """input_ids [B, T] int -> logits [B, T, V] float32.
 
@@ -370,76 +559,95 @@ def forward(
     The f32 params are cast to ``compute_dtype`` here, inside the autograd
     graph, so gradients arrive in f32 at the f32 leaves. ``scan_unroll``
     is accepted for the JAX signature and has no effect: the layers are a
-    Python loop. The pipeline (``pp_mesh``) raises.
+    Python loop.
 
     ``gather`` (a :class:`~opendiloco_torch.parallel.sharding.ParamGather`)
     means ``params`` hold this rank's blocks of a FULL_SHARD or
-    HYBRID_SHARD layout: the stacks are unbound once, and each layer's
-    weights are gathered inside its block when it runs (again on
-    recompute under ``remat``), never the whole stack. ``experts`` (an
+    HYBRID_SHARD layout (:func:`run_layers`). ``experts`` (an
     :class:`~opendiloco_torch.parallel.experts.ExpertPlan`) means the batch
     and the expert leaves are cut over a process group (:func:`_switch_ffn`);
     ``moe_stats`` (a list) gets each layer's count of tokens dropped by
-    capacity."""
-    if pp_mesh is not None:
-        raise _not_ported("the pipeline-parallel forward (pp_mesh)", "A14b")
+    capacity. ``tp`` (a
+    :class:`~opendiloco_torch.parallel.comm.TensorParallel`) means the
+    params hold this rank's tp blocks: the blocks run on its heads and FFN
+    columns, the embedding is vocab-parallel, the logits come from the head
+    gathered over tp, and ``return_hidden`` hands back this rank's block of
+    the head ([D, V/tp]; the fused loss gathers it). ``seq``: see
+    :func:`_attn_fn`.
+
+    ``pp_mesh`` (a comm over the pp axis,
+    :meth:`~opendiloco_torch.parallel.mesh.MeshPlan.comm`) means the params
+    hold this stage's layers: the decoder stack runs as the GPipe schedule
+    over ``pp_microbatches`` micro-batches (default the pp size;
+    :mod:`~opendiloco_torch.parallel.pipeline`), and the last stage's final
+    hidden states are broadcast to every stage, as the JAX pipeline's
+    masked psum replicates them; the attn-output norms of every stage are
+    gathered. This entry is the pipelined forward without gradients (eval,
+    probes): the training step runs the schedule's backward
+    (``InnerTrainer``)."""
     del scan_unroll
     B, T = input_ids.shape
     if positions is None:
         positions = torch.arange(T, device=input_ids.device).expand(B, T)
-    attn_fn = _attn_fn(attn_impl, ring_mesh)
+    attn_fn = _attn_fn(attn_impl, ring_mesh, seq)
     ffn_fn = None
     if cfg.num_experts:
-        ffn_fn = lambda x, layer: _switch_ffn(cfg, x, layer, experts, moe_stats)
-    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    names = sorted(params["layers"])
-    if gather is None:
-        with span("llama.cast_params"):
-            cparams = {k: (v.to(compute_dtype) if not isinstance(v, dict)
-                           else {n: w.to(compute_dtype) for n, w in v.items()})
-                       for k, v in params.items()}
-        stacks = cparams["layers"]
-
-        def block(h, *weights):
-            return _decoder_block(cfg, attn_fn, h, dict(zip(names, weights)), rope, return_aux, ffn_fn)
+        ffn_fn = lambda x, layer: _switch_ffn(cfg, x, layer, experts, moe_stats, tp)
+    cparams = _cast_top(params, compute_dtype, gather)
+    h = embed(cparams, input_ids, cfg, tp)
+    kw = dict(compute_dtype=compute_dtype, attn_fn=attn_fn, ffn_fn=ffn_fn, remat=remat, probe=return_aux,
+              gather=gather, tp=tp)
+    if pp_mesh is not None:
+        h, attn_norms, moe_aux = _pipelined(params, h, positions, cfg, pp_mesh, pp_microbatches, kw)
     else:
-        with span("llama.gather_params"):
-            cparams = {k: gather(k, v, compute_dtype) for k, v in params.items() if k != "layers"}
-        with span("llama.layer_params"):  # one unbind a stack, not a slice per use
-            stacks = {n: params["layers"][n].unbind(0) for n in names}
-
-        def block(h, *blocks):
-            with span("llama.gather_params"):
-                weights = gather.layer(names, list(blocks), compute_dtype)
-            return _decoder_block(cfg, attn_fn, h, dict(zip(names, weights)), rope, return_aux, ffn_fn)
-
-    block = _maybe_remat(block, remat)
-    with span("llama.embed"):
-        h = cparams["embed_tokens"][input_ids]
-    attn_norms, layer_auxs = [], []
-    for i in range(cfg.num_hidden_layers):
-        with span("llama.layer_params"):  # layer i's slices of the stacked weights
-            weights = [stacks[n][i] for n in names]
-        h, norm, aux = block(h, *weights)
-        attn_norms.append(norm)
-        layer_auxs.append(aux)
-    moe_aux = torch.stack(layer_auxs).mean() if cfg.num_experts else torch.zeros((), device=h.device)
+        h, attn_norms, layer_auxs = run_layers(cfg, params["layers"], h, positions, **kw)
+        moe_aux = torch.stack(layer_auxs).mean() if cfg.num_experts else torch.zeros((), device=h.device)
+        attn_norms = torch.stack(attn_norms) if return_aux else None
     with span("llama.final_norm"):
         h = _rms_norm(h, cparams["final_norm"], cfg.rms_norm_eps)
     head = _head(cparams, cfg)
     if return_hidden:
         return (h, head, moe_aux) if return_moe_aux else (h, head)
+    if tp is not None and cfg.vocab_size % tp.size == 0:
+        head = tp.gather(head, 1, partial=False)
     with span("llama.lm_head"):
         logits = (h @ head).float()
     if return_aux:
         return logits, {
-            "attn_out_norm": torch.stack(attn_norms),
+            "attn_out_norm": attn_norms,
             "lm_head_norm": torch.sqrt(torch.sum(logits**2)),
             "moe_aux": moe_aux,
         }
     if return_moe_aux:
         return logits, moe_aux
     return logits
+
+
+def _pipelined(params: dict, h0: torch.Tensor, positions: torch.Tensor, cfg: LlamaConfig, pp, microbatches,
+               kw: dict) -> tuple:
+    """The no-gradient pipelined stack of :func:`forward`: (the final
+    hidden states on every stage, the attn-output norms of every layer or
+    None, the MoE aux averaged over layers and micro-batches)."""
+    from opendiloco_torch.parallel.pipeline import pipeline_hidden
+
+    if torch.is_grad_enabled() and any(p.requires_grad for p in flatten_params(params)):
+        raise ValueError("forward(pp_mesh=...) runs the pipeline without gradients (eval, probes); a training "
+                         "step runs the schedule's backward through InnerTrainer: call it under torch.no_grad()")
+    M = microbatches or pp.size
+    with torch.no_grad():
+        run = pipeline_hidden(stage_fn(params, cfg, **kw), h0, positions, pp, microbatches=M, grad=False)
+        h = run.hidden if run.hidden is not None else torch.empty_like(h0)
+        h = pp.broadcast(h, pp.size - 1)
+        norms = None
+        if kw["probe"]:
+            # a layer's norm over the whole batch: the micro-batches' squares summed
+            local = torch.stack([torch.sqrt(sum(run.norms[m][i] ** 2 for m in range(M)))
+                                 for i in range(len(run.norms[0]))])
+            norms = pp.all_gather(local, 0)
+        moe_aux = torch.zeros((), device=h.device)
+        if cfg.num_experts:
+            moe_aux = pp.all_reduce(torch.stack(run.auxs).sum()) / (cfg.num_hidden_layers * M)
+    return h, norms, moe_aux
 
 
 def causal_lm_loss(

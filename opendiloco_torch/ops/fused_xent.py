@@ -353,14 +353,24 @@ def fused_linear_cross_entropy_sharded(
     before the division, as the JAX entry's psum does. The returned mean is
     the whole batch's; each rank's gradient is its rows' share, and the
     head's (``w``, whole on every rank) is summed by the trainer's gradient
-    reduction like any other leaf's. A tensor-parallel head (``tp_axis``)
-    is not ported (ROADMAP.md A14b)."""
-    if tp_axis is not None:
-        raise NotImplementedError("the fused cross-entropy over a tp-sharded head is not ported yet (ROADMAP.md A14b)")
-    if mesh is None or getattr(mesh, "size", 1) <= 1 or not batch_axes:
+    reduction like any other leaf's.
+
+    ``tp_axis``: ``w`` is this rank's block of a head cut over tp along the
+    vocab. It is gathered whole (the softmax needs the full vocab: the JAX
+    entry replicates a tp-cut head into its region), every tp rank runs
+    the kernels on the same rows, (sum, count) are summed over the batch
+    group only, and the backward hands each rank its block of the head's
+    gradient (every rank computed the same whole gradient)."""
+    if tp_axis is not None and mesh is not None and mesh.shape[tp_axis] > 1:
+        from opendiloco_torch.parallel.comm import TensorParallel
+
+        w = TensorParallel(mesh.comm(tp_axis)).gather(w, 1, partial=False)
+    group = None
+    if mesh is not None and getattr(mesh, "size", 1) > 1 and batch_axes:
+        group = mesh.batch_group()
+    if group is None:
         return fused_linear_cross_entropy(h, w, labels)
     from opendiloco_torch.parallel.comm import all_reduce_, sum_over
 
-    group = mesh.batch_group()
     s, c = _nll_sum_count(h, w, labels)
     return sum_over(s, group) / torch.clamp(all_reduce_(c, group), min=1)

@@ -9,7 +9,9 @@ calls the exported C function on the current stream, raises on any
 
 :data:`LAUNCHES` is one counter for all kernels, safe under threads: two
 DiLoCo workers in one process launch kernels concurrently (ctypes releases
-the GIL during a call), and a run's counts must stay exact.
+the GIL during a call), and a run's counts must stay exact. It also keeps
+the launches of each thread (:meth:`LaunchCounter.by_thread`): the ranks
+of a loopback group, one thread each, are counted apart.
 """
 from __future__ import annotations
 
@@ -33,19 +35,28 @@ class LaunchCounter(dict):
     def __init__(self):
         super().__init__()
         self._lock = threading.Lock()
+        self._threads: dict = {}  # thread ident -> {name: launches}
 
     def add(self, name: str, n: int = 1) -> None:
         with self._lock:
             self[name] = self.get(name, 0) + n
+            mine = self._threads.setdefault(threading.get_ident(), {})
+            mine[name] = mine.get(name, 0) + n
 
     def reset(self) -> None:
         with self._lock:
             for name in self:
                 self[name] = 0
+            self._threads.clear()
 
     def snapshot(self) -> dict:
         with self._lock:
             return dict(self)
+
+    def by_thread(self) -> dict:
+        """{thread ident: {name: launches}} since the last reset."""
+        with self._lock:
+            return {t: dict(c) for t, c in self._threads.items()}
 
 
 LAUNCHES = LaunchCounter()

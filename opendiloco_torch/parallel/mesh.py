@@ -21,10 +21,18 @@ Without a process group the plan is the single-device plan (no mesh, no
 collectives).
 
 The batch is cut over ("dp", "fsdp") and the sequence over "sp", as the
-JAX ``MeshPlan.batch_spec`` cuts them; "ep" is not a batch axis: the ranks
-of an ep group hold the same tokens and different experts. The data group
-(:meth:`MeshPlan.batch_group`) is the ranks that hold distinct tokens, all
-of them but ep's. tp and pp above 1 are not ported (ROADMAP.md A14b).
+JAX ``MeshPlan.batch_spec`` cuts them; "ep", "tp" and "pp" are not batch
+axes: the ranks of an ep group hold the same tokens and different
+experts, those of a tp group the same tokens and different heads and FFN
+columns (Megatron), those of a pp group the same rows and different
+layers (the GPipe stages of :mod:`~opendiloco_torch.parallel.pipeline`).
+Rank ``r`` at coordinate ``r`` puts the tp ranks next to each other. The
+data group (:meth:`MeshPlan.batch_group`) is the ranks that hold distinct
+tokens: those that share this rank's pp, ep and tp coordinates.
+
+The tp and pp axes run through a comm (:meth:`MeshPlan.comm`,
+:mod:`~opendiloco_torch.parallel.comm`): the group's :class:`DistComm`,
+or, on one card, the rank threads of :func:`loopback_plans`.
 """
 from __future__ import annotations
 
@@ -62,8 +70,17 @@ class MeshPlan:
     pp_axis: Optional[str] = None
     ep_axis: Optional[str] = None
     mesh: Any = None
-    # the ranks that share this rank's ep coordinate (None: every rank)
+    # the ranks that share this rank's pp, ep and tp coordinates (None:
+    # every rank)
     data_group: Any = None
+    # axis -> comm of rank threads in one process (loopback_plans); None:
+    # the comms are the mesh's groups
+    comms: Any = None
+
+    @property
+    def grouped(self) -> bool:
+        """Whether other ranks take part: a process group or rank threads."""
+        return self.mesh is not None or bool(self.comms)
 
     @property
     def shape(self) -> dict:
@@ -83,15 +100,30 @@ class MeshPlan:
 
     def coord(self, axis: str) -> int:
         """This rank's coordinate along ``axis``."""
+        if self.comms and axis in self.comms:
+            return self.comms[axis].rank
         return 0 if self.mesh is None else self.mesh.get_local_rank(axis)
+
+    def comm(self, axis: str):
+        """The comm of this rank along ``axis``: the rank threads' or the
+        mesh group's (:mod:`~opendiloco_torch.parallel.comm`); None where
+        the axis has one rank."""
+        if self.shape[axis] == 1:
+            return None
+        if self.comms and axis in self.comms:
+            return self.comms[axis]
+        from opendiloco_torch.parallel.comm import DistComm
+
+        return DistComm(self.group(axis))
 
     def batch_group(self):
         """The data group: the ranks that hold distinct tokens (the batch cut
         over dp and fsdp, the sequence over sp), every process of the worker
-        when ep is 1. Losses and gradients are summed over it."""
+        when ep, tp and pp are 1; None when this rank is alone in it.
+        Losses and gradients are summed over it."""
         import torch.distributed as dist
 
-        if self.mesh is None:
+        if self.mesh is None or self.data_size == 1:
             return None
         return dist.group.WORLD if self.data_group is None else self.data_group
 
@@ -229,11 +261,6 @@ def build_mesh(
             )
     sizes = mesh_sizes(strategy, n, dp_size=dp_size, fsdp_size=fsdp_size, tp_size=tp_size, sp_size=sp_size,
                        pp_size=pp_size, ep_size=ep_size, local_count=local_count)
-    for axis in ("tp", "pp"):
-        if sizes[axis] > 1:
-            raise NotImplementedError(
-                f"{axis}_size > 1 is not ported yet (ROADMAP.md A14b): the port shards over dp, fsdp, ep and sp"
-            )
     if not grouped:
         return _plan(strategy, sizes)
     from torch.distributed.device_mesh import init_device_mesh
@@ -243,24 +270,55 @@ def build_mesh(
     return _plan(strategy, sizes, mesh, _data_group(sizes, dist.get_rank()))
 
 
+def _coords(sizes: dict, rank: int) -> dict:
+    """Mesh coordinates of ``rank`` (row-major over AXES)."""
+    out = {}
+    for axis in reversed(AXES):
+        rank, out[axis] = divmod(rank, sizes[axis])
+    return out
+
+
 def _data_group(sizes: dict, rank: int):
-    """The group of the ranks that share ``rank``'s ep coordinate, in
-    global rank order (None when ep is 1: every rank). Every rank makes
-    every group, in one order, as ``new_group`` asks."""
+    """The group of the ranks that share ``rank``'s pp, ep and tp
+    coordinates, in global rank order (None when those axes are 1: every
+    rank). Every rank makes every group, in one order, as ``new_group``
+    asks."""
+    import itertools
+
     import torch.distributed as dist
 
-    ep = sizes["ep"]
-    if ep == 1:
+    model_axes = ("pp", "ep", "tp")
+    if all(sizes[a] == 1 for a in model_axes):
         return None
-    inner = sizes["sp"] * sizes["tp"]  # ranks a step of ep apart
     world = math.prod(sizes.values())
+    coords = [_coords(sizes, r) for r in range(world)]
     mine = None
-    for e in range(ep):
-        ranks = [r for r in range(world) if (r // inner) % ep == e]
+    for key in itertools.product(*(range(sizes[a]) for a in model_axes)):
+        ranks = [r for r in range(world) if tuple(coords[r][a] for a in model_axes) == key]
         group = dist.new_group(ranks)
         if rank in ranks:
             mine = group
     return mine
+
+
+def loopback_plans(*, tp_size: int = 1, pp_size: int = 1) -> list:
+    """The NO_SHARD plans of ``tp_size * pp_size`` ranks in one process, one
+    thread each (rank ``r`` at coordinate ``r``, tp innermost), their tp and
+    pp comms :class:`~opendiloco_torch.parallel.comm.LoopbackGroup` ranks:
+    the path over one card, where NCCL takes one rank. Every other axis is
+    1."""
+    from opendiloco_torch.parallel.comm import LoopbackGroup
+
+    n = tp_size * pp_size
+    sizes = mesh_sizes("NO_SHARD", n, tp_size=tp_size, pp_size=pp_size)
+    tp_groups = [LoopbackGroup(tp_size) for _ in range(pp_size)]
+    pp_groups = [LoopbackGroup(pp_size) for _ in range(tp_size)]
+    plans = []
+    for r in range(n):
+        p, t = divmod(r, tp_size)
+        comms = {"tp": tp_groups[p].rank(t), "pp": pp_groups[t].rank(p)}
+        plans.append(dataclasses.replace(_plan("NO_SHARD", sizes), comms=comms))
+    return plans
 
 
 def params_sharded(strategy: str) -> bool:

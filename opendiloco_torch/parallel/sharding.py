@@ -1,20 +1,26 @@
-"""Which dim of each Llama leaf a strategy cuts over the fsdp and ep axes.
+"""Which dim of each Llama leaf a strategy cuts over the pp, ep, tp and
+fsdp axes.
 
-The port's copy of the fsdp and ep parts of
-``opendiloco_tpu/parallel/sharding.py``: a spec is the tuple form of the
-JAX ``PartitionSpec`` (``(None, "ep", "fsdp", None)``; ``()`` for a
-replicated leaf), by the JAX rules:
+The port's copy of ``opendiloco_tpu/parallel/sharding.py``: a spec is the
+tuple form of the JAX ``PartitionSpec`` (``("pp", "ep", "fsdp", "tp")``;
+``()`` for a replicated leaf), by the JAX rules:
 
+- pp: the leading stacked-layer dim of every layer leaf, the norm
+  vectors' too, when pp divides the layers (the stages' contiguous
+  layers); otherwise the layer dim is never cut;
 - an expert-stacked FFN leaf ([L, E, ...]) cuts its expert dim over ep
-  (under every strategy), and its fsdp index moves one place past it;
-- fsdp: the preferred dim of ``_LAYOUT``, else the largest divisible
-  other free dim;
-- norms replicated;
-- the leading stacked-layer dim never cut.
+  (under every strategy), and its tp and fsdp indices move one place
+  past it;
+- tp: the Megatron dim of ``_LAYOUT`` (heads of q/k/v/o, the FFN's
+  columns, the vocab of embed and head) where tp divides it;
+- fsdp: the preferred dim of ``_LAYOUT``, else (taken by tp, or not
+  divisible) the largest divisible other free dim;
+- other norms replicated.
 
 Rank ``r`` of an axis holds the ``r``-th of the equal contiguous blocks
-along that dim (:func:`local_block`), as JAX's shard ``r`` does; a leaf
-cut over both is cut over ep first, then its ep block over fsdp.
+along that axis's dim (:func:`local_block`), as JAX's shard ``r`` does.
+Each axis cuts a dim of its own, so a rank's block is the same whatever
+order the cuts are taken in.
 """
 from __future__ import annotations
 
@@ -47,17 +53,23 @@ _LAYOUT: dict[str, tuple[Optional[int], int]] = {
 _EXPERT_LEAVES = {"gate_proj", "up_proj", "down_proj"}
 
 
-def _leaf_spec(name: str, shape: tuple, stacked: bool, *, shard: bool, fsdp_n: int, ep_n: int = 1) -> tuple:
+def _leaf_spec(name: str, shape: tuple, stacked: bool, *, shard: bool, fsdp_n: int, ep_n: int = 1, tp_n: int = 1,
+               pp_n: int = 1) -> tuple:
     ndim = len(shape)
     offset = 1 if stacked else 0
+    pp_cut = stacked and pp_n > 1 and shape[0] % pp_n == 0
     if ndim <= offset + 1:
-        return ()  # norm vectors: replicate
+        return ("pp",) if pp_cut else ()  # norm vectors: split by stage, else replicate
     axes: list = [None] * ndim
+    if pp_cut:
+        axes[0] = "pp"
     if name in _EXPERT_LEAVES and ndim == offset + 3:
         if ep_n > 1 and shape[offset] % ep_n == 0:
             axes[offset] = "ep"
-        offset += 1  # the fsdp index applies past the expert dim
-    fsdp_dim = _LAYOUT[name][1]
+        offset += 1  # the tp and fsdp indices apply past the expert dim
+    tp_dim, fsdp_dim = _LAYOUT[name]
+    if tp_n > 1 and tp_dim is not None and shape[tp_dim + offset] % tp_n == 0:
+        axes[tp_dim + offset] = "tp"
     if shard and fsdp_dim >= 0:
         d = fsdp_dim + offset
         if axes[d] is None and shape[d] % fsdp_n == 0:
@@ -78,11 +90,12 @@ def param_specs(cfg: LlamaConfig, plan: MeshPlan, *, for_params: bool = True) ->
     expert dim is cut over ep in both."""
     shard = bool(plan.fsdp_axis) and (
         params_sharded(plan.strategy) if for_params else optstate_sharded(plan.strategy))
-    fsdp_n, ep_n = plan.shape["fsdp"], plan.shape["ep"]
+    n = plan.shape
 
     def one(tree: dict, stacked: bool) -> dict:
         return {k: one(v, True) if isinstance(v, dict)
-                else _leaf_spec(k, v, stacked, shard=shard, fsdp_n=fsdp_n, ep_n=ep_n)
+                else _leaf_spec(k, v, stacked, shard=shard, fsdp_n=n["fsdp"], ep_n=n["ep"], tp_n=n["tp"],
+                                pp_n=n["pp"])
                 for k, v in tree.items()}
 
     return one(shapes(cfg), False)

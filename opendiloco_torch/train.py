@@ -68,10 +68,15 @@ worker's device, take delta pushes off the masters behind one router on
 
 ``sp_size`` and ``ep_size`` above 1 cut each sequence over the ranks of
 an sp group (ring attention) and the routed experts over the ranks of an
-ep group; the ranks of one batch block load the same rows. Not ported
-yet, and raising ``NotImplementedError`` with their ROADMAP.md items: tp
-and pp above 1 (A14b), a serving plane on a worker of several processes
-(A10) and non-fake data (A9).
+ep group; ``tp_size`` cuts every layer's heads and FFN columns and the
+vocab over a tp group (Megatron), and ``pp_size`` the layer stack into
+stages that run the GPipe schedule over ``pp_size`` micro-batches
+(``TrainerConfig.pp_microbatches`` sets another count; the command line
+does not, as the JAX package's does not). The ranks of one batch block
+load the same rows. ``allow_sp_activation_sharding`` lets sp + pp run a
+non-ring attention over whole sequences. Not ported yet, and raising
+``NotImplementedError`` with their ROADMAP.md items: a serving plane on a
+worker of several processes (A10) and non-fake data (A9).
 
 Text log lines carry the worker's rank, per thread (:func:`log_rank`),
 and after it the process's rank when the worker has several.
@@ -123,12 +128,6 @@ def make_backend(cfg: DilocoConfig) -> OuterBackend:
     )
 
 
-def _check_ported(config: Config) -> None:
-    for axis in ("tp", "pp"):
-        if getattr(config, f"{axis}_size") > 1:
-            raise NotImplementedError(f"{axis}_size > 1 is not ported yet (ROADMAP.md A14b)")
-
-
 def _init_process_group(config: Config, device):
     """Join this worker's process group: the one already initialized, or a
     new one from ``multihost`` and the three fields, or from ``torchrun``'s
@@ -170,7 +169,6 @@ def train(config: Config, backend: Optional[OuterBackend] = None, device: Device
     group every process of the worker calls it (see the module docstring)."""
     import torch.distributed as dist
 
-    _check_ported(config)
     world_rank = config.diloco.world_rank if config.diloco else 0
     device, owns_group = _init_process_group(config, resolve_device(device))
     try:
@@ -205,6 +203,7 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
         remat=config.remat,
         fused_loss=config.fused_loss,
         scan_unroll=config.scan_unroll,
+        allow_sp_activation_sharding=config.allow_sp_activation_sharding,
     )
     trainer = InnerTrainer(model_cfg, tc, device, plan)
 

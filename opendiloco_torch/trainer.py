@@ -52,6 +52,21 @@ partial combine over ep (:mod:`~opendiloco_torch.parallel.experts`), so
 every replicated leaf's gradient is whole on each ep rank and is summed
 over the data group only, never over ep.
 
+Over tp each rank holds its blocks of the Megatron cuts (heads of
+q/k/v/o, columns of the FFN, the vocab of embed and head) and runs its
+heads and columns (``models/llama.py _tp_attention``); the head is
+gathered for the loss. Every gradient a tp rank computes for a leaf that
+tp does not cut is already whole and the same on every tp rank, so it is
+summed over the data group only; the norm counts it once. Over pp each
+stage holds L/pp contiguous layers and runs the GPipe schedule
+(:mod:`~opendiloco_torch.parallel.pipeline`): stage 0 embeds, the last
+stage's final norm, head and loss read the joined hidden states, and the
+gradients of embed, final norm and head (zero on the stages that do not
+use them) are summed over pp, so that they end every step identical on
+every stage. ``gather_state``, ``host_params``, ``local_params`` and
+``scatter_state`` join and cut over every axis, so checkpoints and the
+outer loop see whole leaves.
+
 At one process every collective is an identity and the step is the
 single-device step bit for bit.
 """
@@ -65,6 +80,7 @@ import torch
 
 from opendiloco_torch.device import DeviceLike, resolve_device
 from opendiloco_torch.models.convert import params_from_numpy
+from opendiloco_torch.models import llama
 from opendiloco_torch.models.llama import (
     LlamaConfig,
     RematPolicy,
@@ -77,8 +93,10 @@ from opendiloco_torch.models.llama import (
 )
 from opendiloco_torch.ops.fused_xent import IGNORE, fused_linear_cross_entropy_sharded
 from opendiloco_torch.ops.ring_attention import DistRing
+from opendiloco_torch.parallel.comm import TensorParallel
 from opendiloco_torch.parallel.experts import ExpertPlan
-from opendiloco_torch.parallel.mesh import MeshPlan, params_sharded, single_device_plan
+from opendiloco_torch.parallel.mesh import AXES, MeshPlan, params_sharded, single_device_plan
+from opendiloco_torch.parallel.pipeline import pipeline_hidden
 from opendiloco_torch.parallel.sharding import ParamGather, local_block, param_specs, spec_dim
 from opendiloco_torch.utils.spans import span
 
@@ -106,6 +124,10 @@ class TrainerConfig:
     # kept for the JAX signature (it decides fused_loss's default); no
     # effect in eager PyTorch
     scan_unroll: Optional[int] = None
+    pp_microbatches: Optional[int] = None  # pipeline micro-batches (None: the pp size)
+    # sp + pp with a non-ring attention: the sp axis shards activations
+    # while every rank attends over the whole sequence; never implicit
+    allow_sp_activation_sharding: bool = False
     # fp16 dynamic loss scaling (GradScaler semantics)
     init_loss_scale: float = 2.0**15
     scale_growth_interval: int = 2000
@@ -257,7 +279,9 @@ def _resolve_perf_defaults(
     sp = plan is not None and plan.sp_axis is not None
     changes: dict = {}
     if tc.attn_impl == "auto":
-        changes["attn_impl"] = "ring" if sp else ("pallas" if on_card else "xla")
+        # sp + pp with the opt-in: full-sequence attention, the activation-sharding mode
+        ring = sp and not (tc.allow_sp_activation_sharding and plan.pp_axis is not None)
+        changes["attn_impl"] = "ring" if ring else ("pallas" if on_card else "xla")
     if tc.scan_unroll is None:
         dense_shallow = not model_cfg.num_experts and model_cfg.num_hidden_layers <= 16
         changes["scan_unroll"] = model_cfg.num_hidden_layers if on_card and dense_shallow else 1
@@ -294,7 +318,24 @@ class InnerTrainer:
                 "cross-entropy kernels is not ported (they take f32 and bf16; "
                 "ROADMAP.md A7): use bf16-mixed, or attn_impl='xla' and fused_loss=False"
             )
-        if plan.sp_axis and tc.attn_impl != "ring":
+        if plan.pp_axis and plan.sp_axis and tc.attn_impl != "ring" and not tc.allow_sp_activation_sharding:
+            raise ValueError(
+                f"sp+pp with attn_impl={tc.attn_impl!r} would shard activations while every device attends over "
+                "the FULL sequence. Use the default/ring attention (composes with the pipeline), or opt into the "
+                "activation-sharding mode with --allow-sp-activation-sharding"
+            )
+        if plan.pp_axis:
+            pp_n = plan.shape["pp"]
+            if model_cfg.num_hidden_layers % pp_n:
+                raise ValueError(f"{model_cfg.num_hidden_layers} layers cannot stage over pp={pp_n} (must divide "
+                                 "evenly)")
+            if tc.attn_impl == "ring" and not plan.sp_axis:
+                raise ValueError(
+                    "ring attention under pp needs a sequence-parallel axis to ring over: add sp_size > 1 (the "
+                    "pipeline binds both axes manual and the ring runs on each stage's local chunks), or use "
+                    "attn_impl xla/pallas"
+                )
+        if plan.sp_axis and tc.attn_impl != "ring" and not plan.pp_axis:
             raise ValueError(
                 f"sp_size {plan.shape['sp']} cuts every sequence into chunks, and attn_impl={tc.attn_impl!r} "
                 "would attend within a chunk only: use attn_impl 'ring' or 'auto'"
@@ -319,8 +360,8 @@ class InnerTrainer:
         """The layout: which dim each param and optimizer-state leaf is cut
         along on this rank (None: whole), and the groups."""
         self.plan = plan
-        self._dist = plan.mesh is not None
-        if self._dist:
+        self._dist = plan.grouped
+        if plan.mesh is not None:
             import torch.distributed as dist
 
             # a CUDA run never drops to gloo
@@ -328,43 +369,56 @@ class InnerTrainer:
             if dist.get_backend() != want:
                 raise ValueError(f"a trainer on {self.device.type} runs its collectives over {want}, "
                                  f"not {dist.get_backend()!r}")
+        self._comms = {a: plan.comm(a) for a in AXES if plan.shape[a] > 1} if self._dist else {}
         self._fsdp_n, self._fsdp_r = plan.shape["fsdp"], plan.coord("fsdp")
-        self._ep_n, self._ep_r = plan.shape["ep"], plan.coord("ep")
         self._sp_n, self._sp_r = plan.shape["sp"], plan.coord("sp")
         self._params_cut = params_sharded(plan.strategy)
         specs = param_specs(self.model_cfg, plan)
-        self.param_dims = [spec_dim(x) for x in flatten_params(specs)]
+        flat = flatten_params(specs)
+        self.param_dims = [spec_dim(x) for x in flat]
         self.opt_dims = [spec_dim(x) for x in flatten_params(param_specs(self.model_cfg, plan, for_params=False))]
-        # the expert dim, cut over ep in params and optimizer state alike
-        self.ep_dims = [spec_dim(x, "ep") for x in flatten_params(specs)]
+        # the model-parallel cuts, in params and optimizer state alike: the
+        # layer dim over pp, the expert dim over ep, the Megatron dim over tp
+        self.mp_dims = {a: [spec_dim(x, a) for x in flat] for a in ("pp", "ep", "tp")}
         # the resident params' layout (ZeRO-2 keeps them whole)
         self.resident_dims = self.param_dims if self._params_cut else [None] * len(self.param_dims)
         self._gather = ParamGather(specs, plan.group("fsdp")) if self._dist and self._params_cut else None
         self._batch_group = plan.batch_group() if self._dist and plan.data_size > 1 else None
         self._ring = DistRing(plan.group("sp")) if self._dist and self._sp_n > 1 else None
         self._experts = ExpertPlan(plan) if self._dist and self.model_cfg.num_experts else None
-        ep_cut = self._dist and any(d is not None for d in self.ep_dims)
+        self._tp = TensorParallel(self._comms["tp"]) if "tp" in self._comms else None
+        self._pp = self._comms.get("pp")
+        # sp + pp through a non-ring attention (the opt-in): whole sequences
+        self._seq = (TensorParallel(self._comms["sp"]) if self._pp is not None and "sp" in self._comms
+                     and self.tc.attn_impl != "ring" else None)
+        # the head is gathered over tp for the loss where tp cuts the vocab
+        self._head_cut = self._tp is not None and self.model_cfg.vocab_size % self._tp.size == 0
+        mp_cut = self._dist and any(d is not None for dims in self.mp_dims.values() for d in dims)
         # whether this rank holds blocks: of the params, of any state leaf
-        self._params_blocked = ep_cut or (self._dist and self._params_cut and self._fsdp_n > 1)
-        self._blocked = ep_cut or (self._dist and self._fsdp_n > 1)
+        self._params_blocked = mp_cut or (self._dist and self._params_cut and self._fsdp_n > 1)
+        self._blocked = mp_cut or (self._dist and self._fsdp_n > 1)
+        # the leaves outside the layer stack (embed, final norm, head): whole
+        # on every stage, their gradients summed over pp
+        self._top = [spec_dim(x, "pp") is None for x in flat]
 
-    def _block(self, x, dim: Optional[int], ep_dim: Optional[int] = None):
-        """This rank's block of a full leaf: of its expert dim over ep, then
-        along ``dim`` over fsdp (a view; the leaf itself where neither cuts)."""
-        return local_block(local_block(x, ep_dim, self._ep_n, self._ep_r), dim, self._fsdp_n, self._fsdp_r)
+    def _block(self, x, i: int, dim: Optional[int]):
+        """This rank's block of full leaf ``i`` (a tensor or a host array):
+        cut over pp, ep and tp, then along ``dim`` over fsdp (a view; the
+        leaf itself where nothing cuts)."""
+        for axis, dims in self.mp_dims.items():
+            x = local_block(x, dims[i], self.plan.shape[axis], self.plan.coord(axis))
+        return local_block(x, dim, self._fsdp_n, self._fsdp_r)
 
-    def _whole(self, x: torch.Tensor, dim: Optional[int], ep_dim: Optional[int] = None) -> torch.Tensor:
-        """A leaf cut along ``dim`` over fsdp and ``ep_dim`` over ep, joined
-        (collectives); a whole leaf as it is. Detached."""
+    def _whole(self, x: torch.Tensor, i: int, dim: Optional[int]) -> torch.Tensor:
+        """Leaf ``i`` cut along ``dim`` over fsdp and over the model-parallel
+        axes, joined (collectives); a whole leaf as it is. Detached."""
         x = x.detach()
         if not self._dist:
             return x
-        from opendiloco_torch.parallel.comm import all_gather_dim
-
-        if dim is not None and self._fsdp_n > 1:
-            x = all_gather_dim(x, dim, self.plan.group("fsdp"))
-        if ep_dim is not None and self._ep_n > 1:
-            x = all_gather_dim(x, ep_dim, self.plan.group("ep"))
+        cuts = [("fsdp", dim), *((a, dims[i]) for a, dims in self.mp_dims.items())]
+        for axis, d in cuts:
+            if d is not None and axis in self._comms:
+                x = self._comms[axis].all_gather(x, d)
         return x
 
     def _opt_targets(self, leaves: list) -> list:
@@ -372,7 +426,7 @@ class InnerTrainer:
         ZeRO-2 views of their optimizer-state blocks."""
         if self._params_cut:
             return list(leaves)
-        return [self._block(p, d) for p, d in zip(leaves, self.opt_dims)]
+        return [local_block(p, d, self._fsdp_n, self._fsdp_r) for p, d in zip(leaves, self.opt_dims)]
     # -- state ------------------------------------------------------------
 
     def init_state(
@@ -407,8 +461,8 @@ class InnerTrainer:
         leaves themselves otherwise."""
         if not self._params_blocked:
             return params
-        leaves = [self._block(p, d, e).detach().clone().requires_grad_(True)
-                  for p, d, e in zip(flatten_params(params), self.resident_dims, self.ep_dims)]
+        leaves = [self._block(p, i, d).detach().clone().requires_grad_(True)
+                  for i, (p, d) in enumerate(zip(flatten_params(params), self.resident_dims))]
         return unflatten_params(params, leaves)
 
     def gather_state(self, state: dict) -> dict:
@@ -418,7 +472,7 @@ class InnerTrainer:
         itself when nothing is cut."""
         if not self._blocked:
             return state
-        whole = lambda xs, dims: [self._whole(x, d, e) for x, d, e in zip(xs, dims, self.ep_dims)]
+        whole = lambda xs, dims: [self._whole(x, i, d) for i, (x, d) in enumerate(zip(xs, dims))]
         opt = dict(state["opt_state"])
         opt["mu"], opt["nu"] = whole(opt["mu"], self.opt_dims), whole(opt["nu"], self.opt_dims)
         return {**state, "params": unflatten_params(state["params"], whole(flatten_params(state["params"]), self.resident_dims)),
@@ -429,13 +483,13 @@ class InnerTrainer:
         param ``leaves`` (or of those at ``idx``): the outer loop's view of
         the params. A collective when the params are cut."""
         idx = range(len(leaves)) if idx is None else idx
-        return [self._whole(leaves[i], self.resident_dims[i], self.ep_dims[i])
-                .to("cpu", torch.float32, copy=True).numpy() for i in idx]
+        return [self._whole(leaves[i], i, self.resident_dims[i]).to("cpu", torch.float32, copy=True).numpy()
+                for i in idx]
 
     def host_block(self, i: int, host_arr: np.ndarray) -> np.ndarray:
         """This rank's block of resident param leaf ``i`` from the whole
         host array (the array itself when the leaf is whole)."""
-        return np.ascontiguousarray(self._block(host_arr, self.resident_dims[i], self.ep_dims[i]))
+        return np.ascontiguousarray(self._block(host_arr, i, self.resident_dims[i]))
 
     @torch.no_grad()
     def scatter_state(self, full: dict) -> dict:
@@ -445,8 +499,8 @@ class InnerTrainer:
             return full
         params = self.local_params(full["params"])
         opt = dict(full["opt_state"])
-        opt["mu"] = [self._block(x, d, e).clone() for x, d, e in zip(opt["mu"], self.opt_dims, self.ep_dims)]
-        opt["nu"] = [self._block(x, d, e).clone() for x, d, e in zip(opt["nu"], self.opt_dims, self.ep_dims)]
+        opt["mu"] = [self._block(x, i, d).clone() for i, (x, d) in enumerate(zip(opt["mu"], self.opt_dims))]
+        opt["nu"] = [self._block(x, i, d).clone() for i, (x, d) in enumerate(zip(opt["nu"], self.opt_dims))]
         return {**full, "params": params, "opt_state": opt}
 
     def force_step_position(self, state: dict, step: int) -> dict:
@@ -467,39 +521,102 @@ class InnerTrainer:
     def _fused_lm_loss(self, hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """The shifted fused lm-head + cross-entropy over the final hidden
         states: the single shift and reshape site, as in the JAX package
-        (the sharded entry over the plan's batch axes). Under sp the labels
-        are already the next-token targets (:meth:`_seq_chunk`)."""
+        (the sharded entry over the plan's batch axes, the head gathered
+        over tp where tp cuts it). Under sp the labels are already the
+        next-token targets (:meth:`_seq_chunk`)."""
         d = hidden.shape[-1]
         if self._sp_n == 1:
             hidden, labels = hidden[:, :-1], labels[:, 1:]
         with span("loss.fused"):
             return fused_linear_cross_entropy_sharded(
                 hidden.reshape(-1, d), head, labels.reshape(-1),
-                mesh=self.plan if self._dist else None, batch_axes=self.plan.batch_axes, tp_axis=self.plan.tp_axis,
+                mesh=self.plan if self._dist else None, batch_axes=self.plan.batch_axes,
+                tp_axis=self.plan.tp_axis if self._head_cut else None,
             )
 
+    def _lm_loss(self, hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """The loss over final hidden states and this rank's head: fused, or
+        through the logits of the head gathered over tp."""
+        if self.tc.fused_loss:
+            return self._fused_lm_loss(hidden, head, labels)
+        if self._head_cut:
+            head = self._tp.gather(head, 1, partial=False)
+        with span("llama.lm_head"):
+            logits = (hidden @ head).float()
+        return causal_lm_loss(logits, labels, group=self._batch_group, shift=self._sp_n == 1)
+
+    def _positions(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Global positions of this rank's [B, T] tokens (its sequence chunk
+        under sp)."""
+        B, T = input_ids.shape
+        start = self._sp_r * T if self._sp_n > 1 else 0
+        return torch.arange(start, start + T, device=input_ids.device).expand(B, T)
+
     def _forward_kw(self, input_ids: torch.Tensor) -> dict:
-        """The model's options on this rank: the ring, the expert plan and,
-        under sp, the global positions of this rank's sequence chunk."""
-        kw = dict(compute_dtype=self.tc.compute_dtype, attn_impl=self.tc.attn_impl, gather=self._gather,
-                  ring_mesh=self._ring, experts=self._experts)
-        if self._sp_n > 1:
-            B, T = input_ids.shape
-            kw["positions"] = torch.arange(self._sp_r * T, (self._sp_r + 1) * T, device=input_ids.device).expand(B, T)
-        return kw
+        """The model's options on this rank: the ring, the expert plan, the
+        tp rank, the pipeline (forward without gradients: eval, probes) and
+        the global positions of this rank's tokens."""
+        return dict(compute_dtype=self.tc.compute_dtype, attn_impl=self.tc.attn_impl, gather=self._gather,
+                    ring_mesh=self._ring, experts=self._experts, tp=self._tp, seq=self._seq, pp_mesh=self._pp,
+                    pp_microbatches=self.tc.pp_microbatches, positions=self._positions(input_ids))
 
     def _loss_fn(self, params: dict, input_ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         kw = dict(self._forward_kw(input_ids), remat=self.tc.remat, scan_unroll=self.tc.scan_unroll)
         moe = bool(self.model_cfg.num_experts)
-        if self.tc.fused_loss:
-            out = forward(params, input_ids, self.model_cfg, return_hidden=True, return_moe_aux=moe, **kw)
-            loss = self._fused_lm_loss(out[0], out[1], labels)
-        else:
-            out = forward(params, input_ids, self.model_cfg, return_moe_aux=moe, **kw)
-            loss = causal_lm_loss(out[0] if moe else out, labels, group=self._batch_group, shift=self._sp_n == 1)
+        out = forward(params, input_ids, self.model_cfg, return_hidden=True, return_moe_aux=moe, **kw)
+        loss = self._lm_loss(out[0], out[1], labels)
         if moe:
             loss = loss + self.model_cfg.router_aux_coef * out[-1]
         return loss
+
+    def _pp_loss_grads(self, params: dict, leaves: list, input_ids: torch.Tensor, labels: torch.Tensor,
+                       scale: float) -> tuple:
+        """One micro-batch through the GPipe schedule on this stage:
+        (the scaled loss, whole on the last stage and 0 elsewhere; the
+        scaled gradient of each of ``leaves``, zero where this stage does
+        not use the leaf). Stage 0 embeds, the last stage runs the final
+        norm, the head and the loss; the MoE aux of each stage's layers
+        takes its gradient on its stage."""
+        cfg, pp, cd = self.model_cfg, self._pp, self.tc.compute_dtype
+        M = self.tc.pp_microbatches or pp.size
+        kw = self._forward_kw(input_ids)
+        ffn_fn = None
+        if cfg.num_experts:
+            ffn_fn = lambda x, layer: llama._switch_ffn(cfg, x, layer, self._experts, None, self._tp)
+        stage = llama.stage_fn(params, cfg, compute_dtype=cd, attn_fn=llama._attn_fn(self.tc.attn_impl, self._ring,
+                                                                                      self._seq),
+                               ffn_fn=ffn_fn, remat=self.tc.remat, gather=self._gather, tp=self._tp)
+        top = llama._cast_top(params, cd, self._gather)
+        first, last = pp.rank == 0, pp.rank == pp.size - 1
+        h0 = llama.embed(top, input_ids, cfg, self._tp) if first else None
+        run = pipeline_hidden(stage, h0, kw["positions"], pp, microbatches=M, grad=True, width=cfg.hidden_size,
+                              dtype=cd)
+        aux = run.aux_total(cfg.num_hidden_layers) if cfg.num_experts else None
+        stack = [i for i, t in enumerate(self._top) if not t]
+        grads: list = [None] * len(leaves)
+        dys, loss = None, torch.zeros((), device=self.device)
+        if last:
+            with span("llama.final_norm"):
+                h = llama._rms_norm(run.hidden, top["final_norm"], cfg.rms_norm_eps)
+            xent = self._lm_loss(h, llama._head(top, cfg), labels)
+            tops = [i for i, t in enumerate(self._top) if t]
+            with span("trainer.backward"):
+                got = torch.autograd.grad(xent * scale, [*(leaves[i] for i in tops), *run.ys], allow_unused=True)
+            for i, g in zip(tops, got):
+                grads[i] = g
+            dys = list(got[len(tops):])
+            loss = xent.detach() if aux is None else xent.detach() + cfg.router_aux_coef * aux
+            loss = loss * scale
+            del h, xent, got
+        aux_grad = None if aux is None else cfg.router_aux_coef * scale / (cfg.num_hidden_layers * M)
+        with span("trainer.backward"):
+            got, dh0 = run.backward([leaves[i] for i in stack], dys, aux_grad)
+            for i, g in zip(stack, got):
+                grads[i] = g
+            if first:
+                (g,) = torch.autograd.grad(h0, [leaves[0]], dh0)  # embed_tokens: the first leaf
+                grads[0] = g if grads[0] is None else grads[0] + g
+        return loss, [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
     def _train_step_impl(self, state: dict, batch: dict):
         """batch tensors are [accum, mb, seq]."""
@@ -509,9 +626,12 @@ class InnerTrainer:
         scale = state["scaler"]["scale"]
         loss_sum, grad_sum = None, None
         for i in range(accum):
-            loss = self._loss_fn(params, batch["input_ids"][i], batch["labels"][i]) * scale
-            with span("trainer.backward"):
-                grads = torch.autograd.grad(loss, leaves)
+            if self._pp is not None:
+                loss, grads = self._pp_loss_grads(params, leaves, batch["input_ids"][i], batch["labels"][i], scale)
+            else:
+                loss = self._loss_fn(params, batch["input_ids"][i], batch["labels"][i]) * scale
+                with span("trainer.backward"):
+                    grads = torch.autograd.grad(loss, leaves)
             loss = loss.detach()
             with span("trainer.grad_accum"):
                 if grad_sum is None:
@@ -524,6 +644,8 @@ class InnerTrainer:
         with span("trainer.grad_accum"):
             torch._foreach_mul_(grad_sum, inv)
             loss = loss_sum * inv
+        if self._pp is not None:
+            loss = self._pp.broadcast(loss, self._pp.size - 1)  # the last stage's
         if self._dist:
             with span("trainer.grad_reduce"):
                 grad_sum = self._reduce_grads(grad_sum)
@@ -564,38 +686,39 @@ class InnerTrainer:
     def _reduce_grads(self, grads: list) -> list:
         """The once-a-step gradient sum over the ranks, in f32 (see the
         module docstring); returns each leaf's gradient in its optimizer
-        state's layout."""
+        state's layout. Under pp the leaves outside the stack are then
+        summed over the stages."""
         from opendiloco_torch.parallel.comm import all_reduce_, reduce_scatter_dim
 
         plan, data = self.plan, self._batch_group
-        if data is None:
-            return grads  # no other rank holds distinct tokens
-        # the ranks that hold the same block of a leaf cut over fsdp
-        replicas = [plan.group(a) for a in ("dp", "sp") if plan.shape[a] > 1]
-        out = []
-        for g, pd, od in zip(grads, self.param_dims, self.opt_dims):
-            if self._params_cut and pd is not None:
-                pass  # reduce-scattered over fsdp by the forward's gather
-            elif od is not None:
-                g = reduce_scatter_dim(g, od, plan.group("fsdp"))
-            else:
-                out.append(all_reduce_(g, data))
-                continue
-            for group in replicas:
-                g = all_reduce_(g, group)
-            out.append(g)
+        out = grads
+        if data is not None:  # other ranks hold distinct tokens
+            # the ranks that hold the same block of a leaf cut over fsdp
+            replicas = [plan.group(a) for a in ("dp", "sp") if plan.shape[a] > 1]
+            out = []
+            for g, pd, od in zip(grads, self.param_dims, self.opt_dims):
+                if self._params_cut and pd is not None:
+                    pass  # reduce-scattered over fsdp by the forward's gather
+                elif od is not None:
+                    g = reduce_scatter_dim(g, od, plan.group("fsdp"))
+                else:
+                    out.append(all_reduce_(g, data))
+                    continue
+                for group in replicas:
+                    g = all_reduce_(g, group)
+                out.append(g)
+        if self._pp is not None:
+            out = [self._pp.all_reduce(g) if top else g for g, top in zip(out, self._top)]
         return out
 
     def _sum_cut_squares(self, sq: list) -> list:
-        """Each cut leaf's square summed over the fsdp group, then an expert
-        leaf's over the ep group (one all-reduce of the per-leaf sums
-        each); a replicated leaf's as it is."""
-        from opendiloco_torch.parallel.comm import all_reduce_
-
-        for dims, axis in ((self.opt_dims, "fsdp"), (self.ep_dims, "ep")):
+        """Each cut leaf's square summed over the ranks that hold its other
+        blocks: over fsdp, then ep, tp and pp (one all-reduce of the
+        per-leaf sums each); a leaf an axis does not cut counts once."""
+        for axis, dims in (("fsdp", self.opt_dims), *self.mp_dims.items()):
             cut = [i for i, d in enumerate(dims) if d is not None]
-            if cut and self.plan.shape[axis] > 1:
-                summed = all_reduce_(torch.stack([sq[i] for i in cut]), self.plan.group(axis))
+            if cut and axis in self._comms:
+                summed = self._comms[axis].all_reduce(torch.stack([sq[i] for i in cut]))
                 for j, i in enumerate(cut):
                     sq[i] = summed[j]
         return sq
@@ -604,11 +727,11 @@ class InnerTrainer:
     def _gather_updated(self, leaves: list, targets: list) -> None:
         """ZeRO-2: each rank updated its block of the whole params; gather
         the blocks back into every rank's copy (f32)."""
-        if not self._dist or self._params_cut:
+        if not self._dist or self._params_cut or "fsdp" not in self._comms:
             return
         for p, t, d in zip(leaves, targets, self.opt_dims):
             if d is not None:
-                p.copy_(self._whole(t, d))
+                p.copy_(self._comms["fsdp"].all_gather(t.detach(), d))
 
     @torch.no_grad()
     def _eval_step_impl(self, params: dict, batch: dict) -> torch.Tensor:
@@ -616,8 +739,9 @@ class InnerTrainer:
 
     @torch.no_grad()
     def _probe_step_impl(self, params: dict, batch: dict) -> dict:
-        _, aux = forward(params, batch["input_ids"], self.model_cfg, remat=False, return_aux=True,
-                         **self._forward_kw(batch["input_ids"]))
+        # the JAX probe runs the stack unpipelined: one micro-batch here
+        kw = dict(self._forward_kw(batch["input_ids"]), pp_microbatches=1)
+        _, aux = forward(params, batch["input_ids"], self.model_cfg, remat=False, return_aux=True, **kw)
         if self._batch_group is not None:
             # L2 norms over the whole batch: the ranks' squares summed
             from opendiloco_torch.parallel.comm import all_reduce_

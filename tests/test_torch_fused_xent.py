@@ -221,7 +221,9 @@ def test_fwd_sm90_split_rule_is_minimal(N, V):
 def test_sharded_entry_takes_one_device_and_refuses_a_mesh():
     """One device, or no batch axes, take the unsharded entry; rows cut over
     a process group run since A10 (tests/test_torch_parallel.py holds them
-    against this entry); a tp-sharded head is still refused (A14)."""
+    against this entry), and a head cut over tp since A14b
+    (tests/test_torch_tensor_parallel.py); a tp axis of one rank takes the
+    head as it is."""
     h, w, labels = _inputs(32, 128, 64, seed=9)
     th, tw, tl = torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(labels).long()
     ref = tfx.fused_linear_cross_entropy(th, tw, tl)
@@ -233,8 +235,11 @@ def test_sharded_entry_takes_one_device_and_refuses_a_mesh():
     assert torch.equal(tfx.fused_linear_cross_entropy_sharded(th, tw, tl, mesh=Mesh()), ref)
     Mesh.size = 4
     assert torch.equal(tfx.fused_linear_cross_entropy_sharded(th, tw, tl, mesh=Mesh(), batch_axes=()), ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
-        tfx.fused_linear_cross_entropy_sharded(th, tw, tl, mesh=Mesh(), batch_axes=("dp",), tp_axis="tp")
+    from opendiloco_torch.parallel.mesh import layout_plan
+
+    one = layout_plan("NO_SHARD")
+    assert torch.equal(tfx.fused_linear_cross_entropy_sharded(th, tw, tl, mesh=one, batch_axes=("dp",),
+                                                              tp_axis="tp"), ref)
 
 
 # ---------------------------------------------------------------------------

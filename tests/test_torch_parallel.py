@@ -399,5 +399,6 @@ def test_sharded_fused_loss_entry_equals_the_unsharded(tmp_path):
     np.testing.assert_allclose(sum(r["dw"] for r in ranks), tw.grad.numpy(), atol=1e-7, rtol=1e-5)
     # without a group, the sharded entry is the unsharded one
     assert torch.equal(fused_linear_cross_entropy_sharded(th, tw, torch.from_numpy(labels), mesh=None), loss)
-    with pytest.raises(NotImplementedError, match="A14"):
-        fused_linear_cross_entropy_sharded(th, tw, torch.from_numpy(labels), mesh=None, tp_axis="tp")
+    # and a tp axis without a mesh takes the head as it is
+    assert torch.equal(fused_linear_cross_entropy_sharded(th, tw, torch.from_numpy(labels), mesh=None,
+                                                          tp_axis="tp"), loss)

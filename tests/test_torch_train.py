@@ -481,8 +481,6 @@ def test_train_without_diloco_with_eval_and_probes(tmp_path):
     [
         dict(remat="dots"),
         dict(remat="dots_all"),
-        dict(tp_size=2),
-        dict(pp_size=2),
         dict(fake_data=False),
         dict(metric_logger_type="wandb"),
     ],
@@ -490,8 +488,7 @@ def test_train_without_diloco_with_eval_and_probes(tmp_path):
 )
 def test_unported_options_raise(tmp_path, overrides):
     backend = LoopbackWorld(1).make_backends()[0]
-    match = "ROADMAP.md A14b" if "tp_size" in overrides or "pp_size" in overrides else "ROADMAP"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(_train_config(tmp_path, 0, **overrides), backend, device="cpu")
 
 
@@ -687,8 +684,18 @@ def test_log_lines_carry_each_threads_rank():
 def test_unported_codec_and_fp16_kernels_raise():
     # loopback codecs are ported (tests/test_torch_hot_swap.py)
     assert LoopbackWorld(2, compression="blockwise4bit").codec.name == "blockwise4bit"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tllama.forward({}, torch.zeros(1, 4, dtype=torch.long), tllama.LlamaConfig(), pp_mesh=object())
+    # the pipelined forward is ported (A14b, tests/test_torch_pipeline.py): it
+    # runs without gradients, and refuses params that would want them
+    from opendiloco_torch.parallel.mesh import loopback_plans
+
+    cfg = tllama.LlamaConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                             num_attention_heads=2)
+    params = tllama.init_params(torch.Generator().manual_seed(0), cfg)
+    for p in tllama.flatten_params(params):
+        p.requires_grad_(True)
+    with pytest.raises(ValueError, match="torch.no_grad"):
+        tllama.forward(params, torch.zeros(1, 4, dtype=torch.long), cfg, compute_dtype=torch.float32,
+                       pp_mesh=loopback_plans(pp_size=1)[0].comms["pp"])
 
 
 def test_entry_points_default_to_the_card(tiny_cfg):

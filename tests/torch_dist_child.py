@@ -37,8 +37,12 @@ def job_strategies(spec: dict) -> dict:
     TrainerConfig overrides): a fresh trainer on the same numpy params and
     global batches, each rank handed its rows; the losses and grad norms
     of each step, the whole params and moments after the last
-    (``gather_state``, a checkpoint's layout), this rank's leaf shapes, and
-    the eval loss and probes of ``spec["eval"]``."""
+    (``gather_state``, a checkpoint's layout), this rank's leaf shapes, the
+    eval loss and probes of ``spec["eval"]``, and after each step a digest
+    of every leaf this rank holds whole over tp and pp (``"whole"``: the
+    same bits on every tp rank and pp stage)."""
+    import hashlib
+
     from opendiloco_torch.models.llama import flatten_params
     from opendiloco_torch.parallel.mesh import build_mesh
     from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
@@ -52,15 +56,19 @@ def job_strategies(spec: dict) -> dict:
         state = trainer.init_state(params=spec["params"])
         shapes = {"params": [tuple(p.shape) for p in flatten_params(state["params"])],
                   "mu": [tuple(m.shape) for m in state["opt_state"]["mu"]]}
-        losses, norms = [], []
+        losses, norms, whole = [], [], []
+        uncut = [i for i, dims in enumerate(zip(trainer.mp_dims["tp"], trainer.mp_dims["pp"]))
+                 if dims == (None, None)]
         for ids, labels in spec["batches"]:
             rows = [rank_rows(plan, a, spec["accum"]) for a in (ids, labels)]
             state, m = trainer.train_step(state, trainer.shard_batch(*rows, accum=spec["accum"]))
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
+            leaves = flatten_params(state["params"])
+            whole.append({i: hashlib.sha1(leaves[i].detach().numpy().tobytes()).hexdigest() for i in uncut})
         full = trainer.gather_state(state)
         out[name] = {
-            "losses": losses, "norms": norms, "shapes": shapes,
+            "losses": losses, "norms": norms, "shapes": shapes, "whole": whole,
             "params": [p.detach().numpy().copy() for p in flatten_params(full["params"])],
             "mu": [m.numpy().copy() for m in full["opt_state"]["mu"]],
             "nu": [v.numpy().copy() for v in full["opt_state"]["nu"]],
