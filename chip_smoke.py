@@ -4,8 +4,8 @@ decode, prefix reuse, the host KV tier, training, checkpoint and resume,
 training that serves over HTTP with weight hot swap, the command line,
 the outer plane on the card (overlapped and streaming rounds, error
 feedback), sharding, a galaxy of two workers over TCP, NoLoCo gossip
-rounds, the serving fleet, routed experts, ring attention, and tensor
-and pipeline parallelism.
+rounds, the serving fleet, routed experts, ring attention, tensor and
+pipeline parallelism, and the obs plane armed on serving and training.
 
     python3 chip_smoke.py
 
@@ -295,12 +295,12 @@ exits non-zero.
    to the first ready replica, keyframe and delta push bytes, TTFT and
    tokens/s through the router, redispatches.
 27. Routed experts: two loopback workers run ``train()`` at
-   config_150m_8e's full width and depth (12 layers, 8 experts of ffn
-   2688: 0.91 B params; mb 8, accum 2, seq 1024, bf16, remat, 3 steps,
-   one outer round on the device plane) with attention and loss left to
-   resolve, which on the card is the kernels and the fused loss: per inner
-   step and worker the sm90 B1 2 x 12 x accum, B2a, B2b and the delta
-   kernel 12 x accum, the sm90 B3 accum and its dlog, B4a and B4b accum x
+   config_150m_8e's full width and 6 of its 12 layers (``MOE_LAYERS``:
+   the smoke's time limit; 8 experts of ffn 2688; mb 8,
+   accum 2, seq 1024, bf16, remat, 3 steps, one outer round on the device
+   plane) with attention and loss left to resolve, which on the card is
+   the kernels and the fused loss: per inner step and worker the sm90 B1
+   2 x 6 x accum, B2a, B2b and the delta kernel 6 x accum, the sm90 B3 accum and its dlog, B4a and B4b accum x
    4. Then the same run through plain attention and the materialized
    loss (no launch): each step's loss and grad norm within phase 8's bf16
    tolerance, the masters within the displacement bound of one round
@@ -318,11 +318,12 @@ exits non-zero.
    ``train()`` at config_150m's widths and 2 of its layers with
    ``attn_implementation="ring"`` at sp 1 and with ``"pallas"``: losses,
    grad norms, launches and master hashes bit for bit.
-29. Tensor and pipeline parallelism at config_1b's full width and depth
-   (22 layers; phase 10's run settings: seq 1024, mb 8, accum 2; bf16,
-   remat, the kernels and the fused loss; three inner steps, warmup 1):
+29. Tensor and pipeline parallelism at config_1b's full width and 12 of
+   its 22 layers (``TPPP_LAYERS``: the smoke's time limit;
+   phase 10's run settings: seq 1024, mb 8, accum 2; bf16, remat, the
+   kernels and the fused loss; three inner steps, warmup 1):
    ``InnerTrainer`` without a group, then at pp 2 (two stage threads of
-   11 layers over the loopback P2P exchange, 2 micro-batches), then at tp
+   6 layers over the loopback P2P exchange, 2 micro-batches), then at tp
    2 (two rank threads over the loopback group: 16 q and 2 kv heads, ffn
    2816 and vocab 16000 a rank, the head gathered for the loss), on the
    same numpy params and batches; each rank thread runs its CUDA backward
@@ -337,8 +338,25 @@ exits non-zero.
    per stage 2 x (L/pp) x M x accum of the sm90 B1 a step and half that
    of B2a, B2b and delta, the loss kernels on the last stage only (B3
    accum, dlog, B4a and B4b accum x 4); per tp rank phase 10's counts at
-   22 layers. Step ms and peak device memory of each run.
-30. The kernels line (launches of B6, B7, their merges and B8 by serving
+   12 layers. Step ms and peak device memory of each run.
+30. The obs plane armed (``ODTP_OBS``, sinks in a temporary folder, the
+   Prometheus port ephemeral), after phase 22 and after phase 29:
+   (a) config_1b, w4, 8 requests over HTTP through ``ServeServer``, 40
+   tokens each, every request with a ``"trace"`` field, one plane in
+   turns off, on, on, off (the hooks read the env at each call): every
+   turn's streams and its launches of B6, its merge and B8 equal the
+   first turn's (the armed batcher's one kernel probe, measurement, is
+   counted apart); armed, ``GET /metrics`` parses and holds the
+   ``serve_*`` families, the reqtrace dump holds a complete stage chain
+   (queue, prefill, decode, retire) for each request, and the Chrome
+   trace built from the JSONL loads; decode-step ms of each turn with the
+   card line. (b) two loopback workers at config_150m's widths and 2 of
+   its layers, the kernels and the fused loss, 4 steps, ``local_steps``
+   2, unarmed then armed: losses and launches bit for bit; every armed
+   row's ``mfu`` is 6N FLOPs a token (``analytic_6n``) over the card's
+   peak; the JSONL holds ``inner_steps``, ``outer_rounds`` and the
+   ``outer/*`` spans; the black box is dumped at exit.
+31. The kernels line (launches of B6, B7, their merges and B8 by serving
    phase, of the training kernels by training phase), each phase's
    seconds and the smoke's, the card line, and last the result line.
 
@@ -355,6 +373,7 @@ import gc
 import hashlib
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -4278,12 +4297,15 @@ def phase_fleet(torch, tdk, dev, card: str) -> dict:
 # phase 27: routed experts at config_150m_8e
 # ---------------------------------------------------------------------------
 
-# two loopback workers at config_150m_8e's full width and depth (12 layers,
-# d 1024, 16 heads x 64, 8 experts of ffn 2688, vocab 32000: 0.91 B params):
+# two loopback workers at config_150m_8e's full width (d 1024, 16 heads x 64,
+# 8 experts of ffn 2688, vocab 32000) and MOE_LAYERS of its 12 layers:
 # mb 8, accum 2, seq 1024, 3 steps and one outer round (local_steps 3), on
 # the device plane as phase 23 (the host plane's numpy would move 3.6 GB a
 # worker). warmup 2: the lrs are 0, 5e-4 and 1e-3
 MOE_MODEL = "150m_8e"
+# of its 12 layers (the smoke's time limit: at 12 the phase took 94.6 s of a
+# 986.3 s smoke on an H100 80GB HBM3 at 700 W)
+MOE_LAYERS = 6
 MOE_150M = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=2,
                 total_steps=3, local_steps=3, lr=1e-3)
 MOE_NAMES = ("flash_attention_fwd_sm90", "flash_attention_delta", "flash_attention_dq_sm90",
@@ -4291,9 +4313,9 @@ MOE_NAMES = ("flash_attention_fwd_sm90", "flash_attention_delta", "flash_attenti
              "fused_xent_dw_sm90")
 
 
-def moe_workers(torch, tfa, dev, extra: dict) -> dict:
-    """Two workers, one thread each, run ``train()`` at MOE_150M with the
-    ``Config`` fields ``extra``; the launch counters zeroed just before and
+def moe_workers(torch, tfa, dev, extra: dict, model: str) -> dict:
+    """Two workers, one thread each, run ``train()`` on ``model`` at
+    MOE_150M with the ``Config`` fields ``extra``; the launch counters zeroed just before and
     read just after. Returns the rows, launches, worker 0's final master
     (host arrays; worker 1's must equal it), peak device memory and wall
     seconds."""
@@ -4309,7 +4331,7 @@ def moe_workers(torch, tfa, dev, extra: dict) -> dict:
     backends = recording_backends(LoopbackWorld(2))
 
     def config(rank):
-        return train_config(MOE_MODEL, run, rank, os.path.join(tmp, f"metrics-{rank}.pkl"),
+        return train_config(model, run, rank, os.path.join(tmp, f"metrics-{rank}.pkl"),
                             dict(path=os.path.join(tmp, "ckpts")), diloco=dict(outer_placement="device"), **extra)
 
     torch.cuda.synchronize()
@@ -4336,7 +4358,7 @@ def moe_workers(torch, tfa, dev, extra: dict) -> dict:
     return out
 
 
-def moe_dropped(torch, dev) -> dict:
+def moe_dropped(torch, dev, model: str) -> dict:
     """The tokens each layer's capacity drops on phase 27's first
     micro-batch (mb 8 x seq 1024) through the initial params (drawn as
     ``train()`` draws them), in bf16 through the kernels: of N = 8192
@@ -4346,7 +4368,7 @@ def moe_dropped(torch, dev) -> dict:
     from opendiloco_torch.models.hf_io import load_config
     from opendiloco_torch.train import INIT_SEED
 
-    cfg = load_config(MOE_MODEL)
+    cfg = load_config(model)
     run = MOE_150M
     params = llama.init_params(torch.Generator(device=dev).manual_seed(INIT_SEED), cfg)
     ds = iter(FakeTokenizedDataset(run["seq_length"], cfg.vocab_size, seed=42, mode="ramp"))
@@ -4363,8 +4385,8 @@ def moe_dropped(torch, dev) -> dict:
 
 
 def phase_moe(torch, tfa, dev, card: str) -> dict:
-    """Phase 27: config_150m_8e trains through ``train()`` (two workers, one
-    outer round) with attention and loss left to resolve (the kernels:
+    """Phase 27: config_150m_8e's widths at MOE_LAYERS of its layers train
+    through ``train()`` (two workers, one outer round) with attention and loss left to resolve (the kernels:
     B1, B2a, B2b, delta, and the fused loss's B3, dlog, B4a, B4b, which an
     MoE stack resolves on), then the same run through plain attention and
     the materialized loss. Per inner step and worker the flash kernels as
@@ -4382,18 +4404,21 @@ def phase_moe(torch, tfa, dev, card: str) -> dict:
     from opendiloco_torch.train import INIT_SEED
     from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
 
+    import tempfile
+
     t0 = time.perf_counter()
-    cfg, run = load_config(MOE_MODEL), MOE_150M
+    model = cut_depth(MOE_MODEL, MOE_LAYERS, tempfile.mkdtemp())
+    cfg, run = load_config(model), MOE_150M
     tc = InnerTrainer(cfg, TrainerConfig(), device=dev).tc
     if not (tc.attn_impl == "pallas" and tc.fused_loss):
         raise AssertionError(f"150m_8e resolves attn {tc.attn_impl}, fused_loss {tc.fused_loss} on the card")
     accum = run["total_batch_size"] // run["per_device_train_batch_size"]
     steps = 2 * run["total_steps"]
-    kern = moe_workers(torch, tfa, dev, {})
+    kern = moe_workers(torch, tfa, dev, {}, model)
     want = training_launches(torch, dev, cfg, run, steps, kern["launches"], fused=True)
     if kern["launches"] != want:
         raise AssertionError(f"moe 150m_8e launch counts {kern['launches']} != {want}")
-    plain = moe_workers(torch, tfa, dev, dict(attn_implementation="xla", fused_loss=False))
+    plain = moe_workers(torch, tfa, dev, dict(attn_implementation="xla", fused_loss=False), model)
     if any(plain["launches"].values()):
         raise AssertionError(f"moe 150m_8e plain run launched {plain['launches']}")
     losses = {k: [[r["Loss"] for r in rr] for rr in x["rows"]] for k, x in (("kernels", kern), ("plain", plain))}
@@ -4426,7 +4451,7 @@ def phase_moe(torch, tfa, dev, card: str) -> dict:
     kern.pop("master")
     plain.pop("master")
     gc.collect()
-    dropped = moe_dropped(torch, dev)
+    dropped = moe_dropped(torch, dev, model)
     inner = kern["launches"]
     per_step = {k: inner[k] / steps for k in MOE_NAMES}
     step_ms = {k: 1e3 * float(np.median([r["time_taken"] for rr in x["rows"] for r in rr
@@ -4684,9 +4709,11 @@ def ring_train_sp1(torch, tfa, dev) -> dict:
 # phase 29: tensor and pipeline parallelism at config_1b over loopback ranks
 # ---------------------------------------------------------------------------
 
-# config_1b at full width and depth (22 layers), phase 10's run settings
-# (seq 1024, mb 8, accum 2), three inner steps; warmup 1 so that two steps
-# update
+# config_1b at full width and TPPP_LAYERS of its 22 layers (the smoke's time
+# limit: at 22 the phase took 85.4 s of a 986.3 s smoke on an H100 80GB HBM3
+# at 700 W; even, so pp 2 splits it), phase 10's run settings (seq 1024, mb
+# 8, accum 2), three inner steps; warmup 1 so that two steps update
+TPPP_LAYERS = 12
 TPPP_1B = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=1, total_steps=3,
                lr=1e-3)
 TPPP_NAMES = MOE_NAMES
@@ -4800,9 +4827,10 @@ def tppp_run(torch, tfa, dev, cfg, tc, params: dict, batches: list, plans: list)
 
 
 def phase_tp_pp(torch, tfa, dev, card: str) -> dict:
-    """Phase 29: config_1b at full width and depth trains three inner steps
-    through ``InnerTrainer`` unsplit, at pp 2 (two stage threads of 11
-    layers over the loopback P2P exchange, 2 micro-batches) and at tp 2
+    """Phase 29: config_1b's widths at TPPP_LAYERS of its 22 layers train
+    three inner steps through ``InnerTrainer`` unsplit, at pp 2 (two stage
+    threads of TPPP_LAYERS / 2 layers over the loopback P2P exchange, 2
+    micro-batches) and at tp 2
     (two rank threads over the loopback group: 16 q and 2 kv heads, ffn
     2816 and vocab 16000 a rank, the head gathered for the loss), on the
     same numpy params and batches, bf16, remat, the kernels and the fused
@@ -4816,8 +4844,10 @@ def phase_tp_pp(torch, tfa, dev, card: str) -> dict:
     from opendiloco_torch.train import INIT_SEED
     from opendiloco_torch.trainer import TrainerConfig, make_schedule
 
+    import tempfile
+
     t_phase = time.perf_counter()
-    cfg, run = load_config("1b"), TPPP_1B
+    cfg, run = load_config(cut_depth("1b", TPPP_LAYERS, tempfile.mkdtemp())), TPPP_1B
     L = cfg.num_hidden_layers
     mb, seq = run["per_device_train_batch_size"], run["seq_length"]
     accum, steps = run["total_batch_size"] // mb, run["total_steps"]
@@ -4882,6 +4912,270 @@ def phase_tp_pp(torch, tfa, dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the obs plane armed on the serving and training planes
+# ---------------------------------------------------------------------------
+
+OBS_ENV_KNOBS = ("ODTP_OBS", "ODTP_OBS_DIR", "ODTP_OBS_PROM_PORT")
+OBS_REQUESTS, OBS_NEW_TOKENS = 8, 40
+OBS_GAUGE_EVERY = 8  # decode steps between gauge publications (the batcher's default: 32)
+OBS_TURNS = ("off", "on", "on", "off")
+# (b): phase 25's run at the same cut of config_150m, 4 steps, 2 outer rounds
+OBS_TRAIN = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=2,
+                 total_steps=4, local_steps=2, lr=1e-3)
+# the families a served request leaves in the Prometheus text
+OBS_SERVE_FAMILIES = ("odtp_serve_tokens_generated", "odtp_serve_requests_completed", "odtp_serve_p50_ms", "odtp_serve_p99_ms",
+                      "odtp_serve_tokens_per_s", "odtp_serve_batch_occupancy", "odtp_serve_queue_depth",
+                      "odtp_serve_snapshot_staleness")
+# and the kernel probe's, in the turn it runs (once a batcher)
+OBS_PROBE_FAMILIES = ("odtp_serve_decode_attn_us", "odtp_serve_verify_attn_us", "odtp_serve_w4_matmul_us")
+OBS_STAGE_CHAIN = ("queue", "prefill", "decode", "retire")
+# a sample line of the Prometheus text exposition: name{labels} value
+PROM_LINE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z0-9_]+="([^"\\]|\\.)*"'
+                       r'(,[a-zA-Z0-9_]+="([^"\\]|\\.)*")*\})? -?[0-9.e+-]+(e[+-][0-9]+)?$')
+
+
+def obs_arm(folder) -> None:
+    """Arm the obs plane in this process (``folder``: its sinks; None
+    disarms): the env knobs, then ``obs.reset()`` so every accessor reads
+    them anew."""
+    import os
+
+    from opendiloco_torch import obs
+
+    for k in OBS_ENV_KNOBS:
+        os.environ.pop(k, None)
+    if folder is not None:
+        os.environ.update({"ODTP_OBS": "smoke", "ODTP_OBS_DIR": folder, "ODTP_OBS_PROM_PORT": "0"})
+    obs.reset()
+
+
+def prom_families(text: str) -> set:
+    """The families of a Prometheus text exposition; raises on a line that
+    is neither a comment nor ``name{labels} value``."""
+    families = set()
+    for line in text.rstrip("\n").splitlines():
+        if line.startswith("# TYPE "):
+            families.add(line.split()[2])
+        elif not line.startswith("#") and not PROM_LINE.match(line):
+            raise AssertionError(f"obs: unparsable Prometheus line {line!r}")
+    return families
+
+
+def phase_obs_serve(torch, tdk, cfg, params, dev, card: str) -> dict:
+    """Phase 30 (a): the serving plane at config_1b, w4, over HTTP through
+    ``ServeServer``, in turns with the obs plane off, on, on, off (one
+    plane; the hooks read the env at each call). Each turn posts the same
+    8 prompts at once, 40 new tokens each, every request with a ``"trace"``
+    field. Armed, ``/metrics`` on the ephemeral Prometheus port parses and
+    holds the ``serve_*`` families, the reqtrace dump holds a complete stage
+    chain for each request, and the Chrome trace built from the tracer's
+    JSONL loads. Every turn's streams equal the first's, and its launches
+    of B6, its merge and B8, zeroed before the turn, equal the first's (the
+    armed batcher's one kernel probe, measurement, is counted apart).
+    Decode-step ms of each turn."""
+    import os
+    import tempfile
+
+    from opendiloco_torch import obs
+    from opendiloco_torch.config import ServeConfig
+    from opendiloco_torch.obs import export, reqtrace
+    from opendiloco_torch.serve import build_serving
+
+    scfg = ServeConfig(weight_format="w4")
+    prompts = prompts_over_buckets(scfg, cfg.vocab_size, seed=30)[:OBS_REQUESTS]
+    folder = tempfile.mkdtemp()
+    obs_arm(None)
+    plane = build_serving(scfg, cfg, params, device=dev)
+    batcher, engine = plane.batcher, plane.engine
+    batcher.gauge_every_steps = OBS_GAUGE_EVERY
+    turns = []
+    try:
+        for r in [batcher.submit(p[:8], max_new_tokens=2) for p in prompts]:
+            if not r.wait(600) or r.error is not None:
+                raise AssertionError(f"obs warm-up request failed: {r.error}")
+        for t, mode in enumerate(OBS_TURNS):
+            sinks = os.path.join(folder, f"turn{t}")
+            obs_arm(sinks if mode == "on" else None)
+            base, decode0, probed = batcher.stats(), engine.stage_seconds["decode"], batcher._kernel_probed
+            tdk.LAUNCHES.reset()
+            outs = [{} for _ in prompts]
+
+            def post(i, out):
+                body = {"prompt": prompts[i], "max_new_tokens": OBS_NEW_TOKENS, "id": i,
+                        "trace": {"id": f"obs-{t}-{i}", "o": "smoke"}}
+                out.update(http_json(f"http://127.0.0.1:{plane.port}/generate", json.dumps(body).encode()))
+
+            clients = [threading.Thread(target=post, args=(i, outs[i])) for i in range(len(prompts))]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=600)
+            launches = tdk.LAUNCHES.snapshot()
+            st = batcher.stats()
+            bad = [o for o in outs if "tokens" not in o or "error" in o]
+            if bad:
+                raise AssertionError(f"obs turn {t} ({mode}): requests failed: {bad[:2]}")
+            probe = dict(batcher.probe_launches) if batcher._kernel_probed and not probed else {}
+            path = {k: n - probe.get(k, 0) for k, n in launches.items()}
+            steps = st["decode_steps"] - base["decode_steps"]
+            turn = {"mode": mode, "decode_steps": steps, "launches": path, "probe_launches": probe,
+                    "decode_step_ms": (engine.stage_seconds["decode"] - decode0) / steps * 1e3,
+                    "tokens": [o["tokens"] for o in outs]}
+            if mode == "on":
+                tr, rt = obs.tracer(), reqtrace.ring()
+                if tr is None or rt is None or tr.prom is None:
+                    raise AssertionError("obs: armed turn without a tracer, a ring or a Prometheus port")
+                text = urllib_get(f"http://127.0.0.1:{tr.prom.port}/metrics")
+                families = prom_families(text)
+                # the decode counter's label: "pallas" where the kernels run
+                want = (*OBS_SERVE_FAMILIES, f"odtp_serve_decode_kernel_{engine.decode_kernel}",
+                        *(OBS_PROBE_FAMILIES if probe else ()))
+                missing = [f for f in want if f not in families]
+                if missing:
+                    raise AssertionError(f"obs turn {t}: /metrics lacks {missing}")
+                with open(rt.dump(reason="smoke")) as f:
+                    dumped = {x["id"]: x for x in json.load(f)["traces"]}
+                for i in range(len(prompts)):
+                    got = dumped.get(f"obs-{t}-{i}")
+                    stages = [s["stage"] for s in got["spans"]] if got else []
+                    if (got is None or got["status"] != "done" or stages[:2] != ["queue", "prefill"]
+                            or stages[-1] != "retire" or set(stages) != set(OBS_STAGE_CHAIN)):
+                        raise AssertionError(f"obs turn {t}: request {i}'s trace {stages} is not a complete chain")
+                events, meta = export.load_jsonl(tr.flush())
+                chrome = json.loads(json.dumps(export.chrome_trace([(0, events, meta)])))
+                names = {e["name"] for e in chrome["traceEvents"] if e["ph"] == "X"}
+                if "serve_prefill" not in names or not any(e["ph"] == "C" for e in chrome["traceEvents"]):
+                    raise AssertionError(f"obs turn {t}: the Chrome trace lacks the serving spans: {sorted(names)}")
+                turn.update(families=len(families), chrome_events=len(chrome["traceEvents"]),
+                            counters={k: v for k, v in meta["counters"].items() if k.startswith("serve_")})
+            turns.append(turn)
+            obs_arm(None)
+    finally:
+        obs_arm(None)
+        plane.stop()
+    first = turns[0]
+    for t, turn in enumerate(turns[1:], 1):
+        if turn["tokens"] != first["tokens"]:
+            raise AssertionError(f"obs turn {t} ({turn['mode']}): streams differ from turn 0's: "
+                                 f"{agreement(turn['tokens'], first['tokens'])}")
+        if turn["launches"] != first["launches"] or turn["decode_steps"] != first["decode_steps"]:
+            raise AssertionError(f"obs turn {t} ({turn['mode']}): {turn['decode_steps']} steps, launches "
+                                 f"{turn['launches']} != turn 0's {first['decode_steps']}, {first['launches']}")
+    if not any(turn["probe_launches"] for turn in turns):
+        raise AssertionError("obs: the armed batcher's kernel probe never ran")
+    for turn in turns:
+        turn.pop("tokens")
+    res = {"turns": turns, "requests": len(prompts), "new_tokens": OBS_NEW_TOKENS, "card": card,
+           "decode_step_ms": {f"{t} {turn['mode']}": turn["decode_step_ms"] for t, turn in enumerate(turns)}}
+    log(f"obs serve 1b w4 decode-step ms by turn (off, on, on, off): "
+        f"{json.dumps({k: round(v, 4) for k, v in res['decode_step_ms'].items()})} | {card}")
+    log(f"obs serve: {json.dumps(res)}")
+    return res
+
+
+def urllib_get(url: str, timeout: float = 60.0) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read().decode()
+
+
+def obs_train_run(torch, tfa, dev, model: str, folder) -> dict:
+    """Two loopback workers of ``train()`` with the kernels and the fused
+    loss, the obs plane armed with its sinks in ``folder`` (None: off); the
+    launch counters zeroed just before, read just after."""
+    import os
+    import pickle
+    import tempfile
+
+    from opendiloco_torch.diloco import LoopbackWorld
+    from opendiloco_torch.train import train
+
+    tmp = tempfile.mkdtemp()
+    backends = LoopbackWorld(2).make_backends()
+    configs = [train_config(model, OBS_TRAIN, r, os.path.join(tmp, f"metrics-{r}.pkl"),
+                            dict(path=os.path.join(tmp, "ckpts"), interval=None), attn_implementation="pallas",
+                            fused_loss=True) for r in range(2)]
+    obs_arm(folder)
+    try:
+        tfa.LAUNCHES.reset()
+        run_workers(train, [(configs[r], backends[r], dev) for r in range(2)])
+        launches = tfa.LAUNCHES.snapshot()
+        from opendiloco_torch import obs
+
+        tr = obs.tracer()
+        # both workers' events: the tracer is the process's
+        identity, jsonl = (dict(tr.identity), tr.flush()) if tr is not None else (None, None)
+    finally:
+        obs_arm(None)
+    rows = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"metrics-{r}.pkl"), "rb") as f:
+            rows.append(pickle.load(f))
+    return {"rows": rows, "launches": launches, "identity": identity, "jsonl": jsonl}
+
+
+def phase_obs_train(torch, tfa, dev, card: str) -> dict:
+    """Phase 30 (b): two loopback workers at config_150m's widths and 2 of
+    its layers (``CUT_LAYERS``) with the kernels and the fused loss, 4
+    steps, ``local_steps`` 2, unarmed then armed: the armed losses equal
+    the unarmed bit for bit and so do the launches; every armed row has
+    ``mfu`` from ``analytic_6n`` and the card's peak; the JSONL holds
+    ``inner_steps``, ``outer_rounds`` and the ``outer/*`` spans; the black
+    box is dumped at exit."""
+    import glob
+    import os
+    import tempfile
+
+    from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.models.llama import num_params
+    from opendiloco_torch.obs import export, mfu
+
+    model = cut_depth("150m", CUT_LAYERS, tempfile.mkdtemp())
+    folder = tempfile.mkdtemp()
+    off = obs_train_run(torch, tfa, dev, model, None)
+    on = obs_train_run(torch, tfa, dev, model, folder)
+    losses = [[r["Loss"] for r in rows] for rows in on["rows"]]
+    if losses != [[r["Loss"] for r in rows] for rows in off["rows"]]:
+        raise AssertionError(f"obs train: armed losses {losses} differ from the unarmed run's")
+    if on["launches"] != off["launches"] or not any(on["launches"].values()):
+        raise AssertionError(f"obs train: armed launches {on['launches']} != unarmed {off['launches']}")
+    name = torch.cuda.get_device_name(dev)
+    flops, peak, source = mfu.flops_per_token(model, num_params(load_config(model)), name)
+    if source != "analytic_6n" or on["identity"].get("mfu_source") != "analytic_6n":
+        raise AssertionError(f"obs train: mfu source {source} / {on['identity']} on {name}")
+    mfus = [r.get("mfu") for rows in on["rows"] for r in rows]
+    if not all(isinstance(u, float) and 0 < u < 1 for u in mfus):
+        raise AssertionError(f"obs train: rows' mfu {mfus}")
+    for rows in on["rows"]:
+        for r in rows:
+            want = mfu.mfu(r["tokens_per_second"], flops, 1, peak)
+            if r["mfu"] != want:
+                raise AssertionError(f"obs train: step {r['step']} mfu {r['mfu']} != {want} (6N at {peak:.3e})")
+    events, meta = export.load_jsonl(on["jsonl"])
+    spans = {e["name"] for e in events if e["ph"] in ("X", "i")}
+    want_spans = {"inner/dispatch", "outer/barrier_wait", "outer/d2h", "outer/allreduce", "outer/apply",
+                  "outer/step", "outer/round"}
+    if meta["counters"].get("inner_steps") != 8 or meta["counters"].get("outer_rounds") != 4 or not (
+            want_spans <= spans):
+        raise AssertionError(f"obs train: JSONL counters {meta['counters']}, spans {sorted(spans)}")
+    boxes = sorted(glob.glob(os.path.join(folder, "blackbox-*.json")))
+    reasons = []
+    for path in boxes:
+        with open(path) as f:
+            reasons.append(json.load(f)["reason"])
+    if "train_exit" not in reasons:
+        raise AssertionError(f"obs train: no black box dumped at exit in {folder}: {boxes} {reasons}")
+    step_ms = lambda run: [[r["time_taken"] * 1e3 for r in rows if r["step"] > 1 and "outer_step_s" not in r]
+                           for rows in run["rows"]]
+    res = {"losses": losses, "launches": on["launches"], "mfu": mfus, "flops_per_token": flops, "peak": peak,
+           "card": card, "counters": meta["counters"], "black_box": [os.path.basename(b) for b in boxes],
+           "inner_step_ms": {"off": step_ms(off), "on": step_ms(on)}}
+    log(f"obs train: {json.dumps(res)}")
+    return res
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -4937,6 +5231,7 @@ def main() -> int:
     spec_f32 = timed("15 spec f32", phase_spec_f32, torch, cfg, params, dev)
     wire = timed("20 install_wire", phase_install_wire, torch, tdk, cfg, params, dev, card, serve)
     tier = timed("22 kv tier", phase_tier, torch, tdk, cfg, params, dev)
+    obs_serve = timed("30a obs serve", phase_obs_serve, torch, tdk, cfg, params, dev, card)
     del params
     for s in serve:
         s.pop("tokens")
@@ -4972,6 +5267,7 @@ def main() -> int:
     moe = timed("27 moe 150m_8e", phase_moe, torch, tfa, dev, card)
     ring = timed("28 ring", phase_ring, torch, tfa, dev, card)
     tp_pp = timed("29 tp pp 1b", phase_tp_pp, torch, tfa, dev, card)
+    obs_train = timed("30b obs train", phase_obs_train, torch, tfa, dev, card)
 
     # launches: each serving phase's main path, by phase
     serving = {f"serve {s['weight_format']}": s["launches"] for s in serve}
@@ -4983,6 +5279,8 @@ def main() -> int:
     serving.update({f"install_wire 1b ({key})": counts for key, counts in wire["launches"].items()})
     serving.update({f"kv tier 1b ({key})": tier[key]["launches"] for key in ("a", "b", "c", "d")})
     serving["fleet 150m (2 layers), replicas in process"] = fleet["runs"][0]["launches"]
+    serving.update({f"obs 1b w4 turn {t} ({turn['mode']})": turn["launches"]
+                    for t, turn in enumerate(obs_serve["turns"])})
     for k in (*b6, *b7, *b8):
         k["launches_by_phase"] = {phase: counts.get(k["name"], 0) for phase, counts in serving.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
@@ -5009,7 +5307,8 @@ def main() -> int:
                                      for label, g in ring["geoms"].items()},
                                   "ring train 150m (2 layers) sp 1": ring["train_sp1"]["launches"].get(k["name"], 0),
                                   **{f"tp/pp 1b {label}": sum(t.get(k["name"], 0) for t in r["launches_by_thread"])
-                                     for label, r in tp_pp["runs"].items()}}
+                                     for label, r in tp_pp["runs"].items()},
+                                  "obs 150m (2 layers) armed": obs_train["launches"].get(k["name"], 0)}
         k["launches"] = sum(k["launches_by_phase"].values())
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
         k["launches_per_inner_step_150m_8e"] = moe["launches_per_inner_step"].get(k["name"], 0)
@@ -5018,6 +5317,7 @@ def main() -> int:
                     "outer_plane": outer_plane, "sharded": sharded, "tcp": tcp, "gossip": gossip, "fleet": fleet, "resume": resume_150m, "weights_dir": weights_dir,
                     "train_serve": train_serve, "install_wire": wire, "kv_tier": tier,
                     "gate3": gate3, "cli": cli, "moe": moe, "ring": ring, "tp_pp": tp_pp,
+                    "obs": {"serve": obs_serve, "train": obs_train},
                     "phase_seconds": PHASE_SECONDS,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b6, *b7, *b8, *flash, *xent]}))

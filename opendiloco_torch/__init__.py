@@ -27,6 +27,9 @@ Layout:
     train      -- ``train()``: one DiLoCo worker's training loop, and the
                   command line (``python -m opendiloco_torch.train``)
     serve/     -- serving engine, continuous batcher, ``build_serving``
+    obs/       -- the obs plane: tracer, exporters, Prometheus, request
+                  traces, flight recorder, watchdogs, MFU (off unless
+                  ``ODTP_OBS`` is set)
     utils/     -- loggers, the safetensors reader and writer, parameter
                   fingerprints
 

@@ -434,6 +434,28 @@ _CODECS = {
     ]
 }
 
+# running per-codec (raw, wire) byte totals: the obs counters' source and
+# what a bench reads to measure each codec's wire savings
+_WIRE_TOTALS: dict[str, list[float]] = {}
+
+
+def record_wire(name: str, raw_nbytes: int, wire_nbytes: int) -> None:
+    """Account one encoded payload: the per-codec raw and wire byte
+    counters and a running compression-ratio gauge (obs armed)."""
+    tot = _WIRE_TOTALS.setdefault(name, [0.0, 0.0])
+    tot[0] += raw_nbytes
+    tot[1] += wire_nbytes
+    from opendiloco_torch import obs  # deferred: obs is an optional plane
+
+    tr = obs.tracer()
+    if tr is None:
+        return
+    tr.count("outer_raw_bytes", raw_nbytes, codec=name)
+    tr.count("outer_wire_bytes", wire_nbytes, codec=name)
+    if tot[1] > 0:
+        tr.gauge("outer_compression_ratio", tot[0] / tot[1], codec=name)
+
+
 def get_codec(name: str) -> Codec:
     if name not in _CODECS:
         raise ValueError(f"unknown compression {name!r}; have {sorted(_CODECS)}")

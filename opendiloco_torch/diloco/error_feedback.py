@@ -33,6 +33,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from opendiloco_torch import native, obs
 from opendiloco_torch.diloco.compression import Codec
 
 
@@ -88,6 +89,10 @@ class ErrorFeedback:
         else:
             for i, e in zip(idxs, errs):
                 self.residual[i] = e
+        tr = obs.tracer()
+        if tr is not None:
+            # the staged errors are host arrays on either placement
+            tr.gauge("ef_residual_norm", float(np.sqrt(sum(native.sqnorm(e) for e in errs))))
 
     def abort(self, key) -> None:
         """Drop a round's staged errors; the previous residual stays."""

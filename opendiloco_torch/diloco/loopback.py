@@ -25,9 +25,10 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from opendiloco_torch import obs
 from opendiloco_torch.diloco import chaos
 from opendiloco_torch.diloco.backend import AllReduceError, OuterBackend, PeerProgress
-from opendiloco_torch.diloco.compression import Codec, get_codec
+from opendiloco_torch.diloco.compression import Codec, get_codec, record_wire
 
 
 class LoopbackWorld:
@@ -97,6 +98,12 @@ class LoopbackBackend(OuterBackend):
         self.round_ledger.append(health)
         if len(self.round_ledger) > 256:
             del self.round_ledger[:-256]
+        tr = obs.tracer()
+        if tr is not None:
+            tr.instant("outer/round", worker=self._peer_id, **health)
+            tr.count("outer_rounds")
+            if health["elastic"]:
+                tr.count("outer_rounds_elastic")
 
     @property
     def peer_id(self) -> str:
@@ -204,9 +211,15 @@ class LoopbackBackend(OuterBackend):
         w = self.world
         round_key = f"{tag}-epoch-{epoch}"
         # each leaf's wire round trip through the world's codec ("none":
-        # a read-only view of an f32 copy)
+        # a read-only view of an f32 copy). The stage spans are the TCP
+        # round's: encode, reduce_wait (until the mean is published), adopt
         codec = w.codec
+        tr = obs.tracer()
+        t0 = time.perf_counter() if tr is not None else 0.0
         contribution = [codec.decode(*_enc(codec, a)) for a in arrays]
+        if tr is not None:
+            tr.add_span("outer/encode", t0, time.perf_counter(), worker=self._peer_id, round=round_key)
+        t_wait = time.perf_counter() if tr is not None else 0.0
         deadline = time.monotonic() + (timeout or 3600.0)
         with w.cond:
             slot = w._rounds.setdefault(
@@ -240,12 +253,17 @@ class LoopbackBackend(OuterBackend):
                     w.cond.notify_all()
                     raise AllReduceError(f"{self._peer_id}: all-reduce timed out")
                 w.cond.wait(timeout=min(remaining, 0.1))
+            if tr is not None:
+                tr.add_span("outer/reduce_wait", t_wait, time.perf_counter(), worker=self._peer_id, round=round_key)
+            t_adopt = time.perf_counter() if tr is not None else 0.0
             result = [a.copy() for a in slot["result"]]
             group = slot["result_group"]
             # drop the slot once every live contributor has collected
             slot["pending"] = {p for p in slot["pending"] if p != self._peer_id and p in w.live}
             if not slot["pending"] and not slot["contrib"]:
                 w._rounds.pop(round_key, None)
+        if tr is not None:
+            tr.add_span("outer/adopt", t_adopt, time.perf_counter(), worker=self._peer_id, round=round_key)
         self._record_round_health(tag, epoch, group)
         return result, group
 
@@ -319,4 +337,5 @@ class LoopbackBackend(OuterBackend):
 
 def _enc(codec: Codec, a: np.ndarray):
     payload, meta = codec.encode(a)
+    record_wire(codec.name, a.size * 4, len(payload))
     return payload, a.shape, meta

@@ -68,6 +68,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from opendiloco_torch import native, obs
 from opendiloco_torch.config import DilocoConfig
 from opendiloco_torch.diloco.backend import OuterBackend, PeerProgress, wait_for_peers
 from opendiloco_torch.diloco.compression import device_wire_dtype, get_codec
@@ -85,6 +86,11 @@ from opendiloco_torch.utils.logger import get_text_logger
 from opendiloco_torch.utils.spans import span
 
 log = get_text_logger(__name__)
+
+
+def _host_norm(arrays: list) -> float:
+    """The L2 norm of host f32 arrays (squares summed in f64)."""
+    return float(np.sqrt(sum(native.sqnorm(a) for a in arrays)))
 
 
 class PeerDropError(RuntimeError):
@@ -443,6 +449,14 @@ class DiLoCoOptimizer:
             else:
                 state, outer_metrics = self.outer_step(state)
             metrics.update(outer_metrics)
+            tr = obs.tracer()
+            if tr is not None:
+                # the epoch rides the overseer roll-up; the stall watchdog's
+                # deadline resets here, so every backend counts as progress
+                tr.gauge("outer_epoch", self.epoch)
+                wd = obs.anomaly.watchdog()
+                if wd is not None:
+                    wd.note_progress(self.epoch)
         return state, metrics
 
     def _overlap_full_model(self) -> bool:
@@ -485,11 +499,16 @@ class DiLoCoOptimizer:
     def _wait_beside(self, work):
         """Run ``work()`` on this thread while the straggler wait runs on a
         helper (a profiler records this thread); returns (work's result,
-        seconds until both ended)."""
+        seconds until both ended). With obs armed the wait is the span
+        ``outer/barrier_wait``."""
         t0 = time.monotonic()
+        tr = obs.tracer()
+        t0p = time.perf_counter() if tr is not None else 0.0
         # a follower has no peer view; gossip has no group to wait for (the
         # pair push-pull bounds how long a worker waits on its partner)
         if self.backend is None or self.cfg.outer_mode == "gossip":
+            if tr is not None:
+                tr.add_span("outer/barrier_wait", t0p, time.perf_counter(), epoch=self.epoch)
             return work(), time.monotonic() - t0
         waited: list = []
 
@@ -501,6 +520,8 @@ class DiLoCoOptimizer:
                 waited.append(None)
             except BaseException as e:  # re-raised on this thread below
                 waited.append(e)
+            if tr is not None:
+                tr.add_span("outer/barrier_wait", t0p, time.perf_counter(), epoch=self.epoch)
 
         waiter = threading.Thread(target=wait)
         waiter.start()
@@ -525,6 +546,8 @@ class DiLoCoOptimizer:
         if schema_fingerprint(state["params"]) != self._schema:
             raise AssertionError("parameter schema changed mid-epoch")
         t0 = time.monotonic()
+        tr = obs.tracer()
+        t0p = time.perf_counter() if tr is not None else 0.0
         if self._pending is not None:  # at most one round in flight
             state = self._poll_pending(state, block=True)
         self._drain_abandoned()
@@ -564,6 +587,9 @@ class DiLoCoOptimizer:
             self.samples_in_epoch = 0
         self._epoch_t0 = time.monotonic()
         outer_metrics = {"outer_step_s": time.monotonic() - t0, "outer_wait_s": wait_s, "outer_overlapped": 1}
+        if tr is not None:
+            tr.add_span("outer/launch", t0p, time.perf_counter(), epoch=self.epoch - 1)
+            tr.gauge("outer_wait_s", wait_s)
         self.last_outer_metrics = outer_metrics
         return state, outer_metrics
 
@@ -576,6 +602,8 @@ class DiLoCoOptimizer:
         if schema_fingerprint(state["params"]) != self._schema:
             raise AssertionError("parameter schema changed mid-epoch")
         t0 = time.monotonic()
+        tr = obs.tracer()
+        t0p = time.perf_counter() if tr is not None else 0.0
         if self._pending is not None:  # at most one round in flight
             state = self._poll_pending(state, block=True)
         self._drain_abandoned()
@@ -583,6 +611,8 @@ class DiLoCoOptimizer:
         leaves = flatten_params(state["params"])
         boundary_dev = plane.copy_leaves(leaves)
         (pg_host, pg_dev, _), wait_s = self._wait_beside(lambda: plane.pseudo_grad(leaves, keep_device=eager))
+        if tr is not None:
+            tr.gauge("pseudo_grad_norm", _host_norm(pg_host))
         if self._ef is not None:
             # the plane added the residual; stage the round trip error
             self._ef.prepare("main", range(len(pg_host)), pg_host)
@@ -603,6 +633,9 @@ class DiLoCoOptimizer:
                 self.samples_in_epoch = 0
         self._epoch_t0 = time.monotonic()
         outer_metrics = {"outer_step_s": time.monotonic() - t0, "outer_wait_s": wait_s, "outer_overlapped": 1}
+        if tr is not None:
+            tr.add_span("outer/launch", t0p, time.perf_counter(), epoch=self.epoch - 1)
+            tr.gauge("outer_wait_s", wait_s)
         self.last_outer_metrics = outer_metrics
         return state, outer_metrics
 
@@ -712,13 +745,18 @@ class DiLoCoOptimizer:
                 done = bool(self.world.broadcast_obj(done if self.world.is_messenger else None))
             if not done:
                 return state
+        tr = obs.tracer()
         try:
+            t_wait = time.perf_counter() if tr is not None else 0.0
             avg, group_size = self._overlap_result(pending, block=block)
+            if tr is not None and block:
+                tr.add_span("outer/barrier_wait", t_wait, time.perf_counter(), epoch=pending["epoch"])
             self._check_group_size(group_size)
             if self._ef is not None:
                 # the swarm adopted the compressed pg: its round trip error
                 # becomes the live residual
                 self._ef.commit("main")
+            t_apply = time.perf_counter() if tr is not None else 0.0
             if "plane_pre" in pending:
                 # plane.lock from the landing's writes until the round is
                 # cleared: a snapshot must not read the pre-round arrays
@@ -742,6 +780,8 @@ class DiLoCoOptimizer:
                 with self._serve_lock:
                     self.outer_opt = opt
                     self.master = master
+            if tr is not None:
+                tr.add_span("outer/apply", t_apply, time.perf_counter(), epoch=pending["epoch"], group=group_size)
         except BaseException:
             if self._ef is not None:
                 # a dropped round: keep the previous residual (the next
@@ -755,6 +795,9 @@ class DiLoCoOptimizer:
         # the landing shows in the next metrics row
         self._landed_metrics = {"outer_allreduce_s": landed_s, "num_peers": group_size,
                                 **self._round_health_metrics()}
+        if tr is not None:
+            tr.instant("outer/landed", epoch=pending["epoch"], group=group_size, landed_s=round(landed_s, 6))
+            tr.gauge("outer_allreduce_s", landed_s)
         self.last_outer_metrics = dict(self._landed_metrics)
         log.info("outer step %d (overlapped): all-reduce over %d peers landed after %.3fs", pending["epoch"],
                  group_size, landed_s)
@@ -817,6 +860,8 @@ class DiLoCoOptimizer:
             self._blocking_snap = {"master": self.master, "epoch": self.epoch,
                                    "outer_opt": self.outer_opt.state_dict_refs()}
         t0 = time.monotonic()
+        tr = obs.tracer()
+        t0p = time.perf_counter() if tr is not None else 0.0
         # streaming without overlap: this boundary's fragment alone forms a
         # pseudo-gradient and crosses D2H, H2D and the wire
         frag = self._fragments[self.epoch % len(self._fragments)] if self._fragments is not None else None
@@ -829,6 +874,9 @@ class DiLoCoOptimizer:
 
         # the D2H overlaps the straggler wait
         (boundary, d2h_s), wait_s = self._wait_beside(d2h)
+        if tr is not None:
+            # until the host copy is ready: the D2H beside the wait
+            tr.add_span("outer/d2h", t0p, time.perf_counter(), epoch=self.epoch)
         t1 = time.monotonic()
         with span("outer.pseudo_grad"):
             if frag is not None:
@@ -838,7 +886,10 @@ class DiLoCoOptimizer:
             if self._ef is not None:
                 self._ef.prepare("main", frag if frag is not None else range(len(pseudo_grad)), pseudo_grad)
         del boundary
+        if tr is not None:
+            tr.gauge("pseudo_grad_norm", _host_norm(pseudo_grad))
         t2 = time.monotonic()
+        t2p = time.perf_counter() if tr is not None else 0.0
         gossip = self.cfg.outer_mode == "gossip"
         dropped = False
         if gossip:
@@ -863,6 +914,9 @@ class DiLoCoOptimizer:
                      allreduce_s)
         else:
             averaged, group_size, allreduce_s = self._all_reduce_round(pseudo_grad)
+        if tr is not None:
+            tr.add_span("outer/allreduce", t2p, time.perf_counter(), epoch=self.epoch, group=group_size)
+        t_apply = time.perf_counter() if tr is not None else 0.0
         t3 = time.monotonic()
         # clone-then-rebind: published master and momentum arrays stay
         # bit-stable for a concurrent state fetch. A dropped pair round is a
@@ -894,12 +948,16 @@ class DiLoCoOptimizer:
                 # the other leaves keep their local progress
                 state = self._write_master_to_device(state, frag)
         t5 = time.monotonic()
+        if tr is not None:
+            # outer SGD, the optional state averaging, the H2D
+            tr.add_span("outer/apply", t_apply, time.perf_counter(), epoch=self.epoch)
         with self._serve_lock:
             self.epoch += 1
             self.local_step = 0
             self.samples_in_epoch = 0
             self._blocking_snap = None
-        return state, self._round_metrics(t0, wait_s, d2h_s, t2 - t1, allreduce_s, t4 - t3, t5 - t4, group_size)
+        return state, self._round_metrics(t0, wait_s, d2h_s, t2 - t1, allreduce_s, t4 - t3, t5 - t4, group_size,
+                                          t0p=t0p)
 
     def _frag_id(self) -> int:
         """The fragment a blocking boundary syncs (0 without fragments).
@@ -965,7 +1023,10 @@ class DiLoCoOptimizer:
         log.info("outer step %d: all-reduce over %d peers took %.3fs", self.epoch, group_size, allreduce_s)
         return averaged, group_size, allreduce_s
 
-    def _round_metrics(self, t0, wait_s, d2h_s, pseudo_grad_s, allreduce_s, nesterov_s, h2d_s, group_size) -> dict:
+    def _round_metrics(self, t0, wait_s, d2h_s, pseudo_grad_s, allreduce_s, nesterov_s, h2d_s, group_size, *,
+                       t0p: float) -> dict:
+        """The blocking round's metrics; with obs armed its ``outer/step``
+        span (from ``t0p``, perf-counter seconds) and gauges."""
         self._epoch_t0 = time.monotonic()
         outer_metrics = {
             "outer_step_s": time.monotonic() - t0,
@@ -981,6 +1042,12 @@ class DiLoCoOptimizer:
             "num_peers": group_size,
             **self._round_health_metrics(),
         }
+        tr = obs.tracer()
+        if tr is not None:
+            tr.add_span("outer/step", t0p, time.perf_counter(), epoch=self.epoch - 1, group=group_size)
+            tr.gauge("outer_step_s", outer_metrics["outer_step_s"])
+            tr.gauge("outer_allreduce_s", allreduce_s)
+            tr.gauge("outer_wait_s", wait_s)
         self.last_outer_metrics = outer_metrics
         return outer_metrics
 
@@ -1003,6 +1070,8 @@ class DiLoCoOptimizer:
                                   "bufs": buf_snap},
                 }
         t0 = time.monotonic()
+        tr = obs.tracer()
+        t0p = time.perf_counter() if tr is not None else 0.0
         frag = self._fragments[self.epoch % len(self._fragments)] if self._fragments is not None else None
         leaves = flatten_params(state["params"])
         src = leaves if frag is None else [leaves[i] for i in frag]
@@ -1014,15 +1083,21 @@ class DiLoCoOptimizer:
 
         # the pseudo-gradient and its D2H overlap the straggler wait
         (pseudo_grad, pg_secs, fetch_s), wait_s = self._wait_beside(fetch)
+        if tr is not None:
+            tr.add_span("outer/d2h", t0p, time.perf_counter(), epoch=self.epoch)
+            tr.gauge("pseudo_grad_norm", _host_norm(pseudo_grad))
         if self.cfg.outer_mode == "gossip":
             return self._outer_step_device_gossip(state, leaves, frag, pseudo_grad, t0=t0, wait_s=wait_s,
-                                                  fetch_s=fetch_s, pg_secs=pg_secs)
-        t1 = time.monotonic()
+                                                  fetch_s=fetch_s, pg_secs=pg_secs, t0p=t0p)
         if self._ef is not None:
             # the plane added the residual; stage the round trip error
             self._ef.prepare("main", frag if frag is not None else range(len(pseudo_grad)), pseudo_grad)
+        t1p = time.perf_counter() if tr is not None else 0.0
         averaged, group_size, allreduce_s = self._all_reduce_round(pseudo_grad)
         del pseudo_grad
+        if tr is not None:
+            tr.add_span("outer/allreduce", t1p, time.perf_counter(), epoch=self.epoch, group=group_size)
+        t_apply = time.perf_counter() if tr is not None else 0.0
         if state_avg:
             # the apply, then the full-state leg: masters to the host,
             # averaged, adopted back; the published snapshot serves fetches
@@ -1050,13 +1125,16 @@ class DiLoCoOptimizer:
                     self.local_step = 0
                     self.samples_in_epoch = 0
         del averaged
+        if tr is not None:
+            tr.add_span("outer/apply", t_apply, time.perf_counter(), epoch=self.epoch - 1)
         # the D2H row is the fetch less its pseudo-gradient part; the H2D
         # and Nesterov rows split the apply
         return state, self._round_metrics(t0, wait_s, fetch_s - pg_secs["pseudo_grad_s"], pg_secs["pseudo_grad_s"],
-                                          allreduce_s, secs["nesterov_s"], secs["h2d_s"], group_size)
+                                          allreduce_s, secs["nesterov_s"], secs["h2d_s"], group_size, t0p=t0p)
 
     def _outer_step_device_gossip(self, state: dict, leaves: list, frag: Optional[list[int]], pseudo_grad: list,
-                                  *, t0: float, wait_s: float, fetch_s: float, pg_secs: dict) -> tuple[dict, dict]:
+                                  *, t0: float, wait_s: float, fetch_s: float, pg_secs: dict,
+                                  t0p: float) -> tuple[dict, dict]:
         """The gossip tail of the blocking device-placement round: the pair
         mix and the NoLoCo step run on host f32 copies of this boundary's
         fragment (the pair wire is encoded on the host either way), and the
@@ -1068,11 +1146,16 @@ class DiLoCoOptimizer:
         if self.cfg.outer_momentum != 0.0 and bufs_np is None:
             bufs_np = [np.zeros_like(m) for m in masters_np]  # the wire's shapes are static
         t1 = time.monotonic()
+        tr = obs.tracer()
+        t1p = time.perf_counter() if tr is not None else 0.0
         mix_m, mix_b, avg_g, group_size, live_peers = self._gossip_round(
             masters_np, bufs_np, pseudo_grad, idxs=idxs, frag_id=self._frag_id(), epoch=self.epoch)
         dropped = group_size == 0
         self._check_group_size(live_peers)
         allreduce_s = time.monotonic() - t1
+        if tr is not None:
+            tr.add_span("outer/allreduce", t1p, time.perf_counter(), epoch=self.epoch, group=group_size)
+        t_apply = time.perf_counter() if tr is not None else 0.0
         log.info("outer step %d: gossip exchange over %d peers took %.3fs", self.epoch, group_size, allreduce_s)
         if self._is_state_avg_epoch() and not dropped:
             # pair mixing averages the masters every round; the full-state
@@ -1091,8 +1174,10 @@ class DiLoCoOptimizer:
                 self.local_step = 0
                 self.samples_in_epoch = 0
                 self._blocking_snap = None
+        if tr is not None:
+            tr.add_span("outer/apply", t_apply, time.perf_counter(), epoch=self.epoch - 1)
         return state, self._round_metrics(t0, wait_s, fetch_s - pg_secs["pseudo_grad_s"], pg_secs["pseudo_grad_s"],
-                                          allreduce_s, time.monotonic() - t2, 0.0, group_size)
+                                          allreduce_s, time.monotonic() - t2, 0.0, group_size, t0p=t0p)
 
     def _round_health_metrics(self) -> dict:
         health = getattr(self.backend, "last_round_health", None) or {}

@@ -49,6 +49,7 @@ from typing import Any, Optional
 
 import numpy as np
 
+from opendiloco_torch import obs
 from opendiloco_torch.diloco.backend import AllReduceError
 from opendiloco_torch.diloco.outer_optimizer import OuterSGD, noloco_step
 from opendiloco_torch.models.llama import flatten_params
@@ -99,6 +100,8 @@ class StreamScheduler:
         land what resolved, advance the epoch. No barrier, no wire
         traffic, no params rewrite."""
         t0 = time.monotonic()
+        tr = obs.tracer()
+        t0p = time.perf_counter() if tr is not None else 0.0
         for k in range(self.n):
             if k not in self._launched:
                 state = self._launch(state, k)
@@ -118,6 +121,9 @@ class StreamScheduler:
             "outer_streaming_fragments": self.n,
             "outer_inflight_fragments": len(self._inflight),
         }
+        if tr is not None:
+            tr.add_span("outer/launch", t0p, time.perf_counter(), epoch=opt.epoch - 1)
+            tr.gauge("outer_inflight_fragments", len(self._inflight))
         opt.last_outer_metrics = metrics
         return state, metrics
 
@@ -155,6 +161,8 @@ class StreamScheduler:
         frag = opt._fragments[k]
         epoch = opt.epoch
         eager = opt.cfg.overlap_comm == "eager"
+        tr = obs.tracer()
+        t0p = time.perf_counter() if tr is not None else 0.0
         rec: dict[str, Any] = {"frag": frag, "epoch": epoch, "eager": eager, "t_launch": time.monotonic(),
                                "round": f"frag{k}-epoch-{epoch}"}
         leaves = flatten_params(state["params"])
@@ -204,6 +212,10 @@ class StreamScheduler:
         rec["future"] = fut
         self._inflight[k] = rec
         self._launched.add(k)
+        if tr is not None:
+            tr.add_span("outer/fragment_launch", t0p, time.perf_counter(), frag=k, epoch=epoch, round=rec["round"])
+            tr.gauge("outer_inflight_fragments", len(self._inflight))
+            tr.count("outer_fragment_rounds")
         return state
 
     def _spawn(self, k: int, epoch: int, *, pg: Optional[list] = None, wire: Optional[list] = None,
@@ -269,6 +281,8 @@ class StreamScheduler:
     def _land(self, state: dict, k: int, *, block: bool = False) -> dict:
         opt = self.opt
         rec = self._inflight.pop(k)
+        tr = obs.tracer()
+        t0p = time.perf_counter() if tr is not None else 0.0
         try:
             avg, group = rec["future"].result(timeout=(opt.cfg.averaging_timeout + 60) if block else 0)
         except BaseException as e:
@@ -277,6 +291,9 @@ class StreamScheduler:
             log.warning("fragment %d round (epoch %d) dropped: %s", k, rec["epoch"], e)
             if opt._ef is not None:
                 opt._ef.abort(rec["round"])
+            if tr is not None:
+                tr.count("outer_fragment_rounds_dropped")
+                tr.gauge("outer_inflight_fragments", len(self._inflight))
             return state
         if opt._gossip is None:
             opt._check_group_size(group)
@@ -315,6 +332,11 @@ class StreamScheduler:
         lm["outer_fragments_landed"] = lm.get("outer_fragments_landed", 0) + 1
         opt._landed_metrics = lm
         opt.last_outer_metrics = dict(lm)
+        if tr is not None:
+            tr.add_span("outer/fragment_land", t0p, time.perf_counter(), frag=k, epoch=rec["epoch"],
+                        round=rec["round"], group=group, landed_s=round(landed_s, 6))
+            tr.gauge("outer_inflight_fragments", len(self._inflight))
+            tr.gauge("outer_allreduce_s", landed_s)
         log.info("fragment %d (epoch %d): all-reduce over %d peers landed after %.3fs", k, rec["epoch"], group,
                  landed_s)
         return state

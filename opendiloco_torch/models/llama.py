@@ -141,6 +141,14 @@ def shapes(cfg: LlamaConfig) -> dict:
     return tree
 
 
+def num_params(cfg: LlamaConfig) -> int:
+    """The parameter count of the whole model (every leaf of :func:`shapes`)."""
+    def count(tree) -> int:
+        return sum(count(v) for v in tree.values()) if isinstance(tree, dict) else math.prod(tree)
+
+    return count(shapes(cfg))
+
+
 def init_params(
     generator: torch.Generator, cfg: LlamaConfig, *, device=None
 ) -> dict:
@@ -219,10 +227,6 @@ def _maybe_remat(block, remat: RematPolicy):
     raise ValueError(f"unknown remat policy {remat!r}")
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
-
-
 def _switch_ffn(cfg: LlamaConfig, x: torch.Tensor, layer: dict, experts=None,
                 stats: Optional[list] = None, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Switch-Transformer top-1 routed expert FFN -> (out, aux loss), the
@@ -264,6 +268,8 @@ def _switch_ffn(cfg: LlamaConfig, x: torch.Tensor, layer: dict, experts=None,
         density_proxy = experts.sum_data(probs.sum(dim=0)) / n_all
     # load-balance aux (Switch eq. 4): density * router-probability mass
     aux = E * torch.sum(density * density_proxy)
+    if experts is not None:
+        aux = experts.mean_chunks(aux)
     cap = max(1, math.ceil(n_all / E * cfg.expert_capacity_factor))
     if stats is not None:
         stats.append((pos >= cap).sum())

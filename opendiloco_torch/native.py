@@ -180,6 +180,17 @@ def scale_inplace(dst: np.ndarray, s: float) -> None:
     lib.odtp_scale_f32(_f32p(dst), ctypes.c_float(s), dst.size)
 
 
+def sqnorm(a: np.ndarray) -> float:
+    """sum(a * a) in f64 (the pseudo_grad_norm and ef_residual_norm
+    gauges' per-leaf term), a bounded slice at a time."""
+    flat = np.ascontiguousarray(a, np.float32).reshape(-1)
+    sq = 0.0
+    for i in range(0, flat.size, 1 << 22):
+        v = flat[i:i + (1 << 22)].astype(np.float64)
+        sq += float(np.dot(v, v))
+    return sq
+
+
 # -- fp16 --------------------------------------------------------------------
 
 

@@ -73,6 +73,10 @@ class MeshPlan:
     # the ranks that share this rank's pp, ep and tp coordinates (None:
     # every rank)
     data_group: Any = None
+    # under pp x sp, the ranks that share this rank's pp, ep, tp and sp
+    # coordinates: the batch blocks of its sequence chunk, over which the
+    # routed experts take their statistics there (None: not built)
+    block_group: Any = None
     # axis -> comm of rank threads in one process (loopback_plans); None:
     # the comms are the mesh's groups
     comms: Any = None
@@ -191,7 +195,7 @@ def mesh_sizes(
     return dict(zip(AXES, (pp_size, dp_size, fsdp_size, ep_size, sp_size, tp_size)))
 
 
-def _plan(strategy: str, sizes: dict, mesh=None, data_group=None) -> MeshPlan:
+def _plan(strategy: str, sizes: dict, mesh=None, data_group=None, block_group=None) -> MeshPlan:
     return MeshPlan(
         strategy=strategy,
         sizes=tuple(sizes[a] for a in AXES),
@@ -202,6 +206,7 @@ def _plan(strategy: str, sizes: dict, mesh=None, data_group=None) -> MeshPlan:
         ep_axis="ep" if sizes["ep"] > 1 else None,
         mesh=mesh,
         data_group=data_group,
+        block_group=block_group,
     )
 
 
@@ -267,7 +272,11 @@ def build_mesh(
 
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     mesh = init_device_mesh(device_type, tuple(sizes[a] for a in AXES), mesh_dim_names=AXES)
-    return _plan(strategy, sizes, mesh, _data_group(sizes, dist.get_rank()))
+    rank = dist.get_rank()
+    block_group = None
+    if sizes["pp"] > 1 and sizes["sp"] > 1 and sizes["dp"] * sizes["fsdp"] > 1:
+        block_group = _group_by(sizes, rank, ("pp", "ep", "tp", "sp"))
+    return _plan(strategy, sizes, mesh, _data_group(sizes, rank), block_group)
 
 
 def _coords(sizes: dict, rank: int) -> dict:
@@ -281,20 +290,26 @@ def _coords(sizes: dict, rank: int) -> dict:
 def _data_group(sizes: dict, rank: int):
     """The group of the ranks that share ``rank``'s pp, ep and tp
     coordinates, in global rank order (None when those axes are 1: every
-    rank). Every rank makes every group, in one order, as ``new_group``
-    asks."""
+    rank)."""
+    model_axes = ("pp", "ep", "tp")
+    if all(sizes[a] == 1 for a in model_axes):
+        return None
+    return _group_by(sizes, rank, model_axes)
+
+
+def _group_by(sizes: dict, rank: int, key_axes: tuple):
+    """The group of the ranks that share ``rank``'s coordinates along
+    ``key_axes``, in global rank order. Every rank makes every such group,
+    in one order, as ``new_group`` asks."""
     import itertools
 
     import torch.distributed as dist
 
-    model_axes = ("pp", "ep", "tp")
-    if all(sizes[a] == 1 for a in model_axes):
-        return None
     world = math.prod(sizes.values())
     coords = [_coords(sizes, r) for r in range(world)]
     mine = None
-    for key in itertools.product(*(range(sizes[a]) for a in model_axes)):
-        ranks = [r for r in range(world) if tuple(coords[r][a] for a in model_axes) == key]
+    for key in itertools.product(*(range(sizes[a]) for a in key_axes)):
+        ranks = [r for r in range(world) if tuple(coords[r][a] for a in key_axes) == key]
         group = dist.new_group(ranks)
         if rank in ranks:
             mine = group

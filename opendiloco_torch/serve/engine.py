@@ -54,6 +54,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from opendiloco_torch import obs
 from opendiloco_torch.config import WEIGHT_FORMATS
 from opendiloco_torch.device import DeviceLike, resolve_device
 from opendiloco_torch.diloco.compression import get_codec, split_blockwise4_stacked
@@ -210,6 +211,10 @@ class ServeEngine:
         # stream, but for page_out and page_in: the host's time to queue
         # the copies (and the batcher's wait for a page-out to land)
         self.stage_seconds = {k: 0.0 for k in _STAGES}
+        # the decode path's label in the obs plane, by the JAX package's
+        # names: "pallas" where the hand-written kernels run (the card),
+        # "xla" where their plain versions do (the CPU)
+        self.decode_kernel = "pallas" if self.device.type == "cuda" else "xla"
 
     def _streamed(self):
         if self.stream is None:
@@ -306,6 +311,8 @@ class ServeEngine:
         self.stage_seconds["swap"] += dt
         self.swap_log.append({"epoch": int(epoch), "codec": codec_name, "encode_s": t1 - t0, **times,
                               "total_s": dt})
+        obs.count("serve_weight_swaps")
+        obs.gauge("serve_last_swap_ms", dt * 1e3)
         return True
 
     def install_wire(self, epoch: int, blobs, codec_name: str) -> dict:
@@ -357,7 +364,9 @@ class ServeEngine:
         best of ``iters`` host-clock microseconds per call, each ending in
         a device sync, as ``decode_attn_us``, ``verify_attn_us`` and
         ``w4_matmul_us``. On the CPU the wrappers take their plain
-        versions, so the numbers time those."""
+        versions, so the numbers time those. Each is published as the
+        gauge ``serve_<name>``, with ``serve_decode_kernel_pallas`` 1 where
+        the kernels ran."""
         cfg, cd, dev = self.cfg, self.compute_dtype, self.device
         S, T = self.num_slots, self.max_context
         Nh, Nkv, Dh = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
@@ -388,6 +397,9 @@ class ServeEngine:
         if packed is not None:
             x = torch.randn(S, packed.shape[0], generator=g, device=dev).to(cd)
             out["w4_matmul_us"] = best_us(w4_matmul, x, packed.q[0], packed.s[0], packed.shape, cd)
+        for name, us in out.items():
+            obs.gauge(f"serve_{name}", us)
+        obs.gauge("serve_decode_kernel_pallas", 1.0 if self.decode_kernel == "pallas" else 0.0)
         return out
 
     def _sync(self) -> None:
@@ -445,7 +457,11 @@ class ServeEngine:
             cache_insert(self.cache_k, self.cache_v, ks, vs, slot)
             row = logits[0].cpu().numpy()  # waits for the device
             tok = int(row.argmax())
-        self.stage_seconds["prefill"] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.stage_seconds["prefill"] += dt
+        tr = obs.tracer()
+        if tr is not None:
+            tr.add_span("serve_prefill", t0, t0 + dt, tokens=n)
         return tok, row
 
     def _run_suffix(self, slot: int, prompt: Sequence[int], plen: int) -> tuple[int, np.ndarray]:
@@ -548,6 +564,7 @@ class ServeEngine:
         )
         nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()  # waits
         self.stage_seconds["decode"] += time.perf_counter() - t0
+        obs.count(f"serve_decode_kernel_{self.decode_kernel}")
         return nxt, logits
 
     def _propose_draft(self, tokens: np.ndarray, lens: np.ndarray) -> np.ndarray:
@@ -590,4 +607,10 @@ class ServeEngine:
         self.stage_seconds["draft"] += t1 - t0
         self.stage_seconds["verify"] += t2 - t1
         self.stage_seconds["insert"] += t3 - t2
+        obs.count(f"serve_decode_kernel_{self.decode_kernel}")
+        tr = obs.tracer()
+        if tr is not None:
+            tr.add_span("serve_draft", t0, t1, k=self.spec_k)
+            tr.add_span("serve_verify", t1, t2)
+            tr.add_span("serve_spec_insert", t2, t3)
         return g, m

@@ -1,7 +1,10 @@
 """Continuous-batching scheduler: request queue and the decode loop.
 
 The counterpart of ``opendiloco_tpu/serve/scheduler.py``
-``ContinuousBatcher`` without its request tracing and metrics plane. One
+``ContinuousBatcher``, with its request tracing and metrics plane
+(:mod:`~opendiloco_torch.obs`: counters, gauges every
+``gauge_every_steps`` decode steps, the staleness watchdog, reqtrace
+stage spans; all off unless ``ODTP_OBS`` is set). One
 daemon thread owns the engine and runs the cycle: retire finished
 sequences (their slots free at once), admit queued prompts into free
 slots (a prefill joins them to the batch; with ``prefix_cache`` a prompt
@@ -34,12 +37,15 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from opendiloco_torch import obs
+from opendiloco_torch.obs import reqtrace
 from opendiloco_torch.ops.attention import ring_live_rows
 from opendiloco_torch.serve.engine import ServeEngine
 from opendiloco_torch.serve.kvcache import (
     HostKVTier,
     SlotAllocator,
     common_prefix_len,
+    pick_bucket,
     prefix_grid_lengths,
     prefix_key,
 )
@@ -71,6 +77,7 @@ class Request:
     error: Optional[str] = None
     epoch: Optional[int] = None  # weights epoch that finished the request
     cancelled: bool = False
+    trace: Optional[dict] = None  # the reqtrace context (obs armed, request traced)
     _done: threading.Event = dataclasses.field(default_factory=threading.Event)
 
     def wait(self, timeout: Optional[float] = None) -> bool:
@@ -122,6 +129,7 @@ class ContinuousBatcher:
         *,
         max_queue: int = 1024,
         swap_every_steps: int = 16,
+        gauge_every_steps: int = 32,
         prefix_cache: bool = False,
         kv_tier: Optional[HostKVTier] = None,
         tier_quantum_steps: int = 8,
@@ -131,15 +139,22 @@ class ContinuousBatcher:
         ``tier_quantum_steps`` is how many steps a slot holds the batch
         before a paused sequence may displace it (the rotation period),
         and ``tier_min_resident_steps`` the floor before a queued request
-        may displace it (never a slot that has not decoded)."""
+        may displace it (never a slot that has not decoded). With obs
+        armed the gauges publish every ``gauge_every_steps`` decode
+        steps."""
         self.engine = engine
         self.max_queue = int(max_queue)
         self.swap_every_steps = max(1, int(swap_every_steps))
+        self.gauge_every_steps = max(1, int(gauge_every_steps))
         self.prefix_cache = bool(prefix_cache)
         self.kv_tier = kv_tier
         self.tier_quantum_steps = max(1, int(tier_quantum_steps))
         self.tier_min_resident_steps = max(1, int(tier_min_resident_steps))
         self.spec_decode = engine.spec_k > 0
+        self._kernel_probed = False
+        # kernel launches of the one-time kernel probe (obs armed), by name:
+        # measurement, not the decode path's
+        self.probe_launches: dict = {}
         self.slots = SlotAllocator(engine.num_slots)
         self._active: dict[int, _Slot] = {}  # slot id -> state
         self._queue: collections.deque[Request] = collections.deque()
@@ -148,6 +163,7 @@ class ContinuousBatcher:
         self._thread: Optional[threading.Thread] = None
         self._next_id = 0
         self.decode_steps = 0
+        self._t_step_end: Optional[float] = None
         # stats (mutated only by the loop thread)
         self.completed = 0
         self.rejected = 0
@@ -162,6 +178,7 @@ class ContinuousBatcher:
         self._ttfts: collections.deque = collections.deque(maxlen=4096)
         # decode steps by the staleness of the weights that took them
         self.staleness_hist: collections.Counter = collections.Counter()
+        self._rate_mark = (time.perf_counter(), 0)
         self.loop_error: Optional[str] = None
         # speculative-decode and prefix-reuse accounting (loop thread only)
         self.spec_proposed = 0
@@ -188,11 +205,15 @@ class ContinuousBatcher:
         eos_id: Optional[int] = None,
         priority: int = 0,
         deadline_ms: Optional[float] = None,
+        trace: Optional[dict] = None,
     ) -> Request:
         """Queue a prompt; the returned Request's ``wait()`` unblocks when
         generation completes or it was rejected (check ``error``). The
         queue is ordered by (priority, deadline); a request whose deadline
-        passes before it reaches a slot is shed."""
+        passes before it reaches a slot is shed. ``trace`` is a
+        request-trace context (``schema.TRACE_CTX_KEY``'s shape) adopted
+        into this process's reqtrace ring, which then records every stage
+        the request passes."""
         req = Request(
             prompt=[int(t) for t in prompt],
             max_new_tokens=int(max_new_tokens),
@@ -203,9 +224,14 @@ class ContinuousBatcher:
             ),
             t_submit=time.perf_counter(),
         )
+        rt = reqtrace.ring()
+        if rt is not None and trace is not None:
+            req.trace = rt.adopt(trace, priority=req.priority, deadline_ms=deadline_ms)
         if req.t_deadline is not None and float(deadline_ms) <= 0:
             self.shed += 1
+            obs.count("serve_shed", reason="deadline")
             req.finish("deadline exceeded")
+            self._trace_terminal(req, "shed", "shed", reason="deadline")
             return req
         reject = None
         if not req.prompt:
@@ -227,7 +253,24 @@ class ContinuousBatcher:
                 return req
         self.rejected += 1
         req.finish(reject)
+        if reject == "server stopped":
+            self._trace_terminal(req, "shed", "shed", reason="stopped")
+        elif reject == "queue full":
+            self._trace_terminal(req, "shed", "shed", reason="queue_full")
+        else:
+            self._trace_terminal(req, "retire", "failed", error=req.error)
         return req
+
+    @staticmethod
+    def _trace_terminal(req: Request, stage: str, status: str, **attrs) -> None:
+        """Close ``req``'s trace with a zero-width terminal stage event."""
+        if req.trace is None:
+            return
+        rt = reqtrace.ring()
+        if rt is None:
+            return
+        rt.event(req.trace, stage, **attrs)
+        rt.finish(req.trace, status, tokens=len(req.tokens), **attrs)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -249,9 +292,11 @@ class ContinuousBatcher:
         for req in pending:
             self.failed += 1
             req.finish("server stopped")
+            self._trace_terminal(req, "retire", "failed", error=req.error)
         for st in self._active.values():
             self.failed += 1
             st.req.finish("server stopped")
+            self._trace_terminal(st.req, "retire", "failed", error=st.req.error)
         self._active.clear()
         self._fail_cold("server stopped")
 
@@ -261,12 +306,14 @@ class ContinuousBatcher:
         for st, _pk, _pv, _t0 in self._pending_evict:
             self.failed += 1
             st.req.finish(error)
+            self._trace_terminal(st.req, "retire", "failed", error=error)
         self._pending_evict.clear()
         for p in self._paused.values():
             if self.kv_tier is not None:
                 self.kv_tier.drop_paused(p.req.id)
             self.failed += 1
             p.req.finish(error)
+            self._trace_terminal(p.req, "retire", "failed", error=error)
         self._paused.clear()
 
     def drain(self, timeout: float = 60.0) -> bool:
@@ -284,15 +331,25 @@ class ContinuousBatcher:
 
     def _run(self) -> None:
         try:
+            t_carry = None
             while not self._stop.is_set():
+                # consecutive decode spans tile: each starts where the
+                # previous iteration's accounting ended, so what a live
+                # request sat through (sweeps, a co-tenant's prefill,
+                # retires, gauges) is in its decode residency, and a
+                # trace's stages add up to its latency
+                it0 = t_carry if t_carry is not None else time.perf_counter()
                 self._sweep_cancelled()
                 # page-outs started last iteration land here: their copies
                 # overlapped the decode step in between
                 self._finish_pageouts()
                 admitted = self._admit()
-                stepped = self._decode()
+                stepped = self._decode(it0)
                 if stepped and self.decode_steps % self.swap_every_steps == 0:
                     self._maybe_swap()
+                if stepped and self.decode_steps % self.gauge_every_steps == 0 and obs.tracer() is not None:
+                    self._publish_gauges()
+                t_carry = self._t_step_end if stepped else None
                 if not admitted and not stepped:
                     # idle: still honour the staleness bound, then sleep
                     self._maybe_swap()
@@ -313,12 +370,26 @@ class ContinuousBatcher:
             for req in pending:
                 self.failed += 1
                 req.finish(self.loop_error)
+                self._trace_terminal(req, "retire", "failed", error=req.error)
 
     def _maybe_swap(self) -> None:
         """Hot-swap check; after a swap the tier's prefix entries of older
-        weights never serve again (paused pages stay)."""
-        if self.engine.maybe_swap() and self.kv_tier is not None:
+        weights never serve again (paused pages stay). A swap is a pause
+        that every live request sat through: a ``swap`` span on each
+        traced one."""
+        t0 = time.perf_counter()
+        swapped = self.engine.maybe_swap()
+        t1 = time.perf_counter()
+        if not swapped:
+            return
+        if self.kv_tier is not None:
             self.kv_tier.purge_stale(self.engine.weights_epoch)
+        rt = reqtrace.ring()
+        if rt is None:
+            return
+        for st in self._active.values():
+            if st.req.trace is not None:
+                rt.span(st.req.trace, "swap", t0, t1, epoch=self.engine.weights_epoch)
 
     def _sweep_cancelled(self) -> None:
         """Retire cancelled and deadline-expired requests: queued ones
@@ -334,9 +405,13 @@ class ContinuousBatcher:
                 for req in self._queue:
                     if req.cancelled:
                         self.cancelled += 1
+                        obs.count("serve_cancelled")
+                        self._trace_terminal(req, "retire", "cancelled")
                         req.finish("cancelled")
                     elif expired(req):
                         self.shed += 1
+                        obs.count("serve_shed", reason="deadline")
+                        self._trace_terminal(req, "shed", "shed", reason="deadline")
                         req.finish("deadline exceeded")
                     else:
                         keep.append(req)
@@ -347,9 +422,13 @@ class ContinuousBatcher:
             st.req.epoch = self.engine.weights_epoch
             if st.req.cancelled:
                 self.cancelled += 1
+                obs.count("serve_cancelled")
+                self._trace_terminal(st.req, "retire", "cancelled")
                 st.req.finish("cancelled")
             else:
                 self.shed += 1
+                obs.count("serve_shed", reason="deadline")
+                self._trace_terminal(st.req, "shed", "shed", reason="deadline")
                 st.req.finish("deadline exceeded")
         # paused requests: the same sweep, and the tier drops the page, so
         # a gone client's cold state holds no host budget
@@ -359,9 +438,13 @@ class ContinuousBatcher:
                 self.kv_tier.drop_paused(rid)
             if p.req.cancelled:
                 self.cancelled += 1
+                obs.count("serve_cancelled")
+                self._trace_terminal(p.req, "retire", "cancelled")
                 p.req.finish("cancelled")
             else:
                 self.shed += 1
+                obs.count("serve_shed", reason="deadline")
+                self._trace_terminal(p.req, "shed", "shed", reason="deadline")
                 p.req.finish("deadline exceeded")
 
     def _pop_next(self) -> Optional[Request]:
@@ -448,6 +531,8 @@ class ContinuousBatcher:
         return None, 0
 
     def _admit_into(self, slot: int, req: Request) -> None:
+        rt = reqtrace.ring()
+        t_slot = time.perf_counter()
         src, plen, host = None, 0, None
         if self.prefix_cache:
             src, plen = self._find_prefix(req.prompt)
@@ -457,15 +542,24 @@ class ContinuousBatcher:
             tok, _ = self.engine.admit(slot, req.prompt, prefix_src=src, prefix_len=plen)
             self.prefix_hits += 1
             self.prefix_tokens_saved += plen
+            obs.count("serve_prefix_hits")
+            obs.count("serve_prefix_tokens_saved", plen)
         elif host is not None:
             tok, _ = self.engine.admit(slot, req.prompt, host_prefix=host)
             self.prefix_hits += 1
             self.host_prefix_hits += 1
             self.prefix_tokens_saved += plen
+            obs.count("serve_prefix_hits")
+            obs.count("serve_host_prefix_hits")
+            obs.count("serve_prefix_tokens_saved", plen)
         else:
             tok, _ = self.engine.admit(slot, req.prompt)
             self._maybe_store_prefix(slot, req.prompt)
         req.t_first = time.perf_counter()
+        if rt is not None and req.trace is not None:
+            rt.span(req.trace, "queue", req.t_submit, t_slot, slot=slot)
+            rt.span(req.trace, "prefill", t_slot, req.t_first, tokens=len(req.prompt),
+                    bucket=pick_bucket(len(req.prompt), self.engine.prefill_buckets), prefix_reused=plen)
         req.tokens.append(tok)
         st = _Slot(req=req, cache_len=len(req.prompt), last_token=tok)
         if self._finished(st):
@@ -502,6 +596,7 @@ class ContinuousBatcher:
         self._pending_evict.append((st, pk, pv, t0))
         self.slots.free(best_slot)
         self.evictions += 1
+        obs.count("serve_tier_evictions")
         return True
 
     def _finish_pageouts(self) -> None:
@@ -509,11 +604,16 @@ class ContinuousBatcher:
             self._finish_prefix_stores()
             return
         pending, self._pending_evict = self._pending_evict, []
+        rt = reqtrace.ring()
         for st, pk, pv, t0 in pending:
             k, v = np.asarray(pk), np.asarray(pv)
             self.kv_tier.put_paused(st.req.id, k, v)
             self._paused[st.req.id] = _Paused(req=st.req, cache_len=st.cache_len, last_token=st.last_token)
-            self.engine.stage_seconds["page_out"] += time.perf_counter() - t0
+            t1 = time.perf_counter()
+            self.engine.stage_seconds["page_out"] += t1 - t0
+            obs.count("serve_page_out_bytes", k.nbytes + v.nbytes)
+            if rt is not None and st.req.trace is not None:
+                rt.span(st.req.trace, "page_out", t0, t1, tokens=st.cache_len, bytes=k.nbytes + v.nbytes)
         self.paused_peak = max(self.paused_peak, len(self._paused))
         self._finish_prefix_stores()
 
@@ -522,10 +622,17 @@ class ContinuousBatcher:
         where it stopped (its tokens, cache_len and last token are its
         own; the ring rows come back from the tier)."""
         rid, p = self._paused.popitem(last=False)
+        t0 = time.perf_counter()
         k, v = self.kv_tier.pop_paused(rid)
         self.engine.install_slot_pages(slot, k, v)
+        t1 = time.perf_counter()
         self._active[slot] = _Slot(req=p.req, cache_len=p.cache_len, last_token=p.last_token)
         self.resumes += 1
+        obs.count("serve_tier_resumes")
+        obs.count("serve_page_in_bytes", k.nbytes + v.nbytes)
+        rt = reqtrace.ring()
+        if rt is not None and p.req.trace is not None:
+            rt.span(p.req.trace, "page_in", t0, t1, tokens=p.cache_len, bytes=k.nbytes + v.nbytes)
 
     def _host_prefix_lookup(self, prompt: list):
         """Longest grid-length prompt prefix the tier holds at the current
@@ -565,6 +672,7 @@ class ContinuousBatcher:
             k, v = np.asarray(pk), np.asarray(pv)
             self.kv_tier.put_prefix(key, glen, epoch, k, v)
             self.engine.stage_seconds["page_out"] += time.perf_counter() - t0
+            obs.count("serve_page_out_bytes", k.nbytes + v.nbytes)
 
     def resident_prefixes(self) -> list:
         """``[[key, glen], ...]`` of the tier's prefix entries at the current
@@ -586,13 +694,20 @@ class ContinuousBatcher:
             lens[slot] = st.cache_len
         return tokens, lens
 
-    def _decode(self) -> bool:
+    def _decode(self, t0: Optional[float] = None) -> bool:
+        """One decode step. A traced request's ``decode`` span covers the
+        whole step from ``t0`` (batch assembly, the engine call, the emit),
+        so the scheduler's time per step is its requests'."""
         if not self._active:
             return False
         if self.spec_decode:
-            return self._decode_spec()
+            return self._decode_spec(t0)
+        if t0 is None:
+            t0 = time.perf_counter()
         next_tokens, _ = self.engine.decode_step(*self._step_inputs())
         self.staleness_hist[self.engine.staleness()] += 1
+        obs.count("serve_tokens_generated", len(self._active))
+        batch = len(self._active)
         # counted before any request of this step finishes, so a client
         # that wakes on completion reads consistent stats
         self.decode_steps += 1
@@ -606,32 +721,65 @@ class ContinuousBatcher:
             self.total_new_tokens += 1
             if self._finished(st):
                 done_slots.append(slot)
+        # the next iteration's window starts here, so the spans, retires
+        # and swap and gauge checks below go to the step that pays for them
+        t1 = self._t_step_end = time.perf_counter()
+        rt = reqtrace.ring()
+        if rt is not None:
+            for st in self._active.values():
+                if st.req.trace is not None:
+                    # a slot admitted this iteration starts where its prefill ended
+                    rt.span(st.req.trace, "decode", max(t0, st.req.t_first), t1, batch=batch, tokens=1,
+                            kernel=self.engine.decode_kernel)
         for slot in done_slots:
             self.slots.free(slot)
             self._retire(self._active.pop(slot))
         return True
 
-    def _decode_spec(self) -> bool:
+    def _decode_spec(self, t0: Optional[float] = None) -> bool:
         """One speculative round: every live slot takes its accepted
         proposals and the corrected token, 1..k+1 tokens, exactly what as
         many plain decode steps would have given (``ServeEngine.spec_step``).
         A round counts as one decode step."""
+        if t0 is None:
+            t0 = time.perf_counter()
         g, m = self.engine.spec_step(*self._step_inputs())
         self.staleness_hist[self.engine.staleness()] += 1
         self.decode_steps += 1  # before any request finishes: see _decode
-        self.spec_proposed += self.engine.spec_k * len(self._active)
-        self.spec_accepted += sum(int(m[slot]) for slot in self._active)
+        proposed = self.engine.spec_k * len(self._active)
+        accepted = sum(int(m[slot]) for slot in self._active)
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        obs.count("serve_spec_proposed", proposed)
+        obs.count("serve_spec_accepted", accepted)
+        batch = len(self._active)
         done_slots = []
+        emitted = 0
+        rt = reqtrace.ring()
+        emitted_by_slot = {} if rt is not None else None  # for the traced spans only
         for slot, st in self._active.items():
             st.resident_steps += 1
+            slot_emitted = 0
             for tok in g[slot, : int(m[slot]) + 1].tolist():
                 st.req.tokens.append(int(tok))
                 st.cache_len += 1
                 st.last_token = int(tok)
                 self.total_new_tokens += 1
+                slot_emitted += 1
                 if self._finished(st):
                     done_slots.append(slot)
                     break
+            emitted += slot_emitted
+            if emitted_by_slot is not None:
+                emitted_by_slot[slot] = slot_emitted
+        t1 = self._t_step_end = time.perf_counter()
+        if rt is not None:
+            for slot, st in self._active.items():
+                if st.req.trace is not None:
+                    rt.span(st.req.trace, "decode", max(t0, st.req.t_first), t1, batch=batch,
+                            tokens=emitted_by_slot[slot], proposed=self.engine.spec_k, accepted=int(m[slot]),
+                            kernel=self.engine.decode_kernel)
+        obs.count("serve_tokens_generated", emitted)
         for slot in done_slots:
             self.slots.free(slot)
             self._retire(self._active.pop(slot))
@@ -652,6 +800,9 @@ class ContinuousBatcher:
             self.completed += 1  # before finish: see decode_steps
         else:
             self.failed += 1
+        # the trace closes before the client wakes
+        self._trace_terminal(req, "retire", "done" if error is None else "failed", epoch=req.epoch,
+                             **({} if error is None else {"error": error}))
         req.finish(error)
         if error is None:
             self._latencies.append(req.latency_s)
@@ -659,6 +810,7 @@ class ContinuousBatcher:
             self._lat_ewma = req.latency_s if ewma is None else 0.8 * ewma + 0.2 * req.latency_s
             if req.ttft_s is not None:
                 self._ttfts.append(req.ttft_s)
+            obs.count("serve_requests_completed")
 
     def estimate_wait_s(self) -> float:
         """Rough time a new request spends queued: the queue length over
@@ -670,6 +822,60 @@ class ContinuousBatcher:
         return (depth / max(1, self.slots.num_slots)) * ewma
 
     # -- metrics -----------------------------------------------------------
+
+    def _publish_gauges(self) -> None:
+        """The serving gauges (the loop calls this with obs armed): latency
+        percentiles, token rate, occupancy, staleness and its watchdog,
+        spec acceptance, the tier's, queue depth; once a process, the
+        kernel probe's (its launches go to ``probe_launches``)."""
+        if not self._kernel_probed:
+            # attribution only: never takes down the serving loop
+            self._kernel_probed = True
+            from opendiloco_torch.ops.launch import LAUNCHES
+
+            me = threading.get_ident()
+            before = LAUNCHES.by_thread().get(me, {})
+            try:
+                self.engine.kernel_probe()
+            except Exception:
+                obs.count("serve_kernel_probe_errors")
+            after = LAUNCHES.by_thread().get(me, {})
+            self.probe_launches = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+        lat = np.asarray(self._latencies, np.float64)
+        if lat.size:
+            obs.gauge("serve_p50_ms", float(np.percentile(lat, 50)) * 1e3)
+            obs.gauge("serve_p99_ms", float(np.percentile(lat, 99)) * 1e3)
+        now = time.perf_counter()
+        t0, n0 = self._rate_mark
+        if now > t0:
+            obs.gauge("serve_tokens_per_s", (self.total_new_tokens - n0) / (now - t0))
+        self._rate_mark = (now, self.total_new_tokens)
+        obs.gauge("serve_batch_occupancy", self.slots.num_active / self.slots.num_slots)
+        staleness = self.engine.staleness()
+        obs.gauge("serve_snapshot_staleness", staleness)
+        wd = obs.anomaly.watchdog()
+        if wd is not None:
+            # a breach here means maybe_swap could not restore the bound (no
+            # fresher snapshot): the watchdog records it, serving goes on
+            wd.serve_staleness(staleness, self.engine.max_stale_rounds, exemplars=self._slo_exemplars())
+        if self.spec_proposed:
+            obs.gauge("serve_spec_acceptance", self.spec_accepted / self.spec_proposed)
+        if self.kv_tier is not None:
+            obs.gauge("serve_tier_occupancy", self.kv_tier.occupancy())
+            obs.gauge("serve_tier_paused", len(self._paused))
+            obs.gauge("serve_tier_prefix_entries", self.kv_tier.prefix_count)
+            obs.gauge("serve_tier_stored_bytes", self.kv_tier.stored_bytes())
+        with self._cond:
+            obs.gauge("serve_queue_depth", len(self._queue))
+
+    @staticmethod
+    def _slo_exemplars(n: int = 3) -> list:
+        """Trace ids of the slowest recent requests in this process's
+        reqtrace ring: the evidence a staleness or SLO breach carries."""
+        rt = reqtrace.ring()
+        if rt is None:
+            return []
+        return [ex["id"] for ex in rt.exemplars(n)]
 
     def health(self) -> dict:
         """Compact load vector: queue depth, occupancy, p99 latency, the
@@ -689,6 +895,9 @@ class ContinuousBatcher:
         if self.kv_tier is not None:
             out["tier_occupancy"] = round(self.kv_tier.occupancy(), 4)
             out["tier_paused"] = len(self._paused)
+        exemplars = self._slo_exemplars()
+        if exemplars:
+            out["slo_exemplars"] = exemplars
         return out
 
     def stats(self) -> dict:

@@ -18,9 +18,10 @@ wait estimate. A port in use falls back to an ephemeral one with a
 warning, so a training run is never taken down by a port clash; the
 bound port is ``ServeServer.port``. ``identity`` (a dict, or a callable
 read at each request) says who the server is, a fleet replica's id and
-staleness for instance, on ``/healthz`` and ``/stats``. Request tracing
-is not ported (the JAX package's is off unless its obs plane is on): a
-``"trace"`` field in a request is ignored.
+staleness for instance, on ``/healthz`` and ``/stats``. With the obs
+plane armed (``ODTP_OBS``) the edge adopts a request's ``"trace"``
+context (``schema.TRACE_CTX_KEY``) or mints one, and the batcher records
+the request's stages under it (:mod:`~opendiloco_torch.obs.reqtrace`).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import threading
 import time
 from typing import Callable, Optional, Union
 
+from opendiloco_torch.obs import reqtrace
 from opendiloco_torch.serve.scheduler import ContinuousBatcher
 
 log = logging.getLogger(__name__)
@@ -159,12 +161,21 @@ class ServeServer:
         self, payload: dict, conn: Optional[socket.socket] = None
     ) -> Optional[dict]:
         deadline_ms = payload.get("deadline_ms")
+        # trace context: adopt one a router propagated, else mint one at
+        # this edge; an absent field is an untraced request
+        trace_ctx = None
+        rt = reqtrace.ring()
+        if rt is not None:
+            trace_ctx = reqtrace.ctx_of(payload)
+            if trace_ctx is None:
+                trace_ctx = rt.mint(at="server", req_id=payload.get("id"))
         req = self.batcher.submit(
             payload.get("prompt") or [],
             max_new_tokens=int(payload.get("max_new_tokens", 16)),
             eos_id=payload.get("eos_id"),
             priority=int(payload.get("priority", 0)),
             deadline_ms=None if deadline_ms is None else float(deadline_ms),
+            trace=trace_ctx,
         )
         # wait in slices, watching the client socket: a disconnect
         # mid-generation retires the slot immediately instead of decoding

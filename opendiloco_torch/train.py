@@ -85,18 +85,20 @@ from __future__ import annotations
 
 import math
 import os
+import threading
 import time
 from typing import Optional
 
 import numpy as np
 
 from opendiloco_torch import ckpt as ckpt_lib
+from opendiloco_torch import obs
 from opendiloco_torch.config import Config, DilocoConfig, parse_argv
 from opendiloco_torch.data.dataloader import get_dataloader
 from opendiloco_torch.device import DeviceLike, pin_cpu_gemm_bits, pin_cpu_threads, resolve_device
 from opendiloco_torch.diloco.backend import OuterBackend
 from opendiloco_torch.diloco.optimizer import DiLoCoOptimizer, PeerDropError
-from opendiloco_torch.models import hf_io
+from opendiloco_torch.models import hf_io, llama
 from opendiloco_torch.parallel.mesh import build_mesh
 from opendiloco_torch.parallel.world import make_world
 from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
@@ -105,6 +107,11 @@ from opendiloco_torch.utils.logger import get_logger, get_text_logger, log_rank
 log = get_text_logger(__name__)
 
 INIT_SEED = 42  # every worker draws the same initial weights
+
+
+# one exit dump at a time: loopback workers in threads share the process's
+# flight recorder, whose dump writes one temporary file
+_EXIT_DUMP_LOCK = threading.Lock()
 
 
 def make_backend(cfg: DilocoConfig) -> OuterBackend:
@@ -170,6 +177,13 @@ def train(config: Config, backend: Optional[OuterBackend] = None, device: Device
     import torch.distributed as dist
 
     world_rank = config.diloco.world_rank if config.diloco else 0
+    tr = obs.tracer()
+    if tr is not None:
+        tr.set_identity(worker=world_rank)
+        # the flight recorder's crash hooks (atexit, fatal signals,
+        # faulthandler), so that a worker that dies mid-round leaves its
+        # black box; the identity first, which names the dump file
+        obs.blackbox.install()
     device, owns_group = _init_process_group(config, resolve_device(device))
     try:
         process = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
@@ -341,6 +355,17 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
                  config.fleet.replicas, config.fleet.codec)
 
     tokens_per_step = config.total_batch_size * config.seq_length
+    # one-time MFU set-up: FLOPs per token from the model's shapes and the
+    # card's peak (none on the CPU or an unknown card: no mfu in the rows);
+    # the per-step cost is one multiply in flush()
+    import torch
+
+    n_params = llama.num_params(model_cfg)
+    card = torch.cuda.get_device_name(trainer.device) if trainer.device.type == "cuda" else "cpu"
+    model_flops_per_token, peak_flops, mfu_source = obs.mfu.flops_per_token(config.path_model, n_params, card)
+    tr = obs.tracer()
+    if tr is not None:
+        tr.set_identity(model=config.path_model, mfu_source=mfu_source, n_params=n_params)
     trace_rank = world_rank if nproc == 1 else f"{world_rank}.{process}"
     summary = {"step": start_step, "loss": float("nan")}
     data_iter = iter(loader)
@@ -364,6 +389,19 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
             "tokens_per_second": tokens_per_step / dt,
             "grad_norm": float(metrics["grad_norm"]),
         }
+        if model_flops_per_token is not None:
+            row["mfu"] = obs.mfu.mfu(row["tokens_per_second"], model_flops_per_token, nproc, peak_flops)
+        tr = obs.tracer()
+        if tr is not None:
+            tr.count("inner_tokens", tokens_per_step)
+            tr.gauge("inner_loss", loss)
+            tr.gauge("inner_grad_norm", row["grad_norm"])
+            tr.gauge("inner_tokens_per_second", row["tokens_per_second"])
+            # the roll-up field odtp_top's step/s column reads
+            tr.gauge("inner_steps_per_second", 1.0 / dt if dt > 0 else 0.0)
+            tr.gauge("inner_step_s", dt)
+            if "mfu" in row:
+                tr.gauge("inner_mfu", row["mfu"])
         if diloco_opt is not None:
             row["num_peers"] = diloco_opt.max_num_peers
             row["outer_epoch"] = diloco_opt.epoch
@@ -458,6 +496,20 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
                 log.exception("failed to write the profiler trace")
         loader.stop()
         metric_logger.finish()
+        tr = obs.tracer()
+        if tr is not None:
+            try:
+                tr.flush()
+            except Exception:
+                log.exception("failed to flush obs trace")
+            bb = obs.blackbox.recorder()
+            if bb is not None:
+                try:
+                    # workers of one process share the recorder and its file
+                    with _EXIT_DUMP_LOCK:
+                        bb.dump(reason="train_exit")
+                except Exception:
+                    log.exception("failed to dump flight recorder")
         if owns_backend and backend is not None:
             backend.close()
     return {**summary, **ckpt_times}

@@ -78,6 +78,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from opendiloco_torch import obs
 from opendiloco_torch.device import DeviceLike, resolve_device
 from opendiloco_torch.models.convert import params_from_numpy
 from opendiloco_torch.models import llama
@@ -569,6 +570,30 @@ class InnerTrainer:
             loss = loss + self.model_cfg.router_aux_coef * out[-1]
         return loss
 
+    def _pp_rows(self, input_ids: torch.Tensor, labels: torch.Tensor) -> tuple:
+        """This rank's rows of the pipeline's global micro-batches. The JAX
+        pipeline cuts the global batch of B rows into M micro-batches of
+        B/M rows (``h0.reshape(M, B // M, ...)``), and each batch block
+        holds its share of every one; a rank holds a contiguous block of
+        rows instead. Routed experts take capacity and aux per micro-batch,
+        so under pp with several blocks and micro-batches the rows (with
+        their labels) are exchanged over the data group: micro-batch m of
+        block j gets global rows ``m B/M + j b + [0, b)``. A dense stack's
+        micro-batches are independent; its rows stay where they are."""
+        M = self.tc.pp_microbatches or self._pp.size
+        blocks = self.plan.data_parallel_size
+        if not self.model_cfg.num_experts or M == 1 or blocks == 1:
+            return input_ids, labels
+        from opendiloco_torch.parallel.comm import all_gather_dim
+
+        out = []
+        for a in (input_ids, labels):
+            B, T = a.shape
+            parts = all_gather_dim(a[None].contiguous(), 0, self._batch_group)  # [blocks * sp, B, T]
+            rows = parts.reshape(blocks, self._sp_n, B, T)[:, self._sp_r].reshape(M, blocks, B // M, T)
+            out.append(rows[:, self.plan.batch_index].reshape(B, T))
+        return tuple(out)
+
     def _pp_loss_grads(self, params: dict, leaves: list, input_ids: torch.Tensor, labels: torch.Tensor,
                        scale: float) -> tuple:
         """One micro-batch through the GPipe schedule on this stage:
@@ -579,6 +604,7 @@ class InnerTrainer:
         takes its gradient on its stage."""
         cfg, pp, cd = self.model_cfg, self._pp, self.tc.compute_dtype
         M = self.tc.pp_microbatches or pp.size
+        input_ids, labels = self._pp_rows(input_ids, labels)
         kw = self._forward_kw(input_ids)
         ffn_fn = None
         if cfg.num_experts:
@@ -735,7 +761,10 @@ class InnerTrainer:
 
     @torch.no_grad()
     def _eval_step_impl(self, params: dict, batch: dict) -> torch.Tensor:
-        return self._loss_fn(params, batch["input_ids"], batch["labels"])
+        ids, labels = batch["input_ids"], batch["labels"]
+        if self._pp is not None:
+            ids, labels = self._pp_rows(ids, labels)
+        return self._loss_fn(params, ids, labels)
 
     @torch.no_grad()
     def _probe_step_impl(self, params: dict, batch: dict) -> dict:
@@ -791,7 +820,16 @@ class InnerTrainer:
         self._post_dispatch_hooks.append(fn)
 
     def train_step(self, state: dict, batch: dict):
-        state, metrics = self._train_step_impl(state, batch)
+        tr = obs.tracer()
+        if tr is None:
+            state, metrics = self._train_step_impl(state, batch)
+        else:
+            # dispatch wall: the CUDA step runs on asynchronously, its
+            # device time shows in train()'s step time
+            t0 = tr.now()
+            state, metrics = self._train_step_impl(state, batch)
+            tr.add_span("inner/dispatch", t0, tr.now())
+            tr.count("inner_steps")
         for hook in self._post_dispatch_hooks:
             state = hook(state)
         return state, metrics

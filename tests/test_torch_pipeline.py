@@ -13,7 +13,10 @@ pp 2. Tolerances, each with its reason:
   stages and micro-batches re-associate the f32 sums of the gradients,
   and AdamW carries their relative error into lr-sized updates;
 - the MoE loss at M 2 atol 1e-4, the JAX test's bound for its oracle built
-  from per-micro-batch forwards.
+  from per-micro-batch forwards; the same bound holds the MoE losses, aux
+  and gradients under capacity drops against the JAX pipeline (the
+  routed sums re-associate over ranks and micro-batches in f32), while the
+  tokens dropped per layer, integer decisions, are held exactly.
 """
 import jax
 import jax.numpy as jnp
@@ -196,6 +199,122 @@ def test_moe_pp_loss_matches_sequential(runs):
     np.testing.assert_allclose(runs["got"]["pp2 ep2 M2"]["losses"][0], runs["jmoe_m2"], atol=1e-4)
     for case in MOE_CASES:
         assert all(r["losses"] == runs["got"][case]["losses"] for r in runs["got"][case]["ranks"])
+
+
+# routed experts under capacity drops (config_2m_4e's shapes at capacity
+# factor 0.5): name -> (strategy, mesh kwargs, world, TrainerConfig
+# overrides, sp chunks the JAX pipeline routes apart)
+DROP_CFG = dict(vocab_size=1024, hidden_size=64, intermediate_size=256, num_hidden_layers=2, num_attention_heads=2,
+                num_experts=4, expert_capacity_factor=0.5)
+DROP_CASES = {
+    "pp2 dp2 M2": ("NO_SHARD", {"pp_size": 2, "dp_size": 2}, 4, {"pp_microbatches": 2, "attn_impl": "xla"}, 1),
+    "sp2 pp2": ("NO_SHARD", {"pp_size": 2, "sp_size": 2}, 4, {"attn_impl": "auto"}, 2),
+    "dp2 sp2 pp2": ("NO_SHARD", {"pp_size": 2, "dp_size": 2, "sp_size": 2}, 8, {"attn_impl": "auto"}, 2),
+}
+
+
+def _jax_drops_oracle(cfg, params, ids, microbatches, chunks):
+    """The JAX pipeline's routing, unpipelined: each global micro-batch
+    (rows ``m B/M + [0, B/M)``) through the JAX forward with jit off, its
+    ``_switch_ffn`` run on each of ``chunks`` sequence chunks apart (the
+    JAX pipeline's manual sp), counting the tokens each call drops. ->
+    (the loss, the aux, drops[m][layer])."""
+    orig = jllama._switch_ffn
+    drops: list = []
+
+    def routed(cfg_, x, layer):
+        ys, auxs, n = [], [], 0
+        for xc in jnp.split(x, chunks, axis=1):
+            y, aux = orig(cfg_, xc, layer)
+            ys.append(y)
+            auxs.append(aux)
+            N = xc.shape[0] * xc.shape[1]
+            cap = max(1, int(np.ceil(N / cfg_.num_experts * cfg_.expert_capacity_factor)))
+            e = np.asarray(jnp.argmax(xc.reshape(N, -1) @ layer["router"], axis=-1))
+            n += int(sum(max(0, int((e == k).sum()) - cap) for k in range(cfg_.num_experts)))
+        drops[-1].append(n)
+        return jnp.concatenate(ys, axis=1), sum(auxs) / chunks
+
+    jp = jax.tree.map(jnp.asarray, params)
+    xents, auxs = [], []
+    jllama._switch_ffn = routed
+    try:
+        with jax.disable_jit():
+            for mb in np.split(ids, microbatches):
+                drops.append([])
+                logits, aux = jllama.forward(jp, jnp.asarray(mb), cfg, compute_dtype=jnp.float32, remat=False,
+                                             return_moe_aux=True)
+                xents.append(float(jllama.causal_lm_loss(logits, jnp.asarray(mb))))
+                auxs.append(float(aux))
+    finally:
+        jllama._switch_ffn = orig
+    return float(np.mean(xents)) + cfg.router_aux_coef * float(np.mean(auxs)), float(np.mean(auxs)), drops
+
+
+def _jax_moe_pipeline(cfg, kw, world, params, batch, tc):
+    """The JAX trainer's loss and its gradients (the leaves in flatten
+    order) and the pipelined forward's aux, on ``world`` virtual devices."""
+    jt = JInnerTrainer(cfg, JTrainerConfig(**{**TC, **tc}), jbuild_mesh("NO_SHARD", devices=jax.devices()[:world],
+                                                                        **kw))
+    state = jt.init_state(jax.random.key(0), params)
+    b = jt.shard_batch(*batch, accum=1)
+    ids, labels = b["input_ids"][0], b["labels"][0]
+    loss, grads = jax.jit(jax.value_and_grad(jt._loss_fn))(state["params"], ids, labels)
+    mesh = jt.plan.mesh
+    fwd = jax.jit(lambda p, x: jllama.forward(
+        p, x, cfg, pp_mesh=mesh, pp_axis="pp", pp_microbatches=jt.tc.pp_microbatches, ring_mesh=mesh,
+        ring_axis=jt.plan.sp_axis or "sp", batch_axes=jt.plan.batch_axes, compute_dtype=jnp.float32,
+        attn_impl=jt.tc.attn_impl, remat=False, return_moe_aux=True)[1])
+    return float(loss), float(fwd(state["params"], ids)), [np.asarray(g) for g in jax.tree.leaves(grads)]
+
+
+@pytest.fixture(scope="module")
+def drop_runs(tmp_path_factory):
+    """The MoE cases under capacity drops over their gloo ranks (one launch a
+    world size), the JAX pipeline on as many virtual devices, and the
+    routing oracle of each."""
+    cfg = tllama.LlamaConfig(**DROP_CFG)
+    params = _np_params(cfg, 6)
+    ids = np.random.default_rng(11).integers(0, cfg.vocab_size, (8, 32)).astype(np.int32)
+    tmp = tmp_path_factory.mktemp("pipeline_drops")
+    out = {}
+    for world in (4, 8):
+        cases = {k: (s, kw, tc) for k, (s, kw, w, tc, _) in DROP_CASES.items() if w == world}
+        spec = {"cfg": DROP_CFG, "params": params, "batch": (ids, ids.copy()), "tc": TC, "cases": cases}
+        ranks = spawn("moe_pp", world, spec, tmp, timeout=180.0)
+        for case in cases:
+            out[case] = {"ranks": [r[case] for r in ranks]}
+    for case, (_, kw, world, tc, chunks) in DROP_CASES.items():
+        out[case]["jax"] = _jax_moe_pipeline(cfg, kw, world, params, (ids, ids.copy()), tc)
+        M = tc.get("pp_microbatches") or kw["pp_size"]
+        out[case]["oracle"] = _jax_drops_oracle(cfg, params, ids, M, chunks)
+    return out
+
+
+@pytest.mark.parametrize("case", list(DROP_CASES))
+def test_moe_under_pp_matches_the_jax_pipeline_with_drops(drop_runs, case):
+    """Routed experts under capacity drops through the pipeline beside dp
+    (each rank's micro-batch m holds its share of the JAX pipeline's global
+    micro-batch m) and beside sp (each sequence chunk routes on its own, as
+    in the JAX pipeline's manual sp region): the loss, the aux and the
+    whole gradients equal the JAX pipeline's, and the tokens dropped at
+    each layer of each micro-batch equal the JAX routing's (its oracle's
+    loss equals the JAX pipeline's, which shows it routes the same way)."""
+    run = drop_runs[case]
+    jloss, jaux, jgrads = run["jax"]
+    oloss, oaux, odrops = run["oracle"]
+    np.testing.assert_allclose(oloss, jloss, atol=1e-4)
+    np.testing.assert_allclose(oaux, jaux, atol=1e-4)
+    assert sum(map(sum, odrops)) > 0  # capacity binds
+    for r in run["ranks"]:
+        np.testing.assert_allclose(r["loss"], jloss, atol=1e-4)
+        np.testing.assert_allclose(r["aux"], jaux, atol=1e-4)
+        assert len(r["grads"]) == len(jgrads)
+        for a, b in zip(r["grads"], jgrads):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+        # this stage runs one of the two layers, each micro-batch in turn
+        assert r["drops"] == [odrops[m][r["pp_rank"]] for m in range(len(odrops))]
 
 
 def test_stage_holds_its_layers(runs):

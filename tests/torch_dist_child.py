@@ -78,6 +78,45 @@ def job_strategies(spec: dict) -> dict:
     return out
 
 
+def job_moe_pp(spec: dict) -> dict:
+    """Each case of ``spec["cases"]`` (strategy, mesh kwargs, TrainerConfig
+    overrides) on one global batch ``spec["batch"]``, each rank handed its
+    rows: the loss of the pipeline step (scale 1), the whole gradients
+    summed over the ranks, and from the pipelined forward without
+    gradients the MoE aux and the tokens dropped by capacity of each
+    (micro-batch, layer of this stage), summed over the data group."""
+    import torch
+
+    from opendiloco_torch.models import llama
+    from opendiloco_torch.models.llama import flatten_params
+    from opendiloco_torch.parallel.comm import all_reduce_
+    from opendiloco_torch.parallel.mesh import build_mesh
+    from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
+
+    cfg = _cfg(spec)
+    out = {}
+    for name, (strategy, kw, tc) in spec["cases"].items():
+        plan = build_mesh(strategy, **kw)
+        trainer = InnerTrainer(cfg, TrainerConfig(**{**spec["tc"], **tc}), device="cpu", plan=plan)
+        state = trainer.init_state(params=spec["params"])
+        batch = trainer.shard_batch(*(rank_rows(plan, a, 1) for a in spec["batch"]), accum=1)
+        ids, labels = batch["input_ids"][0], batch["labels"][0]
+        params = state["params"]
+        loss, grads = trainer._pp_loss_grads(params, flatten_params(params), ids, labels, 1.0)
+        loss = trainer._pp.broadcast(loss.detach(), trainer._pp.size - 1)
+        grads = trainer._reduce_grads(grads)
+        whole = trainer.gather_state({**state, "opt_state": {**state["opt_state"], "mu": grads, "nu": grads}})
+        stats = []
+        with torch.no_grad():
+            rows, _ = trainer._pp_rows(ids, labels)
+            _, aux = llama.forward(params, rows, cfg, return_moe_aux=True, moe_stats=stats, remat=False,
+                                   **trainer._forward_kw(rows))
+        drops = [int(all_reduce_(d.clone(), trainer._batch_group)) for d in stats]
+        out[name] = {"loss": float(loss), "aux": float(aux), "drops": drops, "pp_rank": trainer._pp.rank,
+                     "grads": [g.detach().numpy().copy() for g in whole["opt_state"]["mu"]]}
+    return out
+
+
 def job_mesh(spec: dict) -> dict:
     """``build_mesh`` for each case of ``spec["cases"]`` (strategy, mesh
     kwargs, ``LOCAL_WORLD_SIZE`` or None): the axis sizes, or the
