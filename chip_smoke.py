@@ -5,7 +5,8 @@ training that serves over HTTP with weight hot swap, the command line,
 the outer plane on the card (overlapped and streaming rounds, error
 feedback), sharding, a galaxy of two workers over TCP, NoLoCo gossip
 rounds, the serving fleet, routed experts, ring attention, tensor and
-pipeline parallelism, and the obs plane armed on serving and training.
+pipeline parallelism, and the obs plane armed on serving, training, the
+TCP galaxy, gossip and the fleet.
 
     python3 chip_smoke.py
 
@@ -356,7 +357,29 @@ exits non-zero.
    row's ``mfu`` is 6N FLOPs a token (``analytic_6n``) over the card's
    peak; the JSONL holds ``inner_steps``, ``outer_rounds`` and the
    ``outer/*`` spans; the black box is dumped at exit.
-31. The kernels line (launches of B6, B7, their merges and B8 by serving
+31. The obs plane across the galaxy, gossip and the fleet, at
+   config_150m's widths and 2 of its layers (``CUT_LAYERS``): (a) two
+   ``train()`` workers over TcpBackends on localhost (the kernels and the
+   fused loss, 4 steps, ``local_steps`` 2, uniform8bit), unarmed then
+   armed: the master hashes after each round, the losses and the launches
+   equal bit for bit; armed, the JSONL holds ``rdv_rpcs``, ``rdv_frames``,
+   ``rdv_rounds_closed`` and ``peer_frames``, ``outer_raw_bytes`` by codec
+   is 4 bytes an element of the master a round of the round ledger and
+   ``outer_wire_bytes`` one byte (uniform8bit), and before each backend
+   closes a plain client's ``metrics`` RPC answers Prometheus text that
+   parses and its ``health`` RPC a matrix with both workers' rows
+   (unarmed: an empty body and an empty matrix). (b) One loopback gossip
+   pair round, armed: ``record_wire("gossip")`` counts both sides' wire
+   bytes and the overseer's ``note_round`` gives both rows. (c) A
+   publisher of random masters feeds one in-process replica (bf16, prefix
+   cache on) through a keyframe and a delta, armed; then 8 requests, one
+   at a time, through the router, armed then unarmed: the streams and the
+   launches of B6 and its merge equal (the armed batcher's one kernel
+   probe counted apart), each armed request's trace is one chain (the
+   router's admit, the replica's queue, prefill, decode and retire, the
+   router's forward), ``fleet_router_dispatch`` is 8 and
+   ``fleet_push_frames`` counts one keyframe and one delta.
+32. The kernels line (launches of B6, B7, their merges and B8 by serving
    phase, of the training kernels by training phase), each phase's
    seconds and the smoke's, the card line, and last the result line.
 
@@ -378,6 +401,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -2482,7 +2506,7 @@ def training_launches(torch, dev, cfg, run: dict, inner_steps: int, names, fused
 
 
 def train_workers(torch, tfa, dev, model: str, run: dict, diloco: dict | None = None, made: list | None = None,
-                  keep_master: bool = False) -> dict:
+                  keep_master: bool = False, extra: dict | None = None) -> dict:
     """Two DiLoCo workers, one thread each, run ``train()`` at ``model``'s
     full width and depth through the kernels. The launch counters are
     zeroed just before and read just after, and held to
@@ -2491,7 +2515,8 @@ def train_workers(torch, tfa, dev, model: str, run: dict, diloco: dict | None = 
     end, and compared across workers. With ``made`` the workers get no
     backend: ``train()`` makes its own (phase 24), and ``made`` collects
     them, recording. ``keep_master`` writes worker 0's final master to a
-    file (its path under "master")."""
+    file (its path under "master"). ``extra``: more ``Config`` fields
+    (phase 31's fused loss)."""
     import os
     import pickle
     import shutil
@@ -2512,7 +2537,7 @@ def train_workers(torch, tfa, dev, model: str, run: dict, diloco: dict | None = 
 
     def config(rank):
         return train_config(model, run, rank, os.path.join(tmp, f"metrics-{rank}.pkl"),
-                            dict(path=ckpt_path, interval=run.get("ckpt_interval")), diloco=diloco)
+                            dict(path=ckpt_path, interval=run.get("ckpt_interval")), diloco=diloco, **(extra or {}))
 
     torch.cuda.reset_peak_memory_stats()
     tfa.LAUNCHES.reset()
@@ -2523,7 +2548,7 @@ def train_workers(torch, tfa, dev, model: str, run: dict, diloco: dict | None = 
     launches = tfa.LAUNCHES.snapshot()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     steps = run["total_steps"]
-    want = training_launches(torch, dev, cfg, run, 2 * steps, launches)
+    want = training_launches(torch, dev, cfg, run, 2 * steps, launches, fused=(extra or {}).get("fused_loss"))
     if launches != want:
         raise AssertionError(f"training launch counts {launches} != {want}")
 
@@ -3661,7 +3686,8 @@ class RssSampler:
         return self.peak
 
 
-def tcp_workers(torch, tfa, dev, address: str, model: str, run: dict, codec: str, placement: str = "host") -> dict:
+def tcp_workers(torch, tfa, dev, address: str, model: str, run: dict, codec: str, placement: str = "host",
+                before_close=None, extra: dict | None = None) -> dict:
     """:func:`train_workers` over TCP: each worker's ``train()`` gets no
     backend and makes its own (``train.make_backend``: a ``TcpBackend`` at
     the rendezvous ``address``), which records as the loopback ones do.
@@ -3669,19 +3695,29 @@ def tcp_workers(torch, tfa, dev, address: str, model: str, run: dict, codec: str
     (``skip_load_from_peers``: a joiner's download is fp16, which would
     round its master). Adds each worker's round ledger (its
     ``last_round_health`` rows), and the backends themselves (their state
-    providers read the workers' final masters)."""
+    providers read the workers' final masters). ``before_close(backend)``
+    runs as ``train()`` closes each backend, just before it closes;
+    ``extra`` goes to :func:`train_workers`."""
     import opendiloco_torch.train as ttrain
 
     made, make = [], ttrain.make_backend
 
     def make_backend(cfg):
         backend = record_masters(make(cfg))
+        if before_close is not None:
+            close = backend.close
+
+            def closing():
+                before_close(backend)
+                close()
+
+            backend.close = closing
         made.append(backend)
         return backend
 
     ttrain.make_backend = make_backend
     try:
-        tw = train_workers(torch, tfa, dev, model, run, made=made,
+        tw = train_workers(torch, tfa, dev, model, run, made=made, extra=extra,
                            diloco=dict(backend="tcp", initial_peers=[address], compression=codec,
                                        skip_load_from_peers=True, outer_placement=placement))
     finally:
@@ -5176,6 +5212,254 @@ def phase_obs_train(torch, tfa, dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the obs plane across the galaxy, gossip and the fleet
+# ---------------------------------------------------------------------------
+
+# (a) counters the armed JSONL must hold (the outer backend's per-layer metrics)
+OBS_GALAXY_COUNTERS = ("rdv_rpcs", "rdv_frames", "rdv_rounds_closed", "peer_frames")
+OBS_GALAXY_CODEC = "uniform8bit"
+# (c) the fleet: one in-process replica at the fleet's geometry, 8 requests
+# one at a time (their decode steps, and so the launches, do not hang on
+# the timing of admissions), 32 new tokens each
+OBS_FLEET = dict(enabled=True, replicas=1, inprocess=True, prefix_cache=True, push_interval_s=0.05)
+OBS_FLEET_REQUESTS, OBS_FLEET_NEW_TOKENS = 8, 32
+
+
+def control_rpc(backend, msg: str) -> tuple:
+    """One control RPC to a worker from a plain client (the port's wire)."""
+    import asyncio
+
+    from opendiloco_torch.diloco import wire
+
+    return asyncio.run(wire.request(backend.host, backend.port, msg, {}, timeout=60.0))
+
+
+def obs_galaxy_run(torch, tfa, dev, model: str, folder) -> dict:
+    """:func:`tcp_workers` (OBS_TRAIN, OBS_GALAXY_CODEC) with the obs plane
+    armed, sinks in ``folder`` (None: off), at a fresh daemon; before each
+    backend closes, its ``metrics`` and ``health`` RPCs from a plain client.
+    Adds the flushed JSONL's meta and the master's element count."""
+    import os
+
+    from opendiloco_torch import obs
+    from opendiloco_torch.diloco.rendezvous import RendezvousServer
+    from opendiloco_torch.obs import export
+
+    rpcs: dict = {}
+
+    def ask(backend):
+        rpcs[backend.peer_id] = {msg: control_rpc(backend, msg) for msg in ("metrics", "health")}
+
+    expect = os.environ.get("ODTP_EXPECT_PEERS")
+    os.environ["ODTP_EXPECT_PEERS"] = "2"
+    daemon = RendezvousServer("127.0.0.1", 0).start_in_thread()
+    obs_arm(folder)
+    try:
+        tw = tcp_workers(torch, tfa, dev, daemon.address, model, OBS_TRAIN, OBS_GALAXY_CODEC, before_close=ask,
+                         extra=dict(attn_implementation="pallas", fused_loss=True))
+        tr = obs.tracer()
+        tw["meta"] = export.load_jsonl(tr.flush())[1] if tr is not None else None
+    finally:
+        obs_arm(None)
+        daemon.stop()
+        if expect is None:
+            os.environ.pop("ODTP_EXPECT_PEERS")
+        else:
+            os.environ["ODTP_EXPECT_PEERS"] = expect
+    backends = tw.pop("backends")
+    tw["elements"] = sum(int(x.size) for x in master_now(backends[0].provider))
+    tw["peers"] = [b.peer_id for b in backends]
+    tw["rpcs"] = rpcs
+    del backends
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tw
+
+
+def obs_gossip_pair() -> dict:
+    """(b): one lockstep pair round on a loopback world, armed: two
+    GossipPlanes over 150m-width leaves (a 1024 x 1024 projection and a
+    norm) in blockwise4bit with error feedback."""
+    from opendiloco_torch import obs
+    from opendiloco_torch.diloco import LoopbackWorld
+    from opendiloco_torch.diloco.gossip import GossipPlane
+
+    rng = np.random.default_rng(31)
+    leaves = lambda: [rng.standard_normal(s).astype(np.float32) for s in ((1024, 1024), (1024,))]  # noqa: E731
+    inputs = [(leaves(), leaves(), [x * np.float32(1e-3) for x in leaves()]) for _ in range(2)]
+    backends = LoopbackWorld(2).make_backends()
+    obs_arm("")  # armed, no sinks
+    try:
+        planes = [GossipPlane(b, 2, compression=GOSSIP_DILOCO["compression"], error_feedback=True) for b in backends]
+        out = run_workers(lambda r: planes[r].exchange(epoch=3, frag_id=0, idxs=[0, 1], masters=inputs[r][0],
+                                                       bufs=inputs[r][1], pgs=inputs[r][2], timeout=120.0),
+                          [(0,), (1,)])
+        counters = obs.tracer().counters()
+        rows = sorted(obs.overseer.plane().matrix())
+    finally:
+        obs_arm(None)
+    if any(o is None or o[4] != 2 for o in out):
+        raise AssertionError(f"obs gossip: a side did not pair ({[None if o is None else o[3:] for o in out]})")
+    wire = sum(b.last_round_health["wire_bytes"] for b in backends)
+    raw = sum(x.nbytes for r in range(2) for part in inputs[r] for x in part)
+    got = {k: counters.get((k, (("codec", "gossip"),))) for k in ("outer_raw_bytes", "outer_wire_bytes")}
+    if got != {"outer_raw_bytes": raw, "outer_wire_bytes": wire} or counters.get(("gossip_pair_rounds", ())) != 2:
+        raise AssertionError(f"obs gossip: record_wire {got}, pair rounds {counters.get(('gossip_pair_rounds', ()))}; "
+                             f"want raw {raw}, wire {wire} (the ledger's), 2 rounds")
+    if not {b.peer_id for b in backends} <= set(rows):
+        raise AssertionError(f"obs gossip: the overseer's rows {rows} lack the pair")
+    return {"raw_bytes": raw, "wire_bytes": wire, "overseer_rows": rows}
+
+
+def obs_fleet(torch, tdk, dev, model: str) -> dict:
+    """(c): a publisher of random masters (seed 31) feeds one in-process
+    replica through a keyframe (epoch 0) and a delta (epoch 1), armed;
+    then the same 8 requests, one at a time through the router, armed and
+    unarmed, the launch counters zeroed before each turn."""
+    from opendiloco_torch import obs
+    from opendiloco_torch.config import FleetConfig
+    from opendiloco_torch.fleet import build_fleet
+    from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.models.llama import flatten_params, init_params
+    from opendiloco_torch.obs import reqtrace
+
+    cfg = load_config(model)
+    params = init_params(torch.Generator(device=dev).manual_seed(31), cfg)
+    masters = [x.detach().float().cpu().numpy().reshape(-1).copy() for x in flatten_params(params)]
+    state = {"epoch": 0}
+    # the publisher's view of a worker: its masters at its epoch
+    trainer = types.SimpleNamespace(master_snapshot=lambda: (state["epoch"], masters))
+
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist() for n in rng.integers(8, 120, OBS_FLEET_REQUESTS)]
+
+    def wait(pred, what):
+        deadline = time.monotonic() + 120
+        while not pred():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"obs fleet: {what}")
+            time.sleep(0.01)
+
+    obs_arm("")
+    plane = build_fleet(FleetConfig(**OBS_FLEET), cfg, params, trainer, compute_dtype=torch.bfloat16, device=dev)
+    del params
+    rep, turns = plane.replicas["r0"], {}
+    try:
+        wait(lambda: rep.engine.weights_epoch == 0, "the replica never took the keyframe")
+        for m in masters:
+            m += np.float32(1e-3)
+        state["epoch"] = 1
+        wait(lambda: rep.engine.weights_epoch == 1, "the replica never took the delta")
+        for mode in ("on", "off"):  # the armed turn keeps the tracer that counted the pushes
+            if mode == "off":
+                obs_arm(None)
+            probed = rep.batcher._kernel_probed
+            tdk.LAUNCHES.reset()
+            outs = [plane.router.dispatch({"prompt": p, "max_new_tokens": OBS_FLEET_NEW_TOKENS, "id": i})
+                    for i, p in enumerate(prompts)]
+            launches = tdk.LAUNCHES.snapshot()
+            bad = [o for o in outs if "error" in o or len(o.get("tokens", [])) != OBS_FLEET_NEW_TOKENS]
+            if bad:
+                raise AssertionError(f"obs fleet turn {mode}: requests failed: {bad[:2]}")
+            probe = dict(rep.batcher.probe_launches) if rep.batcher._kernel_probed and not probed else {}
+            turn = {"tokens": [o["tokens"] for o in outs], "probe_launches": probe,
+                    "launches": {k: n - probe.get(k, 0) for k, n in launches.items()}}
+            if mode == "on":
+                counters = obs.tracer().counters()
+                traces = list(reqtrace.ring().completed)
+                chains = [[s["stage"] for s in t["spans"]] for t in traces]
+                for chain in chains:
+                    body = [x for x in chain if x not in ("admit", "forward")]
+                    if (chain[0] != "admit" or chain[-1] != "forward" or body[:2] != ["queue", "prefill"]
+                            or body[-1] != "retire" or set(body) != set(OBS_STAGE_CHAIN)):
+                        raise AssertionError(f"obs fleet: a trace is not one chain: {chain}")
+                if len(chains) != len(prompts) or any(t["status"] != "done" for t in traces):
+                    raise AssertionError(f"obs fleet: {len(chains)} traces for {len(prompts)} requests")
+                fleet = {f"{k}{dict(lb)}": v for (k, lb), v in counters.items() if k.startswith("fleet_")}
+                want = {"fleet_router_dispatch{'replica': 'r0'}": len(prompts),
+                        "fleet_push_frames{'kind': 'keyframe', 'replica': 'r0'}": 1,
+                        "fleet_push_frames{'kind': 'delta', 'replica': 'r0'}": 1}
+                if any(fleet.get(k) != v for k, v in want.items()):
+                    raise AssertionError(f"obs fleet: counters {fleet}, want {want}")
+                turn.update(counters=fleet, traces=len(chains), stages=sorted({x for c in chains for x in c}))
+            turns[mode] = turn
+    finally:
+        obs_arm(None)
+        plane.stop()
+    on, off = turns["on"], turns["off"]
+    if on["tokens"] != off["tokens"]:
+        raise AssertionError(f"obs fleet: armed streams differ from unarmed: {agreement(on['tokens'], off['tokens'])}")
+    if on["launches"] != off["launches"] or not on["launches"].get("paged_decode_attention"):
+        raise AssertionError(f"obs fleet: armed launches {on['launches']} != unarmed {off['launches']}")
+    for turn in turns.values():
+        turn.pop("tokens")
+    return turns
+
+
+def phase_obs_galaxy(torch, tfa, tdk, dev, card: str) -> dict:
+    """Phase 31: the obs plane across the TCP galaxy, gossip and the fleet
+    at config_150m's widths and CUT_LAYERS of its layers (see the module
+    docstring)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    folder = tempfile.mkdtemp()
+    model = cut_depth("150m", CUT_LAYERS, folder)
+    off = obs_galaxy_run(torch, tfa, dev, model, None)
+    on = obs_galaxy_run(torch, tfa, dev, model, folder)
+    losses = lambda run: [[r["Loss"] for r in rows] for rows in run["rows"]]  # noqa: E731
+    for key, a, b in (("master hashes", on["hashes"], off["hashes"]), ("losses", losses(on), losses(off)),
+                      ("launches", on["launches"], off["launches"])):
+        if a != b:
+            raise AssertionError(f"obs galaxy: armed {key} {a} != unarmed {b}")
+    counters = on["meta"]["counters"]
+    missing = [c for c in OBS_GALAXY_COUNTERS if not any(k.split("{")[0] == c for k in counters)]
+    if missing:
+        raise AssertionError(f"obs galaxy: the JSONL lacks {missing}: {sorted(counters)}")
+    rounds = [len(led) for led in on["ledgers"]]
+    raw = 4 * on["elements"] * rounds[0]
+    wire = {k: counters.get(f"{k}{{codec={OBS_GALAXY_CODEC}}}") for k in ("outer_raw_bytes", "outer_wire_bytes")}
+    if rounds != [2, 2] or wire != {"outer_raw_bytes": raw, "outer_wire_bytes": raw // 4}:
+        raise AssertionError(f"obs galaxy: {wire} over the ledger's {rounds} rounds of {on['elements']} elements")
+    for label, run in (("armed", on), ("unarmed", off)):
+        for peer, answers in run["rpcs"].items():
+            (m_msg, m_meta, body), (h_msg, h_meta, _) = answers["metrics"], answers["health"]
+            if m_msg != "ok" or h_msg != "ok" or m_meta.get("format") != "prometheus-0.0.4":
+                raise AssertionError(f"obs galaxy {label}: {peer}'s RPCs answered {m_msg} {m_meta}, {h_msg}")
+            if label == "unarmed":
+                if body or h_meta["matrix"]:
+                    raise AssertionError(f"obs galaxy: unarmed {peer} answered {body[:80]!r}, {h_meta}")
+                continue
+            families = prom_families(body.decode())
+            if not {"odtp_rdv_rpcs", "odtp_peer_frames", "odtp_outer_rounds"} <= families:
+                raise AssertionError(f"obs galaxy: {peer}'s metrics families {sorted(families)}")
+            if not set(run["peers"]) <= set(h_meta["matrix"]):
+                raise AssertionError(f"obs galaxy: {peer}'s health matrix {sorted(h_meta['matrix'])}")
+    if len(on["rpcs"]) != 2:
+        raise AssertionError(f"obs galaxy: RPCs answered by {sorted(on['rpcs'])}")
+    gossip = obs_gossip_pair()
+    fleet = obs_fleet(torch, tdk, dev, model)
+    shutil.rmtree(folder, ignore_errors=True)
+    res = {"config": f"150m widths, {CUT_LAYERS} layers", **OBS_TRAIN, "codec": OBS_GALAXY_CODEC,
+           "launches": on["launches"], "master_hashes": on["hashes"], "losses": losses(on),
+           "counters": {k: v for k, v in counters.items() if k.split("{")[0] in (
+               *OBS_GALAXY_COUNTERS, "outer_raw_bytes", "outer_wire_bytes", "bulk_tx_bytes", "bulk_rx_bytes",
+               "wire_tx_bytes", "wire_rx_bytes", "outer_rounds")},
+           "train_wall_s": {"off": off["wall"], "on": on["wall"]},
+           "inner_step_ms_median": {k: float(np.median(inner_step_s(r["rows"]))) * 1e3
+                                    for k, r in (("off", off), ("on", on))},
+           "outer_step_s": {k: [x for rows in r["rows"] for x in (row.get("outer_step_s") for row in rows) if x]
+                            for k, r in (("off", off), ("on", on))},
+           "gossip": gossip, "fleet": fleet, "seconds": time.perf_counter() - t0}
+    log(f"obs galaxy 150m ({CUT_LAYERS} layers): TCP armed = unarmed (master hashes, losses, launches); "
+        f"counters {json.dumps(res['counters'])}; gossip {json.dumps(gossip)}; fleet armed = unarmed (streams, "
+        f"launches {json.dumps(fleet['off']['launches'])}), {json.dumps(fleet['on']['counters'])}; "
+        f"phase {res['seconds']:.1f} s | {card}")
+    return res
+
+
 PHASE_SECONDS: dict = {}
 
 
@@ -5268,6 +5552,7 @@ def main() -> int:
     ring = timed("28 ring", phase_ring, torch, tfa, dev, card)
     tp_pp = timed("29 tp pp 1b", phase_tp_pp, torch, tfa, dev, card)
     obs_train = timed("30b obs train", phase_obs_train, torch, tfa, dev, card)
+    obs_galaxy = timed("31 obs galaxy", phase_obs_galaxy, torch, tfa, tdk, dev, card)
 
     # launches: each serving phase's main path, by phase
     serving = {f"serve {s['weight_format']}": s["launches"] for s in serve}
@@ -5281,6 +5566,8 @@ def main() -> int:
     serving["fleet 150m (2 layers), replicas in process"] = fleet["runs"][0]["launches"]
     serving.update({f"obs 1b w4 turn {t} ({turn['mode']})": turn["launches"]
                     for t, turn in enumerate(obs_serve["turns"])})
+    serving.update({f"obs fleet 150m (2 layers) turn {mode}": turn["launches"]
+                    for mode, turn in obs_galaxy["fleet"].items()})
     for k in (*b6, *b7, *b8):
         k["launches_by_phase"] = {phase: counts.get(k["name"], 0) for phase, counts in serving.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
@@ -5308,7 +5595,8 @@ def main() -> int:
                                   "ring train 150m (2 layers) sp 1": ring["train_sp1"]["launches"].get(k["name"], 0),
                                   **{f"tp/pp 1b {label}": sum(t.get(k["name"], 0) for t in r["launches_by_thread"])
                                      for label, r in tp_pp["runs"].items()},
-                                  "obs 150m (2 layers) armed": obs_train["launches"].get(k["name"], 0)}
+                                  "obs 150m (2 layers) armed": obs_train["launches"].get(k["name"], 0),
+                                  "obs tcp 150m (2 layers) armed": obs_galaxy["launches"].get(k["name"], 0)}
         k["launches"] = sum(k["launches_by_phase"].values())
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
         k["launches_per_inner_step_150m_8e"] = moe["launches_per_inner_step"].get(k["name"], 0)
@@ -5317,7 +5605,7 @@ def main() -> int:
                     "outer_plane": outer_plane, "sharded": sharded, "tcp": tcp, "gossip": gossip, "fleet": fleet, "resume": resume_150m, "weights_dir": weights_dir,
                     "train_serve": train_serve, "install_wire": wire, "kv_tier": tier,
                     "gate3": gate3, "cli": cli, "moe": moe, "ring": ring, "tp_pp": tp_pp,
-                    "obs": {"serve": obs_serve, "train": obs_train},
+                    "obs": {"serve": obs_serve, "train": obs_train, "galaxy": obs_galaxy},
                     "phase_seconds": PHASE_SECONDS,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b6, *b7, *b8, *flash, *xent]}))

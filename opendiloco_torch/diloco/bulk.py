@@ -24,11 +24,12 @@ id) plus slice 0 and the ack; sibling connections carry ``_stripe``
 sub-frames that land via recv_into directly into their slice of the one
 preallocated buffer -- reassembly is zero-copy.
 
-The port's copy of ``opendiloco_tpu/diloco/bulk.py``, minus its obs
-counters (ROADMAP.md A17), over the port's own host library
-(:mod:`opendiloco_torch.native`). ``BulkServer.stop`` also shuts the
-listening socket down, so its accept thread ends (in the JAX package it
-stays blocked, holding its ``TcpBackend``).
+The port's copy of ``opendiloco_tpu/diloco/bulk.py``, over the port's own
+host library (:mod:`opendiloco_torch.native`). Armed (``ODTP_OBS``), it
+counts ``bulk_tx_bytes``, ``bulk_rx_bytes``, ``bulk_frames`` by kind and
+``bulk_stripe_hedges`` under the JAX package's names. ``BulkServer.stop``
+also shuts the listening socket down, so its accept thread ends (in the
+JAX package it stays blocked, holding its ``TcpBackend``).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from opendiloco_torch import native
+from opendiloco_torch import native, obs
 from opendiloco_torch.diloco import chaos, linkstate
 from opendiloco_torch.diloco.schema import (
     BULK_ACK as _ACK,
@@ -282,6 +283,7 @@ def send_frame_sync(
     native.sock_sendall(sock, _HDR.pack(MAGIC, len(header)) + header)
     if nbytes:
         _send_payload(sock, payload)
+    obs.count("bulk_tx_bytes", nbytes)
 
 
 def read_frame_sync(sock: socket.socket) -> tuple[str, dict, np.ndarray]:
@@ -296,6 +298,7 @@ def read_frame_sync(sock: socket.socket) -> tuple[str, dict, np.ndarray]:
     payload = np.empty(n, np.uint8)
     if n:
         native.sock_recvall(sock, payload)
+    obs.count("bulk_rx_bytes", n)
     return header["type"], header.get("meta", {}), payload
 
 
@@ -376,6 +379,10 @@ class BulkServer:
                     return
                 if _frame_observer is not None:
                     _frame_observer(header["type"])
+                tr = obs.tracer()
+                if tr is not None:
+                    tr.count("bulk_frames", kind=header["type"])
+                    tr.count("bulk_rx_bytes", header.get("payload_len", 0))
                 if header["type"] == "_stripe":
                     # stripe channel: bytes land straight in the session
                     # buffer; no ack (the main connection acks the frame)
@@ -761,6 +768,7 @@ class BulkSender:
                     conns, streams + hedge_idx,
                 )
                 hedged_ok.add(j)
+                obs.count("bulk_stripe_hedges")
             except Exception as e:
                 log.warning("stripe %d hedge to %s failed (%s)", j, key, e)
         # a stripe whose original leg already errored AND whose hedge failed

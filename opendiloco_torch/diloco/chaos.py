@@ -78,9 +78,10 @@ Design constraints:
   (``counters``, bounded ``events`` list, ``snapshot()``); a soak can prove
   faults actually fired.
 
-The port's copy of ``opendiloco_tpu/diloco/chaos.py``, minus the flight
-recorder's fault hook (the obs plane, ROADMAP.md A17): one ``ODTP_CHAOS``
-spec draws the same faults in either package.
+The port's copy of ``opendiloco_tpu/diloco/chaos.py``: one ``ODTP_CHAOS``
+spec draws the same faults in either package, and every injected fault
+also lands in the port's flight recorder (``obs.blackbox``) when
+``ODTP_OBS`` is armed.
 """
 
 from __future__ import annotations
@@ -257,6 +258,18 @@ class ChaosPlane:
             if len(self.events) < _EVENTS_CAP:
                 self.events.append({"kind": kind, "site": site, **detail})
         log.warning("chaos: injected %s at %s %s", kind, site, detail or "")
+        # every injected fault lands in the flight recorder (and, rate-
+        # limited, on disk): a postmortem can then correlate faults with
+        # the spans they perturbed. No-op unless ODTP_OBS is armed; lazy
+        # import keeps the fault-free path free of obs machinery.
+        try:
+            from opendiloco_torch.obs import blackbox
+
+            bb = blackbox.recorder()
+            if bb is not None:
+                bb.note_fault(kind, site, detail)
+        except Exception:
+            pass
 
     def snapshot(self) -> dict:
         """Counters + bounded event log, JSON-ready (soak/ledger reporting)."""

@@ -42,8 +42,11 @@ Masters and momentum ride the state codec (fp16 family), pseudo-gradients
 the configured codec, with error-feedback residuals per PARTNER: the mass
 a lossy codec drops toward partner A is replayed the next time A is
 drawn. Every mixing op is numpy f32 in the sorted-pair operand order, so
-both ends of a pair, of either package, hold the same bits. The JAX
-package's tracer and overseer calls are left out.
+both ends of a pair, of either package, hold the same bits. Armed
+(``ODTP_OBS``), every round reports what the JAX package reports:
+``record_wire("gossip", raw, wire)``, the ``outer/gossip_pair`` span, the
+``outer/round`` record, the ``gossip_pair_s`` gauge, the pair, round,
+dropped and wire counters, and the overseer's ``note_round``.
 """
 from __future__ import annotations
 
@@ -58,8 +61,9 @@ from typing import Optional
 
 import numpy as np
 
+from opendiloco_torch import obs
 from opendiloco_torch.diloco.backend import AllReduceError
-from opendiloco_torch.diloco.compression import get_codec
+from opendiloco_torch.diloco.compression import get_codec, record_wire
 from opendiloco_torch.diloco.error_feedback import ErrorFeedback
 from opendiloco_torch.diloco.outer_optimizer import staleness_mix, staleness_weight
 from opendiloco_torch.diloco.state_io import state_codec
@@ -352,8 +356,8 @@ class GossipPlane:
         if ef is not None:
             ef.prepare(round_key, idxs, gs)
         try:
-            mine, theirs, wire = self._transfer_and_decode(partner=partner, round_key=round_key, masters=masters,
-                                                           bufs=bufs, gs=gs, timeout=timeout)
+            mine, theirs, wire, raw = self._transfer_and_decode(partner=partner, round_key=round_key,
+                                                                masters=masters, bufs=bufs, gs=gs, timeout=timeout)
         except (AllReduceError, TimeoutError, asyncio.TimeoutError, OSError, KeyError, ValueError) as e:
             if ef is not None:
                 ef.abort(round_key)
@@ -373,6 +377,7 @@ class GossipPlane:
             avg_g = staleness_mix(mine[2], theirs[2], wgt)
         if ef is not None:
             ef.commit(round_key)
+        record_wire("gossip", raw, wire)
         self._record(key, partner=partner, n=2, t0=t0, wire=wire, lag=lag)
         return mix_m, mix_b, avg_g, partner, 2
 
@@ -381,14 +386,14 @@ class GossipPlane:
         """Encode own (m, b, g) sections, swap frames with ``partner`` under
         ``round_key``, decode BOTH sides through the codecs (own bytes too,
         so the two ends mix the same operands). Returns ``((mine_m, mine_b,
-        mine_g), (theirs_m, theirs_b, theirs_g), wire_bytes)``; raises on a
-        failed transfer."""
-        m_chunks, m_metas, _ = _encode_leaves(self.state_codec, masters)
+        mine_g), (theirs_m, theirs_b, theirs_g), wire_bytes, raw_bytes)``;
+        raises on a failed transfer."""
+        m_chunks, m_metas, raw_m = _encode_leaves(self.state_codec, masters)
         if bufs is not None:
-            b_chunks, b_metas, _ = _encode_leaves(self.state_codec, bufs)
+            b_chunks, b_metas, raw_b = _encode_leaves(self.state_codec, bufs)
         else:
-            b_chunks, b_metas = [], None
-        g_chunks, g_metas, _ = _encode_leaves(self.codec, gs)
+            b_chunks, b_metas, raw_b = [], None, 0
+        g_chunks, g_metas, raw_g = _encode_leaves(self.codec, gs)
         payload = b"".join(m_chunks + b_chunks + g_chunks)
         meta = {
             "gossip": 1,
@@ -416,7 +421,7 @@ class GossipPlane:
                 f"gossip section mismatch with {partner}: {len(theirs_m)}/{len(theirs_g)} leaves vs "
                 f"{len(mine_m)}/{len(mine_g)}"
             )
-        return (mine_m, mine_b, mine_g), (theirs_m, theirs_b, theirs_g), len(payload)
+        return (mine_m, mine_b, mine_g), (theirs_m, theirs_b, theirs_g), len(payload), raw_m + raw_b + raw_g
 
     def _exchange_async(self, *, epoch: int, frag_id: int, idxs, masters: list[np.ndarray],
                         bufs: Optional[list[np.ndarray]], pgs: list[np.ndarray], timeout: Optional[float],
@@ -441,6 +446,7 @@ class GossipPlane:
 
     def _record(self, key: str, *, partner: str, n: int, t0: float, wire: int = 0, dropped: bool = False,
                 lag: Optional[int] = None) -> None:
+        t1 = time.perf_counter()
         health = {
             "round": f"gossip-{key}",
             "group_size": n,
@@ -450,7 +456,7 @@ class GossipPlane:
             "retries": 0,
             "gossip": True,
             "partner": partner,
-            "pair_s": round(time.perf_counter() - t0, 6),
+            "pair_s": round(t1 - t0, 6),
         }
         if dropped:
             health["dropped"] = True
@@ -466,3 +472,17 @@ class GossipPlane:
                 del led[:-_HEALTH_LEDGER_CAP]
         except AttributeError:
             pass
+        tr = obs.tracer()
+        if tr is not None:
+            tr.add_span("outer/gossip_pair", t0, t1, partner=partner, round=health["round"], dropped=dropped)
+            tr.instant("outer/round", worker=self.backend.peer_id, **health)
+            tr.gauge("gossip_pair_s", t1 - t0)
+            tr.count("gossip_pair_rounds")
+            tr.count("outer_rounds")
+            if dropped:
+                tr.count("gossip_dropped_rounds")
+            if wire:
+                tr.count("gossip_wire_bytes", wire)
+        ov = obs.overseer.plane()
+        if ov is not None:
+            ov.note_round(health, own_id=self.backend.peer_id)

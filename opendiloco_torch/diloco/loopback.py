@@ -13,8 +13,9 @@ the live peers into capped groups frozen by the round's first arriver;
 the gossip plane's wire is here too: ``gossip_view``, the keyed pair
 mailbox of ``pair_exchange`` and the offer board of ``async_pair_match``.
 The chaos gate (``ODTP_CHAOS``: straggler and latency sleeps, dropped
-contributions retried) runs as in the JAX backend; its observability
-hooks are left out.
+contributions retried) runs as in the JAX backend, and armed
+(``ODTP_OBS``) each fault it injects lands in the flight recorder
+(``chaos.py``).
 """
 from __future__ import annotations
 

@@ -10,10 +10,11 @@ matchmaking with ``matchmaking_time`` semantics, hivemind_diloco.py:342,403).
 
 Run standalone:  python -m opendiloco_torch.diloco.rendezvous --port 9000
 
-The port's copy of ``opendiloco_tpu/diloco/rendezvous.py``, minus its
-obs counters and span (ROADMAP.md A17); its protocol is the JAX daemon's
-and ``native/odtp-rendezvousd``'s, so workers of either package meet at
-any of the three.
+The port's copy of ``opendiloco_tpu/diloco/rendezvous.py``; its protocol
+is the JAX daemon's and ``native/odtp-rendezvousd``'s, so workers of
+either package meet at any of the three. Armed (``ODTP_OBS``), it counts
+``rdv_frames`` by msg and ``rdv_rounds_closed`` and spans
+``rdv/join_group``, under the JAX package's names.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import uuid
 from dataclasses import dataclass, field
 from typing import Optional
 
+from opendiloco_torch import obs
 from opendiloco_torch.diloco import chaos
 from opendiloco_torch.diloco.wire import STREAM_LIMIT, read_frame, send_frame
 from opendiloco_torch.utils.logger import get_text_logger
@@ -300,6 +302,7 @@ class RendezvousServer:
             self._writers.discard(writer)
             writer.close()
             return
+        obs.count("rdv_frames", msg=msg)
         try:
             if msg == "register":
                 info = PeerInfo(
@@ -477,7 +480,16 @@ class RendezvousServer:
         ):
             self._close_round(rnd)
 
-        await rnd.event.wait()
+        tr = obs.tracer()
+        if tr is None:
+            await rnd.event.wait()
+        else:
+            t0 = tr.now()
+            await rnd.event.wait()
+            tr.add_span(
+                "rdv/join_group", t0, tr.now(),
+                round=key, joiners=len(rnd.joiners),
+            )
         await send_frame(writer, "ok", {"group": rnd.group_for(pid)})
 
     async def _close_round_later(self, rnd: _GroupRound) -> None:
@@ -487,6 +499,7 @@ class RendezvousServer:
 
     def _close_round(self, rnd: _GroupRound) -> None:
         rnd.closed = True
+        obs.count("rdv_rounds_closed")
         # tombstoned peers that had this FULL matchmaking window to re-join
         # and did not: the swarm has demonstrably moved on without them.
         # A tombstone created after the round opened only had part of the

@@ -20,14 +20,21 @@ The asyncio event loop runs on a background thread; OuterBackend methods are
 synchronous bridges (the training loop is synchronous host code).
 
 The port's copy of ``opendiloco_tpu/diloco/tcp.py``, the wire bytes
-unchanged, so port and JAX workers average in one group. Left out: the
-obs plane's counters, spans, gauges, overseer and request-trace calls
-(ROADMAP.md A17; the ``metrics``, ``health`` and ``reqtrace`` RPCs answer
-as the JAX package does with obs off). The ``fleet`` RPC answers
-``fleet.status()``, this process's serving fleet (``{"enabled": False}``
-without one). ``close`` also drops the round-buffer pool. The per-round stage times
-(encode, wire_send, wire_recv, accumulate) are always folded into
-``last_round_health``. State payloads go through
+unchanged, so port and JAX workers average in one group. Armed
+(``ODTP_OBS``), it reports what the JAX package reports under the same
+names: counters (``rdv_rpcs``, ``peer_frames``, ``wire_tx_bytes``/
+``wire_rx_bytes`` with their ``_wan`` split, ``outer_raw_bytes``/
+``outer_wire_bytes`` by codec through ``record_wire``,
+``fetch_state_calls``), the ``outer/*`` spans, the ``outer/round`` record
+and its gauges, the overseer's roll-up on every progress announce and its
+merges of the members' rows, and the ``metrics``, ``health`` and
+``reqtrace`` RPCs' armed bodies. Unarmed, each hook is one ``is None``
+check and no wire byte changes. The per-round stage times (encode,
+wire_send, wire_recv, accumulate) are always folded into
+``last_round_health``, armed or not, and the armed tracer reads them
+from there. The ``fleet`` RPC answers ``fleet.status()``, this process's
+serving fleet (``{"enabled": False}`` without one). ``close`` also drops
+the round-buffer pool. State payloads go through
 :mod:`opendiloco_torch.diloco.state_io`. No torch call runs on the
 event-loop thread: the backend moves host numpy buffers only.
 """
@@ -44,9 +51,15 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from opendiloco_torch import obs
 from opendiloco_torch.diloco import chaos, linkstate, planner
 from opendiloco_torch.diloco.backend import AllReduceError, OuterBackend, PeerProgress
-from opendiloco_torch.diloco.compression import Codec, chunk_bounds, get_codec
+from opendiloco_torch.diloco.compression import (
+    Codec,
+    chunk_bounds,
+    get_codec,
+    record_wire,
+)
 from opendiloco_torch.diloco.schema import WIRE_VERSION, WIRE_VERSION_META_KEY
 from opendiloco_torch.diloco.state_io import deserialize_state, serialize_state, state_codec
 from opendiloco_torch.diloco.wire import (
@@ -97,45 +110,16 @@ def _pipeline_chunk_elems() -> int:
     return max(1, int(mb * (1 << 20)) // 4)
 
 
-class StageTimes:
-    """Thread-safe per-stage wall-clock accumulator for one round.
-
-    Concurrent stages (a pipelined encode overlapping a send) sum past
-    wall-clock by design: the totals answer "where did work time go",
-    not "how long did the round take"."""
-
-    __slots__ = ("_lock", "totals")
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self.totals: dict[str, float] = {}
-
-    def add(self, stage: str, seconds: float) -> None:
-        with self._lock:
-            self.totals[stage] = self.totals.get(stage, 0.0) + seconds
-
-    def timed(self, stage: str, fn: Callable) -> Callable:
-        """Wrap ``fn`` so its wall time accrues to ``stage``."""
-
-        def run(*args: Any, **kwargs: Any) -> Any:
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                self.add(stage, time.perf_counter() - t0)
-
-        return run
-
-
 # per-round stage-time accumulator (encode, wire_send, wire_recv,
-# accumulate), folded into the round's health row. A ContextVar, NOT a
-# backend attribute: streaming fragment sync runs
+# accumulate), folded into the round's health row, which the armed
+# tracer's ``outer/round`` record reads. A ContextVar, NOT a backend
+# attribute: streaming fragment sync runs
 # several all-reduce rounds CONCURRENTLY on one backend (one task per
 # fragment), and each round task gets its own context copy — a shared
 # slot would let round A's finally-clear null out round B's accumulator
 # mid-round. Child tasks (asyncio.gather legs) inherit the round task's
 # context at creation, so every exchange helper sees its own round's slot.
-_STAGE: contextvars.ContextVar[Optional[StageTimes]] = (
+_STAGE: contextvars.ContextVar[Optional[obs.StageTimes]] = (
     contextvars.ContextVar("odtp_stage", default=None)
 )
 
@@ -252,6 +236,10 @@ class TcpBackend(OuterBackend):
         # it, the first worker to fail over registers alone, the daemon sees
         # a one-peer swarm, and matchmaking closes rounds as solo groups
         self._peers_view: dict[str, dict] = {}
+        # peer_id -> site index from the latest round plan, for WAN/intra
+        # byte accounting. None (no topology view) counts every frame as
+        # WAN — the honest reading for a flat swarm of unknown shape.
+        self._round_site_of: Optional[dict[str, int]] = None
         # mailbox: (round, kind, sender_or_part) -> (meta, payload)
         self._mailbox: dict[tuple, tuple[dict, bytes]] = {}
         self._mailbox_cv: Optional[asyncio.Condition] = None
@@ -332,6 +320,15 @@ class TcpBackend(OuterBackend):
         }
         if self._adaptive():
             prog["links"] = self.links.publish()
+        ov = obs.overseer.plane()
+        if ov is not None:
+            # the overseer health roll-up rides the same verbatim-replayed
+            # progress dict as the link vector: every register/progress
+            # reply and join_group snapshot then carries it galaxy-wide
+            # with no new connections (obs/overseer.py)
+            roll = ov.rollup(capacity_bps=self.links.published_capacity())
+            prog["health"] = roll
+            ov.merge(self._peer_id, roll)
         return prog
 
     def _identity_meta(self) -> dict:
@@ -458,6 +455,7 @@ class TcpBackend(OuterBackend):
         re-converge within ``_RDV_FAILBACK_S`` seconds.
         """
         timeout = timeout or self.rpc_timeout
+        obs.count("rdv_rpcs", msg=msg)
         # fail-back probe toward the preferred (lowest-index) daemon
         if self._rdv_idx != 0 and (
             time.monotonic() - self._rdv_last_probe > self._RDV_FAILBACK_S
@@ -620,6 +618,7 @@ class TcpBackend(OuterBackend):
                     asyncio.TimeoutError,  # idle between outer rounds
                 ):
                     break
+                obs.count("peer_frames", msg=msg)
                 if msg in ("push", "result"):
                     if cp is not None:
                         d = cp.delay_s("mailbox")
@@ -647,18 +646,39 @@ class TcpBackend(OuterBackend):
                         },
                     )
                 elif msg == "metrics":
-                    # the obs plane's Prometheus text; the port has no obs
-                    # plane yet, so the body is empty (the JAX package's
-                    # answer with obs disarmed)
+                    # pull-based Prometheus text exposition on the existing
+                    # per-worker control port (empty body when obs disarmed)
+                    body = obs.export.prometheus_text(obs.tracer()).encode()
                     await send_frame(
-                        writer, "ok", {"format": "prometheus-0.0.4"}, b""
+                        writer, "ok", {"format": "prometheus-0.0.4"}, body
                     )
                 elif msg == "health":
-                    # the overseer's galaxy matrix: empty without obs
-                    await send_frame(writer, "ok", {"matrix": {}})
+                    # this worker's converged overseer galaxy matrix, for
+                    # odtp_top --watch (empty when obs disarmed)
+                    ov = obs.overseer.plane()
+                    await send_frame(
+                        writer, "ok",
+                        {"matrix": ov.matrix() if ov is not None else {}},
+                    )
                 elif msg == "reqtrace":
-                    # the request-trace ring: None without obs
-                    await send_frame(writer, "ok", {"reqtrace": None})
+                    # this process's request-trace ring snapshot, for
+                    # odtp_top --requests and the tail-latency report
+                    # (None when ODTP_OBS is unset); old peers answer
+                    # "error" for the unknown kind — callers treat both
+                    # as "no reqtrace plane here"
+                    rt = obs.reqtrace.ring()
+                    await send_frame(
+                        writer, "ok",
+                        {
+                            "reqtrace": (
+                                rt.snapshot(
+                                    recent=int(meta.get("recent", 32))
+                                )
+                                if rt is not None
+                                else None
+                            )
+                        },
+                    )
                 elif msg == "async_offer":
                     # bounded-staleness matchmaking (async gossip): claim
                     # our standing offer for the sender if compatible;
@@ -824,10 +844,15 @@ class TcpBackend(OuterBackend):
                 },
                 timeout=self.rpc_timeout,
             )
+            ov = obs.overseer.plane()
             for p in meta.get("peers", []):
                 self.links.merge_remote(
                     p.get("peer_id", ""), (p.get("progress") or {}).get("links")
                 )
+                if ov is not None:
+                    ov.merge(
+                        p.get("peer_id", ""), linkstate.member_health(p)
+                    )
         except Exception as e:
             log.debug("links announce failed: %s", e)
 
@@ -863,6 +888,20 @@ class TcpBackend(OuterBackend):
                 return None  # transient: don't cache failure
         return self._bulk_ports[key]
 
+    def _is_wan_peer(self, peer_id: Optional[str]) -> bool:
+        """Does a frame to/from this peer cross the WAN, for byte
+        accounting? With a topology view (planner site map), a different
+        site means WAN; without one every link conservatively counts as
+        WAN — a flat swarm of unknown shape can't claim intra-site bytes."""
+        site_of = self._round_site_of
+        if not site_of or not peer_id:
+            return True
+        mine = site_of.get(self._peer_id)
+        theirs = site_of.get(peer_id)
+        if mine is None or theirs is None:
+            return True
+        return mine != theirs
+
     async def _wan_throttle(self, peer_id: Optional[str], nbytes: int) -> None:
         """Chaos-plane WAN shaping: frames to wan_peers-classified
         destinations drain the per-process WAN token bucket (emulating a
@@ -889,6 +928,7 @@ class TcpBackend(OuterBackend):
                 host, port, msg, meta, payload, timeout=timeout,
                 peer_id=peer_id,
             )
+        nbytes = payload.nbytes if hasattr(payload, "nbytes") else len(payload)
         t0 = time.perf_counter()
         try:
             return await self._send_part_inner(
@@ -897,6 +937,11 @@ class TcpBackend(OuterBackend):
             )
         finally:
             stage.add("wire_send", time.perf_counter() - t0)
+            tr = obs.tracer()
+            if tr is not None:
+                tr.count("wire_tx_bytes", nbytes)
+                if self._is_wan_peer(peer_id):
+                    tr.count("wire_tx_bytes_wan", nbytes)
 
     async def _send_part_inner(
         self, host: str, port: int, msg: str, meta: dict, payload, *,
@@ -999,9 +1044,18 @@ class TcpBackend(OuterBackend):
             return await self._wait_mailbox_inner(key, deadline)
         t0 = time.perf_counter()
         try:
-            return await self._wait_mailbox_inner(key, deadline)
+            meta, payload = await self._wait_mailbox_inner(key, deadline)
         finally:
             stage.add("wire_recv", time.perf_counter() - t0)
+        tr = obs.tracer()
+        if tr is not None:
+            nbytes = (
+                payload.nbytes if hasattr(payload, "nbytes") else len(payload)
+            )
+            tr.count("wire_rx_bytes", nbytes)
+            if self._is_wan_peer(meta.get("from")):
+                tr.count("wire_rx_bytes_wan", nbytes)
+        return meta, payload
 
     async def _wait_mailbox_inner(
         self, key: tuple, deadline: float
@@ -1054,9 +1108,12 @@ class TcpBackend(OuterBackend):
             return
         self._note_peers(meta)
         cache = []
+        ov = obs.overseer.plane()
         for p in meta.get("peers", []):
             prog = p.get("progress") or {}
             self.links.merge_remote(p.get("peer_id", ""), prog.get("links"))
+            if ov is not None and p.get("peer_id") != self._peer_id:
+                ov.merge(p.get("peer_id", ""), prog.get("health"))
             cache.append(
                 PeerProgress(
                     peer_id=p["peer_id"],
@@ -1327,6 +1384,33 @@ class TcpBackend(OuterBackend):
         self.round_ledger.append(health)
         if len(self.round_ledger) > self._ledger_cap:
             del self.round_ledger[: -self._ledger_cap]
+        tr = obs.tracer()
+        if tr is not None:
+            # the per-round record obs_report merges across workers
+            tr.instant("outer/round", **health)
+            tr.count("outer_rounds")
+            if elastic:
+                tr.count("outer_rounds_elastic")
+            if attempt:
+                tr.count("outer_round_retries", attempt)
+            tr.gauge("outer_group_size", n)
+            if extra and "hier" in extra:
+                tr.count("outer_rounds_hier")
+                tr.gauge("hier_sites", len(extra["hier"].get("sites", [])))
+            if extra and "link_shares" in extra:
+                tr.count("outer_rounds_adaptive")
+                own = self.links.publish().get("peers", {})
+                for pid, vec in own.items():
+                    if vec.get("bps"):
+                        tr.gauge("link_bps", vec["bps"], peer=pid)
+                    if vec.get("rtt_ms"):
+                        tr.gauge("link_rtt_ms", vec["rtt_ms"], peer=pid)
+        ov = obs.overseer.plane()
+        if ov is not None:
+            # refresh own galaxy-matrix row, feed the flight recorder, and
+            # run the anomaly watchdogs (straggler / divergence / dead-peer
+            # / stall) against the freshly recorded round
+            ov.note_round(health, own_id=self._peer_id, members=members)
 
     def all_reduce(
         self, arrays, *, timeout=None, tag: str = "grads", epoch=None, group_cap=0
@@ -1418,7 +1502,9 @@ class TcpBackend(OuterBackend):
         attempt=0,
     ):
         timings: dict[str, float] = {}
-        _STAGE.set(StageTimes())
+        tr = obs.tracer()
+        _STAGE.set(obs.StageTimes())
+        t_mm_p = time.perf_counter() if tr is not None else 0.0
         t_mm = time.monotonic()
         # 1. matchmake
         _, meta, _ = await self._rdv_request(
@@ -1466,6 +1552,11 @@ class TcpBackend(OuterBackend):
         if n == 1:
             timings["matchmake_s"] = time.monotonic() - t_mm
             timings["round_s"] = time.monotonic() - t_mm
+            if tr is not None:
+                tr.add_span(
+                    "outer/rendezvous", t_mm_p, time.perf_counter(),
+                    round=join_key, group=n,
+                )
             self._record_round_health(
                 join_key, n, expected, elastic, timings, attempt=attempt,
                 members=[self._peer_id],
@@ -1474,7 +1565,22 @@ class TcpBackend(OuterBackend):
         # fingerprint the membership: retried rounds (same join_key) must not
         # consume stale mailbox traffic from a differently-shaped group
         round_key = f"{join_key}:{planner.group_fingerprint(group)}"
+
+        ov = obs.overseer.plane()
+        if ov is not None:
+            # the group snapshot every member received identically also
+            # carries every member's health roll-up — merge them so the
+            # galaxy matrix converges even between progress announces
+            for p in group:
+                if p["peer_id"] != self._peer_id:
+                    ov.merge(p["peer_id"], linkstate.member_health(p))
+
         timings["matchmake_s"] = time.monotonic() - t_mm
+        if tr is not None:
+            tr.add_span(
+                "outer/rendezvous", t_mm_p, time.perf_counter(),
+                round=join_key, group=n,
+            )
 
         # adaptive partitioning: probe never-measured links, then plan part
         # bounds from the group snapshot every member received identically.
@@ -1507,7 +1613,19 @@ class TcpBackend(OuterBackend):
         bounds = rp.bounds
         plan_meta = rp.plan_meta
         health_extra: Optional[dict] = dict(rp.health) or None
+        self._round_site_of = rp.site_of
         timings["flatten_s"] = time.monotonic() - t_ph
+        if tr is not None:
+            tr.add_span(
+                "outer/flatten",
+                time.perf_counter() - timings["flatten_s"],
+                time.perf_counter(),
+                round=join_key,
+            )
+        wan_tx0 = (
+            tr.counters().get(("wire_tx_bytes_wan", ()), 0.0)
+            if tr is not None else 0.0
+        )
 
         # 3-5. exchange. Hierarchical (two-level) when the planner produced
         # a multi-site plan; otherwise chunk-pipelined by default (encode
@@ -1533,6 +1651,13 @@ class TcpBackend(OuterBackend):
             flat_avg = await exchange(
                 group, my_idx, n, parts, bounds, flat.size, round_key,
                 deadline, scratch, timings, plan_meta,
+            )
+        if tr is not None:
+            # per-round WAN egress as a gauge (the counter is cumulative);
+            # obs_report surfaces the intra/WAN split from these
+            tr.gauge(
+                "wire_bytes_wan",
+                tr.counters().get(("wire_tx_bytes_wan", ()), 0.0) - wan_tx0,
             )
         stage = _STAGE.get()
         if stage is not None:
@@ -1593,6 +1718,7 @@ class TcpBackend(OuterBackend):
         # 3. push part j to its owner
         async def push(j):
             payload, cmeta = encode(parts[j])
+            record_wire(codec.name, parts[j].size * 4, len(payload))
             await self._send_part(
                 group[j]["host"],
                 group[j]["port"],
@@ -1647,9 +1773,16 @@ class TcpBackend(OuterBackend):
             return acc
 
         t_ph = time.monotonic()
+        t_ph_p = time.perf_counter()
         results = await asyncio.gather(collect(), *pushes)
         my_avg = results[0]
         timings["scatter_reduce_s"] = time.monotonic() - t_ph
+        tr = obs.tracer()
+        if tr is not None:
+            tr.add_span(
+                "outer/scatter_reduce", t_ph_p, time.perf_counter(),
+                round=round_key, group=n,
+            )
 
         # 5. fan the averaged part back out; gather the other parts.
         # Encode ONCE — the same payload serves every destination (the old
@@ -1716,10 +1849,16 @@ class TcpBackend(OuterBackend):
                 release_buffer(payload)
 
         t_ph = time.monotonic()
+        t_ph_p = time.perf_counter()
         await asyncio.gather(
             recv_results(), *[send_result(j) for j in range(n) if j != my_idx]
         )
         timings["all_gather_s"] = time.monotonic() - t_ph
+        if tr is not None:
+            tr.add_span(
+                "outer/all_gather", t_ph_p, time.perf_counter(),
+                round=round_key, group=n,
+            )
         return flat_avg
 
     @staticmethod
@@ -1760,6 +1899,7 @@ class TcpBackend(OuterBackend):
         from opendiloco_torch.diloco.bulk import release_buffer
 
         hp = rp.hier
+        tr = obs.tracer()
         raw = get_codec("none")
         site_idx = hp.site_of[self._peer_id]
         site = hp.sites[site_idx]  # group indices, group order
@@ -1787,6 +1927,7 @@ class TcpBackend(OuterBackend):
             j = site[k]
             part = flat[ib[k] : ib[k + 1]]
             payload, cmeta = raw.encode(part)
+            record_wire("none", part.size * 4, len(payload))
             await self._send_part(
                 group[j]["host"], group[j]["port"], "push",
                 _meta("intra", meta=cmeta, shape=[int(part.size)]),
@@ -1820,14 +1961,21 @@ class TcpBackend(OuterBackend):
             return acc
 
         t_ph = time.monotonic()
+        t_ph_p = time.perf_counter()
         results = await asyncio.gather(
             collect_intra(), *[push_intra(k) for k in range(m) if site[k] != my_idx]
         )
         site_acc = results[0]  # my slice of the site's UNSCALED sum
         timings["intra_reduce_s"] = time.monotonic() - t_ph
+        if tr is not None:
+            tr.add_span(
+                "outer/hier_intra", t_ph_p, time.perf_counter(),
+                round=round_key, group=m, site=site_idx,
+            )
 
         # -- stage A2: handoff — aggregator assembles the full site sum ---
         t_ph = time.monotonic()
+        t_ph_p = time.perf_counter()
         site_sum = None
         if is_agg:
             site_sum = self._checkout_buf(int(flat.size))
@@ -1851,6 +1999,7 @@ class TcpBackend(OuterBackend):
                 release_buffer(payload)
         else:
             payload, cmeta = raw.encode(site_acc)
+            record_wire("none", site_acc.size * 4, len(payload))
             await self._send_part(
                 group[agg_idx]["host"], group[agg_idx]["port"], "push",
                 _meta("handoff", meta=cmeta, shape=[int(site_acc.size)]),
@@ -1858,6 +2007,11 @@ class TcpBackend(OuterBackend):
                 peer_id=group[agg_idx]["peer_id"],
             )
         timings["handoff_s"] = time.monotonic() - t_ph
+        if tr is not None:
+            tr.add_span(
+                "outer/hier_handoff", t_ph_p, time.perf_counter(),
+                round=round_key, group=m, site=site_idx,
+            )
 
         # the caller gets views of flat_avg, so it retires instead of
         # joining scratch (same lifetime contract as the flat paths)
@@ -1866,6 +2020,7 @@ class TcpBackend(OuterBackend):
 
         # -- stage B: aggregators-only WAN butterfly (configured codec) ---
         t_ph = time.monotonic()
+        t_ph_p = time.perf_counter()
         if is_agg:
             s = hp.n_sites
             wb = hp.wan_bounds
@@ -1888,6 +2043,7 @@ class TcpBackend(OuterBackend):
                 j = aggs[t]
                 part = site_sum[wb[t] : wb[t + 1]]
                 payload, cmeta = encode(part)
+                record_wire(codec.name, part.size * 4, len(payload))
                 await self._send_part(
                     group[j]["host"], group[j]["port"], "push",
                     _meta("wan", meta=cmeta, shape=[int(part.size)]),
@@ -1970,11 +2126,18 @@ class TcpBackend(OuterBackend):
                 *[send_wan_result(t) for t in range(s) if aggs[t] != my_idx],
             )
         timings["wan_reduce_s"] = time.monotonic() - t_ph
+        if tr is not None:
+            tr.add_span(
+                "outer/hier_wan", t_ph_p, time.perf_counter(),
+                round=round_key, group=hp.n_sites, site=site_idx,
+            )
 
         # -- stage C: intra-site broadcast of the averaged buffer ---------
         t_ph = time.monotonic()
+        t_ph_p = time.perf_counter()
         if is_agg:
             payload, cmeta = raw.encode(flat_avg)
+            record_wire("none", flat_avg.size * 4, len(payload))
             await asyncio.gather(*[
                 self._send_part(
                     group[j]["host"], group[j]["port"], "result",
@@ -1997,6 +2160,11 @@ class TcpBackend(OuterBackend):
             raw.decode_into(payload, rmeta["meta"], flat_avg)
             release_buffer(payload)
         timings["bcast_s"] = time.monotonic() - t_ph
+        if tr is not None:
+            tr.add_span(
+                "outer/hier_bcast", t_ph_p, time.perf_counter(),
+                round=round_key, group=m, site=site_idx,
+            )
         return flat_avg
 
     def _chunk_sender(self, dest: dict, deadline: float):
@@ -2049,6 +2217,11 @@ class TcpBackend(OuterBackend):
                         )
                     if stage is not None:
                         stage.add("wire_send", time.perf_counter() - t0)
+                        tr = obs.tracer()
+                        if tr is not None:
+                            tr.count("wire_tx_bytes", nbytes)
+                            if self._is_wan_peer(dest.get("peer_id")):
+                                tr.count("wire_tx_bytes_wan", nbytes)
                     return
                 except Exception as e:
                     # the stream poisoned itself and dropped the pooled
@@ -2146,7 +2319,11 @@ class TcpBackend(OuterBackend):
             nchunks = len(grid) - 1
 
             def enc(k):
-                return enc_chunk(part[grid[k] : grid[k + 1]], state)
+                payload, cmeta = enc_chunk(part[grid[k] : grid[k + 1]], state)
+                record_wire(
+                    codec.name, (grid[k + 1] - grid[k]) * 4, len(payload)
+                )
+                return payload, cmeta
 
             send, close = self._chunk_sender(group[j], deadline)
             nxt = loop.run_in_executor(None, enc, 0)
@@ -2212,11 +2389,18 @@ class TcpBackend(OuterBackend):
             return acc
 
         t_ph = time.monotonic()
+        t_ph_p = time.perf_counter()
         results = await asyncio.gather(
             collect(), *[push(j) for j in range(n) if j != my_idx]
         )
         my_avg = results[0]
         timings["scatter_reduce_s"] = time.monotonic() - t_ph
+        tr = obs.tracer()
+        if tr is not None:
+            tr.add_span(
+                "outer/scatter_reduce", t_ph_p, time.perf_counter(),
+                round=round_key, group=n,
+            )
 
         # 5. fan the averaged part back out chunk by chunk; gather the other
         # parts. Each chunk is encoded ONCE (shared future) and the same
@@ -2305,12 +2489,18 @@ class TcpBackend(OuterBackend):
                 k += 1
 
         t_ph = time.monotonic()
+        t_ph_p = time.perf_counter()
         await asyncio.gather(
             adopt(),
             *[send_result_to(j) for j in range(n) if j != my_idx],
             *[recv_from(j) for j in range(n) if j != my_idx],
         )
         timings["all_gather_s"] = time.monotonic() - t_ph
+        if tr is not None:
+            tr.add_span(
+                "outer/all_gather", t_ph_p, time.perf_counter(),
+                round=round_key, group=n,
+            )
         return flat_avg
 
     def _peer_id_epoch_key(self) -> str:
@@ -2323,6 +2513,7 @@ class TcpBackend(OuterBackend):
         self._state_provider = get_state
 
     def fetch_state(self) -> Optional[dict]:
+        obs.count("fetch_state_calls")
         try:
             _, meta, _ = self._run(
                 self._rdv_request(
@@ -2355,9 +2546,10 @@ class TcpBackend(OuterBackend):
             return None
 
     def barrier(self, *, timeout: Optional[float] = None) -> None:
-        self.all_reduce(
-            [np.zeros(1, np.float32)], timeout=timeout or 60.0, tag="barrier"
-        )
+        with obs.span("outer/barrier_wait"):
+            self.all_reduce(
+                [np.zeros(1, np.float32)], timeout=timeout or 60.0, tag="barrier"
+            )
 
     def close(self) -> None:
         try:

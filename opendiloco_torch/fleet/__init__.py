@@ -14,8 +14,12 @@ package's, so port and JAX pieces mix in one fleet.
 
 ``build_fleet(fleet_cfg, model_cfg, params, diloco_opt)`` assembles it
 (``train()`` calls it when ``config.fleet.enabled``); :func:`status` is
-what the control port's ``fleet`` RPC answers. The JAX package's tracer
-and overseer calls are left out.
+what the control port's ``fleet`` RPC answers. Armed (``ODTP_OBS``), the
+manager counts spare promotions and each replica's staleness, publishes
+its staleness, queue depth and p99 gauges, and merges each replica's
+overseer roll-up into this process's matrix as ``replica:<rid>``, whose
+rows then overlay :meth:`FleetManager.health_matrix`, as the JAX package
+does.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import tempfile
 import threading
 from typing import Any, Optional
 
+from opendiloco_torch import obs
 from opendiloco_torch.fleet.autoscaler import FleetAutoscaler
 from opendiloco_torch.fleet.publisher import DeltaPublisher, apply_frame  # noqa: F401
 from opendiloco_torch.fleet.router import FleetRouter
@@ -142,6 +147,7 @@ class FleetManager:
                 return False
             self._spares.discard(rid)
         self.router.add_replica(rid, addr[0], addr[1])
+        obs.count("fleet_spare_promotions", replica=rid)
         return True
 
     def demote(self, rid: str) -> bool:
@@ -158,20 +164,44 @@ class FleetManager:
     def _note_reply(self, rid: str, rmeta: dict) -> None:
         with self._lock:
             self._last_reply[rid] = rmeta
+        st = rmeta.get("staleness")
+        if st is not None:
+            obs.count("fleet_staleness_rounds", 1, replica=rid, rounds=int(st))
+            obs.gauge("fleet_replica_staleness", int(st), replica=rid)
         h = rmeta.get("health")
-        if h and self.router is not None:
-            # the prefix directory's feed (no key: nothing resident)
-            self.router.update_prefixes(rid, h.get("prefixes") or [])
+        if h:
+            if self.router is not None:
+                # the prefix directory's feed (no key: nothing resident)
+                self.router.update_prefixes(rid, h.get("prefixes") or [])
+            if h.get("queue_depth") is not None:
+                obs.gauge("fleet_replica_queue_depth", int(h["queue_depth"]), replica=rid)
+            if h.get("p99_ms") is not None:
+                obs.gauge("fleet_replica_p99_ms", float(h["p99_ms"]), replica=rid)
+        vec = rmeta.get("rollup")
+        if vec:
+            ov = obs.overseer.plane()
+            if ov is not None:
+                ov.merge(f"replica:{rid}", vec)
 
     def health_matrix(self) -> dict:
-        """rid -> the latest load and health vector of its push replies:
-        the autoscaler's view of the fleet."""
+        """rid -> the latest load and health vector of its push replies,
+        overlaid, when armed, by the overseer matrix's replica rows: the
+        autoscaler's view of the fleet."""
         out: dict[str, dict] = {}
         with self._lock:
             for rid, rmeta in self._last_reply.items():
                 h = rmeta.get("health")
                 if h:
                     out[rid] = dict(h)
+        ov = obs.overseer.plane()
+        if ov is not None:
+            for peer, vec in ov.matrix().items():
+                if not peer.startswith("replica:"):
+                    continue
+                row = out.setdefault(peer.split(":", 1)[1], {})
+                for k in ("queue_depth", "occupancy", "p99_ms", "staleness", "stale"):
+                    if vec.get(k) is not None:
+                        row[k] = vec[k]
         return out
 
     def _push_loop(self, rid: str, host: str, port: int, stop: threading.Event) -> None:

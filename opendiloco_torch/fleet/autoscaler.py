@@ -20,8 +20,13 @@ action lands in the ``decisions`` log.
 
 Env overrides: ``ODTP_FLEET_SLO_P99_MS``, ``ODTP_FLEET_WARM_SPARES``,
 ``ODTP_FLEET_SCALE_COOLDOWN_S``. The module moves names and addresses,
-never weights; the JAX package's tracer, watchdog and flight recorder
-are left out.
+never weights. Armed (``ODTP_OBS``), as in the JAX package: a scale-up
+names the slowest recent request traces (the replicas' exemplars, else
+this process's ring), every action counts ``fleet_autoscale_decisions``
+and lands in the flight recorder, an SLO breach trips the watchdog, and
+each tick sets the ``fleet_replicas_target`` and
+``fleet_warm_spares_ready`` gauges; the matrix it reads is overlaid with
+the overseer's replica rows.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ import os
 import threading
 import time
 from typing import Callable, Optional
+
+from opendiloco_torch import obs
 
 log = logging.getLogger(__name__)
 
@@ -153,7 +160,8 @@ class FleetAutoscaler:
 
         Exemplars are the breaching replicas' slowest recent request
         traces (``slo_exemplars`` riding their health rows), worst
-        replica first."""
+        replica first, else this process's own request-trace ring (an
+        in-process fleet shares one ring)."""
         matrix = self.manager.health_matrix()
         rows = [(rid, matrix.get(rid) or {}) for rid in active]
         rows.sort(key=lambda kv: -(kv[1].get("p99_ms") or 0.0))
@@ -163,6 +171,10 @@ class FleetAutoscaler:
             for tid in row.get("slo_exemplars") or []:
                 if tid not in exemplars:
                     exemplars.append(tid)
+        if not exemplars:
+            rt = obs.reqtrace.ring()
+            if rt is not None:
+                exemplars = [ex["id"] for ex in rt.exemplars()]
         return worst, exemplars[:5]
 
     # -- act -----------------------------------------------------------------
@@ -172,6 +184,12 @@ class FleetAutoscaler:
         with self._lock:
             self.decisions.append(rec)
         log.info("autoscale %s: %s", action, detail)
+        obs.count("fleet_autoscale_decisions", action=action)
+        from opendiloco_torch.obs import blackbox
+
+        bb = blackbox.recorder()
+        if bb is not None:
+            bb.note_decision(rec)
         return rec
 
     def _next_rid(self, prefix: str) -> str:
@@ -286,7 +304,12 @@ class FleetAutoscaler:
 
         exemplars: list = []
         if breach:
-            _, exemplars = self._breach_evidence(active)
+            worst, exemplars = self._breach_evidence(active)
+            if self.slo_p99_ms > 0 and p99 is not None and p99 > self.slo_p99_ms:
+                wd = obs.anomaly.watchdog()
+                if wd is not None:
+                    # the breach record carries the offending trace ids
+                    wd.slo_breach(p99, self.slo_p99_ms, subject=worst, exemplars=exemplars)
 
         now = time.monotonic()
         cooled = self._last_scale is None or now - self._last_scale >= self.cooldown_s
@@ -340,6 +363,8 @@ class FleetAutoscaler:
                     replica=victim, mode=mode, replicas=len(active) - 1,
                 )
 
+        obs.gauge("fleet_replicas_target", len(self._active()))
+        obs.gauge("fleet_warm_spares_ready", len(self.ready_spares()))
         with self._lock:
             return list(self.decisions)[n0:]
 

@@ -20,8 +20,9 @@ same decode). After each outer epoch a push is either:
 fleet manager to ship (``fleet/wire.py``); :func:`apply_frame` is the one
 decode, shared by the replica and the publisher's shadow. Frames are the
 JAX package's bytes for the same masters, so either package's replica
-takes either package's frames. The JAX package's tracer counters are left
-out.
+takes either package's frames. Armed (``ODTP_OBS``), every frame counts
+``fleet_push_bytes`` and ``fleet_push_frames`` by kind and replica and its
+codec's ``record_wire`` bytes, under the JAX package's names.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from opendiloco_torch.diloco.compression import get_codec
+from opendiloco_torch import obs
+from opendiloco_torch.diloco.compression import get_codec, record_wire
 from opendiloco_torch.diloco.planner import fragment_partition
 from opendiloco_torch.diloco.state_io import state_codec
 
@@ -156,10 +158,10 @@ class DeltaPublisher:
             if ch.shadow is not None and ch.epoch >= epoch:
                 return []
             if ch.shadow is None or epoch - ch.last_keyframe >= self.keyframe_every:
-                return [self._keyframe(ch, epoch, masters)]
-            return self._deltas(ch, epoch, masters)
+                return [self._keyframe(ch, rid, epoch, masters)]
+            return self._deltas(ch, rid, epoch, masters)
 
-    def _keyframe(self, ch: _Channel, epoch: int, masters: list) -> tuple[dict, bytes]:
+    def _keyframe(self, ch: _Channel, rid: str, epoch: int, masters: list) -> tuple[dict, bytes]:
         ents, parts, off = [], [], 0
         for i, (flat, shape) in enumerate(zip(masters, self._shapes)):
             payload, meta = self.kf_codec.encode(flat)
@@ -176,9 +178,12 @@ class DeltaPublisher:
         ch.residual.clear()
         ch.keyframe_bytes += off
         ch.keyframe_frames += 1
+        obs.count("fleet_push_bytes", off, kind="keyframe", replica=rid)
+        obs.count("fleet_push_frames", kind="keyframe", replica=rid)
+        record_wire(self.kf_codec.name, self.fp16_snapshot_bytes * 2, off)
         return frame_meta, payload
 
-    def _deltas(self, ch: _Channel, epoch: int, masters: list) -> list[tuple[dict, bytes]]:
+    def _deltas(self, ch: _Channel, rid: str, epoch: int, masters: list) -> list[tuple[dict, bytes]]:
         """One self-contained delta frame: the fragment whose turn this
         epoch is, carrying all its leaves moved since their last push."""
         base = ch.epoch
@@ -197,9 +202,12 @@ class DeltaPublisher:
             ents.append({"i": i, "shape": list(self._shapes[i]), "off": off, "len": len(payload), "meta": meta})
             parts.append(payload)
             off += len(payload)
+            record_wire(self.codec.name, d.nbytes, len(payload))
         ch.delta_bytes += off
         ch.delta_frames += 1
         ch.epoch = epoch
+        obs.count("fleet_push_bytes", off, kind="delta", replica=rid)
+        obs.count("fleet_push_frames", kind="delta", replica=rid)
         return [({"kind": "delta", "epoch": epoch, "tepoch": epoch, "base_epoch": base, "frag": frag,
                   "nfrag": nfrag, "codec": self.codec.name, "leaves": ents}, b"".join(parts))]
 

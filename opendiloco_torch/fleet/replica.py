@@ -25,8 +25,10 @@ which prints one JSON line (``replica_id``, the bound ``serve_port`` and
 unless ``--device`` names another device. The spec is the JAX package's
 (``fleet.spawn_replica`` writes it), so a port replica takes a JAX
 publisher's frames and serves behind a JAX router, and the other way
-round. The JAX package's tracer, request traces and overseer rollups are
-left out.
+round. Armed (``ODTP_OBS``), the replica names itself to the tracer and
+the request-trace ring, counts ``fleet_frames_applied`` by kind, adds its
+overseer roll-up to every push reply (``rollup``) and answers the
+``reqtrace`` frame with its ring's snapshot, as a JAX replica does.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import socket
 import threading
 from typing import Optional
 
+from opendiloco_torch import obs
 from opendiloco_torch.fleet.publisher import FleetFrameError, apply_frame
 from opendiloco_torch.fleet.wire import FleetWireError, recv_frame, send_frame
 from opendiloco_torch.utils.logger import get_text_logger
@@ -94,6 +97,12 @@ class Replica:
         # while the predecessor's listener tears down
         self.server = ServeServer(self.batcher, host=host, port=serve_port, identity=self._identity,
                                   bind_retry_s=3.0 if serve_port else 0.0)
+        tr = obs.tracer()
+        if tr is not None:
+            tr.set_identity(worker=self.replica_id, role="fleet-replica")
+        rt = obs.reqtrace.ring()
+        if rt is not None:
+            rt.set_identity(self.replica_id)
         self._stop = threading.Event()
         self._push_sock: Optional[socket.socket] = None
         self.push_port = 0
@@ -131,6 +140,7 @@ class Replica:
             # the mailbox epoch moves per frame
             self._epoch = epoch
             self.trainer_epoch = max(self.trainer_epoch, int(meta.get("tepoch", epoch)))
+            obs.count("fleet_frames_applied", kind=kind)
             return self._epoch
 
     # -- health --------------------------------------------------------------
@@ -177,6 +187,26 @@ class Replica:
             out["prefixes"] = prefixes
         return out
 
+    def rollup(self) -> Optional[dict]:
+        """The overseer's health vector for this replica (None unarmed),
+        which the fleet manager merges into the trainer's matrix."""
+        ov = obs.overseer.plane()
+        if ov is None:
+            return None
+        h = self.batcher.health()
+        return ov.rollup(
+            role="fleet-replica",
+            replica=self.replica_id,
+            staleness=self.staleness(),
+            weights_epoch=self.engine.weights_epoch,
+            stale=self.stale(),
+            queue_depth=h["queue_depth"],
+            occupancy=h["occupancy"],
+            p99_ms=h["p99_ms"],
+            # the host tier's load (absent without one): odtp_top's tier%
+            **({"tier_occupancy": h["tier_occupancy"]} if "tier_occupancy" in h else {}),
+        )
+
     # -- push channel --------------------------------------------------------
 
     def _push_accept(self) -> None:
@@ -200,9 +230,12 @@ class Replica:
                         reply = {"replica": self.replica_id, "epoch": self._epoch,
                                  "weights_epoch": self.engine.weights_epoch}
                     elif kind == "reqtrace":
-                        # no request-trace plane here: the answer of a JAX
-                        # replica whose plane is unarmed
-                        reply = {"replica": self.replica_id, "reqtrace": None}
+                        # this replica's request-trace ring (odtp_top
+                        # --requests, obs_report's merge, the router's pull);
+                        # None unarmed
+                        rt = obs.reqtrace.ring()
+                        reply = {"replica": self.replica_id,
+                                 "reqtrace": rt.snapshot(recent=int(meta.get("recent", 32))) if rt is not None else None}
                     else:
                         epoch = self.apply(meta, payload)
                         reply = {
@@ -215,6 +248,9 @@ class Replica:
                             "free_slots": self.batcher.slots.num_free,
                             "health": self.health(),
                         }
+                        vec = self.rollup()
+                        if vec is not None:
+                            reply["rollup"] = vec
                     send_frame(conn, "ok", reply)
                 except FleetFrameError as e:
                     send_frame(conn, "error", {"error": str(e)})

@@ -19,8 +19,13 @@ registration call; replicas that report themselves ``stale`` get traffic
 only when nothing fresh lives. A request whose deadline cannot be met is
 shed at the edge (HTTP 503 with ``Retry-After``).
 
-The router moves JSON lines between sockets: no engine, no tensors. The
-JAX package's tracer, request traces and watchdog are left out.
+The router moves JSON lines between sockets: no engine, no tensors.
+Armed (``ODTP_OBS``), it reports what the JAX router reports: dispatch,
+redispatch, shed, affinity, directory, death and rejoin counters, the
+``fleet_replicas_live`` gauge, the dead-peer watchdog on a death, and one
+request trace a request (minted here, or adopted from upstream) whose
+context rides every forward attempt, so a request moved off a dead replica
+keeps one trace across both replicas.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ import threading
 import time
 from typing import Optional
 
+from opendiloco_torch import obs
+from opendiloco_torch.obs import reqtrace
 from opendiloco_torch.serve.kvcache import common_prefix_len, prefix_grid_lengths, prefix_key
 
 log = logging.getLogger(__name__)
@@ -177,6 +184,7 @@ class FleetRouter:
         self._reschedule_probe(b)  # first probe one jittered interval out
         with self._lock:
             self._backends[rid] = b
+        self._publish_live()
 
     def remove_replica(self, rid: str) -> None:
         with self._lock:
@@ -185,6 +193,7 @@ class FleetRouter:
                 self._drop_directory_locked(b)
         if b is not None:
             b.close_pool()
+        self._publish_live()
 
     # -- prefix-cache directory ----------------------------------------------
 
@@ -237,9 +246,16 @@ class FleetRouter:
                     <= least.inflight + self.affinity_max_extra_inflight
                 ):
                     self.directory_hits += 1
+                    obs.count("fleet_directory_hits", replica=rid)
                     return b
         self.directory_misses += 1
+        obs.count("fleet_directory_misses")
         return None
+
+    def _publish_live(self) -> None:
+        with self._lock:
+            live = sum(1 for b in self._backends.values() if not b.dead)
+        obs.gauge("fleet_replicas_live", live)
 
     # -- dispatch ------------------------------------------------------------
 
@@ -275,6 +291,7 @@ class FleetRouter:
                 and best.inflight
                 <= least.inflight + self.affinity_max_extra_inflight
             ):
+                obs.count("fleet_router_affinity_hits", replica=best.rid)
                 return best
         return least
 
@@ -320,6 +337,7 @@ class FleetRouter:
         """Edge rejection: the client gets a structured answer NOW (with
         a back-off hint) instead of a doomed wait in some replica queue."""
         self.shed += 1
+        obs.count("fleet_router_shed", reason=reason)
         floor = self._latency_floor_s() or 0.25
         out = {
             "error": "shed",
@@ -335,6 +353,22 @@ class FleetRouter:
         be met, else forward it to the picked replica; a connection error
         marks that replica dead and a retryable reject moves on, each time
         to a replica not yet tried, with the deadline's remaining budget."""
+        # trace context: adopt one minted upstream, else mint at this edge
+        # (the sampler may decline). The SAME context rides every forward
+        # attempt — a replica SIGKILL mid-flight re-dispatches the request
+        # with its history intact, so one request yields ONE trace
+        # spanning both replicas instead of losing the first leg.
+        rt = reqtrace.ring()
+        tid = None
+        if rt is not None:
+            ctx = reqtrace.ctx_of(payload)
+            if ctx is not None:
+                tid = rt.adopt(ctx, at="router")
+            else:
+                ctx = rt.mint(at="router", req_id=payload.get("id"))
+                tid = ctx["id"] if ctx else None
+            payload = reqtrace.attach(payload, ctx)
+        t_admit = time.perf_counter()
         prompt = [int(t) for t in payload.get("prompt") or []]
         deadline_ms = payload.get("deadline_ms")
         t_deadline = None
@@ -342,8 +376,12 @@ class FleetRouter:
             deadline_ms = float(deadline_ms)
             t_deadline = time.monotonic() + deadline_ms / 1e3
             floor = self._latency_floor_s()
-            if deadline_ms <= 0.0 or (floor is not None and deadline_ms / 1e3 < 0.9 * floor):
-                return self._shed(payload, "deadline unmeetable")
+            if deadline_ms <= 0.0 or (
+                floor is not None and deadline_ms / 1e3 < 0.9 * floor
+            ):
+                return self._traced_shed(
+                    payload, "deadline unmeetable", rt, tid
+                )
         tried: set = set()
         last_error = "no live replicas"
         with self._lock:
@@ -352,14 +390,26 @@ class FleetRouter:
             if t_deadline is not None:
                 remaining = t_deadline - time.monotonic()
                 if remaining <= 0:
-                    return self._shed(payload, "deadline exhausted")
-                # the replica sees the budget that is LEFT
-                payload = {**payload, "deadline_ms": round(remaining * 1e3, 3)}
+                    return self._traced_shed(
+                        payload, "deadline exhausted", rt, tid
+                    )
+                # the replica sees what budget is LEFT, not what the
+                # client started with — its scheduler sheds the doomed
+                payload = {
+                    **payload, "deadline_ms": round(remaining * 1e3, 3),
+                }
             b = self._pick(prompt, tried)
             if b is None:
                 break
+            if rt is not None and tid is not None:
+                rt.span(
+                    tid, "admit", t_admit, time.perf_counter(),
+                    replica=b.rid, candidates=len(self._backends) - len(tried),
+                    prompt_tokens=len(prompt),
+                )
             b.inflight += 1
             t0 = time.monotonic()
+            tf0 = time.perf_counter()
             try:
                 out = self._forward(b, payload)
             except (OSError, ValueError) as e:
@@ -367,29 +417,71 @@ class FleetRouter:
                 tried.add(b.rid)
                 self._mark_dead(b)
                 self.redispatches += 1
+                obs.count("fleet_router_redispatch", replica=b.rid)
+                if rt is not None and tid is not None:
+                    rt.span(tid, "forward", tf0, time.perf_counter(),
+                            replica=b.rid, error=str(e))
+                    rt.event(tid, "redispatch", from_replica=b.rid,
+                             cause="connection")
+                t_admit = time.perf_counter()  # re-admission for the retry
                 continue
             finally:
                 b.inflight -= 1
             if out.get("error") == "deadline exceeded":
-                return self._shed(payload, "deadline exceeded")
+                if rt is not None and tid is not None:
+                    rt.span(tid, "forward", tf0, time.perf_counter(),
+                            replica=b.rid, error="deadline exceeded")
+                return self._traced_shed(
+                    payload, "deadline exceeded", rt, tid
+                )
             if out.get("error") in _RETRYABLE:
                 last_error = f"replica {b.rid}: {out['error']}"
                 tried.add(b.rid)
                 self.redispatches += 1
+                obs.count("fleet_router_redispatch", replica=b.rid)
+                if rt is not None and tid is not None:
+                    rt.span(tid, "forward", tf0, time.perf_counter(),
+                            replica=b.rid, error=out["error"])
+                    rt.event(tid, "redispatch", from_replica=b.rid,
+                             cause=out["error"])
+                t_admit = time.perf_counter()
                 continue
             if "error" not in out:
                 self._done_lat.append(time.monotonic() - t0)
             b.dispatched += 1
             b.recent.append(prompt)
+            obs.count("fleet_router_dispatch", replica=b.rid)
+            if rt is not None and tid is not None:
+                rt.span(tid, "forward", tf0, time.perf_counter(),
+                        replica=b.rid)
+                rt.finish(
+                    tid,
+                    "failed" if "error" in out else "done",
+                    replica=b.rid,
+                    tokens=len(out.get("tokens") or []),
+                    redispatches=len(tried),
+                )
             return out
         out = {"error": last_error}
         if payload.get("id") is not None:
             out["id"] = payload["id"]
+        if rt is not None and tid is not None:
+            rt.finish(tid, "failed", error=last_error,
+                      redispatches=len(tried))
+        return out
+
+    def _traced_shed(
+        self, payload: dict, reason: str, rt, tid
+    ) -> dict:
+        out = self._shed(payload, reason)
+        if rt is not None and tid is not None:
+            rt.event(tid, "shed", reason=reason)
+            rt.finish(tid, "shed", reason=reason)
         return out
 
     def _mark_dead(self, b: _Backend) -> None:
-        # idempotent: two dispatch threads may watch one replica die; one
-        # of them retires it
+        # idempotent under concurrency: two dispatch threads can watch the
+        # same replica die mid-flight; exactly one performs the retire
         with self._lock:
             first = not b.dead
             b.dead = True
@@ -398,7 +490,12 @@ class FleetRouter:
                 self._drop_directory_locked(b)
         if first:
             b.close_pool()
+            obs.count("fleet_replica_deaths", replica=b.rid)
+            wd = obs.anomaly.watchdog()
+            if wd is not None:
+                wd.fleet_replica_dead(b.rid)
             log.warning("fleet replica %s marked dead", b.rid)
+        self._publish_live()
 
     # -- health probing ------------------------------------------------------
 
@@ -431,11 +528,13 @@ class FleetRouter:
                 pass
         if b.dead:
             log.info("fleet replica %s is back; resuming dispatch", b.rid)
+            obs.count("fleet_replica_rejoins", replica=b.rid)
         b.dead = False
         b.stale = bool(health.get("stale", False))
         b.ready = bool(health.get("ready", True)) and bool(
             health.get("ok", True)
         )
+        self._publish_live()
 
     def _reschedule_probe(self, b: _Backend) -> None:
         """Exponential backoff while dark, snap back on contact, ±25%

@@ -261,7 +261,8 @@ def test_manager_spares_promote_demote_and_health(tiny_cfg):
         mgr.attach("x1", "127.0.0.1", reps[1].server.port, "127.0.0.1", reps[1].push_port, router_register=False)
         assert mgr.spares() == ["x1"] and sorted(router.stats()["replicas"]) == ["x0"]
         assert _until(lambda: mgr.spare_ready("x1"), 30)
-        assert set(mgr.health_matrix()) == {"x0", "x1"}
+        # x0's first push reply may land after x1's
+        assert _until(lambda: set(mgr.health_matrix()) == {"x0", "x1"}, 30)
         assert {"queue_depth", "occupancy", "p99_ms", "staleness", "ready"} <= set(mgr.health_matrix()["x1"])
         assert mgr.promote("x1") and mgr.spares() == [] and sorted(router.stats()["replicas"]) == ["x0", "x1"]
         assert not mgr.promote("x1") and mgr.demote("x0") and mgr.spares() == ["x0"]

@@ -9,8 +9,13 @@ watchdog's exemplars; then a served request's complete stage chain
 (queue, prefill, decode, retire) through the batcher, the HTTP edge
 (minted there) and the JSONL edge (adopted from the client), token-exact
 spec decode spans, the reject and 503 paths' shed traces, the health
-row's exemplars. The router, replica and autoscaler cases belong to the
-fleet's obs calls, not ported yet.
+row's exemplars; the autoscaler's scale-up exemplars and SLO watchdog,
+and the router's trace context (untraced payloads stay clean, mint,
+adopt, one trace across a replica's death, shed, all replicas dead,
+sampled out) over the reference suite's fake replicas, with the
+reference's assertions. Last, the JAX router in front of a port replica,
+both armed: the JAX router's trace id reaches the port replica, whose
+ring answers the ``reqtrace`` frame with that request's stage chain.
 """
 import json
 import socket
@@ -22,7 +27,10 @@ import torch
 
 from opendiloco_torch import obs
 from opendiloco_torch.diloco.schema import TRACE_CTX_KEY
+from opendiloco_torch.fleet.autoscaler import FleetAutoscaler
+from opendiloco_torch.fleet.router import FleetRouter
 from opendiloco_torch.obs import reqtrace
+from test_reqtrace import _FakeReplica, _ScalerManager, _ScalerRouter
 
 
 @pytest.fixture(autouse=True)
@@ -176,6 +184,205 @@ def test_slo_breach_watchdog_carries_exemplars(monkeypatch):
     rec = [a for a in bb.anomalies if a["kind"] == "slo_breach"]
     assert rec and rec[0]["exemplars"] == ["t-1", "t-2"]
     assert rec[0]["subject"] == "r1"
+
+
+def test_scale_up_decision_carries_breach_exemplars(monkeypatch):
+    """Every scale-up names at least one exemplar trace id from the
+    breaching replica's health row."""
+    _arm(monkeypatch)
+    router = _ScalerRouter()
+    manager = _ScalerManager(router)
+    router.add_replica("r0", "127.0.0.1", 9000)
+    manager.health["r0"] = {
+        "p99_ms": 500.0, "queue_depth": 0,
+        "slo_exemplars": ["r0-aa-1", "r0-aa-2"],
+    }
+    booted = []
+    scaler = FleetAutoscaler(
+        manager, router, slo_p99_ms=100.0, min_replicas=1, max_replicas=4,
+        cooldown_s=0.0, up_evals=1,
+        boot_fn=lambda rid, reg: booted.append(rid) or router.add_replica(
+            rid, "127.0.0.1", 9001
+        ),
+    )
+    decisions = scaler.evaluate()
+    ups = [d for d in decisions if d["action"] == "scale_up"]
+    assert ups and ups[0]["exemplars"][:2] == ["r0-aa-1", "r0-aa-2"]
+    # the breach also tripped the slo_breach watchdog with the evidence
+    bb = obs.blackbox.recorder()
+    trips = [a for a in bb.anomalies if a["kind"] == "slo_breach"]
+    assert trips and trips[0]["subject"] == "r0"
+    assert trips[0]["exemplars"][:2] == ["r0-aa-1", "r0-aa-2"]
+
+
+def test_scale_up_exemplars_fall_back_to_local_ring(monkeypatch):
+    """Rows without slo_exemplars fall back to this process's own ring
+    (in-process fleets share one)."""
+    rt = _arm(monkeypatch)
+    tid = rt.mint()["id"]
+    rt.finish(tid)
+    router = _ScalerRouter()
+    manager = _ScalerManager(router)
+    router.add_replica("r0", "127.0.0.1", 9000)
+    manager.health["r0"] = {"p99_ms": 500.0, "queue_depth": 0}
+    scaler = FleetAutoscaler(
+        manager, router, slo_p99_ms=100.0, max_replicas=4,
+        cooldown_s=0.0, up_evals=1,
+        boot_fn=lambda rid, reg: router.add_replica(rid, "127.0.0.1", 9001),
+    )
+    ups = [d for d in scaler.evaluate() if d["action"] == "scale_up"]
+    assert ups and ups[0]["exemplars"] == [tid]
+
+
+# -- router propagation over the reference's fake replicas --------------------
+
+
+def test_router_untraced_payloads_stay_clean():
+    """Obs disarmed: no trace field ever reaches the replica."""
+    a = _FakeReplica("a")
+    router = FleetRouter(port=0, probe_interval_s=30.0, request_timeout=5.0)
+    try:
+        router.add_replica("a", "127.0.0.1", a.port)
+        out = router.dispatch({"prompt": [1, 2], "max_new_tokens": 2})
+        assert out["tokens"] == [1, 2, 3]
+        assert TRACE_CTX_KEY not in a.payloads[0]
+    finally:
+        router.stop()
+        a.kill()
+
+
+def test_router_mints_context_that_rides_the_wire(monkeypatch):
+    rt = _arm(monkeypatch)
+    rt.set_identity("router")
+    a = _FakeReplica("a")
+    router = FleetRouter(port=0, probe_interval_s=30.0, request_timeout=5.0)
+    try:
+        router.add_replica("a", "127.0.0.1", a.port)
+        out = router.dispatch({"prompt": [1, 2, 3], "max_new_tokens": 2,
+                               "id": 7})
+        assert out["tokens"] == [1, 2, 3]
+        wire_ctx = a.payloads[0][TRACE_CTX_KEY]
+        tr = rt.get(wire_ctx["id"])
+        assert tr["status"] == "done"
+        stages = [s["stage"] for s in tr["spans"]]
+        assert stages == ["admit", "forward"]
+        assert tr["spans"][1]["attrs"]["replica"] == "a"
+        assert tr["attrs"]["redispatches"] == 0
+        assert rt.inflight_ids() == []
+    finally:
+        router.stop()
+        a.kill()
+
+
+def test_router_adopts_upstream_context(monkeypatch):
+    rt = _arm(monkeypatch)
+    a = _FakeReplica("a")
+    router = FleetRouter(port=0, probe_interval_s=30.0, request_timeout=5.0)
+    try:
+        router.add_replica("a", "127.0.0.1", a.port)
+        out = router.dispatch({
+            "prompt": [1], "max_new_tokens": 1,
+            TRACE_CTX_KEY: {"id": "client-9", "o": "client"},
+        })
+        assert out["tokens"] == [1, 2, 3]
+        # the same id downstream: no re-mint
+        assert a.payloads[0][TRACE_CTX_KEY]["id"] == "client-9"
+        assert rt.get("client-9")["status"] == "done"
+        assert rt.adopted == 1 and rt.minted == 0
+    finally:
+        router.stop()
+        a.kill()
+
+
+def test_replica_death_yields_one_trace_spanning_both_replicas(monkeypatch):
+    """The redispatch after a replica's death keeps the request's
+    history: one trace holds the dead replica's forward, the redispatch
+    marker and the survivor's answer, and nothing is left inflight."""
+    rt = _arm(monkeypatch)
+    a = _FakeReplica("a", die_on_request=True)
+    b = _FakeReplica("b")
+    router = FleetRouter(port=0, probe_interval_s=30.0, request_timeout=10.0)
+    try:
+        router.add_replica("a", "127.0.0.1", a.port)
+        router.add_replica("b", "127.0.0.1", b.port)
+        outs = [
+            router.dispatch({"prompt": [1, 2, 3], "max_new_tokens": 3,
+                             "id": i})
+            for i in range(4)
+        ]
+        assert all(o.get("tokens") == [1, 2, 3] for o in outs)
+        assert router.stats()["deaths"] == 1
+        done = list(rt.completed)
+        assert len(done) == 4 and all(t["status"] == "done" for t in done)
+        # the victim's trace spans both replicas under ONE id
+        victims = [
+            t for t in done
+            if any(s["stage"] == "redispatch" for s in t["spans"])
+        ]
+        assert len(victims) == 1
+        v = victims[0]
+        fwd = [s for s in v["spans"] if s["stage"] == "forward"]
+        assert [s["attrs"]["replica"] for s in fwd] == ["a", "b"]
+        assert "error" in fwd[0]["attrs"] and "error" not in fwd[1]["attrs"]
+        assert v["attrs"]["redispatches"] == 1
+        # the same context hit both replicas' wire payloads
+        assert a.payloads[0][TRACE_CTX_KEY]["id"] == v["id"]
+        assert v["id"] in [
+            p[TRACE_CTX_KEY]["id"] for p in b.payloads
+        ]
+        assert rt.inflight_ids() == []  # nothing dangles
+    finally:
+        router.stop()
+        a.kill()
+        b.kill()
+
+
+def test_router_shed_at_edge_records_shed_trace(monkeypatch):
+    rt = _arm(monkeypatch)
+    a = _FakeReplica("a")
+    router = FleetRouter(port=0, probe_interval_s=30.0, request_timeout=5.0)
+    try:
+        router.add_replica("a", "127.0.0.1", a.port)
+        out = router.dispatch({"prompt": [1], "max_new_tokens": 1,
+                               "deadline_ms": 0})
+        assert out["error"] == "shed"
+        done = list(rt.completed)
+        assert len(done) == 1 and done[0]["status"] == "shed"
+        assert [s["stage"] for s in done[0]["spans"]] == ["shed"]
+        assert rt.inflight_ids() == []
+    finally:
+        router.stop()
+        a.kill()
+
+
+def test_all_replicas_dead_finishes_trace_failed(monkeypatch):
+    rt = _arm(monkeypatch)
+    a = _FakeReplica("a", die_on_request=True)
+    router = FleetRouter(port=0, probe_interval_s=30.0, request_timeout=5.0)
+    try:
+        router.add_replica("a", "127.0.0.1", a.port)
+        out = router.dispatch({"prompt": [1], "max_new_tokens": 1})
+        assert "error" in out
+        done = list(rt.completed)
+        assert len(done) == 1 and done[0]["status"] == "failed"
+        assert rt.inflight_ids() == []
+    finally:
+        router.stop()
+        a.kill()
+
+
+def test_sampled_out_requests_carry_no_context(monkeypatch):
+    _arm(monkeypatch, ODTP_REQTRACE_SAMPLE="0")
+    a = _FakeReplica("a")
+    router = FleetRouter(port=0, probe_interval_s=30.0, request_timeout=5.0)
+    try:
+        router.add_replica("a", "127.0.0.1", a.port)
+        out = router.dispatch({"prompt": [1], "max_new_tokens": 1})
+        assert out["tokens"] == [1, 2, 3]
+        assert TRACE_CTX_KEY not in a.payloads[0]
+    finally:
+        router.stop()
+        a.kill()
 
 
 # -- serve plane: scheduler and server stage chains (CPU) -----------------------
@@ -356,3 +563,51 @@ def test_health_carries_slo_exemplars(monkeypatch, tiny_cfg):
     monkeypatch.delenv("ODTP_OBS", raising=False)
     batcher2 = _make_batcher(tiny_cfg)
     assert "slo_exemplars" not in batcher2.health()
+
+
+def test_jax_router_pulls_a_port_replicas_spans(monkeypatch, tiny_cfg):
+    """The JAX router in front of a port replica, both packages armed: the
+    router's trace id rides the request to the replica, and the replica's
+    ``reqtrace`` frame (asked through the JAX push wire) answers that
+    request's complete stage chain under the same id."""
+    from opendiloco_tpu import obs as jobs
+    from opendiloco_tpu.fleet import wire as jfwire
+    from opendiloco_tpu.fleet.router import FleetRouter as JFleetRouter
+    from opendiloco_torch.fleet import FleetManager
+    from opendiloco_torch.fleet.publisher import DeltaPublisher
+    from opendiloco_torch.fleet.replica import Replica
+    from test_torch_fleet import _port_cfg, _tiny_masters, wait
+
+    jobs.reset()
+    _arm(monkeypatch)
+    jrt = jobs.reqtrace.ring()
+    jrt.set_identity("router")
+    masters = _tiny_masters(tiny_cfg)
+    pub = DeltaPublisher(lambda: (0, masters), codec="blockwise4bit", fragments=2, keyframe_every=4)
+    mgr = FleetManager(pub, None, push_interval_s=0.05)
+    rep = Replica("port", _port_cfg(tiny_cfg), max_queue=64, device="cpu", num_slots=2, max_context=64,
+                  prefill_buckets=(8, 16))
+    router = JFleetRouter(port=0, probe_interval_s=30.0, request_timeout=60.0)
+    try:
+        mgr.attach("port", "127.0.0.1", rep.server.port, "127.0.0.1", rep.push_port)
+        assert wait(rep.ready), "the replica never onboarded from a keyframe"
+        router.add_replica("port", "127.0.0.1", rep.server.port)
+        out = router.dispatch({"prompt": [1, 2, 3, 4], "max_new_tokens": 3, "id": 5})
+        assert len(out["tokens"]) == 3 and "error" not in out
+        (jtrace,) = list(jrt.completed)
+        assert [s["stage"] for s in jtrace["spans"]] == ["admit", "forward"]
+        assert jtrace["spans"][1]["attrs"]["replica"] == "port"
+        assert wait(lambda: reqtrace.ring().get(jtrace["id"]) is not None, 10)
+        with socket.create_connection(("127.0.0.1", rep.push_port), timeout=10) as conn:
+            jfwire.send_frame(conn, "reqtrace", {"recent": 8})
+            msg, meta, _ = jfwire.recv_frame(conn, timeout=10.0)
+        assert msg == "ok" and meta["replica"] == "port"
+        (row,) = [r for r in meta["reqtrace"]["recent"] if r["id"] == jtrace["id"]]
+        assert row["status"] == "done"
+        assert {"queue", "prefill", "decode", "retire"} <= set(row["stages_ms"])
+        assert all(v >= 0.0 and v == v for v in row["stages_ms"].values())
+    finally:
+        router.stop()
+        mgr.stop()
+        rep.stop()
+        jobs.reset()
