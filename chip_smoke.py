@@ -5,8 +5,9 @@ training that serves over HTTP with weight hot swap, the command line,
 the outer plane on the card (overlapped and streaming rounds, error
 feedback), sharding, a galaxy of two workers over TCP, NoLoCo gossip
 rounds, the serving fleet, routed experts, ring attention, tensor and
-pipeline parallelism, and the obs plane armed on serving, training, the
-TCP galaxy, gossip and the fleet.
+pipeline parallelism, the obs plane armed on serving, training, the TCP
+galaxy, gossip and the fleet, the remat policies, the normative DiLoCo
+driver, the input prefetcher and the decode-kernel choice.
 
     python3 chip_smoke.py
 
@@ -379,7 +380,30 @@ exits non-zero.
    router's admit, the replica's queue, prefill, decode and retire, the
    router's forward), ``fleet_router_dispatch`` is 8 and
    ``fleet_push_frames`` counts one keyframe and one delta.
-32. The kernels line (launches of B6, B7, their merges and B8 by serving
+32. The input prefetcher, selective remat, the normative driver and
+   ``decode_kernel``: (a) config_1b's widths at 4 of its 22 layers
+   (``REMAT_LAYERS``: the smoke's time limit), mb 8 x accum 2 x seq 1024,
+   bf16, the flash kernels and the fused loss, numpy params: one step's
+   loss and gradients under ``remat`` True, "dots", "dots_all" and
+   False, every one bit for bit True's, the sm90 B1 4 L launches under
+   True and 2 L under the others (the selective policies keep B1's out
+   and lse through the custom op ``odtp::flash_fwd``), delta, B2a, B2b
+   and the loss kernels alike; each policy's step ms (3 steps after a
+   warm-up, the collector frozen) and peak device memory. (b)
+   ``train_diloco.run`` at config_150m's widths and 2 of its layers, two
+   simulated workers, 4 steps, ``--local-steps`` 2, ``--eval-interval``
+   2, ramp data, on host then device placement: B1, delta, B2a and B2b
+   launch, the losses fall, the placements' losses, eval losses and
+   masters bit for bit. (c) phase 8's two workers at that cut, 4 steps,
+   at ``prefetch_depth`` 0 and 2: losses, LRs, grad norms, master hashes
+   and launches bit for bit, ``data_wait_s`` by step (phase 8b's resume
+   runs through the prefetcher since PR 23). (d) (after phase 30 (a), on
+   phase 4's params) a config_1b w4 engine in f32 compute under
+   ``decode_kernel`` "auto" and "xla", 4 of phase 4's prompts x 16
+   tokens: the streams equal; under "auto" B6 and its merge 22 a decode
+   step and B8 (the first design, f32) 7 x 22 a prefill and a decode
+   step; under "xla" no launch.
+33. The kernels line (launches of B6, B7, their merges and B8 by serving
    phase, of the training kernels by training phase), each phase's
    seconds and the smoke's, the card line, and last the result line.
 
@@ -5463,6 +5487,257 @@ def phase_obs_galaxy(torch, tfa, tdk, dev, card: str) -> dict:
 PHASE_SECONDS: dict = {}
 
 
+# ---------------------------------------------------------------------------
+# phase 32: selective remat, the normative driver, the input prefetcher and
+# ServeConfig.decode_kernel
+# ---------------------------------------------------------------------------
+
+REMAT_LAYERS = 4  # of config_1b's 22 (phase 32 (a): the smoke's time limit)
+REMAT_POLICIES = (True, "dots", "dots_all", False)
+REMAT_RUN = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16)
+REMAT_TIMED_STEPS = 3
+# phase 32 (c): phase 8's run at CUT_LAYERS of config_150m's 12, 4 steps,
+# local_steps 2, no checkpoints
+PREFETCH_150M = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=2,
+                     total_steps=4, local_steps=2, lr=1e-3)
+DECODE_KERNEL_REQUESTS = 4
+DECODE_KERNEL_NEW_TOKENS = 16
+
+
+def grads_checksum(torch, grads) -> int:
+    """An integer over every bit of ``grads`` (f32 words weighted by their
+    position), summed on the card: equal gradients give equal sums."""
+    total = 0
+    for g in grads:
+        w = g.detach().contiguous().view(-1).view(torch.int32).to(torch.int64)
+        pos = torch.arange(w.numel(), device=w.device, dtype=torch.int64) % 1000003 + 1
+        total += int((w * pos).sum())
+    return total
+
+
+def remat_loss_grads(torch, tr, state, batch):
+    """Loss and whole gradients of one inner step (accum micro-batches,
+    summed as the trainer sums them), without the update."""
+    from opendiloco_torch.models.llama import flatten_params
+
+    leaves = flatten_params(state["params"])
+    loss_sum, grad_sum = None, None
+    for i in range(batch["input_ids"].shape[0]):
+        loss = tr._loss_fn(state["params"], batch["input_ids"][i], batch["labels"][i])
+        grads = torch.autograd.grad(loss, leaves)
+        if grad_sum is None:
+            loss_sum, grad_sum = loss.detach(), list(grads)
+        else:
+            loss_sum = loss_sum + loss.detach()
+            torch._foreach_add_(grad_sum, grads)
+    return loss_sum, grad_sum
+
+
+def phase_remat(torch, tfa, dev, card: str) -> dict:
+    """Phase 32 (a): config_1b's widths at REMAT_LAYERS of its 22 layers,
+    mb 8 x accum 2 x seq 1024, bf16, the flash kernels and the fused loss,
+    one inner step's loss and gradients under each of True, "dots",
+    "dots_all" and False from the same numpy params and batch: every one
+    bit for bit True's; B1 4 L launches under True and 2 L under the
+    others (the selective policies keep B1's out and lse), the backward
+    and loss kernels alike under all four. Then each policy's step ms (full
+    ``train_step``, after a warm-up step, the collector frozen) and peak
+    device memory."""
+    import tempfile
+
+    from opendiloco_torch.data.dataloader import FakeTokenizedDataset
+    from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.models.llama import shapes
+    from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
+
+    cfg = load_config(cut_depth("1b", REMAT_LAYERS, tempfile.mkdtemp()))
+    L, run = cfg.num_hidden_layers, REMAT_RUN
+    accum = run["total_batch_size"] // run["per_device_train_batch_size"]
+    params = np_params(shapes(cfg), np.random.default_rng(32))
+    ds = iter(FakeTokenizedDataset(run["seq_length"], cfg.vocab_size, seed=32, mode="ramp"))
+    ids = np.stack([next(ds)["input_ids"] for _ in range(run["total_batch_size"])])
+    chunks = -(-run["per_device_train_batch_size"] * (run["seq_length"] - 1) // 2048)
+    ref_grads, res = None, {"layers": L, "accum": accum, "policies": {}}
+    for policy in REMAT_POLICIES:
+        tr = InnerTrainer(cfg, TrainerConfig(precision="bf16-mixed", remat=policy, attn_impl="pallas",
+                                             fused_loss=True, warmup_steps=2, total_steps=100), device=dev)
+        state = tr.init_state(params=params)
+        batch = tr.shard_batch(ids, ids.copy(), accum=accum)
+        tfa.LAUNCHES.reset()
+        loss, grads = remat_loss_grads(torch, tr, state, batch)
+        torch.cuda.synchronize()
+        launches = tfa.LAUNCHES.snapshot()
+        want = {"flash_attention_fwd_sm90": (4 if policy is True else 2) * L,
+                "flash_attention_delta": L * accum, "flash_attention_dq_sm90": L * accum,
+                "flash_attention_dkv_sm90": L * accum, "fused_xent_fwd_sm90": accum,
+                "fused_xent_dlog_sm90": accum * chunks, "fused_xent_dh_sm90": accum * chunks,
+                "fused_xent_dw_sm90": accum * chunks}
+        check_launches(launches, want, f"remat {policy!r} step")
+        checksum = grads_checksum(torch, grads)
+        if ref_grads is None:
+            ref_loss, ref_grads = loss, grads
+        else:
+            if not torch.equal(loss, ref_loss):
+                raise AssertionError(f"remat {policy!r}: loss {float(loss)} != True's {float(ref_loss)}")
+            bad = [i for i, (a, b) in enumerate(zip(grads, ref_grads)) if not torch.equal(a, b)]
+            if bad:
+                raise AssertionError(f"remat {policy!r}: gradient leaves {bad} differ from True's")
+        del grads
+        state, m = tr.train_step(state, batch)  # the warm-up step
+        float(m["loss"])
+        gc.collect()
+        gc.freeze()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(REMAT_TIMED_STEPS + 1)]
+            t0 = time.perf_counter()
+            events[0].record()
+            for i in range(REMAT_TIMED_STEPS):
+                state, m = tr.train_step(state, batch)
+                events[i + 1].record()
+            float(m["loss"])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / REMAT_TIMED_STEPS * 1e3
+        finally:
+            gc.unfreeze()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        res["policies"][str(policy)] = {
+            "loss": float(loss) / accum, "grads_checksum": checksum, "launches": launches, "step_ms": step_ms,
+            "card_ms_by_step": [events[i].elapsed_time(events[i + 1]) for i in range(REMAT_TIMED_STEPS)],
+            "peak_memory_gib": peak}
+        log(f"remat 1b ({L} layers) {policy!r}: loss {float(loss) / accum:.6f}, gradients checksum {checksum}, B1 "
+            f"{launches.get('flash_attention_fwd_sm90')} (delta/B2a/B2b {L * accum}, B3 {accum}, dlog/B4a/B4b "
+            f"{accum * chunks}), step {step_ms:.1f} ms (card {res['policies'][str(policy)]['card_ms_by_step']}), "
+            f"peak {peak:.2f} GiB | {card}")
+        del tr, state, batch, m, loss
+        torch.cuda.empty_cache()
+    del ref_grads, ref_loss
+    torch.cuda.empty_cache()
+    log(f"remat 1b ({L} layers): every policy's loss and gradients bit for bit True's")
+    return res
+
+
+def phase_driver(torch, tfa, dev, card: str) -> dict:
+    """Phase 32 (b): ``train_diloco.run`` at config_150m's widths and
+    CUT_LAYERS of its layers, two simulated workers, 4 steps,
+    ``--local-steps`` 2, ``--eval-interval`` 2, mb 8 x seq 1024, bf16, on
+    the learnable ramp stream (on the JAX driver's uniform tokens nothing
+    is learnable in 4 steps), on host then on device placement: B1 and
+    the backward kernels launch, losses finite and falling, the two
+    placements' masters, losses and eval losses bit for bit."""
+    import tempfile
+
+    from opendiloco_torch import train_diloco
+
+    model = cut_depth("150m", CUT_LAYERS, tempfile.mkdtemp())
+    res = {}
+    for placement in ("host", "device"):
+        args = train_diloco.build_parser().parse_args(
+            ["--path-model", model, "--fake-data", "--fake-data-mode", "ramp", "--num-workers", "2", "--local-steps",
+             "2", "--total-steps", "4",
+             "--warmup-steps", "1", "--lr", "1e-3", "--batch-size", "8", "--seq-length", "1024",
+             "--eval-interval", "2", "--eval-batches", "2", "--outer-placement", placement])
+        tfa.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        out = train_diloco.run(args, dev)
+        wall = time.perf_counter() - t0
+        launches = tfa.LAUNCHES.snapshot()
+        for name in ("flash_attention_fwd_sm90", "flash_attention_delta", "flash_attention_dq_sm90",
+                     "flash_attention_dkv_sm90"):
+            if not launches.get(name):
+                raise AssertionError(f"driver {placement}: {name} never launched ({launches})")
+        losses = out["losses"]
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            raise AssertionError(f"driver {placement}: losses {losses}")
+        res[placement] = {"losses": losses, "eval_losses": out["eval_losses"], "launches": launches,
+                          "master_hash": master_hash(out["master"]), "wall_s": wall}
+        log(f"train_diloco 150m ({CUT_LAYERS} layers) {placement}: losses {losses}, eval {out['eval_losses']}, "
+            f"master {res[placement]['master_hash'][:16]}, launches {launches}, {wall:.1f} s | {card}")
+    h, d = res["host"], res["device"]
+    if (h["losses"], h["eval_losses"], h["master_hash"]) != (d["losses"], d["eval_losses"], d["master_hash"]):
+        raise AssertionError(f"driver: host and device placement differ: {res}")
+    log("train_diloco: host and device placement bit for bit (losses, eval losses, masters)")
+    return res
+
+
+def phase_prefetch(torch, tfa, dev, card: str) -> dict:
+    """Phase 32 (c): phase 8's two workers at config_150m's widths and
+    CUT_LAYERS of its layers, 4 steps, at ``prefetch_depth`` 0 and 2
+    (:func:`train_workers`): losses, LRs, grad norms and the master hashes
+    at each round bit for bit; each run's ``data_wait_s`` by step."""
+    import tempfile
+
+    model = cut_depth("150m", CUT_LAYERS, tempfile.mkdtemp())
+    res = {}
+    for depth in (0, 2):
+        tw = train_workers(torch, tfa, dev, model, PREFETCH_150M, extra={"prefetch_depth": depth})
+        res[depth] = {"losses": [[r["Loss"] for r in rr] for rr in tw["rows"]],
+                      "lrs": [[r["lr"] for r in rr] for rr in tw["rows"]],
+                      "grad_norms": [[r["grad_norm"] for r in rr] for rr in tw["rows"]],
+                      "data_wait_s": [[r["data_wait_s"] for r in rr] for rr in tw["rows"]],
+                      "step_s": inner_step_s(tw["rows"]), "hashes": tw["hashes"], "launches": tw["launches"],
+                      "wall_s": tw["wall"]}
+        log(f"prefetch 150m ({CUT_LAYERS} layers) depth {depth}: data_wait_s {res[depth]['data_wait_s']}, "
+            f"inner step s {res[depth]['step_s']}, train wall {tw['wall']:.2f} s | {card}")
+    a, b = res[0], res[2]
+    for k in ("losses", "lrs", "grad_norms", "hashes", "launches"):
+        if a[k] != b[k]:
+            raise AssertionError(f"prefetch depth 0 vs 2: {k} differ: {a[k]} vs {b[k]}")
+    log("prefetch: depth 0 and 2 bit for bit (losses, LRs, grad norms, master hashes, launches)")
+    return res
+
+
+def phase_decode_kernel(torch, tdk, cfg, params, dev, card: str) -> dict:
+    """Phase 32 (d): a config_1b w4 engine in f32 compute (bf16 would let
+    the two paths' roundings tell tokens apart) under ``decode_kernel``
+    "auto" and "xla", DECODE_KERNEL_REQUESTS of phase 4's prompts at once,
+    DECODE_KERNEL_NEW_TOKENS tokens each: the streams equal; under "auto"
+    B6 and its merge phase 4's counts a decode step and B8 (the first
+    design, f32) 7 x 22 a prefill and a decode step; under "xla" no kernel
+    at all."""
+    from opendiloco_torch.config import ServeConfig
+    from opendiloco_torch.serve import build_serving
+
+    L = cfg.num_hidden_layers
+    res, streams = {}, {}
+    for kernel in ("auto", "xla"):
+        sc = ServeConfig(weight_format="w4", decode_kernel=kernel)
+        prompts = prompts_over_buckets(sc, cfg.vocab_size)[:DECODE_KERNEL_REQUESTS]
+        plane = build_serving(sc, cfg, params, compute_dtype=torch.float32, device=dev, start_server=False)
+        try:
+            batcher = plane.batcher
+            for r in [batcher.submit(p[:8], max_new_tokens=2) for p in prompts]:
+                if not r.wait(600) or r.error is not None:
+                    raise AssertionError(f"decode_kernel {kernel}: warm-up failed: {r.error}")
+            base = batcher.stats()
+            tdk.LAUNCHES.reset()
+            t0 = time.perf_counter()
+            reqs = [batcher.submit(p, max_new_tokens=DECODE_KERNEL_NEW_TOKENS) for p in prompts]
+            for r in reqs:
+                if not r.wait(1200) or r.error is not None:
+                    raise AssertionError(f"decode_kernel {kernel}: request failed: {r.error}")
+            wall = time.perf_counter() - t0
+            launches = tdk.LAUNCHES.snapshot()
+            st = batcher.stats()
+            steps, prefills = st["decode_steps"] - base["decode_steps"], st["completed"] - base["completed"]
+            engine_kernel = plane.engine.decode_kernel
+        finally:
+            plane.stop()
+        want = ({"paged_decode_attention": L * steps, "paged_decode_attention_merge": PAGED_MERGES_PER_STEP * steps,
+                 "w4_matmul": 7 * L * (prefills + steps)} if kernel == "auto" else {})
+        check_launches(launches, want, f"decode_kernel {kernel} ({steps} decode steps, {prefills} prefills)")
+        streams[kernel] = [r.tokens for r in reqs]
+        res[kernel] = {"resolved": engine_kernel, "decode_steps": steps, "prefills": prefills, "launches": launches,
+                       "wall_s": wall}
+        log(f"decode_kernel {kernel} (resolved {engine_kernel}), 1b w4 f32: {steps} decode steps, {prefills} "
+            f"prefills, launches {launches}, {wall:.2f} s | {card}")
+    if streams["auto"] != streams["xla"]:
+        raise AssertionError(f"decode_kernel: auto and xla streams differ: {streams}")
+    log(f"decode_kernel: auto and xla streams equal ({DECODE_KERNEL_REQUESTS} x {DECODE_KERNEL_NEW_TOKENS} tokens)")
+    return res
+
+
 def timed(name: str, fn, *args, **kw):
     """``fn(*args, **kw)``, its wall seconds kept under ``name``."""
     t0 = time.perf_counter()
@@ -5516,6 +5791,7 @@ def main() -> int:
     wire = timed("20 install_wire", phase_install_wire, torch, tdk, cfg, params, dev, card, serve)
     tier = timed("22 kv tier", phase_tier, torch, tdk, cfg, params, dev)
     obs_serve = timed("30a obs serve", phase_obs_serve, torch, tdk, cfg, params, dev, card)
+    decode_kernel = timed("32d decode_kernel", phase_decode_kernel, torch, tdk, cfg, params, dev, card)
     del params
     for s in serve:
         s.pop("tokens")
@@ -5553,6 +5829,9 @@ def main() -> int:
     tp_pp = timed("29 tp pp 1b", phase_tp_pp, torch, tfa, dev, card)
     obs_train = timed("30b obs train", phase_obs_train, torch, tfa, dev, card)
     obs_galaxy = timed("31 obs galaxy", phase_obs_galaxy, torch, tfa, tdk, dev, card)
+    remat = timed("32a remat 1b", phase_remat, torch, tfa, dev, card)
+    driver = timed("32b train_diloco", phase_driver, torch, tfa, dev, card)
+    prefetch = timed("32c prefetch", phase_prefetch, torch, tfa, dev, card)
 
     # launches: each serving phase's main path, by phase
     serving = {f"serve {s['weight_format']}": s["launches"] for s in serve}
@@ -5568,6 +5847,7 @@ def main() -> int:
                     for t, turn in enumerate(obs_serve["turns"])})
     serving.update({f"obs fleet 150m (2 layers) turn {mode}": turn["launches"]
                     for mode, turn in obs_galaxy["fleet"].items()})
+    serving.update({f"decode_kernel 1b w4 f32 {k}": r["launches"] for k, r in decode_kernel.items()})
     for k in (*b6, *b7, *b8):
         k["launches_by_phase"] = {phase: counts.get(k["name"], 0) for phase, counts in serving.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
@@ -5596,7 +5876,13 @@ def main() -> int:
                                   **{f"tp/pp 1b {label}": sum(t.get(k["name"], 0) for t in r["launches_by_thread"])
                                      for label, r in tp_pp["runs"].items()},
                                   "obs 150m (2 layers) armed": obs_train["launches"].get(k["name"], 0),
-                                  "obs tcp 150m (2 layers) armed": obs_galaxy["launches"].get(k["name"], 0)}
+                                  "obs tcp 150m (2 layers) armed": obs_galaxy["launches"].get(k["name"], 0),
+                                  **{f"remat 1b ({REMAT_LAYERS} layers) {policy}": r["launches"].get(k["name"], 0)
+                                     for policy, r in remat["policies"].items()},
+                                  **{f"train_diloco 150m (2 layers) {pl}": r["launches"].get(k["name"], 0)
+                                     for pl, r in driver.items()},
+                                  **{f"prefetch 150m (2 layers) depth {d}": r["launches"].get(k["name"], 0)
+                                     for d, r in prefetch.items()}}
         k["launches"] = sum(k["launches_by_phase"].values())
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
         k["launches_per_inner_step_150m_8e"] = moe["launches_per_inner_step"].get(k["name"], 0)
@@ -5606,6 +5892,8 @@ def main() -> int:
                     "train_serve": train_serve, "install_wire": wire, "kv_tier": tier,
                     "gate3": gate3, "cli": cli, "moe": moe, "ring": ring, "tp_pp": tp_pp,
                     "obs": {"serve": obs_serve, "train": obs_train, "galaxy": obs_galaxy},
+                    "slice21": {"remat": remat, "train_diloco": driver, "prefetch": prefetch,
+                                "decode_kernel": decode_kernel},
                     "phase_seconds": PHASE_SECONDS,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b6, *b7, *b8, *flash, *xent]}))

@@ -1,12 +1,11 @@
-"""Configuration: the fields of ``opendiloco_tpu.config`` this port reads.
+"""Configuration: the fields of ``opendiloco_tpu.config``.
 
-Copies of ``CkptConfig``, ``DilocoConfig``, ``FleetConfig``, ``Config``
-and of ``ServeConfig`` without its decode-kernel fields (same names,
-defaults and validation), as dataclasses so the port needs no pydantic.
-Nested sections may be given as dicts, and values as the strings of a
-command line (:func:`parse_argv`, the JAX package's copy), which each
-field converts to its type. Options that ``train()`` reads but the port
-does not run yet raise there.
+Copies of ``CkptConfig``, ``DilocoConfig``, ``FleetConfig``,
+``ServeConfig`` and ``Config`` (same names, defaults and validation), as
+dataclasses so the port needs no pydantic. Nested sections may be given
+as dicts, and values as the strings of a command line (:func:`parse_argv`,
+the JAX package's copy), which each field converts to its type. Options
+that the port does not run yet raise where ``train()`` reads them.
 """
 from __future__ import annotations
 
@@ -17,6 +16,7 @@ from typing import Any, Optional, Union
 
 WEIGHT_FORMATS = ("fp32", "w4")
 KV_TIER_CODECS = ("none", "blockwise4bit")  # ServeConfig.kv_tier_codec
+DECODE_KERNELS = ("auto", "pallas", "xla")  # ServeConfig.decode_kernel
 
 
 _TRUE = ("true", "1", "yes", "on", "t", "y")
@@ -75,6 +75,11 @@ class ServeConfig:
     # replica weight residency: "fp32", or "w4" (stacked matmul weights
     # blockwise-4-bit packed at rest; norms/embeddings/lm head stay fp32)
     weight_format: str = "fp32"
+    # the decode path, by the JAX package's names: "auto" takes the
+    # hand-written kernels on the card and their plain versions on the CPU;
+    # "pallas" forces the kernels (on the CPU it raises: there is no
+    # interpreter for a CUDA kernel); "xla" the plain versions on any device
+    decode_kernel: str = "auto"
     # self-speculative decode: draft k tokens per slot per round from the
     # first draft_layers of the same weights, verify at full depth, keep the
     # longest agreeing greedy prefix (token-exact against the one-token
@@ -128,6 +133,7 @@ class ServeConfig:
                 "(a speculative tail must fit the ring)"
             )
         _one_of("serve.kv_tier_codec", self.kv_tier_codec, KV_TIER_CODECS)
+        _one_of("serve.decode_kernel", self.decode_kernel, DECODE_KERNELS)
         if self.kv_host_slots < 1:
             raise ValueError("serve.kv_host_slots must be >= 1")
 
@@ -322,7 +328,7 @@ def _section(cls, value):
 
 @dataclasses.dataclass
 class Config:
-    """Top-level training config: the fields ``train()`` reads.
+    """Top-level training config, every field of the JAX package's.
 
     ``attn_implementation`` keeps the JAX names so a config carries over:
     "auto" resolves to the hand-written kernels on the card and the plain
@@ -350,6 +356,10 @@ class Config:
     fake_data_mode: str = "random"
     tokenizer_name: str = "mistralai/Mistral-7B-v0.1"
     seq_length: int = 1024
+    num_workers: int = 1  # host dataloading threads (read nowhere, as in the JAX package)
+    # batches the input prefetcher reads ahead and copies to the device on
+    # its own thread (data/prefetch.py); 0 disables it
+    prefetch_depth: int = 2
 
     # optimization
     lr: float = 4e-4

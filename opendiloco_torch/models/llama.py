@@ -16,7 +16,9 @@ config carries over), the plain ``xla_attention`` (``"xla"``) or the
 flash-chunk ring over a sequence cut into chunks (``"ring"``,
 :mod:`~opendiloco_torch.ops.ring_attention`), and checkpoints each layer
 under ``remat=True`` (``torch.utils.checkpoint``, non-reentrant: the
-backward reruns the layer's forward, kernels included). A config with
+backward reruns the layer's forward, kernels included) or, under
+``remat="dots"``/``"dots_all"``, keeps the matmul and flash-forward
+outputs and reruns the rest (:func:`_maybe_remat`). A config with
 ``num_experts > 0`` runs the Switch top-1 routed-expert FFN
 (:func:`_switch_ffn`) in every layer. Under tensor parallelism (``tp``,
 :class:`~opendiloco_torch.parallel.comm.TensorParallel`) a rank runs its
@@ -36,13 +38,14 @@ package's ``decode_kernel="xla"``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 from typing import Any, Optional, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from opendiloco_torch.device import resolve_device
 from opendiloco_torch.ops.attention import decode_attention, spec_tail_attention, xla_attention
@@ -51,7 +54,7 @@ from opendiloco_torch.ops.decode_kernels import (
     spec_tail_attention_fused,
     w4_matmul,
 )
-from opendiloco_torch.ops.flash_attention import flash_attention
+from opendiloco_torch.ops.flash_attention import FLASH_FWD_OP, flash_attention
 from opendiloco_torch.ops.ring_attention import SOLO, ring_flash_attention
 from opendiloco_torch.quant import dequant_w4
 from opendiloco_torch.utils.spans import span
@@ -208,22 +211,37 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
 
 # rematerialization policy accepted everywhere a ``remat`` argument
 # appears: False/"none" saves all activations; True/"full" checkpoints
-# per layer. "dots" and "dots_all" (save the matmul outputs) are not
-# ported yet and raise.
+# per layer; "dots" saves the matmul and flash-forward outputs and
+# recomputes the elementwise chain; "dots_all" also saves batched products
 RematPolicy = Union[bool, str]
+
+# the ops whose outputs a selective policy keeps: the products without
+# batch dims (the JAX package's dots_with_no_batch_dims_saveable) and B1's
+# out and lse (its save_only_these_names("attn_out", "attn_lse"))
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, FLASH_FWD_OP)
+# "dots_all" (dots_saveable): the batched products too, the plain
+# attention's scores and weighted sums and the routed experts' einsums
+_DOTS_ALL_SAVED = _DOTS_SAVED + (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
 
 
 def _maybe_remat(block, remat: RematPolicy):
-    """Apply the rematerialization policy to a per-layer block function."""
+    """Apply the rematerialization policy to a per-layer block function.
+
+    False/"none": keep every activation; True/"full": keep the block's
+    inputs and rerun its forward in the backward, kernels included;
+    "dots"/"dots_all": a selective checkpoint that keeps the outputs of
+    the ops above and reruns the norms, rope and SwiGLU around them
+    (``create_selective_checkpoint_contexts``), so B1 runs once a layer.
+    Collectives inside the block (tp, fsdp gathers, the ring) rerun as
+    under True. Every policy gives the same gradients bit for bit."""
     if remat in (False, None, "none"):
         return block
     if remat in (True, "full"):
         return lambda *args: checkpoint(block, *args, use_reentrant=False)
     if remat in ("dots", "dots_all"):
-        raise NotImplementedError(
-            f"remat={remat!r} (save matmul outputs, recompute the rest) is not "
-            "ported yet (ROADMAP.md A8: selective remat); use True or False"
-        )
+        saved = list(_DOTS_ALL_SAVED if remat == "dots_all" else _DOTS_SAVED)
+        contexts = functools.partial(create_selective_checkpoint_contexts, saved)
+        return lambda *args: checkpoint(block, *args, use_reentrant=False, context_fn=contexts)
     raise ValueError(f"unknown remat policy {remat!r}")
 
 

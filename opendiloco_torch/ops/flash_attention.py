@@ -35,6 +35,15 @@ multiple of 8 up to 128, any rep and any T). Nothing falls back.
 ``_flash``'s ``custom_vjp``: it saves q, k, v, out and lse as
 ``_flash_fwd`` does.
 
+Autograd Functions call B1 through the dispatcher, as the custom op
+``odtp::flash_fwd`` (:data:`FLASH_FWD_OP`, its implementation
+:func:`flash_attention_fwd` on any device, a fake one for shapes): the
+kernel is loaded through ctypes, out of the dispatcher's sight, and the op
+is what a selective-checkpoint policy names to keep B1's out and lse
+instead of rerunning B1 on recompute (``models/llama.py _maybe_remat``
+"dots", the JAX package's ``checkpoint_name(out, "attn_out")`` and
+``"attn_lse"``).
+
 Layouts are the port's model layout, read in place by the kernels:
 q, out [B, T, H, D]; k, v [B, T, Hkv, D]; lse, delta [B, H, T] f32 (the
 JAX kernels take [B, H, T, D] and lse [B, H, 1, T]).
@@ -305,15 +314,32 @@ def _dkv_kernel(q, k, v, dout, lse, delta, causal, grad_dtype,
     return dk, dv
 
 
+@torch.library.custom_op("odtp::flash_fwd", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, bool causal) -> (Tensor, Tensor)")
+def _flash_fwd_op(q, k, v, causal):
+    return flash_attention_fwd(q, k, v, causal)
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal):
+    B, T, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, T), dtype=torch.float32)
+
+
+# B1 as the dispatcher sees it: (out, lse) = FLASH_FWD_OP(q, k, v, causal)
+FLASH_FWD_OP = torch.ops.odtp.flash_fwd.default
+
+
 class FlashAttention(torch.autograd.Function):
     """out = attention(q, k, v): B1 forward, B2a and B2b backward with
     delta computed in between by its own kernel. Saves (q, k, v, out, lse) for the backward,
     as ``_flash_fwd`` does. Under activation checkpointing the forward
-    reruns, and with it B1."""
+    reruns, and with it B1, unless the policy keeps :data:`FLASH_FWD_OP`'s
+    outputs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        out, lse = flash_attention_fwd(q, k, v, causal)
+        out, lse = FLASH_FWD_OP(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out

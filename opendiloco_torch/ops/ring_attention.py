@@ -37,10 +37,10 @@ import threading
 import torch
 
 from opendiloco_torch.ops.flash_attention import (
+    FLASH_FWD_OP,
     attention_delta,
     flash_attention_dkv,
     flash_attention_dq,
-    flash_attention_fwd,
 )
 
 _NEG_INF = -1e30
@@ -236,14 +236,14 @@ def ring_flash_fwd(q, k, v, ring) -> tuple[torch.Tensor, torch.Tensor]:
     the own chunk and once full on each earlier chunk; a later chunk is
     skipped (the reference merges it as lse -inf, which changes nothing)."""
     idx, n = ring.rank, ring.size
-    o, lse = flash_attention_fwd(q, k, v, True)
+    o, lse = FLASH_FWD_OP(q, k, v, True)
     o = o.float()
     k_c, v_c = k, v
     for i in range(1, n):
         k_c, v_c = ring.exchange([k_c, v_c])
         if (idx - i) % n >= idx:
             continue
-        oi, lsei = flash_attention_fwd(q, k_c, v_c, False)
+        oi, lsei = FLASH_FWD_OP(q, k_c, v_c, False)
         lse_new = torch.logaddexp(lse, lsei)
         o = o * _bhT_to_bTh(torch.exp(lse - lse_new)) + oi.float() * _bhT_to_bTh(torch.exp(lsei - lse_new))
         lse = lse_new

@@ -79,8 +79,9 @@ def build_serving(
     copied after the work queued on the caller's stream). ``diloco_opt``
     supplies the hot-swap source (``master_snapshot_wire`` and ``epoch``);
     None serves static weights. ``device`` defaults to the card and raises
-    without one. ``ODTP_KV_TIER`` (0 or 1), ``ODTP_KV_HOST_SLOTS`` and
-    ``ODTP_KV_TIER_CODEC`` override the config's tier fields, as in the JAX
+    without one. ``ODTP_DECODE_KERNEL`` overrides ``serve_cfg.decode_kernel``
+    and ``ODTP_KV_TIER`` (0 or 1), ``ODTP_KV_HOST_SLOTS`` and
+    ``ODTP_KV_TIER_CODEC`` the config's tier fields, as in the JAX
     package."""
     snapshot_fn = epoch_fn = None
     epoch = 0
@@ -103,6 +104,7 @@ def build_serving(
         snapshot_fn=snapshot_fn,
         epoch_fn=epoch_fn,
         max_stale_rounds=serve_cfg.max_stale_rounds,
+        decode_kernel=os.environ.get("ODTP_DECODE_KERNEL") or serve_cfg.decode_kernel,
     )
     env_tier = os.environ.get("ODTP_KV_TIER")
     kv_tier = None

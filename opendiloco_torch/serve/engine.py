@@ -19,7 +19,10 @@ blockwise-4-bit at rest (:mod:`opendiloco_torch.quant`); every matmul on
 them goes through the fused dequant-matmul kernel. Decode attention goes
 through the paged-decode-attention kernel, and the attention of the
 draft, verify and continued-prefill passes through the spec-tail-attention
-kernel. On the CPU each takes its plain version.
+kernel. On the CPU each takes its plain version. ``decode_kernel`` (the
+JAX package's ``ServeConfig.decode_kernel``, resolved by
+:func:`resolve_decode_kernel`) chooses: "pallas" runs the kernels, "xla"
+their plain versions on any device.
 
 Weight hot swap: with a ``snapshot_fn`` (``DiLoCoOptimizer.
 master_snapshot_wire``), :meth:`maybe_swap` pulls a codec-encoded master
@@ -48,6 +51,7 @@ import collections
 import contextlib
 import functools
 import math
+import os
 import time
 from typing import Callable, Optional, Sequence
 
@@ -55,7 +59,7 @@ import numpy as np
 import torch
 
 from opendiloco_torch import obs
-from opendiloco_torch.config import WEIGHT_FORMATS
+from opendiloco_torch.config import DECODE_KERNELS, WEIGHT_FORMATS
 from opendiloco_torch.device import DeviceLike, resolve_device
 from opendiloco_torch.diloco.compression import get_codec, split_blockwise4_stacked
 from opendiloco_torch.models.llama import (
@@ -73,12 +77,13 @@ from opendiloco_torch.models.llama import (
     unflatten_params,
     verify_forward,
 )
+from opendiloco_torch.ops.attention import decode_attention, spec_tail_attention
 from opendiloco_torch.ops.decode_kernels import (
     paged_decode_attention,
     spec_tail_attention_fused,
     w4_matmul,
 )
-from opendiloco_torch.quant import pack_blockwise4_stacked
+from opendiloco_torch.quant import dequant_w4, pack_blockwise4_stacked
 from opendiloco_torch.serve.kvcache import accept_counts, pick_bucket
 
 
@@ -88,6 +93,25 @@ from opendiloco_torch.serve.kvcache import accept_counts, pick_bucket
 SnapshotFn = Callable[[], tuple]
 
 _STAGES = ("prefill", "draft", "verify", "insert", "decode", "swap", "page_out", "page_in")
+
+
+def resolve_decode_kernel(spec: Optional[str], device: torch.device) -> str:
+    """The decode path, "pallas" (the hand-written kernels) or "xla" (their
+    plain versions), from ``spec`` (``ServeConfig.decode_kernel``; None or
+    empty: the ``ODTP_DECODE_KERNEL`` variable, else "auto"), as the JAX
+    package's ``resolve_decode_kernel`` does. "auto" takes the kernels on
+    the card and the plain versions elsewhere. A forced "pallas" off the
+    card raises: a CUDA kernel has no interpreter, and running its plain
+    version under the kernel's name would hide that."""
+    spec = spec or os.environ.get("ODTP_DECODE_KERNEL") or "auto"
+    if spec not in DECODE_KERNELS:
+        raise ValueError(f"serve.decode_kernel must be one of {DECODE_KERNELS}, got {spec!r}")
+    if spec == "auto":
+        return "pallas" if device.type == "cuda" else "xla"
+    if spec == "pallas" and device.type != "cuda":
+        raise ValueError(f"serve.decode_kernel='pallas' needs the card; the engine is on {device} "
+                         "(use 'auto' or 'xla')")
+    return spec
 
 
 class HostPage:
@@ -148,17 +172,23 @@ class ServeEngine:
         snapshot_fn: Optional[SnapshotFn] = None,
         epoch_fn: Optional[Callable[[], int]] = None,
         max_stale_rounds: int = 0,
+        decode_kernel: Optional[str] = None,
     ):
         """``device`` defaults to the card (and raises without one);
         ``compute_dtype`` defaults to bf16 on the card, f32 on the CPU.
         ``spec_k > 0`` turns on speculative decode with a draft of
         ``draft_layers`` layers (0: half the stack, at least 1).
         ``snapshot_fn`` and ``epoch_fn`` feed hot swap (see
-        :meth:`maybe_swap`)."""
+        :meth:`maybe_swap`). ``decode_kernel`` "auto" (None), "pallas" or
+        "xla": see :func:`resolve_decode_kernel`."""
         if weight_format not in WEIGHT_FORMATS:
             raise ValueError(f"unknown weight_format {weight_format!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the decode path, by the JAX package's names; also the obs label
+        # (serve_decode_kernel_pallas / _xla)
+        self.decode_kernel = resolve_decode_kernel(decode_kernel, self.device)
+        self._kernels = self.decode_kernel == "pallas"
         # the engine's own stream on the card (None on the CPU)
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.snapshot_fn = snapshot_fn
@@ -211,10 +241,6 @@ class ServeEngine:
         # stream, but for page_out and page_in: the host's time to queue
         # the copies (and the batcher's wait for a page-out to land)
         self.stage_seconds = {k: 0.0 for k in _STAGES}
-        # the decode path's label in the obs plane, by the JAX package's
-        # names: "pallas" where the hand-written kernels run (the card),
-        # "xla" where their plain versions do (the CPU)
-        self.decode_kernel = "pallas" if self.device.type == "cuda" else "xla"
 
     def _streamed(self):
         if self.stream is None:
@@ -363,10 +389,10 @@ class ServeEngine:
         ``w4`` B8 on the first packed weight at M = num_slots. Returns the
         best of ``iters`` host-clock microseconds per call, each ending in
         a device sync, as ``decode_attn_us``, ``verify_attn_us`` and
-        ``w4_matmul_us``. On the CPU the wrappers take their plain
-        versions, so the numbers time those. Each is published as the
-        gauge ``serve_<name>``, with ``serve_decode_kernel_pallas`` 1 where
-        the kernels ran."""
+        ``w4_matmul_us``, on the engine's decode path: under "xla" the
+        plain versions (the dequant then the matmul for B8). Each is
+        published as the gauge ``serve_<name>``, with
+        ``serve_decode_kernel_pallas`` 1 where the kernels ran."""
         cfg, cd, dev = self.cfg, self.compute_dtype, self.device
         S, T = self.num_slots, self.max_context
         Nh, Nkv, Dh = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
@@ -389,14 +415,17 @@ class ServeEngine:
                 best = min(best, time.perf_counter() - t0)
             return best * 1e6
 
+        k = self._kernels
         out = {
-            "decode_attn_us": best_us(paged_decode_attention, q1, ck, cv, lens),
-            "verify_attn_us": best_us(spec_tail_attention_fused, qt, ck, cv, tk, tk, lens),
+            "decode_attn_us": best_us(paged_decode_attention if k else decode_attention, q1, ck, cv, lens),
+            "verify_attn_us": best_us(spec_tail_attention_fused if k else spec_tail_attention, qt, ck, cv, tk, tk,
+                                      lens),
         }
         packed = next((w for w in self.params["layers"].values() if isinstance(w, PackedW4)), None)
         if packed is not None:
             x = torch.randn(S, packed.shape[0], generator=g, device=dev).to(cd)
-            out["w4_matmul_us"] = best_us(w4_matmul, x, packed.q[0], packed.s[0], packed.shape, cd)
+            wmm = w4_matmul if k else lambda x, q, s, shape, dtype: x @ dequant_w4(q, s, shape, dtype)
+            out["w4_matmul_us"] = best_us(wmm, x, packed.q[0], packed.s[0], packed.shape, cd)
         for name, us in out.items():
             obs.gauge(f"serve_{name}", us)
         obs.gauge("serve_decode_kernel_pallas", 1.0 if self.decode_kernel == "pallas" else 0.0)
@@ -452,7 +481,7 @@ class ServeEngine:
             ids[0, :n] = torch.as_tensor(np.asarray(prompt, np.int64))
             logits, ks, vs = prefill_forward(
                 self.params, ids.to(self.device), n, self.cfg,
-                compute_dtype=self.compute_dtype,
+                compute_dtype=self.compute_dtype, kernels=self._kernels,
             )
             cache_insert(self.cache_k, self.cache_v, ks, vs, slot)
             row = logits[0].cpu().numpy()  # waits for the device
@@ -476,7 +505,7 @@ class ServeEngine:
         page = slice(slot, slot + 1)
         logits, tks, tvs = verify_forward(
             self.params, tail.to(self.device), lens, self.cache_k[:, page], self.cache_v[:, page],
-            self.cfg, compute_dtype=self.compute_dtype,
+            self.cfg, compute_dtype=self.compute_dtype, kernels=self._kernels,
         )
         suffix_insert(self.cache_k, self.cache_v, tks[:, 0], tvs[:, 0], slot, plen, ns)
         row = logits[0, ns - 1].cpu().numpy()  # waits for the device
@@ -560,7 +589,7 @@ class ServeEngine:
         ln = torch.as_tensor(np.asarray(lens, np.int32)).to(self.device)
         logits, _, _ = decode_forward(
             self.params, tok, ln, self.cache_k, self.cache_v, self.cfg,
-            compute_dtype=self.compute_dtype,
+            compute_dtype=self.compute_dtype, kernels=self._kernels,
         )
         nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()  # waits
         self.stage_seconds["decode"] += time.perf_counter() - t0
@@ -574,7 +603,7 @@ class ServeEngine:
             torch.as_tensor(np.asarray(lens, np.int32)).to(self.device),
             self.cache_k, self.cache_v, self.cfg,
             k_steps=self.spec_k, draft_layers=self.draft_layers,
-            compute_dtype=self.compute_dtype,
+            compute_dtype=self.compute_dtype, kernels=self._kernels,
         )
         return props.cpu().numpy()  # waits for the device
 
@@ -596,7 +625,7 @@ class ServeEngine:
         ln = torch.as_tensor(np.asarray(lens, np.int32)).to(self.device)
         logits, tks, tvs = verify_forward(
             self.params, torch.as_tensor(tail).to(self.device), ln, self.cache_k, self.cache_v,
-            self.cfg, compute_dtype=self.compute_dtype,
+            self.cfg, compute_dtype=self.compute_dtype, kernels=self._kernels,
         )
         g = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()  # [S, k+1]; waits
         t2 = time.perf_counter()

@@ -74,9 +74,18 @@ stages that run the GPipe schedule over ``pp_size`` micro-batches
 (``TrainerConfig.pp_microbatches`` sets another count; the command line
 does not, as the JAX package's does not). The ranks of one batch block
 load the same rows. ``allow_sp_activation_sharding`` lets sp + pp run a
-non-ring attention over whole sequences. Not ported yet, and raising
-``NotImplementedError`` with their ROADMAP.md items: a serving plane on a
-worker of several processes (A10) and non-fake data (A9).
+non-ring attention over whole sequences. On a worker of several processes
+every process builds its serving plane or fleet, as the JAX package's
+do, from the whole params gathered on every rank, each server on a port
+of its own; the engines hot-swap from the host masters every rank holds.
+Not ported yet, and raising ``NotImplementedError`` with its ROADMAP.md
+item: non-fake data (A9).
+
+With ``prefetch_depth`` above 0 (the default 2) the training batches come
+through :class:`~opendiloco_torch.data.prefetch.DevicePrefetcher`: read,
+sharded and copied to the device that many steps ahead, on a thread and
+(on the card) a copy stream of its own; the checkpoint stores the loader
+state of the last batch consumed. Evaluation batches are not prefetched.
 
 Text log lines carry the worker's rank, per thread (:func:`log_rank`),
 and after it the process's rank when the worker has several.
@@ -95,10 +104,12 @@ from opendiloco_torch import ckpt as ckpt_lib
 from opendiloco_torch import obs
 from opendiloco_torch.config import Config, DilocoConfig, parse_argv
 from opendiloco_torch.data.dataloader import get_dataloader
+from opendiloco_torch.data.prefetch import DevicePrefetcher
 from opendiloco_torch.device import DeviceLike, pin_cpu_gemm_bits, pin_cpu_threads, resolve_device
 from opendiloco_torch.diloco.backend import OuterBackend
 from opendiloco_torch.diloco.optimizer import DiLoCoOptimizer, PeerDropError
 from opendiloco_torch.models import hf_io, llama
+from opendiloco_torch.models.llama import flatten_params, unflatten_params
 from opendiloco_torch.parallel.mesh import build_mesh
 from opendiloco_torch.parallel.world import make_world
 from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
@@ -197,10 +208,8 @@ def train(config: Config, backend: Optional[OuterBackend] = None, device: Device
 
 def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: int, process: int,
            nproc: int) -> dict:
+    serve_on = config.serve is not None and config.serve.enabled
     fleet_on = config.fleet is not None and config.fleet.enabled
-    if nproc > 1 and ((config.serve is not None and config.serve.enabled) or fleet_on):
-        raise NotImplementedError("a serving plane on a worker of several processes is not ported yet "
-                                  "(ROADMAP.md A10)")
     model_cfg, params = hf_io.get_model(config.path_model)
     plan = build_mesh(config.sharding_strategy, dp_size=config.dp_size, fsdp_size=config.fsdp_size,
                       tp_size=config.tp_size, sp_size=config.sp_size, pp_size=config.pp_size,
@@ -332,13 +341,21 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
         )
         eval_iter = iter(eval_loader)
 
+    # the engines need whole f32 params: where this rank holds blocks (fsdp,
+    # tp, pp, ep), gather them on every rank (a collective) before the build
+    serve_params = state["params"]
+    if (serve_on or fleet_on) and nproc > 1:
+        serve_params = unflatten_params(state["params"], trainer.host_params(flatten_params(state["params"])))
+
     # the in-process serving plane: engine, batcher and front end share this
     # process and card with the inner loop, and hot-swap from the masters
+    # (every process of a worker builds one, on a port of its own; the
+    # snapshots read the host masters each rank holds, never a collective)
     serving = None
-    if config.serve is not None and config.serve.enabled:
+    if serve_on:
         from opendiloco_torch.serve import build_serving
 
-        serving = build_serving(config.serve, model_cfg, state["params"], diloco_opt,
+        serving = build_serving(config.serve, model_cfg, serve_params, diloco_opt,
                                 compute_dtype=tc.compute_dtype, device=trainer.device)
         log.info("serving plane up on %s:%d (%d slots, ctx %d)", config.serve.host, serving.port,
                  config.serve.max_batch, config.serve.max_context)
@@ -349,7 +366,7 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
     if fleet_on:
         from opendiloco_torch.fleet import build_fleet
 
-        fleet_plane = build_fleet(config.fleet, model_cfg, state["params"], diloco_opt,
+        fleet_plane = build_fleet(config.fleet, model_cfg, serve_params, diloco_opt,
                                   compute_dtype=tc.compute_dtype, device=trainer.device)
         log.info("serving fleet up: router %s:%d over %d replicas (codec %s)", config.fleet.host, fleet_plane.port,
                  config.fleet.replicas, config.fleet.codec)
@@ -369,6 +386,15 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
     trace_rank = world_rank if nproc == 1 else f"{world_rank}.{process}"
     summary = {"step": start_step, "loss": float("nan")}
     data_iter = iter(loader)
+    prefetcher = None
+    if config.prefetch_depth > 0:
+        prefetcher = DevicePrefetcher(
+            data_iter,
+            lambda hb: trainer.shard_batch(hb["input_ids"], hb["labels"], accum, pinned=True),
+            depth=config.prefetch_depth,
+            state_fn=loader.state_dict,
+            device=trainer.device,
+        )
     pending = None  # (real_step, metrics, dt, extras) of the prior step
     profiler = None
 
@@ -424,9 +450,12 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
                 _stop_profiler(profiler, config.profile_dir, trace_rank, step)
                 profiler = None
             t0 = time.perf_counter()
-            host_batch = next(data_iter)
-            batch = trainer.shard_batch(host_batch["input_ids"], host_batch["labels"], accum)
-            data_wait_s = time.perf_counter() - t0
+            if prefetcher is not None:
+                host_batch, batch = next(prefetcher)
+            else:
+                host_batch = next(data_iter)
+                batch = trainer.shard_batch(host_batch["input_ids"], host_batch["labels"], accum)
+            data_wait_s = time.perf_counter() - t0  # about 0 while the prefetcher keeps up
             if diloco_opt is not None:
                 state, metrics = diloco_opt.step(state, batch)
             else:
@@ -461,7 +490,7 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
                     trainer.gather_state(state),
                     diloco_rank=world_rank if config.diloco else None,
                     diloco_state=diloco_opt.state_dict() if diloco_opt else None,
-                    dataloader_state=loader.state_dict(),
+                    dataloader_state=prefetcher.state_dict() if prefetcher is not None else loader.state_dict(),
                     extra={"loss": summary["loss"], "step": real_step},
                 )
                 ckpt_times["ckpt_save_s"].append(time.perf_counter() - t_save)
@@ -494,6 +523,8 @@ def _train(config: Config, backend: Optional[OuterBackend], device, world_rank: 
                 _stop_profiler(profiler, config.profile_dir, trace_rank, config.total_steps)
             except Exception:
                 log.exception("failed to write the profiler trace")
+        if prefetcher is not None:
+            prefetcher.stop()
         loader.stop()
         metric_logger.finish()
         tr = obs.tracer()

@@ -311,7 +311,7 @@ class InnerTrainer:
         self.device = resolve_device(device)
         plan = plan if plan is not None else single_device_plan()
         tc = _resolve_perf_defaults(tc, model_cfg, self.device, plan)
-        _maybe_remat(None, tc.remat)  # an unported policy raises here, not mid-step
+        _maybe_remat(None, tc.remat)  # an unknown policy raises here, not mid-step
         on_card = self.device.type == "cuda"
         if on_card and tc.compute_dtype == torch.float16 and (tc.attn_impl == "pallas" or tc.fused_loss):
             raise NotImplementedError(
@@ -781,7 +781,13 @@ class InnerTrainer:
 
     # -- host API ---------------------------------------------------------
 
-    def _batch(self, a: np.ndarray) -> torch.Tensor:
+    def _batch(self, a: np.ndarray, pinned: bool = False) -> torch.Tensor:
+        """int64 ids on the device. ``pinned`` on the card: staged in pinned
+        host memory and copied without blocking, on the current stream."""
+        if pinned and self.device.type == "cuda":
+            staged = torch.empty(a.shape, dtype=torch.int64, pin_memory=True)
+            staged.numpy()[...] = a
+            return staged.to(self.device, non_blocking=True)
         return torch.from_numpy(np.ascontiguousarray(a).astype(np.int64)).to(self.device)
 
     def _seq_chunk(self, input_ids: np.ndarray, labels: Optional[np.ndarray]) -> tuple:
@@ -801,18 +807,21 @@ class InnerTrainer:
             labels = np.concatenate([labels[..., 1:], pad], axis=-1)[..., cut]
         return input_ids[..., cut], labels
 
-    def shard_batch(self, input_ids: np.ndarray, labels: np.ndarray, accum: int) -> dict:
+    def shard_batch(self, input_ids: np.ndarray, labels: np.ndarray, accum: int, *, pinned: bool = False) -> dict:
         """[bs, T] host arrays -> [accum, bs / accum, T / sp] device tensors.
         Under a plan of several processes the arrays are this process's
         rows of the global batch (a dataloader that strides by batch block,
         as ``train()`` runs it; the JAX batch spec cuts each micro-batch the
         same way), whole sequences; under sp the trainer keeps its chunk
-        (:meth:`_seq_chunk`)."""
+        (:meth:`_seq_chunk`). Issues no collective. ``pinned`` (the input
+        prefetcher's): on the card the copies go from pinned host memory,
+        without blocking, on the caller's current stream; the default
+        copies synchronously."""
         gbs, seq = input_ids.shape
         if gbs % accum:
             raise ValueError(f"batch {gbs} not divisible by accum {accum}")
         ids, labels = self._seq_chunk(*(a.reshape(accum, gbs // accum, seq) for a in (input_ids, labels)))
-        return {"input_ids": self._batch(ids), "labels": self._batch(labels)}
+        return {"input_ids": self._batch(ids, pinned), "labels": self._batch(labels, pinned)}
 
     def add_post_dispatch_hook(self, fn) -> None:
         """Register a ``state -> state`` callback fired after every

@@ -266,22 +266,18 @@ def test_stop_ends_the_server_and_fails_requests_in_flight(cfg):
 
 
 def test_jax_serve_config_dict_constructs_the_ports():
-    """A JAX ServeConfig with the front-end, hot-swap and KV-tier fields
-    set builds the port's with the same values (the decode-kernel field,
-    a residue of the JAX package, is left out of the dict), and the CLI
-    parses them."""
+    """A JAX ServeConfig with the front-end, hot-swap, KV-tier and
+    decode-kernel fields set builds the port's with the same values (every
+    field of the dict), and the CLI parses them."""
     ref = JServeConfig(enabled=True, host="0.0.0.0", port=8123, swap_every_steps=4, max_stale_rounds=2,
                        max_batch=4, max_context=512, prefill_buckets=[64, 256], weight_format="w4",
-                       kv_tier=True, kv_tier_codec="blockwise4bit", kv_host_slots=9)
-    d = {k: v for k, v in ref.model_dump().items() if k != "decode_kernel"}
+                       kv_tier=True, kv_tier_codec="blockwise4bit", kv_host_slots=9, decode_kernel="xla")
+    d = ref.model_dump()
     ours = ServeConfig(**d)
     assert {k: getattr(ours, k) for k in d} == d
-    # the residue is refused, not ignored
-    with pytest.raises(TypeError, match="decode_kernel"):
-        ServeConfig(**ref.model_dump())
     argv = ["--serve.enabled", "--serve.host", "0.0.0.0", "--serve.port", "8123", "--serve.swap-every-steps", "4",
             "--serve.max-stale-rounds", "2", "--serve.kv-tier", "--serve.kv-tier-codec", "blockwise4bit",
-            "--serve.kv-host-slots", "9"]
+            "--serve.kv-host-slots", "9", "--serve.decode-kernel", "xla"]
     cli = Config(**parse_argv(argv)).serve
     assert (cli.enabled, cli.host, cli.port, cli.swap_every_steps, cli.max_stale_rounds) == (True, "0.0.0.0", 8123, 4, 2)
-    assert (cli.kv_tier, cli.kv_tier_codec, cli.kv_host_slots) == (True, "blockwise4bit", 9)
+    assert (cli.kv_tier, cli.kv_tier_codec, cli.kv_host_slots, cli.decode_kernel) == (True, "blockwise4bit", 9, "xla")

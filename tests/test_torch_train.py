@@ -479,8 +479,6 @@ def test_train_without_diloco_with_eval_and_probes(tmp_path):
 @pytest.mark.parametrize(
     "overrides",
     [
-        dict(remat="dots"),
-        dict(remat="dots_all"),
         dict(fake_data=False),
         dict(metric_logger_type="wandb"),
     ],
@@ -587,23 +585,6 @@ def test_formerly_unported_options_run(tmp_path, overrides):
         if daemon is not None:
             daemon.stop()
     assert summary["step"] == 4 and np.isfinite(summary["loss"])
-
-
-@pytest.mark.parametrize(
-    "section,field,value",
-    [
-        ("config", "prefetch_depth", 0),
-        ("config", "num_workers", 4),
-    ],
-)
-def test_fields_the_port_does_not_read_are_refused(section, field, value):
-    # a JAX config that sets an option train() would not honour fails at
-    # construction instead of being ignored
-    with pytest.raises(TypeError, match=field):
-        if section == "config":
-            Config(**{field: value})
-        else:
-            Config(**{section: {field: value}})
 
 
 @pytest.mark.parametrize(

@@ -235,6 +235,102 @@ def job_ring(spec: dict) -> dict:
     return out
 
 
+# the torch.distributed calls that talk to the other ranks: each is
+# recorded with the thread that issued it (job_serve)
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "all_gather_object", "broadcast",
+               "broadcast_object_list", "reduce_scatter", "reduce_scatter_tensor", "all_to_all_single", "barrier",
+               "send", "recv", "isend", "irecv", "batch_isend_irecv", "gather", "scatter")
+
+
+def job_serve(spec: dict) -> dict:
+    """``train()`` on this rank of a worker of WORLD processes (each case
+    of ``spec["cases"]``: strategy, mesh kwargs) with ``serve.enabled``,
+    one loopback galaxy of one worker (the backend on rank 0), weights from
+    ``spec["model_dir"]``, state snapshots raw f32 (``ODTP_STATE_CODEC``
+    none). Right after its serving plane is built (before the first step)
+    each rank posts ``spec["prompt"]`` to its own server and keeps the
+    greedy tokens; after every step that ends a round, the training thread
+    waits until the serving thread has installed that epoch. Returns per
+    case the tokens, the server's port, the epochs the serving thread
+    installed, the engine's final weights and this rank's host masters, and
+    the threads that issued collectives."""
+    import hashlib
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    import torch.distributed as dist
+
+    import opendiloco_torch.serve as serve_mod
+    from opendiloco_torch.config import Config
+    from opendiloco_torch.diloco import LoopbackWorld
+    from opendiloco_torch.models.llama import flatten_params
+    from opendiloco_torch.train import train
+
+    os.environ["ODTP_STATE_CODEC"] = "none"
+    issued = []
+    for name in COLLECTIVES:
+        fn = getattr(dist, name, None)
+        if fn is not None:
+            def recorded(*args, _fn=fn, _name=name, **kw):
+                issued.append((_name, threading.current_thread().name))
+                return _fn(*args, **kw)
+
+            setattr(dist, name, recorded)
+    build = serve_mod.build_serving
+    out = {}
+    for case, (strategy, kw) in spec["cases"].items():
+        got = {}
+        issued.clear()
+
+        def build_and_ask(serve_cfg, model_cfg, params, diloco_opt, **bkw):
+            plane = build(serve_cfg, model_cfg, params, diloco_opt, **bkw)
+            got["plane"], got["opt"] = plane, diloco_opt
+            body = json.dumps({"prompt": spec["prompt"], "max_new_tokens": spec["new_tokens"]}).encode()
+            with urllib.request.urlopen(f"http://127.0.0.1:{plane.port}/generate", body, timeout=120) as r:
+                got["tokens"] = json.loads(r.read())["tokens"]
+            step = diloco_opt.step
+
+            def step_then_wait_for_the_swap(state, batch):
+                epoch = diloco_opt.epoch
+                state, metrics = step(state, batch)
+                deadline = time.monotonic() + 60
+                while diloco_opt.epoch != epoch and plane.engine.weights_epoch != diloco_opt.epoch:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"the serving thread did not install epoch {diloco_opt.epoch}")
+                    time.sleep(0.01)
+                return state, metrics
+
+            diloco_opt.step = step_then_wait_for_the_swap
+            return plane
+
+        serve_mod.build_serving = build_and_ask
+        try:
+            cfg = Config(path_model=spec["model_dir"], fake_data=True, fake_data_mode="ramp", seq_length=32,
+                         per_device_train_batch_size=4, total_batch_size=8, warmup_steps=1, total_steps=4, lr=3e-3,
+                         metric_logger_type="dummy", precision="fp32", sharding_strategy=strategy,
+                         project=os.path.join(os.path.dirname(spec["model_dir"]), f"rows-{case}.pkl"),
+                         **kw, diloco=dict(local_steps=2, backend="loopback", timeout_waiting_for_peers=60.0),
+                         serve=dict(enabled=True, port=0, max_batch=2, max_context=64, prefill_buckets=[16, 32],
+                                    swap_every_steps=1, max_stale_rounds=0))
+            backend = LoopbackWorld(1).make_backends()[0] if dist.get_rank() == 0 else None
+            train(cfg, backend, device="cpu")
+        finally:
+            serve_mod.build_serving = build
+        engine, opt = got["plane"].engine, got["opt"]
+        out[case] = {
+            "tokens": got["tokens"], "port": got["plane"].port,
+            "swapped": [e["epoch"] for e in engine.swap_log], "epoch": engine.weights_epoch,
+            "opt_epoch": opt.epoch,
+            "engine": [p.numpy().copy() for p in flatten_params(engine.params)],
+            "master": [m.copy() for m in opt.master],
+            "threads": sorted({t for _, t in issued}),
+            "digest": hashlib.sha1(b"".join(m.tobytes() for m in opt.master)).hexdigest(),
+        }
+    return out
+
+
 def job_many(spec: dict) -> list:
     """Several jobs in one launch: ``spec["jobs"]`` holds (job name, its
     spec) pairs; returns their results in order."""
