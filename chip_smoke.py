@@ -7,7 +7,8 @@ feedback), sharding, a galaxy of two workers over TCP, NoLoCo gossip
 rounds, the serving fleet, routed experts, ring attention, tensor and
 pipeline parallelism, the obs plane armed on serving, training, the TCP
 galaxy, gossip and the fleet, the remat policies, the normative DiLoCo
-driver, the input prefetcher and the decode-kernel choice.
+driver, the input prefetcher and the decode-kernel choice, and
+``precision="fp16-mixed"`` through every kernel.
 
     python3 chip_smoke.py
 
@@ -403,16 +404,48 @@ exits non-zero.
    tokens: the streams equal; under "auto" B6 and its merge 22 a decode
    step and B8 (the first design, f32) 7 x 22 a prefill and a decode
    step; under "xla" no launch.
-33. The kernels line (launches of B6, B7, their merges and B8 by serving
-   phase, of the training kernels by training phase), each phase's
-   seconds and the smoke's, the card line, and last the result line.
+33. fp16 (``precision="fp16-mixed"``): (a) (after phase 32 (d)) every
+   kernel's f16 instance against its plain version in f16 (F16_TOL:
+   2**-10 of each value plus the bf16 phases' floors over 8) at phases 2,
+   3, 7, 9 and 11's main shapes, on both routes where both exist (the
+   ring's f32 gradients of B2a and B2b too); device times in f16 of the
+   sm90 routes and of B6 and B7 beside bf16's in turns (bf16, f16, f16,
+   bf16) at the 1b shapes, and of the first designs in f16; each f16 row's
+   bound is its bf16 row's (the same bytes, the same dense tensor-core
+   peak). (b) (after phase 32 (c)) config_1b's widths at 4 of its 22
+   layers, mb 8 x accum 2 x seq 1024, fp16-mixed from scale 2**15, numpy
+   params: the flash kernels with the fused loss against attn "xla" with
+   the unfused loss, 1 warm-up and 3 timed steps each; loss, found_inf,
+   loss_scale, grad norm and ms by step; B1 16, delta/B2a/B2b 8, B3 2,
+   dlog/B4a/B4b 8 a step on the kernels path, no launch on the other;
+   the first step's loss within 1e-3 and grad norm within 0.5% across the
+   paths; one step of each path with cuBLAS's
+   ``allow_fp16_reduced_precision_reduction`` flipped (its value
+   recorded); an overflow step at scale 2**40 on each path: found_inf 1,
+   params and both moments bit for bit, the scale halved; the scaler's
+   decisions equal on both paths. (c) ``train()`` at fp16-mixed, two
+   loopback workers at config_150m's widths and 2 layers, 6 steps, 3
+   rounds, each serving w4 in f16 over HTTP with 2 slots (worker 0 spec
+   k 4, worker 1 plain decode), a client a plane until training ends (the
+   first round waits for an answer from each plane, the last for one of a
+   later epoch): every request answers or fails with "server stopped",
+   both engines swap, launches (zeroed just before, read just after) the
+   training kernels' plus B6 and its merge L a decode step, B7 and its
+   merge k Ld + L a round, the sm90 B8 7 L a prefill and step and 7 (k Ld
+   + L) a round.
+34. The kernels line (launches of B6, B7, their merges and B8 by serving
+   phase, of the training kernels by training phase, phase 33's among
+   them; each kernel's f16 checks, times and bound under "f16"), each
+   phase's seconds and the smoke's, the card line, and last the result
+   line.
 
 Device times come from CUDA-graph replays of many launches that cycle
 through enough copies of the inputs to exceed the 50 MB L2 cache, as the
 main paths find their weights, KV pages and activations cold; host launch
 cost is left out. Bounds take each input read once and each output
 written once over 3.35 TB/s, or the operations over 989 TFLOP/s (bf16),
-whichever is larger (the H100 SXM data sheet).
+whichever is larger (the H100 SXM data sheet; fp16's dense peak is
+bf16's).
 """
 from __future__ import annotations
 
@@ -2449,14 +2482,16 @@ def recording_backends(world) -> list:
 
 def train_config(model: str, run: dict, rank: int, project: str, ckpt: dict, serve: dict | None = None,
                  diloco: dict | None = None, fleet: dict | None = None, **extra):
-    """The ``Config`` of worker ``rank`` of phases 8, 8b, 10, 19, 24-28
-    (``diloco``: more DiLoCo options, phase 10's device placement, phase
+    """The ``Config`` of worker ``rank`` of phases 8, 8b, 10, 19, 24-28 and
+    33 (``diloco``: more DiLoCo options, phase 10's device placement, phase
     24's TCP backend, phase 25's gossip; ``fleet``: phase 26's; ``extra``:
-    more ``Config`` fields, phases 27 and 28's attention and loss)."""
+    more ``Config`` fields, phases 27 and 28's attention and loss, phase
+    33's precision; bf16-mixed unless it names another)."""
     from opendiloco_torch.config import Config
 
+    extra.setdefault("precision", "bf16-mixed")
     return Config(
-        path_model=model, fake_data=True, fake_data_mode="ramp", precision="bf16-mixed", remat=True,
+        path_model=model, fake_data=True, fake_data_mode="ramp", remat=True,
         seq_length=run["seq_length"], per_device_train_batch_size=run["per_device_train_batch_size"],
         total_batch_size=run["total_batch_size"], warmup_steps=run["warmup_steps"],
         total_steps=run["total_steps"], lr=run["lr"], metric_logger_type="dummy", project=project,
@@ -5738,6 +5773,664 @@ def phase_decode_kernel(torch, tdk, cfg, params, dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 33: precision="fp16-mixed" through every kernel
+# ---------------------------------------------------------------------------
+
+# f16 keeps 10 mantissa bits to bf16's 7: a bf16 phase's floor that bounds a
+# 16-bit rounding is divided by 8 here; floors that bound f32 arithmetic
+# (lse, nll, delta, dw: exact products, sums in another order, ex2.approx)
+# stay as they were
+F16_SCALED = 2.0**-3
+F16_REL = 2.0**-10  # one f16 ulp of the value: f32 sums re-associate before the one rounding
+F16_TOL = ("element by element, |got - ref| <= 2**-10 |ref| + floor: attention outputs (out, dq, dk, dv, B6, B7) "
+           "2**-9 of each (batch, head), slot or (slot, token)'s largest output; B8 2**-10 of the largest output; "
+           "dlog 2**-11 max(g) / V; dh 1.25e-6 of the largest |dh|; the merges 2**-11 of the largest output (at "
+           "least 1): the bf16 phases' floors over 8. lse and nll 1e-4 of the largest |lse|, delta 1e-6 of the "
+           "largest |delta|, dw 1e-5 of the largest |dw| (f32 arithmetic, as in bf16)")
+# the loss scale fp16-mixed starts at: the fused loss's checks scale their
+# upstream gradient by it, as the trainer does (unscaled, dlog would sit in
+# f16's subnormals)
+FP16_SCALE = 2.0**15
+FP16_OVERFLOW_SCALE = 2.0**40  # the overflow step of phase 33 (b): every f16 gradient past 65504
+FP16_TIMED_STEPS = 3
+# phase 33 (c): two workers at config_150m's widths and CUT_LAYERS of its
+# layers, 6 steps, 3 rounds; worker 0 serves w4 with spec decode, worker 1
+# w4 with plain decode; 2 slots, so that both kernels cut the ring into
+# splits and their merges run (at 8 slots x 16 kv heads the card is full)
+FP16_SERVE_RUN = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=2,
+                      total_steps=6, local_steps=2, lr=1e-3)
+FP16_SERVE = dict(enabled=True, weight_format="w4", max_batch=2, max_stale_rounds=0, swap_every_steps=4, port=0)
+FP16_SERVE_NEW_TOKENS = 16
+
+
+def f16_share(got, ref, floor) -> tuple[float, float]:
+    """(the worst element's |got - ref| over 2**-10 |ref| + floor, the
+    largest |got - ref|); ``floor`` a number or a tensor that broadcasts
+    against ``ref``."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    return float((err / (F16_REL * ref.abs() + floor)).max()), float(err.max())
+
+
+def in_turns(torch, bf16: tuple, f16: tuple, launches: int) -> dict:
+    """Device ms of the same work in bf16 and in f16, in turns (bf16, f16,
+    f16, bf16); each of ``bf16`` and ``f16`` is (fn, arg sets)."""
+    runs = [device_ms(torch, *x, launches=launches) for x in (bf16, f16, f16, bf16)]
+    return {"bf16_ms": min(runs[0], runs[3]), "f16_ms": min(runs[1], runs[2]), "runs": runs,
+            "f16_over_bf16": min(runs[1], runs[2]) / min(runs[0], runs[3])}
+
+
+def fp16_kernels(torch, tdk, tfa, tfx, quant, cfg, serve_cfg, dev) -> dict:
+    """Phase 33 (a): every kernel's f16 instance against its plain version
+    at f16 (F16_TOL), on both routes where both exist, at phases 2, 3, 7,
+    9 and 11's main shapes; then the device ms of the f16 instances at the
+    1b shapes beside the bf16 ones in turns (CUDA-graph replays past L2, as
+    the bf16 phases time them), and of the first designs in f16. Returns
+    {kernel name: {"checks", "max_abs_err", "share_of_tol", "ms",
+    "bf16_ms_same_call", "bound_ms", "bound_by", ...}}."""
+    f16, bf16 = torch.float16, torch.bfloat16
+    res: dict = {}
+
+    def check(name, label, got, ref, floor):
+        share, err = f16_share(got, ref, floor)
+        row = res.setdefault(name, {"checks": []})
+        row["checks"].append({"shape": label, "max_abs_err": err, "share_of_tol": share})
+        if not share <= 1.0:
+            raise AssertionError(f"f16 {name} {label}: the worst element is at {share:.3f} of its limit")
+
+    def per(ref, dims):
+        return 2.0**-6 * F16_SCALED * ref.float().abs().amax(dim=dims, keepdim=True)
+
+    # B1, delta, B2a, B2b: both routes at 150m, the ring's f32 gradients at the 1b heads
+    for gi, (label, B, T, H, Hkv, D, causal) in enumerate(FLASH_GEOMS):
+        if label in ("150m full", "T 64, rep 8"):
+            continue
+        q, k, v, do = flash_inputs(torch, dev, B, T, H, Hkv, D, f16, 330 + gi)
+        ref_out, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+        delta = tfa.attention_delta_plain(do, ref_out)
+        check("flash_attention_delta", label, tfa.attention_delta(do, ref_out), delta, 1e-6 * float(delta.abs().max()))
+        routes = [(tfa._fwd_route(f16, D), tfa._bwd_route(f16, D))]
+        if label == "150m":
+            routes.append((tfa.SOURCE, tfa.SOURCE))
+        for fwd_route, route in routes:
+            sfx = "" if route == tfa.SOURCE else "_sm90"
+            out, lse = tfa._fwd_kernel(q, k, v, causal, route=fwd_route)
+            check("flash_attention_fwd" + sfx, label, out, ref_out, per(ref_out, (1, 3)))
+            check("flash_attention_fwd" + sfx, label + " lse", lse, ref_lse, 1e-4 * max(1.0, float(ref_lse.abs().max())))
+            for gd in ([None, torch.float32] if label == "1b heads" and sfx else [None]):
+                tag = label + (" f32 grads" if gd else "")
+                dq = tfa._dq_kernel(q, k, v, do, ref_lse, delta, causal, gd, route=route)
+                dk, dv = tfa._dkv_kernel(q, k, v, do, ref_lse, delta, causal, gd, route=route)
+                ref_dq = tfa.flash_attention_dq_plain(q, k, v, do, ref_lse, delta, causal, grad_dtype=gd)
+                ref_dk, ref_dv = tfa.flash_attention_dkv_plain(q, k, v, do, ref_lse, delta, causal, grad_dtype=gd)
+                if dq.dtype != (gd or f16):
+                    raise AssertionError(f"f16 B2a{sfx} {tag}: dq in {dq.dtype}")
+                check("flash_attention_dq" + sfx, tag, dq, ref_dq, per(ref_dq, (1, 3)))
+                check("flash_attention_dkv" + sfx, tag + " dk", dk, ref_dk, per(ref_dk, (1, 3)))
+                check("flash_attention_dkv" + sfx, tag + " dv", dv, ref_dv, per(ref_dv, (1, 3)))
+        del q, k, v, do, ref_out, ref_lse, delta, out, lse, dq, dk, dv, ref_dq, ref_dk, ref_dv
+    torch.cuda.empty_cache()
+
+    # B3, dlog, B4a, B4b: both routes, the upstream gradient times FP16_SCALE
+    for gi, (label, N, D, V) in enumerate(XENT_GEOMS):
+        if label not in ("1b", "odd N and V"):
+            continue
+        h, w, labels, gup = xent_inputs(torch, dev, N, D, V, f16, 340 + gi)
+        gup = gup * FP16_SCALE
+        ref_nll, ref_lse = tfx.fused_xent_fwd_plain(h, w, labels)
+        rows = slice(0, min(N, tfx.CHUNK_ROWS))
+        args = (h[rows], w, labels[rows], ref_lse[rows], gup[rows])
+        ref_dlog = tfx.fused_xent_dlog_plain(*args)
+        ref_dh, ref_dw = tfx.fused_xent_dh_plain(ref_dlog, w), tfx.fused_xent_dw_plain(h[rows], ref_dlog)
+        scale = max(1.0, float(ref_lse.abs().max()))
+        for route in (tfx.SM90_SOURCE, tfx.SOURCE):
+            sfx = "_sm90" if route == tfx.SM90_SOURCE else ""
+            nll, lse = tfx.fused_xent_fwd(h, w, labels, route=route)
+            check("fused_xent_fwd" + sfx, label + " lse", lse, ref_lse, 1e-4 * scale)
+            check("fused_xent_fwd" + sfx, label + " nll", nll, ref_nll, 1e-4 * scale)
+            check("fused_xent_dlog" + sfx, label, tfx.fused_xent_dlog(*args, route=route), ref_dlog,
+                  2.0**-7 * F16_SCALED / 2 * float(gup.max()) / V)
+            check("fused_xent_dh" + sfx, label, tfx.fused_xent_dh(ref_dlog, w, route=route), ref_dh,
+                  1e-5 * F16_SCALED * float(ref_dh.float().abs().max()))
+            check("fused_xent_dw" + sfx, label, tfx.fused_xent_dw(h[rows], ref_dlog, route=route), ref_dw,
+                  1e-5 * float(ref_dw.abs().max()))
+        del h, w, labels, gup, ref_nll, ref_lse, ref_dlog, ref_dh, ref_dw, nll, lse
+    torch.cuda.empty_cache()
+
+    # B6 and its merge at the decode shape, B6's first design at D 256
+    S, T = serve_cfg.max_batch, serve_cfg.max_context
+    Kh, H, D = cfg.kv_heads, cfg.num_attention_heads, cfg.head_dim
+    rep = H // Kh
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lens_list = [0, 1, 255, 256, 700, 1023, 1500, 511][:S]
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(33)
+    splits, chunk = tdk.spec_tail_split_chunk(T, tdk.spec_tail_splits(S, T, Kh, rep, sms))
+    for d in (D, 256):
+        q = torch.randn(S, H, d, generator=g, device=dev).to(f16)
+        k, v = (torch.randn(S, T, Kh, d, generator=g, device=dev).to(f16) for _ in range(2))
+        ref = tdk.paged_decode_attention_plain(q, k, v, lens)
+        if d == 256:
+            check("paged_decode_attention_first", "D 256", tdk.paged_decode_attention(q, k, v, lens), ref,
+                  per(ref, (1, 2)))
+            continue
+        for lab, kw in ((f"{splits} splits", {}), ("1 split", {"splits": 1})):
+            out = tdk.paged_decode_attention(q, k, v, lens, **kw)
+            if not torch.equal(out, tdk.paged_decode_attention(q, k, v, lens, **kw)):
+                raise AssertionError(f"f16 B6 {lab}: a second launch gave other bits")
+            check("paged_decode_attention", lab, out, ref, per(ref, (1, 2)))
+        ml, acc = tdk._paged_decode_partials(q, k, v, lens, splits=splits, chunk=chunk)
+        mref = tdk.spec_tail_merge_plain(ml, acc, 1, f16).reshape(S, H, D)
+        check("paged_decode_attention_merge", f"{splits} splits", tdk.paged_decode_merge(ml, acc, f16), mref,
+              2.0**-8 * F16_SCALED * max(1.0, float(mref.float().abs().max())))
+    del q, k, v, ref, out, ml, acc, mref
+
+    # B7 and its merge at the verify, draft and suffix shapes
+    ragged = [0, 5, 255, 700, T - 2, T, 2 * T + 1, 511][:S]
+
+    def b7_inputs(n, kq, kt, dtype, lens_list, gen):
+        q = torch.randn(n, kq, H, D, generator=gen, device=dev).to(dtype)
+        ring = [torch.randn(n, T, Kh, D, generator=gen, device=dev).to(dtype) for _ in range(2)]
+        tail = [torch.randn(n, kt, Kh, D, generator=gen, device=dev).to(dtype) for _ in range(2)]
+        return (q, *ring, *tail, torch.tensor(lens_list, dtype=torch.int32, device=dev))
+
+    b7_shapes = {"verify": (S, 5, 5, 0, ragged), "draft q_start 3": (S, 1, 4, 3, ragged),
+                 "suffix 64": (1, 64, 64, 0, [192]), "suffix 256": (1, 256, 256, 0, [192])}
+    for label, (n, kq, kt, q_start, ll) in b7_shapes.items():
+        args = b7_inputs(n, kq, kt, f16, ll, g)
+        out = tdk.spec_tail_attention_fused(*args, q_start=q_start)
+        if not torch.equal(out, tdk.spec_tail_attention_fused(*args, q_start=q_start)):
+            raise AssertionError(f"f16 B7 {label}: a second launch gave other bits")
+        ref = tdk.spec_tail_attention_plain(*args, q_start=q_start)
+        check("spec_tail_attention", label, out, ref, per(ref, (2, 3)))
+        if label == "verify":
+            P, ch = tdk.spec_tail_split_chunk(T, tdk.spec_tail_splits(n, T, Kh, kq * rep, sms))
+            ml, acc = tdk._spec_tail_partials(*args, q_start=q_start, splits=P, chunk=ch)
+            mref = tdk.spec_tail_merge_plain(ml, acc, kq, f16)
+            check("spec_tail_attention_merge", f"verify {P} splits", tdk.spec_tail_merge(ml, acc, kq, f16), mref,
+                  2.0**-8 * F16_SCALED * max(1.0, float(mref.float().abs().max())))
+            del ml, acc, mref
+    del args, out, ref
+
+    # B8: every config_1b weight shape at M 8, 40 and 1024, both routes
+    shapes = layer_weight_shapes(cfg)
+    for (K, N) in shapes:
+        qs, ss = quant.pack_blockwise4_stacked(torch.randn(1, K, N, generator=g, device=dev))
+        for M in B8_M:
+            x = torch.randn(M, K, generator=g, device=dev).to(f16)
+            ref = tdk.w4_matmul_plain(x, qs[0], ss[0], (K, N), f16)
+            for route, name in ((tdk.W4_SM90_SOURCE, "w4_matmul_sm90"), (tdk.W4_FIRST_SOURCE, "w4_matmul")):
+                out = tdk.w4_matmul(x, qs[0], ss[0], (K, N), f16, route=route)
+                check(name, f"M{M} K{K} N{N}", out, ref, 2.0**-7 * F16_SCALED * float(ref.float().abs().max()))
+    torch.cuda.synchronize()
+    log(f"fp16 (a): every f16 instance within tolerance ({F16_TOL}); worst share of its limit by kernel: "
+        + json.dumps({n: round(max(c["share_of_tol"] for c in r["checks"]), 4) for n, r in res.items() if r["checks"]}))
+
+    # device times: f16 beside bf16 in turns on the sm90 routes (and B6, B7:
+    # their one design at D 64), f16 alone on the first designs
+    timed = {}
+    B, T_, H_, Hkv, D_ = FLASH_TIMED["1b heads"]
+    work = flash_work(B, T_, H_, Hkv, D_, 2, True)
+
+    def flash_sets(dtype):
+        sets, outs = [], []
+        for i in range(copies_for(int(work["flash_attention_fwd"][0]))):
+            q, k, v, do = flash_inputs(torch, dev, B, T_, H_, Hkv, D_, dtype, 350 + i)
+            out, lse = tfa.flash_attention_fwd(q, k, v, True)
+            sets.append((q, k, v, do, lse, tfa.attention_delta(do, out)))
+            outs.append((do, out))
+        return sets, outs
+
+    fsets = {dt: flash_sets(dt) for dt in (bf16, f16)}
+    fwd = {r: (lambda q, k, v, do, lse, dl, r=r: tfa._fwd_kernel(q, k, v, True, route=r))
+           for r in (tfa.SM90_FWD_SOURCE, tfa.SOURCE)}
+    dq = {r: (lambda q, k, v, do, lse, dl, r=r: tfa._dq_kernel(q, k, v, do, lse, dl, True, None, route=r))
+          for r in (tfa.SM90_SOURCE, tfa.SOURCE)}
+    dkv = {r: (lambda q, k, v, do, lse, dl, r=r: tfa._dkv_kernel(q, k, v, do, lse, dl, True, None, route=r))
+           for r in (tfa.SM90_SOURCE, tfa.SOURCE)}
+    for name, fn in (("flash_attention_fwd_sm90", fwd[tfa.SM90_FWD_SOURCE]), ("flash_attention_dq_sm90",
+                     dq[tfa.SM90_SOURCE]), ("flash_attention_dkv_sm90", dkv[tfa.SM90_SOURCE])):
+        timed[name] = {**in_turns(torch, (fn, fsets[bf16][0]), (fn, fsets[f16][0]), 32),
+                       "work": work[name], "shape": "1b heads"}
+    timed["flash_attention_delta"] = {**in_turns(torch, (tfa.attention_delta, fsets[bf16][1]),
+                                                 (tfa.attention_delta, fsets[f16][1]), 32),
+                                      "work": work["flash_attention_delta"], "shape": "1b heads"}
+    for name, fn in (("flash_attention_fwd", fwd[tfa.SOURCE]), ("flash_attention_dq", dq[tfa.SOURCE]),
+                     ("flash_attention_dkv", dkv[tfa.SOURCE])):
+        timed[name] = {"f16_ms": device_ms(torch, fn, fsets[f16][0], launches=8), "work": work[name],
+                       "shape": "1b heads"}
+    del fsets
+    torch.cuda.empty_cache()
+
+    (XN, XD, XV), C = XENT_TIMED, min(XENT_TIMED[0], tfx.CHUNK_ROWS)
+
+    def xent_sets(dtype):
+        h, w, labels, gup = xent_inputs(torch, dev, XN, XD, XV, dtype, 360)
+        gup = gup * FP16_SCALE
+        _, lse = tfx.fused_xent_fwd(h, w, labels)
+        dlog = tfx.fused_xent_dlog(h[:C], w, labels[:C], lse[:C], gup[:C])
+        acc = torch.zeros(XD, XV, device=dev)
+        return [(h, w, labels, lse, gup)], [(h[:C], w, labels[:C], lse[:C], gup[:C], dlog, acc)]
+
+    xsets = {dt: xent_sets(dt) for dt in (bf16, f16)}
+    xfns = {
+        "fused_xent_fwd": (0, lambda r: lambda h, w, lb, ls, gg: tfx.fused_xent_fwd(h, w, lb, route=r)),
+        "fused_xent_dlog": (1, lambda r: lambda h, w, lb, ls, gg, dl, a: tfx.fused_xent_dlog(h, w, lb, ls, gg, route=r)),
+        "fused_xent_dh": (1, lambda r: lambda h, w, lb, ls, gg, dl, a: tfx.fused_xent_dh(dl, w, route=r)),
+        "fused_xent_dw": (1, lambda r: lambda h, w, lb, ls, gg, dl, a: tfx.fused_xent_dw(h, dl, a, route=r)),
+    }
+    xwork = {n: xent_work(XN if i == 0 else C, XD, XV, 2) for n, (i, _) in xfns.items()}
+    for name, (i, make) in xfns.items():
+        timed[name + "_sm90"] = {**in_turns(torch, (make(tfx.SM90_SOURCE), xsets[bf16][i]),
+                                            (make(tfx.SM90_SOURCE), xsets[f16][i]), 8),
+                                 "work": xwork[name][name + "_sm90"], "shape": f"N {XN if i == 0 else C}, D {XD}, V {XV}"}
+        timed[name] = {"f16_ms": device_ms(torch, make(tfx.SOURCE), xsets[f16][i], launches=4, replays=3),
+                       "work": xwork[name][name], "shape": f"N {XN if i == 0 else C}, D {XD}, V {XV}"}
+    del xsets
+    torch.cuda.empty_cache()
+
+    # B6 (its merge inside) and the merge alone at the decode shape
+    live = [min(n, T - 1) + 1 for n in lens_list]
+
+    def b6_sets(dtype, d=D_):
+        q = torch.randn(S, H, d, generator=g, device=dev).to(dtype)
+        sets = []
+        for _ in range(copies_for(S * T * Kh * d * 2 * 2)):
+            k, v = (torch.randn(S, T, Kh, d, generator=g, device=dev).to(dtype) for _ in range(2))
+            sets.append((q, k, v, lens))
+        return sets
+
+    def b6_work(d):
+        return sum(live) * Kh * d * 2 * 2 + 2 * S * H * d * 2 + S * 4, sum(live) * H * d * 4
+
+    b6s = {dt: b6_sets(dt) for dt in (bf16, f16)}
+    timed["paged_decode_attention"] = {
+        **in_turns(torch, (tdk.paged_decode_attention, b6s[bf16]), (tdk.paged_decode_attention, b6s[f16]), 64),
+        "work": b6_work(D_), "shape": f"S {S}, T {T}, Kh {Kh}, rep {rep}, D {D_}, {splits} splits, the merge included"}
+    parts = {dt: [tdk._paged_decode_partials(*a, splits=splits, chunk=chunk) for a in b6s[dt]] for dt in (bf16, f16)}
+    R = S * Kh * rep
+    timed["paged_decode_attention_merge"] = {
+        **in_turns(torch, (lambda ml, acc: tdk.paged_decode_merge(ml, acc, bf16), parts[bf16]),
+                   (lambda ml, acc: tdk.paged_decode_merge(ml, acc, f16), parts[f16]), 64),
+        "work": (R * splits * (D_ + 2) * 4 + R * D_ * 2, 0.0), "shape": f"{splits} splits"}
+    del b6s, parts
+    timed["paged_decode_attention_first"] = {
+        **in_turns(torch, (tdk.paged_decode_attention, b6_sets(bf16, 256)),
+                   (tdk.paged_decode_attention, b6_sets(f16, 256)), 64),
+        "work": b6_work(256), "shape": f"S {S}, T {T}, Kh {Kh}, rep {rep}, D 256 (the first design)"}
+
+    # B7 (its merge inside) at verify and draft, the merge alone at verify
+    for label in ("verify", "draft q_start 3"):
+        n, kq, kt, q_start, ll = b7_shapes[label]
+        sets = {dt: [b7_inputs(n, kq, kt, dt, ll, g) for _ in range(copies_for(n * T * Kh * D_ * 2 * 2))]
+                for dt in (bf16, f16)}
+        fn = lambda *a, q_start=q_start: tdk.spec_tail_attention_fused(*a, q_start=q_start)
+        key = "spec_tail_attention" if label == "verify" else "spec_tail_attention " + label
+        timed[key] = {**in_turns(torch, (fn, sets[bf16]), (fn, sets[f16]), 64),
+                      "work": b7_work(n, T, Kh, rep, D_, kq, kt, q_start, ll, 2), "shape": label + ", the merge included"}
+        if label == "verify":
+            P, ch = tdk.spec_tail_split_chunk(T, tdk.spec_tail_splits(n, T, Kh, kq * rep, sms))
+            parts = {dt: [tdk._spec_tail_partials(*a, q_start=q_start, splits=P, chunk=ch) for a in sets[dt]]
+                     for dt in (bf16, f16)}
+            Rv = n * Kh * kq * rep
+            timed["spec_tail_attention_merge"] = {
+                **in_turns(torch, (lambda ml, acc: tdk.spec_tail_merge(ml, acc, kq, bf16), parts[bf16]),
+                           (lambda ml, acc: tdk.spec_tail_merge(ml, acc, kq, f16), parts[f16]), 64),
+                "work": (Rv * P * (D_ + 2) * 4 + Rv * D_ * 2, 0.0), "shape": f"verify, {P} splits"}
+            del parts
+        del sets
+
+    # B8: one 1b layer's seven matmuls at M 8 (decode), both routes
+    per_layer = {"w4_matmul_sm90": {"bf16_ms": 0.0, "f16_ms": 0.0, "runs": []}, "w4_matmul": {"f16_ms": 0.0}}
+    nbytes = 0.0
+    for (K, N_), count in shapes.items():
+        w = []
+        for _ in range(copies_for(K * N_ // 2)):
+            qs, ss = quant.pack_blockwise4_stacked(torch.randn(1, K, N_, generator=g, device=dev))
+            w.append((qs[0], ss[0]))
+        x = torch.randn(8, K, generator=g, device=dev)
+        sets = {dt: [(x.to(dt), qc, sc, (K, N_), dt) for qc, sc in w] for dt in (bf16, f16)}
+        on = lambda route: (lambda *a: tdk.w4_matmul(*a, route=route))
+        t = in_turns(torch, (on(tdk.W4_SM90_SOURCE), sets[bf16]), (on(tdk.W4_SM90_SOURCE), sets[f16]),
+                     max(64, min(len(w), 256)))
+        per_layer["w4_matmul_sm90"]["bf16_ms"] += count * t["bf16_ms"]
+        per_layer["w4_matmul_sm90"]["f16_ms"] += count * t["f16_ms"]
+        per_layer["w4_matmul_sm90"]["runs"].append({"K": K, "N": N_, "per_layer": count, **t})
+        per_layer["w4_matmul"]["f16_ms"] += count * device_ms(torch, on(tdk.W4_FIRST_SOURCE), sets[f16],
+                                                              launches=max(64, min(len(w), 256)))
+        nbytes += count * (K * N_ // 2 + math.ceil(K * N_ / quant.W4_BLOCK) * 2 + 8 * K * 2 + 8 * N_ * 2)
+        del w, sets
+    b8_flops = sum(2.0 * 8 * K * N_ * c for (K, N_), c in shapes.items())
+    for name in ("w4_matmul_sm90", "w4_matmul"):
+        pl = per_layer[name]
+        if "bf16_ms" in pl:
+            pl["f16_over_bf16"] = pl["f16_ms"] / pl["bf16_ms"]
+        timed[name] = {**pl, "work": (nbytes, b8_flops), "shape": "one 1b layer's 7 matmuls at M 8"}
+    torch.cuda.empty_cache()
+
+    for name, t in timed.items():
+        b_ms, b_by = bound_ms(*t.pop("work"))
+        row = res.setdefault(name.split(" ")[0], {"checks": []})
+        entry = {**t, "bound_ms": b_ms, "bound_by": b_by}
+        if " " in name:
+            row.setdefault("also", {})[name.split(" ", 1)[1]] = entry
+        else:
+            row.update(entry)
+            row["ms"] = t["f16_ms"]
+        log(f"fp16 (a) {name} ({t['shape']}): f16 {t['f16_ms']:.4f} ms"
+            + (f", bf16 {t['bf16_ms']:.4f} ms in turns (f16/bf16 {t['f16_over_bf16']:.3f})" if "bf16_ms" in t else "")
+            + f", bound {b_ms:.5f} ms ({b_by})")
+    for name, row in res.items():
+        if row["checks"]:
+            worst = max(row["checks"], key=lambda c: c["share_of_tol"])
+            row.update(max_abs_err=max(c["max_abs_err"] for c in row["checks"]), share_of_tol=worst["share_of_tol"],
+                       worst_check=worst)
+        row["tol"] = F16_TOL
+    return res
+
+
+def fp16_overflow_step(torch, tr, params, batch) -> dict:
+    """One step from ``params`` at FP16_OVERFLOW_SCALE: it must find inf,
+    leave params and both moments bit for bit, and halve the scale."""
+    from opendiloco_torch.models.llama import flatten_params
+
+    state = tr.init_state(params=params)
+    before = [t.detach().clone() for t in (*flatten_params(state["params"]), *state["opt_state"]["mu"],
+                                           *state["opt_state"]["nu"])]
+    state, m = tr.train_step(state, batch)
+    after = [*flatten_params(state["params"]), *state["opt_state"]["mu"], *state["opt_state"]["nu"]]
+    same = all(torch.equal(a, b) for a, b in zip(before, after))
+    res = {"found_inf": float(m["found_inf"]), "loss_scale": float(m["loss_scale"]),
+           "next_scale": state["scaler"]["scale"], "params_and_moments_bit_for_bit": same,
+           "adam_count": int(state["opt_state"]["count"]), "grad_norm": float(m["grad_norm"])}
+    if not (res["found_inf"] == 1.0 and same and res["next_scale"] == FP16_OVERFLOW_SCALE / 2
+            and res["adam_count"] == 0):
+        raise AssertionError(f"fp16 overflow step: {res}")
+    return res
+
+
+def phase_fp16_train(torch, tfa, dev, card: str) -> dict:
+    """Phase 33 (b): config_1b's widths at REMAT_LAYERS of its layers, mb 8
+    x accum 2 x seq 1024, ``precision="fp16-mixed"``, remat True, numpy
+    params: the flash kernels with the fused loss against attn "xla" with
+    the unfused loss, 1 warm-up and FP16_TIMED_STEPS timed steps each on
+    the same batches: loss, ``found_inf``, ``loss_scale``, grad norm and
+    ms by step; launches per step (B1 4 L, delta/B2a/B2b 2 L, B3 2,
+    dlog/B4a/B4b 8) on the kernels path, none on the other; the first
+    step's loss within 1e-3 and grad norm within 0.5% across the paths
+    (phase 10's bf16 rule), the scaler's decisions equal. Then, on each
+    path, one step with cuBLAS's ``allow_fp16_reduced_precision_reduction``
+    flipped (its value is recorded; the port never sets it), and one
+    overflow step on each path (:func:`fp16_overflow_step`). Last the
+    kernels path at bf16-mixed on the same params and batches, for the
+    step ms of the two precisions in one call."""
+    import dataclasses
+    import tempfile
+
+    from opendiloco_torch.data.dataloader import FakeTokenizedDataset
+    from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.models.llama import shapes
+    from opendiloco_torch.trainer import InnerTrainer, TrainerConfig
+
+    cfg = load_config(cut_depth("1b", REMAT_LAYERS, tempfile.mkdtemp()))
+    L, run = cfg.num_hidden_layers, REMAT_RUN
+    accum = run["total_batch_size"] // run["per_device_train_batch_size"]
+    chunks = -(-run["per_device_train_batch_size"] * (run["seq_length"] - 1) // 2048)
+    params = np_params(shapes(cfg), np.random.default_rng(33))
+    ds = iter(FakeTokenizedDataset(run["seq_length"], cfg.vocab_size, seed=33, mode="ramp"))
+    ids = [np.stack([next(ds)["input_ids"] for _ in range(run["total_batch_size"])])
+           for _ in range(FP16_TIMED_STEPS + 1)]
+    flag = torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
+    paths = {"kernels": dict(attn_impl="pallas", fused_loss=True), "xla": dict(attn_impl="xla", fused_loss=False),
+             "kernels bf16": dict(attn_impl="pallas", fused_loss=True, precision="bf16-mixed")}
+    per_step = {"flash_attention_fwd_sm90": 2 * L * accum, "flash_attention_delta": L * accum,
+                "flash_attention_dq_sm90": L * accum, "flash_attention_dkv_sm90": L * accum,
+                "fused_xent_fwd_sm90": accum, "fused_xent_dlog_sm90": accum * chunks,
+                "fused_xent_dh_sm90": accum * chunks, "fused_xent_dw_sm90": accum * chunks}
+    res = {"layers": L, "accum": accum, "init_loss_scale": FP16_SCALE,
+           "allow_fp16_reduced_precision_reduction": flag, "paths": {}}
+    for label, kw in paths.items():
+        tc = TrainerConfig(**{"precision": "fp16-mixed", **kw}, remat=True, warmup_steps=1, total_steps=100, lr=1e-3)
+        tr = InnerTrainer(cfg, tc, device=dev)
+        state = tr.init_state(params=params)
+        batches = [tr.shard_batch(x, x.copy(), accum=accum) for x in ids]
+        steps = []
+        tfa.LAUNCHES.reset()
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = tr.train_step(state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            # bf16-mixed has no scaler: its rows read as clean steps at FP16_SCALE
+            steps.append({"loss": loss, "found_inf": float(m.get("found_inf", 0.0)),
+                          "loss_scale": float(m.get("loss_scale", FP16_SCALE)), "grad_norm": float(m["grad_norm"]),
+                          "ms": (time.perf_counter() - t0) * 1e3})
+        launches = tfa.LAUNCHES.snapshot()
+        # the xla path launches nothing (check_launches holds every other count at 0)
+        want = {n: c * len(batches) for n, c in per_step.items()} if label != "xla" else {}
+        check_launches(launches, want, f"fp16 1b ({L} layers) {label} ({len(batches)} steps)")
+        losses = [s["loss"] for s in steps]
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+                and all(s["found_inf"] == 0.0 and s["loss_scale"] == FP16_SCALE for s in steps)):
+            raise AssertionError(f"fp16 1b {label}: {steps}")
+        if label == "kernels bf16":
+            res["paths"][label] = {"steps": steps, "launches": launches, "timed_step_ms": [s["ms"] for s in steps[1:]]}
+            log(f"fp16 (b) 1b ({L} layers) the kernels path at bf16-mixed: step ms {[s['ms'] for s in steps]}, "
+                f"losses {losses} | {card}")
+            del tr, state, batches
+            continue
+        # the flag flipped for one step from the same params and first batch
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = not flag
+        try:
+            st, m = tr.train_step(tr.init_state(params=params), batches[0])
+            flipped = {"loss": float(m["loss"]), "found_inf": float(m["found_inf"]),
+                       "grad_norm": float(m["grad_norm"])}
+        finally:
+            torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = flag
+        del st
+        over = dataclasses.replace(tc, init_loss_scale=FP16_OVERFLOW_SCALE)
+        overflow = fp16_overflow_step(torch, InnerTrainer(cfg, over, device=dev), params, batches[0])
+        res["paths"][label] = {"steps": steps, "launches": launches,
+                               "launches_per_step": {n: c / len(batches) for n, c in launches.items() if c},
+                               "timed_step_ms": [s["ms"] for s in steps[1:]],
+                               "flag_flipped_first_step": flipped, "overflow_step": overflow}
+        log(f"fp16 (b) 1b ({L} layers) {label}: " + "; ".join(
+            f"step {i}: loss {s['loss']:.6f}, found_inf {s['found_inf']:.0f}, scale {s['loss_scale']:.0f}, grad norm "
+            f"{s['grad_norm']:.4f}, {s['ms']:.1f} ms" for i, s in enumerate(steps))
+            + f" | launches {res['paths'][label]['launches_per_step']} a step | allow_fp16_reduced_precision_reduction"
+            f" {flag}, flipped: {flipped} | overflow step {overflow} | {card}")
+        del tr, state, batches
+        torch.cuda.empty_cache()
+    k, x = res["paths"]["kernels"]["steps"], res["paths"]["xla"]["steps"]
+    if not (abs(k[0]["loss"] - x[0]["loss"]) <= 1e-3 and abs(k[0]["grad_norm"] - x[0]["grad_norm"])
+            <= 5e-3 * x[0]["grad_norm"]):
+        raise AssertionError(f"fp16 1b: the kernels path's first step {k[0]} against xla's {x[0]}")
+    decisions = {lab: [s["found_inf"] for s in p["steps"]] + [p["flag_flipped_first_step"]["found_inf"],
+                                                                 p["overflow_step"]["found_inf"]]
+                 for lab, p in res["paths"].items() if lab != "kernels bf16"}
+    if decisions["kernels"] != decisions["xla"]:
+        raise AssertionError(f"fp16 1b: the scaler decided otherwise on the two paths: {decisions}")
+    res["scaler_decisions"] = decisions
+    log(f"fp16 (b): the scaler's decisions on both paths {decisions['kernels']} (timed steps, flag flipped, overflow)")
+    return res
+
+
+def phase_fp16_train_serve(torch, tdk, dev, card: str) -> dict:
+    """Phase 33 (c): ``train()`` at ``precision="fp16-mixed"``, two loopback
+    workers at config_150m's widths and CUT_LAYERS of its layers
+    (FP16_SERVE_RUN), each serving w4 over HTTP on its own port (worker 0
+    with ``spec_decode_k`` 4, worker 1 with plain decode; FP16_SERVE), a
+    client thread a plane posting /generate until training ends. The first
+    round waits for an answer from each plane and the last for an answer
+    of a later weight epoch from each (so both swap while the run lasts).
+    Every response succeeds or fails with "server stopped"; launches: the
+    training kernels by :func:`training_launches`, B6 and its merge L a
+    decode step of worker 1, B7 and its merge k Ld + L a spec round of
+    worker 0, the sm90 B8 7 L a prefill and decode step and 7 (k Ld + L)
+    a spec round, all in f16 (the engines' compute dtype is the
+    trainer's)."""
+    import os
+    import shutil
+    import tempfile
+
+    from opendiloco_torch import serve as tserve
+    from opendiloco_torch.diloco import LoopbackWorld
+    from opendiloco_torch.models.hf_io import load_config
+    from opendiloco_torch.ops.flash_attention import LAUNCHES
+    from opendiloco_torch.train import train
+
+    model = cut_depth("150m", CUT_LAYERS, tempfile.mkdtemp())
+    cfg = load_config(model)
+    L, run = cfg.num_hidden_layers, FP16_SERVE_RUN
+    rounds = run["total_steps"] // run["local_steps"]
+    serves = [{**FP16_SERVE, "spec_decode_k": SPEC_K}, FP16_SERVE]
+    backends = recording_backends(LoopbackWorld(2))
+    tmp = tempfile.mkdtemp()
+    planes, admits, real_build = {}, {}, tserve.build_serving
+    done, errors = threading.Event(), []
+    responses = {0: [], 1: []}
+    cond = threading.Condition()
+
+    def capture(serve_cfg, *args, **kwargs):
+        plane = real_build(serve_cfg, *args, **kwargs)
+        rank = 0 if serve_cfg.spec_decode_k else 1
+        admit, admits[rank] = plane.engine.admit, 0
+        if plane.engine.compute_dtype != torch.float16:
+            raise AssertionError(f"fp16 train+serve: the engine computes in {plane.engine.compute_dtype}")
+
+        def counted(*a, **k):  # one prefill an admit
+            admits[rank] += 1
+            return admit(*a, **k)
+
+        plane.engine.admit = counted
+        with cond:
+            planes[rank] = plane
+            cond.notify_all()
+        return plane
+
+    def wait_for(pred, what: str) -> None:
+        with cond:
+            if not cond.wait_for(lambda: pred() or errors, timeout=300) or errors:
+                raise AssertionError(f"fp16 train+serve: waited for {what}: {errors[:1]}")
+
+    def gate(backend):
+        """The backend's round ``epoch`` (0 the first) waits for the
+        serving planes first: the first for an answer from each, the last
+        for an answer of epoch 1 or later from each."""
+        reduce = backend.all_reduce
+
+        def all_reduce(arrays, *, epoch=None, **kw):
+            if epoch == 0:
+                wait_for(lambda: all(responses[r] for r in (0, 1)), "a first answer from each plane")
+            elif epoch == rounds - 1:
+                wait_for(lambda: all(any(x.get("epoch", 0) >= 1 for x in responses[r]) for r in (0, 1)),
+                         "an answer of a later epoch from each plane")
+            return reduce(arrays, epoch=epoch, **kw)
+
+        backend.all_reduce = all_reduce
+
+    for b in backends:
+        gate(b)
+
+    def client(rank):
+        try:
+            wait_for(lambda: rank in planes, f"plane {rank}")
+            port, rng = planes[rank].port, np.random.default_rng(330 + rank)
+            while not done.is_set():
+                n = int(rng.integers(33, 65))
+                body = json.dumps({"prompt": rng.integers(1, cfg.vocab_size, n).tolist(),
+                                   "max_new_tokens": FP16_SERVE_NEW_TOKENS}).encode()
+                try:
+                    out = http_json(f"http://127.0.0.1:{port}/generate", body)
+                except OSError:  # refused or reset: the run has ended
+                    if done.is_set() or planes[rank].server._stop.is_set():
+                        return
+                    raise
+                with cond:
+                    responses[rank].append(out)
+                    cond.notify_all()
+        except BaseException as e:
+            with cond:
+                errors.append(e)
+                cond.notify_all()
+
+    def config(rank):
+        return train_config(model, run, rank, os.path.join(tmp, f"metrics-{rank}.pkl"),
+                            dict(path=os.path.join(tmp, "ckpts"), interval=None), serve=serves[rank],
+                            precision="fp16-mixed")
+
+    threads = [threading.Thread(target=client, args=(r,)) for r in (0, 1)]
+    old_codec = os.environ.get("ODTP_STATE_CODEC")
+    os.environ["ODTP_STATE_CODEC"] = TRAIN_SERVE_CODEC
+    tserve.build_serving = capture
+    tdk.LAUNCHES.reset()
+    try:
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        run_workers(train, [(config(r), backends[r], dev) for r in range(2)])
+        wall = time.perf_counter() - t0
+    finally:
+        done.set()
+        tserve.build_serving = real_build
+        if old_codec is None:
+            os.environ.pop("ODTP_STATE_CODEC")
+        else:
+            os.environ["ODTP_STATE_CODEC"] = old_codec
+        for t in threads:
+            t.join(timeout=120)
+    launches = LAUNCHES.snapshot()
+    if errors:
+        raise errors[0]
+    res = {"config": "150m", "layers": L, **run, "serve": serves, "codec": TRAIN_SERVE_CODEC,
+           "precision": "fp16-mixed", "train_wall_s": wall, "launches": launches, "planes": {}}
+    want = training_launches(torch, dev, cfg, run, 2 * run["total_steps"],
+                             [n for n in launches if n.startswith(("flash_attention", "fused_xent"))])
+    want.update({"paged_decode_attention": 0, "paged_decode_attention_merge": 0, "spec_tail_attention": 0,
+                 "spec_tail_attention_merge": 0, "w4_matmul_sm90": 0})
+    from opendiloco_torch.config import ServeConfig
+
+    sc = ServeConfig(**FP16_SERVE)
+    S, T, Kh, rep = sc.max_batch, sc.max_context, cfg.kv_heads, cfg.num_attention_heads // cfg.kv_heads
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for rank, plane in sorted(planes.items()):
+        engine, st = plane.engine, plane.batcher.stats()
+        ok = [r for r in responses[rank] if "error" not in r]
+        failed = [r for r in responses[rank] if "error" in r]
+        if any(r["error"] != "server stopped" for r in failed) or not ok or engine.swap_count < 1:
+            raise AssertionError(f"fp16 train+serve plane {rank}: {len(ok)} answers, errors "
+                                 f"{[r['error'] for r in failed][:3]}, {engine.swap_count} swaps")
+        epochs = sorted({r["epoch"] for r in ok})
+        steps, prefills = st["decode_steps"], admits[rank]
+        if rank == 0:
+            k, Ld = engine.spec_k, engine.draft_layers
+            per_round = k * Ld + L
+            # a round's k Ld draft passes (one query a slot) and L verify passes (k + 1), each merging
+            # where its pass cuts the ring into splits
+            splits = {kq: tdk.spec_tail_split_chunk(T, tdk.spec_tail_splits(S, T, Kh, kq * rep, sms))[0]
+                      for kq in (1, k + 1)}
+            want["spec_tail_attention"] += per_round * steps
+            want["spec_tail_attention_merge"] += (k * Ld * (splits[1] > 1) + L * (splits[k + 1] > 1)) * steps
+            want["w4_matmul_sm90"] += 7 * (L * prefills + per_round * steps)
+        else:
+            splits, _ = tdk._decode_grid(S, T, Kh, rep, dev.index or 0, None)
+            want["paged_decode_attention"] += L * steps
+            want["paged_decode_attention_merge"] += L * steps if splits > 1 else 0
+            want["w4_matmul_sm90"] += 7 * L * (prefills + steps)
+        res["planes"][rank] = {"spec_decode_k": engine.spec_k, "answers": len(ok), "server_stopped": len(failed),
+                               "epochs": epochs, "weight_swaps": engine.swap_count, "decode_steps": steps,
+                               "prefills": prefills, "splits": splits,
+                               "served_tokens": sum(len(r["tokens"]) for r in ok),
+                               "swaps": [{k_: sw[k_] for k_ in ("epoch", "codec", "total_s")} for sw in engine.swap_log]}
+    check_launches(launches, want, "fp16 train+serve")
+    log(f"fp16 (c) train+serve 150m ({L} layers): {json.dumps(res['planes'])}; launches {launches}; train "
+        f"{wall:.1f} s | {card}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def timed(name: str, fn, *args, **kw):
     """``fn(*args, **kw)``, its wall seconds kept under ``name``."""
     t0 = time.perf_counter()
@@ -5793,6 +6486,8 @@ def main() -> int:
     obs_serve = timed("30a obs serve", phase_obs_serve, torch, tdk, cfg, params, dev, card)
     decode_kernel = timed("32d decode_kernel", phase_decode_kernel, torch, tdk, cfg, params, dev, card)
     del params
+    fp16 = {"kernels": timed("33a fp16 kernels", fp16_kernels, torch, tdk, tfa, tfx, quant, cfg, serve_cfg, dev)}
+    torch.cuda.empty_cache()
     for s in serve:
         s.pop("tokens")
     reference = timed("6 reference", phase_reference, torch, load_config("2m"), dev)
@@ -5832,6 +6527,8 @@ def main() -> int:
     remat = timed("32a remat 1b", phase_remat, torch, tfa, dev, card)
     driver = timed("32b train_diloco", phase_driver, torch, tfa, dev, card)
     prefetch = timed("32c prefetch", phase_prefetch, torch, tfa, dev, card)
+    fp16["train"] = timed("33b fp16 train 1b", phase_fp16_train, torch, tfa, dev, card)
+    fp16["train_serve"] = timed("33c fp16 train+serve", phase_fp16_train_serve, torch, tdk, dev, card)
 
     # launches: each serving phase's main path, by phase
     serving = {f"serve {s['weight_format']}": s["launches"] for s in serve}
@@ -5848,6 +6545,7 @@ def main() -> int:
     serving.update({f"obs fleet 150m (2 layers) turn {mode}": turn["launches"]
                     for mode, turn in obs_galaxy["fleet"].items()})
     serving.update({f"decode_kernel 1b w4 f32 {k}": r["launches"] for k, r in decode_kernel.items()})
+    serving[f"phase 33 (c) train+serve 150m ({CUT_LAYERS} layers) fp16"] = fp16["train_serve"]["launches"]
     for k in (*b6, *b7, *b8):
         k["launches_by_phase"] = {phase: counts.get(k["name"], 0) for phase, counts in serving.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
@@ -5882,10 +6580,18 @@ def main() -> int:
                                   **{f"train_diloco 150m (2 layers) {pl}": r["launches"].get(k["name"], 0)
                                      for pl, r in driver.items()},
                                   **{f"prefetch 150m (2 layers) depth {d}": r["launches"].get(k["name"], 0)
-                                     for d, r in prefetch.items()}}
+                                     for d, r in prefetch.items()},
+                                  **{f"phase 33 (b) 1b ({REMAT_LAYERS} layers) {p}{'' if 'bf16' in p else ' fp16'}":
+                                     r["launches"].get(k["name"], 0) for p, r in fp16["train"]["paths"].items()},
+                                  f"phase 33 (c) train+serve 150m ({CUT_LAYERS} layers) fp16":
+                                      fp16["train_serve"]["launches"].get(k["name"], 0)}
         k["launches"] = sum(k["launches_by_phase"].values())
         k["launches_per_inner_step_1b"] = train_1b["launches_per_inner_step"][k["name"]]
         k["launches_per_inner_step_150m_8e"] = moe["launches_per_inner_step"].get(k["name"], 0)
+    # each kernel's f16 instance: its checks, times beside bf16 and bound (phase 33 (a))
+    for k in (*b6, *b7, *b8, *flash, *xent):
+        k["f16"] = fp16["kernels"].get(k["name"], {"checks": [], "ms": None, "note": "not measured"})
+    b6[0]["f16"]["first_design"] = fp16["kernels"]["paged_decode_attention_first"]
     log(json.dumps({"serve": serve, "spec": spec, "spec_f32": spec_f32, "prefix": prefix, "reference": reference,
                     "train": [train_150m, train_1b, train_f32], "train_1b_device": train_1b_device,
                     "outer_plane": outer_plane, "sharded": sharded, "tcp": tcp, "gossip": gossip, "fleet": fleet, "resume": resume_150m, "weights_dir": weights_dir,
@@ -5894,6 +6600,7 @@ def main() -> int:
                     "obs": {"serve": obs_serve, "train": obs_train, "galaxy": obs_galaxy},
                     "slice21": {"remat": remat, "train_diloco": driver, "prefetch": prefetch,
                                 "decode_kernel": decode_kernel},
+                    "fp16": {"train": fp16["train"], "train_serve": fp16["train_serve"]},
                     "phase_seconds": PHASE_SECONDS,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": [*b6, *b7, *b8, *flash, *xent]}))

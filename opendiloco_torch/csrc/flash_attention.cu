@@ -21,7 +21,7 @@
 // Layouts are the port's, read in place with no transpose:
 //   q, out, dO, dq [B, T, H, D]; k, v, dk, dv [B, T, Hkv, D];
 //   lse, delta [B, H, T] f32. All contiguous.
-// Takes f32 and bf16, any rep = H / Hkv, D a multiple of 8 up to 128 and
+// Takes f32, bf16 and f16, any rep = H / Hkv, D a multiple of 8 up to 128 and
 // any T (the tail tile is zero-filled and masked).
 //
 // Design. A block is 4 warps and owns 64 rows: 64 q rows of one head (B1,
@@ -31,8 +31,8 @@
 // the tile being computed (double buffering). Causal blocks stop at the
 // diagonal: B1 and B2a take k tiles up to their last q row, B2b starts at
 // the q tile of its first k row. Every product is a warp-level 16 x n
-// tile product from shared memory: the bf16 instance issues
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate) on the tensor cores, the
+// tile product from shared memory: the bf16 and f16 instances issue
+// mma.sync.m16n8k16 (bf16 or f16 in, f32 accumulate) on the tensor cores, the
 // f32 instance computes the same fragment positions with f32 FMAs. p and
 // ds go through a per-warp shared tile, rounded to the operand dtype,
 // before their products. B2b accumulates dk and dv in registers over the
@@ -505,6 +505,11 @@ int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* 
     return fwd_entry<__nv_bfloat16>(q, k, v, out, lse, B, T, H, Hkv, D, causal, scale, stream);
 }
 
+int flash_attention_fwd_f16(const void* q, const void* k, const void* v, void* out, void* lse, int B, int T,
+                            int H, int Hkv, int D, int causal, float scale, void* stream) {
+    return fwd_entry<__half>(q, k, v, out, lse, B, T, H, Hkv, D, causal, scale, stream);
+}
+
 int flash_attention_dq_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                            const void* delta, void* dq, int B, int T, int H, int Hkv, int D, int causal,
                            float scale, int grad_f32, void* stream) {
@@ -519,6 +524,13 @@ int flash_attention_dq_bf16(const void* q, const void* k, const void* v, const v
                                     scale, grad_f32, stream);
 }
 
+int flash_attention_dq_f16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                           const void* delta, void* dq, int B, int T, int H, int Hkv, int D, int causal,
+                           float scale, int grad_f32, void* stream) {
+    return bwd_entry<__half>(q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, T, H, Hkv, D, causal, scale,
+                             grad_f32, stream);
+}
+
 int flash_attention_dkv_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int B, int T, int H, int Hkv, int D,
                             int causal, float scale, int grad_f32, void* stream) {
@@ -531,6 +543,13 @@ int flash_attention_dkv_bf16(const void* q, const void* k, const void* v, const 
                              int causal, float scale, int grad_f32, void* stream) {
     return bwd_entry<__nv_bfloat16>(q, k, v, dout, lse, delta, nullptr, dk, dv, B, T, H, Hkv, D, causal,
                                     scale, grad_f32, stream);
+}
+
+int flash_attention_dkv_f16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int B, int T, int H, int Hkv, int D,
+                            int causal, float scale, int grad_f32, void* stream) {
+    return bwd_entry<__half>(q, k, v, dout, lse, delta, nullptr, dk, dv, B, T, H, Hkv, D, causal, scale,
+                             grad_f32, stream);
 }
 
 }  // extern "C"

@@ -1,25 +1,28 @@
-// The backward of training attention in bf16 for Hopper (sm_90a), with
+// The backward of training attention in bf16 or f16 for Hopper (sm_90a), with
 // warpgroup matrix products (wgmma), TMA copies and an mbarrier ring:
 //   B2a dq      (replaces opendiloco_tpu/ops/flash_attention.py _bwd_impl,
 //                pl.pallas_call at :320, kernel body _dq_kernel :175)
 //   B2b dk, dv  (the same _bwd_impl, pl.pallas_call at :363, kernel body
 //                _dkv_kernel :223)
 // flash_attention.cu keeps the first design of both (mma.sync), which
-// ops/flash_attention.py routes f32 and the other head dims to.
+// ops/flash_attention.py routes f32 and the other head dims to. Each
+// kernel is one template over the element type E (bf16 or f16; sm90.cuh)
+// and the output type TO (E, or f32 under grad_f32), exported as *_bf16
+// and *_f16.
 //
 // Computes what those kernels compute, for q-head h reading kv-head
 // h / rep, with s = scale * q.k^T in f32 and keys after the query masked
 // when causal: p = exp(s - lse), dp = dO.v^T, ds = p * (dp - delta);
-//   B2a  dq = scale * sum_k ds . k, ds rounded to bf16;
-//   B2b  dv = sum p^T . dO (p rounded to bf16), dk = scale * sum ds^T . q
-//        (ds rounded to bf16), each summed over the rep q-heads of the
+//   B2a  dq = scale * sum_k ds . k, ds rounded to E;
+//   B2b  dv = sum p^T . dO (p rounded to E), dk = scale * sum ds^T . q
+//        (ds rounded to E), each summed over the rep q-heads of the
 //        kv head and every q tile in a fixed order.
-// Scores, statistics and accumulators are f32; outputs bf16, or f32 under
+// Scores, statistics and accumulators are f32; outputs E, or f32 under
 // grad_f32. Layouts are the port's, read in place by TMA: q, dO, dq
 // [B, T, H, D]; k, v, dk, dv [B, T, Hkv, D]; lse, delta [B, H, T] f32.
 // D is 32, 64 or 128; any T and rep.
 //
-// Bound on this card (989 TFLOP/s bf16, 3.35 TB/s; chip_smoke.py
+// Bound on this card (989 TFLOP/s bf16 and f16 alike, 3.35 TB/s; chip_smoke.py
 // flash_work): at the 150m training shape (B 8, T 1024, 16 x 64 heads,
 // causal) B2a does 3 products over the causal pairs, 25.8 GFLOP, 0.0261
 // ms, and moves 84 MB (0.025 ms); B2b does 4, 34.4 GFLOP, 0.0348 ms, and
@@ -37,7 +40,7 @@
 //    B2a, p^T.dO and ds^T.q in B2b) read it MN-major through the
 //    descriptor's transpose bit.
 // 3. p and ds never leave registers: the f32 accumulator is rounded in
-//    place into the bf16 A fragment of the next wgmma (A from registers).
+//    place into the E A fragment of the next wgmma (A from registers).
 // 4. A CTA owns 128 rows (two consumer warpgroups of 64) and one producer
 //    warp feeds a 2-3 stage ring of 64-row tiles by TMA (one mbarrier
 //    for full and one for empty per stage), with the producer's registers
@@ -91,7 +94,7 @@ struct DkvSmem {
     static constexpr int kBytes = Bar + (2 * G::kStages + 1) * 8 + 1024;  // + alignment slack
 };
 
-template <int D, typename TO>
+template <typename E, int D, typename TO>
 __global__ void __launch_bounds__(kCtaThreads, 1)
     dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mo,
                     const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv, BwdArgs a) {
@@ -241,11 +244,11 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < D / 16; ++ks)
-            wgmma_ss_n64(st, desc_k<D>(sK, kOwn, cw * kTile, ks), desc_k<D>(sQ, kTile, 0, ks), ks > 0);
+            wgmma_ss_n64<E>(st, desc_k<D>(sK, kOwn, cw * kTile, ks), desc_k<D>(sQ, kTile, 0, ks), ks > 0);
         wgmma_commit();
 #pragma unroll
         for (int ks = 0; ks < D / 16; ++ks)
-            wgmma_ss_n64(dpt, desc_k<D>(sV, kOwn, cw * kTile, ks), desc_k<D>(sO, kTile, 0, ks), ks > 0);
+            wgmma_ss_n64<E>(dpt, desc_k<D>(sV, kOwn, cw * kTile, ks), desc_k<D>(sO, kTile, 0, ks), ks > 0);
         wgmma_commit();
         if (pend >= 0) {
             wgmma_wait<2>();
@@ -275,15 +278,15 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
                 dpt[4 * nb + e] = st[4 * nb + e] * (dpt[4 * nb + e] - cD[c]);
             }
         }
-        to_a_frags(pa, st);   // p^T rounded to dO's dtype
-        to_a_frags(da, dpt);  // ds^T rounded to q's dtype
+        to_a_frags<E>(pa, st);   // p^T rounded to dO's dtype
+        to_a_frags<E>(da, dpt);  // ds^T rounded to q's dtype
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
             for (int blk = 0; blk < G::kBlk; ++blk) {
-                wgmma_rs<G::kN>(dv[blk], pa[kk], desc_mn<D>(sO, kTile, blk, kk));
-                wgmma_rs<G::kN>(dk[blk], da[kk], desc_mn<D>(sQ, kTile, blk, kk));
+                wgmma_rs<E, G::kN>(dv[blk], pa[kk], desc_mn<D>(sO, kTile, blk, kk));
+                wgmma_rs<E, G::kN>(dk[blk], da[kk], desc_mn<D>(sQ, kTile, blk, kk));
             }
         }
         wgmma_commit();
@@ -315,7 +318,7 @@ struct DqSmem {
     static constexpr int kBytes = Bar + (2 * G::kStages + 1) * 8 + 1024;
 };
 
-template <int D, typename TO>
+template <typename E, int D, typename TO>
 __global__ void __launch_bounds__(kCtaThreads, 1)
     dq_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mo,
                    const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv, BwdArgs a) {
@@ -402,11 +405,11 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
             wgmma_fence();
 #pragma unroll
             for (int ks = 0; ks < D / 16; ++ks)
-                wgmma_ss_n64(sc, desc_k<D>(sQ, kOwn, cw * kTile, ks), desc_k<D>(sK, kTile, 0, ks), ks > 0);
+                wgmma_ss_n64<E>(sc, desc_k<D>(sQ, kOwn, cw * kTile, ks), desc_k<D>(sK, kTile, 0, ks), ks > 0);
             wgmma_commit();
 #pragma unroll
             for (int ks = 0; ks < D / 16; ++ks)
-                wgmma_ss_n64(dp, desc_k<D>(sO, kOwn, cw * kTile, ks), desc_k<D>(sV, kTile, 0, ks), ks > 0);
+                wgmma_ss_n64<E>(dp, desc_k<D>(sO, kOwn, cw * kTile, ks), desc_k<D>(sV, kTile, 0, ks), ks > 0);
             wgmma_commit();
 
             const bool mask = (a.causal && c0 + kTile - 1 > wq0) || c0 + kTile > T_;
@@ -427,13 +430,13 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
                 for (int e = 0; e < 4; ++e) dp[4 * nb + e] = sc[4 * nb + e] * (dp[4 * nb + e] - dl[e >> 1]);
             }
             uint32_t da[4][4];
-            to_a_frags(da, dp);  // ds rounded to k's dtype
+            to_a_frags<E>(da, dp);  // ds rounded to k's dtype
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
                 for (int blk = 0; blk < G::kBlk; ++blk)
-                    wgmma_rs<G::kN>(dq[blk], da[kk], desc_mn<D>(sK, kTile, blk, kk));
+                    wgmma_rs<E, G::kN>(dq[blk], da[kk], desc_mn<D>(sK, kTile, blk, kk));
             }
             wgmma_commit();
             wgmma_wait<0>();
@@ -452,7 +455,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
 // host side
 // ---------------------------------------------------------------------------
 
-template <int D, typename TO>
+template <typename E, int D, typename TO>
 cudaError_t run(bool dq_side, const void* q, const void* k, const void* v, const void* dout, const BwdArgs& a,
                 cudaStream_t st) {
     constexpr int cb = Geo<D>::kCb;
@@ -460,34 +463,35 @@ cudaError_t run(bool dq_side, const void* q, const void* k, const void* v, const
     const int qrows = dq_side ? kOwn : kTile, kvrows = dq_side ? kTile : kOwn;
     CUtensorMap mq, mo, mk, mv;
     cudaError_t err;
-    if ((err = bf16_rows_map(&mq, q, a.B, a.T, a.H, D, qrows, cb)) != cudaSuccess) return err;
-    if ((err = bf16_rows_map(&mo, dout, a.B, a.T, a.H, D, qrows, cb)) != cudaSuccess) return err;
-    if ((err = bf16_rows_map(&mk, k, a.B, a.T, a.Hkv, D, kvrows, cb)) != cudaSuccess) return err;
-    if ((err = bf16_rows_map(&mv, v, a.B, a.T, a.Hkv, D, kvrows, cb)) != cudaSuccess) return err;
+    if ((err = rows_map<E>(&mq, q, a.B, a.T, a.H, D, qrows, cb)) != cudaSuccess) return err;
+    if ((err = rows_map<E>(&mo, dout, a.B, a.T, a.H, D, qrows, cb)) != cudaSuccess) return err;
+    if ((err = rows_map<E>(&mk, k, a.B, a.T, a.Hkv, D, kvrows, cb)) != cudaSuccess) return err;
+    if ((err = rows_map<E>(&mv, v, a.B, a.T, a.Hkv, D, kvrows, cb)) != cudaSuccess) return err;
     const int tiles = (a.T + kOwn - 1) / kOwn;
     if (dq_side) {
         constexpr size_t smem = DqSmem<D>::kBytes;
-        if ((err = allow_smem<dq_sm90_kernel<D, TO>>(smem)) != cudaSuccess) return err;
-        dq_sm90_kernel<D, TO><<<tiles * a.H * a.B, kCtaThreads, smem, st>>>(mq, mo, mk, mv, a);
+        if ((err = allow_smem<dq_sm90_kernel<E, D, TO>>(smem)) != cudaSuccess) return err;
+        dq_sm90_kernel<E, D, TO><<<tiles * a.H * a.B, kCtaThreads, smem, st>>>(mq, mo, mk, mv, a);
     } else {
         constexpr size_t smem = DkvSmem<D>::kBytes;
-        if ((err = allow_smem<dkv_sm90_kernel<D, TO>>(smem)) != cudaSuccess) return err;
-        dkv_sm90_kernel<D, TO><<<tiles * a.Hkv * a.B, kCtaThreads, smem, st>>>(mq, mo, mk, mv, a);
+        if ((err = allow_smem<dkv_sm90_kernel<E, D, TO>>(smem)) != cudaSuccess) return err;
+        dkv_sm90_kernel<E, D, TO><<<tiles * a.Hkv * a.B, kCtaThreads, smem, st>>>(mq, mo, mk, mv, a);
     }
     return cudaGetLastError();
 }
 
-template <typename TO>
+template <typename E, typename TO>
 cudaError_t run_d(bool dq_side, int D, const void* q, const void* k, const void* v, const void* dout,
                   const BwdArgs& a, cudaStream_t st) {
     switch (D) {
-        case 32: return run<32, TO>(dq_side, q, k, v, dout, a, st);
-        case 64: return run<64, TO>(dq_side, q, k, v, dout, a, st);
-        case 128: return run<128, TO>(dq_side, q, k, v, dout, a, st);
+        case 32: return run<E, 32, TO>(dq_side, q, k, v, dout, a, st);
+        case 64: return run<E, 64, TO>(dq_side, q, k, v, dout, a, st);
+        case 128: return run<E, 128, TO>(dq_side, q, k, v, dout, a, st);
         default: return cudaErrorInvalidValue;
     }
 }
 
+template <typename E>
 int entry(bool dq_side, const void* q, const void* k, const void* v, const void* dout, const void* lse,
           const void* delta, void* out0, void* out1, int B, int T, int H, int Hkv, int D, int causal, float scale,
           int grad_f32, void* stream) {
@@ -495,8 +499,8 @@ int entry(bool dq_side, const void* q, const void* k, const void* v, const void*
     const BwdArgs a{static_cast<const float*>(lse), static_cast<const float*>(delta), out0, out1, B, T, H, Hkv,
                     causal, scale};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return (int)(grad_f32 ? run_d<float>(dq_side, D, q, k, v, dout, a, st)
-                          : run_d<__nv_bfloat16>(dq_side, D, q, k, v, dout, a, st));
+    return (int)(grad_f32 ? run_d<E, float>(dq_side, D, q, k, v, dout, a, st)
+                          : run_d<E, E>(dq_side, D, q, k, v, dout, a, st));
 }
 
 }  // namespace
@@ -508,13 +512,28 @@ const char* cuda_error_string(int err) { return cudaGetErrorString(static_cast<c
 int flash_attention_dq_sm90_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                                  const void* delta, void* dq, int B, int T, int H, int Hkv, int D, int causal,
                                  float scale, int grad_f32, void* stream) {
-    return entry(true, q, k, v, dout, lse, delta, dq, nullptr, B, T, H, Hkv, D, causal, scale, grad_f32, stream);
+    return entry<__nv_bfloat16>(true, q, k, v, dout, lse, delta, dq, nullptr, B, T, H, Hkv, D, causal, scale,
+                                grad_f32, stream);
 }
 
 int flash_attention_dkv_sm90_bf16(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv, int B, int T, int H,
                                   int Hkv, int D, int causal, float scale, int grad_f32, void* stream) {
-    return entry(false, q, k, v, dout, lse, delta, dk, dv, B, T, H, Hkv, D, causal, scale, grad_f32, stream);
+    return entry<__nv_bfloat16>(false, q, k, v, dout, lse, delta, dk, dv, B, T, H, Hkv, D, causal, scale, grad_f32,
+                                stream);
+}
+
+int flash_attention_dq_sm90_f16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                                const void* delta, void* dq, int B, int T, int H, int Hkv, int D, int causal,
+                                float scale, int grad_f32, void* stream) {
+    return entry<__half>(true, q, k, v, dout, lse, delta, dq, nullptr, B, T, H, Hkv, D, causal, scale, grad_f32,
+                         stream);
+}
+
+int flash_attention_dkv_sm90_f16(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, void* dk, void* dv, int B, int T, int H,
+                                 int Hkv, int D, int causal, float scale, int grad_f32, void* stream) {
+    return entry<__half>(false, q, k, v, dout, lse, delta, dk, dv, B, T, H, Hkv, D, causal, scale, grad_f32, stream);
 }
 
 }  // extern "C"

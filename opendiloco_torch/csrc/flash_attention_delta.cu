@@ -4,7 +4,7 @@
 // package computes it in XLA outside Pallas (opendiloco_tpu/ops/
 // flash_attention.py _delta, :280): no pallas_call is replaced.
 //
-// Takes f32 and bf16, D a multiple of 8 up to 128, any B, T and H; dO, O
+// Takes f32, bf16 and f16, D a multiple of 8 up to 128, any B, T and H; dO, O
 // contiguous and 16-byte aligned (the wrapper checks).
 //
 // Bound on this card (3.35 TB/s): it reads dO and O once and writes delta
@@ -12,7 +12,7 @@
 // ms; its 2 B T H D flops are nothing beside that. Bound by bytes.
 //
 // Design: a group of G lanes (G the power of two at or above the row's
-// 16-byte chunks: 8 for bf16 at D 64) takes one row, one 16-byte load of
+// 16-byte chunks: 8 for bf16 or f16 at D 64) takes one row, one 16-byte load of
 // dO and of O a lane. Groups walk the rows in delta's order (b, h, t), so
 // a warp's lanes write neighbouring floats and each group reads whole
 // 128-byte lines. Each lane sums its chunk in f32 in element order, then
@@ -40,6 +40,18 @@ __device__ __forceinline__ float dot_chunk(const uint4& x, const uint4& y, __nv_
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const float2 fa = __bfloat1622float2(a[i]), fb = __bfloat1622float2(b[i]);
+        s = fmaf(fa.x, fb.x, s);
+        s = fmaf(fa.y, fb.y, s);
+    }
+    return s;
+}
+__device__ __forceinline__ float dot_chunk(const uint4& x, const uint4& y, __half) {
+    const __half2* a = reinterpret_cast<const __half2*>(&x);
+    const __half2* b = reinterpret_cast<const __half2*>(&y);
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float2 fa = __half22float2(a[i]), fb = __half22float2(b[i]);
         s = fmaf(fa.x, fb.x, s);
         s = fmaf(fa.y, fb.y, s);
     }
@@ -97,6 +109,11 @@ int flash_attention_delta_f32(const void* dout, const void* out, void* delta, in
 int flash_attention_delta_bf16(const void* dout, const void* out, void* delta, int B, int T, int H, int D,
                                void* stream) {
     return run<__nv_bfloat16>(dout, out, delta, B, T, H, D, stream);
+}
+
+int flash_attention_delta_f16(const void* dout, const void* out, void* delta, int B, int T, int H, int D,
+                              void* stream) {
+    return run<__half>(dout, out, delta, B, T, H, D, stream);
 }
 
 }  // extern "C"

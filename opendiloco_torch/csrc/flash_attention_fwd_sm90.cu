@@ -1,19 +1,21 @@
-// The forward of training attention in bf16 for Hopper (sm_90a), with
+// The forward of training attention in bf16 or f16 for Hopper (sm_90a), with
 // warpgroup matrix products (wgmma), TMA copies and an mbarrier ring:
 //   B1 out, lse (replaces opendiloco_tpu/ops/flash_attention.py _fwd,
 //               pl.pallas_call at :136, kernel body _fwd_kernel :53)
 // flash_attention.cu keeps the first design (mma.sync), which
-// ops/flash_attention.py routes f32 and the other head dims to.
+// ops/flash_attention.py routes f32 and the other head dims to. Each
+// kernel is one template over the element type E (bf16 or f16: the same
+// tiles, descriptors and swizzles; sm90.cuh), exported as *_bf16 and *_f16.
 //
 // Computes what that kernel computes, for q-head h reading kv-head
 // h / rep: s = scale * q.k^T in f32, keys after the query masked when
-// causal, an online softmax with f32 statistics, p rounded to bf16 before
-// p.v, out = acc / l in bf16 and lse = m + log(l) in f32 (natural log, as
+// causal, an online softmax with f32 statistics, p rounded to E before
+// p.v, out = acc / l in E and lse = m + log(l) in f32 (natural log, as
 // flash_attention_bwd_sm90.cu reads it). Layouts are the port's, read and
 // written in place by TMA: q, out [B, T, H, D]; k, v [B, T, Hkv, D]; lse
 // [B, H, T]. D is 32, 64 or 128; any T and rep; causal or full.
 //
-// Bound on this card (989 TFLOP/s bf16, 3.35 TB/s; chip_smoke.py
+// Bound on this card (989 TFLOP/s bf16 and f16 alike, 3.35 TB/s; chip_smoke.py
 // flash_work): at the 1b head geometry (B 8, T 1024, 32 q over 4 kv heads
 // x 64, causal) two products over the causal pairs, 34.4 GFLOP, 0.0348
 // ms, against 76 MB moved (0.023 ms): bound by operations. At the 150m
@@ -33,7 +35,7 @@
 //    producer's registers and raises the consumers'.
 // 2. S = Q.K^T is an SS wgmma m64n128k16 (K-major operands from the
 //    swizzled tiles); O += P.V an RS wgmma (m64n64k16, m64n32k16 at
-//    D 32) with P rounded in place from the f32 S accumulator into bf16 A
+//    D 32) with P rounded in place from the f32 S accumulator into E A
 //    fragments and V read MN-major through the descriptor's transpose bit.
 // 3. Softmax in the log2 domain: one FFMA (scale log2 e) and one
 //    ex2.approx an entry; row maxima by quad shuffles; each thread keeps
@@ -43,7 +45,7 @@
 // 4. Each warpgroup issues kv tile j + 1's Q.K^T together with tile j's
 //    P.V and runs tile j + 1's softmax while P.V is in flight (FA3's
 //    intra-warpgroup pipelining); the stage is released once P.V is done.
-// 5. Epilogue: O / l in bf16 by stmatrix into the warpgroup's swizzled
+// 5. Epilogue: O / l in E by stmatrix into the warpgroup's swizzled
 //    out tile, then one TMA store (rows past T clipped by the tensor map);
 //    lse = (m + log2 l) ln 2. Each output row belongs to one warpgroup and
 //    is summed in kv-tile order with no atomics: results repeat bit for
@@ -68,7 +70,7 @@ constexpr int kBN = 128;  // rows of a kv tile
 constexpr float kLn2 = 0.6931471805599453f;
 
 struct FwdArgs {
-    __nv_bfloat16* out;
+    void* out;
     float* lse;
     int B, T, H, Hkv, causal;
     float scale;
@@ -102,7 +104,7 @@ __device__ __forceinline__ Tile tile_at(int i, const FwdArgs& a) {
     return t;
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kCtaThreads, 1)
     fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                     const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo, FwdArgs a,
@@ -183,7 +185,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
         const uint32_t sK = smem_u32(sm + S::K + stage(j) * S::kKT);
 #pragma unroll
         for (int ks = 0; ks < D / 16; ++ks)
-            wgmma_ss_n128(sc[0], sc[1], desc_k<D>(sQ, kOwn, cw * kTile, ks), desc_k<D>(sK, kBN, 0, ks), ks > 0);
+            wgmma_ss_n128<E>(sc[0], sc[1], desc_k<D>(sQ, kOwn, cw * kTile, ks), desc_k<D>(sK, kBN, 0, ks), ks > 0);
         wgmma_commit();
     };
     auto pv = [&](int j) {
@@ -192,7 +194,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
         for (int kk = 0; kk < 8; ++kk) {
 #pragma unroll
             for (int blk = 0; blk < G::kBlk; ++blk)
-                wgmma_rs<G::kN>(o[blk], pa[kk / 4][kk % 4], desc_mn<D>(sV, kBN, blk, kk));
+                wgmma_rs<E, G::kN>(o[blk], pa[kk / 4][kk % 4], desc_mn<D>(sV, kBN, blk, kk));
         }
         wgmma_commit();
     };
@@ -239,8 +241,8 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
         for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
     };
     auto to_p = [&]() {
-        to_a_frags(pa[0], sc[0]);
-        to_a_frags(pa[1], sc[1]);
+        to_a_frags<E>(pa[0], sc[0]);
+        to_a_frags<E>(pa[1], sc[1]);
     };
 
     for (int i = blockIdx.x, n = 0; i < ntiles; i += gridDim.x, ++n) {
@@ -313,7 +315,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
             inv[r] = 1.0f / lsafe;
             lse[r] = (m[r] + log2f(lsafe)) * kLn2;
         }
-        // O / l in bf16 into the swizzled out tile (stmatrix: lanes 8i ..
+        // O / l in E into the swizzled out tile (stmatrix: lanes 8i ..
         // 8i + 7 address the rows of matrix i, the 8 x 8 block of column
         // block nb + i / 2, rows 8 (i % 2) on), then one TMA store
         if (tid == 0) bulk_wait_read0();  // the last q tile's store has read the out tile
@@ -327,8 +329,8 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
                 const float* e = &o[blk][4 * nb];
                 const int chunk = (nb + (mi >> 1)) ^ swz;
                 stmatrix_x4(smem_u32(so + blk * kTile * G::kRowBytes + sr * G::kRowBytes + chunk * 16),
-                            pack_bf16(e[0] * inv[0], e[1] * inv[0]), pack_bf16(e[2] * inv[1], e[3] * inv[1]),
-                            pack_bf16(e[4] * inv[0], e[5] * inv[0]), pack_bf16(e[6] * inv[1], e[7] * inv[1]));
+                            pack_rn<E>(e[0] * inv[0], e[1] * inv[0]), pack_rn<E>(e[2] * inv[1], e[3] * inv[1]),
+                            pack_rn<E>(e[4] * inv[0], e[5] * inv[0]), pack_rn<E>(e[6] * inv[1], e[7] * inv[1]));
             }
         }
         fence_proxy_async();
@@ -352,22 +354,36 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
 // host side
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <typename E, int D>
 cudaError_t run(const void* q, const void* k, const void* v, const FwdArgs& a, cudaStream_t st) {
     constexpr int cb = Geo<D>::kCb;
     CUtensorMap mq, mk, mv, mo;
     cudaError_t err;
-    if ((err = bf16_rows_map(&mq, q, a.B, a.T, a.H, D, kOwn, cb)) != cudaSuccess) return err;
-    if ((err = bf16_rows_map(&mk, k, a.B, a.T, a.Hkv, D, kBN, cb)) != cudaSuccess) return err;
-    if ((err = bf16_rows_map(&mv, v, a.B, a.T, a.Hkv, D, kBN, cb)) != cudaSuccess) return err;
-    if ((err = bf16_rows_map(&mo, a.out, a.B, a.T, a.H, D, kTile, cb)) != cudaSuccess) return err;
+    if ((err = rows_map<E>(&mq, q, a.B, a.T, a.H, D, kOwn, cb)) != cudaSuccess) return err;
+    if ((err = rows_map<E>(&mk, k, a.B, a.T, a.Hkv, D, kBN, cb)) != cudaSuccess) return err;
+    if ((err = rows_map<E>(&mv, v, a.B, a.T, a.Hkv, D, kBN, cb)) != cudaSuccess) return err;
+    if ((err = rows_map<E>(&mo, a.out, a.B, a.T, a.H, D, kTile, cb)) != cudaSuccess) return err;
     constexpr size_t smem = FwdSmem<D>::kBytes;
-    if ((err = allow_smem<fwd_sm90_kernel<D>>(smem)) != cudaSuccess) return err;
+    if ((err = allow_smem<fwd_sm90_kernel<E, D>>(smem)) != cudaSuccess) return err;
     int sms = 0;  // one persistent CTA an SM
     if ((err = sm_count(&sms)) != cudaSuccess) return err;
     const int ntiles = (a.T + kOwn - 1) / kOwn * a.H * a.B;
-    fwd_sm90_kernel<D><<<min(ntiles, sms), kCtaThreads, smem, st>>>(mq, mk, mv, mo, a, ntiles);
+    fwd_sm90_kernel<E, D><<<min(ntiles, sms), kCtaThreads, smem, st>>>(mq, mk, mv, mo, a, ntiles);
     return cudaGetLastError();
+}
+
+template <typename E>
+int entry(const void* q, const void* k, const void* v, void* out, void* lse, int B, int T, int H, int Hkv, int D,
+          int causal, float scale, void* stream) {
+    if (B < 1 || T < 1 || Hkv < 1 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
+    const FwdArgs a{out, static_cast<float*>(lse), B, T, H, Hkv, causal, scale};
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (D) {
+        case 32: return (int)run<E, 32>(q, k, v, a, st);
+        case 64: return (int)run<E, 64>(q, k, v, a, st);
+        case 128: return (int)run<E, 128>(q, k, v, a, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -378,15 +394,12 @@ const char* cuda_error_string(int err) { return cudaGetErrorString(static_cast<c
 
 int flash_attention_fwd_sm90_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int B, int T,
                                   int H, int Hkv, int D, int causal, float scale, void* stream) {
-    if (B < 1 || T < 1 || Hkv < 1 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
-    const FwdArgs a{static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), B, T, H, Hkv, causal, scale};
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (D) {
-        case 32: return (int)run<32>(q, k, v, a, st);
-        case 64: return (int)run<64>(q, k, v, a, st);
-        case 128: return (int)run<128>(q, k, v, a, st);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return entry<__nv_bfloat16>(q, k, v, out, lse, B, T, H, Hkv, D, causal, scale, stream);
+}
+
+int flash_attention_fwd_sm90_f16(const void* q, const void* k, const void* v, void* out, void* lse, int B, int T,
+                                 int H, int Hkv, int D, int causal, float scale, void* stream) {
+    return entry<__half>(q, k, v, out, lse, B, T, H, Hkv, D, causal, scale, stream);
 }
 
 }  // extern "C"

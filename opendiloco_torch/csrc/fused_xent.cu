@@ -1,7 +1,7 @@
 // Fused lm-head + cross-entropy for Hopper (sm_90a): the forward kernel and
 // the three kernels of the backward, the first design (mma.sync). f32
-// takes these; bf16 takes fused_xent_sm90.cu (wgmma and TMA), and reaches
-// these only where ops/fused_xent.py is asked for route="fused_xent".
+// takes these; bf16 and f16 take fused_xent_sm90.cu (wgmma and TMA), and
+// reach these only where ops/fused_xent.py is asked for route="fused_xent".
 //
 // Replaces (opendiloco_tpu/ops/fused_xent.py):
 //   B3  _fwd       (pl.pallas_call at :139, kernel body _fwd_kernel :85)
@@ -23,7 +23,7 @@
 //   dh    dh_chunk = dlog . w^T, f32 accumulation, written in h's dtype.
 //   dw    dw (+)= h_chunk^T . dlog in f32; the first chunk writes, later
 //         chunks add in chunk order, so dw sums in a fixed order.
-// All four take f32 and bf16, any N, D and V that are multiples of 8
+// All four take f32, bf16 and f16, any N, D and V that are multiples of 8
 // (16-byte rows); contiguous row-major operands.
 //
 // Design. The TPU kernels keep a [block_n, D] f32 dh tile and a [D,
@@ -37,8 +37,8 @@
 // exist. Every kernel is one tiled GEMM main loop: a block of 8 warps owns
 // a 128 x 128 output tile (a warp 64 x 32), K advances 32 at a time
 // through a 3-stage cp.async ring in shared memory (16 bytes a copy,
-// zero-filled past the edges), and the bf16 instance feeds mma.sync
-// m16n8k16 (bf16 in, f32 accumulate) from ldmatrix (.trans where the
+// zero-filled past the edges), and the bf16 and f16 instances feed mma.sync
+// m16n8k16 (bf16 or f16 in, f32 accumulate) from ldmatrix (.trans where the
 // operand is stored with M or N contiguous); the f32 instance computes the
 // same accumulator positions with f32 FMAs. The forward walks the vocab
 // tiles of its split with one running (m, l, target) per row and warp;
@@ -145,7 +145,7 @@ __device__ __forceinline__ void compute_stage(const T* st, Acc& acc, int wm, int
     const T* sA = st;
     const T* sB = st + Tile<T, AK, kBM>::elems;
     const int lane = threadIdx.x & 31;
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if constexpr (kHalfWidth<T>) {
 #pragma unroll
         for (int kk = 0; kk < kBK; kk += 16) {
             uint32_t a[kMI][4], b[kNI][2];
@@ -175,7 +175,7 @@ __device__ __forceinline__ void compute_stage(const T* st, Acc& acc, int wm, int
 #pragma unroll
             for (int mi = 0; mi < kMI; ++mi) {
 #pragma unroll
-                for (int ni = 0; ni < kNI; ++ni) mma16816(acc[mi][ni], a[mi], b[ni]);
+                for (int ni = 0; ni < kNI; ++ni) mma16816<T>(acc[mi][ni], a[mi], b[ni]);
             }
         }
     } else {
@@ -522,6 +522,10 @@ int fused_xent_fwd_bf16(const void* h, const void* w, const void* labels, void* 
     return fwd_entry<__nv_bfloat16>(h, w, labels, nll, lse, part, N, D, V, splits,
                                     static_cast<cudaStream_t>(stream));
 }
+int fused_xent_fwd_f16(const void* h, const void* w, const void* labels, void* nll, void* lse, void* part, int N,
+                       int D, int V, int splits, void* stream) {
+    return fwd_entry<__half>(h, w, labels, nll, lse, part, N, D, V, splits, static_cast<cudaStream_t>(stream));
+}
 
 int fused_xent_dlog_f32(const void* h, const void* w, const void* labels, const void* lse, const void* g,
                         void* dlog, int N, int D, int V, void* stream) {
@@ -531,12 +535,19 @@ int fused_xent_dlog_bf16(const void* h, const void* w, const void* labels, const
                          void* dlog, int N, int D, int V, void* stream) {
     return dlog_entry<__nv_bfloat16>(h, w, labels, lse, g, dlog, N, D, V, static_cast<cudaStream_t>(stream));
 }
+int fused_xent_dlog_f16(const void* h, const void* w, const void* labels, const void* lse, const void* g,
+                        void* dlog, int N, int D, int V, void* stream) {
+    return dlog_entry<__half>(h, w, labels, lse, g, dlog, N, D, V, static_cast<cudaStream_t>(stream));
+}
 
 int fused_xent_dh_f32(const void* dlog, const void* w, void* dh, int N, int D, int V, void* stream) {
     return dh_entry<float>(dlog, w, dh, N, D, V, static_cast<cudaStream_t>(stream));
 }
 int fused_xent_dh_bf16(const void* dlog, const void* w, void* dh, int N, int D, int V, void* stream) {
     return dh_entry<__nv_bfloat16>(dlog, w, dh, N, D, V, static_cast<cudaStream_t>(stream));
+}
+int fused_xent_dh_f16(const void* dlog, const void* w, void* dh, int N, int D, int V, void* stream) {
+    return dh_entry<__half>(dlog, w, dh, N, D, V, static_cast<cudaStream_t>(stream));
 }
 
 int fused_xent_dw_f32(const void* h, const void* dlog, void* dw, int N, int D, int V, int accumulate,
@@ -546,6 +557,10 @@ int fused_xent_dw_f32(const void* h, const void* dlog, void* dw, int N, int D, i
 int fused_xent_dw_bf16(const void* h, const void* dlog, void* dw, int N, int D, int V, int accumulate,
                        void* stream) {
     return dw_entry<__nv_bfloat16>(h, dlog, dw, N, D, V, accumulate, static_cast<cudaStream_t>(stream));
+}
+int fused_xent_dw_f16(const void* h, const void* dlog, void* dw, int N, int D, int V, int accumulate,
+                      void* stream) {
+    return dw_entry<__half>(h, dlog, dw, N, D, V, accumulate, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-// The fused cross-entropy's four passes in bf16 for Hopper (sm_90a), with
+// The fused cross-entropy's four passes in bf16 or f16 for Hopper (sm_90a), with
 // warpgroup matrix products (wgmma), TMA copies and an mbarrier ring:
 //   fwd  (B3: replaces opendiloco_tpu/ops/fused_xent.py _fwd, pl.pallas_call
 //         at :139, kernel body _fwd_kernel :85)
@@ -9,16 +9,18 @@
 //   dw   (B4b: replaces _bwd_impl's pl.pallas_call at :276, kernel body
 //         _dw_kernel :219)
 // fused_xent.cu keeps the first design of all four (mma.sync), which
-// ops/fused_xent.py routes f32 to.
+// ops/fused_xent.py routes f32 to. Each kernel is one template over the
+// element type E (bf16 or f16: the same tiles, descriptors and swizzles;
+// sm90.cuh), exported as *_bf16 and *_f16.
 //
 // fwd computes, for h [N, D], w [D, V] and labels [N] (int64, -100 =
 // ignored), nll [N] and lse [N] in f32: lse by an online log-sum-exp over
 // the vocab tiles, so the logits are never stored; nll = (lse - s[label])
 // * mask. The backward passes compute, for one chunk of rows, h [M, D],
 // w, labels [M], lse [M] f32 and the masked upstream gradient
-// g [M] f32, with s = h.w from bf16 operands and f32 accumulation:
-//   dlog [M, V] = g * (exp(s - lse) - onehot), rounded to bf16;
-//   dh [M, D] = dlog . w^T, f32 accumulation, rounded to bf16;
+// g [M] f32, with s = h.w from E operands and f32 accumulation:
+//   dlog [M, V] = g * (exp(s - lse) - onehot), rounded to E;
+//   dh [M, D] = dlog . w^T, f32 accumulation, rounded to E;
 //   dw [D, V] f32 = h^T . dlog summed over the chunk's M rows, written by
 //     the first chunk and added to the f32 dw by each later one.
 // Columns past V (dlog, dw) and D (dh) and rows past M (D for dw) are
@@ -31,7 +33,7 @@
 // tile at D 2048 is 1 MB, beyond an SM's registers and shared memory; a
 // fold would recompute the logits once per D tile.
 //
-// Bound on this card (989 TFLOP/s bf16, 3.35 TB/s; chip_smoke.py
+// Bound on this card (989 TFLOP/s bf16 and f16 alike, 3.35 TB/s; chip_smoke.py
 // xent_work): at one 2048-row chunk of the 1b training shape (D 2048,
 // V 32000) each pass is one product, 0.268 TFLOP, 0.2714 ms, against
 // 131 MB of dlog and 131 MB of w (0.04-0.08 ms): bound by operations. dw
@@ -66,7 +68,7 @@
 //    swizzle atom, loaded as their own TMA box. Each consumer keeps one wgmma group in flight and hands a stage
 //    back as soon as the group that read it has finished.
 // 4. Epilogues on the accumulator registers, stored straight from them
-//    (two bf16 a store): dlog takes exp by ex2.approx on s log2 e -
+//    (two elements a store): dlog takes exp by ex2.approx on s log2 e -
 //    lse log2 e (one FFMA and one MUFU an entry) where the first design
 //    keeps expf; measured on the card (chip_smoke.py phase 9), its worst
 //    bf16 element sits at 0.957 of the element-wise limit (the ragged
@@ -115,7 +117,7 @@ namespace {
 
 constexpr int kBM = 128;  // rows of an output tile: two consumer warpgroups
 constexpr int kBN = 256;  // columns of an output tile
-constexpr int kBK = 64;   // depth of a stage: one 128-byte swizzle row of bf16
+constexpr int kBK = 64;   // depth of a stage: one 128-byte swizzle row of 16-bit elements
 constexpr int kStages = 4;
 constexpr int kStageA = kBM * kBK * 2;           // 16 KB
 constexpr int kStageBytes = kStageA + kBN * kBK * 2;  // + 32 KB of B
@@ -154,12 +156,12 @@ struct SplitWalk {
 };
 
 // C[M, N] = A . B over K, A [M][K] (K-major, !A_MN) or [K][M] (MN-major,
-// A_MN), B [N][K] (K-major, !B_MN) or [K][N] (MN-major, B_MN), bf16 in, f32
+// A_MN), B [N][K] (K-major, !B_MN) or [K][N] (MN-major, B_MN), E in, f32
 // accumulators, over the output tiles of the walk r (Raster or
 // SplitWalk); epi(row0, n0, tag, acc) runs on each consumer warpgroup's
 // 64 x kBN accumulator (rows row0 .. row0 + 63) after the tile's last
 // step. Launched with kCtaThreads threads.
-template <bool A_MN, bool B_MN, typename Walk, typename Epi>
+template <typename E, bool A_MN, bool B_MN, typename Walk, typename Epi>
 __device__ __forceinline__ void gemm_sm90(const CUtensorMap* ma, const CUtensorMap* mb, Walk r, int K, Epi epi) {
     constexpr int kSt = kStages;
     extern __shared__ uint8_t smem_raw[];
@@ -233,7 +235,7 @@ __device__ __forceinline__ void gemm_sm90(const CUtensorMap* ma, const CUtensorM
                                          : smem_desc(sa + cw * 64 * 128 + ks * 32, 16, 1024, 1);
                 const uint64_t db = B_MN ? smem_desc(sb + ks * 16 * 128, kBK * 128, 1024, 1)
                                          : smem_desc(sb + ks * 32, 16, 1024, 1);
-                wgmma_ss_n256<A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db, kb > 0 || ks > 0);
+                wgmma_ss_n256<E, A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db, kb > 0 || ks > 0);
             }
             wgmma_commit();
             wgmma_wait<1>();  // the group of step kb - 1 is done: its stage is free
@@ -257,12 +259,13 @@ struct Frag {
     }
 };
 
+template <typename E>
 __global__ void __launch_bounds__(kCtaThreads, 1)
     xent_dlog_sm90_kernel(const __grid_constant__ CUtensorMap mh, const __grid_constant__ CUtensorMap mw,
                           const long long* __restrict__ labels, const float* __restrict__ lse,
-                          const float* __restrict__ gup, __nv_bfloat16* __restrict__ dlog, int M, int D, int V) {
+                          const float* __restrict__ gup, E* __restrict__ dlog, int M, int D, int V) {
     const Raster r{(M + kBM - 1) / kBM, (V + kBN - 1) / kBN};
-    gemm_sm90<false, true>(&mh, &mw, r, D, [&](int row0, int n0, int, float(&acc)[kBN / 2]) {
+    gemm_sm90<E, false, true>(&mh, &mw, r, D, [&](int row0, int n0, int, float(&acc)[kBN / 2]) {
         const Frag f(row0);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
@@ -270,7 +273,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
             if (row >= M) continue;
             const float l2 = lse[row] * kLog2e, gr = gup[row];
             const long long lb = labels[row];
-            __nv_bfloat16* dst = dlog + (size_t)row * V;
+            E* dst = dlog + (size_t)row * V;
 #pragma unroll
             for (int nb = 0; nb < kBN / 8; ++nb) {
                 const int col = n0 + nb * 8 + f.t2;  // V is even: col < V covers col + 1
@@ -296,6 +299,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
 // target) into part [3][splits][N] for xent_merge_kernel. Columns past V
 // (zero filled by TMA) are left out of the max and the sum; rows past N
 // are computed on zeros and not written.
+template <typename E>
 __global__ void __launch_bounds__(kCtaThreads, 1)
     xent_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mh, const __grid_constant__ CUtensorMap mw,
                          const long long* __restrict__ labels, float* __restrict__ nll, float* __restrict__ lse,
@@ -303,7 +307,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
     const SplitWalk wk{(N + kBM - 1) / kBM, (V + kBN - 1) / kBN, splits};
     float m[2], l[2], tg[2];
     long long lb[2];
-    gemm_sm90<false, true>(&mh, &mw, wk, D, [&](int row0, int n0, int tag, float(&acc)[kBN / 2]) {
+    gemm_sm90<E, false, true>(&mh, &mw, wk, D, [&](int row0, int n0, int tag, float(&acc)[kBN / 2]) {
         const Frag f(row0);
         const bool full = n0 + kBN <= V;  // no column past V in this tile
 #pragma unroll
@@ -364,17 +368,18 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
     });
 }
 
+template <typename E>
 __global__ void __launch_bounds__(kCtaThreads, 1)
     xent_dh_sm90_kernel(const __grid_constant__ CUtensorMap mdl, const __grid_constant__ CUtensorMap mw,
-                        __nv_bfloat16* __restrict__ dh, int M, int D, int V) {
+                        E* __restrict__ dh, int M, int D, int V) {
     const Raster r{(M + kBM - 1) / kBM, (D + kBN - 1) / kBN};
-    gemm_sm90<false, false>(&mdl, &mw, r, V, [&](int row0, int n0, int, float(&acc)[kBN / 2]) {
+    gemm_sm90<E, false, false>(&mdl, &mw, r, V, [&](int row0, int n0, int, float(&acc)[kBN / 2]) {
         const Frag f(row0);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
             const int row = f.r0 + 8 * hh;
             if (row >= M) continue;
-            __nv_bfloat16* dst = dh + (size_t)row * D;
+            E* dst = dh + (size_t)row * D;
 #pragma unroll
             for (int nb = 0; nb < kBN / 8; ++nb) {
                 const int col = n0 + nb * 8 + f.t2;
@@ -398,11 +403,12 @@ static_assert(kDwSmemBytes <= kSmemMax, "dw's ring and epilogue buffers fit one 
 // dw [D, V] f32 (+)= h^T . dlog over the chunk's M rows: C = A . B with A =
 // h^T (MN-major: h [M][D], D contiguous) and B = dlog (MN-major: [M][V]), K
 // = M, stored or added through the TMA epilogue above.
+template <typename E>
 __global__ void __launch_bounds__(kCtaThreads, 1)
     xent_dw_sm90_kernel(const __grid_constant__ CUtensorMap mh, const __grid_constant__ CUtensorMap mdl,
                         const __grid_constant__ CUtensorMap mdw, int M, int D, int V, int accumulate) {
     const Raster r{(D + kBM - 1) / kBM, (V + kBN - 1) / kBN};
-    gemm_sm90<true, true>(&mh, &mdl, r, M, [&](int row0, int n0, int, float(&acc)[kBN / 2]) {
+    gemm_sm90<E, true, true>(&mh, &mdl, r, M, [&](int row0, int n0, int, float(&acc)[kBN / 2]) {
         const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
         extern __shared__ uint8_t smem_raw[];
         const int cw = threadIdx.x / 128 - 1;
@@ -455,62 +461,66 @@ inline cudaError_t grid_size(int tiles, int* grid) {
     return err;
 }
 
+template <typename E>
 int fwd_run(const void* h, const void* w, const void* labels, void* nll, void* lse, void* part, int N, int D,
             int V, int splits, cudaStream_t st) {
     const int mt = (N + kBM - 1) / kBM, nvt = (V + kBN - 1) / kBN;
     if (splits < 1 || splits > nvt) return (int)cudaErrorInvalidValue;
     CUtensorMap mh, mw;
     cudaError_t err;
-    if ((err = bf16_matrix_map(&mh, h, N, D, kBM, kBK)) != cudaSuccess) return (int)err;
-    if ((err = bf16_matrix_map(&mw, w, D, V, kBK, 64)) != cudaSuccess) return (int)err;
-    if ((err = allow_smem<xent_fwd_sm90_kernel>(kSmemBytes)) != cudaSuccess) return (int)err;
+    if ((err = elt_matrix_map<E>(&mh, h, N, D, kBM, kBK)) != cudaSuccess) return (int)err;
+    if ((err = elt_matrix_map<E>(&mw, w, D, V, kBK, 64)) != cudaSuccess) return (int)err;
+    if ((err = allow_smem<xent_fwd_sm90_kernel<E>>(kSmemBytes)) != cudaSuccess) return (int)err;
     int grid = 0;
     if ((err = grid_size(mt * splits, &grid)) != cudaSuccess) return (int)err;
-    xent_fwd_sm90_kernel<<<grid, kCtaThreads, kSmemBytes, st>>>(
+    xent_fwd_sm90_kernel<E><<<grid, kCtaThreads, kSmemBytes, st>>>(
         mh, mw, static_cast<const long long*>(labels), static_cast<float*>(nll), static_cast<float*>(lse),
         static_cast<float*>(part), N, D, V, splits);
     if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return (int)err;
     return (int)launch_xent_merge(part, labels, nll, lse, N, splits, st);
 }
 
+template <typename E>
 int dlog_run(const void* h, const void* w, const void* labels, const void* lse, const void* g, void* dlog, int M,
              int D, int V, cudaStream_t st) {
     CUtensorMap mh, mw;
     cudaError_t err;
-    if ((err = bf16_matrix_map(&mh, h, M, D, kBM, kBK)) != cudaSuccess) return (int)err;
-    if ((err = bf16_matrix_map(&mw, w, D, V, kBK, 64)) != cudaSuccess) return (int)err;
-    if ((err = allow_smem<xent_dlog_sm90_kernel>(kSmemBytes)) != cudaSuccess) return (int)err;
+    if ((err = elt_matrix_map<E>(&mh, h, M, D, kBM, kBK)) != cudaSuccess) return (int)err;
+    if ((err = elt_matrix_map<E>(&mw, w, D, V, kBK, 64)) != cudaSuccess) return (int)err;
+    if ((err = allow_smem<xent_dlog_sm90_kernel<E>>(kSmemBytes)) != cudaSuccess) return (int)err;
     int grid = 0;
     if ((err = grid_size((M + kBM - 1) / kBM * ((V + kBN - 1) / kBN), &grid)) != cudaSuccess) return (int)err;
-    xent_dlog_sm90_kernel<<<grid, kCtaThreads, kSmemBytes, st>>>(
+    xent_dlog_sm90_kernel<E><<<grid, kCtaThreads, kSmemBytes, st>>>(
         mh, mw, static_cast<const long long*>(labels), static_cast<const float*>(lse), static_cast<const float*>(g),
-        static_cast<__nv_bfloat16*>(dlog), M, D, V);
+        static_cast<E*>(dlog), M, D, V);
     return (int)cudaGetLastError();
 }
 
+template <typename E>
 int dh_run(const void* dlog, const void* w, void* dh, int M, int D, int V, cudaStream_t st) {
     CUtensorMap mdl, mw;
     cudaError_t err;
-    if ((err = bf16_matrix_map(&mdl, dlog, M, V, kBM, kBK)) != cudaSuccess) return (int)err;
-    if ((err = bf16_matrix_map(&mw, w, D, V, kBN, kBK)) != cudaSuccess) return (int)err;
-    if ((err = allow_smem<xent_dh_sm90_kernel>(kSmemBytes)) != cudaSuccess) return (int)err;
+    if ((err = elt_matrix_map<E>(&mdl, dlog, M, V, kBM, kBK)) != cudaSuccess) return (int)err;
+    if ((err = elt_matrix_map<E>(&mw, w, D, V, kBN, kBK)) != cudaSuccess) return (int)err;
+    if ((err = allow_smem<xent_dh_sm90_kernel<E>>(kSmemBytes)) != cudaSuccess) return (int)err;
     int grid = 0;
     if ((err = grid_size((M + kBM - 1) / kBM * ((D + kBN - 1) / kBN), &grid)) != cudaSuccess) return (int)err;
-    xent_dh_sm90_kernel<<<grid, kCtaThreads, kSmemBytes, st>>>(mdl, mw, static_cast<__nv_bfloat16*>(dh), M, D, V);
+    xent_dh_sm90_kernel<E><<<grid, kCtaThreads, kSmemBytes, st>>>(mdl, mw, static_cast<E*>(dh), M, D, V);
     return (int)cudaGetLastError();
 }
 
+template <typename E>
 int dw_run(const void* h, const void* dlog, void* dw, int M, int D, int V, int accumulate, cudaStream_t st) {
     CUtensorMap mh, mdl, mdw;
     cudaError_t err;
-    if ((err = bf16_matrix_map(&mh, h, M, D, kBK, 64)) != cudaSuccess) return (int)err;
-    if ((err = bf16_matrix_map(&mdl, dlog, M, V, kBK, 64)) != cudaSuccess) return (int)err;
+    if ((err = elt_matrix_map<E>(&mh, h, M, D, kBK, 64)) != cudaSuccess) return (int)err;
+    if ((err = elt_matrix_map<E>(&mdl, dlog, M, V, kBK, 64)) != cudaSuccess) return (int)err;
     if ((err = matrix_map(&mdw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dw, D, V, 64, kEpiCols)) != cudaSuccess)
         return (int)err;
-    if ((err = allow_smem<xent_dw_sm90_kernel>(kDwSmemBytes)) != cudaSuccess) return (int)err;
+    if ((err = allow_smem<xent_dw_sm90_kernel<E>>(kDwSmemBytes)) != cudaSuccess) return (int)err;
     int grid = 0;
     if ((err = grid_size((D + kBM - 1) / kBM * ((V + kBN - 1) / kBN), &grid)) != cudaSuccess) return (int)err;
-    xent_dw_sm90_kernel<<<grid, kCtaThreads, kDwSmemBytes, st>>>(mh, mdl, mdw, M, D, V, accumulate);
+    xent_dw_sm90_kernel<E><<<grid, kCtaThreads, kDwSmemBytes, st>>>(mh, mdl, mdw, M, D, V, accumulate);
     return (int)cudaGetLastError();
 }
 
@@ -523,24 +533,43 @@ const char* cuda_error_string(int err) { return cudaGetErrorString(static_cast<c
 int fused_xent_fwd_sm90_bf16(const void* h, const void* w, const void* labels, void* nll, void* lse, void* part,
                              int N, int D, int V, int splits, void* stream) {
     if (bad_dims(N, D, V)) return (int)cudaErrorInvalidValue;
-    return fwd_run(h, w, labels, nll, lse, part, N, D, V, splits, static_cast<cudaStream_t>(stream));
+    return fwd_run<__nv_bfloat16>(h, w, labels, nll, lse, part, N, D, V, splits, static_cast<cudaStream_t>(stream));
+}
+int fused_xent_fwd_sm90_f16(const void* h, const void* w, const void* labels, void* nll, void* lse, void* part,
+                            int N, int D, int V, int splits, void* stream) {
+    if (bad_dims(N, D, V)) return (int)cudaErrorInvalidValue;
+    return fwd_run<__half>(h, w, labels, nll, lse, part, N, D, V, splits, static_cast<cudaStream_t>(stream));
 }
 
 int fused_xent_dlog_sm90_bf16(const void* h, const void* w, const void* labels, const void* lse, const void* g,
                               void* dlog, int N, int D, int V, void* stream) {
     if (bad_dims(N, D, V)) return (int)cudaErrorInvalidValue;
-    return dlog_run(h, w, labels, lse, g, dlog, N, D, V, static_cast<cudaStream_t>(stream));
+    return dlog_run<__nv_bfloat16>(h, w, labels, lse, g, dlog, N, D, V, static_cast<cudaStream_t>(stream));
+}
+int fused_xent_dlog_sm90_f16(const void* h, const void* w, const void* labels, const void* lse, const void* g,
+                             void* dlog, int N, int D, int V, void* stream) {
+    if (bad_dims(N, D, V)) return (int)cudaErrorInvalidValue;
+    return dlog_run<__half>(h, w, labels, lse, g, dlog, N, D, V, static_cast<cudaStream_t>(stream));
 }
 
 int fused_xent_dh_sm90_bf16(const void* dlog, const void* w, void* dh, int N, int D, int V, void* stream) {
     if (bad_dims(N, D, V)) return (int)cudaErrorInvalidValue;
-    return dh_run(dlog, w, dh, N, D, V, static_cast<cudaStream_t>(stream));
+    return dh_run<__nv_bfloat16>(dlog, w, dh, N, D, V, static_cast<cudaStream_t>(stream));
+}
+int fused_xent_dh_sm90_f16(const void* dlog, const void* w, void* dh, int N, int D, int V, void* stream) {
+    if (bad_dims(N, D, V)) return (int)cudaErrorInvalidValue;
+    return dh_run<__half>(dlog, w, dh, N, D, V, static_cast<cudaStream_t>(stream));
 }
 
 int fused_xent_dw_sm90_bf16(const void* h, const void* dlog, void* dw, int N, int D, int V, int accumulate,
                             void* stream) {
     if (bad_dims(N, D, V)) return (int)cudaErrorInvalidValue;
-    return dw_run(h, dlog, dw, N, D, V, accumulate, static_cast<cudaStream_t>(stream));
+    return dw_run<__nv_bfloat16>(h, dlog, dw, N, D, V, accumulate, static_cast<cudaStream_t>(stream));
+}
+int fused_xent_dw_sm90_f16(const void* h, const void* dlog, void* dw, int N, int D, int V, int accumulate,
+                           void* stream) {
+    if (bad_dims(N, D, V)) return (int)cudaErrorInvalidValue;
+    return dw_run<__half>(h, dlog, dw, N, D, V, accumulate, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -43,6 +43,7 @@
 // a second kernel (spec_tail_attention.cu): 8 splits, 256 blocks at the
 // 1b serving shape.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -60,12 +61,14 @@ constexpr size_t kSmemMax = 232448;  // opt-in shared memory of one block
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
     return __float2bfloat16_rn(x);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
 
 // one 16-byte load of T, widened to f32
 template <typename T>
@@ -85,6 +88,11 @@ __device__ __forceinline__ void load2(const float* src, float& a, float& b) {
 }
 __device__ __forceinline__ void load2(const __nv_bfloat16* src, float& a, float& b) {
     const __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(src);
+    a = __low2float(t);
+    b = __high2float(t);
+}
+__device__ __forceinline__ void load2(const __half* src, float& a, float& b) {
+    const __half2 t = *reinterpret_cast<const __half2*>(src);
     a = __low2float(t);
     b = __high2float(t);
 }
@@ -365,6 +373,12 @@ int paged_decode_attention_bf16(const void* q, const void* k, const void* v, con
                                 void* out, int S, int ring, int H, int Kh, int D, float scale,
                                 void* stream) {
     return launch<__nv_bfloat16>(q, k, v, lens, out, S, ring, H, Kh, D, scale, stream);
+}
+
+int paged_decode_attention_f16(const void* q, const void* k, const void* v, const void* lens,
+                               void* out, int S, int ring, int H, int Kh, int D, float scale,
+                               void* stream) {
+    return launch<__half>(q, k, v, lens, out, S, ring, H, Kh, D, scale, stream);
 }
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

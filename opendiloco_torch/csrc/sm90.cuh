@@ -8,8 +8,13 @@
 // descriptors, in-register softmax and accumulator epilogue; on the host,
 // tiled tensor maps encoded through cudaGetDriverEntryPoint (no -lcuda).
 //
+// Every product, fragment and tensor map takes its element type E, bf16 or
+// f16: the two share every shape, descriptor, swizzle and transpose bit
+// (both are 2 bytes); only the PTX operand type (.bf16 or .f16), the
+// rounding of f32 into a fragment (pack_rn) and the TMA data type differ.
+//
 // Shared-memory tiles are written by TMA with a 128-byte swizzle (rows of
-// 64 bf16) or a 64-byte one (rows of 32 bf16), from a base aligned to
+// 64 elements) or a 64-byte one (rows of 32), from a base aligned to
 // 1024 bytes, and read by wgmma through descriptors of the same swizzle:
 //   K-major (the reduction dimension contiguous in a row): the stride
 //     byte offset is 8 rows (one 8-row group to the next); a 16-wide k
@@ -130,7 +135,7 @@ __device__ __forceinline__ void named_sync(int id, int n) {
     asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// Store four 8 x 8 bf16 matrices to shared memory: register i of lane
+// Store four 8 x 8 matrices of 16-bit elements to shared memory: register i of lane
 // (g, t) holds row g, columns 2t and 2t + 1 of matrix i (the accumulator
 // fragment layout); lanes 8i .. 8i + 7 give the addresses of matrix i's rows.
 __device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
@@ -186,132 +191,170 @@ __device__ __forceinline__ float exp2_approx(float x) {
     return y;
 }
 
-// Two f32 accumulator entries as one register of a bf16 A fragment
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d[64 x 64] (+)= A . B^T, A and B K-major bf16 in shared memory
+// d[64 x 64] (+)= A . B^T, A and B K-major E (bf16 or f16) in shared memory
+#define ODTP_WGMMA_SS_N64(TY) \
+    asm volatile( \
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+              "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+              "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+              "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+            : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+template <typename E>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+    static_assert(kHalfWidth<E>, "bf16 or f16");
+    if constexpr (kF16<E>) {
+        ODTP_WGMMA_SS_N64("f16");
+    } else {
+        ODTP_WGMMA_SS_N64("bf16");
+    }
 }
+#undef ODTP_WGMMA_SS_N64
 
-// d[64 x 128] (+)= A . B^T, A and B K-major bf16 in shared memory; d0
+// d[64 x 128] (+)= A . B^T, A and B K-major E in shared memory; d0
 // holds columns 0-63 and d1 columns 64-127, each in the m64n64 layout
+#define ODTP_WGMMA_SS_N128(TY) \
+    asm volatile( \
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+            "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n" \
+            : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), \
+              "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]), \
+              "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]), \
+              "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]), \
+              "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]), \
+              "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]), \
+              "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]), \
+              "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]), \
+              "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]), \
+              "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]), \
+              "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]), \
+              "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]), \
+              "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]), \
+              "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]), \
+              "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]), \
+              "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31]) \
+            : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+template <typename E>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d0)[32], float (&d1)[32], uint64_t desc_a, uint64_t desc_b,
                                               int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]),
-          "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]),
-          "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]),
-          "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]),
-          "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]),
-          "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
-          "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]),
-          "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]),
-          "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]),
-          "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
-          "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]),
-          "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
-          "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]),
-          "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
-          "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
-          "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+    static_assert(kHalfWidth<E>, "bf16 or f16");
+    if constexpr (kF16<E>) {
+        ODTP_WGMMA_SS_N128("f16");
+    } else {
+        ODTP_WGMMA_SS_N128("bf16");
+    }
 }
+#undef ODTP_WGMMA_SS_N128
 
-// d[64 x 256] (+)= A . B, A and B bf16 in shared memory, each K-major
+// d[64 x 256] (+)= A . B, A and B E in shared memory, each K-major
 // (TA, TB 0) or MN-major (1, the transpose bit): the register layout of
 // m64n64 repeated for every 64 columns (d[4 nb + e] for 8-column block nb)
-template <int TA, int TB>
+#define ODTP_WGMMA_SS_N256(TY) \
+    asm volatile( \
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n" \
+            "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " " \
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, %131, %132;\n}\n" \
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+              "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+              "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+              "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+              "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+              "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+              "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+              "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+              "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+              "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+              "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
+              "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+              "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
+              "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+              "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+              "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+              "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), \
+              "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+              "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), \
+              "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+              "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), \
+              "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+              "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
+              "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+              "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), \
+              "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
+            : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB))
+template <typename E, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, %131, %132;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+    static_assert(kHalfWidth<E>, "bf16 or f16");
+    if constexpr (kF16<E>) {
+        ODTP_WGMMA_SS_N256("f16");
+    } else {
+        ODTP_WGMMA_SS_N256("bf16");
+    }
 }
+#undef ODTP_WGMMA_SS_N256
 
-// d[64 x 64] += A . B, A bf16 in registers (the m64k16 fragment), B
-// MN-major bf16 in shared memory (the transpose bit set)
+// d[64 x 64] += A . B, A of E in registers (the m64k16 fragment), B
+// MN-major E in shared memory (the transpose bit set)
+#define ODTP_WGMMA_RS_N64(TY) \
+    asm volatile( \
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+              "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+              "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+              "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+    static_assert(kHalfWidth<E>, "bf16 or f16");
+    if constexpr (kF16<E>) {
+        ODTP_WGMMA_RS_N64("f16");
+    } else {
+        ODTP_WGMMA_RS_N64("bf16");
+    }
 }
+#undef ODTP_WGMMA_RS_N64
 
-// d[64 x 32] += A . B, A bf16 in registers (the m64k16 fragment), B
-// MN-major bf16 in shared memory (the transpose bit set)
+// d[64 x 32] += A . B, A of E in registers (the m64k16 fragment), B
+// MN-major E in shared memory (the transpose bit set)
+#define ODTP_WGMMA_RS_N32(TY) \
+    asm volatile( \
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" \
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n" \
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+              "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+    static_assert(kHalfWidth<E>, "bf16 or f16");
+    if constexpr (kF16<E>) {
+        ODTP_WGMMA_RS_N32("f16");
+    } else {
+        ODTP_WGMMA_RS_N32("bf16");
+    }
 }
+#undef ODTP_WGMMA_RS_N32
 
 // ---------------------------------------------------------------------------
 // device: the tiles, operands and epilogue of the attention kernels
@@ -323,7 +366,7 @@ constexpr int kCtaThreads = 384;  // producer warpgroup + two consumer warpgroup
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared tiles at head dim D: kBlk column blocks of kCb bf16, each block
+// Shared tiles at head dim D: kBlk column blocks of kCb elements, each block
 // rows x kRowBytes, swizzled (kSwz: 1 = 128 B, 2 = 64 B).
 template <int D>
 struct Geo {
@@ -354,19 +397,20 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int blk, in
     return smem_desc(addr, rows * G::kRowBytes, 8 * G::kRowBytes, G::kSwz);
 }
 
-template <int N>
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b) {
-    if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b);
-    else wgmma_rs_n32(d, a, desc_b);
+    if constexpr (N == 64) wgmma_rs_n64<E>(d, a, desc_b);
+    else wgmma_rs_n32<E>(d, a, desc_b);
 }
 
-// Round a 64 x 64 f32 accumulator into the four bf16 A fragments of its
+// Round a 64 x 64 f32 accumulator into the four A fragments of E of its
 // 16-wide k steps (columns 16 kk .. 16 kk + 15: blocks 2 kk and 2 kk + 1).
+template <typename E>
 __device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&c)[32]) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(c[8 * kk + 2 * i], c[8 * kk + 2 * i + 1]);
+        for (int i = 0; i < 4; ++i) a[kk][i] = pack_rn<E>(c[8 * kk + 2 * i], c[8 * kk + 2 * i + 1]);
     }
 }
 
@@ -475,18 +519,23 @@ inline EncodeTiledFn encode_tiled() {
     return fn;
 }
 
-// A bf16 [B, T, heads, D] tensor, boxes of `rows` rows of one head and
-// `cols` (64 or 32) columns, swizzled to match the wgmma descriptors;
-// rows past T read as zeros.
-inline cudaError_t bf16_rows_map(CUtensorMap* map, const void* base, int B, int T, int heads, int D, int rows,
-                                 int cols) {
+// The TMA data type of E
+template <typename E>
+constexpr CUtensorMapDataType kMapType = kF16<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+
+// An E (bf16 or f16) [B, T, heads, D] tensor, boxes of `rows` rows of one
+// head and `cols` (64 or 32) columns, swizzled to match the wgmma
+// descriptors; rows past T read as zeros.
+template <typename E>
+inline cudaError_t rows_map(CUtensorMap* map, const void* base, int B, int T, int heads, int D, int rows, int cols) {
+    static_assert(kHalfWidth<E>, "bf16 or f16: 2-byte elements");
     EncodeTiledFn fn = encode_tiled();
     if (fn == nullptr) return cudaErrorNotSupported;
     const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)T, (cuuint64_t)B};
     const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2, (cuuint64_t)T * heads * D * 2};
     const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
     const cuuint32_t elem[4] = {1, 1, 1, 1};
-    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+    const CUresult r = fn(map, kMapType<E>, 4, const_cast<void*>(base), dims, strides, box,
                           elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -495,7 +544,7 @@ inline cudaError_t bf16_rows_map(CUtensorMap* map, const void* base, int B, int 
 
 // A row-major [rows, cols] matrix of `type` (elements of `elt` bytes),
 // boxes of box_rows rows and box_cols columns (one 128-byte swizzle row:
-// 64 bf16 or 32 f32), swizzled to match the wgmma descriptors and the
+// 64 bf16 or f16, or 32 f32), swizzled to match the wgmma descriptors and the
 // epilogues' shared tiles; what lies past the matrix reads as zeros.
 inline cudaError_t matrix_map(CUtensorMap* map, CUtensorMapDataType type, int elt, const void* base, int rows,
                               int cols, int box_rows, int box_cols) {
@@ -510,9 +559,10 @@ inline cudaError_t matrix_map(CUtensorMap* map, CUtensorMapDataType type, int el
                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
-inline cudaError_t bf16_matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
-                                   int box_cols) {
-    return matrix_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, box_rows, box_cols);
+template <typename E>
+inline cudaError_t elt_matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows, int box_cols) {
+    static_assert(kHalfWidth<E>, "bf16 or f16: 2-byte elements");
+    return matrix_map(map, kMapType<E>, 2, base, rows, cols, box_rows, box_cols);
 }
 
 }  // namespace

@@ -35,7 +35,7 @@
 // Layouts are the JAX package's, read in place with no transpose:
 //   q, out [S, Kq, H, D] (B6: [S, H, D]); cache k/v [S, T, Kh, D]; tail k/v
 //   [S, Kt, Kh, D]; lens [S] int32. All contiguous.
-// Takes f32 and bf16, any rep = H / Kh, D a multiple of 8 up to 128 (B6
+// Takes f32, bf16 and f16, any rep = H / Kh, D a multiple of 8 up to 128 (B6
 // above 128 stays on its first design, paged_decode_attention.cu: the
 // route rule is ops/decode_kernels.py _decode_route).
 //
@@ -83,7 +83,7 @@
 //    shapes, whose query tiles fill the card) the block writes out
 //    directly and no merge is launched.
 // 2. Packed rows. A block is 4 warps, each multiplying a 16-row query
-//    slice on the tensor cores (mma.sync bf16; f32 FMAs in the same layout
+//    slice on the tensor cores (mma.sync bf16 or f16; f32 FMAs in the same layout
 //    for f32). When Kq rep is at most 16 (the draft: 8) or 32, the block
 //    holds one or two query slices, and the 4 / slices warps of a slice
 //    split each 64-row key tile between them (16 or 32 keys a warp) with
@@ -93,7 +93,7 @@
 //    spec_tail_rows_per_block, which also sizes the splits) and passes the
 //    count, on which the entry point picks the kernel. (The other way, a block shrunk to the warps with rows,
 //    would leave the tile loads to one warp.)
-// 3. p.v reads V by ldmatrix.trans in bf16 (four 8 x 8 blocks a load)
+// 3. p.v reads V by ldmatrix.trans in bf16 and f16 (four 8 x 8 blocks a load)
 //    rather than the first design's scalar loads.
 // No atomics: every sum runs in a fixed order, so results repeat bit for
 // bit. Suffix shapes reread the live ring once per query tile (from L2).
@@ -137,13 +137,13 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
 }
 
 // o[16][8 nbd] += P[16][K] . V[K][8 nbd]: P a warp's tile in shared memory
-// (row stride ldp), V row-major with row stride ldv. bf16 reads V by
+// (row stride ldp), V row-major with row stride ldv. bf16 and f16 read V by
 // ldmatrix.trans (matrix i of a load: k rows 8 (i & 1) on, n columns
 // 8 (i >> 1) on); f32 takes warp_tile.cuh's FMA product.
 template <int NBD, typename T>
 __device__ __forceinline__ void pv_product(float (&o)[NBD][4], int nbd, const T* P, int ldp, const T* V, int ldv,
                                            int K) {
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if constexpr (kHalfWidth<T>) {
         const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, mi = lane >> 3;
         for (int k0 = 0; k0 < K; k0 += 16) {
             uint32_t a[4];
@@ -160,8 +160,8 @@ __device__ __forceinline__ void pv_product(float (&o)[NBD][4], int nbd, const T*
                     uint32_t r[4];
                     ldsm_x4_trans(r, row + nb * 8);
                     const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-                    mma16816(o[nb], a, b0);
-                    if (nb + 1 < nbd) mma16816(o[nb + 1], a, b1);
+                    mma16816<T>(o[nb], a, b0);
+                    if (nb + 1 < nbd) mma16816<T>(o[nb + 1], a, b1);
                 }
             }
         }
@@ -531,6 +531,14 @@ int spec_tail_attention_bf16(const void* q, const void* ck, const void* cv, cons
                                 splits, chunk, rows_per_block, scale, stream);
 }
 
+int spec_tail_attention_f16(const void* q, const void* ck, const void* cv, const void* tk, const void* tv,
+                            const void* lens, void* out, void* part_ml, void* part_acc, int S, int T, int Kq,
+                            int Kt, int H, int Kh, int D, int q_start, int splits, int chunk, int rows_per_block,
+                            float scale, void* stream) {
+    return entry<__half>(q, ck, cv, tk, tv, lens, out, part_ml, part_acc, S, T, Kq, Kt, H, Kh, D, q_start, splits,
+                         chunk, rows_per_block, scale, stream);
+}
+
 int paged_decode_split_f32(const void* q, const void* k, const void* v, const void* lens, void* out, void* part_ml,
                            void* part_acc, int S, int T, int H, int Kh, int D, int splits, int chunk,
                            int rows_per_block, float scale, void* stream) {
@@ -545,6 +553,13 @@ int paged_decode_split_bf16(const void* q, const void* k, const void* v, const v
                                        rows_per_block, scale, stream);
 }
 
+int paged_decode_split_f16(const void* q, const void* k, const void* v, const void* lens, void* out, void* part_ml,
+                           void* part_acc, int S, int T, int H, int Kh, int D, int splits, int chunk,
+                           int rows_per_block, float scale, void* stream) {
+    return decode_entry<__half>(q, k, v, lens, out, part_ml, part_acc, S, T, H, Kh, D, splits, chunk, rows_per_block,
+                                scale, stream);
+}
+
 int spec_tail_attention_merge_f32(const void* part_ml, const void* part_acc, void* out, int S, int Kq, int H,
                                   int Kh, int D, int splits, void* stream) {
     return merge_entry<float>(part_ml, part_acc, out, S, Kq, H, Kh, D, splits, stream);
@@ -553,6 +568,11 @@ int spec_tail_attention_merge_f32(const void* part_ml, const void* part_acc, voi
 int spec_tail_attention_merge_bf16(const void* part_ml, const void* part_acc, void* out, int S, int Kq, int H,
                                    int Kh, int D, int splits, void* stream) {
     return merge_entry<__nv_bfloat16>(part_ml, part_acc, out, S, Kq, H, Kh, D, splits, stream);
+}
+
+int spec_tail_attention_merge_f16(const void* part_ml, const void* part_acc, void* out, int S, int Kq, int H,
+                                  int Kh, int D, int splits, void* stream) {
+    return merge_entry<__half>(part_ml, part_acc, out, S, Kq, H, Kh, D, splits, stream);
 }
 
 }  // extern "C"

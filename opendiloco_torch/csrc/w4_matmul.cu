@@ -1,8 +1,8 @@
 // Fused blockwise-4-bit dequant-matmul for Hopper (sm_90a), the first
 // design: out = x @ W with W held packed, dequantized in registers and
 // never written to device memory. f32 takes it (the identity probe below
-// needs its f32 products); bf16 takes w4_matmul_sm90.cu (tensor cores,
-// K split across blocks), and reaches this kernel only where
+// needs its f32 products); bf16 and f16 take w4_matmul_sm90.cu (tensor
+// cores, K split across blocks), and reach this kernel only where
 // ops/decode_kernels.py is asked for route="w4_matmul".
 //
 // Replaces: opendiloco_tpu/ops/decode_kernels.py w4_matmul (_w4_kernel,
@@ -16,7 +16,7 @@
 // and the output is written in x's dtype. With x = I in f32 the result is
 // bit for bit dequant_w4 (every partial sum is +0 or the one weight).
 //
-// Layouts: x [M, K] (f32 or bf16), q [K * N / 2] uint8, s [ceil(K * N / 4096)]
+// Layouts: x [M, K] (f32, bf16 or f16), q [K * N / 2] uint8, s [ceil(K * N / 4096)]
 // 16-bit, out [M, N]. N must be even, so a column pair shares one byte and
 // one scale (4096 is even).
 //
@@ -40,7 +40,7 @@
 // dequant (scale load, an IEEE divide by 7, two conversions and roundings:
 // tens of instructions per byte) on the N / 64 SMs the grid occupies (4
 // for the 256-wide k/v projections, 32 for the 2048-wide ones), not to
-// moving bytes; one byte is loaded per thread per row of W. For bf16,
+// moving bytes; one byte is loaded per thread per row of W. For bf16 and f16,
 // w4_matmul_sm90.cu answers each of these (16-byte staged copies, one
 // factor per row of K, K split across blocks, tensor cores at prefill);
 // f32 keeps this design.
@@ -61,12 +61,14 @@ static_assert(kWarps * kM * 2 * kPairs <= kChunk * kM, "partial sums reuse the x
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
     return __float2bfloat16_rn(x);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
 
 // a dequantized weight rounded to the matmul dtype, as the TPU kernel's
 // astype(x.dtype) does before the product
@@ -180,6 +182,11 @@ int w4_matmul_f32(const void* x, const void* q, const void* s, void* out, int M,
 int w4_matmul_bf16(const void* x, const void* q, const void* s, void* out, int M, int K, int N,
                    void* stream) {
     return launch<__nv_bfloat16>(x, q, s, out, M, K, N, stream);
+}
+
+int w4_matmul_f16(const void* x, const void* q, const void* s, void* out, int M, int K, int N,
+                  void* stream) {
+    return launch<__half>(x, q, s, out, M, K, N, stream);
 }
 
 const char* cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

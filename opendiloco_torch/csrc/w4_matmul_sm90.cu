@@ -1,17 +1,18 @@
-// Fused blockwise-4-bit dequant-matmul in bf16 for Hopper (sm_90a), on the
+// Fused blockwise-4-bit dequant-matmul in bf16 or f16 for Hopper (sm_90a), on the
 // tensor cores with K split across blocks: out = x @ W with W held packed,
 // dequantized into mma.sync fragments and never written to memory.
 //
 // Replaces: opendiloco_tpu/ops/decode_kernels.py w4_matmul (pl.pallas_call
-// at :561, kernel body _w4_kernel :468), for bf16; w4_matmul.cu keeps the
-// first design, which ops/decode_kernels.py routes f32 to.
+// at :561, kernel body _w4_kernel :468), for bf16 and f16 (one template
+// over the element type E, exported as *_bf16 and *_f16); w4_matmul.cu
+// keeps the first design, which ops/decode_kernels.py routes f32 to.
 //
 // W [K, N] is the serve plane's packed layout (PackedW4), as the loader
 // installs it: element (k, n) has flat index f = k N + n, sits in byte
 // f / 2 of q (low nibble when f is even) and has scale s[f / 4096], an
 // fp16 bit pattern. Its value is (nib - 8) * (__half2float(s) / 7) in f32,
-// rounded to bf16 (dequant_w4's bits); products accumulate in f32 and the
-// output is rounded to bf16 once. x [M, K] and out [M, N] bf16, row-major;
+// rounded to E (dequant_w4's bits); products accumulate in f32 and the
+// output is rounded to E once. x [M, K] and out [M, N] of E, row-major;
 // K a multiple of 8 and N of 64 (ops/decode_kernels.py routes other shapes
 // to the first design).
 //
@@ -28,7 +29,7 @@
 //    cp.async copies, 16 W rows of K a stage, zero filled past K and M; the
 //    factors (3. below) are computed while the first stages are in flight.
 // 2. The weights go straight from the packed bytes into mma.sync m16n8k16
-//    B fragments (bf16 in, f32 accumulate). Lane (g, t) of a warp reads one
+//    B fragments (E in, f32 accumulate). Lane (g, t) of a warp reads one
 //    32-bit word, the 8 nibbles of columns 8g .. 8g + 7, from each of the 4
 //    rows of K its fragments hold (2t, 2t + 1, 2t + 8, 2t + 9), so nibble j
 //    feeds n8 block j, whose column g stands for physical column 8g + j.
@@ -41,7 +42,7 @@
 //    divide and all, into shared memory before the loop. A nibble becomes
 //    the exact float nib - 8 with one OR into the exponent of 2^23 and one
 //    subtraction, then one multiply by the factor and a paired
-//    round-to-nearest into bf16: the bits of dequant_w4, with no divide,
+//    round-to-nearest into E: the bits of dequant_w4, with no divide,
 //    no integer conversion and no table in the inner loop. (A 16-entry
 //    bf16 table a scale block, looked up by nibble, needs one shared-memory
 //    load a weight, a quarter of the ALU's rate on this card; the
@@ -97,17 +98,12 @@ __device__ __forceinline__ float nib_f32(uint32_t w, int j) {
     return __uint_as_float(0x4B000000u | ((w >> (4 * j)) & 0xFu)) - 8388616.0f;
 }
 
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ void add4(float4& v, const float4& u) { v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w; }
 
-template <int MI, int W>
+template <typename E, int MI, int W>
 __global__ void __launch_bounds__(Cfg<MI, W>::kThreads)
-    w4_matmul_sm90_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
-                          const uint16_t* __restrict__ s, __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+    w4_matmul_sm90_kernel(const E* __restrict__ x, const uint8_t* __restrict__ q,
+                          const uint16_t* __restrict__ s, E* __restrict__ out, float* __restrict__ part,
                           int* __restrict__ counters, int M, int K, int N, int splits) {
     using C = Cfg<MI, W>;
     constexpr int kBK = C::kBK, kThreads = C::kThreads;
@@ -128,7 +124,7 @@ __global__ void __launch_bounds__(Cfg<MI, W>::kThreads)
             const bool ok = k < k_end;
             cp_async16(st + r * kQRow + 16 * c, ok ? q + (size_t)k * (N / 2) + n0 / 2 + 16 * c : q, ok);
         }
-        for (int i = tid; i < C::kRows * 2 * W; i += kThreads) {  // x: kRows rows x 2W chunks of 8 bf16
+        for (int i = tid; i < C::kRows * 2 * W; i += kThreads) {  // x: kRows rows x 2W chunks of 8 elements
             const int r = i / (2 * W), c = i % (2 * W), m = m0 + r, k = kr0 + 8 * c;
             const bool ok = m < M && k < k_end;
             cp_async16(st + C::kStageQ + r * C::kXRow + 16 * c, ok ? x + (size_t)m * K + k : x, ok);
@@ -171,8 +167,8 @@ __global__ void __launch_bounds__(Cfg<MI, W>::kThreads)
         uint32_t bf[8][2];
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
-            bf[n][0] = bf16x2(nib_f32(w[0], n) * f[0], nib_f32(w[1], n) * f[1]);
-            bf[n][1] = bf16x2(nib_f32(w[2], n) * f[2], nib_f32(w[3], n) * f[3]);
+            bf[n][0] = pack_rn<E>(nib_f32(w[0], n) * f[0], nib_f32(w[1], n) * f[1]);
+            bf[n][1] = pack_rn<E>(nib_f32(w[2], n) * f[2], nib_f32(w[3], n) * f[3]);
         }
         const uint32_t xs = static_cast<uint32_t>(__cvta_generic_to_shared(st + C::kStageQ));
 #pragma unroll
@@ -180,7 +176,7 @@ __global__ void __launch_bounds__(Cfg<MI, W>::kThreads)
             uint32_t af[4];
             ldsm_x4(af, xs + (mi * 16 + (lane & 15)) * C::kXRow + (kk + (lane >> 4) * 8) * 2);
 #pragma unroll
-            for (int n = 0; n < 8; ++n) mma16816(acc[mi][n], af, bf[n]);
+            for (int n = 0; n < 8; ++n) mma16816<E>(acc[mi][n], af, bf[n]);
         }
     }
     cp_async_wait<0>();
@@ -242,27 +238,45 @@ __global__ void __launch_bounds__(Cfg<MI, W>::kThreads)
             for (int k = 0; k < 8; ++k) add4(v, u[k]);
         }
         for (; sp < splits; ++sp) add4(v, __ldcg(reinterpret_cast<const float4*>(p + sp * MN)));
-        __nv_bfloat16* o = out + (size_t)m * N + n0 + col;
+        E* o = out + (size_t)m * N + n0 + col;
         store2(o, v.x, v.y);
         store2(o + 2, v.z, v.w);
     }
     if (tid == 0) *ticket = 0;  // ready for the next launch on this stream
 }
 
-template <int MI, int W>
+template <typename E, int MI, int W>
 int run(const void* x, const void* q, const void* s, void* out, void* part, void* counters, int M, int K, int N,
         int splits, cudaStream_t st) {
     using C = Cfg<MI, W>;
     const int ksteps = (K + 15) / 16;
     const int nst_max = ((ksteps + splits - 1) / splits + W - 1) / W;
     const size_t smem = max((size_t)C::kRing + (size_t)nst_max * C::kBK * 4, (size_t)C::kRed);
-    cudaError_t err = allow_smem<w4_matmul_sm90_kernel<MI, W>>(smem);
+    cudaError_t err = allow_smem<w4_matmul_sm90_kernel<E, MI, W>>(smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(N / kBN, (M + C::kRows - 1) / C::kRows, splits);
-    w4_matmul_sm90_kernel<MI, W><<<grid, C::kThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q), static_cast<const uint16_t*>(s),
-        static_cast<__nv_bfloat16*>(out), static_cast<float*>(part), static_cast<int*>(counters), M, K, N, splits);
+    w4_matmul_sm90_kernel<E, MI, W><<<grid, C::kThreads, smem, st>>>(
+        static_cast<const E*>(x), static_cast<const uint8_t*>(q), static_cast<const uint16_t*>(s),
+        static_cast<E*>(out), static_cast<float*>(part), static_cast<int*>(counters), M, K, N, splits);
     return (int)cudaGetLastError();
+}
+
+// mi: the 16-row slices of x a block owns (1-4); part: f32 [splits][M][N]
+// when splits > 1; counters: one int a (row tile, column tile), all 0
+template <typename E>
+int entry(const void* x, const void* q, const void* s, void* out, void* part, void* counters, int M, int K, int N,
+          int mi, int splits, void* stream) {
+    if (M < 1 || K < 8 || K % 8 || N < kBN || N % kBN || splits < 1 || splits > (K + 15) / 16 ||
+        (M + 16 * mi - 1) / (16 * mi) > 65535 || splits > 65535)
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (mi) {
+        case 1: return run<E, 1, 8>(x, q, s, out, part, counters, M, K, N, splits, st);
+        case 2: return run<E, 2, 4>(x, q, s, out, part, counters, M, K, N, splits, st);
+        case 3: return run<E, 3, 4>(x, q, s, out, part, counters, M, K, N, splits, st);
+        case 4: return run<E, 4, 4>(x, q, s, out, part, counters, M, K, N, splits, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -271,21 +285,14 @@ extern "C" {
 
 const char* cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// mi: the 16-row slices of x a block owns (1-4); part: f32 [splits][M][N]
-// when splits > 1; counters: one int a (row tile, column tile), all 0
 int w4_matmul_sm90_bf16(const void* x, const void* q, const void* s, void* out, void* part, void* counters, int M,
                         int K, int N, int mi, int splits, void* stream) {
-    if (M < 1 || K < 8 || K % 8 || N < kBN || N % kBN || splits < 1 || splits > (K + 15) / 16 ||
-        (M + 16 * mi - 1) / (16 * mi) > 65535 || splits > 65535)
-        return (int)cudaErrorInvalidValue;
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (mi) {
-        case 1: return run<1, 8>(x, q, s, out, part, counters, M, K, N, splits, st);
-        case 2: return run<2, 4>(x, q, s, out, part, counters, M, K, N, splits, st);
-        case 3: return run<3, 4>(x, q, s, out, part, counters, M, K, N, splits, st);
-        case 4: return run<4, 4>(x, q, s, out, part, counters, M, K, N, splits, st);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return entry<__nv_bfloat16>(x, q, s, out, part, counters, M, K, N, mi, splits, stream);
+}
+
+int w4_matmul_sm90_f16(const void* x, const void* q, const void* s, void* out, void* part, void* counters, int M,
+                       int K, int N, int mi, int splits, void* stream) {
+    return entry<__half>(x, q, s, out, part, counters, M, K, N, mi, splits, stream);
 }
 
 }  // extern "C"

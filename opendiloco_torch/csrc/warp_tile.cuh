@@ -2,9 +2,9 @@
 // spec_tail_attention.cu). A block is 4 warps and owns 64 rows, 16 a
 // warp; it walks 64-row tiles of the other side, copied into shared
 // memory with cp.async. A warp multiplies its 16-row tile by a shared
-// tile on the tensor cores in bf16 (mma.sync.m16n8k16), or with f32 FMAs
-// in the same accumulator layout for f32, and rounds a score tile into
-// shared memory before the product with V.
+// tile on the tensor cores in bf16 or f16 (mma.sync.m16n8k16), or with f32
+// FMAs in the same accumulator layout for f32, and rounds a score tile
+// into shared memory before the product with V.
 #pragma once
 
 #include "common.cuh"
@@ -59,16 +59,20 @@ __device__ __forceinline__ void zero_pad_cols(T* sm, int ld, int rows, int D, in
 // K is a multiple of 16.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+// two neighbouring 16-bit elements as one fragment register
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
     return *reinterpret_cast<const uint32_t*>(p);
 }
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-    return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(T lo, T hi) {
+    return (uint32_t)*reinterpret_cast<const uint16_t*>(&lo) | ((uint32_t)*reinterpret_cast<const uint16_t*>(&hi) << 16);
 }
 
-template <int NB, bool kNK>
-__device__ __forceinline__ void warp_mma(float (&c)[NB][4], int nb_n, const __nv_bfloat16* A, int lda,
-                                         const __nv_bfloat16* B, int ldb, int K) {
+// bf16 or f16 operands: mma.sync of that type
+template <int NB, bool kNK, typename T, std::enable_if_t<kHalfWidth<T>, int> = 0>
+__device__ __forceinline__ void warp_mma(float (&c)[NB][4], int nb_n, const T* A, int lda, const T* B, int ldb,
+                                         int K) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     for (int k0 = 0; k0 < K; k0 += 16) {
         uint32_t a[4];
@@ -88,7 +92,7 @@ __device__ __forceinline__ void warp_mma(float (&c)[NB][4], int nb_n, const __nv
                     b[0] = pack2(B[(k0 + 2 * t) * ldb + n], B[(k0 + 2 * t + 1) * ldb + n]);
                     b[1] = pack2(B[(k0 + 2 * t + 8) * ldb + n], B[(k0 + 2 * t + 9) * ldb + n]);
                 }
-                mma16816(c[nb], a, b);
+                mma16816<T>(c[nb], a, b);
             }
         }
     }

@@ -9,8 +9,8 @@ The counterparts of ``opendiloco_tpu/ops/decode_kernels.py``
 B8's first designs; each source notes the TPU kernel it replaces, its
 bound and its design).
 
-B8 has two routes (:func:`w4_route`): bf16 goes to the tensor-core kernel
-with K split across blocks (:func:`w4_splits`), counted as
+B8 has two routes (:func:`w4_route`): bf16 and f16 go to the tensor-core
+kernel with K split across blocks (:func:`w4_splits`), counted as
 ``w4_matmul_sm90``; f32 and shapes it does not take to the first design,
 counted as ``w4_matmul``.
 
@@ -44,7 +44,7 @@ import functools
 import torch
 
 # LAUNCHES is re-exported: callers read the one shared counter from here
-from opendiloco_torch.ops.launch import LAUNCHES, SUFFIX as _SUFFIX, F as _F, I as _I, P as _P
+from opendiloco_torch.ops.launch import HALF_DTYPES as _HALF, LAUNCHES, SUFFIX as _SUFFIX, F as _F, I as _I, P as _P
 from opendiloco_torch.ops.attention import spec_tail_valid
 from opendiloco_torch.ops.launch import launch, on_card as _on_card, register
 from opendiloco_torch.quant import W4_BLOCK, dequant_w4
@@ -144,7 +144,7 @@ def _check_decode(q, k, v, lens) -> None:
     if q.shape != (S, H, D):
         raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
     if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"dtypes q {q.dtype} k {k.dtype} v {v.dtype}: need one of f32/bf16")
+        raise ValueError(f"dtypes q {q.dtype} k {k.dtype} v {v.dtype}: need one of f32/bf16/f16")
     if D % 8 or not 0 < D <= 256:
         raise ValueError(f"head_dim {D} must be a multiple of 8 up to 256")
     if Kh < 1 or H % Kh:
@@ -217,7 +217,7 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """Drop-in :func:`~opendiloco_torch.ops.attention.decode_attention`:
     q [S, H, D] over ring pages k/v [S, T, Kh, D] with per-slot ``lens``
-    [S] int32. Takes f32 or bf16, any D that is a multiple of 8 up to 256
+    [S] int32. Takes f32, bf16 or f16, any D that is a multiple of 8 up to 256
     and any H divisible by Kh; anything else raises. On :func:`_decode_route`'s
     split kernel the ring is cut into :func:`spec_tail_splits` splits
     (one query token: rows = rep) unless ``splits`` is given; with more
@@ -411,7 +411,7 @@ def _check_spec_tail(q, cache_k, cache_v, tail_k, tail_v, lens, q_start) -> None
         )
     ops = (q, cache_k, cache_v, tail_k, tail_v)
     if q.dtype not in _SUFFIX or any(t.dtype != q.dtype for t in ops):
-        raise ValueError(f"dtypes {[t.dtype for t in ops]}: need one of f32/bf16, all the same")
+        raise ValueError(f"dtypes {[t.dtype for t in ops]}: need one of f32/bf16/f16, all the same")
     if D % 8 or not 0 < D <= 128:
         raise ValueError(f"head_dim {D} must be a multiple of 8 up to 128")
     if Kh < 1 or H % Kh:
@@ -482,7 +482,7 @@ def spec_tail_attention_fused(
     q [S, Kq, H, D] over ring pages cache_{k,v} [S, T, Kh, D] and the
     tail's own K/V [S, Kt, Kh, D], one softmax, the exact ring-wrap
     eviction mask, with ``lens`` [S] int32 and queries at tail positions
-    ``q_start + i``. Takes f32 or bf16, D a multiple of 8 up to 128 and H
+    ``q_start + i``. Takes f32, bf16 or f16, D a multiple of 8 up to 128 and H
     divisible by Kh; anything else raises on the card. The ring is cut
     into :func:`spec_tail_splits` splits unless ``splits`` is given; with
     more than one, the merge kernel combines them (one more launch)."""
@@ -546,11 +546,11 @@ def w4_sm90_dequant_plain(nib: torch.Tensor, scale_bits: torch.Tensor, dtype: to
 
 
 def w4_on_sm90(dtype: torch.dtype, K: int, N: int) -> bool:
-    """The route rule of B8: the sm90 kernel takes bf16 where K is a multiple
-    of 8 (16-byte rows of x) and N of 64 (whole column tiles, each row's
-    64 columns in one scale block); everything else, f32 above all (the
-    identity probe's bits), takes the first design."""
-    return dtype == torch.bfloat16 and K % 8 == 0 and N % W4_TILE_N == 0
+    """The route rule of B8: the sm90 kernel takes bf16 and f16 where K is a
+    multiple of 8 (16-byte rows of x) and N of 64 (whole column tiles, each
+    row's 64 columns in one scale block); everything else, f32 above all
+    (the identity probe's bits), takes the first design."""
+    return dtype in _HALF and K % 8 == 0 and N % W4_TILE_N == 0
 
 
 def w4_route(dtype: torch.dtype, K: int, N: int, route: str | None = None) -> str:
@@ -600,7 +600,7 @@ def _w4_plan(M: int, K: int, N: int, dtype: torch.dtype, route: str | None, inde
     """(source, slices, splits) of one call's shape; the sm90 kernel's
     splits always fit :func:`_w4_scratch` (W4_PART_FLOATS_PER_SM)."""
     if dtype not in _SUFFIX:
-        raise ValueError(f"dtype {dtype}: need one of f32/bf16")
+        raise ValueError(f"dtype {dtype}: need one of f32/bf16/f16")
     source = w4_route(dtype, K, N, route)
     if source == W4_FIRST_SOURCE or M == 0:
         return source, 0, 1
@@ -661,7 +661,7 @@ def _w4_call(M: int, K: int, N: int, dtype: torch.dtype, route: str | None, inde
 def w4_matmul(
     x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, shape, dtype: torch.dtype, *, route: str | None = None
 ) -> torch.Tensor:
-    """``x [M, K] @ dequant(q, s, (K, N))`` in ``dtype`` (f32 or bf16),
+    """``x [M, K] @ dequant(q, s, (K, N))`` in ``dtype`` (f32, bf16 or f16),
     without materializing the weight. ``q`` is one layer's packed stream
     ([K*N/2] uint8) and ``s`` its [ceil(K*N/4096)] fp16 scale bits
     (int16), the :class:`~opendiloco_torch.models.llama.PackedW4` layout.

@@ -10,8 +10,8 @@ notes what it replaces, its bound and its design):
 
 Each direction takes one of two routes, chosen from the dtype and head
 dim alone by :func:`_fwd_route` and :func:`_bwd_route`, which share one
-rule (:func:`_on_sm90`): bf16 at D 32, 64 or 128 goes to the wgmma and TMA
-kernels of ``csrc/flash_attention_fwd_sm90.cu`` and
+rule (:func:`_on_sm90`): bf16 and f16 at D 32, 64 or 128 go to the wgmma
+and TMA kernels of ``csrc/flash_attention_fwd_sm90.cu`` and
 ``csrc/flash_attention_bwd_sm90.cu``, counted as
 ``flash_attention_fwd_sm90``, ``flash_attention_dq_sm90`` and
 ``flash_attention_dkv_sm90``; f32 and any other head dim to the first
@@ -29,8 +29,9 @@ the kernel's arithmetic and roundings in a few einsums: scores, softmax
 statistics and accumulators in f32, p rounded to v's dtype before p.v, ds
 rounded to k's (q's) dtype before the dq (dk) product, outputs in the input
 dtype or ``grad_dtype``. A CPU tensor goes to the plain version; a CUDA
-tensor goes to the kernel, or the wrapper raises (f32 and bf16 only, D a
-multiple of 8 up to 128, any rep and any T). Nothing falls back.
+tensor goes to the kernel, or the wrapper raises (f32, bf16 and f16 only,
+D a multiple of 8 up to 128, any rep and any T). Nothing falls back.
+Every kernel has an instance for each of the three (``SUFFIX``).
 :class:`FlashAttention` is the ``torch.autograd.Function`` that replaces
 ``_flash``'s ``custom_vjp``: it saves q, k, v, out and lse as
 ``_flash_fwd`` does.
@@ -55,7 +56,7 @@ from typing import Optional
 import torch
 
 # LAUNCHES is re-exported: callers read the one shared counter from here
-from opendiloco_torch.ops.launch import LAUNCHES, F, I, P, SUFFIX, launch, on_card, register
+from opendiloco_torch.ops.launch import HALF_DTYPES, LAUNCHES, F, I, P, SUFFIX, launch, on_card, register
 
 NEG_INF = -1e30  # the TPU kernel's finite stand-in for -inf
 SOURCE = "flash_attention"
@@ -79,9 +80,9 @@ def _launch(name: str, dtype: torch.dtype, device: torch.device, *args, source: 
 
 
 def _on_sm90(dtype: torch.dtype, D: int) -> bool:
-    """The route rule of both directions: the wgmma kernels take bf16 at
-    D 32, 64 or 128; everything else takes the first design."""
-    return dtype == torch.bfloat16 and D in SM90_HEAD_DIMS
+    """The route rule of both directions: the wgmma kernels take bf16 and
+    f16 at D 32, 64 or 128; everything else takes the first design."""
+    return dtype in HALF_DTYPES and D in SM90_HEAD_DIMS
 
 
 def _fwd_route(dtype: torch.dtype, D: int) -> str:
@@ -113,7 +114,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest: torch.Tenso
 
 def _check_operands(dtype: torch.dtype, D: int, *tensors: torch.Tensor) -> None:
     if dtype not in SUFFIX:
-        raise ValueError(f"dtype {dtype}: need one of f32/bf16")
+        raise ValueError(f"dtype {dtype}: need one of f32/bf16/f16")
     if D % 8 or not 0 < D <= 128:
         raise ValueError(f"head_dim {D} must be a multiple of 8 up to 128")
     for t in tensors:

@@ -3,8 +3,8 @@ the logits in device memory.
 
 The counterpart of ``opendiloco_tpu/ops/fused_xent.py``. Its three Pallas
 kernels are written by hand in CUDA C++ for Hopper in
-``csrc/fused_xent_sm90.cu`` (bf16) and ``csrc/fused_xent.cu`` (the first
-design; the sources note what each replaces, its bound and its design):
+``csrc/fused_xent_sm90.cu`` (bf16 and f16) and ``csrc/fused_xent.cu`` (the
+first design; the sources note what each replaces, its bound and its design):
 
 - B3 ``fused_xent_fwd``: per-token nll and lse by an online log-sum-exp
   over vocab tiles (``_fwd`` / ``_fwd_kernel``);
@@ -15,8 +15,8 @@ design; the sources note what each replaces, its bound and its design):
   and B4b ``fused_xent_dw`` adds its hT . dlog to the f32 dw (``_dw_kernel``).
 
 Every kernel takes one of two routes, chosen from the dtype alone by
-:func:`_route` (:func:`_on_sm90`): bf16 goes to the wgmma and TMA kernels
-of ``csrc/fused_xent_sm90.cu``, counted as ``fused_xent_fwd_sm90``,
+:func:`_route` (:func:`_on_sm90`): bf16 and f16 go to the wgmma and TMA
+kernels of ``csrc/fused_xent_sm90.cu``, counted as ``fused_xent_fwd_sm90``,
 ``fused_xent_dlog_sm90``, ``fused_xent_dh_sm90`` and
 ``fused_xent_dw_sm90``; f32 to the first design's ``mma.sync`` kernels in
 ``csrc/fused_xent.cu``, counted as ``fused_xent_fwd``,
@@ -31,14 +31,16 @@ the kernel's arithmetic and roundings on materialized f32 logits: s from
 the operands in their own dtype with f32 sums, statistics in f32, dlog
 rounded to h's dtype before both products, dh written in h's dtype, dw in
 f32. A CPU tensor goes to the plain version; a CUDA tensor goes to the
-kernel, or the wrapper raises (f32 and bf16, D and V multiples of 8,
+kernel, or the wrapper raises (f32, bf16 and f16, D and V multiples of 8,
 contiguous operands, one device). Nothing falls back.
 
 :class:`FusedLinearCrossEntropy` is the ``torch.autograd.Function`` that
 replaces ``_fused_nll``'s ``custom_vjp``: it saves h, w, labels and lse,
 masks the upstream gradient by ``labels != IGNORE``, and returns dh in
-h's dtype and dw in w's dtype (at bf16-mixed, dw is rounded to bf16
-before autograd carries it to the f32 master).
+h's dtype and dw in w's dtype (at bf16-mixed and fp16-mixed, dw is rounded
+to bf16 or f16 before autograd carries it to the f32 master: at f16 a dw
+past 65504 becomes inf there, as in the JAX package, and the loss scaler
+skips the step).
 
 Where the JAX package pads rows to a multiple of 128 with ignored labels
 and pads the vocab to wide tiles, the kernels take any N and mask columns
@@ -53,7 +55,7 @@ import functools
 import torch
 
 # LAUNCHES is re-exported: callers read the one shared counter from here
-from opendiloco_torch.ops.launch import LAUNCHES, I, P, SUFFIX, launch, on_card, register
+from opendiloco_torch.ops.launch import HALF_DTYPES, LAUNCHES, I, P, SUFFIX, launch, on_card, register
 
 IGNORE = -100
 # rows of one backward chunk: its dlog is CHUNK_ROWS x V in h's dtype (131 MB
@@ -84,10 +86,10 @@ def _launch(name: str, dtype: torch.dtype, device: torch.device, *args, source: 
 
 
 def _on_sm90(dtype: torch.dtype) -> bool:
-    """The route rule of every kernel here: the wgmma kernels take bf16 (at
-    every D and V that :func:`_check` lets through: multiples of 8, the
-    16-byte rows TMA needs); f32 takes the first design."""
-    return dtype == torch.bfloat16
+    """The route rule of every kernel here: the wgmma kernels take bf16 and
+    f16 (at every D and V that :func:`_check` lets through: multiples of 8,
+    the 16-byte rows TMA needs); f32 takes the first design."""
+    return dtype in HALF_DTYPES
 
 
 def _route(dtype: torch.dtype, route: str | None = None) -> str:
@@ -103,10 +105,10 @@ def _route(dtype: torch.dtype, route: str | None = None) -> str:
 
 def _check(N: int, D: int, V: int, *operands: torch.Tensor) -> None:
     """The sizes, dtypes and layouts the kernels take; anything else
-    raises. The operands share one dtype, f32 or bf16."""
+    raises. The operands share one dtype, f32, bf16 or f16."""
     dtype = operands[0].dtype
     if dtype not in SUFFIX or any(t.dtype != dtype for t in operands):
-        raise ValueError(f"dtypes {[t.dtype for t in operands]}: need all f32 or all bf16")
+        raise ValueError(f"dtypes {[t.dtype for t in operands]}: need all f32/bf16/f16, all the same")
     if N < 1 or D < 8 or V < 8 or D % 8 or V % 8:
         raise ValueError(f"N {N}, D {D}, V {V}: the kernels take N >= 1 and D, V multiples of 8")
     for t in operands:

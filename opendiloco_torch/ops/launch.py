@@ -22,7 +22,10 @@ import torch
 
 from opendiloco_torch.ops import build
 
-SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+# the 16-bit types that the tensor-core designs take (the sm90 kernels'
+# route rules); f32 takes the first designs
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float

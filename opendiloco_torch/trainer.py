@@ -312,13 +312,6 @@ class InnerTrainer:
         plan = plan if plan is not None else single_device_plan()
         tc = _resolve_perf_defaults(tc, model_cfg, self.device, plan)
         _maybe_remat(None, tc.remat)  # an unknown policy raises here, not mid-step
-        on_card = self.device.type == "cuda"
-        if on_card and tc.compute_dtype == torch.float16 and (tc.attn_impl == "pallas" or tc.fused_loss):
-            raise NotImplementedError(
-                "precision='fp16-mixed' through the flash-attention and fused "
-                "cross-entropy kernels is not ported (they take f32 and bf16; "
-                "ROADMAP.md A7): use bf16-mixed, or attn_impl='xla' and fused_loss=False"
-            )
         if plan.pp_axis and plan.sp_axis and tc.attn_impl != "ring" and not tc.allow_sp_activation_sharding:
             raise ValueError(
                 f"sp+pp with attn_impl={tc.attn_impl!r} would shard activations while every device attends over "

@@ -13,7 +13,8 @@ rounds p to bf16 at each tile's running max where the plain version rounds
 at the global max, and both round the output to bf16, so 2**-6 of each
 slot's largest output (two to four bf16 ulps there; per slot, because a
 long ring averages its rows to small outputs while a one-row slot returns
-v itself).
+v itself). f16 keeps 3 more mantissa bits than bf16 and rounds at the same
+points, so each f16 limit is the bf16 one over 8 (``F16``).
 """
 import pytest
 import torch
@@ -22,6 +23,13 @@ from opendiloco_torch import quant
 from opendiloco_torch.ops import decode_kernels as tdk
 
 torch.set_num_threads(2)
+
+
+# the bf16 limits of the tests below over 8: f16 has 10 mantissa bits to
+# bf16's 7, and the kernels round at the same points in both
+F16 = 2.0**-3
+# attention outputs, per slot or head, as a share of its largest output
+ATTN_SHARE = {torch.bfloat16: 2.0**-6, torch.float16: 2.0**-6 * F16}
 
 
 @pytest.fixture
@@ -41,7 +49,7 @@ def _attn_inputs(dev, S, T, Kh, rep, D, dtype, lens):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize(
     "geom",
     [
@@ -67,7 +75,7 @@ def test_paged_decode_attention_matches_plain(cuda, dtype, geom):
     if dtype == torch.float32:
         tol = torch.full_like(err, 1e-5)
     else:
-        tol = 2.0**-6 * ref.abs().amax(dim=(1, 2))
+        tol = ATTN_SHARE[dtype] * ref.abs().amax(dim=(1, 2))
     assert bool((err <= tol).all()), f"per-slot error {err.tolist()} over tolerance {tol.tolist()}"
 
 
@@ -104,7 +112,7 @@ PAGED_SPLIT_GEOMS = [
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("geom", PAGED_SPLIT_GEOMS, ids=lambda g: "x".join(map(str, g[:5])) + f"-s{g[6]}")
 def test_paged_decode_attention_splits_match_plain_and_repeat(cuda, geom, dtype):
     """B6 on the split kernel against the one-pass and the split plain
@@ -130,7 +138,7 @@ def test_paged_decode_attention_splits_match_plain_and_repeat(cuda, geom, dtype)
                 tdk.paged_decode_attention_split_plain(q, k, v, ln, splits=used)):
         ref = ref.float()
         err = (out.float() - ref).abs().amax(dim=(1, 2))
-        tol = torch.full_like(err, 1e-5) if dtype == torch.float32 else 2.0**-6 * ref.abs().amax(dim=(1, 2))
+        tol = torch.full_like(err, 1e-5) if dtype == torch.float32 else ATTN_SHARE[dtype] * ref.abs().amax(dim=(1, 2))
         assert bool((err <= tol).all()), f"per-slot error {err.tolist()} over tolerance {tol.tolist()}"
     print(f"B6 {geom[:5]} splits {used} {dtype}: max err/tol {float((err / tol).max()):.3f}")
 
@@ -152,11 +160,11 @@ def test_paged_decode_attention_splits_read_no_dead_rows(cuda, splits):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_paged_decode_merge_matches_its_plain_version(cuda, dtype):
     """B6's merge against B7's plain merge on B6's own partials at the
     config_1b decode shape: the same f32 sums in the same order (f32 1e-6,
-    bf16 2**-8 of the largest output)."""
+    bf16 2**-8 and f16 2**-11 of the largest output)."""
     S, T, Kh, rep, D = 8, 1024, 4, 8, 64
     q, k, v, ln = _attn_inputs(cuda, S, T, Kh, rep, D, dtype, [0, 5, 127, 128, 700, 1023, 1024, 2049])
     ml, acc = tdk._paged_decode_partials(q, k, v, ln, splits=8, chunk=128)
@@ -167,7 +175,8 @@ def test_paged_decode_merge_matches_its_plain_version(cuda, dtype):
     assert tdk.LAUNCHES["spec_tail_attention_merge"] == n0["spec_tail_attention_merge"]
     ref = tdk.spec_tail_merge_plain(ml, acc, 1, dtype).reshape(S, Kh * rep, D).float()
     assert bool((ml[..., 0] == float("-inf")).any())  # slot 0 leaves 7 splits dead
-    tol = (1e-6 if dtype == torch.float32 else 2.0**-8) * max(1.0, float(ref.abs().max()))
+    tol = {torch.float32: 1e-6, torch.bfloat16: 2.0**-8, torch.float16: 2.0**-8 * F16}[dtype] * max(
+        1.0, float(ref.abs().max()))
     assert float((out.float() - ref).abs().max()) <= tol
 
 
@@ -195,7 +204,7 @@ def test_paged_decode_attention_routes(cuda):
         dict(D=12),  # not a multiple of 8
         dict(D=264),  # above 256
         dict(H=6),  # 6 query heads over 4 kv heads
-        dict(dtype=torch.float16),
+        dict(dtype=torch.float64),  # no kernel instance (f32, bf16 and f16 have one)
     ],
 )
 def test_paged_decode_attention_rejects(cuda, bad):
@@ -450,12 +459,12 @@ def _flash_tol(ref, dtype):
     bf16: p and ds are rounded to bf16 in both, at points that differ by
     the f32 rounding of what precedes them (p at each tile's running max
     in B1), and the outputs round to bf16: 2**-6 of each head's largest
-    output, two to four bf16 ulps there."""
+    output, two to four bf16 ulps there. f16 likewise at 2**-9."""
     ref = ref.float()
     if dtype == torch.float32:
         return torch.full(ref.shape[:1] + ref.shape[2:3], 1e-5 * max(1.0, float(ref.abs().max())),
                           device=ref.device)
-    return 2.0**-6 * ref.abs().amax(dim=(1, 3))
+    return ATTN_SHARE[dtype] * ref.abs().amax(dim=(1, 3))
 
 
 def _flash_err(out, ref):
@@ -465,7 +474,7 @@ def _flash_err(out, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("geom", FLASH_GEOMS, ids=lambda g: "x".join(map(str, g)))
 def test_flash_attention_kernels_match_plain(cuda, geom, dtype, causal):
     from opendiloco_torch.ops import flash_attention as tfa
@@ -557,11 +566,12 @@ DELTA_GEOMS = [
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("geom", DELTA_GEOMS, ids=lambda g: "x".join(map(str, g)))
 def test_attention_delta_kernel_matches_plain(cuda, geom, dtype):
     """The delta kernel against the plain body: f32 sums of D products (in
-    bf16 exact in f32) in another order, 1e-6 of the largest |delta|."""
+    bf16 and f16 exact in f32) in another order, 1e-6 of the largest
+    |delta|."""
     from opendiloco_torch.ops import flash_attention as tfa
 
     B, T, H, D = geom
@@ -585,7 +595,7 @@ def test_attention_delta_kernel_matches_plain(cuda, geom, dtype):
     [
         dict(D=12),  # not a multiple of 8
         dict(D=136),  # above 128
-        dict(dtype=torch.float16),
+        dict(dtype=torch.float64),  # no kernel instance (f32, bf16 and f16 have one)
         dict(strided=True),  # not contiguous
         dict(mixed=True),  # dO and O in two dtypes
     ],
@@ -778,7 +788,7 @@ def test_flash_attention_bf16_autograd_matches_plain_chain(cuda, geom):
         dict(D=12),  # not a multiple of 8
         dict(D=136),  # above 128
         dict(H=6),  # 6 query heads over 4 kv heads
-        dict(dtype=torch.float16),  # fp16-mixed is not ported to the kernels
+        dict(dtype=torch.float64),  # no kernel instance (f32, bf16 and f16 have one)
         dict(strided=True),  # not contiguous
     ],
 )
@@ -836,7 +846,7 @@ def _share_of_limit(got, ref, rtol, atol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("geom", XENT_GEOMS, ids=lambda g: "x".join(map(str, g)))
 def test_fused_xent_kernels_match_plain(cuda, geom, dtype):
     """Each kernel against its plain version on the same inputs. The logits
@@ -850,11 +860,16 @@ def test_fused_xent_kernels_match_plain(cuda, geom, dtype):
     value for elements that nearly cancel. In f32, dh sums V terms (32000
     at 1b) in another order, about 2**-24 * sqrt(V) = 1e-5 of the result
     (measured 1.01e-5 at 1b), so 1e-4 of its largest value. dw is f32 from
-    rows-long f32 sums in another order: 1e-5 of its largest value."""
+    rows-long f32 sums in another order: 1e-5 of its largest value. f16
+    takes the sm90 kernels too, with bf16's limits over 8, and an upstream
+    gradient times 2**15, the loss scale fp16-mixed starts at (unscaled,
+    dlog would sit in f16's subnormals, where one ulp is most of a value)."""
     from opendiloco_torch.ops import fused_xent as tfx
 
     N, D, V = geom
     h, w, labels, gup = _xent_inputs(cuda, N, D, V, dtype)
+    if dtype == torch.float16:
+        gup = gup * 2.0**15
     n0 = dict(tdk.LAUNCHES)
     nll, lse = tfx.fused_xent_fwd(h, w, labels)
     ref_nll, ref_lse = tfx.fused_xent_fwd_plain(h, w, labels)
@@ -865,8 +880,8 @@ def test_fused_xent_kernels_match_plain(cuda, geom, dtype):
     dh = tfx.fused_xent_dh(ref_dlog, w)
     dw = tfx.fused_xent_dw(h[rows], ref_dlog)
     torch.cuda.synchronize()
-    # bf16 takes the sm90 kernels, f32 the first design
-    sfx = "_sm90" if dtype == torch.bfloat16 else ""
+    # bf16 and f16 take the sm90 kernels, f32 the first design
+    sfx = "_sm90" if dtype != torch.float32 else ""
     for name in ("fused_xent_fwd" + sfx, "fused_xent_dlog" + sfx, "fused_xent_dh" + sfx, "fused_xent_dw" + sfx):
         assert tdk.LAUNCHES[name] == n0[name] + 1
     assert nll.dtype == lse.dtype == torch.float32 and nll.shape == lse.shape == (N,)
@@ -875,12 +890,13 @@ def test_fused_xent_kernels_match_plain(cuda, geom, dtype):
     scale = max(1.0, float(ref_lse.abs().max()))
     assert float((lse - ref_lse).abs().max()) <= 1e-4 * scale
     assert float((nll - ref_nll).abs().max()) <= 1e-4 * scale
-    bf16 = dtype == torch.bfloat16
-    r = 2.0**-7 if bf16 else 1e-5
+    half = dtype != torch.float32
+    scaled = F16 if dtype == torch.float16 else 1.0
+    r = 2.0**-7 * scaled if half else 1e-5
     assert _share_of_limit(dlog, ref_dlog, r, r / 2 * float(gup.max()) / V) <= 1.0
     ref_dh = tfx.fused_xent_dh_plain(ref_dlog, w)
-    if bf16:
-        assert _share_of_limit(dh, ref_dh, 2.0**-7, 1e-5 * float(ref_dh.float().abs().max())) <= 1.0
+    if half:
+        assert _share_of_limit(dh, ref_dh, r, 1e-5 * scaled * float(ref_dh.float().abs().max())) <= 1.0
     else:
         assert _rel_err(dh, ref_dh) <= 1e-4
     assert _rel_err(dw, tfx.fused_xent_dw_plain(h[rows], ref_dlog)) <= 1e-5
@@ -1138,7 +1154,7 @@ def test_fused_xent_autograd_matches_the_materialized_loss(cuda, dtype):
 @pytest.mark.parametrize(
     "bad",
     [
-        dict(dtype=torch.float16),  # fp16-mixed is not ported to the kernels
+        dict(dtype=torch.float64),  # no kernel instance (f32, bf16 and f16 have one)
         dict(D=12),  # not a multiple of 8
         dict(V=100),  # not a multiple of 8
         dict(strided=True),  # a transposed (tied) head: not contiguous
@@ -1207,11 +1223,11 @@ def _spec_tol(ref, dtype):
     kernel and at the global max in the plain version, and both outputs
     round to bf16."""
     top = ref.float().abs().amax(dim=(2, 3))
-    return 1e-5 * top.clamp(min=1.0) if dtype == torch.float32 else 2.0**-6 * top
+    return 1e-5 * top.clamp(min=1.0) if dtype == torch.float32 else ATTN_SHARE[dtype] * top
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("geom", SPEC_GEOMS, ids=lambda g: "x".join(map(str, g[:8])))
 def test_spec_tail_attention_matches_plain(cuda, geom, dtype):
     S, T, Kh, rep, D, Kq, Kt, q_start, lens = geom
@@ -1248,7 +1264,7 @@ SPLIT_GEOMS = [
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("geom", SPLIT_GEOMS, ids=lambda g: "x".join(map(str, g[:8])) + f"-s{g[9]}")
 def test_spec_tail_attention_splits_match_plain_and_repeat(cuda, geom, dtype):
     """The split kernel and its merge against the one-pass plain version
@@ -1294,7 +1310,7 @@ def test_spec_tail_split_rule():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_spec_tail_attention_loads_nothing_of_an_evicted_split(cuda, dtype):
     """A split whose rows are all evicted loads nothing: with lens = T at
     q_start 3, the ring writes of tail tokens 0 .. 3 replaced rows 0 .. 3
@@ -1363,7 +1379,7 @@ def test_spec_tail_attention_repeats_bitwise_and_reads_no_dead_rows(cuda):
         dict(D=12),  # not a multiple of 8
         dict(D=136),  # above 128
         dict(H=6),  # 6 query heads over 4 kv heads
-        dict(dtype=torch.float16),
+        dict(dtype=torch.float64),  # no kernel instance (f32, bf16 and f16 have one)
         dict(strided=True),  # a non-contiguous tail
         dict(lens_dtype=torch.int64),
         dict(cpu_lens=True),  # tensors on two devices
@@ -1500,3 +1516,148 @@ def test_engine_tier_pages_are_by_value_and_ordered(cuda):
     engine.stream.synchronize()
     assert torch.equal(engine.cache_k[:, 2, :16].float().cpu(), want[0])
     assert torch.equal(engine.cache_v[:, 2, :16].float().cpu(), want[1])
+
+
+# ---------------------------------------------------------------------------
+# f16 (precision="fp16-mixed"): the sm90 instances and the dispatch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_f32", [False, True], ids=["f16-grads", "f32-grads"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("geom", SM90_GEOMS, ids=lambda g: "x".join(map(str, g)))
+def test_flash_attention_sm90_f16_matches_plain(cuda, geom, causal, grad_f32):
+    """The f16 instances of the sm90 forward and backward (D 32, 64, 128)
+    against the plain versions at test_flash_attention_sm90_backward's
+    geometries, the gradients in f16 or (``grad_dtype``, the ring's) f32,
+    each head within 2**-9 of its largest output."""
+    from opendiloco_torch.ops import flash_attention as tfa
+
+    B, T, H, Hkv, D = geom
+    q, k, v, do = _flash_inputs(cuda, *geom, torch.float16, seed=5)
+    out, lse = tfa.flash_attention_fwd_plain(q, k, v, causal)
+    delta = tfa.attention_delta(do, out)
+    gd = torch.float32 if grad_f32 else None
+    n0 = dict(tdk.LAUNCHES)
+    got_out, got_lse = tfa.flash_attention_fwd(q, k, v, causal)
+    dq = tfa.flash_attention_dq(q, k, v, do, lse, delta, causal, grad_dtype=gd)
+    dk, dv = tfa.flash_attention_dkv(q, k, v, do, lse, delta, causal, grad_dtype=gd)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_fwd_sm90", "flash_attention_dq_sm90", "flash_attention_dkv_sm90"):
+        assert tdk.LAUNCHES[name] == n0[name] + 1
+    for name in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"):
+        assert tdk.LAUNCHES[name] == n0[name]
+    assert float((got_lse - lse).abs().max()) <= 1e-4 * max(1.0, float(lse.abs().max()))
+    ref_dq = tfa.flash_attention_dq_plain(q, k, v, do, lse, delta, causal, grad_dtype=gd)
+    ref_dk, ref_dv = tfa.flash_attention_dkv_plain(q, k, v, do, lse, delta, causal, grad_dtype=gd)
+    for name, got, ref in (("out", got_out, out), ("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        assert got.dtype == (torch.float16 if name == "out" or not grad_f32 else torch.float32)
+        err, tol = _flash_err(got, ref), _flash_tol(ref, torch.float16)
+        print(f"f16 {name} {geom} causal={causal}: max err/tol {float((err / tol).max()):.3f}")
+        assert bool((err <= tol).all()), f"{name}: per-head error {err.tolist()} over {tol.tolist()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SM90_W4_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("M", [1, 8, 40, 1024])
+def test_w4_matmul_sm90_f16_matches_plain_and_repeats(cuda, shape, M):
+    """The f16 instance of the sm90 B8: the weight rounded once to f16,
+    f32 sums, the output rounded once to f16, so 2**-10 of the largest
+    output (bf16's 2**-7 over 8); bit for bit on a second launch."""
+    K, N = shape
+    q, s, g = _packed(cuda, K, N, seed=K + N + M + 1)
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.float16)
+    n0 = dict(tdk.LAUNCHES)
+    out = tdk.w4_matmul(x, q, s, shape, torch.float16)
+    torch.cuda.synchronize()
+    assert tdk.LAUNCHES["w4_matmul_sm90"] == n0["w4_matmul_sm90"] + 1
+    assert tdk.LAUNCHES["w4_matmul"] == n0["w4_matmul"]
+    assert out.dtype == torch.float16 and out.shape == (M, N)
+    assert torch.equal(out, tdk.w4_matmul(x, q, s, shape, torch.float16))
+    ref = tdk.w4_matmul_plain(x, q, s, shape, torch.float16).float()
+    assert float((out.float() - ref).abs().max()) <= 2**-7 * F16 * float(ref.abs().max())
+    first = tdk.w4_matmul(x, q, s, shape, torch.float16, route=tdk.W4_FIRST_SOURCE)
+    assert float((first.float() - ref).abs().max()) <= 2**-7 * F16 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", SM90_XENT_GEOMS, ids=lambda g: "x".join(map(str, g)))
+def test_fused_xent_sm90_f16_matches_plain_and_repeats(cuda, geom):
+    """The f16 instances of the sm90 B3, dlog, dh and dw against their
+    plain versions and the first design's f16 instances (through route=),
+    with test_fused_xent_kernels_match_plain's f16 limits and the upstream
+    gradient times 2**15; each repeats bit for bit."""
+    from opendiloco_torch.ops import fused_xent as tfx
+
+    N, D, V = geom
+    h, w, labels, gup = _xent_inputs(cuda, N, D, V, torch.float16)
+    gup = gup * 2.0**15
+    n0 = dict(tdk.LAUNCHES)
+    runs = []
+    for route in (None, None, tfx.SOURCE):
+        nll, lse = tfx.fused_xent_fwd(h, w, labels, route=route)
+        dlog = tfx.fused_xent_dlog(h, w, labels, lse, gup, route=route)
+        runs.append((nll, lse, dlog, tfx.fused_xent_dh(dlog, w, route=route), tfx.fused_xent_dw(h, dlog, route=route)))
+    torch.cuda.synchronize()
+    for name in tfx.SM90_NAMES:
+        assert tdk.LAUNCHES[name] == n0[name] + 2
+    for name in tfx.NAMES:
+        assert tdk.LAUNCHES[name] == n0[name] + 1
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    ref_nll, ref_lse = tfx.fused_xent_fwd_plain(h, w, labels)
+    scale = max(1.0, float(ref_lse.abs().max()))
+    r = 2.0**-7 * F16
+    for nll, lse, dlog, dh, dw in (runs[0], runs[2]):
+        assert dlog.dtype == dh.dtype == torch.float16 and dw.dtype == torch.float32
+        assert float((lse - ref_lse).abs().max()) <= 1e-4 * scale
+        assert float((nll - ref_nll).abs().max()) <= 1e-4 * scale
+        ref_dlog = tfx.fused_xent_dlog_plain(h, w, labels, lse, gup)
+        assert _share_of_limit(dlog, ref_dlog, r, r / 2 * float(gup.max()) / V) <= 1.0
+        ref_dh = tfx.fused_xent_dh_plain(dlog, w)
+        assert _share_of_limit(dh, ref_dh, r, 1e-5 * F16 * float(ref_dh.float().abs().max())) <= 1.0
+        assert _rel_err(dw, tfx.fused_xent_dw_plain(h, dlog)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_f16_tensors_reach_the_f16_instances(cuda):
+    """An f16 CUDA tensor reaches the kernel's ``*_f16`` symbol on every
+    route (and never a plain version: each call is counted as a launch); a
+    dtype no kernel has raises before any launch."""
+    from opendiloco_torch.ops import flash_attention as tfa
+    from opendiloco_torch.ops import fused_xent as tfx
+    from opendiloco_torch.ops import launch
+
+    q, k, v, do = _flash_inputs(cuda, 1, 128, 4, 2, 64, torch.float16)
+    for D in (64, 40):  # the sm90 route, then the first design
+        qq, kk, vv, dd = (t[..., :D].contiguous() for t in (q, k, v, do))
+        out, lse = tfa.flash_attention_fwd(qq, kk, vv)
+        delta = tfa.attention_delta(dd, out)
+        tfa.flash_attention_dq(qq, kk, vv, dd, lse, delta)
+        tfa.flash_attention_dkv(qq, kk, vv, dd, lse, delta)
+    h, w, labels, gup = _xent_inputs(cuda, 256, 128, 512, torch.float16)
+    for route in (None, tfx.SOURCE):
+        _, lse = tfx.fused_xent_fwd(h, w, labels, route=route)
+        dlog = tfx.fused_xent_dlog(h, w, labels, lse, gup, route=route)
+        tfx.fused_xent_dh(dlog, w, route=route)
+        tfx.fused_xent_dw(h, dlog, route=route)
+    qd, kd, vd, ln = _attn_inputs(cuda, 2, 96, 2, 3, 64, torch.float16, [95, 5])
+    tdk.paged_decode_attention(qd, kd, vd, ln, splits=3)
+    qd, kd, vd, ln = _attn_inputs(cuda, 2, 96, 2, 3, 256, torch.float16, [95, 5])
+    tdk.paged_decode_attention(qd, kd, vd, ln)
+    tdk.spec_tail_attention_fused(*_spec_inputs(cuda, 2, 96, 2, 3, 64, 3, 3, torch.float16, [95, 5]), splits=2)
+    wq, ws, g = _packed(cuda, 64, 128, seed=1)
+    x = torch.randn(8, 64, generator=g, device=cuda).half()
+    tdk.w4_matmul(x, wq, ws, (64, 128), torch.float16)
+    tdk.w4_matmul(x, wq, ws, (64, 128), torch.float16, route=tdk.W4_FIRST_SOURCE)
+    torch.cuda.synchronize()
+    for symbol in ("flash_attention_fwd_sm90_f16", "flash_attention_dq_sm90_f16", "flash_attention_dkv_sm90_f16",
+                   "flash_attention_fwd_f16", "flash_attention_dq_f16", "flash_attention_dkv_f16",
+                   "flash_attention_delta_f16", *(f"{n}_f16" for n in tfx.NAMES + tfx.SM90_NAMES),
+                   "paged_decode_split_f16", "paged_decode_attention_f16", "spec_tail_attention_f16",
+                   "spec_tail_attention_merge_f16", "w4_matmul_sm90_f16", "w4_matmul_f16"):
+        assert symbol in launch._fns, symbol
+    n0 = dict(tdk.LAUNCHES)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(q.double(), k.double(), v.double())
+    assert tdk.LAUNCHES == n0

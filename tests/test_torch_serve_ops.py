@@ -149,7 +149,7 @@ def test_w4_identity_probe_is_bitwise_dequant(shape):
     np.testing.assert_array_equal(out, ref)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 def test_w4_sm90_dequant_equals_dequant_w4_bitwise(monkeypatch, dtype):
     """The sm90 B8's dequant arithmetic (a factor a scale, 2^23 + nib less
     2^23 + 8, one multiply, one rounding), emulated in torch, against
@@ -166,7 +166,7 @@ def test_w4_sm90_dequant_equals_dequant_w4_bitwise(monkeypatch, dtype):
     ref = quant.dequant_w4(q, bits, (bits.numel(), 16), dtype)
     emu = tdk.w4_sm90_dequant_plain(nib[None, :], bits[:, None], dtype)
     assert emu.dtype == ref.dtype == dtype
-    wide = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    wide = torch.int32 if dtype == torch.float32 else torch.int16
     assert torch.equal(emu.view(wide), ref.view(wide))
 
 
