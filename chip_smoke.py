@@ -321,27 +321,35 @@ exits non-zero.
    ``train()`` at config_150m's widths and 2 of its layers with
    ``attn_implementation="ring"`` at sp 1 and with ``"pallas"``: losses,
    grad norms, launches and master hashes bit for bit.
-29. Tensor and pipeline parallelism at config_1b's full width and 12 of
+29. Tensor and pipeline parallelism at config_1b's full width and 4 of
    its 22 layers (``TPPP_LAYERS``: the smoke's time limit;
    phase 10's run settings: seq 1024, mb 8, accum 2; bf16, remat, the
    kernels and the fused loss; three inner steps, warmup 1):
    ``InnerTrainer`` without a group, then at pp 2 (two stage threads of
-   6 layers over the loopback P2P exchange, 2 micro-batches), then at tp
+   2 layers over the loopback P2P exchange, 2 micro-batches), then at tp
    2 (two rank threads over the loopback group: 16 q and 2 kv heads, ffn
-   2816 and vocab 16000 a rank, the head gathered for the loss), on the
-   same numpy params and batches; each rank thread runs its CUDA backward
-   on its own thread (``set_multithreading_enabled(False)``), so a rank
-   that waits inside a backward node does not hold up the others. Every
-   rank's loss and grad norm within 1e-3 and 0.5% of the unsplit run's at
-   each step, the whole params after step 3 within phase 27's master
-   bound, update directions on at least 90% of the elements
-   (``TPPP_TOL``), and the leaves tp and pp do not cut bit
-   for bit across the ranks after every step. Each thread's launches
-   (zeroed before each run) against the counts written down before it:
-   per stage 2 x (L/pp) x M x accum of the sm90 B1 a step and half that
-   of B2a, B2b and delta, the loss kernels on the last stage only (B3
-   accum, dlog, B4a and B4b accum x 4); per tp rank phase 10's counts at
-   12 layers. Step ms and peak device memory of each run.
+   2816 and vocab 16000 a rank, the head gathered for the loss), then at
+   sp 2 (two rank threads of 512 positions a sequence, the loss's sum and
+   count and the gradients summed over their sp comm) gathered
+   (``attn_impl="pallas"``: q, k and v gathered, the kernels over the
+   whole 1024 on each rank) and as the flash-chunk ring (``"ring"``, B5
+   through autograd), on the same numpy params and batches; each rank
+   thread runs its CUDA backward on its own thread
+   (``set_multithreading_enabled(False)``), so a rank that waits inside a
+   backward node does not hold up the others. Every rank's loss and grad
+   norm within 1e-3 and 0.5% of the unsplit run's at each step, the whole
+   params after step 3 within phase 27's master bound, update directions
+   on at least 90% of the elements (``TPPP_TOL``; the ring's sp run also
+   against the gathered one), the leaves tp and pp do not cut bit for bit
+   across the ranks after every step, and the sp ranks' losses bit for
+   bit. Each thread's launches (zeroed before each run) against the
+   counts written down before it: per stage 2 x (L/pp) x M x accum of the
+   sm90 B1 a step and half that of B2a, B2b and delta, the loss kernels on
+   the last stage only (B3 accum, dlog, B4a and B4b accum x 4); per tp
+   rank and gathered sp rank phase 10's attention counts at 4 layers;
+   ring rank r 2 (1 + r) B1, 1 + r B2a and B2b a layer and micro-batch;
+   the sp ranks' dlog, B4a and B4b accum x 2 (4096 rows a micro-batch).
+   Step ms and peak device memory of each run.
 30. The obs plane armed (``ODTP_OBS``, sinks in a temporary folder, the
    Prometheus port ephemeral), after phase 22 and after phase 29:
    (a) config_1b, w4, 8 requests over HTTP through ``ServeServer``, 40
@@ -4595,6 +4603,8 @@ def ring_ranks(torch, ra, fn_fwd, fn_bwd, q, k, v, do, n: int) -> dict:
     ranks would wait on each other). Returns the joined outputs and the
     card's ms of the forward and of the backward (all ranks, events on the
     shared stream)."""
+    from opendiloco_torch.parallel.comm import LoopbackGroup
+
     T = q.shape[1]
     tl = T // n
     chunk = lambda x, r: x[:, r * tl:(r + 1) * tl].contiguous()
@@ -4603,7 +4613,7 @@ def ring_ranks(torch, ra, fn_fwd, fn_bwd, q, k, v, do, n: int) -> dict:
     events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
 
     def stage(work):
-        ring, errors = ra.LoopbackRing(n), []
+        ring, errors = LoopbackGroup(n), []
 
         def one(r):
             try:
@@ -4806,9 +4816,11 @@ def ring_train_sp1(torch, tfa, dev) -> dict:
 
 # config_1b at full width and TPPP_LAYERS of its 22 layers (the smoke's time
 # limit: at 22 the phase took 85.4 s of a 986.3 s smoke on an H100 80GB HBM3
-# at 700 W; even, so pp 2 splits it), phase 10's run settings (seq 1024, mb
-# 8, accum 2), three inner steps; warmup 1 so that two steps update
-TPPP_LAYERS = 12
+# at 700 W; at 12, with the two sp runs added, 113.7 s of a 1157.0 s smoke,
+# so all five runs take 4; even, so pp 2 splits it), phase 10's run settings
+# (seq 1024, mb 8, accum 2), three inner steps; warmup 1 so that two steps
+# update
+TPPP_LAYERS = 4
 TPPP_1B = dict(seq_length=1024, per_device_train_batch_size=8, total_batch_size=16, warmup_steps=1, total_steps=3,
                lr=1e-3)
 TPPP_NAMES = MOE_NAMES
@@ -4821,20 +4833,25 @@ TPPP_TOL = ("bf16: each step's loss within 1e-3 and grad norm within 0.5% of the
 
 
 def tppp_launches(accum: int, steps: int, mb: int, seq: int, *, layers: int, microbatches: int,
-                  loss: bool) -> dict:
+                  loss: bool, sp: int = 1, ring_rank: int | None = None) -> dict:
     """The launches one rank thread must show over ``steps`` inner steps:
     per micro-batch of the pipeline and layer, B1 twice (forward and its
-    recompute under remat), delta, B2a and B2b once; where the rank runs the
-    loss, B3 once an accumulation step and dlog, B4a and B4b once a
-    2048-row chunk of its mb x (seq - 1) rows."""
+    recompute under remat), delta, B2a and B2b once (under sp's gather
+    too: every rank attends over the whole sequence); as rank
+    ``ring_rank`` of the flash-chunk ring, B1 2 (1 + r), B2a and B2b 1 + r
+    (the causal chunk and r earlier ones) and delta once; where the rank
+    runs the loss, B3 once an accumulation step and dlog, B4a and B4b once
+    a 2048-row chunk of its mb x (seq - 1) rows, or of its mb x seq / sp
+    rows under sp (the next-token targets already paired)."""
     from opendiloco_torch.ops import fused_xent as tfx
 
     n = steps * accum * layers * microbatches
+    chunks_seen = 1 if ring_rank is None else 1 + ring_rank
     want = {name: 0 for name in TPPP_NAMES}
-    want.update({"flash_attention_fwd_sm90": 2 * n, "flash_attention_delta": n, "flash_attention_dq_sm90": n,
-                 "flash_attention_dkv_sm90": n})
+    want.update({"flash_attention_fwd_sm90": 2 * n * chunks_seen, "flash_attention_delta": n,
+                 "flash_attention_dq_sm90": n * chunks_seen, "flash_attention_dkv_sm90": n * chunks_seen})
     if loss:
-        chunks = -(-mb * (seq - 1) // tfx.CHUNK_ROWS)
+        chunks = -(-mb * (seq - 1 if sp == 1 else seq // sp) // tfx.CHUNK_ROWS)
         want["fused_xent_fwd_sm90"] = steps * accum
         for name in ("fused_xent_dlog_sm90", "fused_xent_dh_sm90", "fused_xent_dw_sm90"):
             want[name] = steps * accum * chunks
@@ -4925,11 +4942,16 @@ def phase_tp_pp(torch, tfa, dev, card: str) -> dict:
     """Phase 29: config_1b's widths at TPPP_LAYERS of its 22 layers train
     three inner steps through ``InnerTrainer`` unsplit, at pp 2 (two stage
     threads of TPPP_LAYERS / 2 layers over the loopback P2P exchange, 2
-    micro-batches) and at tp 2
+    micro-batches), at tp 2
     (two rank threads over the loopback group: 16 q and 2 kv heads, ffn
-    2816 and vocab 16000 a rank, the head gathered for the loss), on the
-    same numpy params and batches, bf16, remat, the kernels and the fused
-    loss. Held: TPPP_TOL, and each thread's launches against
+    2816 and vocab 16000 a rank, the head gathered for the loss) and at sp
+    2 (two rank threads of 512 positions a sequence, the loss and the
+    gradients summed over their sp comm): gathered ("pallas": each rank
+    runs the kernels over the whole 1024) and as the flash-chunk ring
+    ("ring", B5), on the same numpy params and batches, bf16, remat, the
+    kernels and the fused loss. Held: TPPP_TOL against the unsplit run,
+    the two sp runs against each other by the same bounds, the sp ranks'
+    losses bit for bit, and each thread's launches against
     :func:`tppp_launches` written down before the run."""
     from opendiloco_torch.data.dataloader import FakeTokenizedDataset
     from opendiloco_torch.models import llama
@@ -4939,6 +4961,7 @@ def phase_tp_pp(torch, tfa, dev, card: str) -> dict:
     from opendiloco_torch.train import INIT_SEED
     from opendiloco_torch.trainer import TrainerConfig, make_schedule
 
+    import dataclasses
     import tempfile
 
     t_phase = time.perf_counter()
@@ -4955,13 +4978,22 @@ def phase_tp_pp(torch, tfa, dev, card: str) -> dict:
     want = {"unsplit": [tppp_launches(accum, steps, mb, seq, layers=L, microbatches=1, loss=True)],
             "pp 2": [tppp_launches(accum, steps, mb, seq, layers=L // 2, microbatches=2, loss=r == 1)
                      for r in range(2)],
-            "tp 2": [tppp_launches(accum, steps, mb, seq, layers=L, microbatches=1, loss=True) for _ in range(2)]}
-    plans = {"unsplit": [single_device_plan()], "pp 2": loopback_plans(pp_size=2), "tp 2": loopback_plans(tp_size=2)}
+            "tp 2": [tppp_launches(accum, steps, mb, seq, layers=L, microbatches=1, loss=True) for _ in range(2)],
+            "sp 2 gather": [tppp_launches(accum, steps, mb, seq, layers=L, microbatches=1, loss=True, sp=2)
+                            for _ in range(2)],
+            "sp 2 ring": [tppp_launches(accum, steps, mb, seq, layers=L, microbatches=1, loss=True, sp=2, ring_rank=r)
+                          for r in range(2)]}
+    plans = {"unsplit": [single_device_plan()], "pp 2": loopback_plans(pp_size=2), "tp 2": loopback_plans(tp_size=2),
+             "sp 2 gather": loopback_plans(sp_size=2), "sp 2 ring": loopback_plans(sp_size=2)}
+    tcs = {label: tc for label in plans}
+    tcs["sp 2 ring"] = dataclasses.replace(tc, attn_impl="ring")
     runs = {}
-    for label in ("unsplit", "pp 2", "tp 2"):
-        res = tppp_run(torch, tfa, dev, cfg, tc, params, batches, plans[label])
+    for label in plans:
+        res = tppp_run(torch, tfa, dev, cfg, tcs[label], params, batches, plans[label])
         if res["launches"] != want[label]:
             raise AssertionError(f"tp/pp 1b {label}: launches by thread {res['launches']} != {want[label]}")
+        if label.startswith("sp") and any(r["losses"] != res["ranks"][0]["losses"] for r in res["ranks"]):
+            raise AssertionError(f"tp/pp 1b {label}: the ranks' losses differ: {[r['losses'] for r in res['ranks']]}")
         runs[label] = res
         gc.collect()
         torch.cuda.empty_cache()
@@ -4972,25 +5004,31 @@ def phase_tp_pp(torch, tfa, dev, card: str) -> dict:
     reach = sum(sched(i) for i in range(steps)) * (1 + tc.weight_decay)
     param_tol = 2 * dc.outer_lr * (1 + dc.outer_momentum) * reach + 1e-6  # phase 27's
     checks = {}
-    for label in ("pp 2", "tp 2"):
+    init = llama.flatten_params(params)
+    # each split against the unsplit run, and the gathered sp run against the ring
+    pairs = [(label, "unsplit") for label in plans if label != "unsplit"] + [("sp 2 ring", "sp 2 gather")]
+    for label, base in pairs:
+        want_run = runs[base]["ranks"][0]
         for r, got in enumerate(runs[label]["ranks"]):
-            for step, (a, b, ga, gb) in enumerate(zip(got["losses"], ref["losses"], got["norms"], ref["norms"])):
+            for step, (a, b, ga, gb) in enumerate(zip(got["losses"], want_run["losses"], got["norms"],
+                                                      want_run["norms"])):
                 if not (math.isfinite(a) and abs(a - b) <= 1e-3 and abs(ga - gb) <= 5e-3 * gb):
                     raise AssertionError(f"tp/pp 1b {label} rank {r} step {step + 1}: loss {a} vs {b}, grad norm "
-                                         f"{ga} vs {gb}")
+                                         f"{ga} vs {gb} ({base})")
         worst, agree, total = 0.0, 0, 0
-        init = llama.flatten_params(params)
-        for p0, pg, pr in zip(init, runs[label]["ranks"][0]["params"], ref["params"]):
+        for p0, pg, pr in zip(init, runs[label]["ranks"][0]["params"], want_run["params"]):
             worst = max(worst, float(np.abs(pg - pr).max()))
             agree += int(np.count_nonzero(np.sign(pg - p0) == np.sign(pr - p0)))
             total += p0.size
         if not (worst <= param_tol and agree >= 0.9 * total):
-            raise AssertionError(f"tp/pp 1b {label}: params differ by up to {worst} (tol {param_tol}), update "
-                                 f"directions agree on {agree / total:.4f}")
-        checks[label] = {"params_largest_difference": worst, "update_direction_agreement": agree / total}
-        runs[label]["ranks"][0]["params"] = None
-    ref["params"] = None
-    res = {"config": "1b", "layers": L, **run, "accum": accum, "attn_impl": tc.attn_impl, "fused_loss": tc.fused_loss,
+            raise AssertionError(f"tp/pp 1b {label}: params differ from {base}'s by up to {worst} (tol {param_tol}), "
+                                 f"update directions agree on {agree / total:.4f}")
+        checks[label if base == "unsplit" else f"{label} against {base}"] = {
+            "params_largest_difference": worst, "update_direction_agreement": agree / total}
+    for r in runs.values():
+        r["ranks"][0]["params"] = None
+    res = {"config": "1b", "layers": L, **run, "accum": accum,
+           "attn_impl": {label: t.attn_impl for label, t in tcs.items()}, "fused_loss": tc.fused_loss,
            "remat": tc.remat, "pp_microbatches": 2, "tol": TPPP_TOL, "param_tol": param_tol, "checks": checks,
            "runs": {label: {"losses": [x["losses"] for x in r["ranks"]], "grad_norms": [x["norms"] for x in r["ranks"]],
                             "step_ms": [x["step_ms"] for x in r["ranks"]], "launches_by_thread": r["launches"],

@@ -332,11 +332,12 @@ class Config:
 
     ``attn_implementation`` keeps the JAX names so a config carries over:
     "auto" resolves to the hand-written kernels on the card and the plain
-    attention on the CPU, "pallas" means the hand-written kernels (their
-    plain versions on the CPU), "xla" the plain attention. ``scan_unroll``
-    is kept for the same reason; in eager PyTorch, where the layers are a
-    Python loop, it only decides ``fused_loss``'s default (see
-    ``trainer._resolve_perf_defaults``)."""
+    attention on the CPU (to the ring under sp), "pallas" means the
+    hand-written kernels (their plain versions on the CPU), "xla" the plain
+    attention; under sp these two attend over the whole sequence, gathered.
+    ``scan_unroll`` is kept for the same reason; in eager PyTorch, where
+    the layers are a Python loop, it only decides ``fused_loss``'s default
+    (see ``trainer._resolve_perf_defaults``)."""
 
     # model
     attn_implementation: str = "auto"

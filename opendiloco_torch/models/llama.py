@@ -14,7 +14,9 @@ The training :func:`forward` routes attention through the hand-written
 flash-attention kernels (``attn_impl="pallas"``, the JAX name kept so a
 config carries over), the plain ``xla_attention`` (``"xla"``) or the
 flash-chunk ring over a sequence cut into chunks (``"ring"``,
-:mod:`~opendiloco_torch.ops.ring_attention`), and checkpoints each layer
+:mod:`~opendiloco_torch.ops.ring_attention`); under sp "xla" and
+"pallas" attend over the whole sequence, gathered from the sp ranks
+(``seq``, :func:`_attn_fn`). It checkpoints each layer
 under ``remat=True`` (``torch.utils.checkpoint``, non-reentrant: the
 backward reruns the layer's forward, kernels included) or, under
 ``remat="dots"``/``"dots_all"``, keeps the matmul and flash-forward
@@ -447,11 +449,13 @@ def _decoder_block(
 
 def _attn_fn(attn_impl: str, ring=None, seq=None):
     """The attention of a block. ``seq`` (a
-    :class:`~opendiloco_torch.parallel.comm.TensorParallel` over sp): the
-    activation-sharding mode of sp + pp, where a rank holds a chunk of each
-    sequence and attends over the whole: q, k and v are gathered over sp
-    (each rank uses its chunk's rows of the output: partial gathers) and
-    the rank keeps its chunk of the output."""
+    :class:`~opendiloco_torch.parallel.comm.TensorParallel` over sp): a
+    rank holds a chunk of each sequence and attends over the whole, as
+    every device of the JAX package's sp mesh does under "xla" and
+    "pallas" (and under sp + pp's activation-sharding mode): the roped q,
+    k and v are gathered over sp (each rank uses its chunk's rows of the
+    output: partial gathers, whose backward reduce-scatters) and the rank
+    keeps its chunk of the output."""
     if attn_impl == "xla":
         fn = lambda q, k, v: xla_attention(q, k, v, causal=True)
     elif attn_impl == "pallas":

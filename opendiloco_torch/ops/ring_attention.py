@@ -24,15 +24,13 @@ into its queries' softmax. Two bodies, as in the JAX package:
 The rotation goes through one small interface, a ring: ``rank``, ``size``
 and ``exchange(tensors)``, which sends the list to the next rank and
 returns the previous rank's. :class:`DistRing` runs it over a
-``torch.distributed`` group (``batch_isend_irecv``); :class:`LoopbackRing`
-runs ``n`` ranks in one process, one thread each, for the tests and for
-one card (NCCL refuses two ranks on one GPU). Neither falls back to the
-other. A ring of one rank (:data:`SOLO`) is one causal chunk: the flash
+``torch.distributed`` group (``batch_isend_irecv``); a rank of a
+:class:`~opendiloco_torch.parallel.comm.LoopbackGroup` runs ``n`` ranks
+in one process, one thread each, for the tests and for one card (NCCL
+refuses two ranks on one GPU). Neither falls back to the other. A ring of one rank (:data:`SOLO`) is one causal chunk: the flash
 ring there computes what ``flash_attention`` does.
 """
 from __future__ import annotations
-
-import threading
 
 import torch
 
@@ -82,36 +80,6 @@ class DistRing:
             ops.append(dist.P2POp(dist.irecv, o, self._prev, self.group, tag=i))
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-        return outs
-
-
-class LoopbackRing:
-    """``n`` ranks of a ring in one process, each driven by its own thread
-    (``ring.rank(r)`` is rank ``r``'s handle). An exchange posts the
-    rank's tensors, waits for every rank to post, and takes copies of the
-    previous rank's (a received buffer is new memory, as over a wire). On
-    the card every thread enqueues on the device's current stream, so a
-    posted tensor is written before its copy is read."""
-
-    def __init__(self, n: int):
-        self.size = n
-        self._barrier = threading.Barrier(n)
-        self._slots: list = [None] * n
-
-    def rank(self, r: int) -> "_LoopbackRank":
-        return _LoopbackRank(self, r)
-
-
-class _LoopbackRank:
-    def __init__(self, ring: LoopbackRing, rank: int):
-        self.ring, self.rank, self.size = ring, rank, ring.size
-
-    def exchange(self, tensors: list) -> list:
-        ring = self.ring
-        ring._slots[self.rank] = list(tensors)
-        ring._barrier.wait()
-        outs = [t.clone() for t in ring._slots[(self.rank - 1) % self.size]]
-        ring._barrier.wait()  # every rank has taken its copies before the next post
         return outs
 
 

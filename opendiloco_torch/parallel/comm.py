@@ -8,11 +8,16 @@ FULL_SHARD forward: all of a layer's cut leaves in one call, moving the
 compute dtype; its backward reduce-scatters the f32 gradients into the
 blocks, in one call too. :func:`sum_over` is an
 all-reduce whose backward is the identity (each rank's gradient is its own
-share of a loss that is summed over the ranks).
+share of a loss that is summed over the ranks). :func:`all_gather_dim`,
+:func:`all_reduce_` and :func:`sum_over` also take a rank-thread comm in
+place of the group: the data group of
+:func:`~opendiloco_torch.parallel.mesh.loopback_plans`.
 
-The tensor and pipeline axes go through one small interface, a *comm*:
-``rank``, ``size``, ``all_reduce``, ``all_gather``, ``reduce_scatter``,
-``broadcast``, ``send`` and ``recv``. :class:`DistComm` runs it over a
+The tensor, pipeline and sequence axes go through one small interface, a
+*comm*: ``rank``, ``size``, ``all_reduce``, ``all_gather``,
+``reduce_scatter``, ``broadcast``, ``send`` and ``recv``; a rank
+thread's comm is also a ring (``exchange``,
+:mod:`~opendiloco_torch.ops.ring_attention`). :class:`DistComm` runs it over a
 ``torch.distributed`` group (NCCL on the card, gloo on the CPU);
 :class:`LoopbackGroup` runs ``n`` ranks in one process, one thread each,
 for one card (NCCL refuses two ranks on one GPU) and for the tests.
@@ -46,6 +51,8 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_sc
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    if isinstance(group, _LoopbackComm):
+        return group.all_gather(x, dim)
     n = dist.get_world_size(group)
     # the collectives take blocks joined along dim 0 (gloo checks the shape)
     out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
@@ -66,6 +73,8 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 
 def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    if isinstance(group, _LoopbackComm):
+        return x.copy_(group.all_reduce(x))  # every rank has read x when the result is back
     dist.all_reduce(x, group=group)
     return x
 
@@ -241,6 +250,11 @@ class _LoopbackComm:
 
     def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
         return self._posted(x, lambda posts: posts[src].clone())
+
+    def exchange(self, tensors: list) -> list:
+        """The ring step: copies of rank ``r - 1``'s ``tensors`` (this
+        rank's go to ``r + 1``)."""
+        return self._posted(list(tensors), lambda posts: [t.clone() for t in posts[(self.rank - 1) % self.size]])
 
     def send(self, x: torch.Tensor, dst: int) -> None:
         self.g._boxes[(self.rank, dst)].put(x.clone())

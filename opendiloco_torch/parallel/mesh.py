@@ -30,9 +30,10 @@ Rank ``r`` at coordinate ``r`` puts the tp ranks next to each other. The
 data group (:meth:`MeshPlan.batch_group`) is the ranks that hold distinct
 tokens: those that share this rank's pp, ep and tp coordinates.
 
-The tp and pp axes run through a comm (:meth:`MeshPlan.comm`,
+The tp, pp and sp axes run through a comm (:meth:`MeshPlan.comm`,
 :mod:`~opendiloco_torch.parallel.comm`): the group's :class:`DistComm`,
-or, on one card, the rank threads of :func:`loopback_plans`.
+or, on one card, the rank threads of :func:`loopback_plans`, whose data
+group is their sp comm.
 """
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ class MeshPlan:
     ep_axis: Optional[str] = None
     mesh: Any = None
     # the ranks that share this rank's pp, ep and tp coordinates (None:
-    # every rank)
+    # every rank; under rank threads their comm)
     data_group: Any = None
     # under pp x sp, the ranks that share this rank's pp, ep, tp and sp
     # coordinates: the batch blocks of its sequence chunk, over which the
@@ -124,10 +125,16 @@ class MeshPlan:
         """The data group: the ranks that hold distinct tokens (the batch cut
         over dp and fsdp, the sequence over sp), every process of the worker
         when ep, tp and pp are 1; None when this rank is alone in it.
-        Losses and gradients are summed over it."""
+        Losses and gradients are summed over it. Under rank threads
+        (:func:`loopback_plans`) it is a comm, which the collectives of
+        :mod:`~opendiloco_torch.parallel.comm` take as they take a group."""
         import torch.distributed as dist
 
-        if self.mesh is None or self.data_size == 1:
+        if self.data_size == 1:
+            return None
+        if self.comms:
+            return self.data_group
+        if self.mesh is None:
             return None
         return dist.group.WORLD if self.data_group is None else self.data_group
 
@@ -316,23 +323,31 @@ def _group_by(sizes: dict, rank: int, key_axes: tuple):
     return mine
 
 
-def loopback_plans(*, tp_size: int = 1, pp_size: int = 1) -> list:
-    """The NO_SHARD plans of ``tp_size * pp_size`` ranks in one process, one
-    thread each (rank ``r`` at coordinate ``r``, tp innermost), their tp and
-    pp comms :class:`~opendiloco_torch.parallel.comm.LoopbackGroup` ranks:
-    the path over one card, where NCCL takes one rank. Every other axis is
-    1."""
+def loopback_plans(*, tp_size: int = 1, pp_size: int = 1, sp_size: int = 1) -> list:
+    """The NO_SHARD plans of ``tp_size * sp_size * pp_size`` ranks in one
+    process, one thread each (rank ``r`` at mesh coordinate ``r``, tp
+    innermost), their tp, sp and pp comms
+    :class:`~opendiloco_torch.parallel.comm.LoopbackGroup` ranks: the path
+    over one card, where NCCL takes one rank. The sp comm is also the data
+    group (:meth:`MeshPlan.batch_group`): the sp ranks hold distinct
+    tokens, and no other axis cuts the batch. Every other axis is 1."""
     from opendiloco_torch.parallel.comm import LoopbackGroup
 
-    n = tp_size * pp_size
-    sizes = mesh_sizes("NO_SHARD", n, tp_size=tp_size, pp_size=pp_size)
-    tp_groups = [LoopbackGroup(tp_size) for _ in range(pp_size)]
-    pp_groups = [LoopbackGroup(pp_size) for _ in range(tp_size)]
+    axes = ("pp", "sp", "tp")
+    sizes = mesh_sizes("NO_SHARD", tp_size * sp_size * pp_size, tp_size=tp_size, sp_size=sp_size,
+                       pp_size=pp_size)
+    groups: dict = {}  # (axis, the coordinates on the other axes) -> the axis's group
     plans = []
-    for r in range(n):
-        p, t = divmod(r, tp_size)
-        comms = {"tp": tp_groups[p].rank(t), "pp": pp_groups[t].rank(p)}
-        plans.append(dataclasses.replace(_plan("NO_SHARD", sizes), comms=comms))
+    for r in range(math.prod(sizes.values())):
+        c = _coords(sizes, r)
+        comms = {}
+        for a in axes:
+            key = (a, *(c[b] for b in axes if b != a))
+            if key not in groups:
+                groups[key] = LoopbackGroup(sizes[a])
+            comms[a] = groups[key].rank(c[a])
+        plans.append(dataclasses.replace(_plan("NO_SHARD", sizes), comms=comms,
+                                         data_group=comms["sp"] if sp_size > 1 else None))
     return plans
 
 

@@ -67,8 +67,10 @@ worker's device, take delta pushes off the masters behind one router on
 ``fleet.host``/``fleet.port``.
 
 ``sp_size`` and ``ep_size`` above 1 cut each sequence over the ranks of
-an sp group (ring attention) and the routed experts over the ranks of an
-ep group; ``tp_size`` cuts every layer's heads and FFN columns and the
+an sp group and the routed experts over the ranks of an ep group; under
+sp, attention is the ring (``attn_implementation`` "auto" or "ring"), or,
+with "xla" or "pallas", the whole sequence gathered on every rank, as the
+JAX package's; ``tp_size`` cuts every layer's heads and FFN columns and the
 vocab over a tp group (Megatron), and ``pp_size`` the layer stack into
 stages that run the GPipe schedule over ``pp_size`` micro-batches
 (``TrainerConfig.pp_microbatches`` sets another count; the command line

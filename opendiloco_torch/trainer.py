@@ -43,10 +43,13 @@ layouts XLA derives from the JAX package's PartitionSpecs):
 - AdamW updates the local blocks; ZeRO-2 then all-gathers the params (f32).
 
 Over sp each rank holds a chunk of every sequence: attention is the
-flash-chunk ring over the sp group, rope takes global positions, and the
-loss pairs each position with the next token's label across chunk
-boundaries (the global last position is dropped), summed over the data
-group as the batch is. Over ep each rank holds ``E/ep`` experts of every
+flash-chunk ring over the sp group (``attn_impl`` "ring", the default
+there), or, under "xla" or "pallas", the whole sequence's attention on
+every rank, q, k and v gathered over sp and the rank's own rows kept, as
+the JAX package's partitioner gathers them. Rope takes global positions,
+and the loss pairs each position with the next token's label across
+chunk boundaries (the global last position is dropped), summed over the
+data group as the batch is. Over ep each rank holds ``E/ep`` experts of every
 routed-expert leaf and the same tokens as its ep peers; the FFN sums its
 partial combine over ep (:mod:`~opendiloco_torch.parallel.experts`), so
 every replicated leaf's gradient is whole on each ep rank and is summed
@@ -265,14 +268,16 @@ def _resolve_perf_defaults(
     """Resolve attn_impl="auto" / fused_loss=None / scan_unroll=None.
 
     Under a plan with an sp axis "auto" takes the ring (the only attention
-    that keeps the sequence chunks local); otherwise on the card the
-    hand-written flash-attention kernels (the JAX package's "pallas" on a
-    TPU), elsewhere the plain attention. scan_unroll resolves as the JAX
-    package's does (full unroll for dense stacks of at most 16 layers on
-    the card, else 1), and fused_loss=None follows it: on where the card
-    runs the kernel attention without sp and the layer loop stays rolled
-    (unroll < layers), as at config_1b's 22 layers and at every MoE
-    config; off at config_150m and on the CPU. An explicit True or False
+    that keeps the sequence chunks local); an explicit "xla" or "pallas"
+    passes through and attends over the whole sequence, gathered over sp.
+    Otherwise "auto" takes on the card the hand-written flash-attention
+    kernels (the JAX package's "pallas" on a TPU), elsewhere the plain
+    attention. scan_unroll resolves as the JAX package's does (full unroll
+    for dense stacks of at most 16 layers on the card, else 1), and
+    fused_loss=None follows it: on where the card runs the kernel
+    attention without sp and the layer loop stays rolled (unroll <
+    layers), as at config_1b's 22 layers and at every MoE config; off
+    under sp, at config_150m and on the CPU. An explicit True or False
     passes through, on the CPU too, where the kernels' plain versions run."""
     if tc.attn_impl not in ("auto", "pallas", "xla", "ring"):
         raise ValueError(f"unknown attn_impl {tc.attn_impl!r}")
@@ -329,11 +334,6 @@ class InnerTrainer:
                     "pipeline binds both axes manual and the ring runs on each stage's local chunks), or use "
                     "attn_impl xla/pallas"
                 )
-        if plan.sp_axis and tc.attn_impl != "ring" and not plan.pp_axis:
-            raise ValueError(
-                f"sp_size {plan.shape['sp']} cuts every sequence into chunks, and attn_impl={tc.attn_impl!r} "
-                "would attend within a chunk only: use attn_impl 'ring' or 'auto'"
-            )
         if plan.ep_axis:
             ep_n = plan.shape["ep"]
             if model_cfg.num_experts == 0:
@@ -378,13 +378,16 @@ class InnerTrainer:
         self.resident_dims = self.param_dims if self._params_cut else [None] * len(self.param_dims)
         self._gather = ParamGather(specs, plan.group("fsdp")) if self._dist and self._params_cut else None
         self._batch_group = plan.batch_group() if self._dist and plan.data_size > 1 else None
-        self._ring = DistRing(plan.group("sp")) if self._dist and self._sp_n > 1 else None
+        self._ring = None
+        if "sp" in self._comms and self.tc.attn_impl == "ring":
+            # rank threads: their sp comm is the ring
+            self._ring = self._comms["sp"] if plan.comms else DistRing(plan.group("sp"))
         self._experts = ExpertPlan(plan) if self._dist and self.model_cfg.num_experts else None
         self._tp = TensorParallel(self._comms["tp"]) if "tp" in self._comms else None
         self._pp = self._comms.get("pp")
-        # sp + pp through a non-ring attention (the opt-in): whole sequences
-        self._seq = (TensorParallel(self._comms["sp"]) if self._pp is not None and "sp" in self._comms
-                     and self.tc.attn_impl != "ring" else None)
+        # sp through a non-ring attention: every rank attends over whole
+        # sequences, gathered over sp (models/llama.py _attn_fn)
+        self._seq = TensorParallel(self._comms["sp"]) if "sp" in self._comms and self.tc.attn_impl != "ring" else None
         # the head is gathered over tp for the loss where tp cuts the vocab
         self._head_cut = self._tp is not None and self.model_cfg.vocab_size % self._tp.size == 0
         mp_cut = self._dist and any(d is not None for dims in self.mp_dims.values() for d in dims)

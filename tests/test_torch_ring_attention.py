@@ -12,7 +12,14 @@ package, on the CPU.
   bit for bit (both run in one child process, on one thread).
 - ``InnerTrainer`` with sp 2 and sp 4 (and sp beside dp and fsdp) over
   gloo ranks against the port at sp 1 and the JAX trainer on as many
-  virtual devices (sp 2 beside ep 2 is in ``tests/test_torch_moe.py``).
+  virtual devices (sp 2 beside ep 2 is in ``tests/test_torch_moe.py``):
+  through the ring (``attn_impl`` "auto"), and through the gather, where
+  "xla" and "pallas" attend over the whole sequence on every rank (the
+  JAX "pallas" trainer with its kernels in interpret mode).
+- The same trainer over rank threads of one process
+  (``parallel/mesh.py loopback_plans(sp_size=...)``, the path over one
+  card) against the gloo run and sp 1, ring and gather, sp 2 alone and
+  beside tp 2.
 
 Tolerances, each with its reason:
 - f32 rings: out atol 2e-5, gradients atol 3e-5 of their largest
@@ -40,7 +47,8 @@ from opendiloco_torch.models import llama as tllama
 from opendiloco_torch.models.convert import params_from_numpy
 from opendiloco_torch.ops import ring_attention as ra
 from opendiloco_torch.ops.flash_attention import flash_attention
-from opendiloco_torch.parallel.mesh import layout_plan
+from opendiloco_torch.parallel.comm import LoopbackGroup
+from opendiloco_torch.parallel.mesh import layout_plan, loopback_plans
 from opendiloco_torch.trainer import InnerTrainer, TrainerConfig, _resolve_perf_defaults
 from torch_dist_child import spawn
 
@@ -56,7 +64,16 @@ SP = {
     "dp2_sp2": ("NO_SHARD", {"sp_size": 2}, 4, {}),
     "fsdp2_sp2": ("FULL_SHARD", {"sp_size": 2}, 4, {}),
     "sp2_remat_fused": ("NO_SHARD", {"sp_size": 2}, 2, {"remat": True, "fused_loss": True}),
+    # the gather: every rank attends over the whole sequence
+    "sp2_xla": ("NO_SHARD", {"sp_size": 2}, 2, {"attn_impl": "xla"}),
+    "sp4_xla": ("NO_SHARD", {"sp_size": 4}, 4, {"attn_impl": "xla"}),
+    "dp2_sp2_xla": ("NO_SHARD", {"sp_size": 2}, 4, {"attn_impl": "xla"}),
+    "fsdp2_sp2_xla": ("FULL_SHARD", {"sp_size": 2}, 4, {"attn_impl": "xla"}),
+    "sp2_pallas_remat_fused": ("NO_SHARD", {"sp_size": 2}, 2, {"attn_impl": "pallas", "remat": True,
+                                                                "fused_loss": True}),
 }
+# held against the port alone: the ring's kernel path with the fused loss
+PORT_ONLY = ("sp2_remat_fused",)
 B, T, H, HKV, D = 1, 512, 4, 2, 64  # T/4 = 128 rows a chunk: the JAX flash ring's tile
 
 
@@ -72,7 +89,7 @@ def _qkvw(seed: int = 7):
 def _loopback(fn, qkv, w, n: int, dtype) -> list:
     """fn on a loopback ring of n ranks, one thread each: [out, dq, dk, dv]
     over the whole sequence, f32 numpy."""
-    ring, tl = ra.LoopbackRing(n), T // n
+    ring, tl = LoopbackGroup(n), T // n
     res: list = [None] * n
     errors: list = []
 
@@ -185,15 +202,21 @@ def test_model_ring_at_sp1_equals_pallas_bit_for_bit():
     assert torch.equal(outs[0], outs[1])
 
 
-def test_auto_resolves_to_ring_under_sp_and_other_attention_raises():
+def test_auto_resolves_to_ring_under_sp_and_explicit_attention_gathers():
+    """Under sp "auto" takes the ring and an explicit "xla" or "pallas"
+    passes through (the gather), the fused loss off unless asked for, on
+    both devices; a trainer at sp 2 with "xla" builds."""
     cfg = tllama.LlamaConfig(**CFG)
     plan = layout_plan("NO_SHARD", 2, sp_size=2)
     for device in ("cpu", "cuda"):
         tc = _resolve_perf_defaults(TrainerConfig(), cfg, torch.device(device), plan)
         assert (tc.attn_impl, tc.fused_loss) == ("ring", False)
+        for impl in ("xla", "pallas"):
+            tc = _resolve_perf_defaults(TrainerConfig(attn_impl=impl), cfg, torch.device(device), plan)
+            assert (tc.attn_impl, tc.fused_loss) == (impl, False)
     assert _resolve_perf_defaults(TrainerConfig(attn_impl="ring"), cfg, torch.device("cpu")).attn_impl == "ring"
-    with pytest.raises(ValueError, match="attend within a chunk"):
-        InnerTrainer(cfg, TrainerConfig(attn_impl="xla"), device="cpu", plan=plan)
+    tr = InnerTrainer(cfg, TrainerConfig(attn_impl="xla"), device="cpu", plan=plan)
+    assert (tr.tc.attn_impl, tr.tc.fused_loss) == ("xla", False)
 
 
 # ---------------------------------------------------------------------------
@@ -285,11 +308,11 @@ def _jax_run(cfg, strategy, kw, world, tc, params, batches):
 
 
 @pytest.mark.parametrize("case", list(SP))
-def test_sequence_parallel_trainer_matches_sp1_and_jax(runs, case):
+def test_sequence_parallel_trainer_matches_sp1_and_jax(runs, case, request):
     """Every rank reports the same losses, which equal the port's at sp 1
-    and the JAX trainer's on as many virtual devices (its ring under
-    ``attn_impl="auto"``), as do the final params, the eval loss over the
-    chunks and the activation probes."""
+    and the JAX trainer's on as many virtual devices with the same
+    ``attn_impl`` (its ring under "auto"), as do the final params, the
+    eval loss over the chunks and the activation probes."""
     strategy, kw, world, tc = SP[case]
     ranks = [r[-1][case] for r in runs["ranks"][world]]
     got, single = ranks[0], runs["singles"][case]
@@ -300,9 +323,117 @@ def test_sequence_parallel_trainer_matches_sp1_and_jax(runs, case):
     assert got["eval"] == pytest.approx(single["eval"], rel=1e-5)
     for k, v in single["probe"].items():
         assert got["probe"][k] == pytest.approx(v, rel=1e-5), k
-    if tc:  # the kernel-path variant is held against the port alone
+    if case in PORT_ONLY:
         return
+    if tc.get("attn_impl") == "pallas":
+        request.getfixturevalue("interpret_pallas")
+        request.getfixturevalue("interpret_pallas_fused")
     jlosses, jparams = _jax_run(runs["cfg"], strategy, kw, world, tc, runs["params"], runs["batches"])
     np.testing.assert_allclose(got["losses"], jlosses, rtol=1e-5)
     for a, b in zip(got["params"], jparams):
         np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# rank threads of one process: the path over one card
+# ---------------------------------------------------------------------------
+
+
+def _rank_threads(plans: list, fn) -> list:
+    """fn(plan) on one thread a plan, each running its backward on its own
+    thread (as on the card, where the ranks wait on each other inside
+    backward nodes); a failing rank aborts the others' comms."""
+    out, errors = [None] * len(plans), []
+
+    def one(r):
+        try:
+            with torch.autograd.set_multithreading_enabled(False):
+                out[r] = fn(plans[r])
+        except BaseException as e:  # pragma: no cover - re-raised below
+            errors.append(e)
+            for plan in plans:
+                for c in plan.comms.values():
+                    c.g.abort()
+
+    threads = [threading.Thread(target=one, args=(r,)) for r in range(len(plans))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    return out
+
+
+def _train_run(cfg, plan, tc: dict, params, batches) -> dict:
+    """The SP cases' run on one rank: losses and grad norms a step, the
+    whole params after the last (a collective), the eval loss and probes
+    of the first batch."""
+    trainer = InnerTrainer(cfg, TrainerConfig(**{**TC, **tc}), device="cpu", plan=plan)
+    state = trainer.init_state(params=params)
+    losses, norms = [], []
+    for ids, labels in batches:
+        state, m = trainer.train_step(state, trainer.shard_batch(ids, labels, accum=2))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"losses": losses, "norms": norms, "params": trainer.host_params(tllama.flatten_params(state["params"])),
+            "eval": trainer.eval_loss(state["params"], *batches[0]),
+            "probe": trainer.probe_norms(state["params"], batches[0][0])}
+
+
+# name: (loopback_plans sizes, the gloo SP case of the same attention)
+THREADS = {
+    "sp2 ring": ({"sp_size": 2}, "sp2"),
+    "sp2 xla": ({"sp_size": 2}, "sp2_xla"),
+    "sp2 tp2 ring": ({"sp_size": 2, "tp_size": 2}, "sp2"),
+    "sp2 tp2 xla": ({"sp_size": 2, "tp_size": 2}, "sp2_xla"),
+}
+
+
+@pytest.mark.parametrize("case", list(THREADS))
+def test_rank_thread_sp_matches_gloo_and_sp1(runs, case):
+    """``loopback_plans`` rank threads at sp 2 (beside tp 2): every thread's
+    losses, grad norms, params, eval loss and probes are the same bits,
+    and they equal the gloo ranks' of the same attention and the port's at
+    sp 1 at the f32 trajectory bounds."""
+    sizes, gloo_case = THREADS[case]
+    tc = SP[gloo_case][3]
+    got = _rank_threads(loopback_plans(**sizes),
+                        lambda plan: _train_run(runs["cfg"], plan, tc, runs["params"], runs["batches"]))
+    for other in got[1:]:
+        assert (other["losses"], other["norms"], other["eval"], other["probe"]) == (
+            got[0]["losses"], got[0]["norms"], got[0]["eval"], got[0]["probe"])
+        for a, b in zip(other["params"], got[0]["params"]):
+            np.testing.assert_array_equal(a, b)
+    for want in (runs["ranks"][2][0][-1][gloo_case], runs["singles"][gloo_case]):
+        np.testing.assert_allclose(got[0]["losses"], want["losses"], rtol=1e-5)
+        for a, b in zip(got[0]["params"], want["params"]):
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+        assert got[0]["eval"] == pytest.approx(want["eval"], rel=1e-5)
+        for k, v in want["probe"].items():
+            assert got[0]["probe"][k] == pytest.approx(v, rel=1e-5), k
+
+
+@pytest.mark.parametrize("impl", ["ring", "xla"])
+def test_rank_thread_sp_sums_over_the_data_group(runs, impl):
+    """Rank threads at sp 2 sum the loss's sum and count, the gradients,
+    the eval loss and the probes' squares over their sp comm: on a batch
+    whose targets past position 20 are ignored, rank 0 counts 16 targets
+    a row and rank 1 three, so a rank that divided by its own count, or
+    stepped on its own chunk's gradient, would leave sp 1's loss and
+    params; both ranks match them."""
+    cfg, params = runs["cfg"], runs["params"]
+    ids, labels = runs["batches"][0]
+    labels = labels.copy()
+    labels[:, 20:] = -100
+    batches = [(ids, labels)] * 2
+    tc = {"attn_impl": impl}
+    want = _train_run(cfg, layout_plan(), tc, params, batches)
+    got = _rank_threads(loopback_plans(sp_size=2), lambda plan: _train_run(cfg, plan, tc, params, batches))
+    for r in got:
+        np.testing.assert_allclose(r["losses"], want["losses"], rtol=1e-5)
+        np.testing.assert_allclose(r["norms"], want["norms"], rtol=1e-5)
+        for a, b in zip(r["params"], want["params"]):
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+        assert r["eval"] == pytest.approx(want["eval"], rel=1e-5)
+        for k, v in want["probe"].items():
+            assert r["probe"][k] == pytest.approx(v, rel=1e-5), k

@@ -490,12 +490,14 @@ def test_unported_options_raise(tmp_path, overrides):
         train(_train_config(tmp_path, 0, **overrides), backend, device="cpu")
 
 
-# the options of ROADMAP.md A14a: in one process (ring attention at sp 1,
-# an MoE config), or over two CLI processes of one worker (sp 2, ep 2)
+# the options of ROADMAP.md A14a and A14c: in one process (ring attention
+# at sp 1, an MoE config), or over two CLI processes of one worker (sp 2
+# through the ring and through the gather, ep 2)
 A14A_CASES = [
     dict(attn_implementation="ring"),
     dict(path_model="2m_4e"),
     dict(sp_size=2),
+    dict(sp_size=2, attn_implementation="xla"),
     dict(ep_size=2, path_model="2m_4e"),
 ]
 

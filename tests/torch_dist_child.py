@@ -204,6 +204,7 @@ def job_ring(spec: dict) -> dict:
     import torch.distributed as dist
 
     from opendiloco_torch.ops import ring_attention as ra
+    from opendiloco_torch.parallel.comm import LoopbackGroup
 
     dtype = getattr(torch, spec["dtype"])
     n = dist.get_world_size()
@@ -221,7 +222,7 @@ def job_ring(spec: dict) -> dict:
     if dist.get_rank() == 0:
         out["loopback"] = {}
         for name, fn in bodies:
-            ring, res = ra.LoopbackRing(n), [None] * n
+            ring, res = LoopbackGroup(n), [None] * n
 
             def run(r, fn=fn, ring=ring, res=res):
                 res[r] = one(fn, ring.rank(r), r)
